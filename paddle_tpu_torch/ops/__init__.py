@@ -1,0 +1,1 @@
+"""Attention ops of the port and their hand-written CUDA kernels."""

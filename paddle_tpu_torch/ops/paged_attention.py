@@ -1,0 +1,271 @@
+"""Paged attention over the KV arena's block tables (counterpart of
+``paddle_tpu/ops/paged_attention.py``).
+
+Three public functions under their JAX names, each with its plain PyTorch
+version beside it:
+
+* :func:`paged_decode_attention` -- one new query per slot against that
+  slot's paged K/V. Replaces the TPU kernel
+  ``paddle_tpu/ops/paged_attention.py:_decode_kernel``.
+* :func:`paged_prefill_attention` -- one slot's suffix/chunk queries at
+  global positions ``prefix_len + i`` through its table. Replaces
+  ``paddle_tpu/ops/paged_attention.py:_prefill_kernel``.
+* :func:`paged_full_prefill_attention` -- a cache-miss prefill's contiguous
+  K/V viewed through an ``arange`` pseudo-table at prefix 0, through the
+  same prefill kernel.
+
+Route: a wrapper runs its plain version only because its tensors lie on the
+CPU. On a CUDA tensor it launches the hand-written kernel of
+``csrc/paged_attention.cu`` (built on first use by :mod:`._build`) or
+raises; nothing falls back. ``launches`` counts kernel launches per kernel,
+one per launch, and nothing else.
+
+Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): decode does about one
+FLOP per K/V byte, so it is bound by reading the K/V rows up to each slot's
+position; prefill at the engine's buckets is bound by bytes too. Both
+kernels read each needed K/V row once per thread block and never read a
+block past the position (see the source for the design).
+
+The K/V pools are updated in place by the engine, so these functions only
+read them. int8 pools (a 4-tuple entry) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..models.gpt import masked_attention
+
+__all__ = ["paged_decode_attention", "paged_prefill_attention",
+           "paged_full_prefill_attention", "paged_decode_attention_ref",
+           "paged_prefill_attention_ref", "paged_full_prefill_attention_ref",
+           "launches", "reset_launches", "load_kernels"]
+
+#: kernel launches, one per launch of each CUDA kernel
+launches = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def load_kernels() -> ctypes.CDLL:
+    """Build (on first use) and load the CUDA library; bind its launchers."""
+    global _lib
+    if _lib is None:
+        from ._build import library
+
+        lib = library("paged_attention")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        i64 = ctypes.c_longlong
+        argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
+                    i32, i32, i32, i32, i32, i64, i64, ctypes.c_float, ptr]
+        for fn in (lib.paged_decode_attention_launch,
+                   lib.paged_prefill_attention_launch):
+            fn.argtypes = argtypes
+            fn.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _unsupported_entry(entry) -> None:
+    if len(entry) == 4:
+        raise NotImplementedError(
+            "int8 KV pools (k, v, k_scale, v_scale) are not ported yet")
+    if len(entry) != 2:
+        raise ValueError(f"pool entry must be (k, v), got {len(entry)} arrays")
+
+
+def _row_stride(t, H, D) -> int:
+    """Stride in elements between the ``[H, D]`` rows of ``t``, which must
+    each be dense (the qkv split's views are: only their rows are strided)."""
+    if tuple(t.shape[-2:]) != (H, D) or t.stride(-1) != 1 \
+            or t.stride(-2) != D:
+        raise ValueError(f"paged attention operand {tuple(t.shape)} "
+                         f"{t.stride()}: each row's [H={H}, D={D}] must be "
+                         "dense")
+    return t.stride(-3)
+
+
+def _launch(fn, q, kp, vp, table, scalars, bs, MB):
+    """Check what the CUDA kernels take, launch ``fn`` on the current
+    stream and return the dense output. ``kp``/``vp`` are pools ``[NB, bs,
+    H, D]`` or, for a full prefill, the chunk's own ``[sq, H, D]`` k/v."""
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged attention takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if kp.dtype != q.dtype or vp.dtype != q.dtype:
+        raise TypeError(f"q {q.dtype} and pools {kp.dtype}/{vp.dtype} differ")
+    if q.dim() != 3:
+        raise ValueError(f"q must be [rows, H, D], got {tuple(q.shape)}")
+    rows, H, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not supported; use one of {HEAD_DIMS}")
+    for t in (q, kp, vp, table, scalars):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("every operand must lie on q's CUDA device")
+    for t in (table, scalars):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"tables, positions and prefix lengths must be "
+                            f"contiguous int32, got {t.dtype}")
+    q_stride = _row_stride(q, H, D)
+    kv_stride = _row_stride(kp, H, D)
+    if kp.shape != vp.shape or kp.stride() != vp.stride():
+        raise ValueError(f"k {tuple(kp.shape)} {kp.stride()} and v "
+                         f"{tuple(vp.shape)} {vp.stride()} differ")
+    if kp.dim() == 4 and kp.stride(0) != bs * kv_stride:
+        raise ValueError(f"pool blocks {kp.stride()} are not dense")
+    out = torch.empty((rows, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
+            vp.data_ptr(), table.data_ptr(), scalars.data_ptr(),
+            out.data_ptr(), rows, H, D, bs, MB, q_stride, kv_stride,
+            1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+    return out
+
+
+def _gather_ctx(entry, table):
+    """A block table's logical context from one pool entry: ``table``
+    ``[..., max_blocks]`` int returns ``(k_all, v_all)`` shaped
+    ``[..., max_blocks * block_size, heads, dim]`` (full precision only).
+    The plain versions read the pools through it; its JAX counterpart is
+    ``paddle_tpu/serving/engine.py:_gather_ctx``."""
+    kp, vp = entry
+    k_all = kp[table.long()]
+    v_all = vp[table.long()]  # [..., mb, bs, H, D]
+    shp = k_all.shape
+    out_shape = shp[:-4] + (shp[-4] * shp[-3],) + shp[-2:]
+    return k_all.reshape(out_shape), v_all.reshape(out_shape)
+
+
+# ------------------------------------------------------------------ decode
+
+
+def paged_decode_attention(q, entry, block_tables, positions):
+    """Decode attention through the block tables.
+
+    ``q`` ``[S, H, D]`` (each slot's new token); ``entry`` one layer's
+    ``(k, v)`` pools ``[num_blocks, block_size, H, D]``; ``block_tables``
+    ``[S, MB]`` int32; ``positions`` ``[S]`` int32 (the new token's write
+    position: keys at global index ``<= positions[s]`` are attended).
+    Returns ``[S, H, D]`` in ``q.dtype``."""
+    _unsupported_entry(entry)
+    kp, vp = entry
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, entry, block_tables, positions)
+    S, MB = block_tables.shape
+    if q.shape[0] != S or positions.shape != (S,) or kp.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)}, pools {tuple(kp.shape)}, "
+                         f"tables {tuple(block_tables.shape)} and positions "
+                         f"{tuple(positions.shape)} disagree")
+    out = _launch(load_kernels().paged_decode_attention_launch, q, kp, vp,
+                  block_tables, positions, kp.shape[1], MB)
+    launches["paged_decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention_ref(q, entry, block_tables, positions):
+    """Plain version: gather each slot's logical context, then
+    ``masked_attention`` under the position mask (the JAX engine's gather
+    route)."""
+    t_len = block_tables.shape[1] * entry[0].shape[1]
+    k_all, v_all = _gather_ctx(entry, block_tables)
+    keys = torch.arange(t_len, device=q.device)
+    mask = (keys[None, :] <= positions.long()[:, None])[:, None, None, :]
+    return masked_attention(q[:, None], k_all, v_all, mask)[:, 0]
+
+
+# ----------------------------------------------------------------- prefill
+
+
+def _prefix_tensor(prefix_len, device):
+    if isinstance(prefix_len, torch.Tensor):
+        return prefix_len.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), int(prefix_len), dtype=torch.int32, device=device)
+
+
+def paged_prefill_attention(q, entry, bt_row, prefix_len):
+    """Suffix/chunk prefill attention for ONE slot through its table.
+
+    ``q`` ``[sq, H, D]``; ``bt_row`` ``[MB]`` int32; ``prefix_len`` an int or
+    an int32 device scalar: query ``i`` attends keys at global index
+    ``<= prefix_len + i``. The chunk's own K/V must already be in the pools.
+    Returns ``[sq, H, D]``; padded query rows give finite values the caller
+    discards."""
+    _unsupported_entry(entry)
+    kp, vp = entry
+    if q.device.type == "cpu":
+        return paged_prefill_attention_ref(q, entry, bt_row, prefix_len)
+    if bt_row.dim() != 1 or kp.dim() != 4:
+        raise ValueError(f"bt_row {tuple(bt_row.shape)} must be [MB] and the "
+                         f"pools {tuple(kp.shape)} [NB, bs, H, D]")
+    return _prefill(q, kp, vp, bt_row, _prefix_tensor(prefix_len, q.device),
+                    kp.shape[1])
+
+
+def _prefill(q, kp, vp, bt_row, prefix, bs):
+    out = _launch(load_kernels().paged_prefill_attention_launch, q, kp, vp,
+                  bt_row, prefix, bs, bt_row.shape[0])
+    launches["paged_prefill_attention"] += 1
+    return out
+
+
+def paged_prefill_attention_ref(q, entry, bt_row, prefix_len):
+    """Plain version: gather the slot's context, then ``masked_attention``
+    under the global-position causal mask."""
+    t_len = bt_row.shape[0] * entry[0].shape[1]
+    k_all, v_all = _gather_ctx(entry, bt_row)
+    prefix = torch.as_tensor(prefix_len, device=q.device).long().reshape(())
+    gpos = prefix + torch.arange(q.shape[0], device=q.device)
+    keys = torch.arange(t_len, device=q.device)
+    mask = (keys[None, :] <= gpos[:, None])[None, None]
+    return masked_attention(q[None], k_all[None], v_all[None], mask)[0]
+
+
+def _pseudo_table(k, v, block_size: int):
+    """View contiguous ``[sq, H, D]`` K/V as ``ceil(sq / bs)`` pseudo-blocks
+    addressed by an ``arange`` table; pad keys sit above every query row."""
+    sq, H, D = k.shape
+    bs = int(block_size)
+    nb = -(-sq // bs)
+    pad = nb * bs - sq
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    entry = (k.reshape(nb, bs, H, D), v.reshape(nb, bs, H, D))
+    return entry, torch.arange(nb, dtype=torch.int32, device=k.device)
+
+
+def paged_full_prefill_attention(q, k, v, block_size: int):
+    """Full causal prefill (no resident prefix) through the prefill kernel:
+    the chunk's own ``k``/``v`` ``[sq, H, D]`` through an ``arange``
+    pseudo-table at prefix 0, so query ``i`` attends keys ``<= i``. On the
+    card the kernel reads ``k``/``v`` in place as ``ceil(sq / bs)``
+    pseudo-blocks: it never reads a key past the last query row, so the
+    ragged last block needs no padding."""
+    if q.device.type == "cpu":
+        return paged_full_prefill_attention_ref(q, k, v, block_size)
+    if k.dim() != 3 or k.shape[0] != q.shape[0]:
+        raise ValueError(f"k {tuple(k.shape)} must be [sq, H, D] like q "
+                         f"{tuple(q.shape)}")
+    bs = int(block_size)
+    table = torch.arange(-(-k.shape[0] // bs), dtype=torch.int32,
+                         device=q.device)
+    return _prefill(q, k, v, table, _prefix_tensor(0, q.device), bs)
+
+
+def paged_full_prefill_attention_ref(q, k, v, block_size: int):
+    """Plain version of :func:`paged_full_prefill_attention`: the padded
+    pseudo-blocks, then :func:`paged_prefill_attention_ref` at prefix 0."""
+    entry, table = _pseudo_table(k, v, block_size)
+    return paged_prefill_attention_ref(q, entry, table, 0)

@@ -1,0 +1,10 @@
+"""Continuous-batching serving over the paged KV arena (this slice: greedy
+decoding through the slot engine, FCFS scheduling and ``ServingAPI``)."""
+from . import metrics
+from .api import ServingAPI
+from .engine import ServingConfig, ServingEngine
+from .sampling import SamplingParams
+from .scheduler import Request, RequestState, Scheduler
+
+__all__ = ["ServingAPI", "ServingConfig", "ServingEngine", "SamplingParams",
+           "Request", "RequestState", "Scheduler", "metrics"]

@@ -1,0 +1,392 @@
+"""Slot-based continuous-batching decode engine (counterpart of
+``paddle_tpu/serving/engine.py``).
+
+The engine runs ONE decode step over ``[num_slots]`` lanes. Each slot holds
+at most one in-flight request: its last token, its write position and a
+block table into the paged KV arena (:mod:`.kv_arena`). Admitting a request
+prefills its prompt, padded to a ``compile_cache.prefill_bucket`` length,
+and scatters the prompt's K/V into the slot's blocks; retiring returns the
+blocks. All per-request state is data (block tables, positions, lane
+masks), so any occupancy pattern runs the same step. Inactive lanes still
+run the model, write to scratch block 0, and their tokens are discarded.
+
+Attention always goes through the :mod:`paddle_tpu_torch.ops.paged_attention`
+wrappers, which pick the route by the tensors' device: the hand-written CUDA
+kernels on the card, their plain PyTorch versions on the CPU. There is no
+switch between the two on the card; :meth:`ServingEngine.kernel_route`
+reports the route.
+
+PyTorch runs eagerly: the prefill and decode step run their ops directly
+(no compiled program, no CUDA graph yet) and the K/V pools are updated in
+place. The prefix cache, chunked prefill, preemption, speculation, LoRA,
+quantized serving, tiering and the supervisor are later slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import compile_cache, flags
+from ..core import device as device_mod
+from ..ops.paged_attention import (paged_decode_attention,
+                                   paged_full_prefill_attention)
+from . import metrics
+from .kv_arena import KVArena, Reservation
+from .sampling import check_supported, sample_tokens
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _scatter_rows(entry, row, off, kc, vc) -> None:
+    """Write one chunk's k/v rows ``[n, H, D]`` at ``(row, off)`` of a
+    ``(k, v)`` pool entry, in place (full precision only)."""
+    kp, vp = entry
+    kp.index_put_((row, off), kc)
+    vp.index_put_((row, off), vc)
+
+
+class _PagedCacheView:
+    """One layer's decode-step view of the arena (the ``cache`` protocol
+    object ``GPTAttention.forward`` drives): write each lane's new k/v at its
+    ``(row, off)`` -- inactive lanes carry row 0, the scratch block -- then
+    attend through the paged decode wrapper. The JAX view derives the rows
+    from the lane mask on the device; here the engine computes them on the
+    host, where the tables live anyway."""
+
+    def __init__(self, entry, block_tables, positions, rows, offs):
+        self.entry = entry
+        self.block_tables = block_tables  # [S, max_blocks] int32
+        self.positions = positions        # [S] int32: write pos of new token
+        self.rows = rows                  # [S] int64 physical write block
+        self.offs = offs                  # [S] int64 offset in that block
+
+    def update_and_attend(self, q, k, v):
+        _scatter_rows(self.entry, self.rows, self.offs, k[:, 0], v[:, 0])
+        o = paged_decode_attention(q[:, 0], self.entry, self.block_tables,
+                                   self.positions)
+        return o[:, None], self
+
+
+class _CapturePrefillView:
+    """Prefill-side cache protocol object: causal attention over the padded
+    prompt through the full-prefill wrapper (the chunk's own K/V viewed as a
+    contiguous pseudo-table), returning the chunk's k/v so the engine can
+    scatter them into the slot's blocks."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+
+    def update_and_attend(self, q, k, v):
+        o = paged_full_prefill_attention(q[0], k[0], v[0], self.block_size)
+        return o[None], (k, v)
+
+
+@dataclass
+class ServingConfig:
+    """Engine sizing. Zeros defer to flags / the model config:
+    ``num_slots`` -> ``FLAGS_serving_slots``, ``kv_block_size`` ->
+    ``FLAGS_kv_block_size``, ``max_model_len`` ->
+    ``cfg.max_position_embeddings``, ``num_blocks`` -> one full-length
+    context per slot (+ scratch), ``prefill_bucket_min`` ->
+    ``FLAGS_serving_prefill_bucket_min``."""
+
+    num_slots: int = 0
+    kv_block_size: int = 0
+    max_model_len: int = 0
+    num_blocks: int = 0
+    prefill_bucket_min: int = 0
+
+
+@dataclass
+class _AdmitState:
+    """What an admission carries from its setup (slot and blocks claimed)
+    to its finish (first token emitted, slot active)."""
+
+    slot: int
+    prompt: np.ndarray
+    plen: int
+    res: Reservation
+
+
+class ServingEngine:
+    """The slot runtime: slot bookkeeping, block-table growth, bucketed
+    prefill and the decode step. Queueing and finish policy live in
+    :class:`paddle_tpu_torch.serving.scheduler.Scheduler`."""
+
+    def __init__(self, model, config: Optional[ServingConfig] = None,
+                 device=device_mod.DEFAULT_DEVICE):
+        cfg = config or ServingConfig()
+        self.device = device_mod.resolve(device)
+        weight = model.gpt.wte.weight
+        if weight.device != self.device:
+            raise ValueError(f"the model lives on {weight.device}, the engine "
+                             f"was asked to run on {self.device}")
+        self._model = model.eval()
+        mcfg = model.cfg
+        self.num_slots = int(cfg.num_slots or flags.flag("serving_slots"))
+        self.block_size = int(cfg.kv_block_size or flags.flag("kv_block_size"))
+        self.max_model_len = int(cfg.max_model_len
+                                 or mcfg.max_position_embeddings)
+        if self.max_model_len > mcfg.max_position_embeddings:
+            raise ValueError("max_model_len exceeds the model's "
+                             "max_position_embeddings")
+        self.blocks_per_slot = _ceil_div(self.max_model_len, self.block_size)
+        num_blocks = int(cfg.num_blocks
+                         or self.num_slots * self.blocks_per_slot + 1)
+        self.prefill_bucket_min = int(
+            cfg.prefill_bucket_min or flags.flag("serving_prefill_bucket_min"))
+        self.arena = KVArena(mcfg.num_layers, mcfg.num_heads,
+                             mcfg.hidden_size // mcfg.num_heads, num_blocks,
+                             self.block_size, dtype=weight.dtype,
+                             device=self.device)
+
+        s = self.num_slots
+        self._bt_host = np.zeros((s, self.blocks_per_slot), np.int32)
+        self._bt_dev: Optional[torch.Tensor] = None  # stale when None
+        self._positions = np.zeros(s, np.int32)
+        self._last_tok = np.zeros(s, np.int64)
+        self._active = np.zeros(s, np.bool_)
+        self._occupied = np.zeros(s, np.bool_)
+        self._slot_res: List[Optional[Reservation]] = [None] * s
+        self._slot_filled = np.zeros(s, np.int32)
+        # lifetime counts of this engine's model calls (each runs every
+        # layer's attention once): what the kernel launch counters are
+        # held against
+        self.decode_steps = 0
+        self.prefills = 0
+        self._meter = metrics.Meter()
+        metrics.set_gauge("slots.total", s)
+        self._refresh_gauges()
+
+    # ----------------------------------------------------------- capacity
+
+    def free_slots(self) -> int:
+        return int((~self._occupied).sum())
+
+    def active_slots(self) -> int:
+        return int(self._active.sum())
+
+    def blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
+        return _ceil_div(prompt_len + max_new_tokens, self.block_size)
+
+    def validate(self, prompt_len: int, max_new_tokens: int,
+                 sampling=None) -> None:
+        """Refuse at submit what could never be served."""
+        if prompt_len < 1:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        check_supported(sampling)
+        total = prompt_len + max_new_tokens
+        if total > self.max_model_len:
+            raise ValueError(f"prompt+new tokens {total} exceeds engine "
+                             f"max_model_len {self.max_model_len}")
+        need = self.blocks_needed(prompt_len, max_new_tokens)
+        cap = self.arena.num_blocks - 1
+        if need > cap:
+            raise ValueError(f"request needs {need} KV blocks but the arena "
+                             f"has only {cap} allocatable; it could never be "
+                             "admitted")
+
+    def can_admit(self, prompt_len: int, max_new_tokens: int) -> bool:
+        return (self.free_slots() > 0 and self.arena.grantable()
+                >= self.blocks_needed(prompt_len, max_new_tokens))
+
+    # ----------------------------------------------------- slot lifecycle
+
+    def admit(self, prompt, max_new_tokens: int,
+              sampling=None) -> Tuple[int, int]:
+        """Prefill ``prompt`` into a free slot. Returns ``(slot,
+        next_token)``: the first token comes out of the prefill itself.
+        Raises if there is no capacity; callers gate on :meth:`can_admit`."""
+        st = self._admit_setup(prompt, max_new_tokens, sampling)
+        try:
+            first = self._full_prefill_call(st.prompt, st.plen, st.res)
+        except BaseException:
+            self._admit_abort(st)
+            raise
+        return st.slot, self._admit_finish(st, first)
+
+    def _admit_setup(self, prompt, max_new_tokens: int,
+                     sampling=None) -> _AdmitState:
+        """Claim the slot, the block reservation and the blocks covering the
+        prompt; unwinds completely on failure."""
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        plen = int(prompt.shape[0])
+        self.validate(plen, max_new_tokens, sampling)
+        slot = int(np.argmin(self._occupied))
+        if self._occupied[slot]:
+            raise RuntimeError("no free slot")
+        res = self.arena.reserve(self.blocks_needed(plen, max_new_tokens))
+        st = _AdmitState(slot=slot, prompt=prompt, plen=plen, res=res)
+        self._occupied[slot] = True
+        self._slot_res[slot] = res
+        try:
+            n = _ceil_div(plen, self.block_size)
+            for bi in range(n):
+                self._bt_host[slot, bi] = res.take()
+            self._slot_filled[slot] = n
+            self._bt_dev = None
+        except BaseException:
+            self._admit_abort(st)
+            raise
+        return st
+
+    def _admit_abort(self, st: _AdmitState) -> None:
+        st.res.release()
+        self._slot_res[st.slot] = None
+        self._slot_filled[st.slot] = 0
+        self._bt_host[st.slot, :] = 0
+        self._bt_dev = None
+        self._occupied[st.slot] = False
+        self._refresh_gauges()
+
+    def _admit_finish(self, st: _AdmitState, first: int) -> int:
+        """Activate the slot: its context is scattered and its next token
+        exists."""
+        slot = st.slot
+        self._positions[slot] = st.plen  # next write position
+        self._last_tok[slot] = first
+        self._active[slot] = True
+        metrics.bump("engine.admits")
+        metrics.bump("tokens.prefill", st.plen)
+        metrics.bump("tokens.generated")  # the next token, out of prefill
+        self._refresh_gauges()
+        return first
+
+    @torch.no_grad()
+    def _full_prefill_call(self, ctx: np.ndarray, clen: int,
+                           res: Reservation) -> int:
+        """The whole-context prefill, padded to its bucket: run the model
+        over the bucket, take the last real position's logits, and scatter
+        the real positions' k/v into the slot's blocks (padded positions go
+        to scratch block 0)."""
+        bs = self.block_size
+        p_bucket = compile_cache.prefill_bucket(clen, self.max_model_len,
+                                                self.prefill_bucket_min)
+        ids = np.zeros((1, p_bucket), np.int64)
+        ids[0, :clen] = ctx
+        rows = np.zeros(_ceil_div(p_bucket, bs), np.int64)
+        rows[:len(res.taken)] = res.taken
+        p_idx = np.arange(p_bucket)
+        row = np.where(p_idx < clen, rows[p_idx // bs], 0)
+        dev = self.device
+        model = self._model
+        views = [_CapturePrefillView(bs) for _ in range(model.cfg.num_layers)]
+        h, chunks = model.gpt(torch.as_tensor(ids, device=dev), caches=views,
+                              start_pos=0)
+        logits = model._head_logits(h[:, clen - 1])
+        row_t = torch.as_tensor(row, device=dev)
+        off_t = torch.as_tensor(p_idx % bs, device=dev)
+        for (kc, vc), entry in zip(chunks, self.arena.pools):
+            _scatter_rows(entry, row_t, off_t, kc[0], vc[0])
+        nxt = int(sample_tokens(logits)[0])
+        self.prefills += 1
+        # one count per bucket shape: the programs a CUDA-graph engine would
+        # capture, and the padding waste of the ladder
+        compile_cache.bump(f"serving.prefill_bucket.{p_bucket}")
+        metrics.bump("tokens.prefill_padding", p_bucket - clen)
+        return nxt
+
+    def retire(self, slot: int) -> None:
+        """Free a slot: deactivate its lane and return its blocks."""
+        if not self._occupied[slot]:
+            return
+        self._occupied[slot] = False
+        self._active[slot] = False
+        res = self._slot_res[slot]
+        self._slot_res[slot] = None
+        if res is not None:
+            res.release()
+        self._slot_filled[slot] = 0
+        self._bt_host[slot, :] = 0
+        self._bt_dev = None
+        self._positions[slot] = 0
+        self._last_tok[slot] = 0
+        metrics.bump("engine.retires")
+        self._refresh_gauges()
+
+    def check_invariants(self) -> None:
+        """Audit the arena's refcounts against the occupied slots' tables."""
+        tables = [[int(b) for b in self._bt_host[s, :int(self._slot_filled[s])]]
+                  for s in np.flatnonzero(self._occupied)]
+        self.arena.check_invariants(tables)
+
+    # --------------------------------------------------------- decode step
+
+    def _grow_slot_to(self, slot: int, pos_max: int) -> None:
+        """Take blocks until the slot's table covers ``pos_max`` (the
+        reservation guarantees ``take()`` cannot fail)."""
+        res = self._slot_res[slot]
+        need = pos_max // self.block_size + 1
+        while int(self._slot_filled[slot]) < need:
+            bi = int(self._slot_filled[slot])
+            self._bt_host[slot, bi] = res.take()
+            self._slot_filled[slot] = bi + 1
+            self._bt_dev = None
+
+    @torch.no_grad()
+    def decode_step(self) -> np.ndarray:
+        """One iteration: every active slot's last token is forwarded at its
+        own position, its k/v lands in its current block, and one new token
+        per slot comes back (``[num_slots]`` int64; inactive lanes carry
+        garbage -- callers mask by activity)."""
+        act = self._active
+        for slot in np.flatnonzero(act):
+            self._grow_slot_to(slot, int(self._positions[slot]))
+        dev = self.device
+        if self._bt_dev is None:
+            self._bt_dev = torch.as_tensor(self._bt_host, device=dev)
+        bs = self.block_size
+        pos = self._positions
+        lanes = np.arange(self.num_slots)
+        rows = np.where(act, self._bt_host[lanes, pos // bs], 0)
+        pos_t = torch.as_tensor(pos, device=dev)
+        rows_t = torch.as_tensor(rows.astype(np.int64), device=dev)
+        offs_t = torch.as_tensor((pos % bs).astype(np.int64), device=dev)
+        views = [_PagedCacheView(entry, self._bt_dev, pos_t, rows_t, offs_t)
+                 for entry in self.arena.pools]
+        model = self._model
+        h, _ = model.gpt(torch.as_tensor(self._last_tok, device=dev)[:, None],
+                         caches=views, start_pos=pos_t)
+        out = sample_tokens(model._head_logits(h[:, 0])).cpu().numpy()
+        self._positions[act] += 1
+        self._last_tok[act] = out[act]
+        self.decode_steps += 1
+        n = int(act.sum())
+        metrics.bump("engine.steps")
+        metrics.bump("tokens.generated", n)
+        self._meter.tick(n)
+        metrics.set_gauge("tokens_per_sec", self._meter.rate())
+        return out
+
+    # -------------------------------------------------------------- stats
+
+    def kernel_route(self) -> str:
+        """The attention route this engine runs: ``"kernel@single"`` on a
+        CUDA device (the hand-written paged kernels), ``"plain@single"`` on
+        the CPU (their plain PyTorch versions)."""
+        route = "kernel" if self.device.type == "cuda" else "plain"
+        return f"{route}@single"
+
+    def _refresh_gauges(self) -> None:
+        metrics.set_gauge("slots.active", self.active_slots())
+        a = self.arena.stats()
+        metrics.set_gauge("arena.blocks_free", a["blocks_free"])
+        metrics.set_gauge("arena.blocks_total", a["blocks_total"])
+        metrics.set_gauge("arena.high_water", a["high_water"])
+
+    def stats(self) -> dict:
+        out = {"slots.total": self.num_slots,
+               "slots.active": self.active_slots(),
+               "decode_steps": self.decode_steps,
+               "prefills": self.prefills,
+               "kernel.route": self.kernel_route(),
+               "device": str(self.device)}
+        out.update({f"arena.{k}": v for k, v in self.arena.stats().items()})
+        return out

@@ -1,0 +1,192 @@
+"""Iteration-level (continuous) batching scheduler (counterpart of
+``paddle_tpu/serving/scheduler.py``).
+
+Between any two decode steps the scheduler retires finished requests and
+admits waiting ones into the freed slots:
+
+* **FCFS admission with capacity gating**: the oldest waiting request is
+  admitted when a slot is free AND the KV arena can reserve its worst-case
+  block budget (``ServingEngine.can_admit``), so a running request is never
+  starved of cache mid-decode. Nothing jumps a blocked head.
+* **Finish rules** at every step boundary: the stop token, the token budget
+  and cancellation.
+
+Priorities, preemption, chunked prefill, speculation and deadlines are later
+slices. Decoding is greedy, so served tokens are held token for token against
+``GPTForCausalLM.generate()``.
+"""
+from __future__ import annotations
+
+import itertools
+import queue as _queue
+import threading
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+from . import metrics
+
+_req_counter = itertools.count()
+
+
+class RequestState:
+    QUEUED = "QUEUED"
+    RUNNING = "RUNNING"
+    FINISHED = "FINISHED"
+    CANCELLED = "CANCELLED"
+    FAILED = "FAILED"
+
+
+@dataclass(eq=False)  # identity equality: list membership must never
+class Request:        # compare numpy prompt payloads
+    """One generation request moving through the engine. ``tokens``
+    accumulates generated ids; the stop token, when hit, is the last one.
+    ``stream_queue``/``done_event`` are what ``ServingAPI.stream`` reads."""
+
+    prompt: np.ndarray
+    max_new_tokens: int = 32
+    stop_token_id: Optional[int] = None
+    request_id: str = ""
+    sampling: Optional[object] = None
+    state: str = RequestState.QUEUED
+    tokens: List[int] = field(default_factory=list)
+    error: Optional[BaseException] = None
+    slot: Optional[int] = None
+    stream_queue: "_queue.SimpleQueue" = field(
+        default_factory=_queue.SimpleQueue)
+    done_event: threading.Event = field(default_factory=threading.Event)
+    _cancel: bool = False
+
+    def __post_init__(self):
+        self.prompt = np.asarray(self.prompt, np.int64).reshape(-1)
+        if not self.request_id:
+            self.request_id = f"req-{next(_req_counter)}"
+
+    @property
+    def finished(self) -> bool:
+        return self.state in (RequestState.FINISHED, RequestState.CANCELLED,
+                              RequestState.FAILED)
+
+    def cancel(self) -> None:
+        self._cancel = True
+
+    def output_ids(self) -> np.ndarray:
+        """prompt + generated tokens."""
+        return np.concatenate([self.prompt,
+                               np.asarray(self.tokens, np.int64)])
+
+
+class Scheduler:
+    """Drives one :class:`ServingEngine` at iteration granularity. Not
+    thread-safe by itself: ``ServingAPI`` serialises access."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.waiting: List[Request] = []
+        self.running: List[Request] = []
+
+    def submit(self, request: Request) -> Request:
+        """Enqueue; what could never be served is refused here."""
+        self.engine.validate(int(request.prompt.shape[0]),
+                             int(request.max_new_tokens), request.sampling)
+        request.state = RequestState.QUEUED
+        self.waiting.append(request)
+        metrics.bump("requests.submitted")
+        self._gauges()
+        return request
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def _finish(self, req: Request, state: str,
+                error: Optional[BaseException] = None) -> None:
+        if req.finished:
+            return
+        if req.slot is not None:
+            self.engine.retire(req.slot)
+            if req in self.running:
+                self.running.remove(req)
+            req.slot = None
+        req.state = state
+        req.error = error
+        metrics.bump({RequestState.FINISHED: "requests.finished",
+                      RequestState.CANCELLED: "requests.cancelled",
+                      RequestState.FAILED: "requests.failed"}[state])
+        req.stream_queue.put(None)  # stream sentinel
+        req.done_event.set()
+
+    def _emit(self, req: Request, token: int) -> None:
+        req.tokens.append(int(token))
+        req.stream_queue.put(int(token))
+
+    def _check_boundary(self, req: Request) -> bool:
+        """Finish rules at a step boundary; True if the request ended."""
+        if req._cancel:
+            self._finish(req, RequestState.CANCELLED)
+            return True
+        stop = req.stop_token_id
+        if req.tokens and ((stop is not None and req.tokens[-1] == stop)
+                           or len(req.tokens) >= req.max_new_tokens):
+            self._finish(req, RequestState.FINISHED)
+            return True
+        return False
+
+    def step(self) -> bool:
+        """One iteration: cull cancelled waiters, admit in FCFS order while
+        capacity allows, run one decode step, retire finished requests.
+        Returns True if any request made progress."""
+        progress = False
+        for req in list(self.waiting):
+            if req._cancel:
+                self.waiting.remove(req)
+                self._finish(req, RequestState.CANCELLED)
+                progress = True
+        while self.waiting:
+            req = self.waiting[0]
+            if not self.engine.can_admit(int(req.prompt.shape[0]),
+                                         int(req.max_new_tokens)):
+                break
+            self.waiting.pop(0)
+            try:
+                slot, first = self.engine.admit(req.prompt,
+                                                req.max_new_tokens,
+                                                sampling=req.sampling)
+            # analysis: allow(broad-except) -- a failed prefill fails THIS
+            # request (its error is delivered through its handle), never the
+            # pump; the engine has already unwound the admission
+            except Exception as e:
+                self._finish(req, RequestState.FAILED, e)
+                progress = True
+                continue
+            req.slot = slot
+            req.state = RequestState.RUNNING
+            self.running.append(req)
+            self._emit(req, first)
+            self._check_boundary(req)  # may retire at once (stop/budget)
+            progress = True
+        if self.running:
+            toks = self.engine.decode_step()
+            for req in list(self.running):
+                self._emit(req, int(toks[req.slot]))
+                self._check_boundary(req)
+            progress = True
+        self._gauges()
+        return progress
+
+    def fail_all(self, error: BaseException) -> None:
+        """Fail every queued and running request (shutdown): each gets its
+        error, stream sentinel and done_event."""
+        for req in list(self.waiting):
+            self.waiting.remove(req)
+            self._finish(req, RequestState.FAILED, error)
+        for req in list(self.running):
+            self._finish(req, RequestState.FAILED, error)
+        self._gauges()
+
+    def run_until_idle(self) -> None:
+        while self.has_work():
+            self.step()
+
+    def _gauges(self) -> None:
+        metrics.set_gauge("queue.depth", len(self.waiting))
