@@ -1,13 +1,14 @@
 """Exported flags the port reads (counterpart of ``paddle_tpu/core/flags.py``).
 
-Only the flags this slice reads are defined, with the JAX package's
+Only the flags the ported slices read are defined, with the JAX package's
 defaults. ``FLAGS_<name>`` in the environment overrides a default at import
-time, as in the JAX package.
+time, and :func:`set_flags` / :func:`get_flags` take ``FLAGS_``-prefixed
+(or bare) names at run time, as in the JAX package.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, List, Union
 
 _VALUES: Dict[str, int] = {}
 
@@ -19,15 +20,38 @@ def define_flag(name: str, default: int) -> None:
     _VALUES[name] = default if env is None else int(env)
 
 
+def _key(name: str) -> str:
+    key = name[6:] if name.startswith("FLAGS_") else name
+    if key not in _VALUES:
+        raise KeyError(f"unknown flag: {name}")
+    return key
+
+
+def get_flags(names: Union[str, List[str]]) -> Dict[str, int]:
+    """``{name: value}`` for each name as given (``FLAGS_x`` or ``x``)."""
+    if isinstance(names, str):
+        names = [names]
+    return {n: _VALUES[_key(n)] for n in names}
+
+
+def set_flags(values: Dict[str, int]) -> None:
+    """Set flags by name (``FLAGS_x`` or ``x``); an unknown name raises
+    ``KeyError``."""
+    for n, v in values.items():
+        _VALUES[_key(n)] = int(v)
+
+
 def flag(name: str) -> int:
     return _VALUES[name]
 
 
-# Non-cached attention would take the flash kernel at kv sequence length >=
-# this (-1 = auto: 4608, the JAX package's untuned threshold; 0 = always).
-# The flash kernels are not ported yet: on a CUDA tensor such a call raises
-# NotImplementedError.
+# Non-cached attention takes the flash kernels at kv sequence length >= this
+# (-1 = auto: 4608, the JAX package's untuned threshold, since the port has
+# no tuning record; 0 = always).
 define_flag("flash_attention_min_seqlen", -1)
+# TrainStep checks loss and gradients for NaN/Inf: a nonfinite step leaves
+# parameters and optimizer state untouched and bumps sentinel.skipped.
+define_flag("trainstep_sentinel", 1)
 # Smallest shape bucket: dims at or below this share one bucket.
 define_flag("shape_bucket_min", 8)
 # Default decode-slot count of a ServingEngine: the batch dimension of its

@@ -12,14 +12,15 @@ Attention has three routes, as in the JAX package:
   arena views) owns its storage and attends through the paged kernels;
 * a contiguous ``(k_buf, v_buf)`` cache (``generate()``) is written in place
   at ``start_pos`` and attended with :func:`masked_attention`;
-* no cache: causal attention in plain PyTorch, the math of
-  ``paddle_tpu.nn.functional.attention._sdpa_reference``. Where the JAX
-  package would take its flash kernel (kv length at or above
-  ``FLAGS_flash_attention_min_seqlen``) a CUDA tensor raises until that
-  kernel is ported.
+* no cache: :func:`paddle_tpu_torch.nn.functional.scaled_dot_product_attention`
+  with ``is_causal``, which takes the flash kernels on a CUDA tensor at kv
+  length at or above ``FLAGS_flash_attention_min_seqlen`` and the JAX
+  package's ``_sdpa_reference`` math otherwise.
 
-The port runs eagerly and serves inference only: dropout is identity in
-eval mode and no loss or gradient path is ported yet.
+``GPTForCausalLM(ids, labels)`` returns the mean cross-entropy loss over
+the tied head's f32 logits; its gradient flows through the flash kernels'
+backward. The JAX package's recompute, scan-layers and chunked-loss options
+and dropout while training are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -31,13 +32,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import amp
 from ..core import device as device_mod
-from ..core import flags
+from ..nn.functional import cross_entropy, scaled_dot_product_attention
 from ..nn.layers import Embedding, LayerNorm, Linear, gelu_tanh
-
-# the JAX package's untuned flash threshold: what its FLAGS default (-1,
-# "auto") resolves to without an on-chip tuning record
-_FLASH_AUTO_MIN_SEQLEN = 4608
+from ..ops.flash_attention import plain_attention
 
 
 @dataclass
@@ -50,6 +49,10 @@ class GPTConfig:
     intermediate_size: int = 0  # 0 -> 4*hidden
     dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
+    # JAX-package training options not ported yet: any non-default raises
+    use_recompute: bool = False
+    use_scan_layers: bool = False
+    loss_chunk_size: int = 0
 
     def __post_init__(self):
         if self.intermediate_size == 0:
@@ -80,38 +83,18 @@ def masked_attention(qa, ka, va, mask):
     plain route: logits in the input dtype, masked to -1e30 (not -inf), a
     softmax in fp32, the probabilities cast back to the query dtype before
     P.V."""
-    qt, kt, vt = (t.transpose(1, 2) for t in (qa, ka, va))
-    scale = 1.0 / math.sqrt(qa.shape[-1])
-    logits = torch.matmul(qt, kt.transpose(-1, -2)) * scale
-    logits = logits.masked_fill(~mask, -1e30)
-    p = torch.softmax(logits.float(), dim=-1).to(qa.dtype)
-    return torch.matmul(p, vt).transpose(1, 2)
+    return plain_attention(qa, ka, va, 1.0 / math.sqrt(qa.shape[-1]), mask)
 
 
-def _flash_min_seqlen() -> int:
-    thr = int(flags.flag("flash_attention_min_seqlen"))
-    return _FLASH_AUTO_MIN_SEQLEN if thr < 0 else thr
-
-
-def causal_attention(q, k, v):
-    """Non-cached causal attention ``[b, s, heads, dim]``: the JAX package's
-    off-TPU ``_sdpa_reference`` (mask value ``finfo.min``, causal offset
-    ``sk - sq``, fp32 softmax cast back). Never calls
-    ``scaled_dot_product_attention``."""
-    sk = k.shape[1]
-    thr = _flash_min_seqlen()
-    if q.is_cuda and (thr == 0 or sk >= thr):
-        raise NotImplementedError(
-            f"kv length {sk} routes to the flash attention kernel "
-            f"(FLAGS_flash_attention_min_seqlen={thr}), which is not ported "
-            "to CUDA yet")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    logits = torch.matmul(qt, kt.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
-    sq = logits.shape[-2]
-    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
-    logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-    p = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    return torch.matmul(p, vt).transpose(1, 2)
+def causal_attention(q, k, v, dropout_p=0.0, training=False):
+    """Non-cached causal attention ``[b, s, heads, dim]`` through
+    :func:`scaled_dot_product_attention`: the flash kernels on a CUDA
+    tensor at or above the flag's threshold, else the JAX package's
+    ``_sdpa_reference`` math (mask ``finfo.min``, causal offset ``sk - sq``,
+    fp32 softmax cast back)."""
+    return scaled_dot_product_attention(q, k, v, is_causal=True,
+                                        dropout_p=dropout_p,
+                                        training=training)
 
 
 class GPTAttention(nn.Module):
@@ -122,6 +105,7 @@ class GPTAttention(nn.Module):
         self.head_dim = h // cfg.num_heads
         self.qkv = Linear(h, 3 * h, device=device)   # ColumnParallelLinear
         self.proj = Linear(h, h, device=device)      # RowParallelLinear
+        self.dropout = cfg.dropout
 
     def forward(self, x, cache=None, start_pos=0):
         b, s, h = x.shape
@@ -143,7 +127,8 @@ class GPTAttention(nn.Module):
             i = pos + torch.arange(s, device=x.device)[:, None]
             o = masked_attention(q, k_buf, v_buf, (j <= i)[None, None])
             return self.proj(o.reshape(b, s, h)), (k_buf, v_buf)
-        o = causal_attention(q, k, v)
+        o = causal_attention(q, k, v, dropout_p=self.dropout,
+                             training=self.training)
         return self.proj(o.reshape(b, s, h))
 
 
@@ -230,10 +215,15 @@ class GPTForCausalLM(nn.Module):
     family ties it). Built on ``device`` (default ``"cuda"``, raising without
     CUDA) and initialised with an explicit ``torch.Generator`` seeded 0:
     N(0, 0.02) matrices and embeddings, zero biases, unit LayerNorm scales.
-    :func:`load_functional_state` replaces them."""
+    :func:`load_functional_state` replaces them. ``train()`` / ``eval()``
+    switch dropout as in torch; a model starts in eval mode."""
 
     def __init__(self, cfg: GPTConfig, device=device_mod.DEFAULT_DEVICE):
         super().__init__()
+        for opt in ("use_recompute", "use_scan_layers", "loss_chunk_size"):
+            if getattr(cfg, opt):
+                raise NotImplementedError(f"GPTConfig.{opt} is not ported "
+                                          "yet")
         dev = device_mod.resolve(device)
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device=dev)
@@ -252,9 +242,19 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
 
-    def forward(self, input_ids):
-        """Logits ``[b, s, vocab]`` of a full causal forward (no cache)."""
-        return torch.matmul(self.gpt(input_ids), self.gpt.wte.weight.t())
+    def forward(self, input_ids, labels=None):
+        """Logits ``[b, s, vocab]`` of a full causal forward (no cache) or,
+        with ``labels`` ``[b, s]``, the mean cross entropy of the f32
+        logits over ``[-1, vocab]`` (labels -100 are ignored). The tied
+        head is the JAX package's ``linear`` without bias (``linear_nb``
+        under AMP)."""
+        h, w = amp.cast_inputs("linear_nb", self.gpt(input_ids),
+                               self.gpt.wte.weight)
+        logits = torch.matmul(h, w.t())
+        if labels is None:
+            return logits
+        return cross_entropy(logits.reshape(-1, self.cfg.vocab_size).float(),
+                             labels.reshape(-1), reduction="mean")
 
     def _head_logits(self, h_last):
         """Next-token logits ``[b, vocab]`` from last hidden states

@@ -5,12 +5,17 @@ the JAX package's ``functional_state()`` arrays load unchanged. On one card
 the JAX package's parallel layers (``ColumnParallelLinear``,
 ``RowParallelLinear``, ``VocabParallelEmbedding``) are these plain layers.
 Parameters start uninitialised in float32; the model initialises them.
+``Linear`` and ``LayerNorm`` cast their inputs under an active
+:func:`paddle_tpu_torch.amp.auto_cast` as the JAX package's ``linear`` and
+``ln`` ops do.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import amp
 
 
 class Linear(nn.Module):
@@ -21,7 +26,8 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
 
     def forward(self, x):
-        return torch.matmul(x, self.weight) + self.bias
+        x, w, b = amp.cast_inputs("linear", x, self.weight, self.bias)
+        return torch.matmul(x, w) + b
 
 
 class Embedding(nn.Module):
@@ -35,8 +41,10 @@ class Embedding(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Normalises in fp32 and casts back, as the JAX package's layer_norm
-    does for every input dtype."""
+    """Normalises in fp32 and casts back to the dtype of its input as the
+    ``ln`` op sees it (under AMP ``ln`` is black-listed, so a bf16 input is
+    promoted first and the output stays f32), as the JAX package's
+    layer_norm does."""
 
     def __init__(self, dim: int, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -45,8 +53,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim, device=device))
 
     def forward(self, x):
-        out = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
-                           self.bias.float(), self.epsilon)
+        x, w, b = amp.cast_inputs("ln", x, self.weight, self.bias)
+        out = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(),
+                           self.epsilon)
         return out.to(x.dtype)
 
 

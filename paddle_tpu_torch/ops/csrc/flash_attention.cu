@@ -1,0 +1,1054 @@
+// Flash attention forward and backward, written for Hopper (sm_90a). Three
+// kernels, each with a plain C launcher bound from Python with ctypes
+// (paddle_tpu_torch/ops/flash_attention.py):
+//
+//   flash_fwd_kernel      replaces paddle_tpu/ops/pallas_ops.py
+//                         _flash_fwd_kernel: blockwise softmax attention with
+//                         an online softmax; writes o and the log-sum-exp.
+//   flash_bwd_dkv_kernel  replaces pallas_ops.py _flash_bwd_dkv_kernel: dK and
+//                         dV of one key tile, reduced over the query tiles.
+//   flash_bwd_dq_kernel   replaces pallas_ops.py _flash_bwd_dq_kernel: dQ of
+//                         one query tile, reduced over the key tiles.
+//
+// Layouts (the JAX package's public [batch, seq, heads, head_dim]):
+//   q, k, v, o, dO, dq, dk, dv  [B, s, H, D]; the last dim is dense, the
+//                               batch, row and head strides are arguments,
+//                               so the qkv split's views are read in place.
+//   lse, delta                  [B, H, sq] f32, dense (the TPU's 128-lane
+//                               broadcast of these residuals is not kept).
+//
+// Numerics mirror the Pallas bodies: scores q.k in f32 times `scale`; the
+// causal test `row + (sk - sq) >= col`; masked scores -1e30; the online
+// softmax in f32; p rounded to v's dtype before P.V; one cast of o at the
+// end. A row with no key gives o = 0 and lse = -1e30. In the backward pass
+// p = exp(s - lse), forced to 0 on masked entries and on rows whose lse is
+// -1e30 (else exp(-1e30 - -1e30) = 1 would poison dQ); ds = p (dP - delta)
+// scale; p is rounded to dO's dtype for dV, ds to q's dtype for dK and to
+// k's dtype for dQ (all one dtype T here); dQ, dK and dV accumulate in f32
+// and are cast once.
+//
+// Tiles. The TPU grid carries its reduction across an "arbitrary" grid axis
+// in VMEM scratch; Hopper runs thread blocks in no order, so each block owns
+// its whole reduction: the forward one query tile over all its key tiles,
+// dK/dV one key tile over all query tiles, dQ one query tile over all key
+// tiles. Whole tiles above the causal diagonal are skipped.
+//
+// Two implementations of each kernel, picked at compile time per (dtype,
+// head_dim) by the launchers at the end:
+//   - bf16 at head_dim 64 and 128 (the training path): warp-level mma.sync
+//     on the tensor cores, namespace tc below;
+//   - f32 (whose products must stay f32: the parity runs hold it to 1e-5),
+//     and bf16 at head_dim 256: f32 FMAs on the CUDA cores. Tiles live in
+//     shared memory as f32 rows padded by 4 floats (16-byte aligned, and
+//     conflict-free for the float4 reads). 256 threads form a 16 x 16 grid:
+//     thread (tr, tc) owns score rows tr + 16 i and columns tc + 16 j, and
+//     output columns tc * 4 + 64 q (one float4 each), so every product
+//     reads float4s from shared memory and does 16 FMAs per 8 loads.
+//
+// Bound on an H100 SXM: at the training path's [B, 2048, 16, 128] the work
+// is about 4 FLOPs per (row, key, dim) forward and 14 backward against a few
+// bytes per (row, dim), so all three are bound by operations (989 TFLOP/s on
+// the tensor cores). The mma.sync kernels stage their tiles with plain
+// loads and no pipelining, so the tensor cores wait on shared memory; TMA,
+// wgmma and a tuned tile are the next step.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;  // the Pallas NEG_INF: finite
+constexpr int kThreads = 256;      // a 16 x 16 grid of threads
+constexpr int kBQ = 64;            // query rows per tile
+
+// key rows per tile: 32 at D = 256 keeps the backward tiles in shared memory
+template <int D>
+__host__ __device__ constexpr int block_k() {
+  return D > 128 ? 32 : 64;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T, as the Pallas bodies' astype before a product
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// reductions over the 16 threads of one score row (lanes that differ in
+// their low four bits)
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float part(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+__device__ __forceinline__ const float4& ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Operands of one launch. st[i] = (batch, row, head) strides in elements of
+// q, k, v, dO, out0, out1 (forward: out0 = o; dK/dV: out0 = dk, out1 = dv;
+// dQ: out0 = dq).
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  void* out0;
+  void* out1;
+  float* lse;
+  const float* delta;
+  long long st[6][3];
+  int H, sq, sk, causal;
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ T* head(const void* p, const long long* st, int b,
+                                   int h) {
+  return const_cast<T*>(static_cast<const T*>(p)) + b * st[0] + h * st[2];
+}
+
+// rows [r0, r0 + R) of one head into shared rows of stride D + 4, as f32;
+// rows at or past n are zero
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long long row_stride, int r0,
+                                          int n) {
+  constexpr int DP = D + 4;
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx % D;
+    const int row = r0 + r;
+    dst[r * DP + d] = row < n ? to_f32(src[row * row_stride + d]) : 0.f;
+  }
+}
+
+// s[i][j] = sum_d A[tr + 16 i][d] * B[tc + 16 j][d] over shared rows of
+// stride D + 4
+template <int D, int RI, int CJ>
+__device__ __forceinline__ void tile_dot(const float* A, const float* B,
+                                         int tr, int tc, float (&s)[RI][CJ]) {
+  constexpr int DP = D + 4;
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[RI], b[CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) a[i] = ld4(A + (tr + 16 * i) * DP + d);
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) b[j] = ld4(B + (tc + 16 * j) * DP + d);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+      }
+  }
+}
+
+// acc[i][q] += sum_n W[tr + 16 i][n] * X[n][tc * 4 + 64 q .. + 3] for n in
+// [0, N): W rows of stride WP, X rows of stride D + 4
+template <int D, int RI, int N, int WP>
+__device__ __forceinline__ void tile_acc(const float* W, const float* X,
+                                         int tr, int tc,
+                                         float4 (&acc)[RI][D / 64]) {
+  constexpr int DP = D + 4;
+  constexpr int DQ = D / 64;
+#pragma unroll 2
+  for (int n = 0; n < N; n += 4) {
+    float4 w[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) w[i] = ld4(W + (tr + 16 * i) * WP + n);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float4 x[DQ];
+#pragma unroll
+      for (int q = 0; q < DQ; ++q) x[q] = ld4(X + (n + u) * DP + tc * 4 + 64 * q);
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float wu = part(w[i], u);
+#pragma unroll
+        for (int q = 0; q < DQ; ++q) fma4(acc[i][q], wu, x[q]);
+      }
+    }
+  }
+}
+
+// rows r0 + tr + 16 i (i < RI) of acc, scaled by inv[i], into a [.., D] head
+// whose rows are row_stride apart; rows at or past n are not written
+template <typename T, int D, int RI>
+__device__ __forceinline__ void store_rows(T* dst, long long row_stride,
+                                           int r0, int n, int tr, int tc,
+                                           const float4 (&acc)[RI][D / 64],
+                                           const float (&inv)[RI]) {
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = r0 + tr + 16 * i;
+    if (row >= n) continue;
+    T* out = dst + row * row_stride + tc * 4;
+#pragma unroll
+    for (int q = 0; q < D / 64; ++q) {
+      out[64 * q + 0] = from_f32<T>(acc[i][q].x * inv[i]);
+      out[64 * q + 1] = from_f32<T>(acc[i][q].y * inv[i]);
+      out[64 * q + 2] = from_f32<T>(acc[i][q].z * inv[i]);
+      out[64 * q + 3] = from_f32<T>(acc[i][q].w * inv[i]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- forward
+//
+// One block per (query tile, batch x head). It stages its query rows once,
+// then walks the key tiles up to the causal reach of its last row: S = Q K^T
+// in registers, the online softmax per row (max and sum across the row's 16
+// threads by shuffles), p rounded to T through shared memory, then P V into
+// the f32 accumulator. Blocks of later query tiles have more key tiles under
+// a causal mask, so they are scheduled first.
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) *
+         ((kBQ + 2 * block_k<D>()) * (D + 4) + kBQ * (block_k<D>() + 4));
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const Params a) {
+  constexpr int BK = block_k<D>();
+  constexpr int DP = D + 4, PP = BK + 4;
+  constexpr int RI = kBQ / 16, CJ = BK / 16, DQ = D / 64;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + kBQ * DP;
+  float* Vs = Ks + BK * DP;
+  float* Ps = Vs + BK * DP;
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const T* q = head<T>(a.q, a.st[0], b, h);
+  const T* k = head<T>(a.k, a.st[1], b, h);
+  const T* v = head<T>(a.v, a.st[2], b, h);
+  const int offset = a.sk - a.sq;
+  load_rows<T, D, kBQ>(Qs, q, a.st[0][1], q0, a.sq);
+
+  float m[RI], l[RI];
+  float4 acc[RI][DQ];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DQ; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // keys past the reach of the tile's last row are masked for every row
+  const int k_end = a.causal ? min(a.sk, q0 + kBQ + offset) : a.sk;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tiles are consumed
+    load_rows<T, D, BK>(Ks, k, a.st[1][1], k0, a.sk);
+    load_rows<T, D, BK>(Vs, v, a.st[2][1], k0, a.sk);
+    __syncthreads();
+    float s[RI][CJ];
+    tile_dot<D, RI, CJ>(Qs, Ks, tr, tc, s);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + tr + 16 * i;
+      bool ok[CJ];
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int col = k0 + tc + 16 * j;
+        ok[j] = col < a.sk && (!a.causal || col <= row + offset);
+        s[i][j] = ok[j] ? s[i][j] * a.scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = row_max(mx);
+      const float corr = expf(m[i] - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - mx) : 0.f;
+        sum += p;
+        Ps[(tr + 16 * i) * PP + tc + 16 * j] = round_to<T>(p);
+      }
+      l[i] = l[i] * corr + row_sum(sum);
+      m[i] = mx;
+#pragma unroll
+      for (int c = 0; c < DQ; ++c) {
+        acc[i][c].x *= corr;
+        acc[i][c].y *= corr;
+        acc[i][c].z *= corr;
+        acc[i][c].w *= corr;
+      }
+    }
+    __syncthreads();  // P is in shared memory
+    tile_acc<D, RI, BK, PP>(Ps, Vs, tr, tc, acc);
+  }
+
+  float inv[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+  store_rows<T, D, RI>(head<T>(a.out0, a.st[4], b, h), a.st[4][1], q0, a.sq,
+                       tr, tc, acc, inv);
+  if (tc == 0) {
+    float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.sq;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + tr + 16 * i;
+      if (row < a.sq) lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- backward
+//
+// Both backward kernels recompute S = Q K^T and dP = dO V^T tile by tile
+// from the saved lse and the f32 delta = rowsum(dO * O), as the Pallas
+// bodies do (_bwd_common).
+
+// p and ds of one score tile; rows r0 + tr + 16 i, keys k0 + tc + 16 j
+template <typename T, int RI, int CJ>
+__device__ __forceinline__ void probs_and_dscores(
+    const Params& a, int r0, int k0, int tr, int tc, const float* Ls,
+    const float* Ds, float (&s)[RI][CJ], float (&dp)[RI][CJ]) {
+  const int offset = a.sk - a.sq;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = tr + 16 * i;
+    const int row = r0 + r;
+    const float lse = Ls[r];
+    const bool live = row < a.sq && lse > kNegInf * 0.5f;
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int col = k0 + tc + 16 * j;
+      const bool ok =
+          live && col < a.sk && (!a.causal || col <= row + offset);
+      const float p = ok ? expf(s[i][j] * a.scale - lse) : 0.f;
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - Ds[r]) * a.scale;
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void load_residuals(float* Ls, float* Ds,
+                                               const Params& a, int r0) {
+  const long long base = static_cast<long long>(blockIdx.y) * a.sq;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const int row = r0 + r;
+    Ls[r] = row < a.sq ? a.lse[base + row] : kNegInf;
+    Ds[r] = row < a.sq ? a.delta[base + row] : 0.f;
+  }
+}
+
+// dK/dV: one block per (key tile, batch x head). K and V stay in shared
+// memory; the block walks the query tiles that reach its keys, writes p and
+// ds of each score tile transposed into shared memory, and accumulates
+// dV += P^T dO and dK += dS^T Q with the key rows as its output rows.
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * ((2 * block_k<D>() + 2 * kBQ) * (D + 4) +
+                          2 * block_k<D>() * (kBQ + 4) + 2 * kBQ);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const Params a) {
+  constexpr int BK = block_k<D>();
+  constexpr int DP = D + 4, TP = kBQ + 4;
+  constexpr int RI = kBQ / 16, CJ = BK / 16, RK = BK / 16, DQ = D / 64;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + BK * DP;
+  float* Qs = Vs + BK * DP;
+  float* Os = Qs + kBQ * DP;  // dO rows
+  float* Pt = Os + kBQ * DP;  // [BK][kBQ + 4]: p transposed
+  float* St = Pt + BK * TP;   // [BK][kBQ + 4]: ds transposed
+  float* Ls = St + BK * TP;
+  float* Ds = Ls + kBQ;
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const T* q = head<T>(a.q, a.st[0], b, h);
+  const T* dout = head<T>(a.dout, a.st[3], b, h);
+  load_rows<T, D, BK>(Ks, head<T>(a.k, a.st[1], b, h), a.st[1][1], k0, a.sk);
+  load_rows<T, D, BK>(Vs, head<T>(a.v, a.st[2], b, h), a.st[2][1], k0, a.sk);
+
+  float4 dk[RK][DQ], dv[RK][DQ];
+#pragma unroll
+  for (int i = 0; i < RK; ++i)
+#pragma unroll
+    for (int c = 0; c < DQ; ++c)
+      dk[i][c] = dv[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // rows before k0 - offset see none of this tile's keys
+  const int i_begin =
+      a.causal ? max(0, k0 - (a.sk - a.sq)) / kBQ * kBQ : 0;
+  for (int i0 = i_begin; i0 < a.sq; i0 += kBQ) {
+    __syncthreads();  // the previous query tile is consumed
+    load_rows<T, D, kBQ>(Qs, q, a.st[0][1], i0, a.sq);
+    load_rows<T, D, kBQ>(Os, dout, a.st[3][1], i0, a.sq);
+    load_residuals<kBQ>(Ls, Ds, a, i0);
+    __syncthreads();
+    float s[RI][CJ], dp[RI][CJ];
+    tile_dot<D, RI, CJ>(Qs, Ks, tr, tc, s);
+    tile_dot<D, RI, CJ>(Os, Vs, tr, tc, dp);
+    probs_and_dscores<T, RI, CJ>(a, i0, k0, tr, tc, Ls, Ds, s, dp);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        Pt[(tc + 16 * j) * TP + tr + 16 * i] = round_to<T>(s[i][j]);
+        St[(tc + 16 * j) * TP + tr + 16 * i] = round_to<T>(dp[i][j]);
+      }
+    __syncthreads();  // P^T and dS^T are in shared memory
+    tile_acc<D, RK, kBQ, TP>(Pt, Os, tr, tc, dv);
+    tile_acc<D, RK, kBQ, TP>(St, Qs, tr, tc, dk);
+  }
+
+  float one[RK];
+#pragma unroll
+  for (int i = 0; i < RK; ++i) one[i] = 1.f;
+  store_rows<T, D, RK>(head<T>(a.out0, a.st[4], b, h), a.st[4][1], k0, a.sk,
+                       tr, tc, dk, one);
+  store_rows<T, D, RK>(head<T>(a.out1, a.st[5], b, h), a.st[5][1], k0, a.sk,
+                       tr, tc, dv, one);
+}
+
+// dQ: one block per (query tile, batch x head). Q, dO and the residuals of
+// its rows stay in shared memory; the block walks the key tiles up to the
+// causal reach of its last row and accumulates dQ += dS K.
+
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(float) * ((2 * kBQ + 2 * block_k<D>()) * (D + 4) +
+                          kBQ * (block_k<D>() + 4) + 2 * kBQ);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const Params a) {
+  constexpr int BK = block_k<D>();
+  constexpr int DP = D + 4, PP = BK + 4;
+  constexpr int RI = kBQ / 16, CJ = BK / 16;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Os = Qs + kBQ * DP;  // dO rows
+  float* Ks = Os + kBQ * DP;
+  float* Vs = Ks + BK * DP;
+  float* Ss = Vs + BK * DP;  // [kBQ][BK + 4]: ds
+  float* Ls = Ss + kBQ * PP;
+  float* Ds = Ls + kBQ;
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const T* k = head<T>(a.k, a.st[1], b, h);
+  const T* v = head<T>(a.v, a.st[2], b, h);
+  load_rows<T, D, kBQ>(Qs, head<T>(a.q, a.st[0], b, h), a.st[0][1], q0, a.sq);
+  load_rows<T, D, kBQ>(Os, head<T>(a.dout, a.st[3], b, h), a.st[3][1], q0,
+                       a.sq);
+  load_residuals<kBQ>(Ls, Ds, a, q0);
+
+  float4 dq[RI][D / 64];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) dq[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int k_end =
+      a.causal ? min(a.sk, q0 + kBQ + (a.sk - a.sq)) : a.sk;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous key tile is consumed
+    load_rows<T, D, BK>(Ks, k, a.st[1][1], k0, a.sk);
+    load_rows<T, D, BK>(Vs, v, a.st[2][1], k0, a.sk);
+    __syncthreads();
+    float s[RI][CJ], dp[RI][CJ];
+    tile_dot<D, RI, CJ>(Qs, Ks, tr, tc, s);
+    tile_dot<D, RI, CJ>(Os, Vs, tr, tc, dp);
+    probs_and_dscores<T, RI, CJ>(a, q0, k0, tr, tc, Ls, Ds, s, dp);
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        Ss[(tr + 16 * i) * PP + tc + 16 * j] = round_to<T>(dp[i][j]);
+    __syncthreads();  // dS is in shared memory
+    tile_acc<D, RI, BK, PP>(Ss, Ks, tr, tc, dq);
+  }
+
+  float one[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) one[i] = 1.f;
+  store_rows<T, D, RI>(head<T>(a.out0, a.st[4], b, h), a.st[4][1], q0, a.sq,
+                       tr, tc, dq, one);
+}
+
+// ------------------------------------------------ bf16 on the tensor cores
+//
+// At head_dim 64 and 128 the bf16 kernels do their products with warp-level
+// mma.sync (m16n8k16, bf16 in, f32 accumulate) instead of f32 FMAs. Four
+// warps per block; each warp owns 16 rows of every product. Tiles are staged
+// in shared memory as bf16 rows padded by 8 elements (16 bytes), so the
+// ldmatrix reads of 8 rows hit 8 different bank groups. A score tile's
+// accumulator fragments are exactly the A-operand fragments of the next
+// product, so p (forward, dV) and ds (dK, dQ) go from registers, rounded to
+// bf16, straight into the second mma: the rounding points stay the Pallas
+// bodies'. At head_dim 256 the accumulators (16 x 256 f32 per warp, twice
+// for dK/dV) do not fit in registers; the CUDA-core kernels above serve it.
+
+namespace tc {
+
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kBQ = 64;        // query rows per tile (16 per warp)
+constexpr int kBK = 64;        // key rows per tile
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// two f32 rounded to bf16, the lower column in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// quad reductions: the 4 lanes that hold one fragment row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// rows [r0, r0 + R) of a [.., D] head into shared rows of stride D + 8,
+// 16 bytes per copy; rows at or past n are zero
+template <int D, int R>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
+                                      long long row_stride, int r0, int n) {
+  constexpr int C = D / 8;
+  for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C;
+    const int row = r0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < n)
+      v = *reinterpret_cast<const uint4*>(src + row * row_stride + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = v;
+  }
+}
+
+// s[j] = X[xr .. xr+16) . Y[yr+8j .. yr+8j+8)^T over D (j < NJ): a warp's
+// 16 x 8NJ score tile. Fragment element e of s[j] is row xr + g + 8(e/2),
+// column yr + 8j + 2t + e%2 (g = lane/4, t = lane%4).
+template <int D, int NJ>
+__device__ __forceinline__ void dot_tile(float (&s)[NJ][4], const bf16* X,
+                                         int xr, const bf16* Y, int yr,
+                                         int lane) {
+  constexpr int DP = D + 8;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm(a, X + (xr + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t b[4];
+      ldsm(b, Y + (yr + j * 8 + (lane & 7) + ((lane >> 4) << 3)) * DP +
+                  kk * 16 + ((lane >> 3) & 1) * 8);
+      mma(s[j], a, b[0], b[1]);
+      mma(s[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc += W . Y[yr .. yr + 8NJ) with W (16 x 8NJ) the fragments of a score
+// tile, rounded to bf16: the A operand comes from registers, Y (rows along
+// the reduction, D columns) through transposing ldmatrix reads
+template <int D, int NJ>
+__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
+                                         const float (&w)[NJ][4],
+                                         const bf16* Y, int yr, int lane) {
+  constexpr int DP = D + 8;
+#pragma unroll
+  for (int kc = 0; kc < NJ / 2; ++kc) {
+    const uint32_t a[4] = {pack(w[2 * kc][0], w[2 * kc][1]),
+                           pack(w[2 * kc][2], w[2 * kc][3]),
+                           pack(w[2 * kc + 1][0], w[2 * kc + 1][1]),
+                           pack(w[2 * kc + 1][2], w[2 * kc + 1][3])};
+#pragma unroll
+    for (int dn = 0; dn < D / 8; dn += 2) {
+      uint32_t b[4];
+      ldsm_t(b, Y + (yr + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DP +
+                    dn * 8 + (lane >> 4) * 8);
+      mma(acc[dn], a, b[0], b[1]);
+      mma(acc[dn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows r (fragment rows g and g + 8 at r0) of acc into a [.., D] head,
+// scaled by inv[]; rows at or past n are not written
+template <int D>
+__device__ __forceinline__ void store(bf16* dst, long long row_stride, int r0,
+                                      int n, int t, const float (&acc)[D / 8][4],
+                                      const float (&inv)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= n) continue;
+    bf16* out = dst + row * row_stride + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+      *reinterpret_cast<uint32_t*>(out + dn * 8) =
+          pack(acc[dn][2 * r] * inv[r], acc[dn][2 * r + 1] * inv[r]);
+  }
+}
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(bf16) * (kBQ + 2 * kBK) * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params a) {
+  constexpr int DP = D + 8;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ks = Qs + kBQ * DP;
+  bf16* Vs = Ks + kBK * DP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const bf16* k = head<bf16>(a.k, a.st[1], b, h);
+  const bf16* v = head<bf16>(a.v, a.st[2], b, h);
+  const int offset = a.sk - a.sq;
+  const int row0 = q0 + warp * 16 + g;  // fragment rows row0, row0 + 8
+  stage<D, kBQ>(Qs, head<bf16>(a.q, a.st[0], b, h), a.st[0][1], q0, a.sq);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int k_end = a.causal ? min(a.sk, q0 + kBQ + offset) : a.sk;
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous tiles are consumed
+    stage<D, kBK>(Ks, k, a.st[1][1], k0, a.sk);
+    stage<D, kBK>(Vs, v, a.st[2][1], k0, a.sk);
+    __syncthreads();
+    float s[8][4];
+    dot_tile<D, 8>(s, Qs, warp * 16, Ks, 0, lane);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1), col = k0 + j * 8 + 2 * t + (e & 1);
+        const bool ok = col < a.sk && (!a.causal || col <= row + offset);
+        s[j][e] = ok ? s[j][e] * a.scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      corr[r] = expf(m[r] - mx[r]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1), col = k0 + j * 8 + 2 * t + (e & 1);
+        const bool ok = col < a.sk && (!a.causal || col <= row + offset);
+        const float p = ok ? expf(s[j][e] - mx[e >> 1]) : 0.f;
+        sum[e >> 1] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      o[dn][0] *= corr[0];
+      o[dn][1] *= corr[0];
+      o[dn][2] *= corr[1];
+      o[dn][3] *= corr[1];
+    }
+    acc_tile<D, 8>(o, s, Vs, 0, lane);  // P rounded to bf16, then P . V
+  }
+
+  const float inv[2] = {1.f / (l[0] == 0.f ? 1.f : l[0]),
+                        1.f / (l[1] == 0.f ? 1.f : l[1])};
+  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], row0, a.sq, t, o,
+           inv);
+  if (t == 0) {
+    float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < a.sq) lse[row] = l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  return sizeof(bf16) * (2 * kBQ + 2 * kBK) * (D + 8);
+}
+
+// dQ: one block per (query tile, batch x head); each warp walks the key
+// tiles for its 16 rows: S = Q K^T, dP = dO V^T, ds in registers, dQ += dS K
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const Params a) {
+  constexpr int DP = D + 8;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Os = Qs + kBQ * DP;  // dO rows
+  bf16* Ks = Os + kBQ * DP;
+  bf16* Vs = Ks + kBK * DP;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const bf16* k = head<bf16>(a.k, a.st[1], b, h);
+  const bf16* v = head<bf16>(a.v, a.st[2], b, h);
+  const int offset = a.sk - a.sq;
+  const int row0 = q0 + warp * 16 + g;
+  stage<D, kBQ>(Qs, head<bf16>(a.q, a.st[0], b, h), a.st[0][1], q0, a.sq);
+  stage<D, kBQ>(Os, head<bf16>(a.dout, a.st[3], b, h), a.st[3][1], q0, a.sq);
+  const long long base = static_cast<long long>(blockIdx.y) * a.sq;
+  float lse[2], delta[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < a.sq ? a.lse[base + row] : kNegInf;
+    delta[r] = row < a.sq ? a.delta[base + row] : 0.f;
+    live[r] = row < a.sq && lse[r] > kNegInf * 0.5f;
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  const int k_end = a.causal ? min(a.sk, q0 + kBQ + offset) : a.sk;
+  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous key tile is consumed
+    stage<D, kBK>(Ks, k, a.st[1][1], k0, a.sk);
+    stage<D, kBK>(Vs, v, a.st[2][1], k0, a.sk);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+    dot_tile<D, 8>(s, Qs, warp * 16, Ks, 0, lane);
+    dot_tile<D, 8>(dp, Os, warp * 16, Vs, 0, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int row = row0 + 8 * r, col = k0 + j * 8 + 2 * t + (e & 1);
+        const bool ok = live[r] && col < a.sk &&
+                        (!a.causal || col <= row + offset);
+        const float p = ok ? expf(s[j][e] * a.scale - lse[r]) : 0.f;
+        s[j][e] = p * (dp[j][e] - delta[r]) * a.scale;
+      }
+    acc_tile<D, 8>(dq, s, Ks, 0, lane);  // dS rounded to bf16, then dS . K
+  }
+  const float one[2] = {1.f, 1.f};
+  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], row0, a.sq, t, dq,
+           one);
+}
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(bf16) * (2 * kBK + 2 * kBQ) * (D + 8) +
+         sizeof(float) * 2 * kBQ;
+}
+
+// dK/dV: one block per (key tile, batch x head); each warp owns 16 keys and
+// walks the query tiles that reach them, 32 rows at a time: S^T = K Q^T,
+// dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const Params a) {
+  constexpr int DP = D + 8;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + kBK * DP;
+  bf16* Qs = Vs + kBK * DP;
+  bf16* Os = Qs + kBQ * DP;  // dO rows
+  float* Ls = reinterpret_cast<float*>(Os + kBQ * DP);
+  float* Ds = Ls + kBQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kBK;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const bf16* q = head<bf16>(a.q, a.st[0], b, h);
+  const bf16* dout = head<bf16>(a.dout, a.st[3], b, h);
+  const int offset = a.sk - a.sq;
+  const int key0 = k0 + warp * 16 + g;  // fragment keys key0, key0 + 8
+  stage<D, kBK>(Ks, head<bf16>(a.k, a.st[1], b, h), a.st[1][1], k0, a.sk);
+  stage<D, kBK>(Vs, head<bf16>(a.v, a.st[2], b, h), a.st[2][1], k0, a.sk);
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
+
+  // rows before k0 - offset see none of this tile's keys
+  const int i_begin = a.causal ? max(0, k0 - offset) / kBQ * kBQ : 0;
+  const long long base = static_cast<long long>(blockIdx.y) * a.sq;
+  for (int i0 = i_begin; i0 < a.sq; i0 += kBQ) {
+    __syncthreads();  // the previous query tile is consumed
+    stage<D, kBQ>(Qs, q, a.st[0][1], i0, a.sq);
+    stage<D, kBQ>(Os, dout, a.st[3][1], i0, a.sq);
+    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
+      const int row = i0 + r;
+      Ls[r] = row < a.sq ? a.lse[base + row] : kNegInf;
+      Ds[r] = row < a.sq ? a.delta[base + row] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int half = 0; half < kBQ / 32; ++half) {
+      float pt[4][4], dst[4][4];
+      dot_tile<D, 4>(pt, Ks, warp * 16, Qs, half * 32, lane);
+      dot_tile<D, 4>(dst, Vs, warp * 16, Os, half * 32, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * (e >> 1);
+          const int rl = half * 32 + j * 8 + 2 * t + (e & 1);
+          const int row = i0 + rl;
+          const float lse = Ls[rl];
+          const bool ok = row < a.sq && lse > kNegInf * 0.5f && key < a.sk &&
+                          (!a.causal || key <= row + offset);
+          const float p = ok ? expf(pt[j][e] * a.scale - lse) : 0.f;
+          pt[j][e] = p;
+          dst[j][e] = p * (dst[j][e] - Ds[rl]) * a.scale;
+        }
+      acc_tile<D, 4>(dv, pt, Os, half * 32, lane);   // P^T . dO
+      acc_tile<D, 4>(dk, dst, Qs, half * 32, lane);  // dS^T . Q
+    }
+  }
+  const float one[2] = {1.f, 1.f};
+  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], key0, a.sk, t, dk,
+           one);
+  store<D>(head<bf16>(a.out1, a.st[5], b, h), a.st[5][1], key0, a.sk, t, dv,
+           one);
+}
+
+}  // namespace tc
+
+// --------------------------------------------------------------- launchers
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
+                   const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// bf16 at head_dim 64 and 128 runs on the tensor cores
+template <typename T, int D>
+constexpr bool on_tensor_cores() {
+  return std::is_same<T, __nv_bfloat16>::value && D <= 128;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
+  if constexpr (on_tensor_cores<T, D>()) {
+    const dim3 grid((p.sq + tc::kBQ - 1) / tc::kBQ, B * p.H);
+    return launch(tc::flash_fwd_kernel<D>, tc::kThreads, tc::fwd_smem<D>(),
+                  grid, p, stream);
+  } else {
+    const dim3 grid((p.sq + kBQ - 1) / kBQ, B * p.H);
+    return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem<D>(), grid, p,
+                  stream);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
+  if constexpr (on_tensor_cores<T, D>()) {
+    const dim3 grid((p.sk + tc::kBK - 1) / tc::kBK, B * p.H);
+    return launch(tc::flash_bwd_dkv_kernel<D>, tc::kThreads,
+                  tc::dkv_smem<D>(), grid, p, stream);
+  } else {
+    const dim3 grid((p.sk + block_k<D>() - 1) / block_k<D>(), B * p.H);
+    return launch(flash_bwd_dkv_kernel<T, D>, kThreads, dkv_smem<D>(), grid,
+                  p, stream);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
+  if constexpr (on_tensor_cores<T, D>()) {
+    const dim3 grid((p.sq + tc::kBQ - 1) / tc::kBQ, B * p.H);
+    return launch(tc::flash_bwd_dq_kernel<D>, tc::kThreads, tc::dq_smem<D>(),
+                  grid, p, stream);
+  } else {
+    const dim3 grid((p.sq + kBQ - 1) / kBQ, B * p.H);
+    return launch(flash_bwd_dq_kernel<T, D>, kThreads, dq_smem<D>(), grid, p,
+                  stream);
+  }
+}
+
+#define FLASH_DISPATCH(LAUNCH)                                               \
+  do {                                                                       \
+    if (dtype == 0) {                                                        \
+      if (D == 64) return LAUNCH<float, 64>(p, B, s);                        \
+      if (D == 128) return LAUNCH<float, 128>(p, B, s);                      \
+      if (D == 256) return LAUNCH<float, 256>(p, B, s);                      \
+    } else if (dtype == 1) {                                                 \
+      if (D == 64) return LAUNCH<__nv_bfloat16, 64>(p, B, s);                \
+      if (D == 128) return LAUNCH<__nv_bfloat16, 128>(p, B, s);              \
+      if (D == 256) return LAUNCH<__nv_bfloat16, 256>(p, B, s);              \
+    }                                                                        \
+    return cudaErrorInvalidValue;                                            \
+  } while (0)
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const void* dout, void* out0, void* out1, void* lse,
+                   const void* delta, const long long* strides, int H, int sq,
+                   int sk, float scale, int causal) {
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.out0 = out0;
+  p.out1 = out1;
+  p.lse = static_cast<float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  for (int i = 0; i < 6; ++i)
+    for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
+  p.H = H;
+  p.sq = sq;
+  p.sk = sk;
+  p.causal = causal;
+  p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; D must be 64, 128 or 256. Every tensor
+// pointer is a CUDA device pointer and stream a cudaStream_t. strides is a
+// host array of 18 element strides: (batch, row, head) of q, k, v, dO, out0,
+// out1 in that order (entries of operands a launcher does not take are
+// ignored). lse and delta are dense [B, H, sq] f32. Each returns the
+// cudaError_t of its launch (0 on success).
+
+extern "C" int flash_fwd_launch(int dtype, int D, const void* q,
+                                const void* k, const void* v, void* o,
+                                void* lse, const long long* strides, int B,
+                                int H, int sq, int sk, float scale,
+                                int causal, void* stream) {
+  if (B == 0 || sq == 0) return 0;
+  const Params p = make_params(q, k, v, nullptr, o, nullptr, lse, nullptr,
+                               strides, H, sq, sk, scale, causal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(launch_fwd);
+}
+
+extern "C" int flash_bwd_dkv_launch(int dtype, int D, const void* q,
+                                    const void* k, const void* v,
+                                    const void* dout, const void* lse,
+                                    const void* delta, void* dk, void* dv,
+                                    const long long* strides, int B, int H,
+                                    int sq, int sk, float scale, int causal,
+                                    void* stream) {
+  if (B == 0 || sk == 0) return 0;
+  const Params p = make_params(q, k, v, dout, dk, dv, const_cast<void*>(lse),
+                               delta, strides, H, sq, sk, scale, causal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(launch_dkv);
+}
+
+extern "C" int flash_bwd_dq_launch(int dtype, int D, const void* q,
+                                   const void* k, const void* v,
+                                   const void* dout, const void* lse,
+                                   const void* delta, void* dq,
+                                   const long long* strides, int B, int H,
+                                   int sq, int sk, float scale, int causal,
+                                   void* stream) {
+  if (B == 0 || sq == 0) return 0;
+  const Params p = make_params(q, k, v, dout, dq, nullptr,
+                               const_cast<void*>(lse), delta, strides, H, sq,
+                               sk, scale, causal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FLASH_DISPATCH(launch_dq);
+}
