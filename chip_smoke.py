@@ -14,18 +14,38 @@ no result. Phases, in order; each raises on failure:
 2. Hold every paged-attention kernel against its plain PyTorch version on
    the card, in f32 (max abs err <= 1e-5) and bf16 (2e-2 abs + 2e-2 rel),
    at the serving path's shapes (H=16, D=128, block 16) and at head dims
-   64 and 32.
+   64 and 32; the int8 variants over int8 pools (standard normal K/V
+   quantized per token row) on permuted, partial tables, decode and chunks
+   of 256 at prefixes 0 and 768. Each check prints its share of the bar.
 3. Serve ``gpt_1p3b`` at full width and depth (seeded random weights, f32,
    TF32 off) through ``ServingAPI``: 8 slots, 12 requests of mixed prompt
    lengths. Every request's greedy tokens must equal the model's own
    ``generate()`` (contiguous cache, plain attention: no kernel), the decode
    kernel must have launched once per layer per decode step and the prefill
    kernel once per layer per prefill, and the arena's invariants must hold.
-4. The same model in bf16: the median decode-step time and tokens/s of 8
-   full slots, and each kernel's time at the path's shapes beside its bound,
-   its plain version's time and one ``scaled_dot_product_attention`` call on
-   the same attention (a yardstick only; the port never calls it).
-5. Hold the three flash-attention kernels (forward with lse, dK/dV, dQ) and
+4. A second f32 ``gpt_1p3b`` from the same weights, served with
+   ``quant_weights`` (int8 weights, per-channel scales, quantized on the
+   card: 8 of its linears, and one in bf16, must equal the CPU's
+   quantization bit for bit): 12 requests of 37 to 1000 prompt tokens;
+   greedy tokens must equal ``generate()`` of the same quantized model.
+5. The same quantized model with ``quant_kv`` and ``chunked_prefill=256``
+   as well, on the same requests: the six prompts longer than 256 are
+   prefilled in chunks. The int8 decode kernel must launch exactly 24 times
+   per decode step, the int8 prefill kernel 24 per chunk and the
+   full-precision prefill kernel 24 per whole-prompt prefill; the arena's
+   invariants hold; on the 10th decode step and the 2nd chunk every layer's
+   kernel output is held against its plain version on the engine's own
+   pools (bar of phase 2). The per-token agreement with phase 4's tokens is
+   printed, not held.
+6. Phase 3's model in bf16: the median decode-step time and tokens/s of 8
+   full slots, unquantized, with ``quant_kv``, and with ``quant_kv`` +
+   ``quant_weights``, with the arena bytes per slot and the weight bytes of
+   each; then each kernel's time at the path's shapes beside its bound, its
+   plain version's time and one ``scaled_dot_product_attention`` call on the
+   same attention (a yardstick only; the port never calls it). No PyTorch
+   call attends int8 paged K/V, so the int8 kernels stand beside the bf16
+   kernel at the same shape instead.
+7. Hold the three flash-attention kernels (forward with lse, dK/dV, dQ) and
    the ``FlashAttention`` autograd.Function against their plain versions
    (in f32 also against torch autograd through the plain forward) at
    ``FLASH_TOL``: per element f32 1e-5, bf16 4e-3 + 2e-2 |ref|, and each
@@ -33,7 +53,7 @@ no result. Phases, in order; each raises on failure:
    and 1.5e-2 (bf16). Shapes: [2, 2048, 16, 128] causal and not, head dims
    64 and 256 at 256 positions, and causal 256 queries over 128 keys, whose
    rows with no key must give lse = -1e30 and dq = 0.
-6. Train ``gpt_1p3b`` in f32 (TF32 off), batch 1 x 2048. First one forward
+8. Train ``gpt_1p3b`` in f32 (TF32 off), batch 1 x 2048. First one forward
    and backward on each route: the loss and every layer's qkv and proj
    weight gradients must agree (``ROUTE_TOL``). Then AdamW(3e-4, decay
    0.01) with ClipGradByGlobalNorm(1.0): 3 TrainSteps through the flash
@@ -42,7 +62,7 @@ no result. Phases, in order; each raises on failure:
    The losses agree within rtol 1e-5 at every step; each flash kernel
    launches exactly 24 x steps times on the kernel route and never on the
    plain route.
-7. Train in bf16 (AMP O1). First the same route comparison at batch 1
+9. Train in bf16 (AMP O1). First the same route comparison at batch 1
    (``ROUTE_TOL``: the plain route keeps bf16 logits, the kernels f32
    scores). Then batch 8 x 2048 through the flash kernels, 10 steps on one
    fixed batch: the loss is finite and falls. Prints the median step time,
@@ -51,10 +71,11 @@ no result. Phases, in order; each raises on failure:
    time and PyTorch's own flash attention (forward; backward for dq, dk and
    dv together) as a yardstick only. Each flash kernel launches exactly
    24 x steps times here too (its bf16 instances, on the tensor cores,
-   where phase 6 ran the f32 instances).
+   where phase 8 ran the f32 instances).
 
-Then one JSON line of per-kernel results (a flash row's ``launches`` are
-phase 7's, the instances its times belong to; ``launches_f32`` phase 6's),
+Then one JSON line of per-kernel results (a paged row's ``launches`` are
+phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
+instances its times belong to, and ``launches_f32`` phase 8's),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -71,13 +92,18 @@ import torch
 
 SOURCES = {name: f"paddle_tpu_torch/ops/csrc/{name}.cu"
            for name in ("paged_attention", "flash_attention")}
-PAGED = ("paged_decode_attention", "paged_prefill_attention")
+PAGED = ("paged_decode_attention", "paged_prefill_attention",
+         "paged_decode_attention_int8", "paged_prefill_attention_int8")
 FLASH = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 REPLACES = {
     "paged_decode_attention":
         "paddle_tpu/ops/paged_attention.py:141 _decode_kernel",
     "paged_prefill_attention":
         "paddle_tpu/ops/paged_attention.py:306 _prefill_kernel",
+    "paged_decode_attention_int8":
+        "paddle_tpu/ops/paged_attention.py:141 _decode_kernel (quantized)",
+    "paged_prefill_attention_int8":
+        "paddle_tpu/ops/paged_attention.py:306 _prefill_kernel (quantized)",
     "flash_forward": "paddle_tpu/ops/pallas_ops.py:101 _flash_fwd_kernel",
     "flash_backward_dkv":
         "paddle_tpu/ops/pallas_ops.py:234 _flash_bwd_dkv_kernel",
@@ -95,6 +121,11 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense
 TOL = {torch.float32: (1e-5, 0.0, None), torch.bfloat16: (2e-2, 2e-2, None)}
 FLASH_TOL = {torch.float32: (1e-5, 0.0, 1e-4),
              torch.bfloat16: (4e-3, 2e-2, 1.5e-2)}
+# the quantized serving phases: 12 prompts of 37-1000 tokens, chunks of 256
+# (the six longer than a chunk are admitted in 2-4 chunks)
+QLENS = [37, 1000, 300, 64, 700, 129, 511, 250, 48, 900, 100, 257]
+QNEWS = [16, 32, 24, 20, 32, 16, 28, 18, 30, 22, 26, 32]
+CHUNK = 256
 SEQ = 2048                      # gpt_1p3b's positions: the training length
 STEPS_F32, STEPS_BF16 = 3, 10   # TrainSteps of the parity and timing phases
 BATCH_BF16 = 8                  # sequences per bf16 step
@@ -122,6 +153,14 @@ def qkv_split(rng, rows, h, d, dtype):
     return randn(rng, (rows, 3, h, d), dtype).unbind(1)
 
 
+def tol_share(out, ref, tol):
+    """(max abs error, largest share of the element tolerance used)."""
+    atol, rtol = tol[:2]
+    diff = (out.float() - ref.float()).abs()
+    return (diff.max().item(),
+            (diff / (atol + rtol * ref.float().abs())).max().item())
+
+
 def check(name, dtype, shape, out, ref, tol=TOL) -> float:
     """Kernel output against the plain version: finite, same shape, each
     element within the dtype's (atol, rtol) and, where ``tol`` gives a row
@@ -133,10 +172,8 @@ def check(name, dtype, shape, out, ref, tol=TOL) -> float:
     o, r = out.float(), ref.float()
     if not torch.isfinite(o).all():
         raise AssertionError(f"{name} {dtype} {shape}: non-finite output")
-    diff = (o - r).abs()
-    err = diff.max().item()
+    err, used = tol_share(o, r, tol[dtype])
     atol, rtol, row_tol = tol[dtype]
-    used = (diff / (atol + rtol * r.abs())).max().item()
     ok = used <= 1.0
     note = f"max_abs_err={err:.3e} ({used:.3f} of atol {atol:g} + rtol {rtol:g})"
     if row_tol is not None:
@@ -153,6 +190,16 @@ def check(name, dtype, shape, out, ref, tol=TOL) -> float:
         raise AssertionError(f"{name} {dtype} {shape} disagrees with its "
                              f"plain version: {note}")
     return err
+
+
+def int8_entry(rng, shape):
+    """An int8 pool entry ``(k, v, k_scale, v_scale)`` of ``shape`` ``[NB,
+    BS, H, D]``: standard normal K/V quantized per token row on the card."""
+    from paddle_tpu_torch.quantization import quantize_kv
+
+    (kq, ks), (vq, vs) = (quantize_kv(randn(rng, shape, torch.float32))
+                          for _ in range(2))
+    return kq, vq, ks, vs
 
 
 def kernel_checks(pa):
@@ -184,6 +231,21 @@ def kernel_checks(pa):
               pa.paged_full_prefill_attention(q, k, v, BS),
               pa.paged_full_prefill_attention_ref(q, k, v, BS))
         del kp, vp
+        # the int8 variants over the same tables: decode, and chunks of 256
+        # (the chunked-prefill path's) at prefixes 0 and 768
+        entry = int8_entry(rng, (nb, BS, H, D))
+        q = qkv_split(rng, S, H, D, dtype)[0]
+        check("paged_decode_attention_int8", dtype,
+              f"S={S} H={H} D={D} MB={MB}",
+              pa.paged_decode_attention(q, entry, bt, pos),
+              pa.paged_decode_attention_ref(q, entry, bt, pos))
+        for sq, prefix in ((256, 0), (256, 768), (48, 37)):
+            q = qkv_split(rng, sq, H, D, dtype)[0]
+            check("paged_prefill_attention_int8", dtype,
+                  f"sq={sq} prefix={prefix} H={H} D={D} MB={MB}",
+                  pa.paged_prefill_attention(q, entry, bt[3], prefix),
+                  pa.paged_prefill_attention_ref(q, entry, bt[3], prefix))
+        del entry
         for d in (64, 32):  # the other supported GPT head dims, small
             h, S, MB = 4, 3, 8
             nb = S * MB + 1
@@ -206,12 +268,76 @@ def kernel_checks(pa):
             check("paged_full_prefill_attention", dtype, f"sq=20 H={h} D={d}",
                   pa.paged_full_prefill_attention(q, k, v, BS),
                   pa.paged_full_prefill_attention_ref(q, k, v, BS))
+            entry = int8_entry(rng, (nb, BS, h, d))
+            q = qkv_split(rng, S, h, d, dtype)[0]
+            check("paged_decode_attention_int8", dtype, f"S={S} H={h} D={d}",
+                  pa.paged_decode_attention(q, entry, bt, pos),
+                  pa.paged_decode_attention_ref(q, entry, bt, pos))
+            q = qkv_split(rng, 24, h, d, dtype)[0]
+            check("paged_prefill_attention_int8", dtype,
+                  f"sq=24 prefix=5 H={h} D={d}",
+                  pa.paged_prefill_attention(q, entry, bt[2], 5),
+                  pa.paged_prefill_attention_ref(q, entry, bt[2], 5))
+
+
+def serve(api, pa, prompts, news, what, card):
+    """Serve ``prompts`` through ``api`` with the launch counters set to 0
+    just before and read just after. Every request must finish with its
+    budget of tokens, every block must be free again and the arena's
+    invariants must hold. Returns the requests, the launches and the
+    engine's decode steps, whole-prompt prefills and prefill chunks."""
+    from paddle_tpu_torch.serving import RequestState
+
+    eng = api.engine
+    before = (eng.decode_steps, eng.prefills, eng.prefill_chunks)
+    t0 = time.perf_counter()
+    pa.reset_launches()
+    reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    api.run_until_idle()
+    torch.cuda.synchronize()
+    launches = dict(pa.launches)
+    steps, prefills, chunks = (a - b for a, b in zip(
+        (eng.decode_steps, eng.prefills, eng.prefill_chunks), before))
+    print(f"e2e {what}: served {len(reqs)} requests in "
+          f"{time.perf_counter() - t0:.2f} s, {prefills} prefills, {chunks} "
+          f"prefill chunks, {steps} decode steps, launches {launches} "
+          f"[{card}]")
+    for r, n in zip(reqs, news):
+        if r.state != RequestState.FINISHED or len(r.tokens) != n:
+            raise AssertionError(f"{r.request_id}: state {r.state}, "
+                                 f"{len(r.tokens)}/{n} tokens, {r.error!r}")
+    eng.check_invariants()
+    if eng.arena.blocks_in_use() != 0:
+        raise AssertionError("blocks still in use after every retire")
+    return reqs, launches, steps, prefills, chunks
+
+
+def hold_to_generate(model, prompts, reqs, news, what, card):
+    """Every request's greedy tokens must equal ``model.generate()``."""
+    t0 = time.perf_counter()
+    for i, (p, r, n) in enumerate(zip(prompts, reqs, news)):
+        ref = model.generate(p[None], max_new_tokens=n)[0, len(p):]
+        got = np.asarray(r.tokens)
+        ref = ref.cpu().numpy()
+        if not np.array_equal(got, ref):
+            j = int(np.flatnonzero(got != ref)[0])
+            raise AssertionError(f"{what}: request {i} (prompt {len(p)}): "
+                                 f"served tokens diverge from generate() at "
+                                 f"{j}: {got[:j + 2]} vs {ref[:j + 2]}")
+    print(f"e2e {what}: greedy tokens of all {len(reqs)} requests equal "
+          f"generate() ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+
+def hold_launches(launches, want, what):
+    want = {name: want.get(name, 0) for name in PAGED}
+    if launches != want:
+        raise AssertionError(f"{what}: kernel launches {launches} != {want}")
 
 
 def serve_f32(pa, gpt, serving, card):
     """Phase 3: gpt_1p3b in f32 through ServingAPI, held against
     generate(). Returns the model, the main path's kernel launches and the
-    seeded weights (numpy, reused by the training phases)."""
+    seeded weights (numpy, reused by the later phases)."""
     t0 = time.perf_counter()
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
     arrays = gpt.seeded_state(model, seed=0)
@@ -222,52 +348,171 @@ def serve_f32(pa, gpt, serving, card):
     layers = model.cfg.num_layers
     api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
                              device="cuda")
-    eng = api.engine
     rng = np.random.default_rng(1)
     lens = [5, 700, 37, 129, 16, 300, 64, 511, 9, 250, 48, 17]
     news = [16, 32, 24, 20, 32, 16, 28, 18, 30, 22, 26, 32]
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
-
-    t0 = time.perf_counter()
-    pa.reset_launches()
-    steps0, prefills0 = eng.decode_steps, eng.prefills
-    reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
-    api.run_until_idle()
-    torch.cuda.synchronize()
-    launches = dict(pa.launches)
-    steps = eng.decode_steps - steps0
-    prefills = eng.prefills - prefills0
-    print(f"e2e f32: served {len(reqs)} requests in "
-          f"{time.perf_counter() - t0:.2f} s, {prefills} prefills, {steps} "
-          f"decode steps, launches {launches} [{card}]")
-    for r, n in zip(reqs, news):
-        if r.state != serving.RequestState.FINISHED or len(r.tokens) != n:
-            raise AssertionError(f"{r.request_id}: state {r.state}, "
-                                 f"{len(r.tokens)}/{n} tokens, {r.error!r}")
+    reqs, launches, steps, prefills, _ = serve(api, pa, prompts, news, "f32",
+                                               card)
     if prefills != len(reqs):
         raise AssertionError(f"{prefills} prefills for {len(reqs)} requests")
-    want = {"paged_decode_attention": layers * steps,
-            "paged_prefill_attention": layers * prefills}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want} "
-                             f"(24 x decode steps, 24 x prefills)")
-    eng.check_invariants()
-    if eng.arena.blocks_in_use() != 0:
-        raise AssertionError("blocks still in use after every retire")
-
-    t0 = time.perf_counter()
-    for i, (p, r, n) in enumerate(zip(prompts, reqs, news)):
-        ref = model.generate(p[None], max_new_tokens=n)[0, len(p):]
-        got = np.asarray(r.tokens)
-        ref = ref.cpu().numpy()
-        if not np.array_equal(got, ref):
-            j = int(np.flatnonzero(got != ref)[0])
-            raise AssertionError(f"request {i} (prompt {len(p)}): served "
-                                 f"tokens diverge from generate() at {j}: "
-                                 f"{got[:j + 2]} vs {ref[:j + 2]}")
-    print(f"e2e f32: greedy tokens of all {len(reqs)} requests equal "
-          f"generate() ({time.perf_counter() - t0:.1f} s) [{card}]")
+    hold_launches(launches, {"paged_decode_attention": layers * steps,
+                             "paged_prefill_attention": layers * prefills},
+                  "f32 (24 x decode steps, 24 x prefills)")
+    hold_to_generate(model, prompts, reqs, news, "f32", card)
     return model, launches, arrays
+
+
+class Shadow:
+    """Wraps the engine's two paged wrappers (in ``serving.engine``, for
+    this script only): on the ``decode_step``-th decode step and the
+    ``chunk``-th prefill chunk it counts, each layer's kernel output is
+    held against the plain version on the same inputs -- the engine's own
+    pools, tables and positions -- at the kernel checks' bar (TOL). The
+    plain versions launch no kernel, so the launch counts stay exact."""
+
+    NAMES = ("paged_decode_attention", "paged_prefill_attention")
+
+    def __init__(self, engine_mod, pa, layers, decode_step, chunk):
+        self.engine_mod, self.pa = engine_mod, pa
+        self.pick = {"paged_decode_attention": decode_step,
+                     "paged_prefill_attention": chunk}
+        self.layers = layers
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.seen = {name: [] for name in self.NAMES}  # (err, share)
+
+    def _wrap(self, name):
+        fn, ref = getattr(self.pa, name), getattr(self.pa, name + "_ref")
+
+        def shadowed(q, *args):
+            out = fn(q, *args)
+            call = self.calls[name]
+            self.calls[name] += 1
+            if call // self.layers == self.pick[name]:
+                expect = ref(q, *args)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"shadow {name}: non-finite output")
+                self.seen[name].append(tol_share(out, expect, TOL[q.dtype]))
+            return out
+        return shadowed
+
+    def __enter__(self):
+        for name in self.NAMES:
+            setattr(self.engine_mod, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.NAMES:
+            setattr(self.engine_mod, name, getattr(self.pa, name))
+
+    def report(self, what, card):
+        for name, seen in self.seen.items():
+            if len(seen) != self.layers:
+                raise AssertionError(f"shadow {name}: {len(seen)} layers "
+                                     f"checked, not {self.layers}")
+            err = max(e for e, _ in seen)
+            used = max(u for _, u in seen)
+            call = ("decode step" if "decode" in name else "chunk")
+            print(f"shadow {what} {name}_int8 ({call} "
+                  f"{self.pick[name] + 1} of the run, all {self.layers} "
+                  f"layers, the engine's own pools): "
+                  f"max_abs_err={err:.3e} ({used:.3f} of atol "
+                  f"{TOL[torch.float32][0]:g}) "
+                  f"{'ok' if used <= 1.0 else 'FAIL'} [{card}]")
+            if used > 1.0:
+                raise AssertionError(f"shadow {name}: the kernel disagrees "
+                                     "with its plain version on the engine's "
+                                     "pools")
+
+
+def hold_device_quantization(model, arrays, card):
+    """The engine quantized the weights on the card: the first and last
+    layers' int8 payloads and float32 scales must equal ``quantize_weight``
+    of the same arrays on the CPU, bit for bit; so must the two devices'
+    quantizations of the same weights cast to bf16."""
+    from paddle_tpu_torch.quantization import quantize_weight
+
+    n = 0
+    for i in (0, model.cfg.num_layers - 1):
+        for lin in ("attn.qkv", "attn.proj", "mlp.up", "mlp.down"):
+            name = f"gpt.layers.{i}.{lin}"
+            w = torch.from_numpy(arrays[f"{name}.weight"])
+            layer = model.get_submodule(name)
+            got = [(layer.weight, layer.weight_scale)]
+            want = [quantize_weight(w, channel_axis=1)]
+            if n == 0:  # one bf16 weight, quantized on each device
+                got.append(quantize_weight(w.to("cuda", torch.bfloat16), 1))
+                want.append(quantize_weight(w.to(torch.bfloat16), 1))
+            for (q, s), (q_ref, s_ref) in zip(got, want):
+                bad_q = int((q.cpu() != q_ref).sum())
+                bad_s = int((s.cpu() != s_ref).sum())
+                if bad_q or bad_s:
+                    raise AssertionError(
+                        f"{name}: quantized on the card, {bad_q} of "
+                        f"{q.numel()} int8 weights and {bad_s} of "
+                        f"{s.numel()} scales differ from the CPU's")
+                n += 1
+    print(f"e2e f32 weight-only: {n} int8 payloads and scales quantized on "
+          f"the card equal the CPU's bit for bit (f32 and bf16) [{card}]")
+
+
+def serve_quantized(pa, gpt, serving, arrays, card):
+    """Phases 4-5: a second f32 gpt_1p3b from the same weights, quantized
+    by the engine. Phase 4, weight-only: the card's quantization equals the
+    CPU's; tokens equal generate() of the same quantized model, through the
+    full-precision kernels. Phase 5, int8
+    weights + int8 KV arena + chunked prefill (chunks of 256): exact launch
+    counts (int8 decode 24 per decode step, int8 prefill 24 per chunk,
+    full-precision prefill 24 per whole-prompt prefill) and the shadow
+    checks; the per-token agreement with phase 4 is printed. Returns phase
+    5's launches."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    layers = model.cfg.num_layers
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in QLENS]
+
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=8, quant_weights=True), device="cuda")
+    print(f"e2e f32 weight-only: {api.engine.stats()['quant.weight_layers']} "
+          f"int8 linears [{card}]")
+    hold_device_quantization(model, arrays, card)
+    reqs, launches, steps, prefills, _ = serve(api, pa, prompts, QNEWS,
+                                               "f32 weight-only", card)
+    hold_launches(launches, {"paged_decode_attention": layers * steps,
+                             "paged_prefill_attention": layers * prefills},
+                  "f32 weight-only")
+    hold_to_generate(model, prompts, reqs, QNEWS, "f32 weight-only", card)
+    tokens_w = [r.tokens for r in reqs]
+    del api, reqs
+
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=8, quant_weights=True, quant_kv=True,
+        chunked_prefill=CHUNK), device="cuda")
+    what = f"f32 int8 weights + int8 KV + chunks of {CHUNK}"
+    with Shadow(engine_mod, pa, layers, decode_step=9, chunk=1) as shadow:
+        reqs, launches, steps, prefills, chunks = serve(
+            api, pa, prompts, QNEWS, what, card)
+    want_chunks = sum(-(-n // CHUNK) for n in QLENS if n > CHUNK)
+    if chunks != want_chunks or prefills != len(QLENS) - sum(
+            n > CHUNK for n in QLENS):
+        raise AssertionError(f"{prefills} prefills and {chunks} chunks for "
+                             f"prompts {QLENS}")
+    hold_launches(launches, {"paged_decode_attention_int8": layers * steps,
+                             "paged_prefill_attention_int8": layers * chunks,
+                             "paged_prefill_attention": layers * prefills},
+                  f"{what} (24 x decode steps, 24 x chunks, 24 x prefills)")
+    shadow.report(what, card)
+    same = [np.mean(np.asarray(a) == np.asarray(r.tokens))
+            for a, r in zip(tokens_w, reqs)]
+    print(f"e2e {what}: per-token agreement with the weight-only tokens "
+          f"{np.mean(same):.4f} (by request: "
+          f"{', '.join(f'{x:.2f}' for x in same)}; printed, not held) "
+          f"[{card}]")
+    return launches
 
 
 def flash_inputs(rng, b, sq, sk, h, d, dtype):
@@ -283,7 +528,7 @@ def flash_inputs(rng, b, sq, sk, h, d, dtype):
 
 
 def flash_checks(fa):
-    """Phase 5: the three flash kernels and the autograd.Function against
+    """Phase 7: the three flash kernels and the autograd.Function against
     their plain versions on the card."""
     rng = np.random.default_rng(3)
     shapes = [(2, 2048, 2048, H, D, False), (2, 2048, 2048, H, D, True),
@@ -359,12 +604,17 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def serve_bf16(model, pa, serving, card):
-    """Phase 4: decode-step time and tokens/s of 8 full bf16 slots, then
-    each kernel's time at the path's shapes."""
-    model.to(torch.bfloat16)
-    torch.cuda.empty_cache()
-    api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def decode_run(model, serving, modes, card):
+    """One bf16 decode-timing run of 8 full slots (prompt 512, 64 new):
+    the median host time of the scheduler steps that run only a decode step
+    of 8 slots, and what the kernel timings reuse (layer 0's pool entry, the
+    tables and positions mid-way)."""
+    api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8,
+                                                          **modes),
                              device="cuda")
     eng, sched = api.engine, api.scheduler
     rng = np.random.default_rng(2)
@@ -386,24 +636,56 @@ def serve_bf16(model, pa, serving, card):
             raise AssertionError(f"bf16 {r.request_id}: {r.state} "
                                  f"{len(r.tokens)}/{new} {r.error!r}")
     med = float(np.median(step_s))
-    print(f"bf16 serving: median decode step {med * 1e3:.3f} ms over "
+    arena = eng.arena.bytes_total() / slots
+    weights = tensor_bytes(list(model.parameters()) + list(model.buffers()))
+    name = "+".join(k for k, v in modes.items() if v) or "unquantized"
+    print(f"bf16 serving {name}: median decode step {med * 1e3:.3f} ms over "
           f"{len(step_s)} steps of {slots} slots (prompt {plen}), "
-          f"{slots / med:.1f} tokens/s [{card}]")
+          f"{slots / med:.1f} tokens/s; arena {arena:.0f} bytes per slot, "
+          f"weights {weights} bytes [{card}]")
+    return dict(median_ms=med * 1e3, tokens_per_s=slots / med,
+                arena_bytes_per_slot=arena, weight_bytes=weights,
+                entry=eng.arena.pools[0], snap=snap)
+
+
+def serve_bf16(model, pa, serving, card):
+    """Phase 6: decode-step time and tokens/s of 8 full bf16 slots in three
+    settings, in this order: unquantized, quant_kv, and quant_kv +
+    quant_weights (which quantizes the model in place); then each kernel's
+    time at the path's shapes, the int8 ones beside the bf16 kernel at the
+    same shape."""
+    model.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    runs = {"unquantized": decode_run(model, serving, {}, card),
+            "quant_kv": decode_run(model, serving, dict(quant_kv=True), card),
+            "quant_kv+quant_weights": decode_run(
+                model, serving, dict(quant_kv=True, quant_weights=True),
+                card)}
+    base = runs["unquantized"]
+    for name, r in runs.items():
+        print(f"bf16 serving {name}: step "
+              f"{r['median_ms'] / base['median_ms']:.3f} x unquantized, arena bytes per slot "
+              f"{r['arena_bytes_per_slot'] / base['arena_bytes_per_slot']:.4f}"
+              f" x, weight bytes "
+              f"{r['weight_bytes'] / base['weight_bytes']:.4f} x [{card}]")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     results = {}
+    rng = np.random.default_rng(2)
     dt = torch.bfloat16
     esz = 2
-    # decode: layer 0's pools, tables and positions of the run mid-way
-    bt, pos = snap
-    entry = eng.arena.pools[0]
+    slots = 8
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # decode: layer 0's pools, tables and positions of each run mid-way
+    bt, pos = base["snap"]
+    entry = base["entry"]
     q = qkv_split(rng, slots, H, D, dt)[0]
     err = check("paged_decode_attention", dt, "timing shapes",
                 pa.paged_decode_attention(q, entry, bt, pos),
                 pa.paged_decode_attention_ref(q, entry, bt, pos))
     keys = int((pos.long() + 1).sum())
-    nbytes = (2 * keys * H * D * esz + 2 * q.numel() * esz
-              + 4 * int((pos.long() // BS + 1).sum()) + 4 * slots)
+    tables = 4 * int((pos.long() // BS + 1).sum()) + 4 * slots
+    nbytes = 2 * keys * H * D * esz + 2 * q.numel() * esz + tables
     b_ms, b_by = bound(nbytes, 4 * keys * H * D)
     # the yardstick reads only the live keys, as the kernel does
     live = int(pos.max()) + 1
@@ -413,7 +695,6 @@ def serve_bf16(model, pa, serving, card):
     mask = (torch.arange(live, device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     results["paged_decode_attention"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: pa.paged_decode_attention(q, entry, bt, pos),
@@ -423,8 +704,28 @@ def serve_bf16(model, pa, serving, card):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: sdpa(q4, kt, vt, attn_mask=mask), flush))
     del k_all, v_all, kt, vt
+    # int8 decode: the quant_kv run's pools at the same positions
+    bt8, pos8 = runs["quant_kv"]["snap"]
+    entry8 = runs["quant_kv"]["entry"]
+    if not torch.equal(pos8, pos):
+        raise AssertionError("the quant_kv run's positions differ")
+    err = check("paged_decode_attention_int8", dt, "timing shapes",
+                pa.paged_decode_attention(q, entry8, bt8, pos8),
+                pa.paged_decode_attention_ref(q, entry8, bt8, pos8))
+    b_ms, b_by = bound(2 * keys * (H * D + 4) + 2 * q.numel() * esz + tables,
+                       4 * keys * H * D)
+    results["paged_decode_attention_int8"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: pa.paged_decode_attention(q, entry8, bt8, pos8),
+                   flush),
+        plain_ms=time_ms(
+            lambda: pa.paged_decode_attention_ref(q, entry8, bt8, pos8),
+            flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bf16_kernel_ms=results["paged_decode_attention"]["ms"])
+    del runs
     # prefill: a full prefill at the path's 512 bucket
-    sq = plen
+    sq = 512
     q, k, v = qkv_split(rng, sq, H, D, dt)
     err = check("paged_full_prefill_attention", dt, f"sq={sq} timing",
                 pa.paged_full_prefill_attention(q, k, v, BS),
@@ -440,11 +741,46 @@ def serve_bf16(model, pa, serving, card):
             lambda: pa.paged_full_prefill_attention_ref(q, k, v, BS), flush),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush))
+    # int8 prefill: a chunk of 256 at prefix 768 through a permuted table,
+    # beside the bf16 kernel on bf16 pools at the same shape
+    sq, prefix, MB = CHUNK, 768, 128
+    nb = slots * MB + 1
+    entry8 = int8_entry(rng, (nb, BS, H, D))
+    entry = tuple(randn(rng, (nb, BS, H, D), dt) for _ in range(2))
+    bt = torch.as_tensor(rng.permutation(np.arange(1, nb))[:MB],
+                         dtype=torch.int32, device="cuda")
+    q = qkv_split(rng, sq, H, D, dt)[0]
+    tag = f"sq={sq} prefix={prefix} timing"
+    err = check("paged_prefill_attention_int8", dt, tag,
+                pa.paged_prefill_attention(q, entry8, bt, prefix),
+                pa.paged_prefill_attention_ref(q, entry8, bt, prefix))
+    check("paged_prefill_attention", dt, tag,
+          pa.paged_prefill_attention(q, entry, bt, prefix),
+          pa.paged_prefill_attention_ref(q, entry, bt, prefix))
+    keys = prefix + sq
+    pairs = sq * prefix + sq * (sq + 1) // 2
+    b_ms, b_by = bound(2 * keys * (H * D + 4) + 2 * q.numel() * esz
+                       + 4 * (keys // BS) + 4, 4 * H * D * pairs)
+    results["paged_prefill_attention_int8"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: pa.paged_prefill_attention(q, entry8, bt, prefix),
+                   flush),
+        plain_ms=time_ms(
+            lambda: pa.paged_prefill_attention_ref(q, entry8, bt, prefix),
+            flush),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bf16_kernel_ms=time_ms(
+            lambda: pa.paged_prefill_attention(q, entry, bt, prefix), flush))
     for name, r in results.items():
+        lib = (f"sdpa {r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else f"no library call; bf16 kernel {r['bf16_kernel_ms']:.4f} "
+                    "ms at the same shape")
         print(f"time {name} bf16: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms "
-              f"[{card}]")
+              f"{r['plain_ms']:.4f} ms, {lib} [{card}]")
+        if r["library_ms"] is None:
+            r["library_note"] = ("no PyTorch call attends int8 paged K/V "
+                                 "with per-token scales")
     return results
 
 
@@ -493,7 +829,7 @@ def compare_routes(model, loss_fn, x, y, port, what, card):
 
 
 def train_f32(model, arrays, port, card):
-    """Phase 6: the attention weights' gradients of gpt_1p3b (batch 1 x
+    """Phase 8: the attention weights' gradients of gpt_1p3b (batch 1 x
     2048, f32) on the kernel route against the plain route, then three f32
     TrainSteps through the flash kernels (FLAGS_flash_attention_min_seqlen
     =0) and three from the same weights on the plain route (-1: 2048 <
@@ -540,7 +876,7 @@ def train_f32(model, arrays, port, card):
 
 
 def train_bf16(model, arrays, port, card):
-    """Phase 7: the loss and attention weights' gradients of one bf16 (AMP
+    """Phase 9: the loss and attention weights' gradients of one bf16 (AMP
     O1) batch of 1 x 2048 on the kernel route against the plain route; then
     ten bf16 TrainSteps of gpt_1p3b on one fixed batch of BATCH_BF16 x 2048
     through the flash kernels (24 launches of each per step): the loss is
@@ -703,6 +1039,11 @@ def main() -> int:
                       for n in SOURCES) + ")")
     kernel_checks(pa)
     model, launches, arrays = serve_f32(pa, gpt, serving, card)
+    quant_launches = serve_quantized(pa, gpt, serving, arrays, card)
+    torch.cuda.empty_cache()
+    # the int8 rows' launches are phase 5's, the path that runs them
+    for name in PAGED[2:]:
+        launches[name] = quant_launches[name]
     timing = serve_bf16(model, pa, serving, card)
     del model
     torch.cuda.empty_cache()

@@ -62,3 +62,12 @@ define_flag("kv_block_size", 16)
 # Smallest prompt-length bucket for serving prefill: prompts at or below
 # this are padded to it.
 define_flag("serving_prefill_bucket_min", 16)
+# Weight-only int8 serving: the engine quantizes every attention/MLP matmul
+# per output channel at construction (models.gpt.quantize_serving_weights).
+define_flag("serving_quant_weights", 0)
+# Int8 KV arena: int8 K/V pools with float32 per-token-row scale pools,
+# quantized as rows are scattered and dequantized as they are attended.
+define_flag("serving_quant_kv", 0)
+# Chunked prefill: a prompt longer than this many tokens is prefilled one
+# chunk per scheduler step through the slot's block table (0 = off).
+define_flag("serving_chunked_prefill", 0)

@@ -19,8 +19,16 @@ Attention has three routes, as in the JAX package:
 
 ``GPTForCausalLM(ids, labels)`` returns the mean cross-entropy loss over
 the tied head's f32 logits; its gradient flows through the flash kernels'
-backward. The JAX package's recompute, scan-layers and chunked-loss options
-and dropout while training are not ported yet and raise.
+backward.
+
+Serving quantization: :func:`quantize_serving_weights` turns the attention
+and MLP weights into int8 with per-output-channel float32 scales, in place,
+and every such matmul runs through :func:`_serving_linear`, so
+``generate()`` and the serving engine share one numerics contract on a
+quantized model, as in the JAX package.
+
+The JAX package's recompute, scan-layers and chunked-loss options and
+dropout while training are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import amp
+from .. import amp, quantization
 from ..core import device as device_mod
 from ..nn.functional import cross_entropy, scaled_dot_product_attention
 from ..nn.layers import Embedding, LayerNorm, Linear, gelu_tanh
@@ -73,6 +81,58 @@ def gpt_1p3b(**kw) -> GPTConfig:
                      max_position_embeddings=2048, **kw)
 
 
+def quantize_serving_weights(model) -> int:
+    """Per-channel int8 weight-only quantization of every attention and MLP
+    matmul of a :class:`GPTForCausalLM`, in place (the serving engine calls
+    it at construction under ``quant_weights``).
+
+    Each ``qkv``, ``proj``, ``up`` and ``down`` weight ``[in, out]`` becomes
+    an int8 parameter without gradient, quantized per OUTPUT channel by
+    :func:`paddle_tpu_torch.quantization.quantize_weight`, and its float32
+    ``[1, out]`` scale a ``weight_scale`` buffer. No full-precision copy is
+    kept. Embeddings, the tied head and the LayerNorms stay in the compute
+    dtype. Quantize after the model's dtype is set: ``Module.to(dtype)``
+    would cast the scale buffers (:func:`_serving_linear` then raises).
+    Idempotent; returns the number of layers quantized by this call."""
+    n = 0
+    for blk in model.gpt.layers:
+        for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.up, blk.mlp.down):
+            if getattr(lin, "weight_scale", None) is not None:
+                continue
+            with torch.no_grad():
+                qw, scale = quantization.quantize_weight(lin.weight,
+                                                         channel_axis=1)
+            lin.weight = nn.Parameter(qw, requires_grad=False)
+            lin.register_buffer("weight_scale", scale)
+            n += 1
+    return n
+
+
+def _serving_linear(layer, x):
+    """The attention/MLP matmul shared by the quantized and plain paths. An
+    unquantized layer runs its own forward (the default path is unchanged);
+    a layer with a ``weight_scale`` computes ``x @ ((int8 weight * scale)
+    cast to x's dtype) + bias``, the JAX package's dequant-then-matmul."""
+    scale = getattr(layer, "weight_scale", None)
+    if scale is None:
+        return layer(x)
+    if scale.dtype != torch.float32:
+        raise TypeError(f"weight_scale is {scale.dtype}, not float32: the "
+                        "model's dtype was changed after quantization")
+    w = (layer.weight.float() * scale).to(x.dtype)
+    y = torch.matmul(x, w)
+    return y + layer.bias.to(y.dtype)
+
+
+def serving_compute_dtype(model) -> torch.dtype:
+    """The activation and KV dtype of a :class:`GPTForCausalLM` or bare
+    :class:`GPTModel`: the attention weights' dtype, or the token
+    embedding's (never quantized) once those weights are int8."""
+    gpt = getattr(model, "gpt", model)
+    dtype = gpt.layers[0].attn.qkv.weight.dtype
+    return gpt.wte.weight.dtype if dtype == torch.int8 else dtype
+
+
 def masked_attention(qa, ka, va, mask):
     """Core cached attention: ``qa`` ``[b, s, heads, dim]`` against an
     already updated K/V ``[b, kv_len, heads, dim]`` under a boolean ``mask``
@@ -109,13 +169,14 @@ class GPTAttention(nn.Module):
 
     def forward(self, x, cache=None, start_pos=0):
         b, s, h = x.shape
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        qkv = _serving_linear(self.qkv, x).reshape(b, s, 3, self.num_heads,
+                                                   self.head_dim)
         q, k, v = qkv.unbind(2)
         if cache is not None and hasattr(cache, "update_and_attend"):
             # the cache object owns its storage (the serving engine's paged
             # arena): it absorbs this chunk's k/v and attends q against it
             o, new_cache = cache.update_and_attend(q, k, v)
-            return self.proj(o.reshape(b, s, h)), new_cache
+            return _serving_linear(self.proj, o.reshape(b, s, h)), new_cache
         if cache is not None:
             # contiguous [b, max_len, heads, dim] buffers, written in place
             # at start_pos; attend over positions <= the query's position
@@ -126,10 +187,11 @@ class GPTAttention(nn.Module):
             j = torch.arange(k_buf.shape[1], device=x.device)[None, :]
             i = pos + torch.arange(s, device=x.device)[:, None]
             o = masked_attention(q, k_buf, v_buf, (j <= i)[None, None])
-            return self.proj(o.reshape(b, s, h)), (k_buf, v_buf)
+            return _serving_linear(self.proj, o.reshape(b, s, h)), (k_buf,
+                                                                    v_buf)
         o = causal_attention(q, k, v, dropout_p=self.dropout,
                              training=self.training)
-        return self.proj(o.reshape(b, s, h))
+        return _serving_linear(self.proj, o.reshape(b, s, h))
 
 
 class GPTMLP(nn.Module):
@@ -140,7 +202,8 @@ class GPTMLP(nn.Module):
                            device=device)
 
     def forward(self, x):
-        return self.down(gelu_tanh(self.up(x)))
+        return _serving_linear(self.down,
+                               gelu_tanh(_serving_linear(self.up, x)))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -179,12 +242,12 @@ class GPTModel(nn.Module):
 
     def gen_kv_caches(self, batch: int, max_len: int):
         """Per-layer contiguous ``(k, v)`` buffers ``[b, max_len, heads,
-        dim]`` in the model's dtype, for incremental decoding."""
-        w = self.wte.weight
+        dim]`` in the compute dtype, for incremental decoding."""
+        dtype, dev = serving_compute_dtype(self), self.wte.weight.device
         shape = (batch, max_len, self.cfg.num_heads,
                  self.cfg.hidden_size // self.cfg.num_heads)
-        return [(torch.zeros(shape, dtype=w.dtype, device=w.device),
-                 torch.zeros(shape, dtype=w.dtype, device=w.device))
+        return [(torch.zeros(shape, dtype=dtype, device=dev),
+                 torch.zeros(shape, dtype=dtype, device=dev))
                 for _ in self.layers]
 
     def forward(self, input_ids, caches=None, start_pos=0):

@@ -27,7 +27,16 @@ kernels read each needed K/V row once per thread block and never read a
 block past the position (see the source for the design).
 
 The K/V pools are updated in place by the engine, so these functions only
-read them. int8 pools (a 4-tuple entry) are not ported yet and raise.
+read them. A pool entry is ``(k, v)`` in q's dtype or, from an int8 arena,
+``(k, v, k_scale, v_scale)``: int8 payloads with float32 ``[num_blocks,
+block_size]`` per-token-row scales. The int8 entry launches the int8
+instances of both kernels (``paged_*_attention_int8_launch``, counted
+apart), which dequantize each element as they load it: the float32
+product of payload and scale, rounded once to q's dtype
+(:func:`paddle_tpu_torch.quantization.dequantize_kv`). The plain versions
+dequantize the gathered context the same way.
+:func:`paged_full_prefill_attention` reads the chunk's own full-precision
+K/V, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,14 +47,18 @@ import torch
 import torch.nn.functional as F
 
 from ..models.gpt import masked_attention
+from ..quantization import dequantize_kv
 
 __all__ = ["paged_decode_attention", "paged_prefill_attention",
            "paged_full_prefill_attention", "paged_decode_attention_ref",
            "paged_prefill_attention_ref", "paged_full_prefill_attention_ref",
            "launches", "reset_launches", "load_kernels"]
 
-#: kernel launches, one per launch of each CUDA kernel
-launches = {"paged_decode_attention": 0, "paged_prefill_attention": 0}
+#: kernel launches, one per launch of each CUDA kernel (``_int8``: the
+#: variants over an int8 arena)
+launches = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
+            "paged_decode_attention_int8": 0,
+            "paged_prefill_attention_int8": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -66,22 +79,38 @@ def load_kernels() -> ctypes.CDLL:
         lib = library("paged_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         i64 = ctypes.c_longlong
-        argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                    i32, i32, i32, i32, i32, i64, i64, ctypes.c_float, ptr]
-        for fn in (lib.paged_decode_attention_launch,
-                   lib.paged_prefill_attention_launch):
-            fn.argtypes = argtypes
+        tail = [i32, i32, i32, i32, i32, i64, i64, ctypes.c_float, ptr]
+        # dtype, q, k, v[, k_scale, v_scale], table, positions/prefix, out
+        for fn, n_ptr in ((lib.paged_decode_attention_launch, 6),
+                          (lib.paged_prefill_attention_launch, 6),
+                          (lib.paged_decode_attention_int8_launch, 8),
+                          (lib.paged_prefill_attention_int8_launch, 8)):
+            fn.argtypes = [i32] + [ptr] * n_ptr + tail
             fn.restype = i32
         _lib = lib
     return _lib
 
 
-def _unsupported_entry(entry) -> None:
-    if len(entry) == 4:
-        raise NotImplementedError(
-            "int8 KV pools (k, v, k_scale, v_scale) are not ported yet")
-    if len(entry) != 2:
-        raise ValueError(f"pool entry must be (k, v), got {len(entry)} arrays")
+def _entry_scales(entry) -> tuple:
+    """Check a pool entry's structure; returns its scale pools (``()`` for a
+    full-precision ``(k, v)`` entry)."""
+    if len(entry) == 2:
+        if entry[0].dtype == torch.int8 or entry[1].dtype == torch.int8:
+            raise TypeError("int8 pools need their scale pools: (k, v, "
+                            "k_scale, v_scale)")
+        return ()
+    if len(entry) != 4:
+        raise ValueError(f"pool entry must be (k, v) or (k, v, k_scale, "
+                         f"v_scale), got {len(entry)} arrays")
+    kp, vp, ks, vs = entry
+    if kp.dtype != torch.int8 or vp.dtype != torch.int8:
+        raise TypeError(f"quantized pools must be int8, got {kp.dtype}/"
+                        f"{vp.dtype}")
+    for t in (ks, vs):
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(kp.shape[:2]):
+            raise TypeError(f"scale pools must be float32 {tuple(kp.shape[:2])}"
+                            f", got {t.dtype} {tuple(t.shape)}")
+    return ks, vs
 
 
 def _row_stride(t, H, D) -> int:
@@ -95,21 +124,26 @@ def _row_stride(t, H, D) -> int:
     return t.stride(-3)
 
 
-def _launch(fn, q, kp, vp, table, scalars, bs, MB):
+def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=()):
     """Check what the CUDA kernels take, launch ``fn`` on the current
     stream and return the dense output. ``kp``/``vp`` are pools ``[NB, bs,
-    H, D]`` or, for a full prefill, the chunk's own ``[sq, H, D]`` k/v."""
+    H, D]`` or, for a full prefill, the chunk's own ``[sq, H, D]`` k/v;
+    ``scales`` the int8 pools' dense float32 ``[NB, bs]`` scale pools."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    if kp.dtype != q.dtype or vp.dtype != q.dtype:
-        raise TypeError(f"q {q.dtype} and pools {kp.dtype}/{vp.dtype} differ")
+    pool_dtype = torch.int8 if scales else q.dtype
+    if kp.dtype != pool_dtype or vp.dtype != pool_dtype:
+        raise TypeError(f"q {q.dtype} takes {pool_dtype} pools, got "
+                        f"{kp.dtype}/{vp.dtype}")
+    if not all(t.is_contiguous() for t in scales):
+        raise ValueError("scale pools must be dense")
     if q.dim() != 3:
         raise ValueError(f"q must be [rows, H, D], got {tuple(q.shape)}")
     rows, H, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not supported; use one of {HEAD_DIMS}")
-    for t in (q, kp, vp, table, scalars):
+    for t in (q, kp, vp, table, scalars) + tuple(scales):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("every operand must lie on q's CUDA device")
     for t in (table, scalars):
@@ -123,26 +157,49 @@ def _launch(fn, q, kp, vp, table, scalars, bs, MB):
                          f"{tuple(vp.shape)} {vp.stride()} differ")
     if kp.dim() == 4 and kp.stride(0) != bs * kv_stride:
         raise ValueError(f"pool blocks {kp.stride()} are not dense")
+    if scales and (kp.data_ptr() % 4 or vp.data_ptr() % 4):
+        # each lane loads its int8 elements of a row as one word
+        raise ValueError("int8 pools must start on a 4-byte boundary")
     out = torch.empty((rows, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
-            vp.data_ptr(), table.data_ptr(), scalars.data_ptr(),
-            out.data_ptr(), rows, H, D, bs, MB, q_stride, kv_stride,
-            1.0 / math.sqrt(D), stream)
+            vp.data_ptr(), *(t.data_ptr() for t in scales),
+            table.data_ptr(), scalars.data_ptr(), out.data_ptr(), rows, H, D,
+            bs, MB, q_stride, kv_stride, 1.0 / math.sqrt(D), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
     return out
 
 
-def _gather_ctx(entry, table):
+def _gather_ctx(entry, table, dtype=None):
     """A block table's logical context from one pool entry: ``table``
     ``[..., max_blocks]`` int returns ``(k_all, v_all)`` shaped
-    ``[..., max_blocks * block_size, heads, dim]`` (full precision only).
+    ``[..., max_blocks * block_size, heads, dim]``. An int8 entry is
+    dequantized to ``dtype`` through its per-row scales, one table row
+    (lane) at a time when ``dtype`` is narrower than float32, so the float32
+    intermediate is one lane's context; the values are the same either way.
     The plain versions read the pools through it; its JAX counterpart is
     ``paddle_tpu/serving/engine.py:_gather_ctx``."""
-    kp, vp = entry
-    k_all = kp[table.long()]
-    v_all = vp[table.long()]  # [..., mb, bs, H, D]
+    kp, vp = entry[0], entry[1]
+    idx = table.long()
+    if len(entry) == 4:
+        ks, vs = entry[2], entry[3]
+        if dtype.itemsize >= 4:
+            k_all = dequantize_kv(kp[idx], ks[idx], dtype)
+            v_all = dequantize_kv(vp[idx], vs[idx], dtype)
+        else:
+            k_all = torch.empty(idx.shape + kp.shape[1:], dtype=dtype,
+                                device=kp.device)
+            v_all = torch.empty_like(k_all)
+            lanes = idx.reshape(-1, idx.shape[-1])
+            kl = k_all.view(-1, *k_all.shape[-4:])
+            vl = v_all.view(-1, *v_all.shape[-4:])
+            for i, row in enumerate(lanes):
+                kl[i] = dequantize_kv(kp[row], ks[row], dtype)
+                vl[i] = dequantize_kv(vp[row], vs[row], dtype)
+    else:
+        k_all = kp[idx]
+        v_all = vp[idx]  # [..., mb, bs, H, D]
     shp = k_all.shape
     out_shape = shp[:-4] + (shp[-4] * shp[-3],) + shp[-2:]
     return k_all.reshape(out_shape), v_all.reshape(out_shape)
@@ -155,12 +212,13 @@ def paged_decode_attention(q, entry, block_tables, positions):
     """Decode attention through the block tables.
 
     ``q`` ``[S, H, D]`` (each slot's new token); ``entry`` one layer's
-    ``(k, v)`` pools ``[num_blocks, block_size, H, D]``; ``block_tables``
-    ``[S, MB]`` int32; ``positions`` ``[S]`` int32 (the new token's write
-    position: keys at global index ``<= positions[s]`` are attended).
-    Returns ``[S, H, D]`` in ``q.dtype``."""
-    _unsupported_entry(entry)
-    kp, vp = entry
+    ``(k, v)`` pools ``[num_blocks, block_size, H, D]`` or int8 ``(k, v,
+    k_scale, v_scale)``; ``block_tables`` ``[S, MB]`` int32; ``positions``
+    ``[S]`` int32 (the new token's write position: keys at global index
+    ``<= positions[s]`` are attended). Returns ``[S, H, D]`` in
+    ``q.dtype``."""
+    scales = _entry_scales(entry)
+    kp, vp = entry[0], entry[1]
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, entry, block_tables, positions)
     S, MB = block_tables.shape
@@ -168,9 +226,10 @@ def paged_decode_attention(q, entry, block_tables, positions):
         raise ValueError(f"q {tuple(q.shape)}, pools {tuple(kp.shape)}, "
                          f"tables {tuple(block_tables.shape)} and positions "
                          f"{tuple(positions.shape)} disagree")
-    out = _launch(load_kernels().paged_decode_attention_launch, q, kp, vp,
-                  block_tables, positions, kp.shape[1], MB)
-    launches["paged_decode_attention"] += 1
+    name = "paged_decode_attention" + ("_int8" if scales else "")
+    out = _launch(getattr(load_kernels(), name + "_launch"), q, kp, vp,
+                  block_tables, positions, kp.shape[1], MB, scales)
+    launches[name] += 1
     return out
 
 
@@ -179,7 +238,7 @@ def paged_decode_attention_ref(q, entry, block_tables, positions):
     ``masked_attention`` under the position mask (the JAX engine's gather
     route)."""
     t_len = block_tables.shape[1] * entry[0].shape[1]
-    k_all, v_all = _gather_ctx(entry, block_tables)
+    k_all, v_all = _gather_ctx(entry, block_tables, q.dtype)
     keys = torch.arange(t_len, device=q.device)
     mask = (keys[None, :] <= positions.long()[:, None])[:, None, None, :]
     return masked_attention(q[:, None], k_all, v_all, mask)[:, 0]
@@ -200,23 +259,25 @@ def paged_prefill_attention(q, entry, bt_row, prefix_len):
     ``q`` ``[sq, H, D]``; ``bt_row`` ``[MB]`` int32; ``prefix_len`` an int or
     an int32 device scalar: query ``i`` attends keys at global index
     ``<= prefix_len + i``. The chunk's own K/V must already be in the pools.
-    Returns ``[sq, H, D]``; padded query rows give finite values the caller
-    discards."""
-    _unsupported_entry(entry)
-    kp, vp = entry
+    ``entry`` is ``(k, v)`` or int8 ``(k, v, k_scale, v_scale)`` as for
+    :func:`paged_decode_attention`. Returns ``[sq, H, D]``; padded query
+    rows give finite values the caller discards."""
+    scales = _entry_scales(entry)
+    kp, vp = entry[0], entry[1]
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, entry, bt_row, prefix_len)
     if bt_row.dim() != 1 or kp.dim() != 4:
         raise ValueError(f"bt_row {tuple(bt_row.shape)} must be [MB] and the "
                          f"pools {tuple(kp.shape)} [NB, bs, H, D]")
     return _prefill(q, kp, vp, bt_row, _prefix_tensor(prefix_len, q.device),
-                    kp.shape[1])
+                    kp.shape[1], scales)
 
 
-def _prefill(q, kp, vp, bt_row, prefix, bs):
-    out = _launch(load_kernels().paged_prefill_attention_launch, q, kp, vp,
-                  bt_row, prefix, bs, bt_row.shape[0])
-    launches["paged_prefill_attention"] += 1
+def _prefill(q, kp, vp, bt_row, prefix, bs, scales=()):
+    name = "paged_prefill_attention" + ("_int8" if scales else "")
+    out = _launch(getattr(load_kernels(), name + "_launch"), q, kp, vp,
+                  bt_row, prefix, bs, bt_row.shape[0], scales)
+    launches[name] += 1
     return out
 
 
@@ -224,7 +285,7 @@ def paged_prefill_attention_ref(q, entry, bt_row, prefix_len):
     """Plain version: gather the slot's context, then ``masked_attention``
     under the global-position causal mask."""
     t_len = bt_row.shape[0] * entry[0].shape[1]
-    k_all, v_all = _gather_ctx(entry, bt_row)
+    k_all, v_all = _gather_ctx(entry, bt_row, q.dtype)
     prefix = torch.as_tensor(prefix_len, device=q.device).long().reshape(())
     gpos = prefix + torch.arange(q.shape[0], device=q.device)
     keys = torch.arange(t_len, device=q.device)

@@ -1,5 +1,6 @@
-"""Continuous-batching serving over the paged KV arena (this slice: greedy
-decoding through the slot engine, FCFS scheduling and ``ServingAPI``)."""
+"""Continuous-batching serving over the paged KV arena: greedy decoding
+through the slot engine, FCFS scheduling with chunked prefill, int8 weights
+and an int8 arena on request, and ``ServingAPI``."""
 from . import metrics
 from .api import ServingAPI
 from .engine import ServingConfig, ServingEngine

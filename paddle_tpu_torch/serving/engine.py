@@ -16,10 +16,24 @@ kernels on the card, their plain PyTorch versions on the CPU. There is no
 switch between the two on the card; :meth:`ServingEngine.kernel_route`
 reports the route.
 
+Quantized serving (``ServingConfig.quant_weights`` / ``quant_kv``, or
+``FLAGS_serving_quant_weights`` / ``FLAGS_serving_quant_kv``, both off by
+default) and chunked prefill (``chunked_prefill`` /
+``FLAGS_serving_chunked_prefill``) are captured once at construction. With
+``quant_weights`` the model's attention and MLP weights become int8 with
+per-channel scales (``models.gpt.quantize_serving_weights``); with
+``quant_kv`` the arena holds int8 K/V with per-token-row scales, quantized
+as rows are scattered (:func:`_scatter_rows`) and dequantized as they are
+read (the int8 paged kernels). A prompt longer than the chunk size is
+admitted by :meth:`ServingEngine.admit_begin` and prefilled one chunk per
+:meth:`ServingEngine.admit_chunk` through the slot's block table
+(:class:`_PrefixPrefillView`): running streams go on decoding between
+chunks.
+
 PyTorch runs eagerly: the prefill and decode step run their ops directly
 (no compiled program, no CUDA graph yet) and the K/V pools are updated in
-place. The prefix cache, chunked prefill, preemption, speculation, LoRA,
-quantized serving, tiering and the supervisor are later slices.
+place. The prefix cache, preemption, speculation, LoRA, tiering and the
+supervisor are later slices.
 """
 from __future__ import annotations
 
@@ -31,8 +45,11 @@ import torch
 
 from ..core import compile_cache, flags
 from ..core import device as device_mod
+from ..models.gpt import quantize_serving_weights, serving_compute_dtype
 from ..ops.paged_attention import (paged_decode_attention,
-                                   paged_full_prefill_attention)
+                                   paged_full_prefill_attention,
+                                   paged_prefill_attention)
+from ..quantization import quantize_kv
 from . import metrics
 from .kv_arena import KVArena, Reservation
 from .sampling import check_supported, sample_tokens
@@ -43,11 +60,20 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def _scatter_rows(entry, row, off, kc, vc) -> None:
-    """Write one chunk's k/v rows ``[n, H, D]`` at ``(row, off)`` of a
-    ``(k, v)`` pool entry, in place (full precision only)."""
-    kp, vp = entry
-    kp.index_put_((row, off), kc)
-    vp.index_put_((row, off), vc)
+    """Write one chunk's k/v rows ``[n, H, D]`` at ``(row, off)`` of a pool
+    entry, in place. An int8 ``(k, v, k_scale, v_scale)`` entry quantizes
+    each token row (:func:`paddle_tpu_torch.quantization.quantize_kv`) and
+    writes its scale at the same ``(row, off)``."""
+    if len(entry) == 2:
+        kp, vp = entry
+        kp.index_put_((row, off), kc)
+        vp.index_put_((row, off), vc)
+        return
+    kp, vp, ks, vs = entry
+    for pool, scales, x in ((kp, ks, kc), (vp, vs, vc)):
+        q, scale = quantize_kv(x)
+        pool.index_put_((row, off), q)
+        scales.index_put_((row, off), scale)
 
 
 class _PagedCacheView:
@@ -86,31 +112,64 @@ class _CapturePrefillView:
         return o[None], (k, v)
 
 
+class _PrefixPrefillView:
+    """One layer's view for a prefill over a slot whose first
+    ``prefix_len`` positions are already in the arena (one chunk of a
+    chunked admission): scatter the chunk's k/v at global positions
+    ``prefix_len + i`` through the slot's table -- padded rows go to
+    scratch block 0, rows and offsets computed by the engine on the host --
+    then attend its queries through the paged prefill wrapper, which reads
+    the resident prefix and the chunk through the table. ``prefix_len`` is
+    an int32 device scalar: runtime data to the kernel."""
+
+    def __init__(self, entry, bt_row, prefix_len, rows, offs):
+        self.entry = entry
+        self.bt_row = bt_row          # [max_blocks] int32: the slot's table
+        self.prefix_len = prefix_len  # int32 device scalar
+        self.rows = rows              # [bucket] int64 physical write block
+        self.offs = offs              # [bucket] int64 offset in that block
+
+    def update_and_attend(self, q, k, v):
+        _scatter_rows(self.entry, self.rows, self.offs, k[0], v[0])
+        o = paged_prefill_attention(q[0], self.entry, self.bt_row,
+                                    self.prefix_len)
+        return o[None], self
+
+
 @dataclass
 class ServingConfig:
-    """Engine sizing. Zeros defer to flags / the model config:
-    ``num_slots`` -> ``FLAGS_serving_slots``, ``kv_block_size`` ->
+    """Engine sizing and modes. Zeros and None defer to flags / the model
+    config: ``num_slots`` -> ``FLAGS_serving_slots``, ``kv_block_size`` ->
     ``FLAGS_kv_block_size``, ``max_model_len`` ->
     ``cfg.max_position_embeddings``, ``num_blocks`` -> one full-length
     context per slot (+ scratch), ``prefill_bucket_min`` ->
-    ``FLAGS_serving_prefill_bucket_min``."""
+    ``FLAGS_serving_prefill_bucket_min``, ``quant_weights`` ->
+    ``FLAGS_serving_quant_weights`` (int8 weight-only matmuls; quantizes
+    the model in place), ``quant_kv`` -> ``FLAGS_serving_quant_kv`` (int8
+    KV arena), ``chunked_prefill`` -> ``FLAGS_serving_chunked_prefill``
+    (chunk size in tokens, 0 = off)."""
 
     num_slots: int = 0
     kv_block_size: int = 0
     max_model_len: int = 0
     num_blocks: int = 0
     prefill_bucket_min: int = 0
+    quant_weights: Optional[bool] = None
+    quant_kv: Optional[bool] = None
+    chunked_prefill: Optional[int] = None
 
 
 @dataclass
 class _AdmitState:
     """What an admission carries from its setup (slot and blocks claimed)
-    to its finish (first token emitted, slot active)."""
+    to its finish (first token emitted, slot active): the unit of progress
+    of a chunked prefill."""
 
     slot: int
     prompt: np.ndarray
     plen: int
     res: Reservation
+    done: int = 0  # prompt positions already scattered (chunk progress)
 
 
 class ServingEngine:
@@ -128,6 +187,15 @@ class ServingEngine:
                              f"was asked to run on {self.device}")
         self._model = model.eval()
         mcfg = model.cfg
+
+        def mode(value, name):
+            return flags.flag(name) if value is None else value
+
+        self.quant_weights = bool(mode(cfg.quant_weights,
+                                       "serving_quant_weights"))
+        self.quant_kv = bool(mode(cfg.quant_kv, "serving_quant_kv"))
+        self.chunk_size = int(mode(cfg.chunked_prefill,
+                                   "serving_chunked_prefill"))
         self.num_slots = int(cfg.num_slots or flags.flag("serving_slots"))
         self.block_size = int(cfg.kv_block_size or flags.flag("kv_block_size"))
         self.max_model_len = int(cfg.max_model_len
@@ -140,10 +208,16 @@ class ServingEngine:
                          or self.num_slots * self.blocks_per_slot + 1)
         self.prefill_bucket_min = int(
             cfg.prefill_bucket_min or flags.flag("serving_prefill_bucket_min"))
+        if self.quant_weights:
+            # in place and idempotent: engines may share one model
+            n = quantize_serving_weights(model)
+            if n:
+                metrics.bump("quant.weight_layers", n)
         self.arena = KVArena(mcfg.num_layers, mcfg.num_heads,
                              mcfg.hidden_size // mcfg.num_heads, num_blocks,
-                             self.block_size, dtype=weight.dtype,
-                             device=self.device)
+                             self.block_size,
+                             dtype=serving_compute_dtype(model),
+                             quantized=self.quant_kv, device=self.device)
 
         s = self.num_slots
         self._bt_host = np.zeros((s, self.blocks_per_slot), np.int32)
@@ -154,11 +228,14 @@ class ServingEngine:
         self._occupied = np.zeros(s, np.bool_)
         self._slot_res: List[Optional[Reservation]] = [None] * s
         self._slot_filled = np.zeros(s, np.int32)
+        self._chunk = {}  # slot -> _AdmitState of a chunked prefill
         # lifetime counts of this engine's model calls (each runs every
         # layer's attention once): what the kernel launch counters are
-        # held against
+        # held against -- decode steps, whole-prompt prefills, and chunks
+        # of chunked prefills
         self.decode_steps = 0
         self.prefills = 0
+        self.prefill_chunks = 0
         self._meter = metrics.Meter()
         metrics.set_gauge("slots.total", s)
         self._refresh_gauges()
@@ -205,12 +282,58 @@ class ServingEngine:
         next_token)``: the first token comes out of the prefill itself.
         Raises if there is no capacity; callers gate on :meth:`can_admit`."""
         st = self._admit_setup(prompt, max_new_tokens, sampling)
+        return st.slot, self._admit_prefill_all(st)
+
+    def admit_begin(self, prompt, max_new_tokens: int,
+                    sampling=None) -> Tuple[int, Optional[int]]:
+        """Chunked admission: claim a slot and its blocks now, prefill
+        incrementally. Returns ``(slot, first_token)`` when the prompt fits
+        one chunk (as :meth:`admit`), else ``(slot, None)`` with the prefill
+        in progress: the scheduler then calls :meth:`admit_chunk` once per
+        step until the first token appears. Until then the slot is occupied
+        (its blocks are held) but not active (the decode step masks it)."""
+        st = self._admit_setup(prompt, max_new_tokens, sampling)
+        if self.chunk_size <= 0 or st.plen <= self.chunk_size:
+            return st.slot, self._admit_prefill_all(st)
+        self._chunk[st.slot] = st
+        metrics.bump("chunk.admits")
+        self._refresh_gauges()
+        return st.slot, None
+
+    def admit_chunk(self, slot: int) -> Optional[int]:
+        """Prefill the next chunk (at most ``chunk_size`` tokens) of the
+        slot's chunked admission. Returns the first generated token once the
+        whole prompt is scattered (the last chunk's last-position logits),
+        else None. A failed chunk unwinds the admission and raises."""
+        st = self._chunk.get(slot)
+        if st is None:
+            raise RuntimeError(f"slot {slot} has no chunked prefill in "
+                               "progress")
+        take = min(self.chunk_size, st.plen - st.done)
+        try:
+            nxt = self._suffix_prefill_call(st.prompt, st.done + take,
+                                            st.done, slot)
+        except BaseException:
+            self._chunk.pop(slot, None)
+            self._admit_abort(st)
+            raise
+        st.done += take
+        metrics.bump("chunk.chunks")
+        metrics.bump("chunk.tokens", take)
+        if st.done < st.plen:
+            return None
+        self._chunk.pop(slot, None)
+        return self._admit_finish(st, nxt)
+
+    def _admit_prefill_all(self, st: _AdmitState) -> int:
+        """The one-call prefill of a whole prompt; unwinds the admission on
+        failure."""
         try:
             first = self._full_prefill_call(st.prompt, st.plen, st.res)
         except BaseException:
             self._admit_abort(st)
             raise
-        return st.slot, self._admit_finish(st, first)
+        return self._admit_finish(st, first)
 
     def _admit_setup(self, prompt, max_new_tokens: int,
                      sampling=None) -> _AdmitState:
@@ -293,12 +416,51 @@ class ServingEngine:
         metrics.bump("tokens.prefill_padding", p_bucket - clen)
         return nxt
 
+    @torch.no_grad()
+    def _suffix_prefill_call(self, ctx: np.ndarray, clen: int,
+                             prefix_len: int, slot: int) -> int:
+        """Prefill ``ctx[prefix_len:clen]``, padded to its bucket, attending
+        the first ``prefix_len`` positions through the slot's (already
+        filled) table instead of recomputing them; returns the token after
+        position ``clen - 1``. The chunk's k/v is scattered before it is
+        attended; padded rows scatter to scratch block 0."""
+        bs = self.block_size
+        slen = clen - prefix_len
+        s_bucket = compile_cache.prefill_bucket(slen, self.max_model_len,
+                                                self.prefill_bucket_min)
+        # padded rows only: keep every row's position inside the model's
+        # position table (an embedding lookup past it would fault)
+        s_bucket = min(s_bucket,
+                       self._model.cfg.max_position_embeddings - prefix_len)
+        ids = np.zeros((1, s_bucket), np.int64)
+        ids[0, :slen] = ctx[prefix_len:clen]
+        table = self._bt_host[slot]
+        p_idx = np.arange(s_bucket)
+        gpos = prefix_len + p_idx
+        row = np.where(p_idx < slen,
+                       table[np.minimum(gpos // bs, table.shape[0] - 1)], 0)
+        dev = self.device
+        bt_row = torch.as_tensor(table, device=dev)
+        prefix = torch.tensor(prefix_len, dtype=torch.int32, device=dev)
+        row_t = torch.as_tensor(row.astype(np.int64), device=dev)
+        off_t = torch.as_tensor(gpos % bs, device=dev)
+        model = self._model
+        views = [_PrefixPrefillView(entry, bt_row, prefix, row_t, off_t)
+                 for entry in self.arena.pools]
+        h, _ = model.gpt(torch.as_tensor(ids, device=dev), caches=views,
+                         start_pos=prefix)
+        nxt = int(sample_tokens(model._head_logits(h[:, slen - 1]))[0])
+        self.prefill_chunks += 1
+        compile_cache.bump(f"serving.suffix_prefill_bucket.{s_bucket}")
+        return nxt
+
     def retire(self, slot: int) -> None:
         """Free a slot: deactivate its lane and return its blocks."""
         if not self._occupied[slot]:
             return
         self._occupied[slot] = False
         self._active[slot] = False
+        self._chunk.pop(slot, None)  # a chunked prefill still in progress
         res = self._slot_res[slot]
         self._slot_res[slot] = None
         if res is not None:
@@ -382,10 +544,14 @@ class ServingEngine:
         metrics.set_gauge("arena.high_water", a["high_water"])
 
     def stats(self) -> dict:
+        layers = [m for m in self._model.modules()
+                  if getattr(m, "weight_scale", None) is not None]
         out = {"slots.total": self.num_slots,
                "slots.active": self.active_slots(),
                "decode_steps": self.decode_steps,
                "prefills": self.prefills,
+               "prefill_chunks": self.prefill_chunks,
+               "quant.weight_layers": len(layers),
                "kernel.route": self.kernel_route(),
                "device": str(self.device)}
         out.update({f"arena.{k}": v for k, v in self.arena.stats().items()})

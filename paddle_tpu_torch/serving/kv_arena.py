@@ -2,9 +2,11 @@
 ``paddle_tpu/serving/kv_arena.py``).
 
 One arena per layer, ``k_pool, v_pool : [num_blocks, block_size, num_heads,
-head_dim]`` on the engine's device. A request's cache is a block table of
-physical block ids taken from a LIFO free list as its context grows and
-returned at retire. **Physical block 0 is the scratch sink**: masked writes
+head_dim]`` on the engine's device; with ``quantized=True`` each layer's
+entry is int8 ``(k, v, k_scale, v_scale)`` with float32 ``[num_blocks,
+block_size]`` scale pools, one scale per token row. A request's cache is a
+block table of physical block ids taken from a LIFO free list as its
+context grows and returned at retire. **Physical block 0 is the scratch sink**: masked writes
 of inactive lanes and padded prefill positions land there, so one decode
 step serves any admit/retire pattern.
 
@@ -78,7 +80,8 @@ class KVArena:
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: Optional[int] = None,
-                 dtype=torch.float32, device=device_mod.DEFAULT_DEVICE):
+                 dtype=torch.float32, quantized: bool = False,
+                 device=device_mod.DEFAULT_DEVICE):
         self.block_size = int(block_size or flags.flag("kv_block_size"))
         if self.block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
@@ -86,14 +89,14 @@ class KVArena:
             raise ValueError("need >= 2 blocks (block 0 is the scratch sink)")
         self.num_blocks = int(num_blocks)
         self.num_layers = int(num_layers)
+        # `dtype` is the compute dtype; with `quantized` the payload is int8
         self.dtype = dtype
+        self.quantized = bool(quantized)
         self.device = device_mod.resolve(device)
         shape = (self.num_blocks, self.block_size, int(num_heads),
                  int(head_dim))
-        self._pools: List[Tuple[torch.Tensor, torch.Tensor]] = [
-            (torch.zeros(shape, dtype=dtype, device=self.device),
-             torch.zeros(shape, dtype=dtype, device=self.device))
-            for _ in range(self.num_layers)]
+        self._pools: List[Tuple[torch.Tensor, ...]] = [
+            self._fresh_entry(shape) for _ in range(self.num_layers)]
         # LIFO: churn re-takes the most recently freed blocks
         self._free: List[int] = list(range(1, self.num_blocks))
         self._reserved = 0
@@ -101,20 +104,34 @@ class KVArena:
         self._high_water = 0
         self._refs: List[int] = [0] * self.num_blocks
 
+    def _fresh_entry(self, shape) -> Tuple[torch.Tensor, ...]:
+        """One layer's zeroed entry: ``(k, v)`` in the compute dtype, or
+        int8 ``(k, v, k_scale, v_scale)``."""
+        if not self.quantized:
+            return tuple(torch.zeros(shape, dtype=self.dtype,
+                                     device=self.device) for _ in range(2))
+        return (tuple(torch.zeros(shape, dtype=torch.int8, device=self.device)
+                      for _ in range(2))
+                + tuple(torch.zeros(shape[:2], dtype=torch.float32,
+                                    device=self.device) for _ in range(2)))
+
     @property
-    def pools(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    def pools(self) -> List[Tuple[torch.Tensor, ...]]:
         return self._pools
 
     def kernel_layout(self) -> dict:
         """The layout contract the paged kernels
         (:mod:`paddle_tpu_torch.ops.paged_attention`) read: per-layer
         ``(k, v)`` pools ``[num_blocks, block_size, heads, head_dim]`` in the
-        compute dtype; int32 block tables index pool axis 0 and row 0 is the
+        compute dtype, or int8 ``(k, v, k_scale, v_scale)`` with float32
+        ``[num_blocks, block_size]`` scale pools; int32 block tables index
+        pool axis 0 and row 0 is the
         scratch sink, so a kernel may read any table entry (garbage rows are
         masked by position, never out of bounds); tables, positions and
         prefix lengths are runtime data on the device."""
         return {"num_blocks": self.num_blocks,
                 "block_size": self.block_size,
+                "quantized": self.quantized,
                 "dtype": str(self.dtype).replace("torch.", ""),
                 "scratch_block": 0,
                 "device": str(self.device)}
@@ -184,7 +201,22 @@ class KVArena:
     def check_invariants(self, tables=None) -> None:
         """Audit the refcount layer: free blocks are refcount zero and
         unique, and ``tables`` (per-slot block-id lists of occupied slots)
-        reference each block exactly ``refcount`` times."""
+        reference each block exactly ``refcount`` times. Every pool entry
+        must have the arena's structure: 4 arrays with ``[num_blocks,
+        block_size]`` float32 scale pools when quantized, else 2."""
+        want = 4 if self.quantized else 2
+        for li, entry in enumerate(self._pools):
+            if len(entry) != want:
+                raise RuntimeError(
+                    f"invariant violated: pool entry {li} has {len(entry)} "
+                    f"arrays (expected {want}): a quantized pool without its "
+                    "scales")
+            if self.quantized and any(
+                    tuple(t.shape) != (self.num_blocks, self.block_size)
+                    or t.dtype != torch.float32 for t in entry[2:]):
+                raise RuntimeError(
+                    f"invariant violated: scale pools of entry {li} are not "
+                    f"float32 {(self.num_blocks, self.block_size)}")
         if len(self._free) != len(set(self._free)):
             raise RuntimeError(
                 "invariant violated: duplicate block id on the free list")
@@ -212,9 +244,30 @@ class KVArena:
 
     # ------------------------------------------------------------- stats
 
+    def _pool_bytes(self) -> Tuple[int, int]:
+        """(K/V payload bytes, scale-pool bytes) of every layer."""
+        kv = scale = 0
+        for entry in self._pools:
+            for i, t in enumerate(entry):
+                b = t.numel() * t.element_size()
+                if i < 2:
+                    kv += b
+                else:
+                    scale += b
+        return kv, scale
+
     def bytes_total(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for entry in self._pools for t in entry)
+        """All pool bytes: K/V payload plus scale pools."""
+        return sum(self._pool_bytes())
+
+    def bytes_by_namespace(self) -> dict:
+        """``{"primary": {kv_bytes, scale_bytes, bytes, dtype, quantized}}``
+        (the JAX package's breakdown; the port has no other namespace)."""
+        kv, scale = self._pool_bytes()
+        dtype = "int8" if self.quantized else str(self.dtype)[6:]
+        return {"primary": {"kv_bytes": kv, "scale_bytes": scale,
+                            "bytes": kv + scale, "dtype": dtype,
+                            "quantized": self.quantized}}
 
     def stats(self) -> dict:
         return {"blocks_total": self.num_blocks - 1,
@@ -223,4 +276,6 @@ class KVArena:
                 "blocks_reserved": self._reserved,
                 "high_water": self._high_water,
                 "block_size": self.block_size,
-                "kv_bytes": self.bytes_total()}
+                "kv_bytes": self.bytes_total(),
+                "quantized": self.quantized,
+                "bytes_by_namespace": self.bytes_by_namespace()}

@@ -4,7 +4,9 @@
 Counters: ``requests.*`` (submitted / finished / cancelled / failed),
 ``tokens.*`` (``generated``, ``prefill``, ``prefill_padding``), ``engine.*``
 (steps / admits / retires), ``arena.*`` (alloc / freed / reuse /
-alloc_failed). Gauges: ``queue.depth``, ``slots.active``, ``slots.total``,
+alloc_failed), ``chunk.*`` (admits / chunks / tokens of chunked prefill),
+``quant.weight_layers`` (linears quantized by engines). Gauges:
+``queue.depth``, ``queue.prefilling``, ``slots.active``, ``slots.total``,
 ``arena.blocks_free``, ``arena.blocks_total``, ``arena.high_water``,
 ``tokens_per_sec``.
 """

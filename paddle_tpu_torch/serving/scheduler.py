@@ -10,9 +10,15 @@ admits waiting ones into the freed slots:
   starved of cache mid-decode. Nothing jumps a blocked head.
 * **Finish rules** at every step boundary: the stop token, the token budget
   and cancellation.
+* **Chunked prefill** (engine ``chunk_size > 0``): a prompt longer than a
+  chunk is admitted through ``ServingEngine.admit_begin`` and waits in
+  ``prefilling``; each step advances the oldest such admission by one chunk
+  before it admits and decodes, so a long prompt stalls running streams by
+  one chunk per step, not by its whole prefill. A cancel mid-prefill frees
+  the slot and its blocks.
 
-Priorities, preemption, chunked prefill, speculation and deadlines are later
-slices. Decoding is greedy, so served tokens are held token for token against
+Priorities, preemption, speculation and deadlines are later slices.
+Decoding is greedy, so served tokens are held token for token against
 ``GPTForCausalLM.generate()``.
 """
 from __future__ import annotations
@@ -85,6 +91,7 @@ class Scheduler:
         self.engine = engine
         self.waiting: List[Request] = []
         self.running: List[Request] = []
+        self.prefilling: List[Request] = []  # chunked prefills in progress
 
     def submit(self, request: Request) -> Request:
         """Enqueue; what could never be served is refused here."""
@@ -97,7 +104,7 @@ class Scheduler:
         return request
 
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running)
+        return bool(self.waiting or self.running or self.prefilling)
 
     def _finish(self, req: Request, state: str,
                 error: Optional[BaseException] = None) -> None:
@@ -107,6 +114,8 @@ class Scheduler:
             self.engine.retire(req.slot)
             if req in self.running:
                 self.running.remove(req)
+            if req in self.prefilling:
+                self.prefilling.remove(req)
             req.slot = None
         req.state = state
         req.error = error
@@ -132,26 +141,62 @@ class Scheduler:
             return True
         return False
 
+    def _start(self, req: Request, first: int) -> None:
+        """The request's prefill is done: it decodes from the next step."""
+        self.running.append(req)
+        self._emit(req, first)
+        self._check_boundary(req)  # may retire at once (stop/budget)
+
+    def _advance_prefill(self) -> bool:
+        """Retire every cancelled in-progress admission, then advance the
+        oldest survivor by one chunk; its last chunk emits the first token
+        and moves it to ``running``."""
+        progress = False
+        for req in list(self.prefilling):
+            if req._cancel:
+                self._finish(req, RequestState.CANCELLED)  # frees the slot
+                progress = True
+        if not self.prefilling:
+            return progress
+        req = self.prefilling[0]
+        try:
+            first = self.engine.admit_chunk(req.slot)
+        # analysis: allow(broad-except) -- a failed chunk fails THIS
+        # request, never the pump; the engine has already unwound it
+        except Exception as e:
+            self.prefilling.remove(req)
+            req.slot = None
+            self._finish(req, RequestState.FAILED, e)
+            return True
+        if first is not None:
+            self.prefilling.remove(req)
+            self._start(req, first)
+        return True
+
     def step(self) -> bool:
-        """One iteration: cull cancelled waiters, admit in FCFS order while
-        capacity allows, run one decode step, retire finished requests.
-        Returns True if any request made progress."""
+        """One iteration: cull cancelled waiters, advance one chunked
+        prefill, admit in FCFS order while capacity allows, run one decode
+        step, retire finished requests. Returns True if any request made
+        progress."""
         progress = False
         for req in list(self.waiting):
             if req._cancel:
                 self.waiting.remove(req)
                 self._finish(req, RequestState.CANCELLED)
                 progress = True
+        if self.prefilling:
+            progress |= self._advance_prefill()
+        chunked = self.engine.chunk_size > 0
         while self.waiting:
             req = self.waiting[0]
             if not self.engine.can_admit(int(req.prompt.shape[0]),
                                          int(req.max_new_tokens)):
                 break
             self.waiting.pop(0)
+            admit = self.engine.admit_begin if chunked else self.engine.admit
             try:
-                slot, first = self.engine.admit(req.prompt,
-                                                req.max_new_tokens,
-                                                sampling=req.sampling)
+                slot, first = admit(req.prompt, req.max_new_tokens,
+                                    sampling=req.sampling)
             # analysis: allow(broad-except) -- a failed prefill fails THIS
             # request (its error is delivered through its handle), never the
             # pump; the engine has already unwound the admission
@@ -161,10 +206,13 @@ class Scheduler:
                 continue
             req.slot = slot
             req.state = RequestState.RUNNING
-            self.running.append(req)
-            self._emit(req, first)
-            self._check_boundary(req)  # may retire at once (stop/budget)
             progress = True
+            if first is None:
+                # chunked prefill in progress: the slot and its blocks are
+                # held; it decodes once its last chunk emits a token
+                self.prefilling.append(req)
+            else:
+                self._start(req, first)
         if self.running:
             toks = self.engine.decode_step()
             for req in list(self.running):
@@ -180,6 +228,8 @@ class Scheduler:
         for req in list(self.waiting):
             self.waiting.remove(req)
             self._finish(req, RequestState.FAILED, error)
+        for req in list(self.prefilling):
+            self._finish(req, RequestState.FAILED, error)
         for req in list(self.running):
             self._finish(req, RequestState.FAILED, error)
         self._gauges()
@@ -190,3 +240,4 @@ class Scheduler:
 
     def _gauges(self) -> None:
         metrics.set_gauge("queue.depth", len(self.waiting))
+        metrics.set_gauge("queue.prefilling", len(self.prefilling))

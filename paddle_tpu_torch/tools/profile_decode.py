@@ -1,6 +1,7 @@
 """Profile the bf16 decode step of ``gpt_1p3b`` on one CUDA card.
 
-    python3 -m paddle_tpu_torch.tools.profile_decode
+    python3 -m paddle_tpu_torch.tools.profile_decode [--quant-kv]
+        [--quant-weights]
 
 Serves 8 requests (prompt 512, 64 new tokens) through ``ServingAPI`` on 8
 slots, and after 16 scheduler steps traces 8 decode-only steps with
@@ -8,11 +9,14 @@ slots, and after 16 scheduler steps traces 8 decode-only steps with
 time (the union of the kernels' intervals), the device idle share, the
 kernel launches, and the kernels that take the most device time. The
 weights are the model's own seeded initialisation: the timing does not
-depend on their values. The last line is one JSON object of these numbers,
-with the card's name and power limit.
+depend on their values. ``--quant-kv`` and ``--quant-weights`` serve with
+the int8 KV arena and int8 weights (``ServingConfig.quant_kv`` /
+``quant_weights``). The last line is one JSON object of these numbers,
+with the settings and the card's name and power limit.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 from collections import defaultdict
@@ -39,6 +43,10 @@ def _union_us(intervals) -> float:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--quant-kv", action="store_true")
+    parser.add_argument("--quant-weights", action="store_true")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
     card = subprocess.run(
@@ -46,7 +54,9 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     model = GPTForCausalLM(gpt_1p3b(), device="cuda").to(torch.bfloat16)
-    api = ServingAPI(model, ServingConfig(num_slots=SLOTS), device="cuda")
+    modes = dict(quant_kv=args.quant_kv, quant_weights=args.quant_weights)
+    api = ServingAPI(model, ServingConfig(num_slots=SLOTS, **modes),
+                     device="cuda")
     rng = np.random.default_rng(0)
     for _ in range(SLOTS):
         api.submit(rng.integers(0, model.cfg.vocab_size, PROMPT),
@@ -83,7 +93,8 @@ def main() -> None:
         by_name[k.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = {
-        "card": card, "slots": SLOTS, "prompt": PROMPT, "steps": TRACED,
+        "card": card, **modes, "slots": SLOTS, "prompt": PROMPT,
+        "steps": TRACED,
         "step_ms": window_us / TRACED / 1e3,
         "device_busy_ms_per_step": busy_us / TRACED / 1e3,
         "device_idle_share": 1.0 - busy_us / window_us,

@@ -145,15 +145,25 @@ def test_decode_every_supported_head_dim(d):
 
 
 def test_int8_entry_raises():
+    """An int8 entry is served (tests/test_torch_quant_serving.py) only
+    whole: int8 pools without their scale pools, or with scales of the
+    wrong dtype or shape, raise on every route."""
     q = torch.zeros(2, 2, 32)
     pool = torch.zeros(3, 4, 2, 32, dtype=torch.int8)
     scale = torch.ones(3, 4)
     bt = torch.ones(2, 1, dtype=torch.int32)
     pos = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pa.paged_decode_attention(q, (pool, pool, scale, scale), bt, pos)
-    with pytest.raises(NotImplementedError, match="int8"):
-        pa.paged_prefill_attention(q, (pool, pool, scale, scale), bt[0], 0)
+    assert pa.paged_decode_attention(q, (pool, pool, scale, scale), bt,
+                                     pos).shape == q.shape
+    with pytest.raises(TypeError, match="int8"):
+        pa.paged_decode_attention(q, (pool, pool), bt, pos)
+    with pytest.raises(TypeError, match="int8"):
+        pa.paged_prefill_attention(q, (pool, pool), bt[0], 0)
+    for bad in (scale.bfloat16(), torch.ones(3, 5)):
+        with pytest.raises(TypeError, match="scale"):
+            pa.paged_prefill_attention(q, (pool, pool, bad, bad), bt[0], 0)
+    with pytest.raises(ValueError, match="3 arrays"):
+        pa.paged_decode_attention(q, (pool, pool, scale), bt, pos)
 
 
 def test_cpu_route_never_counts_a_launch():
