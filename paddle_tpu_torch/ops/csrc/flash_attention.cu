@@ -35,8 +35,10 @@
 //
 // Two implementations of each kernel, picked at compile time per (dtype,
 // head_dim) by the launchers at the end:
-//   - bf16 at head_dim 64 and 128 (the training path): warp-level mma.sync
-//     on the tensor cores, namespace tc below;
+//   - bf16 at head_dim 64 and 128 (the training path) on the tensor cores:
+//     the forward with Hopper's TMA loads and warpgroup wgmma products,
+//     namespace wg; the backward kernels with warp-level mma.sync,
+//     namespace tc;
 //   - f32 (whose products must stay f32: the parity runs hold it to 1e-5),
 //     and bf16 at head_dim 256: f32 FMAs on the CUDA cores. Tiles live in
 //     shared memory as f32 rows padded by 4 floats (16-byte aligned, and
@@ -48,15 +50,22 @@
 // Bound on an H100 SXM: at the training path's [B, 2048, 16, 128] the work
 // is about 4 FLOPs per (row, key, dim) forward and 14 backward against a few
 // bytes per (row, dim), so all three are bound by operations (989 TFLOP/s on
-// the tensor cores). The mma.sync kernels stage their tiles with plain
-// loads and no pipelining, so the tensor cores wait on shared memory; TMA,
-// wgmma and a tuned tile are the next step.
+// the tensor cores). Only wgmma reaches that rate, and only if its operands
+// arrive without the warps that multiply waiting for them: the forward
+// (which replaces the mma.sync forward of the first port) has one producer
+// thread keep K and V tiles in flight by TMA while two consumer warpgroups
+// multiply and take the softmax, each at its own pace. The backward kernels
+// still stage their tiles with plain loads and no pipelining, so their
+// tensor cores wait on shared memory; the same redesign is their next step.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -525,15 +534,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                        tr, tc, dq, one);
 }
 
-// ------------------------------------------------ bf16 on the tensor cores
+// ------------------------------------- backward: mma.sync on the tensor cores
 //
-// At head_dim 64 and 128 the bf16 kernels do their products with warp-level
-// mma.sync (m16n8k16, bf16 in, f32 accumulate) instead of f32 FMAs. Four
-// warps per block; each warp owns 16 rows of every product. Tiles are staged
-// in shared memory as bf16 rows padded by 8 elements (16 bytes), so the
-// ldmatrix reads of 8 rows hit 8 different bank groups. A score tile's
-// accumulator fragments are exactly the A-operand fragments of the next
-// product, so p (forward, dV) and ds (dK, dQ) go from registers, rounded to
+// At head_dim 64 and 128 the bf16 backward kernels do their products with
+// warp-level mma.sync (m16n8k16, bf16 in, f32 accumulate; tensor_core.cuh)
+// instead of f32 FMAs. Four warps per block; each warp owns 16 rows of every
+// product. Tiles are staged in shared memory as bf16 rows padded by 8
+// elements (16 bytes), so the ldmatrix reads of 8 rows hit 8 different bank
+// groups. p (dV) and ds (dK, dQ) go from the score accumulators, rounded to
 // bf16, straight into the second mma: the rounding points stay the Pallas
 // bodies'. At head_dim 256 the accumulators (16 x 256 f32 per warp, twice
 // for dK/dV) do not fit in registers; the CUDA-core kernels above serve it.
@@ -543,48 +551,7 @@ namespace tc {
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kBQ = 64;        // query rows per tile (16 per warp)
 constexpr int kBK = 64;        // key rows per tile
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// two f32 rounded to bf16, the lower column in the low half
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// quad reductions: the 4 lanes that hold one fragment row
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+using namespace ::tc;  // tensor_core.cuh
 
 // rows [r0, r0 + R) of a [.., D] head into shared rows of stride D + 8,
 // 16 bytes per copy; rows at or past n are zero
@@ -599,163 +566,6 @@ __device__ __forceinline__ void stage(bf16* dst, const bf16* src,
     if (row < n)
       v = *reinterpret_cast<const uint4*>(src + row * row_stride + c * 8);
     *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = v;
-  }
-}
-
-// s[j] = X[xr .. xr+16) . Y[yr+8j .. yr+8j+8)^T over D (j < NJ): a warp's
-// 16 x 8NJ score tile. Fragment element e of s[j] is row xr + g + 8(e/2),
-// column yr + 8j + 2t + e%2 (g = lane/4, t = lane%4).
-template <int D, int NJ>
-__device__ __forceinline__ void dot_tile(float (&s)[NJ][4], const bf16* X,
-                                         int xr, const bf16* Y, int yr,
-                                         int lane) {
-  constexpr int DP = D + 8;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm(a, X + (xr + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      uint32_t b[4];
-      ldsm(b, Y + (yr + j * 8 + (lane & 7) + ((lane >> 4) << 3)) * DP +
-                  kk * 16 + ((lane >> 3) & 1) * 8);
-      mma(s[j], a, b[0], b[1]);
-      mma(s[j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc += W . Y[yr .. yr + 8NJ) with W (16 x 8NJ) the fragments of a score
-// tile, rounded to bf16: the A operand comes from registers, Y (rows along
-// the reduction, D columns) through transposing ldmatrix reads
-template <int D, int NJ>
-__device__ __forceinline__ void acc_tile(float (&acc)[D / 8][4],
-                                         const float (&w)[NJ][4],
-                                         const bf16* Y, int yr, int lane) {
-  constexpr int DP = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < NJ / 2; ++kc) {
-    const uint32_t a[4] = {pack(w[2 * kc][0], w[2 * kc][1]),
-                           pack(w[2 * kc][2], w[2 * kc][3]),
-                           pack(w[2 * kc + 1][0], w[2 * kc + 1][1]),
-                           pack(w[2 * kc + 1][2], w[2 * kc + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 8; dn += 2) {
-      uint32_t b[4];
-      ldsm_t(b, Y + (yr + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DP +
-                    dn * 8 + (lane >> 4) * 8);
-      mma(acc[dn], a, b[0], b[1]);
-      mma(acc[dn + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// rows r (fragment rows g and g + 8 at r0) of acc into a [.., D] head,
-// scaled by inv[]; rows at or past n are not written
-template <int D>
-__device__ __forceinline__ void store(bf16* dst, long long row_stride, int r0,
-                                      int n, int t, const float (&acc)[D / 8][4],
-                                      const float (&inv)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= n) continue;
-    bf16* out = dst + row * row_stride + 2 * t;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(out + dn * 8) =
-          pack(acc[dn][2 * r] * inv[r], acc[dn][2 * r + 1] * inv[r]);
-  }
-}
-
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(bf16) * (kBQ + 2 * kBK) * (D + 8);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params a) {
-  constexpr int DP = D + 8;
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* Ks = Qs + kBQ * DP;
-  bf16* Vs = Ks + kBK * DP;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const bf16* k = head<bf16>(a.k, a.st[1], b, h);
-  const bf16* v = head<bf16>(a.v, a.st[2], b, h);
-  const int offset = a.sk - a.sq;
-  const int row0 = q0 + warp * 16 + g;  // fragment rows row0, row0 + 8
-  stage<D, kBQ>(Qs, head<bf16>(a.q, a.st[0], b, h), a.st[0][1], q0, a.sq);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int k_end = a.causal ? min(a.sk, q0 + kBQ + offset) : a.sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tiles are consumed
-    stage<D, kBK>(Ks, k, a.st[1][1], k0, a.sk);
-    stage<D, kBK>(Vs, v, a.st[2][1], k0, a.sk);
-    __syncthreads();
-    float s[8][4];
-    dot_tile<D, 8>(s, Qs, warp * 16, Ks, 0, lane);
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + 8 * (e >> 1), col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = col < a.sk && (!a.causal || col <= row + offset);
-        s[j][e] = ok ? s[j][e] * a.scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = quad_max(mx[r]);
-      corr[r] = expf(m[r] - mx[r]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + 8 * (e >> 1), col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = col < a.sk && (!a.causal || col <= row + offset);
-        const float p = ok ? expf(s[j][e] - mx[e >> 1]) : 0.f;
-        sum[e >> 1] += p;
-        s[j][e] = p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * corr[r] + quad_sum(sum[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[dn][0] *= corr[0];
-      o[dn][1] *= corr[0];
-      o[dn][2] *= corr[1];
-      o[dn][3] *= corr[1];
-    }
-    acc_tile<D, 8>(o, s, Vs, 0, lane);  // P rounded to bf16, then P . V
-  }
-
-  const float inv[2] = {1.f / (l[0] == 0.f ? 1.f : l[0]),
-                        1.f / (l[1] == 0.f ? 1.f : l[1])};
-  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], row0, a.sq, t, o,
-           inv);
-  if (t == 0) {
-    float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.sq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row < a.sq) lse[row] = l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
-    }
   }
 }
 
@@ -908,6 +718,395 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace tc
 
+// ------------------------------------- forward: TMA and wgmma (Hopper only)
+//
+// bf16 at head_dim 64 and 128. One block per (128 query rows, batch x
+// head) and three warpgroups:
+//   - warpgroup 0 is the producer: one thread issues TMA loads
+//     (cp.async.bulk.tensor) of the block's Q tile, then of each K and V
+//     tile of kBK keys into a ring of stages<D>() stages, each stage guarded
+//     by a "full" mbarrier (the copies' bytes have landed) and an "empty"
+//     one (both consumers are done with it). It hands its registers to the
+//     consumers (setmaxnreg).
+//   - warpgroups 1 and 2 are consumers, 64 query rows each. S = Q K^T is a
+//     wgmma from shared memory (Q and K both K-major); P stays in registers
+//     and is the A operand of O += P V, with V read MN-major (the transpose
+//     bit of wgmma for bf16).
+// A TMA tensor map per operand spans the [B, s, H, D] view with its strides
+// (the qkv split's views are read in place); it loads boxes of 64 columns
+// (128 bytes, the limit of the 128-byte swizzle wgmma reads) x kBK rows, so
+// a D = 128 row comes in two boxes, stored as two column halves. Rows past s
+// arrive as zeros. Key tiles past the causal reach of the block's last row
+// are never loaded; a consumer skips a tile past its own rows' reach, and
+// masks only a tile that crosses its diagonal or the last key.
+
+namespace wg {
+
+using namespace ::tc;  // tensor_core.cuh
+
+constexpr int kBQ = 128;  // query rows per block: two consumers of 64
+constexpr int kBK = 128;  // keys per tile
+constexpr int kThreads = 384;
+
+// ring depth: the shared memory of Q and the stages stays under 227 KB
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D > 64 ? 2 : 3;
+}
+
+template <int D>
+constexpr size_t fwd_smem() {
+  // 1024 bytes of slack to align the tiles to the swizzle's 1024-byte
+  // period, the tiles, then 2 mbarriers per stage and one for Q
+  return 1024 + sizeof(bf16) * (kBQ + 2 * stages<D>() * kBK) * D +
+         8 * (2 * stages<D>() + 1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a box of the 4-d map at (column, head, row, batch) into dst, counted on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c, int h, int r,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c),
+      "r"(h), "r"(r), "r"(b)
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lead,
+                                         uint32_t stride) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lead >> 4) << 16 |
+         static_cast<uint64_t>(stride >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads of an accumulator above wg_wait
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// d (+)= A . B^T, A [64 x 16] and B [N x 16] K-major in shared memory
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 8][4], uint64_t a,
+                                       uint64_t b, int accumulate);
+// d += A . B, A [64 x 16] in registers (mma.sync's A fragment per warp), B
+// [16 x N] MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 8][4],
+                                       const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[8][4],
+                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<128>(float (&d)[16][4], uint64_t a,
+                                          uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[16][4],
+                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const Params a) {
+  constexpr int NS = stages<D>();
+  constexpr int NH = D / 64;  // 64-column boxes per row
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
+  bf16* Ks = Qs + kBQ * D;     // stage s: Ks + s * kBK * D, [NH][kBK][64]
+  bf16* Vs = Ks + NS * kBK * D;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + NS * kBK * D);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int offset = a.sk - a.sq;
+  // keys past the reach of the block's last row are masked for every row
+  const int k_end = a.causal ? min(a.sk, q0 + kBQ + offset) : a.sk;
+  const int n_tiles = k_end > 0 ? (k_end + kBK - 1) / kBK : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 8);  // lane 0 of each consumer warp
+    }
+    bar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      bar_expect(qbar, sizeof(bf16) * kBQ * D);
+      for (int c = 0; c < NH; ++c)
+        tma_load(Qs + c * kBQ * 64, &tq, qbar, c * 64, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        if (j >= NS) bar_wait(empty + s, (j / NS - 1) & 1);
+        bar_expect(full + s, 2 * sizeof(bf16) * kBK * D);
+        for (int c = 0; c < NH; ++c) {
+          tma_load(Ks + (s * NH + c) * kBK * 64, &tk, full + s, c * 64, h,
+                   j * kBK, b);
+          tma_load(Vs + (s * NH + c) * kBK * 64, &tv, full + s, c * 64, h,
+                   j * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = threadIdx.x / 128 - 1;  // consumer 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int r_lo = q0 + cw * 64;  // this consumer's rows r_lo .. r_lo + 63
+  const int row0 = r_lo + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
+  float o[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  bar_wait(qbar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NS;
+    const int k0 = j * kBK;
+    bar_wait(full + s, (j / NS) & 1);
+    // every key of the tile lies past every row of this consumer
+    if (!(a.causal && k0 > r_lo + 63 + offset)) {
+      const bf16* K = Ks + s * NH * kBK * 64;
+      const bf16* V = Vs + s * NH * kBK * 64;
+      float S[kBK / 8][4];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<kBK>(S,
+                    desc(Qs + ((kk / 4) * kBQ + cw * 64) * 64 + (kk % 4) * 16,
+                         16, 1024),
+                    desc(K + (kk / 4) * kBK * 64 + (kk % 4) * 16, 16, 1024),
+                    kk > 0);
+      wg_commit();
+      wg_wait();
+      pin(S);
+      float mx[2] = {m[0], m[1]};
+      if ((a.causal && k0 + kBK - 1 > r_lo + offset) || k0 + kBK > a.sk) {
+#pragma unroll
+        for (int jn = 0; jn < kBK / 8; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + 8 * (e >> 1);
+            const int col = k0 + jn * 8 + 2 * t + (e & 1);
+            const bool ok = col < a.sk && (!a.causal || col <= row + offset);
+            S[jn][e] = ok ? S[jn][e] * a.scale : kNegInf;
+            mx[e >> 1] = fmaxf(mx[e >> 1], S[jn][e]);
+          }
+      } else {
+#pragma unroll
+        for (int jn = 0; jn < kBK / 8; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            S[jn][e] *= a.scale;
+            mx[e >> 1] = fmaxf(mx[e >> 1], S[jn][e]);
+          }
+      }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        corr[r] = __expf(m[r] - mx[r]);
+      }
+      // P rounded to bf16: the A fragments of P . V (a masked score's p is
+      // 0, also in a row that has no key yet, whose max is kNegInf)
+      uint32_t P[kBK / 16][4];
+#pragma unroll
+      for (int jn = 0; jn < kBK / 8; ++jn) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = S[jn][e] > 0.5f * kNegInf ? __expf(S[jn][e] - mx[e >> 1])
+                                           : 0.f;
+          sum[e >> 1] += p[e];
+        }
+        P[jn / 2][(jn & 1) * 2] = pack(p[0], p[1]);
+        P[jn / 2][(jn & 1) * 2 + 1] = pack(p[2], p[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        o[dn][0] *= corr[0];
+        o[dn][1] *= corr[0];
+        o[dn][2] *= corr[1];
+        o[dn][3] *= corr[1];
+      }
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc)
+        mma_rs<D>(o, P[kc], desc(V + kc * 16 * 64, kBK * 128, 1024));
+      wg_commit();
+      wg_wait();
+      pin(o);
+    }
+    if (lane == 0) bar_arrive(empty + s);  // this warp is done with stage s
+  }
+
+  const float inv[2] = {1.f / (l[0] == 0.f ? 1.f : l[0]),
+                        1.f / (l[1] == 0.f ? 1.f : l[1])};
+  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], row0, a.sq, t, o,
+           inv);
+  if (t == 0) {
+    float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < a.sq) lse[row] = l[r] > 0.f ? m[r] + logf(l[r]) : kNegInf;
+    }
+  }
+}
+
+}  // namespace wg
+
 // --------------------------------------------------------------- launchers
 
 template <typename Kernel>
@@ -927,12 +1126,73 @@ constexpr bool on_tensor_cores() {
   return std::is_same<T, __nv_bfloat16>::value && D <= 128;
 }
 
+// cuTensorMapEncodeTiled, a libcuda entry point looked up through the
+// runtime, so the library needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got);
+#endif
+    return err == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a bf16 [B, s, H, D] operand with (batch, row, head)
+// element strides st: boxes of 64 columns x `rows` rows of one (head,
+// batch), 128-byte swizzled, rows past s read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, const long long* st,
+                int B, int s, int H, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(s > 0 ? s : 1),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, int D>
 cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
   if constexpr (on_tensor_cores<T, D>()) {
-    const dim3 grid((p.sq + tc::kBQ - 1) / tc::kBQ, B * p.H);
-    return launch(tc::flash_fwd_kernel<D>, tc::kThreads, tc::fwd_smem<D>(),
-                  grid, p, stream);
+    CUtensorMap tq, tk, tv;
+    if (!tensor_map(&tq, p.q, p.st[0], B, p.sq, p.H, D, wg::kBQ) ||
+        !tensor_map(&tk, p.k, p.st[1], B, p.sk, p.H, D, wg::kBK) ||
+        !tensor_map(&tv, p.v, p.st[2], B, p.sk, p.H, D, wg::kBK))
+      return cudaErrorInvalidValue;
+    constexpr size_t smem = wg::fwd_smem<D>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        wg::flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.sq + wg::kBQ - 1) / wg::kBQ, B * p.H);
+    wg::flash_fwd_kernel<D><<<grid, wg::kThreads, smem, stream>>>(tq, tk, tv,
+                                                                  p);
+    return cudaGetLastError();
   } else {
     const dim3 grid((p.sq + kBQ - 1) / kBQ, B * p.H);
     return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem<D>(), grid, p,

@@ -8,6 +8,8 @@
 //   paged_prefill_kernel  replaces paddle_tpu/ops/paged_attention.py
 //                         _prefill_kernel: one slot's causal queries at global
 //                         positions prefix_len + i, read through its table.
+//                         bf16 queries run its tensor-core form,
+//                         pf::prefill_kernel; f32 the CUDA-core form.
 //
 // Both are templated on the pool payload type P. P = T (the query's dtype)
 // is the full-precision arena. P = int8_t is the int8 arena, the Pallas
@@ -35,16 +37,23 @@
 //
 // Bound on an H100 SXM: both kernels read each needed K/V row once, so decode
 // is bound by bytes (K/V rows up to each slot's position over 3.35 TB/s, at
-// about 1 FLOP per byte) and prefill, at the engine's bucket sizes, mostly by
-// bytes too. The designs below keep every byte read exactly once per block,
-// skip whole blocks past the position (a stale table entry pointing at scratch
-// block 0 is never read), and keep the running softmax state in registers.
+// about 1 FLOP per byte). Prefill at the engine's buckets (a 512-token prompt:
+// 0.27 GFLOP over 8 MB) is bound by neither rate but by latency: the time to
+// bring each 64-key tile through the table into shared memory and the chain
+// of products and softmax over it. Its tensor-core form keeps loads in flight
+// behind the math (a ring of cp.async gathers), does both products on the
+// tensor cores, reads Q once per block, and masks only the tiles that cross
+// the diagonal or the last real key (see pf:: below). Both kernels skip whole
+// blocks past the position: a stale table entry pointing at scratch block 0
+// is never read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -246,7 +255,9 @@ __global__ void __launch_bounds__(kDecodeWarps * kWarp)
 
 // ----------------------------------------------------------------- prefill
 //
-// One thread block per (query tile, head). A tile is kTileQ query rows; each
+// The CUDA-core form, for f32 queries (whose products must stay f32: the
+// parity runs hold them to 1e-5). One thread block per (query tile, head).
+// A tile is kTileQ query rows; each
 // of its warps owns kRowsPerWarp rows and keeps their online softmax state
 // in registers. The block walks the slot's keys kTileK at a time: it stages
 // the tile's K and V rows in shared memory as fp32 (read once from device
@@ -383,6 +394,384 @@ __global__ void __launch_bounds__(kPrefillWarps * kWarp)
   }
 }
 
+// ------------------------------------------------ prefill on the tensor cores
+//
+// bf16 queries at head_dim 32, 64 and 128, over bf16 or int8 pools. One
+// thread block per (query tile, head); a tile is BQ = 64 query rows, or 32
+// where sq <= 256 (a chunk of 256 makes 8 x H blocks at 64 rows: 128 SMs
+// would idle at H = 16). Blocks of later tiles walk more keys, so they are
+// scheduled first.
+//
+//   - The walk goes over 64-key tiles up to the key of the block's last
+//     real row (k_last), kGroups tiles per step: each of the block's two
+//     warp groups (BQ / 16 warps of 16 rows each) takes every other tile
+//     with its own online softmax, so the chain of dependent products per
+//     warp is half the walk, and the two states merge through shared
+//     memory at the end.
+//   - Q's rows are staged once and each warp keeps its 16 rows' A fragments
+//     in registers for the whole walk.
+//   - Each step's tiles are gathered through the block table with
+//     cp.async, 16 bytes a thread, into a ring of stages: while the warps
+//     run step i, the next steps' gathers are in flight. A thread pair owns
+//     a key: one table read per key per step; keys past k_last are never
+//     read (their rows are zero-filled), so a stale table entry is never
+//     followed.
+//   - S = Q K^T and O += P V run as mma.sync m16n8k16 (tensor_core.cuh): p
+//     goes from the accumulator into the A fragment rounded to bf16.
+//   - The causal and last-key masks are evaluated only on the tiles that
+//     cross the diagonal of the warp's first row or k_last.
+//   - An int8 tile is staged raw with each key's two float32 scales; each
+//     thread then dequantizes the pieces it copied itself (no extra
+//     barrier) into a bf16 tile as round_to<bf16>(float(q) * scale), which
+//     the products read: dequantize_kv's contract, with the int8 -> float
+//     conversion done by a byte permute and one add instead of the
+//     quarter-rate I2F.
+//   - exp is the fast __expf (ex2.approx, a few ulp of f32): p is rounded
+//     to bf16 before P V anyway, and it took a sixth of the kernel's time.
+
+namespace pf {
+
+constexpr int kBK = 64;     // keys per tile
+constexpr int kGroups = 2;  // tiles per step: one per warp group (the
+                            // merge below takes two)
+
+using tc::bf16;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(fill ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared memory, in bytes: Q [BQ][D + 8] bf16, then NS stages of kGroups
+// tiles, each tile its K then V rows (bf16 rows of D + 8, or raw int8 rows
+// of D) and, for int8, the scales [thread parity][K, V][kBK] f32; for int8
+// two buffers of kGroups dequantized tiles, K then V [kBK][D + 8] bf16.
+// After the walk the stages hold the merge: [BQ][D] f32 o, [BQ][2] f32 m, l.
+// Two stages: a third timed the same at the path's shapes on an H100.
+template <typename P, int D, int BQ>
+struct Smem {
+  static constexpr bool kInt8 = std::is_same<P, int8_t>::value;
+  static constexpr int NS = 2;  // steps in the ring
+  static constexpr int DP = D + 8;
+  static constexpr size_t q = sizeof(bf16) * BQ * DP;
+  static constexpr size_t row = kInt8 ? D : sizeof(bf16) * DP;
+  static constexpr size_t scales = kInt8 ? 4 * kBK * sizeof(float) : 0;
+  static constexpr size_t tile = 2 * kBK * row + scales;
+  static constexpr size_t stage = kGroups * tile;
+  static constexpr size_t deq_tile = 2 * sizeof(bf16) * kBK * DP;
+  static constexpr size_t deq = kInt8 ? 2 * kGroups * deq_tile : 0;
+  static constexpr size_t total = q + NS * stage + deq;
+  static_assert(NS * stage >= sizeof(float) * BQ * (D + 2),
+                "the merge fits in the ring");
+};
+
+// 4 int8 of w (byte 0 first), each times s, rounded to bf16, as two bf16
+// pairs. 0x4B0000uu is the float 2^23 + uu, so (b ^ 0x80) placed there
+// minus 2^23 + 128 is float(b), exactly.
+__device__ __forceinline__ uint2 deq4(uint32_t w, float s) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | k)) -
+            8388736.f) * s;
+  return make_uint2(tc::pack(f[0], f[1]), tc::pack(f[2], f[3]));
+}
+
+template <typename P, int D, int BQ>
+__global__ void __launch_bounds__(kGroups * BQ / 16 * 32)
+    prefill_kernel(const bf16* __restrict__ q, const P* __restrict__ kp,
+                   const P* __restrict__ vp, const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ bt_row,
+                   const int* __restrict__ prefix_len, bf16* __restrict__ out,
+                   int sq, int H, int bs, int MB, long long q_stride,
+                   long long kv_stride, float scale) {
+  using L = Smem<P, D, BQ>;
+  constexpr int NS = L::NS;
+  constexpr int kWarps = BQ / 16;  // per group
+  constexpr int kThreads = kGroups * kWarps * 32;
+  constexpr int DP = D + 8;
+  constexpr int E = 16 / sizeof(P);  // elements per 16-byte copy
+  constexpr int CR = D / E;          // copies per key row
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  char* ring = smem + L::q;
+  bf16* deq = reinterpret_cast<bf16*>(ring + NS * L::stage);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp / kWarps, wr = warp % kWarps;
+  const int t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int prefix = *prefix_len;
+  // keys past the tile's last real row are masked for every row: never read
+  const int q_last = min(q0 + BQ, sq) - 1;
+  const int k_last = min(prefix + q_last, MB * bs - 1);
+  const int n_tiles = k_last / kBK + 1;
+  const int n_steps = (n_tiles + kGroups - 1) / kGroups;
+
+  for (int i = tid; i < BQ * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), c = i % (D / 8);
+    const bool real = q0 + r < sq;
+    cp_async16(Qs + r * DP + c * 8,
+               real ? q + (q0 + r) * q_stride + h * D + c * 8 : q, real);
+  }
+  // Thread pair tid / 2 owns keys tid / 2 + n * kThreads / 2 (n < KPT) of
+  // each step's kGroups * kBK. rows() reads their token rows from the
+  // table (-1 past k_last) one step before gather() needs them, so the
+  // table's latency hides behind a step of products.
+  constexpr int KPT = kGroups * kBK / (kThreads / 2);
+  long long trows[KPT];
+  const auto rows = [&](int i) {
+#pragma unroll
+    for (int n = 0; n < KPT; ++n) {
+      const int key = i * kGroups * kBK + (tid >> 1) + n * (kThreads / 2);
+      trows[n] = key <= k_last
+                     ? static_cast<long long>(bt_row[key / bs]) * bs + key % bs
+                     : -1;
+    }
+  };
+  // step i's gathers into its stage: each thread every other 16 bytes of
+  // its keys' K and V rows (and, for int8, both scales into its own slot)
+  const auto gather = [&](int i) {
+    char* st = ring + (i % NS) * L::stage;
+#pragma unroll
+    for (int n = 0; n < KPT; ++n) {
+      const int kk = (tid >> 1) + n * (kThreads / 2);
+      char* tl = st + (kk / kBK) * L::tile;
+      const int r = kk % kBK;
+      const bool real = trows[n] >= 0;
+      const long long trow = real ? trows[n] : 0;
+      const long long off = trow * kv_stride + static_cast<long long>(h) * D;
+#pragma unroll
+      for (int c = tid & 1; c < CR; c += 2) {
+        cp_async16(tl + r * L::row + c * 16, kp + off + c * E, real);
+        cp_async16(tl + (kBK + r) * L::row + c * 16, vp + off + c * E, real);
+      }
+      if constexpr (L::kInt8) {
+        float* sc = reinterpret_cast<float*>(tl + 2 * kBK * L::row) +
+                    (tid & 1) * 2 * kBK;
+        cp_async4(sc + r, k_scale + trow, real);
+        cp_async4(sc + kBK + r, v_scale + trow, real);
+      }
+    }
+  };
+  // the pieces this thread copied of step i, dequantized into buffer i % 2
+  const auto dequantize = [&](int i) {
+    const char* st = ring + (i % NS) * L::stage;
+#pragma unroll
+    for (int n = 0; n < KPT; ++n) {
+      const int kk = (tid >> 1) + n * (kThreads / 2);
+      const char* tl = st + (kk / kBK) * L::tile;
+      const int r = kk % kBK;
+      const float* sc = reinterpret_cast<const float*>(tl + 2 * kBK * L::row) +
+                        (tid & 1) * 2 * kBK;
+      bf16* dt = deq + ((i & 1) * kGroups + kk / kBK) * (2 * kBK * DP);
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const float s = sc[kv * kBK + r];
+#pragma unroll
+        for (int c = tid & 1; c < CR; c += 2) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              tl + (kv * kBK + r) * L::row + c * 16);
+          uint2* dst =
+              reinterpret_cast<uint2*>(dt + (kv * kBK + r) * DP + c * 16);
+          dst[0] = deq4(w.x, s);
+          dst[1] = deq4(w.y, s);
+          dst[2] = deq4(w.z, s);
+          dst[3] = deq4(w.w, s);
+        }
+      }
+    }
+  };
+  rows(0);
+  gather(0);
+  cp_commit();  // group 0: Q and step 0
+#pragma unroll
+  for (int i = 1; i < NS - 1; ++i) {
+    rows(i);
+    if (i < n_steps) gather(i);
+    cp_commit();
+  }
+  rows(NS - 1);
+
+  // this warp's rows r_lo .. r_hi; fragment rows row0 and row0 + 8
+  const int r_lo = q0 + wr * 16;
+  const int r_hi = min(r_lo + 15, q_last);
+  const int row0 = r_lo + (lane >> 2);
+  const int reach = min(prefix + r_hi, k_last);    // its farthest key
+  const int plain = min(prefix + r_lo, k_last);    // keys no row masks
+  const int lim[2] = {min(prefix + row0, k_last),
+                      min(prefix + row0 + 8, k_last)};
+  uint32_t qa[D / 16][4];
+  float o[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_wait<NS - 2>();  // this thread's copies of step i have landed
+    if constexpr (L::kInt8) dequantize(i);
+    __syncthreads();  // everyone's have, and step i - 1 is consumed
+    if (i + NS - 1 < n_steps) gather(i + NS - 1);
+    cp_commit();
+    rows(i + NS);
+    if (i == 0) tc::load_a<D>(qa, Qs, wr * 16, lane);
+    const int k0 = (i * kGroups + grp) * kBK;
+    // warp-uniform: every key of this tile lies past each row of the warp
+    // (or the warp has no real row) -- the Pallas body's fully masked step
+    if (r_lo > q_last || k0 > reach) continue;
+    const bf16 *Kt, *Vt;
+    if constexpr (L::kInt8) {
+      Kt = deq + ((i & 1) * kGroups + grp) * (2 * kBK * DP);
+      Vt = Kt + kBK * DP;
+    } else {
+      Kt = reinterpret_cast<const bf16*>(ring + (i % NS) * L::stage +
+                                         grp * L::tile);
+      Vt = Kt + kBK * DP;
+    }
+    float s[8][4];
+    tc::dot_tile_a<D, 8>(s, qa, Kt, 0, lane);
+    float mx[2] = {m[0], m[1]};
+    const bool edge = k0 + kBK - 1 > plain;  // crosses the diagonal or k_last
+    if (edge) {
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + jn * 8 + 2 * t + (e & 1);
+          s[jn][e] = col <= lim[e >> 1] ? s[jn][e] * scale : kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[jn][e]);
+        }
+    } else {
+#pragma unroll
+      for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[jn][e] *= scale;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[jn][e]);
+        }
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = tc::quad_max(mx[r]);
+      corr[r] = __expf(m[r] - mx[r]);
+    }
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a masked score's p is 0, also in a row of the second group that
+        // has no key yet (whose max is still kNegInf)
+        const float p = !edge || s[jn][e] > 0.5f * kNegInf
+                            ? __expf(s[jn][e] - mx[e >> 1])
+                            : 0.f;
+        sum[e >> 1] += p;
+        s[jn][e] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * corr[r] + tc::quad_sum(sum[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      o[dn][0] *= corr[0];
+      o[dn][1] *= corr[0];
+      o[dn][2] *= corr[1];
+      o[dn][3] *= corr[1];
+    }
+    tc::acc_tile<D, 8>(o, s, Vt, 0, lane);  // P rounded to bf16, then P . V
+  }
+
+  cp_wait<0>();  // no copy outlives the walk
+  __syncthreads();  // the ring is free: it holds the merge
+
+  // the second group hands its (m, l, o) to the first, row by row
+  float* mo = reinterpret_cast<float*>(ring);  // [BQ][D]
+  float* ml = mo + BQ * D;                     // [BQ][2]
+  const int lr = wr * 16 + (lane >> 2);        // local rows lr, lr + 8
+  if (grp == 1) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn)
+        *reinterpret_cast<float2*>(mo + (lr + 8 * r) * D + dn * 8 + 2 * t) =
+            make_float2(o[dn][2 * r], o[dn][2 * r + 1]);
+      if (t == 0) {
+        ml[(lr + 8 * r) * 2] = m[r];
+        ml[(lr + 8 * r) * 2 + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = ml[(lr + 8 * r) * 2], l1 = ml[(lr + 8 * r) * 2 + 1];
+    const float mall = fmaxf(m[r], m1);
+    const float c0 = __expf(m[r] - mall), c1 = __expf(m1 - mall);
+    const float lsum = l[r] * c0 + l1 * c1;
+    inv[r] = 1.f / (lsum == 0.f ? 1.f : lsum);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const float2 o1 =
+          *reinterpret_cast<const float2*>(mo + (lr + 8 * r) * D + dn * 8 + 2 * t);
+      o[dn][2 * r] = o[dn][2 * r] * c0 + o1.x * c1;
+      o[dn][2 * r + 1] = o[dn][2 * r + 1] * c0 + o1.y * c1;
+    }
+  }
+  tc::store<D>(out + static_cast<long long>(h) * D,
+               static_cast<long long>(H) * D, row0, sq, t, o, inv);
+}
+
+template <typename P, int D, int BQ>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* ks, const void* vs, const void* bt,
+                   const void* prefix, void* out, int sq, int H, int bs,
+                   int MB, long long q_stride, long long kv_stride, float scale,
+                   cudaStream_t stream) {
+  constexpr size_t smem = Smem<P, D, BQ>::total;
+  const auto kernel = prefill_kernel<P, D, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + BQ - 1) / BQ, H);
+  kernel<<<grid, kGroups * BQ / 16 * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const P*>(k),
+      static_cast<const P*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(bt),
+      static_cast<const int*>(prefix), static_cast<bf16*>(out), sq, H, bs, MB,
+      q_stride, kv_stride, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace pf
+
 // --------------------------------------------------------------- launchers
 
 // P = T: full-precision pools, no scales; P = int8_t: int8 pools with
@@ -410,14 +799,21 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            int bs, int MB, long long q_stride,
                            long long kv_stride, float scale,
                            cudaStream_t stream) {
-  const dim3 grid((sq + kTileQ - 1) / kTileQ, H);
-  paged_prefill_kernel<T, P, D><<<grid, kPrefillWarps * kWarp, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(k),
-      static_cast<const P*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(bt),
-      static_cast<const int*>(prefix), static_cast<T*>(out), sq, H, bs, MB,
-      q_stride, kv_stride, scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16 runs on the tensor cores, in 32-row tiles up to a chunk of 256
+    const auto run = sq <= 256 ? pf::launch<P, D, 32> : pf::launch<P, D, 64>;
+    return run(q, k, v, ks, vs, bt, prefix, out, sq, H, bs, MB, q_stride,
+               kv_stride, scale, stream);
+  } else {
+    const dim3 grid((sq + kTileQ - 1) / kTileQ, H);
+    paged_prefill_kernel<T, P, D><<<grid, kPrefillWarps * kWarp, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const P*>(k),
+        static_cast<const P*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(bt),
+        static_cast<const int*>(prefix), static_cast<T*>(out), sq, H, bs, MB,
+        q_stride, kv_stride, scale);
+    return cudaGetLastError();
+  }
 }
 
 // the full-precision and int8 instances (PAGED_DISPATCH names one of these)

@@ -22,9 +22,13 @@ one per launch, and nothing else.
 
 Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): decode does about one
 FLOP per K/V byte, so it is bound by reading the K/V rows up to each slot's
-position; prefill at the engine's buckets is bound by bytes too. Both
-kernels read each needed K/V row once per thread block and never read a
-block past the position (see the source for the design).
+position; prefill at the engine's buckets is too small for either rate and
+is bound by latency. Both kernels read each needed K/V row once per thread
+block and never read a block past the position. With bf16 queries the
+prefill kernel runs on the tensor cores (``mma.sync``) over 64-key tiles
+that ``cp.async`` gathers through the table ahead of the products; it
+needs q and the pools 16-byte aligned (:func:`load_alignment`). f32 keeps
+CUDA-core kernels (see the source for the design).
 
 The K/V pools are updated in place by the engine, so these functions only
 read them. A pool entry is ``(k, v)`` in q's dtype or, from an int8 arena,
@@ -52,7 +56,8 @@ from ..quantization import dequantize_kv
 __all__ = ["paged_decode_attention", "paged_prefill_attention",
            "paged_full_prefill_attention", "paged_decode_attention_ref",
            "paged_prefill_attention_ref", "paged_full_prefill_attention_ref",
-           "launches", "reset_launches", "load_kernels"]
+           "launches", "reset_launches", "load_kernels", "load_alignment",
+           "aligned"]
 
 #: kernel launches, one per launch of each CUDA kernel (``_int8``: the
 #: variants over an int8 arena)
@@ -124,6 +129,24 @@ def _row_stride(t, H, D) -> int:
     return t.stride(-3)
 
 
+def load_alignment(kernel: str, dtype, pool_dtype) -> int:
+    """Bytes to which the CUDA kernels' loads need q's and the pools' start
+    addresses and row strides aligned: 16 for the prefill kernel's
+    tensor-core form (bf16 queries), which gathers 16-byte pieces of each
+    row with cp.async; 4 for int8 pools read a word at a time by the
+    CUDA-core kernels; otherwise one element."""
+    if kernel == "prefill" and dtype == torch.bfloat16:
+        return 16
+    return 4 if pool_dtype == torch.int8 else 1
+
+
+def aligned(t, row_stride: int, nbytes: int) -> bool:
+    """Whether ``t`` starts on an ``nbytes`` boundary and its rows,
+    ``row_stride`` elements apart, do too."""
+    return (t.data_ptr() % nbytes == 0
+            and row_stride * t.element_size() % nbytes == 0)
+
+
 def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=()):
     """Check what the CUDA kernels take, launch ``fn`` on the current
     stream and return the dense output. ``kp``/``vp`` are pools ``[NB, bs,
@@ -157,9 +180,12 @@ def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=()):
                          f"{tuple(vp.shape)} {vp.stride()} differ")
     if kp.dim() == 4 and kp.stride(0) != bs * kv_stride:
         raise ValueError(f"pool blocks {kp.stride()} are not dense")
-    if scales and (kp.data_ptr() % 4 or vp.data_ptr() % 4):
-        # each lane loads its int8 elements of a row as one word
-        raise ValueError("int8 pools must start on a 4-byte boundary")
+    nbytes = load_alignment("prefill" if "prefill" in fn.__name__
+                            else "decode", q.dtype, kp.dtype)
+    if not (aligned(q, q_stride, nbytes) and aligned(kp, kv_stride, nbytes)
+            and aligned(vp, kv_stride, nbytes)):
+        raise ValueError(f"q and the pools must start, and keep their rows, "
+                         f"on {nbytes}-byte boundaries")
     out = torch.empty((rows, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
