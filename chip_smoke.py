@@ -59,9 +59,13 @@ no result. Phases, in order; each raises on failure:
    (in f32 also against torch autograd through the plain forward) at
    ``FLASH_TOL``: per element f32 1e-5, bf16 4e-3 + 2e-2 |ref|, and each
    row's error over its norm (or the median row norm) at most 1e-4 (f32)
-   and 1.5e-2 (bf16). Shapes: [2, 2048, 16, 128] causal and not, head dims
-   64 and 256 at 256 positions, and causal 256 queries over 128 keys, whose
-   rows with no key must give lse = -1e30 and dq = 0.
+   and 1.5e-2 (bf16). Shapes (``FLASH_SHAPES``): [2, 2048, 16, 128] causal
+   and not, head dims 64 and 256 at 256 positions, and causal 256 queries
+   over 128 keys, whose rows with no key must give lse = -1e30 and dq = 0.
+   Then the edges of the tensor-core backward tiles (``FLASH_EDGES``, a
+   generator of their own): 192 queries and keys causal and not (ragged
+   tiles), causal 64 queries over 320 keys and 320 over 64 (offsets +256
+   and -256), and head dim 64 at 192.
 8. Train ``gpt_1p3b`` in f32 (TF32 off), batch 1 x 2048. First one forward
    and backward on each route: the loss and every layer's qkv and proj
    weight gradients must agree (``ROUTE_TOL``). Then AdamW(3e-4, decay
@@ -576,56 +580,70 @@ def flash_inputs(rng, b, sq, sk, h, d, dtype):
     return q, k, v, randn(rng, (b, sq, h, d), dtype)
 
 
+# phase 7's edge checks of the tensor-core backward tiles (dK/dV: 128 keys
+# x 64-row query tiles; dQ: 128 rows x 64-key tiles): ragged tiles of 192,
+# causal offsets of +256 and -256 (rows with no key); a generator of their
+# own keeps the older checks' inputs
+FLASH_SHAPES = [(2, 2048, 2048, H, D, False), (2, 2048, 2048, H, D, True),
+                (2, 256, 256, 4, 64, True), (2, 256, 256, 4, 256, True),
+                (2, 256, 256, 4, 256, False), (2, 256, 128, 4, D, True)]
+FLASH_EDGES = [(2, 192, 192, 4, D, True), (2, 192, 192, 4, D, False),
+               (2, 64, 320, 4, D, True), (2, 320, 64, 4, D, True),
+               (2, 192, 192, 4, 64, True)]
+FLASH_SETS = ((3, FLASH_SHAPES), (7, FLASH_EDGES))  # (seed, shapes)
+
+
+def flash_case(fa, rng, dtype, b, sq, sk, h, d, causal):
+    """The three flash kernels and the autograd.Function against their
+    plain versions on one shape."""
+    tag = f"b={b} sq={sq} sk={sk} H={h} D={d} causal={causal}"
+    q, k, v, do = flash_inputs(rng, b, sq, sk, h, d, dtype)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = fa.flash_forward(q, k, v, scale, causal)
+    ro, rlse = fa.flash_forward_ref(q, k, v, scale, causal)
+    check("flash_forward o", dtype, tag, o, ro, FLASH_TOL)
+    live = torch.arange(sq, device="cuda") + (sk - sq) >= 0
+    check("flash_forward lse", torch.float32, tag, lse[..., live],
+          rlse[..., live])
+    if not bool((lse[..., ~live] == fa.NEG_INF).all()):
+        raise AssertionError(f"lse of rows with no key != -1e30 ({tag})")
+    # both backward versions take the plain forward's o and lse
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, rlse, delta, scale, causal)
+    dk, dv = fa.flash_backward_dkv(*args)
+    rdk, rdv = fa.flash_backward_dkv_ref(*args)
+    check("flash_backward_dkv dk", dtype, tag, dk, rdk, FLASH_TOL)
+    check("flash_backward_dkv dv", dtype, tag, dv, rdv, FLASH_TOL)
+    dq = fa.flash_backward_dq(*args)
+    rdq = fa.flash_backward_dq_ref(*args)
+    check("flash_backward_dq", dtype, tag, dq, rdq, FLASH_TOL)
+    if not bool((dq[:, ~live] == 0).all()):
+        raise AssertionError(f"dq of rows with no key != 0 ({tag})")
+    # the autograd.Function: in f32 against torch autograd through the
+    # plain forward; in bf16 against the plain backward above (torch
+    # autograd keeps ds in f32 where the contract rounds it)
+    a = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    torch.autograd.backward(fa.FlashAttention.apply(*a, scale, causal), do)
+    want = (rdq, rdk, rdv)
+    if dtype == torch.float32:
+        r = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        torch.autograd.backward(fa.flash_forward_ref(*r, scale, causal)[0],
+                                do)
+        want = [t.grad for t in r]
+    for x, y, name in zip(a, want, "qkv"):
+        check(f"FlashAttention d{name}", dtype, tag, x.grad, y, FLASH_TOL)
+
+
 def flash_checks(fa):
     """Phase 7: the three flash kernels and the autograd.Function against
-    their plain versions on the card."""
-    rng = np.random.default_rng(3)
-    shapes = [(2, 2048, 2048, H, D, False), (2, 2048, 2048, H, D, True),
-              (2, 256, 256, 4, 64, True), (2, 256, 256, 4, 256, True),
-              (2, 256, 256, 4, 256, False), (2, 256, 128, 4, D, True)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, sq, sk, h, d, causal in shapes:
-            tag = f"b={b} sq={sq} sk={sk} H={h} D={d} causal={causal}"
-            q, k, v, do = flash_inputs(rng, b, sq, sk, h, d, dtype)
-            scale = 1.0 / np.sqrt(d)
-            o, lse = fa.flash_forward(q, k, v, scale, causal)
-            ro, rlse = fa.flash_forward_ref(q, k, v, scale, causal)
-            check("flash_forward o", dtype, tag, o, ro, FLASH_TOL)
-            live = torch.arange(sq, device="cuda") + (sk - sq) >= 0
-            check("flash_forward lse", torch.float32, tag, lse[..., live],
-                  rlse[..., live])
-            if not bool((lse[..., ~live] == fa.NEG_INF).all()):
-                raise AssertionError(f"lse of rows with no key != -1e30 "
-                                     f"({tag})")
-            # both backward versions take the plain forward's o and lse
-            delta = (do.float() * ro.float()).sum(-1).transpose(1, 2)
-            delta = delta.contiguous()
-            args = (q, k, v, do, rlse, delta, scale, causal)
-            dk, dv = fa.flash_backward_dkv(*args)
-            rdk, rdv = fa.flash_backward_dkv_ref(*args)
-            check("flash_backward_dkv dk", dtype, tag, dk, rdk, FLASH_TOL)
-            check("flash_backward_dkv dv", dtype, tag, dv, rdv, FLASH_TOL)
-            dq = fa.flash_backward_dq(*args)
-            rdq = fa.flash_backward_dq_ref(*args)
-            check("flash_backward_dq", dtype, tag, dq, rdq, FLASH_TOL)
-            if not bool((dq[:, ~live] == 0).all()):
-                raise AssertionError(f"dq of rows with no key != 0 ({tag})")
-            # the autograd.Function: in f32 against torch autograd through
-            # the plain forward; in bf16 against the plain backward above
-            # (torch autograd keeps ds in f32 where the contract rounds it)
-            a = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            torch.autograd.backward(fa.FlashAttention.apply(*a, scale, causal),
-                                    do)
-            want = (rdq, rdk, rdv)
-            if dtype == torch.float32:
-                r = [t.detach().requires_grad_(True) for t in (q, k, v)]
-                torch.autograd.backward(
-                    fa.flash_forward_ref(*r, scale, causal)[0], do)
-                want = [t.grad for t in r]
-            for x, y, name in zip(a, want, "qkv"):
-                check(f"FlashAttention d{name}", dtype, tag, x.grad, y,
-                      FLASH_TOL)
-            del o, lse, ro, rlse, dk, dv, dq, rdq, rdk, rdv, a, want
+    their plain versions on the card, at FLASH_SHAPES, then at the edges of
+    the backward tiles (FLASH_EDGES)."""
+    for seed, shapes in FLASH_SETS:
+        rng = np.random.default_rng(seed)
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape in shapes:
+                flash_case(fa, rng, dtype, *shape)
+                torch.cuda.empty_cache()
 
 
 def time_ms(fn, flush, iters=20) -> float:

@@ -79,3 +79,33 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def build_edited(name: str, edits: dict, tmp: Path) -> Dict[str, ctypes.CDLL]:
+    """Copies of ``csrc/<name>.cu`` in ``tmp``, each made by one string
+    replacement ``(old, new)`` (None: unchanged), built with NVCC_FLAGS in
+    parallel and loaded; keyed as ``edits``. Raises when a source no longer
+    holds a string to replace or nvcc fails."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for header in CSRC.glob("*.cuh"):
+        (tmp / header.name).write_text(header.read_text())
+    procs = {}
+    for key, edit in edits.items():
+        text = src
+        if edit is not None:
+            old, new = edit
+            if old not in text:
+                raise RuntimeError(f"{key}: the source no longer has {old!r}")
+            text = text.replace(old, new)
+        (tmp / f"{key}.cu").write_text(text)
+        procs[key] = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp / f"{key}.so"),
+             str(tmp / f"{key}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for key, proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {key}:\n{out}")
+        libs[key] = ctypes.CDLL(str(tmp / f"{key}.so"))
+    return libs

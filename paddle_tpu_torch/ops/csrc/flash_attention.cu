@@ -35,10 +35,9 @@
 //
 // Two implementations of each kernel, picked at compile time per (dtype,
 // head_dim) by the launchers at the end:
-//   - bf16 at head_dim 64 and 128 (the training path) on the tensor cores:
-//     the forward with Hopper's TMA loads and warpgroup wgmma products,
-//     namespace wg; the backward kernels with warp-level mma.sync,
-//     namespace tc;
+//   - bf16 at head_dim 64 and 128 (the training path) on the tensor cores,
+//     all three with Hopper's TMA loads and warpgroup wgmma products,
+//     namespace wg;
 //   - f32 (whose products must stay f32: the parity runs hold it to 1e-5),
 //     and bf16 at head_dim 256: f32 FMAs on the CUDA cores. Tiles live in
 //     shared memory as f32 rows padded by 4 floats (16-byte aligned, and
@@ -51,12 +50,10 @@
 // is about 4 FLOPs per (row, key, dim) forward and 14 backward against a few
 // bytes per (row, dim), so all three are bound by operations (989 TFLOP/s on
 // the tensor cores). Only wgmma reaches that rate, and only if its operands
-// arrive without the warps that multiply waiting for them: the forward
-// (which replaces the mma.sync forward of the first port) has one producer
-// thread keep K and V tiles in flight by TMA while two consumer warpgroups
-// multiply and take the softmax, each at its own pace. The backward kernels
-// still stage their tiles with plain loads and no pipelining, so their
-// tensor cores wait on shared memory; the same redesign is their next step.
+// arrive without the warps that multiply waiting for them: each kernel
+// (they replace the mma.sync kernels of the first port) has one producer
+// warp keep its streamed tiles in flight by TMA while two consumer
+// warpgroups multiply, each at its own pace.
 
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -534,190 +531,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                        tr, tc, dq, one);
 }
 
-// ------------------------------------- backward: mma.sync on the tensor cores
-//
-// At head_dim 64 and 128 the bf16 backward kernels do their products with
-// warp-level mma.sync (m16n8k16, bf16 in, f32 accumulate; tensor_core.cuh)
-// instead of f32 FMAs. Four warps per block; each warp owns 16 rows of every
-// product. Tiles are staged in shared memory as bf16 rows padded by 8
-// elements (16 bytes), so the ldmatrix reads of 8 rows hit 8 different bank
-// groups. p (dV) and ds (dK, dQ) go from the score accumulators, rounded to
-// bf16, straight into the second mma: the rounding points stay the Pallas
-// bodies'. At head_dim 256 the accumulators (16 x 256 f32 per warp, twice
-// for dK/dV) do not fit in registers; the CUDA-core kernels above serve it.
-
-namespace tc {
-
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kBQ = 64;        // query rows per tile (16 per warp)
-constexpr int kBK = 64;        // key rows per tile
-using namespace ::tc;  // tensor_core.cuh
-
-// rows [r0, r0 + R) of a [.., D] head into shared rows of stride D + 8,
-// 16 bytes per copy; rows at or past n are zero
-template <int D, int R>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src,
-                                      long long row_stride, int r0, int n) {
-  constexpr int C = D / 8;
-  for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    const int row = r0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n)
-      v = *reinterpret_cast<const uint4*>(src + row * row_stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = v;
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(bf16) * (2 * kBQ + 2 * kBK) * (D + 8);
-}
-
-// dQ: one block per (query tile, batch x head); each warp walks the key
-// tiles for its 16 rows: S = Q K^T, dP = dO V^T, ds in registers, dQ += dS K
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const Params a) {
-  constexpr int DP = D + 8;
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* Os = Qs + kBQ * DP;  // dO rows
-  bf16* Ks = Os + kBQ * DP;
-  bf16* Vs = Ks + kBK * DP;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const bf16* k = head<bf16>(a.k, a.st[1], b, h);
-  const bf16* v = head<bf16>(a.v, a.st[2], b, h);
-  const int offset = a.sk - a.sq;
-  const int row0 = q0 + warp * 16 + g;
-  stage<D, kBQ>(Qs, head<bf16>(a.q, a.st[0], b, h), a.st[0][1], q0, a.sq);
-  stage<D, kBQ>(Os, head<bf16>(a.dout, a.st[3], b, h), a.st[3][1], q0, a.sq);
-  const long long base = static_cast<long long>(blockIdx.y) * a.sq;
-  float lse[2], delta[2];
-  bool live[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lse[r] = row < a.sq ? a.lse[base + row] : kNegInf;
-    delta[r] = row < a.sq ? a.delta[base + row] : 0.f;
-    live[r] = row < a.sq && lse[r] > kNegInf * 0.5f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-  const int k_end = a.causal ? min(a.sk, q0 + kBQ + offset) : a.sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous key tile is consumed
-    stage<D, kBK>(Ks, k, a.st[1][1], k0, a.sk);
-    stage<D, kBK>(Vs, v, a.st[2][1], k0, a.sk);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    dot_tile<D, 8>(s, Qs, warp * 16, Ks, 0, lane);
-    dot_tile<D, 8>(dp, Os, warp * 16, Vs, 0, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int row = row0 + 8 * r, col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = live[r] && col < a.sk &&
-                        (!a.causal || col <= row + offset);
-        const float p = ok ? expf(s[j][e] * a.scale - lse[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - delta[r]) * a.scale;
-      }
-    acc_tile<D, 8>(dq, s, Ks, 0, lane);  // dS rounded to bf16, then dS . K
-  }
-  const float one[2] = {1.f, 1.f};
-  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], row0, a.sq, t, dq,
-           one);
-}
-
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(bf16) * (2 * kBK + 2 * kBQ) * (D + 8) +
-         sizeof(float) * 2 * kBQ;
-}
-
-// dK/dV: one block per (key tile, batch x head); each warp owns 16 keys and
-// walks the query tiles that reach them, 32 rows at a time: S^T = K Q^T,
-// dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const Params a) {
-  constexpr int DP = D + 8;
-  extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);
-  bf16* Vs = Ks + kBK * DP;
-  bf16* Qs = Vs + kBK * DP;
-  bf16* Os = Qs + kBQ * DP;  // dO rows
-  float* Ls = reinterpret_cast<float*>(Os + kBQ * DP);
-  float* Ds = Ls + kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kBK;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const bf16* q = head<bf16>(a.q, a.st[0], b, h);
-  const bf16* dout = head<bf16>(a.dout, a.st[3], b, h);
-  const int offset = a.sk - a.sq;
-  const int key0 = k0 + warp * 16 + g;  // fragment keys key0, key0 + 8
-  stage<D, kBK>(Ks, head<bf16>(a.k, a.st[1], b, h), a.st[1][1], k0, a.sk);
-  stage<D, kBK>(Vs, head<bf16>(a.v, a.st[2], b, h), a.st[2][1], k0, a.sk);
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-
-  // rows before k0 - offset see none of this tile's keys
-  const int i_begin = a.causal ? max(0, k0 - offset) / kBQ * kBQ : 0;
-  const long long base = static_cast<long long>(blockIdx.y) * a.sq;
-  for (int i0 = i_begin; i0 < a.sq; i0 += kBQ) {
-    __syncthreads();  // the previous query tile is consumed
-    stage<D, kBQ>(Qs, q, a.st[0][1], i0, a.sq);
-    stage<D, kBQ>(Os, dout, a.st[3][1], i0, a.sq);
-    for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-      const int row = i0 + r;
-      Ls[r] = row < a.sq ? a.lse[base + row] : kNegInf;
-      Ds[r] = row < a.sq ? a.delta[base + row] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < kBQ / 32; ++half) {
-      float pt[4][4], dst[4][4];
-      dot_tile<D, 4>(pt, Ks, warp * 16, Qs, half * 32, lane);
-      dot_tile<D, 4>(dst, Vs, warp * 16, Os, half * 32, lane);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * (e >> 1);
-          const int rl = half * 32 + j * 8 + 2 * t + (e & 1);
-          const int row = i0 + rl;
-          const float lse = Ls[rl];
-          const bool ok = row < a.sq && lse > kNegInf * 0.5f && key < a.sk &&
-                          (!a.causal || key <= row + offset);
-          const float p = ok ? expf(pt[j][e] * a.scale - lse) : 0.f;
-          pt[j][e] = p;
-          dst[j][e] = p * (dst[j][e] - Ds[rl]) * a.scale;
-        }
-      acc_tile<D, 4>(dv, pt, Os, half * 32, lane);   // P^T . dO
-      acc_tile<D, 4>(dk, dst, Qs, half * 32, lane);  // dS^T . Q
-    }
-  }
-  const float one[2] = {1.f, 1.f};
-  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], key0, a.sk, t, dk,
-           one);
-  store<D>(head<bf16>(a.out1, a.st[5], b, h), a.st[5][1], key0, a.sk, t, dv,
-           one);
-}
-
-}  // namespace tc
-
 // ------------------------------------- forward: TMA and wgmma (Hopper only)
 //
 // bf16 at head_dim 64 and 128. One block per (128 query rows, batch x
@@ -872,6 +685,28 @@ __device__ __forceinline__ void mma_rs<64>(float (&d)[8][4],
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<64>(float (&d)[8][4], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 template <>
@@ -1105,18 +940,406 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ----------------------------------- backward: TMA and wgmma (Hopper only)
+//
+// bf16 at head_dim 64 and 128, in the forward's shape: warpgroup 0 is the
+// producer, whose first warp keeps TMA loads in flight through a ring of
+// stages guarded by "full" and "empty" mbarriers and then hands its
+// registers to the consumers (setmaxnreg); warpgroups 1 and 2 are consumers
+// of 64 rows each, and every product is a wgmma. Both kernels recompute S
+// and dP from the saved lse and delta, as the Pallas _bwd_common does. The
+// lse of a row with no key (-1e30) or past sq is taken as +inf, so exp
+// gives its p = 0 with no test in the inner loop; masks apply only on tiles
+// that cross the causal diagonal or the last key. p (for dV) and ds (for dK
+// and dQ) are rounded to bf16 as they become the register A fragments of
+// the second products: the Pallas bodies' rounding points.
+//
+// Bound on an H100 SXM at the training path's [8, 2048, 16, 128] causal:
+// 8 d FLOPs per kept (row, key) pair for dK/dV (S, dP, dV, dK) and 6 d for
+// dQ (S, dP, dQ), against a few bytes per (row, dim): both are bound by
+// operations (989 TFLOP/s). So the design keeps the tensor cores fed: a
+// block's operands arrive by TMA while its other consumer multiplies, the
+// products are wgmma (the only way to the full rate), and exp is __expf.
+
+constexpr int kDkvKeys = 128;  // keys per dK/dV block: two consumers of 64
+constexpr int kDkvRows = 64, kDkvStages = 3;  // query rows per tile, ring
+constexpr int kDqRows = 128;  // query rows per dQ block: two consumers of 64
+constexpr int kDqKeys = 128, kDqStages = 2;  // keys per tile, ring
+
+__device__ __forceinline__ float positive_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+// p and ds of one consumer's 64 x N score tile s (dp: the dO V^T tile),
+// rounded to bf16 into the A fragments pa and dsa of the next products.
+// res(j, e) gives (lse, delta) of fragment element e of s[j]; keep(j, e)
+// its mask, read only with kMask.
+template <bool kMask, int N, typename Res, typename Keep>
+__device__ __forceinline__ void probs(const float (&s)[N / 8][4],
+                                      const float (&dp)[N / 8][4],
+                                      float scale, Res res, Keep keep,
+                                      uint32_t (&pa)[N / 16][4],
+                                      uint32_t (&dsa)[N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 r = res(j, e);
+      p[e] = __expf(s[j][e] * scale - r.x);
+      if (kMask && !keep(j, e)) p[e] = 0.f;
+      ds[e] = p[e] * (dp[j][e] - r.y) * scale;
+    }
+    pa[j / 2][(j & 1) * 2] = pack(p[0], p[1]);
+    pa[j / 2][(j & 1) * 2 + 1] = pack(p[2], p[3]);
+    dsa[j / 2][(j & 1) * 2] = pack(ds[0], ds[1]);
+    dsa[j / 2][(j & 1) * 2 + 1] = pack(ds[2], ds[3]);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_smem() {
+  // alignment slack, K and V, the ring of Q and dO tiles, the lse and delta
+  // of each stage, 2 mbarriers per stage and one for K and V
+  return 1024 +
+         sizeof(bf16) * (2 * kDkvKeys + 2 * kDkvStages * kDkvRows) * D +
+         sizeof(float) * 2 * kDkvStages * kDkvRows + 8 * (2 * kDkvStages + 1);
+}
+
+// dK/dV replaces pallas_ops.py _flash_bwd_dkv_kernel: one block per (128
+// keys, batch x head). The producer loads the block's K and V once, then
+// streams the Q and dO tiles of the query rows that reach those keys,
+// starting at the first such tile (the early key blocks, which have the
+// most tiles, are scheduled first); its 32 lanes write each tile's lse and
+// delta and each arrives on the stage's barrier. Each consumer owns 64
+// keys: S^T = K Q^T and dP^T = V dO^T from shared memory (both K-major),
+// P^T and dS^T in registers, then dV += P^T dO and dK += dS^T Q with dO and
+// Q read MN-major from the same tiles. dK and dV (64 x D f32 each) stay in
+// registers for the whole walk. Bound at [8, 2048, 16, 128] causal: 0.278
+// ms of operations.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const Params a) {
+  constexpr int NS = kDkvStages, BQ = kDkvRows, BK = kDkvKeys;
+  constexpr int NH = D / 64;  // 64-column boxes per row
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
+  bf16* Vs = Ks + BK * D;       // K and V: [NH][BK][64]
+  bf16* Qs = Vs + BK * D;       // stage s: Qs + s * BQ * D, [NH][BQ][64]
+  bf16* Os = Qs + NS * BQ * D;  // dO, as Qs
+  float* Ls = reinterpret_cast<float*>(Os + NS * BQ * D);  // [NS][BQ]
+  float* Ds = Ls + NS * BQ;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ds + NS * BQ);
+  uint64_t* empty = full + NS;
+  uint64_t* kvbar = empty + NS;
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int offset = a.sk - a.sq;
+  // rows before k0 - offset see none of the block's keys
+  const int i_begin = a.causal ? max(0, k0 - offset) / BQ * BQ : 0;
+  const int n_tiles = a.sq > i_begin ? (a.sq - i_begin + BQ - 1) / BQ : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      bar_init(full + s, 32);  // every lane of the producer warp
+      bar_init(empty + s, 8);  // lane 0 of each consumer warp
+    }
+    bar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {
+        bar_expect(kvbar, 2 * sizeof(bf16) * BK * D);
+        for (int c = 0; c < NH; ++c) {
+          tma_load(Ks + c * BK * 64, &tk, kvbar, c * 64, h, k0, b);
+          tma_load(Vs + c * BK * 64, &tv, kvbar, c * 64, h, k0, b);
+        }
+      }
+      const float* lse = a.lse + static_cast<long long>(blockIdx.y) * a.sq;
+      const float* delta =
+          a.delta + static_cast<long long>(blockIdx.y) * a.sq;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS, i0 = i_begin + j * BQ;
+        if (j >= NS) bar_wait(empty + s, (j / NS - 1) & 1);
+        for (int r = lane; r < BQ; r += 32) {
+          const int row = i0 + r;
+          const float l = row < a.sq ? lse[row] : kNegInf;
+          Ls[s * BQ + r] = l > 0.5f * kNegInf ? l : positive_inf();
+          Ds[s * BQ + r] = row < a.sq ? delta[row] : 0.f;
+        }
+        if (lane == 0) {
+          bar_expect(full + s, 2 * sizeof(bf16) * BQ * D);
+          for (int c = 0; c < NH; ++c) {
+            tma_load(Qs + (s * NH + c) * BQ * 64, &tq, full + s, c * 64, h,
+                     i0, b);
+            tma_load(Os + (s * NH + c) * BQ * 64, &tdo, full + s, c * 64, h,
+                     i0, b);
+          }
+        } else {
+          bar_arrive(full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = threadIdx.x / 128 - 1;  // consumer 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int kc0 = k0 + cw * 64;  // this consumer's keys kc0 .. kc0 + 63
+  const int key0 = kc0 + warp * 16 + (lane >> 2);  // keys key0, key0 + 8
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
+  bar_wait(kvbar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NS, i0 = i_begin + j * BQ;
+    bar_wait(full + s, (j / NS) & 1);
+    // the tile's last row reaches this consumer's first key
+    if (!(a.causal && kc0 > i0 + BQ - 1 + offset)) {
+      const bf16* Q = Qs + s * NH * BQ * 64;
+      const bf16* O = Os + s * NH * BQ * 64;
+      float St[BQ / 8][4], dPt[BQ / 8][4];  // S^T, dP^T: keys x rows
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<BQ>(St,
+                   desc(Ks + ((kk / 4) * BK + cw * 64) * 64 + (kk % 4) * 16,
+                        16, 1024),
+                   desc(Q + (kk / 4) * BQ * 64 + (kk % 4) * 16, 16, 1024),
+                   kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<BQ>(dPt,
+                   desc(Vs + ((kk / 4) * BK + cw * 64) * 64 + (kk % 4) * 16,
+                        16, 1024),
+                   desc(O + (kk / 4) * BQ * 64 + (kk % 4) * 16, 16, 1024),
+                   kk > 0);
+      wg_commit();
+      wg_wait();
+      pin(St);
+      pin(dPt);
+      const float* L = Ls + s * BQ;
+      const float* Dl = Ds + s * BQ;
+      // element e of column block jn is query row i0 + 8 jn + 2 t + e % 2
+      auto res = [&](int jn, int e) {
+        const int c = jn * 8 + 2 * t + (e & 1);
+        return make_float2(L[c], Dl[c]);
+      };
+      auto keep = [&](int jn, int e) {
+        const int key = key0 + 8 * (e >> 1);
+        const int qrow = i0 + jn * 8 + 2 * t + (e & 1);
+        return key < a.sk && (!a.causal || key <= qrow + offset);
+      };
+      uint32_t P[BQ / 16][4], dS[BQ / 16][4];
+      if ((a.causal && kc0 + 63 > i0 + offset) || kc0 + 64 > a.sk)
+        probs<true, BQ>(St, dPt, a.scale, res, keep, P, dS);
+      else
+        probs<false, BQ>(St, dPt, a.scale, res, keep, P, dS);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        mma_rs<D>(dv, P[kc], desc(O + kc * 16 * 64, BQ * 128, 1024));
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        mma_rs<D>(dk, dS[kc], desc(Q + kc * 16 * 64, BQ * 128, 1024));
+      wg_commit();
+      wg_wait();
+      pin(dv);
+      pin(dk);
+    }
+    if (lane == 0) bar_arrive(empty + s);  // this warp is done with stage s
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], key0, a.sk, t, dk,
+           one);
+  store<D>(head<bf16>(a.out1, a.st[5], b, h), a.st[5][1], key0, a.sk, t, dv,
+           one);
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  // alignment slack, Q and dO, the ring of K and V tiles, 2 mbarriers per
+  // stage and one for Q and dO
+  return 1024 + sizeof(bf16) * (2 * kDqRows + 2 * kDqStages * kDqKeys) * D +
+         8 * (2 * kDqStages + 1);
+}
+
+// dQ replaces pallas_ops.py _flash_bwd_dq_kernel: one block per (128 query
+// rows, batch x head), the last query blocks (the longest causal walks)
+// scheduled first. The producer loads the block's Q and dO once, then
+// streams K and V tiles up to the causal reach of the block's last row;
+// key tiles past it are never loaded. Each consumer owns 64 rows, whose lse
+// and delta it keeps in registers: S = Q K^T and dP = dO V^T from shared
+// memory, dS in registers, then dQ += dS K with K read MN-major. On an
+// H100, 128-key tiles (two stages) ran 10% faster than 64-key ones (three;
+// tools/flash_bwd_variants.py). Bound at [8, 2048, 16, 128] causal: 0.209
+// ms of operations.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const Params a) {
+  constexpr int NS = kDqStages, BQ = kDqRows, BK = kDqKeys;
+  constexpr int NH = D / 64;  // 64-column boxes per row
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t(1023));
+  bf16* Os = Qs + BQ * D;  // Q and dO: [NH][BQ][64]
+  bf16* Ks = Os + BQ * D;  // stage s: Ks + s * BK * D, [NH][BK][64]
+  bf16* Vs = Ks + NS * BK * D;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + NS * BK * D);
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int offset = a.sk - a.sq;
+  // keys past the reach of the block's last row are masked for every row
+  const int k_end = a.causal ? min(a.sk, q0 + BQ + offset) : a.sk;
+  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 8);  // lane 0 of each consumer warp
+    }
+    bar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      bar_expect(qbar, 2 * sizeof(bf16) * BQ * D);
+      for (int c = 0; c < NH; ++c) {
+        tma_load(Qs + c * BQ * 64, &tq, qbar, c * 64, h, q0, b);
+        tma_load(Os + c * BQ * 64, &tdo, qbar, c * 64, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % NS;
+        if (j >= NS) bar_wait(empty + s, (j / NS - 1) & 1);
+        bar_expect(full + s, 2 * sizeof(bf16) * BK * D);
+        for (int c = 0; c < NH; ++c) {
+          tma_load(Ks + (s * NH + c) * BK * 64, &tk, full + s, c * 64, h,
+                   j * BK, b);
+          tma_load(Vs + (s * NH + c) * BK * 64, &tv, full + s, c * 64, h,
+                   j * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = threadIdx.x / 128 - 1;  // consumer 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int r_lo = q0 + cw * 64;  // this consumer's rows r_lo .. r_lo + 63
+  const int row0 = r_lo + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
+  const int reach = r_lo + 63 + offset;  // the last key its rows see
+  const long long base = static_cast<long long>(blockIdx.y) * a.sq;
+  float lse[2], delta[2];
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float l = row < a.sq ? a.lse[base + row] : kNegInf;
+    lse[r] = l > 0.5f * kNegInf ? l : positive_inf();
+    delta[r] = row < a.sq ? a.delta[base + row] : 0.f;
+    lim[r] = row + offset;
+  }
+  float dq[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+    dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  bar_wait(qbar, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % NS;
+    const int k0 = j * BK;
+    bar_wait(full + s, (j / NS) & 1);
+    if (!(a.causal && k0 > reach)) {
+      const bf16* K = Ks + s * NH * BK * 64;
+      const bf16* V = Vs + s * NH * BK * 64;
+      float S[BK / 8][4], dP[BK / 8][4];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<BK>(S,
+                   desc(Qs + ((kk / 4) * BQ + cw * 64) * 64 + (kk % 4) * 16,
+                        16, 1024),
+                   desc(K + (kk / 4) * BK * 64 + (kk % 4) * 16, 16, 1024),
+                   kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<BK>(dP,
+                   desc(Os + ((kk / 4) * BQ + cw * 64) * 64 + (kk % 4) * 16,
+                        16, 1024),
+                   desc(V + (kk / 4) * BK * 64 + (kk % 4) * 16, 16, 1024),
+                   kk > 0);
+      wg_commit();
+      wg_wait();
+      pin(S);
+      pin(dP);
+      auto res = [&](int, int e) {
+        return make_float2(lse[e >> 1], delta[e >> 1]);
+      };
+      // element e of key block jn is key k0 + 8 jn + 2 t + e % 2
+      auto keep = [&](int jn, int e) {
+        const int col = k0 + jn * 8 + 2 * t + (e & 1);
+        return col < a.sk && (!a.causal || col <= lim[e >> 1]);
+      };
+      uint32_t P[BK / 16][4], dS[BK / 16][4];  // P is not used here
+      if ((a.causal && k0 + BK - 1 > r_lo + offset) || k0 + BK > a.sk)
+        probs<true, BK>(S, dP, a.scale, res, keep, P, dS);
+      else
+        probs<false, BK>(S, dP, a.scale, res, keep, P, dS);
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        mma_rs<D>(dq, dS[kc], desc(K + kc * 16 * 64, BK * 128, 1024));
+      wg_commit();
+      wg_wait();
+      pin(dq);
+    }
+    if (lane == 0) bar_arrive(empty + s);  // this warp is done with stage s
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store<D>(head<bf16>(a.out0, a.st[4], b, h), a.st[4][1], row0, a.sq, t, dq,
+           one);
+}
+
 }  // namespace wg
 
 // --------------------------------------------------------------- launchers
 
-template <typename Kernel>
+// sets the kernel's dynamic shared memory, launches it on stream and
+// returns the launch's error
+template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
-                   const Params& p, cudaStream_t stream) {
+                   cudaStream_t stream, const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -1184,45 +1407,55 @@ cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
         !tensor_map(&tk, p.k, p.st[1], B, p.sk, p.H, D, wg::kBK) ||
         !tensor_map(&tv, p.v, p.st[2], B, p.sk, p.H, D, wg::kBK))
       return cudaErrorInvalidValue;
-    constexpr size_t smem = wg::fwd_smem<D>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        wg::flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
     const dim3 grid((p.sq + wg::kBQ - 1) / wg::kBQ, B * p.H);
-    wg::flash_fwd_kernel<D><<<grid, wg::kThreads, smem, stream>>>(tq, tk, tv,
-                                                                  p);
-    return cudaGetLastError();
+    return launch(wg::flash_fwd_kernel<D>, wg::kThreads, wg::fwd_smem<D>(),
+                  grid, stream, tq, tk, tv, p);
   } else {
     const dim3 grid((p.sq + kBQ - 1) / kBQ, B * p.H);
-    return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem<D>(), grid, p,
-                  stream);
+    return launch(flash_fwd_kernel<T, D>, kThreads, fwd_smem<D>(), grid,
+                  stream, p);
   }
+}
+
+// the TMA maps of q and dO (boxes of `rows` rows) and of k and v (boxes of
+// `keys` rows) of a backward launch
+bool bwd_maps(CUtensorMap (&m)[4], const Params& p, int B, int D, int rows,
+              int keys) {
+  return tensor_map(&m[0], p.q, p.st[0], B, p.sq, p.H, D, rows) &&
+         tensor_map(&m[1], p.k, p.st[1], B, p.sk, p.H, D, keys) &&
+         tensor_map(&m[2], p.v, p.st[2], B, p.sk, p.H, D, keys) &&
+         tensor_map(&m[3], p.dout, p.st[3], B, p.sq, p.H, D, rows);
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
   if constexpr (on_tensor_cores<T, D>()) {
-    const dim3 grid((p.sk + tc::kBK - 1) / tc::kBK, B * p.H);
-    return launch(tc::flash_bwd_dkv_kernel<D>, tc::kThreads,
-                  tc::dkv_smem<D>(), grid, p, stream);
+    CUtensorMap m[4];
+    if (!bwd_maps(m, p, B, D, wg::kDkvRows, wg::kDkvKeys))
+      return cudaErrorInvalidValue;
+    const dim3 grid((p.sk + wg::kDkvKeys - 1) / wg::kDkvKeys, B * p.H);
+    return launch(wg::flash_bwd_dkv_kernel<D>, wg::kThreads,
+                  wg::dkv_smem<D>(), grid, stream, m[0], m[1], m[2], m[3], p);
   } else {
     const dim3 grid((p.sk + block_k<D>() - 1) / block_k<D>(), B * p.H);
     return launch(flash_bwd_dkv_kernel<T, D>, kThreads, dkv_smem<D>(), grid,
-                  p, stream);
+                  stream, p);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
   if constexpr (on_tensor_cores<T, D>()) {
-    const dim3 grid((p.sq + tc::kBQ - 1) / tc::kBQ, B * p.H);
-    return launch(tc::flash_bwd_dq_kernel<D>, tc::kThreads, tc::dq_smem<D>(),
-                  grid, p, stream);
+    CUtensorMap m[4];
+    if (!bwd_maps(m, p, B, D, wg::kDqRows, wg::kDqKeys))
+      return cudaErrorInvalidValue;
+    const dim3 grid((p.sq + wg::kDqRows - 1) / wg::kDqRows, B * p.H);
+    return launch(wg::flash_bwd_dq_kernel<D>, wg::kThreads, wg::dq_smem<D>(),
+                  grid, stream, m[0], m[1], m[2], m[3], p);
   } else {
     const dim3 grid((p.sq + kBQ - 1) / kBQ, B * p.H);
-    return launch(flash_bwd_dq_kernel<T, D>, kThreads, dq_smem<D>(), grid, p,
-                  stream);
+    return launch(flash_bwd_dq_kernel<T, D>, kThreads, dq_smem<D>(), grid,
+                  stream, p);
   }
 }
 

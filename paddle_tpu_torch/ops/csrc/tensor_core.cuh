@@ -94,32 +94,6 @@ __device__ __forceinline__ void dot_tile_a(float (&s)[NJ][4],
   }
 }
 
-// s[j] = X[xr .. xr+16) . Y[yr+8j .. yr+8j+8)^T over D (j < NJ), both
-// operands read from shared memory, A one k-step at a time: the flash
-// backward kernels hold two accumulators of D columns and keep the 4 A
-// registers of a step, not the D / 4 of load_a
-template <int D, int NJ>
-__device__ __forceinline__ void dot_tile(float (&s)[NJ][4], const bf16* X,
-                                         int xr, const bf16* Y, int yr,
-                                         int lane) {
-  constexpr int DP = D + 8;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm(a, X + (xr + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      uint32_t b[4];
-      ldsm(b, Y + (yr + j * 8 + (lane & 7) + ((lane >> 4) << 3)) * DP +
-                  kk * 16 + ((lane >> 3) & 1) * 8);
-      mma(s[j], a, b[0], b[1]);
-      mma(s[j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 // acc += W . Y[yr .. yr + 8NJ) with W (16 x 8NJ) the fragments of a score
 // tile, rounded to bf16: the A operand comes from registers, Y (rows along
 // the reduction, D columns) through transposing ldmatrix reads

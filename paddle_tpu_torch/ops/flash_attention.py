@@ -32,11 +32,11 @@ raises; nothing falls back. ``launches`` counts kernel launches per kernel.
 Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the training path's
 ``[b, 2048, 16, 128]`` every kernel does hundreds of FLOPs per byte it must
 move, so all three are bound by operations. bf16 at head_dim 64 and 128
-runs on the tensor cores: the forward with TMA loads and ``wgmma`` (a
-producer warp and two consumer warpgroups), the backward kernels with
-``mma.sync``; f32, and bf16 at head_dim 256, on CUDA cores (see the
-source). The forward's TMA maps need each operand's start and its batch,
-row and head strides 16-byte aligned, which :func:`_rows16` provides.
+runs on the tensor cores: all three kernels with TMA loads and ``wgmma``
+(a producer warp and two consumer warpgroups); f32, and bf16 at head_dim
+256, on CUDA cores (see the source). The TMA maps need each operand's
+start and its batch, row and head strides 16-byte aligned, which
+:func:`_rows16` provides for q, k, v and dO.
 """
 from __future__ import annotations
 

@@ -22,9 +22,7 @@ card's name and power limit.
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -55,34 +53,6 @@ VARIANTS = {
     "no_loads": ("      const bool real = trows[n] >= 0;\n",
                  "      const bool real = false;\n"),
 }
-
-
-def build(tmp: Path, edits: dict) -> dict:
-    """One library per named edit of the source (None: unchanged), built
-    in parallel; returns the loaded libraries."""
-    src = (_build.CSRC / "paged_attention.cu").read_text()
-    (tmp / "tensor_core.cuh").write_text(
-        (_build.CSRC / "tensor_core.cuh").read_text())
-    procs = {}
-    for name, edit in edits.items():
-        text = src
-        if edit is not None:
-            old, new = edit
-            if old not in text:
-                raise RuntimeError(f"{name}: the source no longer has {old!r}")
-            text = text.replace(old, new)
-        (tmp / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp / f"{name}.so"),
-             str(tmp / f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        libs[name] = ctypes.CDLL(str(tmp / f"{name}.so"))
-    return libs
 
 
 def use(lib) -> None:
@@ -216,7 +186,8 @@ def main() -> None:
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), {**VARIANTS, **MUTANTS})
+        libs = _build.build_edited(
+            "paged_attention", {**VARIANTS, **MUTANTS}, Path(tmp))
         mutants = mutation_runs(cs, {n: libs[n] for n in
                                      ("this_tree", *MUTANTS)})
         times = timing_runs(cs, {n: libs[n] for n in VARIANTS})

@@ -59,12 +59,18 @@ def _close(got, want, dtype, what):
                                atol=atol, rtol=rtol, err_msg=what)
 
 
-CASES = [(256, 256, False), (256, 256, True), (256, 128, True)]
+# the last three put the causal diagonal at offsets +256, -256 (rows 0-255
+# see no key) and 0 across three 128-row blocks: the offsets the kernels'
+# tile walks must get right
+CASES = [(256, 256, False), (256, 256, True), (256, 128, True),
+         (128, 384, True), (384, 128, True), (384, 384, True)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("sq,sk,causal", CASES,
-                         ids=["full", "causal", "causal-sq256-sk128"])
+                         ids=["full", "causal", "causal-sq256-sk128",
+                              "causal-sq128-sk384", "causal-sq384-sk128",
+                              "causal-sq384-sk384"])
 def test_plain_kernels_match_pallas(sq, sk, causal, dtype):
     (jq, jk, jv, jdo), (q, k, v, do) = _inputs(0, sq, sk, dtype)
     scale = 1.0 / math.sqrt(D)
