@@ -12,14 +12,20 @@ no result. Phases, in order; each raises on failure:
 1. Build the CUDA kernels from the checkout's sources (``nvcc``, one
    process per source, in parallel).
 2. Hold every paged-attention kernel against its plain PyTorch version on
-   the card, in f32 (max abs err <= 1e-5) and bf16 (2e-2 abs + 2e-2 rel
-   per element, and each row's error over its norm at most 0.04), at the
-   serving path's shapes (H=16, D=128, block 16) and at head dims 64 and
-   32; the int8 variants over int8 pools (standard normal K/V quantized per
-   token row) on permuted, partial tables, decode and chunks of 256 at
-   prefixes 0 and 768. Then the prefill kernel's tile edges, both
-   instances, head dims 128 and 64: 1, 37, 65 and 300 queries at prefixes
-   0, 5, 768 and 1000, and the full-prefill route at the same counts. Each
+   the card, in f32 (max abs err <= 1e-5), bf16 (2e-2 abs + 2e-2 rel
+   per element, and each row's error over its norm at most 0.04) and
+   float16 (5e-3 + 5e-3 rel, rows 0.01), at the serving path's shapes
+   (H=16, D=128, block 16) and at head dims 64 and 32; the int8 variants
+   over int8 pools (standard normal K/V quantized per token row) on
+   permuted, partial tables, decode and chunks of 256 at prefixes 0 and
+   768. Then the prefill kernel's tile edges, both instances, head dims
+   128 and 64: 1, 37, 65 and 300 queries at prefixes 0, 5, 768 and 1000,
+   and the full-prefill route at the same counts. Then the decode kernel's
+   edges (``decode_checks``): head dims 32, 64, 128 and 256, every dtype,
+   both pools, the ragged positions ``DECODE_POS`` (block and split edges)
+   in one launch, table entries past each slot's last block pointing at a
+   scratch block that reads 1e4, and two launches on the same inputs equal
+   bit for bit; at head dim 256 also the prefill's CUDA-core form. Each
    check prints its share of the bar.
 3. Serve ``gpt_1p3b`` at full width and depth (seeded random weights, f32,
    TF32 off) through ``ServingAPI``: 8 slots, 12 requests of mixed prompt
@@ -41,7 +47,10 @@ no result. Phases, in order; each raises on failure:
    kernel output is held against its plain version on the engine's own
    pools (bar of phase 2). The per-token agreement with phase 4's tokens is
    printed, not held.
-6. Phase 3's model in bf16. First the prefill kernel's tensor-core
+6. Phase 3's model in float16 (a copy), unquantized and with the int8
+   arena: every layer's kernel output of a 512-token prefill and of one
+   decode step held against its plain version on the engine's own pools.
+   Then the model in bf16. First the prefill kernel's tensor-core
    instances on the engine's own data: the host-clock time from admission
    to first token of a 512-token prompt, then every layer's kernel output
    of one such prefill and of an int8 chunk at prefix 768 held against its
@@ -57,11 +66,13 @@ no result. Phases, in order; each raises on failure:
 7. Hold the three flash-attention kernels (forward with lse, dK/dV, dQ) and
    the ``FlashAttention`` autograd.Function against their plain versions
    (in f32 also against torch autograd through the plain forward) at
-   ``FLASH_TOL``: per element f32 1e-5, bf16 4e-3 + 2e-2 |ref|, and each
-   row's error over its norm (or the median row norm) at most 1e-4 (f32)
-   and 1.5e-2 (bf16). Shapes (``FLASH_SHAPES``): [2, 2048, 16, 128] causal
-   and not, head dims 64 and 256 at 256 positions, and causal 256 queries
-   over 128 keys, whose rows with no key must give lse = -1e30 and dq = 0.
+   ``FLASH_TOL``: per element f32 1e-5, bf16 4e-3 + 2e-2 |ref|, float16
+   1e-3 + 5e-3 |ref|, and each row's error over its norm (or the median
+   row norm) at most 1e-4 (f32), 1.5e-2 (bf16) and 4e-3 (float16; the
+   float16 instances run on the CUDA cores). Shapes (``FLASH_SHAPES``):
+   [2, 2048, 16, 128] causal and not, head dims 64 and 256 at 256
+   positions, and causal 256 queries over 128 keys, whose rows with no key
+   must give lse = -1e30 and dq = 0.
    Then the edges of the tensor-core backward tiles (``FLASH_EDGES``, a
    generator of their own): 192 queries and keys causal and not (ragged
    tiles), causal 64 queries over 320 keys and 320 over 64 (offsets +256
@@ -85,6 +96,9 @@ no result. Phases, in order; each raises on failure:
    dv together) as a yardstick only. Each flash kernel launches exactly
    24 x steps times here too (its bf16 instances, on the tensor cores,
    where phase 8 ran the f32 instances).
+10. Serve ``gpt_1p3b`` cut to 2 layers of 8 heads of 256 (full width
+    2048), seeded f32 weights: tokens equal ``generate()`` and the head_dim
+    256 kernels launch 2 x decode steps and 2 x prefills.
 
 Then one JSON line of per-kernel results (a paged row's ``launches`` are
 phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
@@ -92,6 +106,8 @@ instances its times belong to, and ``launches_f32`` phase 8's),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -134,9 +150,17 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense
 # paged bf16 row bound sits 2 times above the worst sound reading (0.0201:
 # the plain version rounds its logits to bf16, the kernels keep f32
 # scores); a dropped 64-key tile or a diagonal off by one fails it (PERF.md).
-TOL = {torch.float32: (1e-5, 0.0, None), torch.bfloat16: (2e-2, 2e-2, 4e-2)}
+TOL = {torch.float32: (1e-5, 0.0, None), torch.bfloat16: (2e-2, 2e-2, 4e-2),
+       torch.float16: (5e-3, 5e-3, 1e-2)}
 FLASH_TOL = {torch.float32: (1e-5, 0.0, 1e-4),
-             torch.bfloat16: (4e-3, 2e-2, 1.5e-2)}
+             torch.bfloat16: (4e-3, 2e-2, 1.5e-2),
+             torch.float16: (1e-3, 5e-3, 4e-3)}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the decode checks' positions in one launch (MB = 132 blocks of 16): the
+# first keys, block edges, the edges of splits of 16 and 64 keys (129: the
+# first length cut into 32-key splits), MB * bs - 1 and 2047
+DECODE_POS = [0, 15, 16, 17, 63, 64, 65, 127, 128, 129, 700, 1000, 2047,
+              132 * BS - 1]
 # the quantized serving phases: 12 prompts of 37-1000 tokens, chunks of 256
 # (the six longer than a chunk are admitted in 2-4 chunks)
 QLENS = [37, 1000, 300, 64, 700, 129, 511, 250, 48, 900, 100, 257]
@@ -223,10 +247,81 @@ def int8_entry(rng, shape):
     return kq, vq, ks, vs
 
 
+def scratch_entry(rng, shape, dtype, int8):
+    """A pool entry of ``shape`` ``[NB, BS, H, D]`` (full precision in
+    ``dtype``, or int8) whose scratch block 0 reads 1e4 in every element
+    (int8: payload 127 at scale 1e4 / 127), so a key read through a stale
+    table entry shows."""
+    if int8:
+        entry = int8_entry(rng, shape)
+        entry[0][0] = entry[1][0] = 127
+        entry[2][0] = entry[3][0] = 1e4 / 127
+        return entry
+    kp, vp = (randn(rng, shape, dtype) for _ in range(2))
+    kp[0] = vp[0] = 1e4
+    return kp, vp
+
+
+def decode_checks(pa):
+    """Phase 2, the decode kernel's edges (a generator of their own): at
+    head dims 32, 64, 128 (H = 16) and 256, in f32, bf16 and float16, over
+    full-precision and int8 pools, the positions DECODE_POS in one launch
+    through a permuted table of 132 blocks whose entries past each slot's
+    last block are 0 (the scratch block, which reads 1e4), two lanes
+    sharing their first block, q the qkv split's strided view. A second
+    launch on the same inputs must give the same bits (the merge order and
+    the ticket counters' reset). At head dim 256 also the prefill's
+    CUDA-core form, both pools: 37 queries at prefixes 5 and 1000, and the
+    full prefill of 37 and 300."""
+    rng = np.random.default_rng(11)
+    S, MB = len(DECODE_POS), 132
+    nb = S * MB + 1
+    for d in (32, 64, D, 256):
+        h = H if d == D else 4
+        perm = rng.permutation(np.arange(1, nb)).reshape(S, MB)
+        perm[2, 0] = perm[1, 0]  # lanes 1 and 2 share their first block
+        for i, p in enumerate(DECODE_POS):
+            perm[i, p // BS + 1:] = 0
+        bt = torch.as_tensor(perm, dtype=torch.int32, device="cuda")
+        pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+        for dtype in DTYPES:
+            for int8 in (False, True):
+                entry = scratch_entry(rng, (nb, BS, h, d), dtype, int8)
+                name = "paged_decode_attention" + ("_int8" if int8 else "")
+                q = qkv_split(rng, S, h, d, dtype)[0]
+                out = pa.paged_decode_attention(q, entry, bt, pos)
+                again = pa.paged_decode_attention(q, entry, bt, pos)
+                tag = f"S={S} H={h} D={d} MB={MB} ragged"
+                check(name, dtype, tag, out,
+                      pa.paged_decode_attention_ref(q, entry, bt, pos))
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{name} {dtype} {tag}: two "
+                                         "launches on the same inputs differ")
+                if d != 256:
+                    continue
+                name = "paged_prefill_attention" + ("_int8" if int8 else "")
+                q = qkv_split(rng, 37, h, d, dtype)[0]
+                row = bt[DECODE_POS.index(2047)]  # 128 blocks, then 0s
+                for prefix in (5, 1000):
+                    check(name, dtype, f"sq=37 prefix={prefix} H={h} D={d}",
+                          pa.paged_prefill_attention(q, entry, row, prefix),
+                          pa.paged_prefill_attention_ref(q, entry, row,
+                                                         prefix))
+                if int8:
+                    continue
+                for sq in (37, 300):
+                    q, k, v = qkv_split(rng, sq, h, d, dtype)
+                    check("paged_full_prefill_attention", dtype,
+                          f"sq={sq} H={h} D={d}",
+                          pa.paged_full_prefill_attention(q, k, v, BS),
+                          pa.paged_full_prefill_attention_ref(q, k, v, BS))
+            torch.cuda.empty_cache()
+
+
 def kernel_checks(pa):
     """Phase 2: every kernel against its plain version on the card."""
     rng = np.random.default_rng(0)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         # the serving path's shapes: 8 slots x 128 blocks of 16 (2048 keys)
         S, MB = 8, 128
         nb = S * MB + 1
@@ -299,8 +394,9 @@ def kernel_checks(pa):
                   f"sq=24 prefix=5 H={h} D={d}",
                   pa.paged_prefill_attention(q, entry, bt[2], 5),
                   pa.paged_prefill_attention_ref(q, entry, bt[2], 5))
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in DTYPES:
         prefill_edges(pa, np.random.default_rng(9), dtype)
+    decode_checks(pa)
 
 
 def prefill_edges(pa, rng, dtype):
@@ -568,6 +664,30 @@ def serve_quantized(pa, gpt, serving, arrays, card):
     return launches
 
 
+def serve_d256(pa, gpt, serving, card):
+    """Phase 10: gpt_1p3b cut to 8 heads of 256 and 2 layers (full width
+    2048), seeded f32 weights, served on 8 slots through the head_dim 256
+    kernels: greedy tokens equal generate(), the decode kernel launched 2
+    x decode steps and the prefill kernel 2 x prefills."""
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_heads=8, num_layers=2)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    gpt.load_functional_state(model, gpt.seeded_state(model, seed=3))
+    layers = model.cfg.num_layers
+    api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
+                             device="cuda")
+    rng = np.random.default_rng(12)
+    lens = [5, 300, 37, 129, 16, 700, 64, 250, 9, 48]
+    news = [16, 24, 20, 32, 12, 16, 28, 18, 30, 22]
+    prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
+    what = "f32 head_dim 256 (8 heads, 2 layers)"
+    reqs, launches, steps, prefills, _ = serve(api, pa, prompts, news, what,
+                                               card)
+    hold_launches(launches, {"paged_decode_attention": layers * steps,
+                             "paged_prefill_attention": layers * prefills},
+                  f"{what} (2 x decode steps, 2 x prefills)")
+    hold_to_generate(model, prompts, reqs, news, what, card)
+
+
 def flash_inputs(rng, b, sq, sk, h, d, dtype):
     """q, k, v, dO ``[b, s, h, d]``; at sq == sk q, k, v are the strided
     views of one ``[b, s, 3, h, d]`` projection, as the model hands them
@@ -640,7 +760,7 @@ def flash_checks(fa):
     the backward tiles (FLASH_EDGES)."""
     for seed, shapes in FLASH_SETS:
         rng = np.random.default_rng(seed)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in DTYPES:
             for shape in shapes:
                 flash_case(fa, rng, dtype, *shape)
                 torch.cuda.empty_cache()
@@ -763,12 +883,43 @@ def bf16_prefills(model, pa, serving, card):
     shadow.report(f"bf16 int8 KV, chunks of {CHUNK}, prefix 768", card)
 
 
+def fp16_shadows(model, pa, serving, card):
+    """Phase 6, float16: a float16 copy of the model served on 8 slots, the
+    unquantized and the int8 arena. Three prompts (512, 100 and 37 tokens)
+    are admitted whole, then one decode step runs; every layer's kernel
+    output of the first prefill and of the decode step is held against its
+    plain version on the engine's own pools (TOL[float16])."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    half = copy.deepcopy(model).to(torch.float16)
+    layers = half.cfg.num_layers
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, half.cfg.vocab_size, n) for n in (512, 100, 37)]
+    for quant_kv in (False, True):
+        eng = serving.ServingAPI(half, serving.ServingConfig(
+            num_slots=8, quant_kv=quant_kv), device="cuda").engine
+        pick = {"paged_full_prefill_attention": 0, "paged_decode_attention": 0}
+        with Shadow(engine_mod, pa, layers, pick) as shadow:
+            slots = [eng.admit(p, 8)[0] for p in prompts]
+            eng.decode_step()
+        for slot in slots:
+            eng.retire(slot)
+        shadow.report("float16" + (" int8 KV" if quant_kv else "")
+                      + ": a 512-token prefill and a decode step of 3 slots",
+                      card)
+        del eng
+    del half
+    torch.cuda.empty_cache()
+
+
 def serve_bf16(model, pa, serving, card):
-    """Phase 6: decode-step time and tokens/s of 8 full bf16 slots in three
-    settings, in this order: unquantized, quant_kv, and quant_kv +
-    quant_weights (which quantizes the model in place); then each kernel's
-    time at the path's shapes, the int8 ones beside the bf16 kernel at the
-    same shape."""
+    """Phase 6: float16 shadows of one prefill and one decode step
+    (``fp16_shadows``); then decode-step time and tokens/s of 8 full bf16
+    slots in three settings, in this order: unquantized, quant_kv, and
+    quant_kv + quant_weights (which quantizes the model in place); then each
+    kernel's time at the path's shapes, the int8 ones beside the bf16
+    kernel at the same shape."""
+    fp16_shadows(model, pa, serving, card)
     model.to(torch.bfloat16)
     torch.cuda.empty_cache()
     bf16_prefills(model, pa, serving, card)
@@ -1169,6 +1320,9 @@ def main() -> int:
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
     launches_f32 = train_f32(model, arrays, port, card)
     flash_timing, flash_launches = train_bf16(model, arrays, port, card)
+    del model
+    torch.cuda.empty_cache()
+    serve_d256(pa, gpt, serving, card)
     timing.update(flash_timing)
     # a flash row's launches are the timed bf16 phase's (the tensor-core
     # instances its times belong to); launches_f32 the f32 phase's

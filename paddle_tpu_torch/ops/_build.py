@@ -81,9 +81,17 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def edit_pairs(edit) -> list:
+    """The ``(old, new)`` string replacements of one edit: None (none), one
+    pair, or a list of pairs."""
+    if edit is None:
+        return []
+    return [edit] if isinstance(edit[0], str) else list(edit)
+
+
 def build_edited(name: str, edits: dict, tmp: Path) -> Dict[str, ctypes.CDLL]:
-    """Copies of ``csrc/<name>.cu`` in ``tmp``, each made by one string
-    replacement ``(old, new)`` (None: unchanged), built with NVCC_FLAGS in
+    """Copies of ``csrc/<name>.cu`` in ``tmp``, each made by the string
+    replacements of one edit (:func:`edit_pairs`), built with NVCC_FLAGS in
     parallel and loaded; keyed as ``edits``. Raises when a source no longer
     holds a string to replace or nvcc fails."""
     src = (CSRC / f"{name}.cu").read_text()
@@ -92,8 +100,7 @@ def build_edited(name: str, edits: dict, tmp: Path) -> Dict[str, ctypes.CDLL]:
     procs = {}
     for key, edit in edits.items():
         text = src
-        if edit is not None:
-            old, new = edit
+        for old, new in edit_pairs(edit):
             if old not in text:
                 raise RuntimeError(f"{key}: the source no longer has {old!r}")
             text = text.replace(old, new)

@@ -39,12 +39,13 @@
 //     all three with Hopper's TMA loads and warpgroup wgmma products,
 //     namespace wg;
 //   - f32 (whose products must stay f32: the parity runs hold it to 1e-5),
-//     and bf16 at head_dim 256: f32 FMAs on the CUDA cores. Tiles live in
-//     shared memory as f32 rows padded by 4 floats (16-byte aligned, and
-//     conflict-free for the float4 reads). 256 threads form a 16 x 16 grid:
-//     thread (tr, tc) owns score rows tr + 16 i and columns tc + 16 j, and
-//     output columns tc * 4 + 64 q (one float4 each), so every product
-//     reads float4s from shared memory and does 16 FMAs per 8 loads.
+//     float16, and bf16 at head_dim 256: f32 FMAs on the CUDA cores. Tiles
+//     live in shared memory as f32 rows padded by 4 floats (16-byte
+//     aligned, and conflict-free for the float4 reads). 256 threads form a
+//     16 x 16 grid: thread (tr, tc) owns score rows tr + 16 i and columns
+//     tc + 16 j, and output columns tc * 4 + 64 q (one float4 each), so
+//     every product reads float4s from shared memory and does 16 FMAs per
+//     8 loads.
 //
 // Bound on an H100 SXM: at the training path's [B, 2048, 16, 128] the work
 // is about 4 FLOPs per (row, key, dim) forward and 14 backward against a few
@@ -57,6 +58,7 @@
 
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -80,6 +82,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -90,6 +93,10 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T, as the Pallas bodies' astype before a product
@@ -1343,7 +1350,8 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
   return cudaGetLastError();
 }
 
-// bf16 at head_dim 64 and 128 runs on the tensor cores
+// bf16 at head_dim 64 and 128 runs on the tensor cores; f32, float16 and
+// head_dim 256 on the CUDA cores
 template <typename T, int D>
 constexpr bool on_tensor_cores() {
   return std::is_same<T, __nv_bfloat16>::value && D <= 128;
@@ -1469,6 +1477,10 @@ cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
       if (D == 64) return LAUNCH<__nv_bfloat16, 64>(p, B, s);                \
       if (D == 128) return LAUNCH<__nv_bfloat16, 128>(p, B, s);              \
       if (D == 256) return LAUNCH<__nv_bfloat16, 256>(p, B, s);              \
+    } else if (dtype == 2) {                                                 \
+      if (D == 64) return LAUNCH<__half, 64>(p, B, s);                       \
+      if (D == 128) return LAUNCH<__half, 128>(p, B, s);                     \
+      if (D == 256) return LAUNCH<__half, 256>(p, B, s);                     \
     }                                                                        \
     return cudaErrorInvalidValue;                                            \
   } while (0)
@@ -1498,7 +1510,7 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D must be 64, 128 or 256. Every tensor
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D must be 64, 128 or 256. Every tensor
 // pointer is a CUDA device pointer and stream a cudaStream_t. strides is a
 // host array of 18 element strides: (batch, row, head) of q, k, v, dO, out0,
 // out1 in that order (entries of operands a launcher does not take are

@@ -2,14 +2,18 @@
 // (sm_90a). Two kernels, each with a plain C launcher bound from Python with
 // ctypes (paddle_tpu_torch/ops/paged_attention.py):
 //
-//   paged_decode_kernel   replaces paddle_tpu/ops/paged_attention.py
+//   dec::decode_kernel    replaces paddle_tpu/ops/paged_attention.py
 //                         _decode_kernel: one new query per slot against that
-//                         slot's paged K/V, read through its block table.
+//                         slot's paged K/V, read through its block table,
+//                         each slot's walk split over several blocks.
 //   paged_prefill_kernel  replaces paddle_tpu/ops/paged_attention.py
 //                         _prefill_kernel: one slot's causal queries at global
 //                         positions prefix_len + i, read through its table.
-//                         bf16 queries run its tensor-core form,
-//                         pf::prefill_kernel; f32 the CUDA-core form.
+//                         bf16 queries at head_dim <= 128 run its tensor-core
+//                         form, pf::prefill_kernel; f32, float16 and head_dim
+//                         256 the CUDA-core form.
+//
+// Query dtypes T: float, __nv_bfloat16, __half; head dims 32, 64, 128, 256.
 //
 // Both are templated on the pool payload type P. P = T (the query's dtype)
 // is the full-precision arena. P = int8_t is the int8 arena, the Pallas
@@ -37,8 +41,9 @@
 //
 // Bound on an H100 SXM: both kernels read each needed K/V row once, so decode
 // is bound by bytes (K/V rows up to each slot's position over 3.35 TB/s, at
-// about 1 FLOP per byte). Prefill at the engine's buckets (a 512-token prompt:
-// 0.27 GFLOP over 8 MB) is bound by neither rate but by latency: the time to
+// about 1 FLOP per byte; see dec:: below). Prefill at the engine's buckets
+// (a 512-token prompt: 0.27 GFLOP over 8 MB) is bound by neither rate but by
+// latency: the time to
 // bring each 64-key tile through the table into shared memory and the chain
 // of products and softmax over it. Its tensor-core form keeps loads in flight
 // behind the math (a ring of cp.async gathers), does both products on the
@@ -48,6 +53,7 @@
 // is never read.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -65,6 +71,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -75,6 +82,10 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // p rounded to the value dtype, as the Pallas body does before P.V
@@ -128,136 +139,363 @@ __device__ __forceinline__ void load_deq(const int8_t* p, float s,
 
 // ------------------------------------------------------------------ decode
 //
-// One thread block per (head, slot). Its warps split the slot's keys
-// 0..positions[s] between them, kDecodeGroup keys at a time (the group's K
-// and V rows are loaded together so several loads are in flight per warp).
-// Lane l owns dims l, l+32, ... of a row, so every load of a row is one
-// coalesced transaction. An int8 row of D bytes is read as one word per
-// lane instead: lane l owns dims l*E .. l*E+E-1 (E = D/32, 4 bytes at D =
-// 128). Each warp keeps its own online softmax state; the warps merge theirs
-// through shared memory at the end.
+// Bound by bytes: every K/V row up to each slot's position is read once, at
+// about one FLOP per byte, so the kernel's work is to keep enough loads in
+// flight on all 132 SMs. Its design:
+//
+//   - Each (slot, head)'s key walk is cut into splits, one thread block
+//     each: grid (splits, H, S). Every (slot, head) gets `splits`
+//     contiguous, block-aligned shares of its positions[s] + 1 keys, so
+//     the host needs no length: positions stay device data. The caller
+//     picks `splits` (the wrapper: about 4 blocks on each SM in one wave,
+//     4 at 8 slots x 16 heads on 132 SMs) and sizes the workspace by it.
+//   - Lanes own contiguous dims and read 16 bytes a load. LR lanes cover a
+//     key row (16 at D = 128 in bf16 or fp16, so one warp-wide load reads
+//     two rows; 8 for an int8 row), and each such lane group walks its own
+//     keys with its own online softmax state. An int8 row is dequantized
+//     in registers as round_to<T>(float(q) * scale), its row's scale read
+//     with the row.
+//   - Loads run ahead of the products: two steps of K/V rows are in flight
+//     in two register buffers, and the table entries of the step after
+//     them are read while the first of the two is used.
+//   - The partials merge deterministically, with no floating-point atomics:
+//     lane groups by shuffles, warps through shared memory in warp order,
+//     splits through a workspace [S, H, splits, D + 2] f32 (acc, m, l) and
+//     a ticket counter per (slot, head), both owned by the wrapper. The
+//     split that takes the last ticket merges every split's partial in
+//     split order, writes the output and sets the counter back to 0 for
+//     the next launch. The output is the same bits on every launch, and
+//     one launch does it all: the launch stays capturable in a CUDA graph.
+//   - exp is the fast __expf for 16-bit queries (p is rounded to T before
+//     P.V anyway) and the accurate expf for f32, which the parity runs hold
+//     to 1e-5.
 
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeGroup = 4;
+namespace dec {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * kWarp;
+constexpr int kGroup = 2;       // keys a lane group loads per step
+constexpr int kMaxMerge = 64;   // splits one merge takes
+
+// E elements per 16-byte load, LR lanes per key row, NC loads per lane per
+// row, KW rows per warp-wide load, N dims per lane
+template <typename P, int D>
+struct Lanes {
+  static constexpr int E = 16 / sizeof(P);
+  static constexpr int LR = D / E < kWarp ? D / E : kWarp;
+  static constexpr int NC = D / (E * LR);
+  static constexpr int KW = kWarp / LR;
+  static constexpr int N = E * NC;
+  static_assert(D % E == 0 && LR * KW == kWarp, "rows of whole loads");
+};
+
+// keys per split of a walk of n keys through blocks of bs, in a grid of
+// `splits` splits per (slot, head): block-aligned shares
+__device__ __forceinline__ int split_len(int n, int bs, int splits) {
+  const int per = ((n + bs - 1) / bs + splits - 1) / splits;
+  return (per > 1 ? per : 1) * bs;
+}
+
+template <typename T>
+__device__ __forceinline__ float exp_of(float x) {
+  if constexpr (std::is_same<T, float>::value) return expf(x);
+  else return __expf(x);
+}
+
+// the E elements of one 16-byte load of a full-precision row, as float
+__device__ __forceinline__ void unpack(const uint4& w, float* o, float) {
+  o[0] = __uint_as_float(w.x);
+  o[1] = __uint_as_float(w.y);
+  o[2] = __uint_as_float(w.z);
+  o[3] = __uint_as_float(w.w);
+}
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& w, float* o) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      o[2 * i] = __uint_as_float(u[i] << 16);
+      o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    } else {
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+}
+// 16 int8 of w, each times s rounded to T. 0x4B0000uu is the float 2^23 +
+// uu, so (b ^ 0x80) placed there minus 2^23 + 128 is float(b), exactly.
+template <typename T>
+__device__ __forceinline__ void unpack_i8(const uint4& w, float* o, float s) {
+  const uint32_t u[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                         w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    o[i] = round_to<T>((__uint_as_float(__byte_perm(u[i / 4], 0x4B000000u,
+                                                    0x7540 | (i % 4))) -
+                        8388736.f) * s);
+}
+
+template <typename T, typename P>
+__device__ __forceinline__ void unpack_row(const uint4& w, float* o, float s) {
+  if constexpr (std::is_same<P, int8_t>::value) unpack_i8<T>(w, o, s);
+  else if constexpr (std::is_same<P, float>::value) unpack(w, o, s);
+  else unpack16<P>(w, o);
+}
+
+// Merges the n partials [n][D + 2] (acc, m, l) of one (slot, head), in
+// split order, into its output row. They were written by other blocks of
+// this launch, so they are read past L1; each split's weight
+// exp(m_i - max m) is computed once, into shared memory.
+template <typename T, int D>
+__device__ __forceinline__ void merge(const float* part, int n, T* o) {
+  __shared__ float w[kMaxMerge];
+  __shared__ float den;
+  if (threadIdx.x < kWarp) {
+    const int lane = threadIdx.x;
+    float m[kMaxMerge / kWarp];
+    float mall = kNegInf;
+#pragma unroll
+    for (int k = 0; k < kMaxMerge / kWarp; ++k) {
+      const int i = lane + k * kWarp;
+      m[k] = i < n ? __ldcg(part + i * (D + 2) + D) : kNegInf;
+      mall = fmaxf(mall, m[k]);
+    }
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1)
+      mall = fmaxf(mall, __shfl_xor_sync(0xffffffffu, mall, o));
+#pragma unroll
+    for (int k = 0; k < kMaxMerge / kWarp; ++k)
+      if (lane + k * kWarp < n) w[lane + k * kWarp] = exp_of<T>(m[k] - mall);
+    __syncwarp();
+    if (lane == 0) {  // the denominator, in split order
+      float sum = 0.f;
+      for (int i = 0; i < n; ++i)
+        sum += __ldcg(part + i * (D + 2) + D + 1) * w[i];
+      den = sum == 0.f ? 1.f : sum;
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float acc = 0.f;
+    for (int i = 0; i < n; ++i) acc += __ldcg(part + i * (D + 2) + d) * w[i];
+    o[d] = from_f32<T>(acc / den);
+  }
+}
+
+// splits with keys of a slot of n keys: a slot with no key still runs
+// split 0, whose zero denominator gives a zero row
+__device__ __forceinline__ int live_splits(int n, int bs, int splits) {
+  const int len = split_len(n, bs, splits);
+  return n > 0 ? (n + len - 1) / len : 1;
+}
 
 template <typename T, typename P, int D>
-__global__ void __launch_bounds__(kDecodeWarps * kWarp)
-    paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
-                        const P* __restrict__ vp,
-                        const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale,
-                        const int* __restrict__ block_tables,
-                        const int* __restrict__ positions, T* __restrict__ out,
-                        int H, int bs, int MB, long long q_stride,
-                        long long kv_stride, float scale) {
-  constexpr int E = D / kWarp;
+__global__ void __launch_bounds__(kThreads)
+    decode_kernel(const T* __restrict__ q, const P* __restrict__ kp,
+                  const P* __restrict__ vp, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
+                  const int* __restrict__ block_tables,
+                  const int* __restrict__ positions, T* __restrict__ out,
+                  float* __restrict__ ws, int* __restrict__ tickets, int H,
+                  int bs, int MB, long long q_stride, long long kv_stride,
+                  float scale) {
+  using L = Lanes<P, D>;
+  constexpr int N = L::N, E = L::E, NC = L::NC;
   constexpr bool kInt8 = std::is_same<P, int8_t>::value;
-  const int h = blockIdx.x;
-  const int s = blockIdx.y;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
+  constexpr int kStep = kWarps * kGroup * L::KW;  // keys per block step
+  const int split = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int lr = lane % L::LR, grp = lane / L::LR;
+  const int n = min(positions[s], MB * bs - 1) + 1;  // keys of slot s
+  const int live = live_splits(n, bs, gridDim.x);
+  if (split >= live) return;
+  const int len = split_len(n, bs, gridDim.x);
+  const int t0 = split * len;
+  const int t_end = min(t0 + len, n) - 1;  // this split's last key
+  const int steps = t_end >= t0 ? (t_end - t0) / kStep + 1 : 0;
   const int* table = block_tables + static_cast<long long>(s) * MB;
-  const int last = min(positions[s], MB * bs - 1);
+  const long long head = static_cast<long long>(h) * D;
 
-  // the dim of element e of this lane
-  const auto dim = [lane](int e) {
-    return kInt8 ? lane * E + e : lane + kWarp * e;
-  };
-
-  const T* qrow = q + s * q_stride + static_cast<long long>(h) * D;
-  float qr[E];
+  // this lane's element i is dim (i / E * LR + lr) * E + i % E
+  const auto dim = [&](int i) { return (i / E * L::LR + lr) * E + i % E; };
+  float qf[N], acc[N];
+  const T* qrow = q + s * q_stride + head;
 #pragma unroll
-  for (int e = 0; e < E; ++e) qr[e] = to_f32(qrow[dim(e)]);
-
+  for (int i = 0; i < N; ++i) {
+    qf[i] = to_f32(qrow[dim(i)]);
+    acc[i] = 0.f;
+  }
   float m = kNegInf, l = 0.f;
-  float acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
 
-  for (int t0 = warp * kDecodeGroup; t0 <= last;
-       t0 += kDecodeWarps * kDecodeGroup) {
-    float kr[kDecodeGroup][E], vr[kDecodeGroup][E];
+  struct Buf {
+    uint4 k[kGroup][NC], v[kGroup][NC];
+    float ks[kGroup], vs[kGroup];
+    int row[kGroup];  // token row, -1 past the split's last key
+  };
+  // the token rows of step i's keys, from the table
+  const auto rows = [&](int (&r)[kGroup], int i) {
 #pragma unroll
-    for (int g = 0; g < kDecodeGroup; ++g) {
-      const int t = t0 + g;
-      if (t <= last) {
-        if constexpr (kInt8) {
-          const long long trow = token_row(table, t, bs);
-          const long long row = trow * kv_stride
-              + static_cast<long long>(h) * D + lane * E;
-          load_deq<T, E>(kp + row, k_scale[trow], kr[g]);
-          load_deq<T, E>(vp + row, v_scale[trow], vr[g]);
-        } else {
-          const long long row = key_row(table, t, bs, kv_stride, h, D);
+    for (int j = 0; j < kGroup; ++j) {
+      const int t = t0 + ((i * kWarps + warp) * kGroup + j) * L::KW + grp;
+      r[j] = t <= t_end ? __ldg(table + t / bs) * bs + t % bs : -1;
+    }
+  };
+  const auto load = [&](Buf& b, const int (&r)[kGroup]) {
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
-            kr[g][e] = to_f32(kp[row + lane + kWarp * e]);
-            vr[g][e] = to_f32(vp[row + lane + kWarp * e]);
-          }
-        }
+    for (int j = 0; j < kGroup; ++j) {
+      b.row[j] = r[j];
+      const bool real = r[j] >= 0;
+      const long long off = real ? r[j] * kv_stride + head : 0;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = (c * L::LR + lr) * E;
+        b.k[j][c] = real ? __ldg(reinterpret_cast<const uint4*>(kp + off + d))
+                         : make_uint4(0, 0, 0, 0);
+        b.v[j][c] = real ? __ldg(reinterpret_cast<const uint4*>(vp + off + d))
+                         : make_uint4(0, 0, 0, 0);
+      }
+      if constexpr (kInt8) {
+        b.ks[j] = real ? __ldg(k_scale + r[j]) : 0.f;
+        b.vs[j] = real ? __ldg(v_scale + r[j]) : 0.f;
       } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kr[g][e] = vr[g][e] = 0.f;
+        b.ks[j] = b.vs[j] = 1.f;
       }
     }
-    float sc[kDecodeGroup];
+  };
+  const auto compute = [&](const Buf& b) {
+    float sc[kGroup];
     float mx = m;
 #pragma unroll
-    for (int g = 0; g < kDecodeGroup; ++g) {
+    for (int j = 0; j < kGroup; ++j) {
       float part = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) part += qr[e] * kr[g][e];
-      sc[g] = (t0 + g <= last) ? warp_sum(part) * scale : kNegInf;
-      mx = fmaxf(mx, sc[g]);
+      for (int c = 0; c < NC; ++c) {
+        float kf[E];
+        unpack_row<T, P>(b.k[j][c], kf, b.ks[j]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) part += qf[c * E + e] * kf[e];
+      }
+#pragma unroll
+      for (int o = L::LR / 2; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      sc[j] = b.row[j] >= 0 ? part * scale : kNegInf;
+      mx = fmaxf(mx, sc[j]);
     }
-    const float corr = expf(m - mx);
+    const float corr = exp_of<T>(m - mx);
     l *= corr;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] *= corr;
+    for (int i = 0; i < N; ++i) acc[i] *= corr;
 #pragma unroll
-    for (int g = 0; g < kDecodeGroup; ++g) {
-      const float p = expf(sc[g] - mx);
+    for (int j = 0; j < kGroup; ++j) {
+      const float p = b.row[j] >= 0 ? exp_of<T>(sc[j] - mx) : 0.f;
       l += p;
       const float pr = round_to<T>(p);
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] += pr * vr[g][e];
+      for (int c = 0; c < NC; ++c) {
+        float vf[E];
+        unpack_row<T, P>(b.v[j][c], vf, b.vs[j]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[c * E + e] += pr * vf[e];
+      }
     }
     m = mx;
+  };
+
+  // two steps of K/V in flight, and the table entries of the next
+  Buf A, B;
+  int ra[kGroup], rb[kGroup];
+  rows(ra, 0);
+  rows(rb, 1);
+  load(A, ra);
+  load(B, rb);
+  for (int i = 0; i < steps; i += 2) {
+    rows(ra, i + 2);
+    compute(A);
+    if (i + 1 >= steps) break;
+    load(A, ra);  // step i + 2
+    rows(rb, i + 3);
+    compute(B);
+    load(B, rb);  // step i + 3
   }
 
-  __shared__ float sm_m[kDecodeWarps];
-  __shared__ float sm_l[kDecodeWarps];
-  __shared__ float sm_acc[kDecodeWarps][D];
+  // the lane groups of a warp (lanes lane ^ LR, ^ 2 LR, ...)
+#pragma unroll
+  for (int o = L::LR; o < kWarp; o <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, o);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, o);
+    const float mall = fmaxf(m, mo);
+    const float c = exp_of<T>(m - mall), co = exp_of<T>(mo - mall);
+    l = l * c + lo * co;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      acc[i] = acc[i] * c + __shfl_xor_sync(0xffffffffu, acc[i], o) * co;
+    m = mall;
+  }
+  // the warps, in warp order
+  __shared__ float sm_acc[kWarps][D];
+  __shared__ float sm_ml[kWarps][2];
+  __shared__ int merges;
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) sm_acc[warp][dim(i)] = acc[i];
+  }
   if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
+    sm_ml[warp][0] = m;
+    sm_ml[warp][1] = l;
   }
-#pragma unroll
-  for (int e = 0; e < E; ++e) sm_acc[warp][dim(e)] = acc[e];
   __syncthreads();
-
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float mall = kNegInf;
+  float mb = kNegInf, lb = 0.f, cw[kWarps];
 #pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) mall = fmaxf(mall, sm_m[w]);
-    float denom = 0.f, o = 0.f;
+  for (int w = 0; w < kWarps; ++w) mb = fmaxf(mb, sm_ml[w][0]);
 #pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      // a warp that owned no key holds m = kNegInf, l = 0, acc = 0
-      const float c = expf(sm_m[w] - mall);
-      denom += sm_l[w] * c;
-      o += sm_acc[w][d] * c;
-    }
-    if (denom == 0.f) denom = 1.f;
-    out[(static_cast<long long>(s) * H + h) * D + d] = from_f32<T>(o / denom);
+  for (int w = 0; w < kWarps; ++w) {
+    cw[w] = exp_of<T>(sm_ml[w][0] - mb);
+    lb += sm_ml[w][1] * cw[w];
   }
+  const long long sh = static_cast<long long>(s) * H + h;
+  if (live == 1) {  // one split: the block's is the output
+    const float den = lb == 0.f ? 1.f : lb;
+    for (int d = tid; d < D; d += kThreads) {
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) o += sm_acc[w][d] * cw[w];
+      out[sh * D + d] = from_f32<T>(o / den);
+    }
+    return;
+  }
+  float* parts = ws + sh * gridDim.x * (D + 2);
+  float* part = parts + split * (D + 2);
+  for (int d = tid; d < D; d += kThreads) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o += sm_acc[w][d] * cw[w];
+    part[d] = o;
+  }
+  if (tid == 0) {
+    part[D] = mb;
+    part[D + 1] = lb;
+  }
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  if (tid == 0) merges = atomicAdd(tickets + sh, 1) == live - 1;
+  __syncthreads();
+  if (!merges) return;
+  __threadfence();
+  merge<T, D>(parts, live, out + sh * D);
+  if (tid == 0) tickets[sh] = 0;  // ready for the next launch
 }
+
+}  // namespace dec
 
 // ----------------------------------------------------------------- prefill
 //
 // The CUDA-core form, for f32 queries (whose products must stay f32: the
-// parity runs hold them to 1e-5). One thread block per (query tile, head).
-// A tile is kTileQ query rows; each
+// parity runs hold them to 1e-5), for float16, and for bf16 at head_dim
+// 256, past the tensor-core form's registers. One thread block per (query
+// tile, head). A tile is kTileQ query rows; each
 // of its warps owns kRowsPerWarp rows and keeps their online softmax state
 // in registers. The block walks the slot's keys kTileK at a time: it stages
 // the tile's K and V rows in shared memory as fp32 (read once from device
@@ -779,16 +1017,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T, typename P, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* bt,
-                          const void* pos, void* out, int S, int H, int bs,
-                          int MB, long long q_stride, long long kv_stride,
-                          float scale, cudaStream_t stream) {
-  const dim3 grid(H, S);
-  paged_decode_kernel<T, P, D><<<grid, kDecodeWarps * kWarp, 0, stream>>>(
+                          const void* pos, void* out, void* ws, void* tickets,
+                          int splits, int S, int H, int bs, int MB,
+                          long long q_stride, long long kv_stride, float scale,
+                          cudaStream_t stream) {
+  if (splits < 1 || splits > dec::kMaxMerge) return cudaErrorInvalidValue;
+  dec::decode_kernel<T, P, D><<<dim3(splits, H, S), dec::kThreads, 0,
+                                stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(k),
       static_cast<const P*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(bt),
-      static_cast<const int*>(pos), static_cast<T*>(out), H, bs, MB, q_stride,
-      kv_stride, scale);
+      static_cast<const int*>(pos), static_cast<T*>(out),
+      static_cast<float*>(ws), static_cast<int*>(tickets), H, bs, MB,
+      q_stride, kv_stride, scale);
   return cudaGetLastError();
 }
 
@@ -799,7 +1040,7 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            int bs, int MB, long long q_stride,
                            long long kv_stride, float scale,
                            cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D <= 128) {
     // bf16 runs on the tensor cores, in 32-row tiles up to a chunk of 256
     const auto run = sq <= 256 ? pf::launch<P, D, 32> : pf::launch<P, D, 64>;
     return run(q, k, v, ks, vs, bt, prefix, out, sq, H, bs, MB, q_stride,
@@ -826,52 +1067,62 @@ cudaError_t prefill_fp(A... a) { return launch_prefill<T, T, D>(a...); }
 template <typename T, int D, typename... A>
 cudaError_t prefill_i8(A... a) { return launch_prefill<T, int8_t, D>(a...); }
 
+#define PAGED_HEAD_DIMS(LAUNCH, T, ...)                                      \
+  do {                                                                       \
+    if (D == 32) return LAUNCH<T, 32>(__VA_ARGS__);                          \
+    if (D == 64) return LAUNCH<T, 64>(__VA_ARGS__);                          \
+    if (D == 128) return LAUNCH<T, 128>(__VA_ARGS__);                        \
+    if (D == 256) return LAUNCH<T, 256>(__VA_ARGS__);                        \
+  } while (0)
+
 #define PAGED_DISPATCH(LAUNCH, ...)                                          \
   do {                                                                       \
-    if (dtype == 0) {                                                        \
-      if (D == 32) return LAUNCH<float, 32>(__VA_ARGS__);                    \
-      if (D == 64) return LAUNCH<float, 64>(__VA_ARGS__);                    \
-      if (D == 128) return LAUNCH<float, 128>(__VA_ARGS__);                  \
-    } else if (dtype == 1) {                                                 \
-      if (D == 32) return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);            \
-      if (D == 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);            \
-      if (D == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);          \
-    }                                                                        \
+    if (dtype == 0) PAGED_HEAD_DIMS(LAUNCH, float, __VA_ARGS__);             \
+    if (dtype == 1) PAGED_HEAD_DIMS(LAUNCH, __nv_bfloat16, __VA_ARGS__);     \
+    if (dtype == 2) PAGED_HEAD_DIMS(LAUNCH, __half, __VA_ARGS__);            \
     return cudaErrorInvalidValue;                                            \
   } while (0)
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, out and full-precision pools). D
-// must be 32, 64 or 128. Every pointer is a CUDA device pointer; stream is a
-// cudaStream_t. q_stride and kv_stride are the row strides, in elements, of
-// q and of the pools' token rows; out is dense. The _int8 launchers take
-// int8 pools (4-byte aligned) and their dense float32 [num_blocks, bs]
-// scale pools k_scale, v_scale. Returns the cudaError_t of the launch (0 on
-// success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, out and
+// full-precision pools). D must be 32, 64, 128 or 256. Every pointer is a
+// CUDA device pointer; stream is a cudaStream_t. q_stride and kv_stride are
+// the row strides, in elements, of q and of the pools' token rows; out is
+// dense. The _int8 launchers take int8 pools and their dense float32
+// [num_blocks, bs] scale pools k_scale, v_scale. The decode launchers read
+// the pools 16 bytes a load (their start and row stride 16-byte aligned),
+// cut each slot's walk into `splits` (1 to 64) splits per (slot, head), one
+// thread block each, and take their workspace: ws, S * H * splits * (D + 2)
+// floats, and tickets, S * H int32 zeros, which each launch leaves zero;
+// launches that share them must run in order (one stream). Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int paged_decode_attention_launch(int dtype, const void* q,
                                              const void* k, const void* v,
                                              const void* block_tables,
                                              const void* positions, void* out,
-                                             int S, int H, int D, int bs,
-                                             int MB, long long q_stride,
+                                             void* ws, void* tickets,
+                                             int splits, int S, int H, int D,
+                                             int bs, int MB,
+                                             long long q_stride,
                                              long long kv_stride, float scale,
                                              void* stream) {
   if (S == 0) return 0;
   PAGED_DISPATCH(decode_fp, q, k, v, nullptr, nullptr, block_tables,
-                 positions, out, S, H, bs, MB, q_stride, kv_stride, scale,
-                 static_cast<cudaStream_t>(stream));
+                 positions, out, ws, tickets, splits, S, H, bs, MB, q_stride,
+                 kv_stride, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_decode_attention_int8_launch(
     int dtype, const void* q, const void* k, const void* v,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* positions, void* out, int S, int H, int D, int bs, int MB,
-    long long q_stride, long long kv_stride, float scale, void* stream) {
+    const void* positions, void* out, void* ws, void* tickets, int splits,
+    int S, int H, int D, int bs, int MB, long long q_stride,
+    long long kv_stride, float scale, void* stream) {
   if (S == 0) return 0;
   PAGED_DISPATCH(decode_i8, q, k, v, k_scale, v_scale, block_tables,
-                 positions, out, S, H, bs, MB, q_stride, kv_stride, scale,
-                 static_cast<cudaStream_t>(stream));
+                 positions, out, ws, tickets, splits, S, H, bs, MB, q_stride,
+                 kv_stride, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int paged_prefill_attention_launch(int dtype, const void* q,

@@ -33,9 +33,9 @@ Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the training path's
 ``[b, 2048, 16, 128]`` every kernel does hundreds of FLOPs per byte it must
 move, so all three are bound by operations. bf16 at head_dim 64 and 128
 runs on the tensor cores: all three kernels with TMA loads and ``wgmma``
-(a producer warp and two consumer warpgroups); f32, and bf16 at head_dim
-256, on CUDA cores (see the source). The TMA maps need each operand's
-start and its batch, row and head strides 16-byte aligned, which
+(a producer warp and two consumer warpgroups); f32, float16, and bf16 at
+head_dim 256, on CUDA cores (see the source). The TMA maps need each
+operand's start and its batch, row and head strides 16-byte aligned, which
 :func:`_rows16` provides for q, k, v and dO.
 """
 from __future__ import annotations
@@ -56,7 +56,7 @@ NEG_INF = -1e30  # the Pallas kernels' finite mask value
 launches = {"flash_forward": 0, "flash_backward_dkv": 0,
             "flash_backward_dq": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)
 _lib = None
 
@@ -101,12 +101,15 @@ def plain_attention(q, k, v, scale, mask=None, mask_value=NEG_INF):
     """The one plain attention body of the port's reference routes, layout
     ``[b, s, h, d]``: logits in the input dtype; a bool ``mask``
     (broadcasting against ``[b, h, sq, sk]``) keeps where true and sets
-    ``mask_value`` elsewhere, any other mask is added to the logits; the
-    softmax in fp32, the probabilities cast back before P.V."""
+    ``mask_value`` rounded to the logits' dtype elsewhere (as ``jnp.where``
+    does: -1e30 is -inf in float16, whose masked keys then get p = 0), any
+    other mask is added to the logits; the softmax in fp32, the
+    probabilities cast back before P.V."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     logits = torch.matmul(qt, kt.transpose(-1, -2)) * scale
     if mask is not None and mask.dtype == torch.bool:
-        logits = logits.masked_fill(~mask, mask_value)
+        fill = torch.tensor(mask_value, dtype=torch.float64)
+        logits = logits.masked_fill(~mask, fill.to(logits.dtype).item())
     elif mask is not None:
         logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
@@ -197,8 +200,8 @@ def _check(q, k, v, extra):
     """Shape, dtype and device checks shared by the three launchers;
     returns ``(b, sq, sk, h, d)``."""
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"flash attention takes float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must be "
                          "[batch, seq, heads, head_dim]")

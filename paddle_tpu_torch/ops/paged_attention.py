@@ -23,12 +23,18 @@ one per launch, and nothing else.
 Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): decode does about one
 FLOP per K/V byte, so it is bound by reading the K/V rows up to each slot's
 position; prefill at the engine's buckets is too small for either rate and
-is bound by latency. Both kernels read each needed K/V row once per thread
-block and never read a block past the position. With bf16 queries the
-prefill kernel runs on the tensor cores (``mma.sync``) over 64-key tiles
-that ``cp.async`` gathers through the table ahead of the products; it
-needs q and the pools 16-byte aligned (:func:`load_alignment`). f32 keeps
-CUDA-core kernels (see the source for the design).
+is bound by latency. Both kernels read each needed K/V row once and never
+read a block past the position. The decode kernel splits each slot's walk
+over several thread blocks, reads 16 bytes a lane and merges the splits in
+the same launch, in split order, through a workspace and ticket counters
+this module owns (:func:`_workspace`); the output is the same bits on every
+launch. With bf16 queries at head_dim <= 128 the prefill kernel runs on the
+tensor cores (``mma.sync``) over 64-key tiles that ``cp.async`` gathers
+through the table ahead of the products; float32, float16 and head_dim 256
+take its CUDA-core form. :func:`load_alignment` gives what each form needs
+of q's and the pools' alignment. Query dtypes float32, bfloat16 and
+float16, head dims 32, 64, 128 and 256 (:func:`check_servable`); see the
+source for the designs.
 
 The K/V pools are updated in place by the engine, so these functions only
 read them. A pool entry is ``(k, v)`` in q's dtype or, from an int8 arena,
@@ -57,7 +63,7 @@ __all__ = ["paged_decode_attention", "paged_prefill_attention",
            "paged_full_prefill_attention", "paged_decode_attention_ref",
            "paged_prefill_attention_ref", "paged_full_prefill_attention_ref",
            "launches", "reset_launches", "load_kernels", "load_alignment",
-           "aligned"]
+           "aligned", "check_servable"]
 
 #: kernel launches, one per launch of each CUDA kernel (``_int8``: the
 #: variants over an int8 arena)
@@ -65,14 +71,36 @@ launches = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
             "paged_decode_attention_int8": 0,
             "paged_prefill_attention_int8": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIMS = (32, 64, 128, 256)
 _lib = None
+#: the decode kernel's split partials, ticket counters and split count, per
+#: device and shape (see :func:`_workspace`)
+_work = {}
+#: the decode kernel's most splits per (slot, head) (``kMaxMerge`` in the
+#: source), and the thread blocks per SM its grid aims at in one wave
+MAX_SPLITS, WAVE_BLOCKS = 64, 4
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def check_servable(head_dim: int, dtype, device) -> None:
+    """Raise unless the paged kernels serve ``head_dim`` and ``dtype`` on
+    ``device``: on a CUDA device the head dims of :data:`HEAD_DIMS` and the
+    float32, bfloat16 and float16 queries the kernels are built for
+    (``ValueError`` / ``TypeError``). On the CPU the plain versions serve
+    every head_dim and dtype."""
+    if torch.device(device).type == "cpu":
+        return
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the paged attention kernels serve head_dim "
+                         f"{HEAD_DIMS} on {device}, not {head_dim}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the paged attention kernels serve float32, "
+                        f"bfloat16 and float16 on {device}, not {dtype}")
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -85,15 +113,44 @@ def load_kernels() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         i64 = ctypes.c_longlong
         tail = [i32, i32, i32, i32, i32, i64, i64, ctypes.c_float, ptr]
-        # dtype, q, k, v[, k_scale, v_scale], table, positions/prefix, out
-        for fn, n_ptr in ((lib.paged_decode_attention_launch, 6),
-                          (lib.paged_prefill_attention_launch, 6),
-                          (lib.paged_decode_attention_int8_launch, 8),
-                          (lib.paged_prefill_attention_int8_launch, 8)):
-            fn.argtypes = [i32] + [ptr] * n_ptr + tail
+        # dtype, q, k, v[, k_scale, v_scale], table, positions/prefix, out[,
+        # ws, tickets, splits]
+        for fn, n_ptr, decode in (
+                (lib.paged_decode_attention_launch, 8, True),
+                (lib.paged_prefill_attention_launch, 6, False),
+                (lib.paged_decode_attention_int8_launch, 10, True),
+                (lib.paged_prefill_attention_int8_launch, 8, False)):
+            fn.argtypes = [i32] + [ptr] * n_ptr + [i32] * decode + tail
             fn.restype = i32
         _lib = lib
     return _lib
+
+
+def decode_splits(S: int, H: int, sms: int) -> int:
+    """Splits per (slot, head) of the decode grid for ``S`` slots of ``H``
+    heads on a card of ``sms`` SMs: as many as keep about
+    :data:`WAVE_BLOCKS` thread blocks on each SM in one wave (4 at 8 slots
+    x 16 heads on 132 SMs), 1 to :data:`MAX_SPLITS`."""
+    return min(max(WAVE_BLOCKS * sms // (S * H), 1), MAX_SPLITS)
+
+
+def _workspace(device, S, H, D):
+    """The decode kernel's workspace on ``device`` for this shape, made on
+    first use and kept: the split count (:func:`decode_splits`), each
+    split's float32 partial ``(acc[D], m, l)`` and ``S * H`` int32 ticket
+    counters, zero at allocation and left zero by every launch. The grid
+    and the workspace take the one split count decided here. Launches that
+    share them run in stream order; nothing is allocated per launch, so a
+    decode step can be captured in a CUDA graph."""
+    key = (device, S, H, D)
+    if key not in _work:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        splits = decode_splits(S, H, sms)
+        _work[key] = (
+            torch.empty(S * H * splits * (D + 2), dtype=torch.float32,
+                        device=device),
+            torch.zeros(S * H, dtype=torch.int32, device=device), splits)
+    return _work[key]
 
 
 def _entry_scales(entry) -> tuple:
@@ -129,13 +186,15 @@ def _row_stride(t, H, D) -> int:
     return t.stride(-3)
 
 
-def load_alignment(kernel: str, dtype, pool_dtype) -> int:
+def load_alignment(kernel: str, dtype, pool_dtype, head_dim: int) -> int:
     """Bytes to which the CUDA kernels' loads need q's and the pools' start
-    addresses and row strides aligned: 16 for the prefill kernel's
-    tensor-core form (bf16 queries), which gathers 16-byte pieces of each
-    row with cp.async; 4 for int8 pools read a word at a time by the
-    CUDA-core kernels; otherwise one element."""
-    if kernel == "prefill" and dtype == torch.bfloat16:
+    addresses and row strides aligned: 16 for the decode kernel, which
+    reads every pool 16 bytes a lane, and for the prefill kernel with bf16
+    queries at head_dim <= 128 (its tensor-core form gathers 16-byte pieces
+    of each row with cp.async); 4 for int8 pools read a word at a time by
+    the prefill's CUDA-core form; otherwise (its float32, float16 and bf16
+    head_dim 256 instances) one element."""
+    if kernel == "decode" or (dtype == torch.bfloat16 and head_dim <= 128):
         return 16
     return 4 if pool_dtype == torch.int8 else 1
 
@@ -147,14 +206,16 @@ def aligned(t, row_stride: int, nbytes: int) -> bool:
             and row_stride * t.element_size() % nbytes == 0)
 
 
-def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=()):
+def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=(),
+            decode=False):
     """Check what the CUDA kernels take, launch ``fn`` on the current
     stream and return the dense output. ``kp``/``vp`` are pools ``[NB, bs,
     H, D]`` or, for a full prefill, the chunk's own ``[sq, H, D]`` k/v;
-    ``scales`` the int8 pools' dense float32 ``[NB, bs]`` scale pools."""
+    ``scales`` the int8 pools' dense float32 ``[NB, bs]`` scale pools;
+    ``decode`` passes the decode kernel its workspace."""
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"paged attention takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"paged attention takes float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     pool_dtype = torch.int8 if scales else q.dtype
     if kp.dtype != pool_dtype or vp.dtype != pool_dtype:
         raise TypeError(f"q {q.dtype} takes {pool_dtype} pools, got "
@@ -180,18 +241,23 @@ def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=()):
                          f"{tuple(vp.shape)} {vp.stride()} differ")
     if kp.dim() == 4 and kp.stride(0) != bs * kv_stride:
         raise ValueError(f"pool blocks {kp.stride()} are not dense")
-    nbytes = load_alignment("prefill" if "prefill" in fn.__name__
-                            else "decode", q.dtype, kp.dtype)
+    nbytes = load_alignment("decode" if decode else "prefill", q.dtype,
+                            kp.dtype, D)
     if not (aligned(q, q_stride, nbytes) and aligned(kp, kv_stride, nbytes)
             and aligned(vp, kv_stride, nbytes)):
         raise ValueError(f"q and the pools must start, and keep their rows, "
                          f"on {nbytes}-byte boundaries")
     out = torch.empty((rows, H, D), dtype=q.dtype, device=q.device)
+    work = ()
+    if decode:
+        ws, tickets, splits = _workspace(q.device, rows, H, D)
+        work = (ws.data_ptr(), tickets.data_ptr(), splits)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
             vp.data_ptr(), *(t.data_ptr() for t in scales),
-            table.data_ptr(), scalars.data_ptr(), out.data_ptr(), rows, H, D,
-            bs, MB, q_stride, kv_stride, 1.0 / math.sqrt(D), stream)
+            table.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+            *work, rows, H, D, bs, MB, q_stride, kv_stride,
+            1.0 / math.sqrt(D), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
     return out
@@ -254,7 +320,8 @@ def paged_decode_attention(q, entry, block_tables, positions):
                          f"{tuple(positions.shape)} disagree")
     name = "paged_decode_attention" + ("_int8" if scales else "")
     out = _launch(getattr(load_kernels(), name + "_launch"), q, kp, vp,
-                  block_tables, positions, kp.shape[1], MB, scales)
+                  block_tables, positions, kp.shape[1], MB, scales,
+                  decode=True)
     launches[name] += 1
     return out
 

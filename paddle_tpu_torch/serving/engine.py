@@ -46,7 +46,7 @@ import torch
 from ..core import compile_cache, flags
 from ..core import device as device_mod
 from ..models.gpt import quantize_serving_weights, serving_compute_dtype
-from ..ops.paged_attention import (paged_decode_attention,
+from ..ops.paged_attention import (check_servable, paged_decode_attention,
                                    paged_full_prefill_attention,
                                    paged_prefill_attention)
 from ..quantization import quantize_kv
@@ -185,8 +185,12 @@ class ServingEngine:
         if weight.device != self.device:
             raise ValueError(f"the model lives on {weight.device}, the engine "
                              f"was asked to run on {self.device}")
-        self._model = model.eval()
         mcfg = model.cfg
+        head_dim = mcfg.hidden_size // mcfg.num_heads
+        dtype = serving_compute_dtype(model)
+        # refused before anything is built or quantized in place
+        check_servable(head_dim, dtype, self.device)
+        self._model = model.eval()
 
         def mode(value, name):
             return flags.flag(name) if value is None else value
@@ -213,10 +217,8 @@ class ServingEngine:
             n = quantize_serving_weights(model)
             if n:
                 metrics.bump("quant.weight_layers", n)
-        self.arena = KVArena(mcfg.num_layers, mcfg.num_heads,
-                             mcfg.hidden_size // mcfg.num_heads, num_blocks,
-                             self.block_size,
-                             dtype=serving_compute_dtype(model),
+        self.arena = KVArena(mcfg.num_layers, mcfg.num_heads, head_dim,
+                             num_blocks, self.block_size, dtype=dtype,
                              quantized=self.quant_kv, device=self.device)
 
         s = self.num_slots

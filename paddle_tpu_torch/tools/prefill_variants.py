@@ -94,12 +94,18 @@ def mutation_runs(cs, libs) -> dict:
     return out
 
 
-def median_ms(fn, flush, n=50) -> float:
+def median_ms(fn, flush, n=50, clean=False) -> float:
+    """Median device time of ``fn`` over ``n`` launches, each after an L2
+    flush: by writing ``flush`` (which leaves L2 full of dirty lines that
+    the first reads must write back), or, ``clean``, by reading it."""
     for _ in range(3):
         fn()
     events = []
     for _ in range(n):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()

@@ -131,7 +131,7 @@ def test_full_prefill_matches_jax(sq, dtype):
            "vs its own plain version")
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_decode_every_supported_head_dim(d):
     rng = np.random.default_rng(d)
     S, H, NB, bs, MB = 3, 2, 11, 16, 3
@@ -177,3 +177,50 @@ def test_cpu_route_never_counts_a_launch():
                               torch.tensor([1, 5], dtype=torch.int32))
     pa.paged_full_prefill_attention(q, q, q, 4)
     assert pa.launches == before
+
+
+def test_check_servable_refuses_what_the_card_cannot_serve():
+    """On a CUDA device the engine is refused up front, before anything is
+    built, for a head_dim or dtype the kernels are not built for; on the
+    CPU the plain versions serve every head_dim and dtype."""
+    for d in pa.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            pa.check_servable(d, dtype, "cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.check_servable(96, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.check_servable(16, torch.bfloat16, torch.device("cuda", 0))
+    with pytest.raises(TypeError, match="float64"):
+        pa.check_servable(128, torch.float64, "cuda")
+    pa.check_servable(96, torch.float64, "cpu")
+    assert pa.HEAD_DIMS == (32, 64, 128, 256)
+
+
+@pytest.mark.parametrize("S,H,sms,want", [
+    (8, 16, 132, 4),     # the serving path: 512 blocks, 4 per SM
+    (14, 16, 132, 2),    # chip_smoke's decode checks
+    (64, 16, 132, 1),    # more (slot, head) pairs than the wave holds
+    (1, 1, 132, 64)])    # one pair: no more splits than one merge takes
+def test_decode_splits_fill_one_wave(S, H, sms, want):
+    """The decode grid's split count, decided once per device and shape for
+    the grid and the workspace alike."""
+    assert pa.decode_splits(S, H, sms) == want
+
+
+def test_cpu_engine_serves_any_head_dim():
+    """On the CPU a head_dim the kernels are not built for (48) is served
+    through the plain versions, with the tokens of ``generate()``."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import ServingAPI, ServingConfig
+
+    cfg = gpt.GPTConfig(vocab_size=256, hidden_size=96, num_layers=1,
+                        num_heads=2, max_position_embeddings=64)
+    model = gpt.GPTForCausalLM(cfg, device="cpu")
+    gpt.load_functional_state(model, gpt.seeded_state(model, seed=2))
+    api = ServingAPI(model, ServingConfig(num_slots=2, kv_block_size=8,
+                                          max_model_len=64), device="cpu")
+    prompt = np.random.default_rng(8).integers(0, 256, 11)
+    req = api.submit(prompt, max_new_tokens=6)
+    api.run_until_idle()
+    want = model.generate(torch.as_tensor(prompt)[None], max_new_tokens=6)
+    assert req.tokens == want[0, len(prompt):].tolist()

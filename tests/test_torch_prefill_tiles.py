@@ -88,14 +88,29 @@ def test_full_prefill_tile_edges_match_jax_kernel(dtype):
     ("prefill", torch.bfloat16, torch.int8, 16),
     ("prefill", torch.float32, torch.int8, 4),
     ("prefill", torch.float32, torch.float32, 1),
-    ("decode", torch.bfloat16, torch.int8, 4),
-    ("decode", torch.bfloat16, torch.bfloat16, 1),
+    ("prefill", torch.float16, torch.float16, 1),
+    ("prefill", torch.float16, torch.int8, 4),
+    ("decode", torch.bfloat16, torch.int8, 16),
+    ("decode", torch.bfloat16, torch.bfloat16, 16),
+    ("decode", torch.float32, torch.float32, 16),
+    ("decode", torch.float16, torch.float16, 16),
 ])
 def test_load_alignment_per_kernel_form(kernel, dtype, pool, want):
     """16 bytes where the prefill's tensor-core form gathers rows with
-    cp.async (bf16 queries), a word for int8 rows read by the CUDA-core
-    kernels, else one element."""
-    assert pa.load_alignment(kernel, dtype, pool) == want
+    cp.async (bf16 queries) and wherever the decode kernel reads its 16
+    bytes a lane, a word for int8 rows read by the prefill's CUDA-core
+    form, else one element."""
+    assert pa.load_alignment(kernel, dtype, pool, 128) == want
+
+
+@pytest.mark.parametrize("kernel,pool,want", [
+    ("prefill", torch.bfloat16, 1), ("prefill", torch.int8, 4),
+    ("decode", torch.bfloat16, 16), ("decode", torch.int8, 16)])
+def test_load_alignment_bf16_head_dim_256(kernel, pool, want):
+    """bf16 at head_dim 256 takes the prefill's CUDA-core form, which reads
+    one element (a word of int8) at a time; the decode kernel reads 16
+    bytes a lane at every head_dim."""
+    assert pa.load_alignment(kernel, torch.bfloat16, pool, 256) == want
 
 
 def test_aligned_checks_start_and_row_stride():
