@@ -29,10 +29,18 @@ no result. Phases, in order; each raises on failure:
    check prints its share of the bar.
 3. Serve ``gpt_1p3b`` at full width and depth (seeded random weights, f32,
    TF32 off) through ``ServingAPI``: 8 slots, 12 requests of mixed prompt
-   lengths. Every request's greedy tokens must equal the model's own
-   ``generate()`` (contiguous cache, plain attention: no kernel), the decode
-   kernel must have launched once per layer per decode step and the prefill
-   kernel once per layer per prefill, and the arena's invariants must hold.
+   lengths. The engine runs its decode step and each prefill bucket as
+   replays of captured CUDA graphs (the first call of each warms it up
+   once, eagerly, then captures it). Every request's greedy tokens must
+   equal the model's own ``generate()`` (contiguous cache, plain
+   attention: no kernel), the decode kernel must have launched once per
+   layer per decode step and per warm-up, the prefill kernel once per
+   layer per prefill and per warm-up (a capture launches nothing; each
+   replay is credited), and the arena's invariants must hold. The engine
+   must hold one decode graph and one graph per bucket of its prompts,
+   each built once (``hold_programs``). Then the churn wave (``CHURN``): 1,
+   3, 5 and 8 live requests of other lengths in the same buckets build
+   nothing, launch only through replays and equal ``generate()``.
 4. A second f32 ``gpt_1p3b`` from the same weights, served with
    ``quant_weights`` (int8 weights, per-channel scales, quantized on the
    card: 8 of its linears, and one in bf16, must equal the CPU's
@@ -43,21 +51,24 @@ no result. Phases, in order; each raises on failure:
    prefilled in chunks. The int8 decode kernel must launch exactly 24 times
    per decode step, the int8 prefill kernel 24 per chunk and the
    full-precision prefill kernel 24 per whole-prompt prefill; the arena's
-   invariants hold; on the 10th decode step and the 2nd chunk every layer's
-   kernel output is held against its plain version on the engine's own
-   pools (bar of phase 2). The per-token agreement with phase 4's tokens is
-   printed, not held.
+   invariants hold; on the 10th decode step and the 2nd chunk (graph
+   replays) every layer's kernel output is held against its plain version
+   on the engine's own pools (bar of phase 2; ``Shadow``). The per-token
+   agreement with phase 4's tokens is printed, not held.
 6. Phase 3's model in float16 (a copy), unquantized and with the int8
    arena: every layer's kernel output of a 512-token prefill and of one
    decode step held against its plain version on the engine's own pools.
    Then the model in bf16. First the prefill kernel's tensor-core
    instances on the engine's own data: the host-clock time from admission
-   to first token of a 512-token prompt, then every layer's kernel output
+   to first token of a 512-token prompt at its bucket's first admission
+   (warm-up and capture) and replayed, then every layer's kernel output
    of one such prefill and of an int8 chunk at prefix 768 held against its
-   plain version (phase 2's bars). Then the median decode-step time and
-   tokens/s of 8 full slots, unquantized, with ``quant_kv``, and with
-   ``quant_kv`` + ``quant_weights``, with the arena bytes per slot and the
-   weight bytes of each; then each kernel's time (the median of its
+   plain version (phase 2's bars). Then the median decode-step time (a
+   graph replay) and tokens/s of 8 full slots, unquantized, with
+   ``quant_kv``, and with ``quant_kv`` + ``quant_weights``, with the arena
+   bytes per slot, the weight bytes and the graph pool bytes of each; each
+   engine's programs held as in phase 3; then each kernel's time (the
+   median of its
    launches) at the path's shapes beside its bound, its
    plain version's time and one ``scaled_dot_product_attention`` call on the
    same attention (a yardstick only; the port never calls it). No PyTorch
@@ -97,8 +108,13 @@ no result. Phases, in order; each raises on failure:
    24 x steps times here too (its bf16 instances, on the tensor cores,
    where phase 8 ran the f32 instances).
 10. Serve ``gpt_1p3b`` cut to 2 layers of 8 heads of 256 (full width
-    2048), seeded f32 weights: tokens equal ``generate()`` and the head_dim
-    256 kernels launch 2 x decode steps and 2 x prefills.
+    2048), seeded f32 weights: tokens equal ``generate()``, the head_dim
+    256 kernels launch 2 x (decode steps + warm-ups) and 2 x (prefills +
+    warm-ups), and the engine's programs hold as in phase 3.
+
+Every serving engine is closed at the end of its phase
+(``ServingAPI.close``), which drops its graphs and their pool before the
+training phases.
 
 Then one JSON line of per-kernel results (a paged row's ``launches`` are
 phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
@@ -429,28 +445,49 @@ def prefill_edges(pa, rng, dtype):
                                                          prefix))
 
 
+def decode_compiles() -> int:
+    from paddle_tpu_torch.core import compile_cache
+
+    return compile_cache.stats().get("serving.decode_compiles", 0)
+
+
+def builds(eng):
+    """The engine's program builds so far: (decode, whole-prompt prefill,
+    suffix/chunk prefill). On the card each build warmed its step up once
+    (a real launch of every layer's kernel) and captured it."""
+    return (eng.decode_traces, sum(eng.prefill_traces.values()),
+            sum(eng.prefix_prefill_traces.values()))
+
+
 def serve(api, pa, prompts, news, what, card):
     """Serve ``prompts`` through ``api`` with the launch counters set to 0
     just before and read just after. Every request must finish with its
     budget of tokens, every block must be free again and the arena's
-    invariants must hold. Returns the requests, the launches and the
-    engine's decode steps, whole-prompt prefills and prefill chunks."""
+    invariants must hold. Returns the requests, the launches and what the
+    engine ran meanwhile: decode steps, whole-prompt prefills, prefill
+    chunks, and the builds of each kind of program (``builds``)."""
     from paddle_tpu_torch.serving import RequestState
 
     eng = api.engine
-    before = (eng.decode_steps, eng.prefills, eng.prefill_chunks)
+    before = (eng.decode_steps, eng.prefills, eng.prefill_chunks) \
+        + builds(eng)
     t0 = time.perf_counter()
     pa.reset_launches()
     reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
     api.run_until_idle()
     torch.cuda.synchronize()
     launches = dict(pa.launches)
-    steps, prefills, chunks = (a - b for a, b in zip(
-        (eng.decode_steps, eng.prefills, eng.prefill_chunks), before))
+    ran = types.SimpleNamespace(**dict(zip(
+        ("steps", "prefills", "chunks", "decode_builds", "prefill_builds",
+         "chunk_builds"),
+        (a - b for a, b in zip((eng.decode_steps, eng.prefills,
+                                eng.prefill_chunks) + builds(eng),
+                               before)))))
     print(f"e2e {what}: served {len(reqs)} requests in "
-          f"{time.perf_counter() - t0:.2f} s, {prefills} prefills, {chunks} "
-          f"prefill chunks, {steps} decode steps, launches {launches} "
-          f"[{card}]")
+          f"{time.perf_counter() - t0:.2f} s, {ran.prefills} prefills, "
+          f"{ran.chunks} prefill chunks, {ran.steps} decode steps (graphs "
+          f"built: decode {ran.decode_builds}, prefill {ran.prefill_builds},"
+          f" chunk {ran.chunk_builds}), launches {launches} [{card}]")
     for r, n in zip(reqs, news):
         if r.state != RequestState.FINISHED or len(r.tokens) != n:
             raise AssertionError(f"{r.request_id}: state {r.state}, "
@@ -458,7 +495,65 @@ def serve(api, pa, prompts, news, what, card):
     eng.check_invariants()
     if eng.arena.blocks_in_use() != 0:
         raise AssertionError("blocks still in use after every retire")
-    return reqs, launches, steps, prefills, chunks
+    return reqs, launches, ran
+
+
+def want_launches(layers, ran, decode="paged_decode_attention",
+                  prefill="paged_prefill_attention", chunk=None):
+    """The exact launch counts of a served run: each layer's kernel once per
+    replay of a program that attends through it, and once per warm-up
+    (one per build; a capture launches nothing and is not counted)."""
+    want = {decode: layers * (ran.steps + ran.decode_builds),
+            prefill: layers * (ran.prefills + ran.prefill_builds)}
+    if chunk is not None:
+        want[chunk] = want.get(chunk, 0) + layers * (ran.chunks
+                                                     + ran.chunk_builds)
+    return want
+
+
+def hold_programs(eng, compiles_before, lens, what, card, chunk=0,
+                  decoded=True):
+    """The no-rebuild contract after a serving phase: one decode graph
+    (``decode_traces == 1``, ``serving.decode_compiles`` moved by 1 since
+    the engine was built), every prefill and chunk bucket built once, their
+    keys exactly the buckets of the phase's prompts (``lens``; with
+    ``chunk`` the chunk buckets, clamped to the positions left), and one
+    CUDA graph per program. ``decoded=False``: an engine that only
+    prefilled holds no decode program. Prints the engine's graph pool
+    bytes."""
+    from paddle_tpu_torch.core import compile_cache
+
+    full, suffix = set(), set()
+    max_pos = eng._model.cfg.max_position_embeddings
+    for n in lens:
+        if chunk <= 0 or n <= chunk:
+            full.add(compile_cache.prefill_bucket(
+                n, eng.max_model_len, eng.prefill_bucket_min))
+            continue
+        for done in range(0, n, chunk):
+            take = min(chunk, n - done)
+            suffix.add(min(compile_cache.prefill_bucket(
+                take, eng.max_model_len, eng.prefill_bucket_min),
+                max_pos - done))
+    graphs = eng.stats()["programs.graphs"]
+    moved = decode_compiles() - compiles_before
+    print(f"programs {what}: decode_traces {eng.decode_traces} "
+          f"(serving.decode_compiles +{moved}), prefill_traces "
+          f"{dict(sorted(eng.prefill_traces.items()))}, prefix_prefill_traces"
+          f" {dict(sorted(eng.prefix_prefill_traces.items()))}, {graphs} CUDA"
+          f" graphs, pool {eng.stats()['programs.pool_bytes']} bytes [{card}]")
+    if eng.decode_traces != decoded or moved != decoded:
+        raise AssertionError(f"{what}: {eng.decode_traces} decode builds, "
+                             f"serving.decode_compiles +{moved}, not "
+                             f"{int(decoded)}")
+    for traces, want in ((eng.prefill_traces, full),
+                         (eng.prefix_prefill_traces, suffix)):
+        if set(traces) != want or any(v != 1 for v in traces.values()):
+            raise AssertionError(f"{what}: prefill builds {traces}, want "
+                                 f"each of {sorted(want)} once")
+    if graphs != decoded + len(full) + len(suffix):
+        raise AssertionError(f"{what}: {graphs} CUDA graphs for "
+                             f"{decoded + len(full) + len(suffix)} programs")
 
 
 def hold_to_generate(model, prompts, reqs, news, what, card):
@@ -495,63 +590,150 @@ def serve_f32(pa, gpt, serving, card):
     print(f"e2e f32: gpt_1p3b {n_params} params, 24 layers, seeded weights "
           f"loaded in {time.perf_counter() - t0:.1f} s [{card}]")
     layers = model.cfg.num_layers
+    cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
                              device="cuda")
     rng = np.random.default_rng(1)
     lens = [5, 700, 37, 129, 16, 300, 64, 511, 9, 250, 48, 17]
     news = [16, 32, 24, 20, 32, 16, 28, 18, 30, 22, 26, 32]
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
-    reqs, launches, steps, prefills, _ = serve(api, pa, prompts, news, "f32",
-                                               card)
-    if prefills != len(reqs):
-        raise AssertionError(f"{prefills} prefills for {len(reqs)} requests")
-    hold_launches(launches, {"paged_decode_attention": layers * steps,
-                             "paged_prefill_attention": layers * prefills},
-                  "f32 (24 x decode steps, 24 x prefills)")
+    reqs, launches, ran = serve(api, pa, prompts, news, "f32", card)
+    if ran.prefills != len(reqs):
+        raise AssertionError(f"{ran.prefills} prefills for {len(reqs)} "
+                             "requests")
+    hold_launches(launches, want_launches(layers, ran),
+                  "f32 (24 x (decode steps + warm-ups), 24 x (prefills + "
+                  "warm-ups))")
     hold_to_generate(model, prompts, reqs, news, "f32", card)
+    hold_programs(api.engine, cc, lens, "f32", card)
+    churn(api, pa, model, lens, card)
+    hold_programs(api.engine, cc, lens, "f32 after the churn wave", card)
+    api.close()
     return model, launches, arrays
+
+
+# the churn wave on phase 3's engine: 1, 3, 5 and 8 live requests of other
+# lengths, each in a bucket phase 3 already captured
+CHURN = [([7], [8]), ([22, 41, 650], [6, 9, 7]),
+         ([11, 55, 150, 230, 320], [5, 8, 6, 9, 7]),
+         ([3, 19, 35, 60, 140, 200, 290, 450], [6, 7, 8, 9, 5, 6, 7, 8])]
+
+
+def churn(api, pa, model, lens, card):
+    """Phase 3's churn check (the card's ``test_admit_retire_never_
+    recompiles``): waves of 1, 3, 5 and 8 live requests of other lengths
+    in the buckets already captured. No program is built again, every
+    launch is a replay's (24 x decode steps, 24 x prefills), and the tokens
+    equal generate()."""
+    from paddle_tpu_torch.core import compile_cache
+
+    eng = api.engine
+    layers = model.cfg.num_layers
+    buckets = {compile_cache.prefill_bucket(n, eng.max_model_len,
+                                            eng.prefill_bucket_min)
+               for n in lens}
+    rng = np.random.default_rng(13)
+    for wave, news in CHURN:
+        if not {compile_cache.prefill_bucket(n, eng.max_model_len,
+                                             eng.prefill_bucket_min)
+                for n in wave} <= buckets:
+            raise AssertionError(f"churn wave {wave} leaves the captured "
+                                 "buckets")
+        prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in wave]
+        what = f"f32 churn, {len(wave)} live"
+        reqs, launches, ran = serve(api, pa, prompts, news, what, card)
+        if (ran.decode_builds, ran.prefill_builds, ran.chunk_builds) \
+                != (0, 0, 0):
+            raise AssertionError(f"{what}: programs built again {ran}")
+        hold_launches(launches, want_launches(layers, ran),
+                      f"{what} (24 x decode steps, 24 x prefills)")
+        hold_to_generate(model, prompts, reqs, news, what, card)
 
 
 class Shadow:
     """Wraps some of the engine's paged wrappers (in ``serving.engine``, for
-    this script only): ``pick`` maps a wrapper's name to the index of the
-    run of ``layers`` calls (one decode step, prefill or chunk) whose every
-    layer's kernel output is held against the plain version on the same
-    inputs -- the engine's own pools, tables and positions -- at the kernel
-    checks' bar (TOL, row bound included). The plain versions launch no
-    kernel, so the launch counts stay exact."""
+    this script only) and the step programs' ``run``: ``pick`` maps a
+    wrapper's name to the index of the run of a program that attends
+    through it (one decode step, prefill or chunk; 0 is the first) whose
+    every layer's kernel output is held against the plain version on the
+    same inputs -- the engine's own pools, tables and positions -- at the
+    kernel checks' bar (TOL, row bound included).
+
+    Under the engine's CUDA graphs a wrapper's Python runs only when its
+    program is warmed up and captured. The shadow keeps the ``(q, args,
+    out)`` of every call made while a program captures (holding them also
+    keeps their memory from reuse inside the graph), and after the picked
+    run's replay computes the plain versions on those tensors: that
+    replay's inputs and outputs, and the pools, which after the step equal
+    the pools at each layer's attention (each layer scatters into its own
+    entry before it attends). So it must be installed before the engine
+    captures the programs it watches. The plain versions launch no kernel
+    and run outside any capture, so the launch counts stay exact."""
 
     def __init__(self, engine_mod, pa, layers, pick):
-        self.engine_mod, self.pa = engine_mod, pa
+        from paddle_tpu_torch.serving import graphs
+
+        self.engine_mod, self.graphs, self.pa = engine_mod, graphs, pa
         self.pick = dict(pick)
         self.layers = layers
         self.calls = dict.fromkeys(self.pick, 0)
         self.seen = {name: [] for name in self.pick}  # readings()
+        self.records = {}  # program -> {wrapper: [(q, args, out)]}
+        self.recording = None
+        self._run = self.graphs.StepProgram.run
 
     def _wrap(self, name):
-        fn, ref = getattr(self.pa, name), getattr(self.pa, name + "_ref")
+        fn = getattr(self.pa, name)
 
         def shadowed(q, *args):
             out = fn(q, *args)
-            call = self.calls[name]
-            self.calls[name] += 1
-            if call // self.layers == self.pick[name]:
-                expect = ref(q, *args)
-                torch.cuda.synchronize()
-                if not torch.isfinite(out).all():
-                    raise AssertionError(f"shadow {name}: non-finite output")
-                self.seen[name].append(readings(out, expect, TOL[q.dtype]))
+            if self.recording is not None \
+                    and torch.cuda.is_current_stream_capturing():
+                self.recording.setdefault(name, []).append((q, args, out))
             return out
         return shadowed
+
+    def _shadowed_run(self):
+        run, shadow = self._run, self
+
+        def shadowed_run(prog, **values):
+            if not prog.built:
+                shadow.recording = shadow.records.setdefault(prog, {})
+            try:
+                outs = run(prog, **values)
+            finally:
+                shadow.recording = None
+            for name, rec in shadow.records.get(prog, {}).items():
+                if len(rec) != shadow.layers:
+                    raise AssertionError(f"shadow {name}: {len(rec)} calls "
+                                         f"captured, not {shadow.layers}")
+                call = shadow.calls[name]
+                shadow.calls[name] += 1
+                if call == shadow.pick[name]:
+                    shadow.hold(name, rec)
+            return outs
+        return shadowed_run
+
+    def hold(self, name, rec):
+        ref = getattr(self.pa, name + "_ref")
+        for q, args, out in rec:
+            expect = ref(q, *args)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"shadow {name}: non-finite output")
+            self.seen[name].append(readings(out, expect, TOL[q.dtype]))
 
     def __enter__(self):
         for name in self.pick:
             setattr(self.engine_mod, name, self._wrap(name))
+        self.graphs.StepProgram.run = self._shadowed_run()
         return self
 
     def __exit__(self, *exc):
         for name in self.pick:
             setattr(self.engine_mod, name, getattr(self.pa, name))
+        self.graphs.StepProgram.run = self._run
+        self.records.clear()
 
     def report(self, what, card):
         for name, seen in self.seen.items():
@@ -565,9 +747,10 @@ class Shadow:
                     f"({worst[1]:.3f} of the element bar)")
             if rows:
                 note += f", worst row {max(rows):.3e}"
-            print(f"shadow {what} {name} (call {self.pick[name] + 1} of the "
-                  f"run, all {self.layers} layers, the engine's own pools): "
-                  f"{note} {'ok' if ok else 'FAIL'} [{card}]")
+            print(f"shadow {what} {name} (run {self.pick[name] + 1} of its "
+                  f"programs, a graph replay, all {self.layers} layers, the "
+                  f"engine's own pools): {note} {'ok' if ok else 'FAIL'} "
+                  f"[{card}]")
             if not ok:
                 raise AssertionError(f"shadow {name}: the kernel disagrees "
                                      "with its plain version on the engine's "
@@ -623,38 +806,42 @@ def serve_quantized(pa, gpt, serving, arrays, card):
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in QLENS]
 
+    cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(
         num_slots=8, quant_weights=True), device="cuda")
     print(f"e2e f32 weight-only: {api.engine.stats()['quant.weight_layers']} "
           f"int8 linears [{card}]")
     hold_device_quantization(model, arrays, card)
-    reqs, launches, steps, prefills, _ = serve(api, pa, prompts, QNEWS,
-                                               "f32 weight-only", card)
-    hold_launches(launches, {"paged_decode_attention": layers * steps,
-                             "paged_prefill_attention": layers * prefills},
-                  "f32 weight-only")
+    reqs, launches, ran = serve(api, pa, prompts, QNEWS, "f32 weight-only",
+                                card)
+    hold_launches(launches, want_launches(layers, ran), "f32 weight-only")
     hold_to_generate(model, prompts, reqs, QNEWS, "f32 weight-only", card)
+    hold_programs(api.engine, cc, QLENS, "f32 weight-only", card)
     tokens_w = [r.tokens for r in reqs]
+    api.close()
     del api, reqs
 
+    cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(
         num_slots=8, quant_weights=True, quant_kv=True,
         chunked_prefill=CHUNK), device="cuda")
     what = f"f32 int8 weights + int8 KV + chunks of {CHUNK}"
     pick = {"paged_decode_attention": 9, "paged_prefill_attention": 1}
     with Shadow(engine_mod, pa, layers, pick) as shadow:
-        reqs, launches, steps, prefills, chunks = serve(
-            api, pa, prompts, QNEWS, what, card)
+        reqs, launches, ran = serve(api, pa, prompts, QNEWS, what, card)
     want_chunks = sum(-(-n // CHUNK) for n in QLENS if n > CHUNK)
-    if chunks != want_chunks or prefills != len(QLENS) - sum(
+    if ran.chunks != want_chunks or ran.prefills != len(QLENS) - sum(
             n > CHUNK for n in QLENS):
-        raise AssertionError(f"{prefills} prefills and {chunks} chunks for "
-                             f"prompts {QLENS}")
-    hold_launches(launches, {"paged_decode_attention_int8": layers * steps,
-                             "paged_prefill_attention_int8": layers * chunks,
-                             "paged_prefill_attention": layers * prefills},
-                  f"{what} (24 x decode steps, 24 x chunks, 24 x prefills)")
+        raise AssertionError(f"{ran.prefills} prefills and {ran.chunks} "
+                             f"chunks for prompts {QLENS}")
+    hold_launches(launches, want_launches(
+        layers, ran, decode="paged_decode_attention_int8",
+        chunk="paged_prefill_attention_int8"),
+        f"{what} (24 x (decode steps + warm-ups), 24 x (chunks + warm-ups),"
+        " 24 x (prefills + warm-ups))")
     shadow.report(what, card)
+    hold_programs(api.engine, cc, QLENS, what, card, chunk=CHUNK)
+    api.close()
     same = [np.mean(np.asarray(a) == np.asarray(r.tokens))
             for a, r in zip(tokens_w, reqs)]
     print(f"e2e {what}: per-token agreement with the weight-only tokens "
@@ -673,6 +860,7 @@ def serve_d256(pa, gpt, serving, card):
     model = gpt.GPTForCausalLM(cfg, device="cuda")
     gpt.load_functional_state(model, gpt.seeded_state(model, seed=3))
     layers = model.cfg.num_layers
+    cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
                              device="cuda")
     rng = np.random.default_rng(12)
@@ -680,12 +868,13 @@ def serve_d256(pa, gpt, serving, card):
     news = [16, 24, 20, 32, 12, 16, 28, 18, 30, 22]
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
     what = "f32 head_dim 256 (8 heads, 2 layers)"
-    reqs, launches, steps, prefills, _ = serve(api, pa, prompts, news, what,
-                                               card)
-    hold_launches(launches, {"paged_decode_attention": layers * steps,
-                             "paged_prefill_attention": layers * prefills},
-                  f"{what} (2 x decode steps, 2 x prefills)")
+    reqs, launches, ran = serve(api, pa, prompts, news, what, card)
+    hold_launches(launches, want_launches(layers, ran),
+                  f"{what} (2 x (decode steps + warm-ups), 2 x (prefills + "
+                  "warm-ups))")
     hold_to_generate(model, prompts, reqs, news, what, card)
+    hold_programs(api.engine, cc, lens, what, card)
+    api.close()
 
 
 def flash_inputs(rng, b, sq, sk, h, d, dtype):
@@ -802,6 +991,7 @@ def decode_run(model, serving, modes, card):
     the median host time of the scheduler steps that run only a decode step
     of 8 slots, and what the kernel timings reuse (layer 0's pool entry, the
     tables and positions mid-way)."""
+    cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8,
                                                           **modes),
                              device="cuda")
@@ -828,48 +1018,57 @@ def decode_run(model, serving, modes, card):
     arena = eng.arena.bytes_total() / slots
     weights = tensor_bytes(list(model.parameters()) + list(model.buffers()))
     name = "+".join(k for k, v in modes.items() if v) or "unquantized"
-    print(f"bf16 serving {name}: median decode step {med * 1e3:.3f} ms over "
-          f"{len(step_s)} steps of {slots} slots (prompt {plen}), "
-          f"{slots / med:.1f} tokens/s; arena {arena:.0f} bytes per slot, "
-          f"weights {weights} bytes [{card}]")
+    print(f"bf16 serving {name}: median decode step {med * 1e3:.3f} ms (a "
+          f"graph replay; steps {np.min(step_s) * 1e3:.3f}-"
+          f"{np.max(step_s) * 1e3:.3f} ms) over {len(step_s)} steps of "
+          f"{slots} slots (prompt {plen}), {slots / med:.1f} tokens/s; arena "
+          f"{arena:.0f} bytes per slot, weights {weights} bytes [{card}]")
+    hold_programs(eng, cc, [plen], f"bf16 {name}", card)
+    pool = eng.stats()["programs.pool_bytes"]
+    api.close()
     return dict(median_ms=med * 1e3, tokens_per_s=slots / med,
                 arena_bytes_per_slot=arena, weight_bytes=weights,
-                entry=eng.arena.pools[0], snap=snap)
+                pool_bytes=pool, entry=eng.arena.pools[0], snap=snap)
 
 
 def bf16_prefills(model, pa, serving, card):
     """Phase 6, first: the bf16 prefill kernel's tensor-core instances on
     the engine's own data. A 512-token prompt prefilled whole (the
-    full-prefill route): the host-clock time from ``admit()`` to the first
-    token on the host (synchronised; median of 5 after one warm-up, no
-    checks on), then one more admission with every layer's kernel output
-    held against its plain version; then a 1000-token prompt through an
-    int8 arena in chunks of 256, every layer of the fourth chunk (prefix
-    768) held the same way."""
+    full-prefill route) seven times: the host-clock time from ``admit()``
+    to the first token on the host (synchronised) of the first admission,
+    which warms up and captures the bucket's graph, and the median of the
+    next five, graph replays; the seventh holds every layer's kernel output
+    against its plain version. Then a 1000-token prompt through an int8
+    arena in chunks of 256, every layer of the fourth chunk (prefix 768)
+    held the same way."""
     from paddle_tpu_torch.serving import engine as engine_mod
 
     layers = model.cfg.num_layers
     rng = np.random.default_rng(8)
+    cc = decode_compiles()
     eng = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
                              device="cuda").engine
     prompt = rng.integers(0, model.cfg.vocab_size, 512)
     times = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        slot, _ = eng.admit(prompt, 8)  # the first token comes to the host
-        times.append((time.perf_counter() - t0) * 1e3)
-        eng.retire(slot)
-    med = float(np.median(times[1:]))
-    print(f"bf16 prefill of 512 tokens: admission to first token {med:.3f} "
-          f"ms (host clock, synchronised; median of {len(times) - 1} after "
-          f"a warm-up of {times[0]:.3f} ms) [{card}]")
     with Shadow(engine_mod, pa, layers,
-                {"paged_full_prefill_attention": 0}) as shadow:
-        slot, _ = eng.admit(prompt, 8)
-        eng.retire(slot)
+                {"paged_full_prefill_attention": 6}) as shadow:
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot, _ = eng.admit(prompt, 8)  # the first token to the host
+            times.append((time.perf_counter() - t0) * 1e3)
+            eng.retire(slot)
     shadow.report("bf16 512-token prefill", card)
-    del eng
+    med = float(np.median(times[1:6]))
+    print(f"bf16 prefill of 512 tokens: admission to first token {med:.3f} "
+          f"ms replayed (host clock, synchronised; median of 5, "
+          f"{min(times[1:6]):.3f}-{max(times[1:6]):.3f}), {times[0]:.3f} ms "
+          f"at the bucket's first admission (warm-up, capture and replay) "
+          f"[{card}]")
+    hold_programs(eng, cc, [512], "bf16 512-token prefill", card,
+                  decoded=False)
+    eng.close()
+    cc = decode_compiles()
     eng = serving.ServingAPI(model, serving.ServingConfig(
         num_slots=8, quant_kv=True, chunked_prefill=CHUNK),
         device="cuda").engine
@@ -881,6 +1080,10 @@ def bf16_prefills(model, pa, serving, card):
             first = eng.admit_chunk(slot)
         eng.retire(slot)
     shadow.report(f"bf16 int8 KV, chunks of {CHUNK}, prefix 768", card)
+    hold_programs(eng, cc, [1000], "bf16 int8 KV chunks", card, chunk=CHUNK,
+                  decoded=False)
+    eng.close()
+    return dict(first_token_ms=med, first_token_capture_ms=times[0])
 
 
 def fp16_shadows(model, pa, serving, card):
@@ -896,6 +1099,7 @@ def fp16_shadows(model, pa, serving, card):
     rng = np.random.default_rng(10)
     prompts = [rng.integers(0, half.cfg.vocab_size, n) for n in (512, 100, 37)]
     for quant_kv in (False, True):
+        cc = decode_compiles()
         eng = serving.ServingAPI(half, serving.ServingConfig(
             num_slots=8, quant_kv=quant_kv), device="cuda").engine
         pick = {"paged_full_prefill_attention": 0, "paged_decode_attention": 0}
@@ -904,9 +1108,11 @@ def fp16_shadows(model, pa, serving, card):
             eng.decode_step()
         for slot in slots:
             eng.retire(slot)
-        shadow.report("float16" + (" int8 KV" if quant_kv else "")
-                      + ": a 512-token prefill and a decode step of 3 slots",
-                      card)
+        what = "float16" + (" int8 KV" if quant_kv else "")
+        shadow.report(what + ": a 512-token prefill and a decode step of 3 "
+                      "slots", card)
+        hold_programs(eng, cc, [len(p) for p in prompts], what, card)
+        eng.close()
         del eng
     del half
     torch.cuda.empty_cache()
@@ -922,7 +1128,7 @@ def serve_bf16(model, pa, serving, card):
     fp16_shadows(model, pa, serving, card)
     model.to(torch.bfloat16)
     torch.cuda.empty_cache()
-    bf16_prefills(model, pa, serving, card)
+    first = bf16_prefills(model, pa, serving, card)
     torch.cuda.empty_cache()
     runs = {"unquantized": decode_run(model, serving, {}, card),
             "quant_kv": decode_run(model, serving, dict(quant_kv=True), card),
@@ -935,7 +1141,11 @@ def serve_bf16(model, pa, serving, card):
               f"{r['median_ms'] / base['median_ms']:.3f} x unquantized, arena bytes per slot "
               f"{r['arena_bytes_per_slot'] / base['arena_bytes_per_slot']:.4f}"
               f" x, weight bytes "
-              f"{r['weight_bytes'] / base['weight_bytes']:.4f} x [{card}]")
+              f"{r['weight_bytes'] / base['weight_bytes']:.4f} x, graph pool "
+              f"{r['pool_bytes']} bytes [{card}]")
+    print("bf16 serving through CUDA graphs, one call: " + json.dumps(
+        {name: {k: r[k] for k in ("median_ms", "tokens_per_s", "pool_bytes")}
+         for name, r in runs.items()} | first) + f" [{card}]")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     results = {}

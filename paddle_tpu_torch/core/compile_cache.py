@@ -1,8 +1,14 @@
 """Shape buckets and counters (counterpart of ``paddle_tpu/core/compile_cache.py``).
 
-The port runs eagerly, so nothing here caches a compiled program yet; what
-carries over is the bucket ladder, which fixes how far the serving engine
-pads a prompt, and the counter surface (``bump``/``stats``).
+What carries over is the bucket ladder, which fixes how far the serving
+engine pads a prompt and so which prefill programs it builds, and the
+counter surface (``bump``/``stats``). The programs themselves -- on a CUDA
+device captured CUDA graphs, one per decode step and prefill bucket -- are
+owned by each serving engine (``serving/graphs.py``), not cached here; the
+engine counts their builds under the JAX package's keys,
+``serving.decode_compiles`` and ``serving.prefill_compiles``, and each
+whole-prompt prefill per bucket (``serving.prefill_bucket.<n>``) and chunk
+per suffix bucket (``serving.suffix_prefill_bucket.<n>``).
 """
 from __future__ import annotations
 

@@ -181,6 +181,8 @@ class GPTAttention(nn.Module):
             # contiguous [b, max_len, heads, dim] buffers, written in place
             # at start_pos; attend over positions <= the query's position
             k_buf, v_buf = cache
+            # analysis: allow(traced-cast) — generate()'s contiguous cache
+            # only: a captured serving step's caches own update_and_attend
             pos = int(start_pos)
             k_buf[:, pos:pos + s] = k
             v_buf[:, pos:pos + s] = v
@@ -256,11 +258,14 @@ class GPTModel(nn.Module):
         steps = torch.arange(s, device=dev)
         if caches is None:
             pos = steps
+        elif isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1:
+            # per-sequence positions [b] (each serving slot sits at its own
+            # context length)
+            pos = start_pos.long()[:, None] + steps
         else:
-            # an int, or per-sequence positions [b] (each serving slot sits
-            # at its own context length)
-            off = torch.as_tensor(start_pos, device=dev).long()
-            pos = off[:, None] + steps if off.ndim == 1 else off + steps
+            # an int or a device scalar: added on the device, no host copy
+            # (a captured serving step passes its prefix length so)
+            pos = steps + start_pos
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
         if caches is None:
             for layer in self.layers:

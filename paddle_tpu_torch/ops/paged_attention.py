@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import types
 
 import torch
 import torch.nn.functional as F
@@ -71,7 +72,8 @@ launches = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
             "paged_decode_attention_int8": 0,
             "paged_prefill_attention_int8": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODES = types.MappingProxyType(
+    {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2})
 HEAD_DIMS = (32, 64, 128, 256)
 _lib = None
 #: the decode kernel's split partials, ticket counters and split count, per
@@ -106,6 +108,8 @@ def check_servable(head_dim: int, dtype, device) -> None:
 def load_kernels() -> ctypes.CDLL:
     """Build (on first use) and load the CUDA library; bind its launchers."""
     global _lib
+    # analysis: allow(mutable-global-capture) — the library handle, bound
+    # once (the warm-up loads it); a graph bakes in the kernels it launches
     if _lib is None:
         from ._build import library
 
@@ -134,15 +138,21 @@ def decode_splits(S: int, H: int, sms: int) -> int:
     return min(max(WAVE_BLOCKS * sms // (S * H), 1), MAX_SPLITS)
 
 
-def _workspace(device, S, H, D):
+def _workspace(device: torch.device, S: int, H: int, D: int):
     """The decode kernel's workspace on ``device`` for this shape, made on
     first use and kept: the split count (:func:`decode_splits`), each
     split's float32 partial ``(acc[D], m, l)`` and ``S * H`` int32 ticket
     counters, zero at allocation and left zero by every launch. The grid
     and the workspace take the one split count decided here. Launches that
     share them run in stream order; nothing is allocated per launch, so a
-    decode step can be captured in a CUDA graph."""
+    decode step can be captured in a CUDA graph. A serving engine's warm-up
+    makes it before any capture, and every graph bakes in its addresses;
+    engines of one shape share it, since their replays run in stream
+    order on one stream."""
     key = (device, S, H, D)
+    # analysis: allow(mutable-global-capture) — made before any capture (the
+    # warm-up launches first) and kept for the process: a graph bakes in the
+    # workspace's addresses, which this table keeps alive
     if key not in _work:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         splits = decode_splits(S, H, sms)
@@ -175,7 +185,7 @@ def _entry_scales(entry) -> tuple:
     return ks, vs
 
 
-def _row_stride(t, H, D) -> int:
+def _row_stride(t, H: int, D: int) -> int:
     """Stride in elements between the ``[H, D]`` rows of ``t``, which must
     each be dense (the qkv split's views are: only their rows are strided)."""
     if tuple(t.shape[-2:]) != (H, D) or t.stride(-1) != 1 \
@@ -186,7 +196,8 @@ def _row_stride(t, H, D) -> int:
     return t.stride(-3)
 
 
-def load_alignment(kernel: str, dtype, pool_dtype, head_dim: int) -> int:
+def load_alignment(kernel: str, dtype: torch.dtype, pool_dtype: torch.dtype,
+                   head_dim: int) -> int:
     """Bytes to which the CUDA kernels' loads need q's and the pools' start
     addresses and row strides aligned: 16 for the decode kernel, which
     reads every pool 16 bytes a lane, and for the prefill kernel with bf16
@@ -206,8 +217,8 @@ def aligned(t, row_stride: int, nbytes: int) -> bool:
             and row_stride * t.element_size() % nbytes == 0)
 
 
-def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=(),
-            decode=False):
+def _launch(fn, q, kp, vp, table, scalars, bs: int, MB: int, scales=(),
+            decode: bool = False):
     """Check what the CUDA kernels take, launch ``fn`` on the current
     stream and return the dense output. ``kp``/``vp`` are pools ``[NB, bs,
     H, D]`` or, for a full prefill, the chunk's own ``[sq, H, D]`` k/v;
@@ -216,7 +227,7 @@ def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=(),
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention takes float32, bfloat16 or "
                         f"float16, got {q.dtype}")
-    pool_dtype = torch.int8 if scales else q.dtype
+    pool_dtype = torch.int8 if len(scales) else q.dtype
     if kp.dtype != pool_dtype or vp.dtype != pool_dtype:
         raise TypeError(f"q {q.dtype} takes {pool_dtype} pools, got "
                         f"{kp.dtype}/{vp.dtype}")
@@ -258,6 +269,8 @@ def _launch(fn, q, kp, vp, table, scalars, bs, MB, scales=(),
             table.data_ptr(), scalars.data_ptr(), out.data_ptr(),
             *work, rows, H, D, bs, MB, q_stride, kv_stride,
             1.0 / math.sqrt(D), stream)
+    # rc is the launcher's host-side status (cudaGetLastError): under
+    # capture it reports a refused launch once, when the graph records it
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
     return out
@@ -322,6 +335,8 @@ def paged_decode_attention(q, entry, block_tables, positions):
     out = _launch(getattr(load_kernels(), name + "_launch"), q, kp, vp,
                   block_tables, positions, kp.shape[1], MB, scales,
                   decode=True)
+    # analysis: allow(mutable-global-capture) — a capture counts here once;
+    # serving.graphs takes that back out and credits it on every replay
     launches[name] += 1
     return out
 
@@ -340,10 +355,13 @@ def paged_decode_attention_ref(q, entry, block_tables, positions):
 # ----------------------------------------------------------------- prefill
 
 
-def _prefix_tensor(prefix_len, device):
+def _prefix_tensor(prefix_len, device: torch.device):
+    """``prefix_len`` as the kernels take it: an int32 ``[1]`` tensor. A
+    tensor stays where it is (``_launch`` refuses one off q's device); an
+    int is filled in on the device, without a host copy."""
     if isinstance(prefix_len, torch.Tensor):
-        return prefix_len.reshape(1).to(device=device, dtype=torch.int32)
-    return torch.full((1,), int(prefix_len), dtype=torch.int32, device=device)
+        return prefix_len.reshape(1).to(torch.int32)
+    return torch.full((1,), prefix_len, dtype=torch.int32, device=device)
 
 
 def paged_prefill_attention(q, entry, bt_row, prefix_len):
@@ -370,6 +388,8 @@ def _prefill(q, kp, vp, bt_row, prefix, bs, scales=()):
     name = "paged_prefill_attention" + ("_int8" if scales else "")
     out = _launch(getattr(load_kernels(), name + "_launch"), q, kp, vp,
                   bt_row, prefix, bs, bt_row.shape[0], scales)
+    # analysis: allow(mutable-global-capture) — as in paged_decode_attention:
+    # credited per replay by serving.graphs
     launches[name] += 1
     return out
 
@@ -379,8 +399,7 @@ def paged_prefill_attention_ref(q, entry, bt_row, prefix_len):
     under the global-position causal mask."""
     t_len = bt_row.shape[0] * entry[0].shape[1]
     k_all, v_all = _gather_ctx(entry, bt_row, q.dtype)
-    prefix = torch.as_tensor(prefix_len, device=q.device).long().reshape(())
-    gpos = prefix + torch.arange(q.shape[0], device=q.device)
+    gpos = torch.arange(q.shape[0], device=q.device) + prefix_len
     keys = torch.arange(t_len, device=q.device)
     mask = (keys[None, :] <= gpos[:, None])[None, None]
     return masked_attention(q[None], k_all[None], v_all[None], mask)[0]

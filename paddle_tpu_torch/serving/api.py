@@ -4,7 +4,7 @@
 request and returns its handle; ``stream`` yields its tokens as they are
 generated, pumping scheduler steps from the consumer's thread;
 ``run_until_idle`` pumps until every request has finished; ``close`` fails
-whatever is still queued or running. The supervisor (rebuild and replay
+whatever is still queued or running and closes the engine's step programs. The supervisor (rebuild and replay
 after a device failure), queue shedding, deadlines, drain and the
 ``EnginePredictor`` bridge are later slices.
 """
@@ -67,12 +67,15 @@ class ServingAPI:
             self.scheduler.run_until_idle()
 
     def close(self) -> None:
-        """Fail every request still queued or running; idempotent."""
+        """Fail every request still queued or running, then close the
+        engine's step programs (on CUDA their graphs and pool, so that work
+        after serving gets the memory back); idempotent."""
         with self._lock:
             if self._closed:
                 return
             self._closed = True
             self.scheduler.fail_all(RuntimeError("ServingAPI is closed"))
+            self.engine.close()
 
     def _pump_once(self) -> None:
         with self._lock:

@@ -30,15 +30,29 @@ admitted by :meth:`ServingEngine.admit_begin` and prefilled one chunk per
 (:class:`_PrefixPrefillView`): running streams go on decoding between
 chunks.
 
-PyTorch runs eagerly: the prefill and decode step run their ops directly
-(no compiled program, no CUDA graph yet) and the K/V pools are updated in
-place. The prefix cache, preemption, speculation, LoRA, tiering and the
-supervisor are later slices.
+The engine owns one program per kind of model call, as the JAX engine owns
+one compiled program each (:mod:`.graphs`): the decode step, one whole-prompt
+prefill per ``compile_cache.prefill_bucket`` and one suffix/chunk prefill
+per (clamped) suffix bucket. Each runs over static buffers refilled in
+place with the call's data -- last tokens, positions, write rows and
+offsets, block tables, the prefix length and the true length -- so admit,
+retire, block growth and chunk progress never build a program again. On a
+CUDA device a program is a captured CUDA graph, replayed on every call; on
+the CPU the same step function runs eagerly over the same buffers. The
+trace counters keep the JAX engine's meaning, one per build of a program
+(a capture on CUDA, a first run on the CPU): ``decode_traces``,
+``prefill_traces`` and ``prefix_prefill_traces`` by bucket, and
+``compile_cache`` ``serving.decode_compiles`` / ``serving.prefill_compiles``
+(with ``metrics`` ``kernel.decode_traces`` / ``kernel.prefill_traces`` on
+the kernel route). The K/V pools are updated in place. :meth:`close`
+drops the programs and their graph pool. The prefix cache, preemption,
+speculation, LoRA, tiering and the supervisor are later slices.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +60,13 @@ import torch
 from ..core import compile_cache, flags
 from ..core import device as device_mod
 from ..models.gpt import quantize_serving_weights, serving_compute_dtype
+from ..ops import paged_attention
 from ..ops.paged_attention import (check_servable, paged_decode_attention,
                                    paged_full_prefill_attention,
                                    paged_prefill_attention)
 from ..quantization import quantize_kv
 from . import metrics
+from .graphs import StepGraphs
 from .kv_arena import KVArena, Reservation
 from .sampling import check_supported, sample_tokens
 
@@ -82,7 +98,8 @@ class _PagedCacheView:
     ``(row, off)`` -- inactive lanes carry row 0, the scratch block -- then
     attend through the paged decode wrapper. The JAX view derives the rows
     from the lane mask on the device; here the engine computes them on the
-    host, where the tables live anyway."""
+    host, where the tables live anyway, and hands them over in the decode
+    program's static buffers."""
 
     def __init__(self, entry, block_tables, positions, rows, offs):
         self.entry = entry
@@ -223,7 +240,6 @@ class ServingEngine:
 
         s = self.num_slots
         self._bt_host = np.zeros((s, self.blocks_per_slot), np.int32)
-        self._bt_dev: Optional[torch.Tensor] = None  # stale when None
         self._positions = np.zeros(s, np.int32)
         self._last_tok = np.zeros(s, np.int64)
         self._active = np.zeros(s, np.bool_)
@@ -238,6 +254,13 @@ class ServingEngine:
         self.decode_steps = 0
         self.prefills = 0
         self.prefill_chunks = 0
+        # builds of each program (the JAX engine's trace counters): churn
+        # must never move them once a key exists
+        self.decode_traces = 0
+        self.prefill_traces: Dict[int, int] = {}
+        self.prefix_prefill_traces: Dict[int, int] = {}
+        self._graphs = StepGraphs(self.device,
+                                  counters=(paged_attention.launches,))
         self._meter = metrics.Meter()
         metrics.set_gauge("slots.total", s)
         self._refresh_gauges()
@@ -356,7 +379,6 @@ class ServingEngine:
             for bi in range(n):
                 self._bt_host[slot, bi] = res.take()
             self._slot_filled[slot] = n
-            self._bt_dev = None
         except BaseException:
             self._admit_abort(st)
             raise
@@ -367,7 +389,6 @@ class ServingEngine:
         self._slot_res[st.slot] = None
         self._slot_filled[st.slot] = 0
         self._bt_host[st.slot, :] = 0
-        self._bt_dev = None
         self._occupied[st.slot] = False
         self._refresh_gauges()
 
@@ -384,36 +405,88 @@ class ServingEngine:
         self._refresh_gauges()
         return first
 
+    # ---------------------------------------------------- step programs
+
+    def _decode_built(self) -> None:
+        """Count one build of the decode program (the JAX engine counts at
+        trace time)."""
+        self.decode_traces += 1
+        compile_cache.bump("serving.decode_compiles")
+        if self.device.type == "cuda":
+            metrics.bump("kernel.decode_traces")
+
+    def _prefill_built(self, traces: Dict[int, int], bucket: int) -> None:
+        """Count one build of a prefill program of ``bucket`` in
+        ``traces`` (``prefill_traces`` or ``prefix_prefill_traces``)."""
+        traces[bucket] = traces.get(bucket, 0) + 1
+        compile_cache.bump("serving.prefill_compiles")
+        if self.device.type == "cuda":
+            metrics.bump("kernel.prefill_traces")
+
+    def _decode_fn(self, last_tok, positions, rows, offs, block_tables):
+        """The decode step over its static buffers: every lane's last token
+        at its position, its k/v written at ``(rows, offs)`` (scratch block
+        0 for inactive lanes), one greedy token per lane."""
+        views = [_PagedCacheView(entry, block_tables, positions, rows, offs)
+                 for entry in self.arena.pools]
+        model = self._model
+        h, _ = model.gpt(last_tok[:, None], caches=views, start_pos=positions)
+        return (sample_tokens(model._head_logits(h[:, 0])),)
+
+    def _full_prefill_fn(self, ids, rows, offs, true_len):
+        """The whole-prompt prefill of one bucket: the model over the padded
+        prompt, the token after position ``true_len - 1`` (runtime data, as
+        the JAX program's ``dynamic_index_in_dim``), and every position's
+        k/v scattered at ``(rows, offs)`` (padded ones to scratch block
+        0)."""
+        model = self._model
+        views = [_CapturePrefillView(self.block_size)
+                 for _ in range(model.cfg.num_layers)]
+        h, chunks = model.gpt(ids, caches=views, start_pos=0)
+        last = h.index_select(1, true_len.reshape(1) - 1)[:, 0]
+        for (kc, vc), entry in zip(chunks, self.arena.pools):
+            _scatter_rows(entry, rows, offs, kc[0], vc[0])
+        return (sample_tokens(model._head_logits(last)),)
+
+    def _suffix_prefill_fn(self, ids, rows, offs, bt_row, prefix_len,
+                           true_len):
+        """The suffix/chunk prefill of one bucket through the slot's table
+        row: positions ``prefix_len + i``, the chunk's k/v scattered before
+        it is attended, the token after position ``true_len - 1`` of the
+        chunk."""
+        views = [_PrefixPrefillView(entry, bt_row, prefix_len, rows, offs)
+                 for entry in self.arena.pools]
+        model = self._model
+        h, _ = model.gpt(ids, caches=views, start_pos=prefix_len)
+        last = h.index_select(1, true_len.reshape(1) - 1)[:, 0]
+        return (sample_tokens(model._head_logits(last)),)
+
     @torch.no_grad()
     def _full_prefill_call(self, ctx: np.ndarray, clen: int,
                            res: Reservation) -> int:
-        """The whole-context prefill, padded to its bucket: run the model
-        over the bucket, take the last real position's logits, and scatter
-        the real positions' k/v into the slot's blocks (padded positions go
-        to scratch block 0)."""
+        """The whole-context prefill, padded to its bucket: the bucket's
+        program over the prompt, the real positions' k/v scattered into the
+        slot's blocks (padded positions to scratch block 0)."""
         bs = self.block_size
         p_bucket = compile_cache.prefill_bucket(clen, self.max_model_len,
                                                 self.prefill_bucket_min)
-        ids = np.zeros((1, p_bucket), np.int64)
-        ids[0, :clen] = ctx
+        ids = np.zeros(p_bucket, np.int64)
+        ids[:clen] = ctx
         rows = np.zeros(_ceil_div(p_bucket, bs), np.int64)
         rows[:len(res.taken)] = res.taken
         p_idx = np.arange(p_bucket)
         row = np.where(p_idx < clen, rows[p_idx // bs], 0)
-        dev = self.device
-        model = self._model
-        views = [_CapturePrefillView(bs) for _ in range(model.cfg.num_layers)]
-        h, chunks = model.gpt(torch.as_tensor(ids, device=dev), caches=views,
-                              start_pos=0)
-        logits = model._head_logits(h[:, clen - 1])
-        row_t = torch.as_tensor(row, device=dev)
-        off_t = torch.as_tensor(p_idx % bs, device=dev)
-        for (kc, vc), entry in zip(chunks, self.arena.pools):
-            _scatter_rows(entry, row_t, off_t, kc[0], vc[0])
-        nxt = int(sample_tokens(logits)[0])
+        i64 = torch.int64
+        prog = self._graphs.program(
+            ("prefill", p_bucket), self._full_prefill_fn,
+            functools.partial(self._prefill_built, self.prefill_traces,
+                              p_bucket),
+            ids=((1, p_bucket), i64), rows=((p_bucket,), i64),
+            offs=((p_bucket,), i64), true_len=((), i64, 1))
+        prog.run(ids=ids, rows=row, offs=p_idx % bs, true_len=clen)
+        nxt = int(prog.read()[0][0])
         self.prefills += 1
-        # one count per bucket shape: the programs a CUDA-graph engine would
-        # capture, and the padding waste of the ladder
+        # one count per call and bucket: the padding waste of the ladder
         compile_cache.bump(f"serving.prefill_bucket.{p_bucket}")
         metrics.bump("tokens.prefill_padding", p_bucket - clen)
         return nxt
@@ -431,27 +504,29 @@ class ServingEngine:
         s_bucket = compile_cache.prefill_bucket(slen, self.max_model_len,
                                                 self.prefill_bucket_min)
         # padded rows only: keep every row's position inside the model's
-        # position table (an embedding lookup past it would fault)
+        # position table (an embedding lookup past it would fault); the
+        # clamped bucket is the program's key
         s_bucket = min(s_bucket,
                        self._model.cfg.max_position_embeddings - prefix_len)
-        ids = np.zeros((1, s_bucket), np.int64)
-        ids[0, :slen] = ctx[prefix_len:clen]
+        ids = np.zeros(s_bucket, np.int64)
+        ids[:slen] = ctx[prefix_len:clen]
         table = self._bt_host[slot]
         p_idx = np.arange(s_bucket)
         gpos = prefix_len + p_idx
         row = np.where(p_idx < slen,
                        table[np.minimum(gpos // bs, table.shape[0] - 1)], 0)
-        dev = self.device
-        bt_row = torch.as_tensor(table, device=dev)
-        prefix = torch.tensor(prefix_len, dtype=torch.int32, device=dev)
-        row_t = torch.as_tensor(row.astype(np.int64), device=dev)
-        off_t = torch.as_tensor(gpos % bs, device=dev)
-        model = self._model
-        views = [_PrefixPrefillView(entry, bt_row, prefix, row_t, off_t)
-                 for entry in self.arena.pools]
-        h, _ = model.gpt(torch.as_tensor(ids, device=dev), caches=views,
-                         start_pos=prefix)
-        nxt = int(sample_tokens(model._head_logits(h[:, slen - 1]))[0])
+        i64 = torch.int64
+        prog = self._graphs.program(
+            ("suffix", s_bucket), self._suffix_prefill_fn,
+            functools.partial(self._prefill_built,
+                              self.prefix_prefill_traces, s_bucket),
+            ids=((1, s_bucket), i64), rows=((s_bucket,), i64),
+            offs=((s_bucket,), i64),
+            bt_row=((self.blocks_per_slot,), torch.int32),
+            prefix_len=((), torch.int32), true_len=((), i64, 1))
+        prog.run(ids=ids, rows=row, offs=gpos % bs, bt_row=table,
+                 prefix_len=prefix_len, true_len=slen)
+        nxt = int(prog.read()[0][0])
         self.prefill_chunks += 1
         compile_cache.bump(f"serving.suffix_prefill_bucket.{s_bucket}")
         return nxt
@@ -469,7 +544,6 @@ class ServingEngine:
             res.release()
         self._slot_filled[slot] = 0
         self._bt_host[slot, :] = 0
-        self._bt_dev = None
         self._positions[slot] = 0
         self._last_tok[slot] = 0
         metrics.bump("engine.retires")
@@ -492,33 +566,31 @@ class ServingEngine:
             bi = int(self._slot_filled[slot])
             self._bt_host[slot, bi] = res.take()
             self._slot_filled[slot] = bi + 1
-            self._bt_dev = None
 
     @torch.no_grad()
     def decode_step(self) -> np.ndarray:
         """One iteration: every active slot's last token is forwarded at its
         own position, its k/v lands in its current block, and one new token
         per slot comes back (``[num_slots]`` int64; inactive lanes carry
-        garbage -- callers mask by activity)."""
+        garbage -- callers mask by activity). The step is one run of the
+        decode program; the host owns the tables and positions and refills
+        its buffers."""
         act = self._active
         for slot in np.flatnonzero(act):
             self._grow_slot_to(slot, int(self._positions[slot]))
-        dev = self.device
-        if self._bt_dev is None:
-            self._bt_dev = torch.as_tensor(self._bt_host, device=dev)
         bs = self.block_size
         pos = self._positions
-        lanes = np.arange(self.num_slots)
-        rows = np.where(act, self._bt_host[lanes, pos // bs], 0)
-        pos_t = torch.as_tensor(pos, device=dev)
-        rows_t = torch.as_tensor(rows.astype(np.int64), device=dev)
-        offs_t = torch.as_tensor((pos % bs).astype(np.int64), device=dev)
-        views = [_PagedCacheView(entry, self._bt_dev, pos_t, rows_t, offs_t)
-                 for entry in self.arena.pools]
-        model = self._model
-        h, _ = model.gpt(torch.as_tensor(self._last_tok, device=dev)[:, None],
-                         caches=views, start_pos=pos_t)
-        out = sample_tokens(model._head_logits(h[:, 0])).cpu().numpy()
+        rows = np.where(act, self._bt_host[np.arange(self.num_slots),
+                                           pos // bs], 0)
+        S, i64 = self.num_slots, torch.int64
+        prog = self._graphs.program(
+            "decode", self._decode_fn, self._decode_built,
+            last_tok=((S,), i64), positions=((S,), torch.int32),
+            rows=((S,), i64), offs=((S,), i64),
+            block_tables=((S, self.blocks_per_slot), torch.int32))
+        prog.run(last_tok=self._last_tok, positions=pos, rows=rows,
+                 offs=pos % bs, block_tables=self._bt_host)
+        out = prog.read()[0]
         self._positions[act] += 1
         self._last_tok[act] = out[act]
         self.decode_steps += 1
@@ -528,6 +600,11 @@ class ServingEngine:
         self._meter.tick(n)
         metrics.set_gauge("tokens_per_sec", self._meter.rate())
         return out
+
+    def close(self) -> None:
+        """Drop the step programs (on CUDA their graphs and pool); any later
+        model call raises. The arena stays until the engine is dropped."""
+        self._graphs.close()
 
     # -------------------------------------------------------------- stats
 
@@ -553,6 +630,9 @@ class ServingEngine:
                "decode_steps": self.decode_steps,
                "prefills": self.prefills,
                "prefill_chunks": self.prefill_chunks,
+               "decode_traces": self.decode_traces,
+               "programs.graphs": self._graphs.graph_count(),
+               "programs.pool_bytes": self._graphs.pool_bytes,
                "quant.weight_layers": len(layers),
                "kernel.route": self.kernel_route(),
                "device": str(self.device)}

@@ -5,7 +5,9 @@ Counters: ``requests.*`` (submitted / finished / cancelled / failed),
 ``tokens.*`` (``generated``, ``prefill``, ``prefill_padding``), ``engine.*``
 (steps / admits / retires), ``arena.*`` (alloc / freed / reuse /
 alloc_failed), ``chunk.*`` (admits / chunks / tokens of chunked prefill),
-``quant.weight_layers`` (linears quantized by engines). Gauges:
+``quant.weight_layers`` (linears quantized by engines),
+``kernel.decode_traces`` / ``kernel.prefill_traces`` (builds of a decode or
+prefill program on the kernel route: captures of a CUDA graph). Gauges:
 ``queue.depth``, ``queue.prefilling``, ``slots.active``, ``slots.total``,
 ``arena.blocks_free``, ``arena.blocks_total``, ``arena.high_water``,
 ``tokens_per_sec``.
