@@ -26,7 +26,18 @@ no result. Phases, in order; each raises on failure:
    in one launch, table entries past each slot's last block pointing at a
    scratch block that reads 1e4, and two launches on the same inputs equal
    bit for bit; at head dim 256 also the prefill's CUDA-core form. Each
-   check prints its share of the bar.
+   check prints its share of the bar. Then the sampling kernel
+   (``sampling_checks``) against its plain version on the card: 8 rows of
+   50304 float32 logits mixing greedy rows, temperatures, top-k 0/1/5/50/
+   V+10, top-p 0/0.05/0.9/0.95/1, tied logits, -inf entries, an all -inf
+   row and masks leaving 1, 3 or 1000 tokens, in one launch, a second
+   launch of 8 more, and each row alone (the prefill's [1, V]): the drawn
+   u bit-equal, tokens equal (a sampled token may differ only with the
+   draw within 1e-6, relative, of its interval of the plain version's cum:
+   printed), tokens inside their
+   masks, two launches bit-equal, a row alone equal to its row in the
+   batch. Then its time at [8, 50304], all sampled and all greedy, beside
+   its bound, the plain version and ``torch.argmax``.
 3. Serve ``gpt_1p3b`` at full width and depth (seeded random weights, f32,
    TF32 off) through ``ServingAPI``: 8 slots, 12 requests of mixed prompt
    lengths. The engine runs its decode step and each prefill bucket as
@@ -40,7 +51,21 @@ no result. Phases, in order; each raises on failure:
    must hold one decode graph and one graph per bucket of its prompts,
    each built once (``hold_programs``). Then the churn wave (``CHURN``): 1,
    3, 5 and 8 live requests of other lengths in the same buckets build
-   nothing, launch only through replays and equal ``generate()``.
+   nothing, launch only through replays and equal ``generate()``. Every
+   served run here and below also holds the sampling kernel's launches:
+   one per decode step, prefill, chunk and warm-up.
+3b. The same model, a new engine with chunks of 256 (``serve_sampled``):
+   12 requests mixing greedy, sampled (temperature 0.8, top-k 50, top-p
+   0.95, seeded), top-k 1, top-p 0.9 at temperature 1.2, a
+   ``TrieConstraint`` and a ``TokenDFA.from_regex`` over a synthetic token
+   table (``TABLE``). Unconstrained tokens equal ``generate(sampling=...)``
+   (a sampled token may leave it only with its draw within 1e-4, relative,
+   of its interval of cum: the served and generate() logits come through
+   other attention kernels; printed; its later tokens must then equal
+   ``generate(sampling=...)`` continued from the served tokens),
+   constrained ones stay in their
+   grammar, launches are exact, one decode graph and one per bucket; a
+   second mixed wave builds nothing.
 4. A second f32 ``gpt_1p3b`` from the same weights, served with
    ``quant_weights`` (int8 weights, per-channel scales, quantized on the
    card: 8 of its linears, and one in bf16, must equal the CPU's
@@ -64,7 +89,8 @@ no result. Phases, in order; each raises on failure:
    (warm-up and capture) and replayed, then every layer's kernel output
    of one such prefill and of an int8 chunk at prefix 768 held against its
    plain version (phase 2's bars). Then the median decode-step time (a
-   graph replay) and tokens/s of 8 full slots, unquantized, with
+   graph replay) and tokens/s of 8 full slots, unquantized (greedy, all
+   sampled, and 4 constrained + 4 sampled), with
    ``quant_kv``, and with ``quant_kv`` + ``quant_weights``, with the arena
    bytes per slot, the weight bytes and the graph pool bytes of each; each
    engine's programs held as in phase 3; then each kernel's time (the
@@ -118,7 +144,9 @@ training phases.
 
 Then one JSON line of per-kernel results (a paged row's ``launches`` are
 phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
-instances its times belong to, and ``launches_f32`` phase 8's),
+instances its times belong to, and ``launches_f32`` phase 8's; the
+sampling row's phase 3b's, its times the all-sampled rows', with the
+all-greedy rows' and ``torch.argmax`` beside them),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -136,10 +164,11 @@ import numpy as np
 import torch
 
 SOURCES = {name: f"paddle_tpu_torch/ops/csrc/{name}.cu"
-           for name in ("paged_attention", "flash_attention")}
+           for name in ("paged_attention", "flash_attention", "sampling")}
 PAGED = ("paged_decode_attention", "paged_prefill_attention",
          "paged_decode_attention_int8", "paged_prefill_attention_int8")
 FLASH = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+SAMPLING = ("sample_tokens",)
 REPLACES = {
     "paged_decode_attention":
         "paddle_tpu/ops/paged_attention.py:141 _decode_kernel",
@@ -154,10 +183,13 @@ REPLACES = {
         "paddle_tpu/ops/pallas_ops.py:234 _flash_bwd_dkv_kernel",
     "flash_backward_dq":
         "paddle_tpu/ops/pallas_ops.py:269 _flash_bwd_dq_kernel",
+    # no Pallas body: the JAX package computes it with XLA ops
+    "sample_tokens": "paddle_tpu/serving/sampling.py:84 sample_tokens",
 }
 H, D, BS = 16, 128, 16          # gpt_1p3b heads, head_dim; kv_block_size
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense
+F32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 # (atol, rtol) per element, and the bound on the worst row's error (the
 # last dim: head_dim) over that row's norm, or over the median row norm
 # where the row's own is smaller (None: no row bound). The flash bars sit
@@ -459,24 +491,30 @@ def builds(eng):
             sum(eng.prefix_prefill_traces.values()))
 
 
-def serve(api, pa, prompts, news, what, card):
-    """Serve ``prompts`` through ``api`` with the launch counters set to 0
-    just before and read just after. Every request must finish with its
-    budget of tokens, every block must be free again and the arena's
-    invariants must hold. Returns the requests, the launches and what the
-    engine ran meanwhile: decode steps, whole-prompt prefills, prefill
-    chunks, and the builds of each kind of program (``builds``)."""
+def serve(api, pa, prompts, news, what, card, submit_kw=None):
+    """Serve ``prompts`` through ``api`` with the launch counters (paged
+    attention and sampling) set to 0 just before and read just after;
+    ``submit_kw`` gives each request's other ``submit`` arguments. Every
+    request must finish with its budget of tokens (or at its stop token),
+    every block must be free again and the arena's invariants must hold.
+    Returns the requests, the launches and what the engine ran meanwhile:
+    decode steps, whole-prompt prefills, prefill chunks, and the builds of
+    each kind of program (``builds``)."""
+    from paddle_tpu_torch.ops import sampling as so
     from paddle_tpu_torch.serving import RequestState
 
     eng = api.engine
+    submit_kw = submit_kw or [{}] * len(prompts)
     before = (eng.decode_steps, eng.prefills, eng.prefill_chunks) \
         + builds(eng)
     t0 = time.perf_counter()
     pa.reset_launches()
-    reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    so.reset_launches()
+    reqs = [api.submit(p, max_new_tokens=n, **kw)
+            for p, n, kw in zip(prompts, news, submit_kw)]
     api.run_until_idle()
     torch.cuda.synchronize()
-    launches = dict(pa.launches)
+    launches = dict(pa.launches) | dict(so.launches)
     ran = types.SimpleNamespace(**dict(zip(
         ("steps", "prefills", "chunks", "decode_builds", "prefill_builds",
          "chunk_builds"),
@@ -489,7 +527,10 @@ def serve(api, pa, prompts, news, what, card):
           f"built: decode {ran.decode_builds}, prefill {ran.prefill_builds},"
           f" chunk {ran.chunk_builds}), launches {launches} [{card}]")
     for r, n in zip(reqs, news):
-        if r.state != RequestState.FINISHED or len(r.tokens) != n:
+        stopped = (r.stop_token_id is not None and r.tokens
+                   and r.tokens[-1] == r.stop_token_id)
+        if r.state != RequestState.FINISHED or (len(r.tokens) != n
+                                                and not stopped):
             raise AssertionError(f"{r.request_id}: state {r.state}, "
                                  f"{len(r.tokens)}/{n} tokens, {r.error!r}")
     eng.check_invariants()
@@ -502,9 +543,13 @@ def want_launches(layers, ran, decode="paged_decode_attention",
                   prefill="paged_prefill_attention", chunk=None):
     """The exact launch counts of a served run: each layer's kernel once per
     replay of a program that attends through it, and once per warm-up
-    (one per build; a capture launches nothing and is not counted)."""
+    (one per build; a capture launches nothing and is not counted); the
+    sampling kernel once per replay and warm-up of every program."""
     want = {decode: layers * (ran.steps + ran.decode_builds),
-            prefill: layers * (ran.prefills + ran.prefill_builds)}
+            prefill: layers * (ran.prefills + ran.prefill_builds),
+            "sample_tokens": (ran.steps + ran.decode_builds + ran.prefills
+                              + ran.prefill_builds + ran.chunks
+                              + ran.chunk_builds)}
     if chunk is not None:
         want[chunk] = want.get(chunk, 0) + layers * (ran.chunks
                                                      + ran.chunk_builds)
@@ -573,7 +618,7 @@ def hold_to_generate(model, prompts, reqs, news, what, card):
 
 
 def hold_launches(launches, want, what):
-    want = {name: want.get(name, 0) for name in PAGED}
+    want = {name: want.get(name, 0) for name in PAGED + SAMPLING}
     if launches != want:
         raise AssertionError(f"{what}: kernel launches {launches} != {want}")
 
@@ -648,6 +693,321 @@ def churn(api, pa, model, lens, card):
         hold_launches(launches, want_launches(layers, ran),
                       f"{what} (24 x decode steps, 24 x prefills)")
         hold_to_generate(model, prompts, reqs, news, what, card)
+
+
+# the sampling phases: a synthetic token table for the regex constraint
+# (token 10 + i spells a letter, 40 + i a digit), the stop token and the
+# trie's choices; the sampled setting is profile_decode.SAMPLED
+STOP = 3
+TABLE = {**{10 + i: chr(97 + i) for i in range(26)},
+         **{40 + i: str(i) for i in range(10)}}
+REGEX = r"[a-c]+[0-9][a-z]+"
+TRIE = [[5, 6, 7], [5, 9], [1000, 2000, 3000, 4000]]
+# a sampled token that another computation of the same draw chose may
+# differ only with the draw this close (relative to cum[-1]) to its interval
+# of cum: the kernel against its plain version on the same logits (float32
+# sums of another order), and a served token against generate()'s, whose
+# logits come through other attention kernels (on a near-flat distribution
+# over 50304 tokens, intervals are about 2e-5 wide and a boundary moves by
+# about the logits' relative difference, 1e-6 to 1e-5 after 24 layers)
+BOUNDARY, SERVED_BOUNDARY = 1e-6, 1e-4
+
+
+def sampling_rows(rng, vocab, cases):
+    """One launch's inputs on the card from ``cases``, one per row: a dict
+    of temperature, top_k, top_p and what to do to the row (``tie``:
+    integer logits; ``half_inf``: every other entry -inf; ``all_inf``;
+    ``allow``: the number of tokens its mask allows). Logits are N(0, 3)."""
+    rows = len(cases)
+    logits = (rng.standard_normal((rows, vocab)) * 3).astype(np.float32)
+    allowed = np.ones((rows, vocab), np.bool_)
+    for i, c in enumerate(cases):
+        if c.get("tie"):
+            logits[i] = np.round(logits[i] / 3)
+        if c.get("half_inf"):
+            logits[i, 1::2] = -np.inf
+        if c.get("all_inf"):
+            logits[i] = -np.inf
+        if "allow" in c:
+            allowed[i] = False
+            allowed[i, rng.choice(vocab, c["allow"], replace=False)] = True
+    col = lambda key, default, dt: torch.tensor(  # noqa: E731
+        [c.get(key, default) for c in cases], dtype=dt, device="cuda")
+    return (torch.from_numpy(logits).cuda(),
+            col("temperature", 0.0, torch.float32),
+            col("top_k", 0, torch.int32), col("top_p", 1.0, torch.float32),
+            torch.tensor(rng.integers(-2 ** 31, 2 ** 31, rows),
+                         dtype=torch.int32, device="cuda"),
+            torch.tensor(rng.integers(0, 2048, rows), dtype=torch.int32,
+                         device="cuda"),
+            torch.from_numpy(allowed).cuda())
+
+
+def hold_sampling(so, args, what, card):
+    """The sampling kernel against its plain version on the same inputs: u
+    bit-equal, tokens equal (a sampled row's token may differ only with its
+    draw within BOUNDARY of the kernel token's interval of the plain
+    version's cum: printed), every token allowed by its mask, and two
+    launches bit-equal. Returns the number of
+    rows whose tokens differed and the largest |u - plain u|."""
+    tok, u = so.sample(*args)
+    tok2, u2 = so.sample(*args)
+    ref, ref_u = so.sample_ref(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(tok, tok2) and torch.equal(u.view(torch.int32),
+                                                   u2.view(torch.int32))):
+        raise AssertionError(f"sampling {what}: two launches differ")
+    if not torch.equal(u.view(torch.int32), ref_u.view(torch.int32)):
+        raise AssertionError(f"sampling {what}: u differs from the plain "
+                             f"version's: {u.tolist()} vs {ref_u.tolist()}")
+    logits, temperature, top_k, top_p, _, _, allowed = args
+    rows = torch.arange(len(tok), device="cuda")
+    if not bool(allowed[rows, tok].all()):
+        raise AssertionError(f"sampling {what}: a token outside its mask")
+    diff = torch.nonzero(tok != ref).flatten().tolist()
+    if diff:
+        margin = so.draw_margin(logits, temperature, top_k, top_p, allowed,
+                                ref_u, tok)
+        for i in diff:
+            print(f"sampling {what}: row {i} token {int(tok[i])} vs plain "
+                  f"{int(ref[i])}, the draw {float(margin[i]):.3e} "
+                  f"(relative) from the kernel token's interval of the plain "
+                  f"cum [{card}]")
+            if not (float(temperature[i]) > 0
+                    and float(margin[i]) <= BOUNDARY):
+                raise AssertionError(f"sampling {what}: row {i} differs away "
+                                     "from any boundary of cum")
+    print(f"sampling {what}: {len(tok)} rows, u bit-equal, tokens equal in "
+          f"{len(tok) - len(diff)} rows, two launches bit-equal ok [{card}]")
+    return len(diff), float((u - ref_u).abs().max())
+
+
+def sampling_checks(so, vocab, card):
+    """Phase 2, sampling: the kernel against its plain version on 8 rows
+    of ``vocab`` float32 logits mixing every case (greedy, temperatures,
+    top-k 0/1/5/50/V+10, top-p 0/0.05/0.9/0.95/1, tied logits, -inf
+    entries, an all -inf row, masks leaving 1, 3 and 1000 tokens) in one
+    launch, and a second launch of 8 more; then each row alone ([1, V], the
+    prefill's shape), equal to its row of the batch. Returns the number of
+    rows whose tokens differed and the largest |u - plain u|."""
+    from paddle_tpu_torch.tools.profile_decode import SAMPLED
+
+    rng = np.random.default_rng(20)
+    batches = [
+        [dict(),
+         dict(temperature=0.7),
+         dict(temperature=1.3, top_k=5, top_p=0.9),
+         dict(SAMPLED),
+         dict(temperature=1.0, top_k=vocab + 10, top_p=0.05, tie=True),
+         dict(temperature=0.9, top_k=1, top_p=0.0, half_inf=True),
+         dict(temperature=1.1, top_p=0.9, allow=3),
+         dict(temperature=1.0, all_inf=True)],
+        [dict(temperature=0.5, top_k=40, allow=1000),
+         dict(temperature=1.5, top_p=0.5),
+         dict(temperature=1.0, top_k=vocab, top_p=0.9, allow=1000),
+         dict(allow=1),
+         dict(temperature=0.8, allow=1),
+         dict(tie=True),
+         dict(temperature=1.2, top_k=50, top_p=0.95, tie=True),
+         dict(temperature=0.6, top_p=0.99, half_inf=True)],
+    ]
+    readings = []
+    for b, cases in enumerate(batches):
+        args = sampling_rows(rng, vocab, cases)
+        readings.append(hold_sampling(so, args, f"batch {b} [8, {vocab}]",
+                                      card))
+        tok = so.sample(*args)[0]
+        for i in range(len(cases)):
+            one = tuple(a[i:i + 1] for a in args)
+            readings.append(hold_sampling(
+                so, one, f"batch {b} row {i} [1, {vocab}]", card))
+            if int(so.sample(*one)[0][0]) != int(tok[i]):
+                raise AssertionError(f"sampling batch {b} row {i}: alone "
+                                     "and in the batch differ")
+    return (sum(r[0] for r in readings), max(r[1] for r in readings))
+
+
+def sampling_times(so, vocab, card):
+    """The sampling kernel at the decode step's shape, 8 rows of ``vocab``:
+    all sampled at SAMPLED and all greedy, beside their bounds, the plain
+    version and ``torch.argmax`` (the greedy function; no one PyTorch call
+    samples with top-k/top-p under threefry keys)."""
+    from paddle_tpu_torch.tools.profile_decode import SAMPLED
+
+    rng = np.random.default_rng(22)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    sampled = sampling_rows(rng, vocab, [dict(SAMPLED)] * 8)
+    greedy = sampling_rows(rng, vocab, [dict()] * 8)
+    rows = 8
+    nbytes = rows * vocab * 5 + rows * (5 * 4 + 8 + 4)
+    # float32 operations per element that the function needs (not the
+    # kernel's 2 x 64 bisection passes): mask, divide, the softmax's max,
+    # subtract, exp, sum and normalise, a radix select of the top-k and of
+    # the top-p threshold (4 passes of 8 bits over a 32-bit key, a compare
+    # and a count or sum each), the scan and the final count; a greedy
+    # row: mask, argmax
+    per_sampled = 2 + 5 + 2 * 4 * 2 + 2
+    t = {}
+    for name, args, ops in (("sampled", sampled, rows * vocab * per_sampled),
+                            ("greedy", greedy, rows * vocab * 2)):
+        b_ms, b_by = bound(nbytes, 0)
+        t_ops = ops / F32_FLOPS_PER_S * 1e3
+        if t_ops > b_ms:
+            b_ms, b_by = t_ops, "operations"
+        t[name] = dict(
+            ms=time_ms(lambda: so.sample(*args), flush),
+            plain_ms=time_ms(lambda: so.sample_ref(*args), flush, iters=5),
+            bound_ms=b_ms, bound_by=b_by,
+            argmax_ms=time_ms(lambda: torch.argmax(args[0], dim=-1), flush))
+        r = t[name]
+        print(f"time sample_tokens {name} [8, {vocab}] f32: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+              f"torch.argmax {r['argmax_ms']:.4f} ms [{card}]")
+    return t
+
+
+def served_gap(model, ctx, sampling, token):
+    """The relative distance from the draw of the token after ``ctx`` under
+    ``sampling`` to ``token``'s interval of the cum of the model's full
+    causal forward at ``ctx`` (``ops.sampling.draw_margin``)."""
+    from paddle_tpu_torch.ops import sampling as so
+
+    with torch.no_grad():
+        logits = model(torch.as_tensor(ctx[None], device="cuda"))[0, -1:]
+    row = lambda v, dt: torch.tensor([v], dtype=dt, device="cuda")  # noqa
+    params = (row(sampling.temperature, torch.float32),
+              row(sampling.top_k, torch.int32),
+              row(sampling.top_p, torch.float32))
+    u = so.sample_ref(logits, *params, row(sampling.seed, torch.int32),
+                      row(len(ctx), torch.int32))[1]
+    return float(so.draw_margin(logits, *params, None, u,
+                                row(token, torch.int64))[0])
+
+
+def serve_sampled(pa, model, serving, card):
+    """Phase 3b: phase 3's f32 model through ServingAPI with chunks of 256,
+    12 requests mixing greedy, sampled (SAMPLED, seeded), top-k 1 at
+    temperature 0.8, sampled at 1.2 with top-p 0.9, and two of each
+    constraint (a TrieConstraint, and a TokenDFA.from_regex over TABLE,
+    sampled). Unconstrained tokens equal ``generate(sampling=...)``; a
+    sampled token may differ only with its draw within SERVED_BOUNDARY of
+    its interval of the cum of the model's full causal forward at that
+    context (printed), and the request's later tokens are then held against
+    ``generate(sampling=...)`` over the prompt and the served tokens up to
+    and including that one (positional keys continue the same stream);
+    constrained ones stay in their grammar, every launch is exact (the
+    sampling kernel once per decode step, prefill, chunk and warm-up), the
+    engine builds one decode graph and one per bucket, and a second mixed
+    wave builds nothing. Returns the first wave's launches."""
+    from paddle_tpu_torch.serving import (SamplingParams, TokenDFA,
+                                          TrieConstraint)
+    from paddle_tpu_torch.tools.profile_decode import SAMPLED
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    cc = decode_compiles()
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=8, chunked_prefill=CHUNK), device="cuda")
+    lens = [5, 700, 37, 129, 16, 300, 64, 511, 9, 250, 48, 17]
+    news = [16, 24, 20, 16, 24, 16, 20, 18, 24, 16, 20, 24]
+
+    def mix(seed):
+        kinds = ["greedy", "sampled", "top_k1", "top_p", "trie", "regex"]
+        kw = []
+        for i in range(len(lens)):
+            kind = kinds[i % len(kinds)]
+            sp = {"greedy": None, "trie": None,
+                  "sampled": dict(SAMPLED),
+                  "top_k1": dict(temperature=0.8, top_k=1),
+                  "top_p": dict(temperature=1.2, top_p=0.9),
+                  "regex": dict(temperature=1.0)}[kind]
+            k = {} if sp is None else {
+                "sampling": SamplingParams(**sp, seed=seed + i)}
+            if kind == "trie":
+                k.update(constraint=TrieConstraint(TRIE, vocab,
+                                                   stop_token_id=STOP),
+                         stop_token_id=STOP)
+            if kind == "regex":
+                k.update(constraint=TokenDFA.from_regex(
+                    REGEX, TABLE, vocab, stop_token_id=STOP),
+                    stop_token_id=STOP)
+            kw.append(k)
+        return kw
+
+    def hold_wave(prompts, kw, what):
+        reqs, launches, ran = serve(api, pa, prompts, news, what, card, kw)
+        hold_launches(launches, want_launches(
+            layers, ran, chunk="paged_prefill_attention"),
+            f"{what} (24 x (decode steps + warm-ups), 24 x (prefills + "
+            "chunks + warm-ups), sampling 1 x (decode steps + prefills + "
+            "chunks + warm-ups))")
+        t0, ok_gen, ok_grammar, diverged = time.perf_counter(), 0, 0, 0
+        for i, (p, r, n, k) in enumerate(zip(prompts, reqs, news, kw)):
+            c = k.get("constraint")
+            if c is not None:
+                state = c.initial()
+                for tok in r.tokens:
+                    if not c.allowed(state)[tok]:
+                        raise AssertionError(f"{what}: request {i} emitted "
+                                             f"{tok} outside its grammar: "
+                                             f"{r.tokens}")
+                    state = c.advance(state, tok)
+                ok_grammar += 1
+                continue
+            got = np.asarray(r.tokens)
+            if len(got) != n:
+                raise AssertionError(f"{what}: request {i} emitted "
+                                     f"{len(got)} tokens, asked {n}")
+            start, left = 0, False
+            while start < n:
+                # generate() from the prompt and got[:start] gives got[start:]
+                ctx = np.concatenate([p, got[:start]])
+                ref = model.generate(ctx[None], max_new_tokens=n - start,
+                                     sampling=r.sampling)[0, len(ctx):]
+                ref = ref.cpu().numpy()
+                off = np.flatnonzero(got[start:] != ref)
+                if not off.size:
+                    break
+                j = start + int(off[0])
+                gap = served_gap(model, np.concatenate([p, got[:j]]),
+                                 r.sampling, int(got[j]))
+                print(f"e2e {what}: request {i} ({r.sampling}) leaves "
+                      f"generate(sampling=...) at token {j}: {got[j]} vs "
+                      f"{ref[j - start]}, the draw {gap:.3e} (relative) "
+                      f"from the served token's interval of the full "
+                      f"forward's cum; tokens after it held against "
+                      f"generate() from there [{card}]")
+                if r.sampling is None or r.sampling.greedy \
+                        or gap > SERVED_BOUNDARY:
+                    raise AssertionError(
+                        f"{what}: request {i} diverges from generate() at "
+                        f"{j}: {got[start:j + 2]} vs "
+                        f"{ref[:j - start + 2]}")
+                left, start = True, j + 1
+            diverged += left
+            ok_gen += not left
+        print(f"e2e {what}: {ok_gen} unconstrained requests equal "
+              f"generate(sampling=...), {diverged} left it at a boundary of "
+              f"cum and equal it after, {ok_grammar} constrained ones in "
+              f"their grammar ({time.perf_counter() - t0:.1f} s); stats "
+              f"sampling.admits {api.engine.sampled_admits}, "
+              f"constrain.admits {api.engine.constrained_admits} [{card}]")
+        return launches, ran
+
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, vocab, n) for n in lens]
+    what = f"f32 mixed sampling, chunks of {CHUNK}"
+    launches, _ = hold_wave(prompts, mix(1000), what)
+    hold_programs(api.engine, cc, lens, what, card, chunk=CHUNK)
+    rng.shuffle(lens)
+    prompts = [rng.integers(0, vocab, n) for n in lens]
+    _, ran = hold_wave(prompts, mix(2000), what + ", second wave")
+    if (ran.decode_builds, ran.prefill_builds, ran.chunk_builds) != (0, 0, 0):
+        raise AssertionError(f"{what}: the second wave built programs {ran}")
+    hold_programs(api.engine, cc, lens, what + ", second wave", card,
+                  chunk=CHUNK)
+    api.close()
+    return launches
 
 
 class Shadow:
@@ -986,11 +1346,14 @@ def tensor_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def decode_run(model, serving, modes, card):
-    """One bf16 decode-timing run of 8 full slots (prompt 512, 64 new):
-    the median host time of the scheduler steps that run only a decode step
-    of 8 slots, and what the kernel timings reuse (layer 0's pool entry, the
-    tables and positions mid-way)."""
+def decode_run(model, serving, modes, card, scenario="greedy"):
+    """One bf16 decode-timing run of 8 full slots (prompt 512, 64 new) in
+    one of ``profile_decode.scenario_kw``'s scenarios: the median host time
+    of the scheduler steps that run only a decode step of 8 slots, and what
+    the kernel timings reuse (layer 0's pool entry, the tables and
+    positions mid-way)."""
+    from paddle_tpu_torch.tools.profile_decode import scenario_kw
+
     cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8,
                                                           **modes),
@@ -999,7 +1362,8 @@ def decode_run(model, serving, modes, card):
     rng = np.random.default_rng(2)
     plen, new, slots = 512, 64, 8
     reqs = [api.submit(rng.integers(0, model.cfg.vocab_size, plen),
-                       max_new_tokens=new) for _ in range(slots)]
+                       max_new_tokens=new, **kw)
+            for kw in scenario_kw(scenario, slots, model.cfg.vocab_size)]
     step_s, snap = [], None
     while sched.has_work():
         full = not sched.waiting and eng.active_slots() == slots
@@ -1018,6 +1382,8 @@ def decode_run(model, serving, modes, card):
     arena = eng.arena.bytes_total() / slots
     weights = tensor_bytes(list(model.parameters()) + list(model.buffers()))
     name = "+".join(k for k, v in modes.items() if v) or "unquantized"
+    if scenario != "greedy":
+        name += f" {scenario}"
     print(f"bf16 serving {name}: median decode step {med * 1e3:.3f} ms (a "
           f"graph replay; steps {np.min(step_s) * 1e3:.3f}-"
           f"{np.max(step_s) * 1e3:.3f} ms) over {len(step_s)} steps of "
@@ -1121,16 +1487,20 @@ def fp16_shadows(model, pa, serving, card):
 def serve_bf16(model, pa, serving, card):
     """Phase 6: float16 shadows of one prefill and one decode step
     (``fp16_shadows``); then decode-step time and tokens/s of 8 full bf16
-    slots in three settings, in this order: unquantized, quant_kv, and
-    quant_kv + quant_weights (which quantizes the model in place); then each
-    kernel's time at the path's shapes, the int8 ones beside the bf16
-    kernel at the same shape."""
+    slots in five settings, in this order: unquantized greedy, sampled,
+    constrained+sampled (``scenario_kw``), quant_kv, and quant_kv +
+    quant_weights (which quantizes the model in place); then each kernel's
+    time at the path's shapes, the int8 ones beside the bf16 kernel at the
+    same shape."""
     fp16_shadows(model, pa, serving, card)
     model.to(torch.bfloat16)
     torch.cuda.empty_cache()
     first = bf16_prefills(model, pa, serving, card)
     torch.cuda.empty_cache()
     runs = {"unquantized": decode_run(model, serving, {}, card),
+            "sampled": decode_run(model, serving, {}, card, "sampled"),
+            "constrained+sampled": decode_run(model, serving, {}, card,
+                                              "constrained+sampled"),
             "quant_kv": decode_run(model, serving, dict(quant_kv=True), card),
             "quant_kv+quant_weights": decode_run(
                 model, serving, dict(quant_kv=True, quant_weights=True),
@@ -1138,7 +1508,7 @@ def serve_bf16(model, pa, serving, card):
     base = runs["unquantized"]
     for name, r in runs.items():
         print(f"bf16 serving {name}: step "
-              f"{r['median_ms'] / base['median_ms']:.3f} x unquantized, arena bytes per slot "
+              f"{r['median_ms'] / base['median_ms']:.3f} x unquantized greedy, arena bytes per slot "
               f"{r['arena_bytes_per_slot'] / base['arena_bytes_per_slot']:.4f}"
               f" x, weight bytes "
               f"{r['weight_bytes'] / base['weight_bytes']:.4f} x, graph pool "
@@ -1495,6 +1865,7 @@ def main() -> int:
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops import sampling as so
     from paddle_tpu_torch.optimizer import AdamW
     port = types.SimpleNamespace(gpt=gpt, fa=fa, flags=flags, amp=amp,
                                  TrainStep=TrainStep, AdamW=AdamW,
@@ -1511,12 +1882,19 @@ def main() -> int:
         list(ex.map(_build.build, SOURCES))
     pa.load_kernels()
     fa.load_kernels()
+    so.load_kernels()
     print(f"build: {', '.join(SOURCES.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.1f} s"
                       for n in SOURCES) + ")")
     kernel_checks(pa)
+    vocab = gpt.gpt_1p3b().vocab_size
+    differ, u_err = sampling_checks(so, vocab, card)
+    samp_times = sampling_times(so, vocab, card)
     model, launches, arrays = serve_f32(pa, gpt, serving, card)
+    # the sampling row's launches are phase 3b's, the sampled main path
+    launches["sample_tokens"] = serve_sampled(pa, model, serving,
+                                              card)["sample_tokens"]
     quant_launches = serve_quantized(pa, gpt, serving, arrays, card)
     torch.cuda.empty_cache()
     # the int8 rows' launches are phase 5's, the path that runs them
@@ -1537,13 +1915,23 @@ def main() -> int:
     # a flash row's launches are the timed bf16 phase's (the tensor-core
     # instances its times belong to); launches_f32 the f32 phase's
     launches.update(flash_launches)
+    st, gt = samp_times["sampled"], samp_times["greedy"]
+    timing["sample_tokens"] = dict(
+        max_abs_err=u_err, token_mismatches=differ, ms=st["ms"],
+        plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+        bound_by=st["bound_by"], library_ms=None,
+        library_note="no PyTorch call samples with top-k/top-p under "
+                     "threefry keys; torch.argmax computes the greedy rows",
+        argmax_ms=st["argmax_ms"], greedy_ms=gt["ms"],
+        greedy_bound_ms=gt["bound_ms"], greedy_plain_ms=gt["plain_ms"])
     kernels = [dict(name=name, route="cuda", source=SOURCES[src],
                     replaces=REPLACES[name], launches=launches[name],
                     **({"launches_f32": launches_f32[name]}
                        if name in FLASH else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),
-                                  ("flash_attention", FLASH))
+                                  ("flash_attention", FLASH),
+                                  ("sampling", SAMPLING))
                for name in names]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -70,6 +70,12 @@ CAPTURED = (
     "paddle_tpu_torch/serving/engine.py:_PrefixPrefillView.update_and_attend",
     "paddle_tpu_torch/serving/engine.py:_scatter_rows",
     "paddle_tpu_torch/serving/sampling.py:sample_tokens",
+    "paddle_tpu_torch/ops/sampling.py:sample",
+    "paddle_tpu_torch/ops/sampling.py:_launch",
+    "paddle_tpu_torch/ops/sampling.py:sample_ref",
+    "paddle_tpu_torch/core/rng.py:prng_key",
+    "paddle_tpu_torch/core/rng.py:fold_in",
+    "paddle_tpu_torch/core/rng.py:uniform",
 )
 
 #: the step-program helper's method, whose second argument is the step

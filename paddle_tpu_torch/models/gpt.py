@@ -42,9 +42,11 @@ from torch import nn
 
 from .. import amp, quantization
 from ..core import device as device_mod
+from ..core import rng
 from ..nn.functional import cross_entropy, scaled_dot_product_attention
 from ..nn.layers import Embedding, LayerNorm, Linear, gelu_tanh
 from ..ops.flash_attention import plain_attention
+from ..ops.sampling import sample as sample_rows
 
 
 @dataclass
@@ -79,6 +81,32 @@ def gpt_base(**kw) -> GPTConfig:
 def gpt_1p3b(**kw) -> GPTConfig:
     return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
                      max_position_embeddings=2048, **kw)
+
+
+def _filter_logits(scaled, top_k: int, top_p: float, vocab: int):
+    """Top-k and/or nucleus (top-p) filtering of ``scaled [b, V]`` with
+    static ``top_k``/``top_p`` (the JAX package's sort-based version, used by
+    ``generate()``'s legacy ``do_sample``): ties at the k-th value all
+    survive; top-p keeps a token while the probability mass BEFORE it, in
+    descending order, is still below ``top_p``, so the top token always
+    survives."""
+    k_eff = min(int(top_k), vocab)
+    if k_eff > 0:
+        kth = torch.sort(scaled, dim=-1).values[:, -k_eff][:, None]
+        scaled = torch.where(scaled < kth, -torch.inf, scaled)
+    if 0.0 < float(top_p) < 1.0:
+        desc = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(desc.float(), dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_p
+        thresh = torch.where(keep, desc, torch.inf).amin(dim=-1, keepdim=True)
+        scaled = torch.where(scaled < thresh, -torch.inf, scaled)
+    return scaled
+
+
+def _wrap_int32(x):
+    """int64 values wrapped to int32, as int32 arithmetic wraps."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
 
 
 def quantize_serving_weights(model) -> int:
@@ -332,14 +360,36 @@ class GPTForCausalLM(nn.Module):
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
-                 stop_token_id=None):
-        """Greedy decoding over contiguous per-layer KV buffers: one prefill
-        of the prompt, then one single-token step per new token.
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0, eos_token_id: int = -1,
+                 seed: int = 0, use_cache: bool = True, stop_token_id=None,
+                 sampling=None):
+        """Autoregressive decoding with the JAX package's arguments and
+        semantics, run eagerly: one prefill of the prompt into contiguous
+        per-layer KV buffers, then one single-token step per new token
+        (``use_cache=False`` instead re-runs the causal forward over the
+        padded buffer at every step).
+
+        Token selection, in order of precedence:
+
+        * ``sampling`` (a ``SamplingParams``): the serving engine's sampling
+          core (:func:`paddle_tpu_torch.ops.sampling.sample`) with
+          positional keys: row ``i``'s token at context index ``pos`` draws
+          under ``fold_in(PRNGKey(seed + i), pos)``, ``seed`` being
+          ``sampling.seed`` or, when that is None, the ``seed`` argument
+          (``seed + i`` wraps in int32). A request served with the same
+          params emits the same tokens.
+        * ``do_sample``: a sequential key, ``key, sub = split(key)`` per
+          step from ``PRNGKey(seed)``, and ``categorical(sub,
+          _filter_logits(logits / max(temperature, 1e-6)))``.
+        * otherwise greedy ``argmax``.
 
         With ``stop_token_id`` each sequence finishes when it emits that
-        token and decoding ends once every sequence has; positions after a
-        sequence's stop are filled with it. Returns ``[batch, prompt_len +
-        max_new_tokens]`` int64 token ids on the model's device."""
+        token and decoding ends once every sequence has; with
+        ``eos_token_id >= 0`` (used only without ``stop_token_id``) a
+        finished row is filled with it. Positions after a finish carry
+        that token. Returns ``[batch, prompt_len + max_new_tokens]`` int64
+        token ids on the model's device."""
         ids = torch.as_tensor(np.asarray(input_ids), device=self.device).long()
         b, prompt_len = ids.shape
         total = prompt_len + int(max_new_tokens)
@@ -347,24 +397,62 @@ class GPTForCausalLM(nn.Module):
             raise ValueError(
                 f"prompt+new tokens {total} exceeds max_position_embeddings "
                 f"{self.cfg.max_position_embeddings}")
+        dev, vocab = self.device, self.cfg.vocab_size
         stop = None if stop_token_id is None else int(stop_token_id)
+        fill = stop if stop is not None else (
+            int(eos_token_id) if eos_token_id >= 0 else None)
+        key = None
+        if sampling is not None:
+            base = int(seed if sampling.seed is None else sampling.seed)
+            if not -2 ** 31 <= base < 2 ** 31:
+                raise OverflowError(f"seed {base} is not a 32-bit integer")
+            seeds = _wrap_int32(base + torch.arange(b, device=dev))
+            params = (torch.full((b,), sampling.temperature,
+                                 dtype=torch.float32, device=dev),
+                      torch.full((b,), sampling.top_k, dtype=torch.int32,
+                                 device=dev),
+                      torch.full((b,), sampling.top_p, dtype=torch.float32,
+                                 device=dev), seeds)
+        elif do_sample:
+            key = rng.prng_key(seed, device=dev)
+            divisor = torch.full((), max(float(temperature), 1e-6),
+                                 dtype=torch.float32, device=dev)
+
+        def sample_next(logits, pos):
+            nonlocal key
+            if sampling is not None:
+                where = torch.full((b,), pos, dtype=torch.int32, device=dev)
+                return sample_rows(logits, *params, where)[0]
+            if do_sample:
+                key, sub = rng.split(key).unbind(0)
+                # in the logits' dtype, as JAX divides by a weak scalar
+                scaled = _filter_logits(logits / divisor.to(logits.dtype),
+                                        top_k, top_p, vocab)
+                return rng.categorical(sub, scaled)
+            return torch.argmax(logits, dim=-1)
+
         out = torch.full((b, total), 0 if stop is None else stop,
-                         dtype=torch.long, device=self.device)
+                         dtype=torch.long, device=dev)
         out[:, :prompt_len] = ids
-        caches = self.gpt.gen_kv_caches(b, total)
-        h, caches = self.gpt(ids, caches=caches, start_pos=0)
-        h_last = h[:, -1]
-        done = torch.zeros(b, dtype=torch.bool, device=self.device)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        if use_cache:
+            caches = self.gpt.gen_kv_caches(b, total)
+            h, caches = self.gpt(ids, caches=caches, start_pos=0)
+            h_last = h[:, -1]
         for pos in range(prompt_len, total):
-            nxt = torch.argmax(self._head_logits(h_last), dim=-1)
-            if stop is not None:
-                nxt = torch.where(done, torch.full_like(nxt, stop), nxt)
-                done |= nxt == stop
+            logits = (self._head_logits(h_last) if use_cache
+                      else self(out)[:, pos - 1])
+            nxt = sample_next(logits, pos)
+            if fill is not None:
+                nxt = torch.where(done, torch.full_like(nxt, fill), nxt)
+                done |= nxt == fill
             out[:, pos] = nxt
             if pos + 1 == total or (stop is not None and bool(done.all())):
                 break
-            h, caches = self.gpt(nxt[:, None], caches=caches, start_pos=pos)
-            h_last = h[:, 0]
+            if use_cache:
+                h, caches = self.gpt(nxt[:, None], caches=caches,
+                                     start_pos=pos)
+                h_last = h[:, 0]
         return out
 
 

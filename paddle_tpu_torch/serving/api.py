@@ -32,17 +32,24 @@ class ServingAPI:
 
     def submit(self, prompt, max_new_tokens: int = 32,
                stop_token_id: Optional[int] = None, request_id: str = "",
-               sampling=None) -> Request:
+               sampling=None, constraint=None) -> Request:
         """Enqueue one generation request; returns its handle at once.
-        Refuses what could never be served (too long, empty, or sampled:
-        ``sampling`` with ``temperature > 0`` raises
-        ``NotImplementedError``)."""
+        Refuses what could never be served (too long or empty).
+
+        ``sampling`` (a :class:`~.sampling.SamplingParams`; None is greedy)
+        and ``constraint`` (a :class:`~.constrain.Constraint` walker that
+        masks the vocabulary at each step) select the request's decode
+        scenario. Both are per-slot data in the one decode step: mixing
+        them across a batch builds no program. A seed left unset is drawn
+        once, here; the same seed, prompt and params give the same
+        tokens."""
         with self._lock:
             if self._closed:
                 raise RuntimeError("ServingAPI is closed")
             req = Request(prompt, max_new_tokens=int(max_new_tokens),
                           stop_token_id=stop_token_id,
-                          request_id=request_id, sampling=sampling)
+                          request_id=request_id, sampling=sampling,
+                          constraint=constraint)
             return self.scheduler.submit(req)
 
     def stream(self, req: Request) -> Iterator[int]:

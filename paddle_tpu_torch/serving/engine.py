@@ -45,8 +45,22 @@ trace counters keep the JAX engine's meaning, one per build of a program
 ``compile_cache`` ``serving.decode_compiles`` / ``serving.prefill_compiles``
 (with ``metrics`` ``kernel.decode_traces`` / ``kernel.prefill_traces`` on
 the kernel route). The K/V pools are updated in place. :meth:`close`
-drops the programs and their graph pool. The prefix cache, preemption,
-speculation, LoRA, tiering and the supervisor are later slices.
+drops the programs and their graph pool.
+
+Per-slot scenario state is data too, as in the JAX engine: each slot's
+``temperature``, ``top_k``, ``top_p`` and ``seed`` and its row of the
+``[S, vocab]`` constraint mask (all-True when unconstrained) are installed
+when the slot is claimed, before any prefill (:meth:`_install_slot_scenario`),
+and reset when it is freed; the four parameters are the rows of one
+``[4, S]`` int32 buffer (the floats bit-cast). Every step ends in
+:func:`.sampling.sample_tokens`: the decode step over that buffer and
+the resident mask (a :class:`.graphs.ResidentBuffer`: only rows that
+changed are copied, :meth:`set_slot_mask`), its tokens keyed at
+``positions + 1``; each prefill program over ``[1]`` buffers and the slot's
+mask row, its token keyed at the context index it will sit at. On the card
+that is the sampling kernel, one launch per step, prefill or chunk. The
+prefix cache, preemption, speculation, LoRA, tiering and the supervisor are
+later slices.
 """
 from __future__ import annotations
 
@@ -61,18 +75,26 @@ from ..core import compile_cache, flags
 from ..core import device as device_mod
 from ..models.gpt import quantize_serving_weights, serving_compute_dtype
 from ..ops import paged_attention
+from ..ops import sampling as sampling_ops
 from ..ops.paged_attention import (check_servable, paged_decode_attention,
                                    paged_full_prefill_attention,
                                    paged_prefill_attention)
 from ..quantization import quantize_kv
 from . import metrics
-from .graphs import StepGraphs
+from .graphs import ResidentBuffer, StepGraphs
 from .kv_arena import KVArena, Reservation
-from .sampling import check_supported, sample_tokens
+from .sampling import sample_tokens
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _samp_params(samp: torch.Tensor) -> tuple:
+    """The rows of a ``[4, R]`` int32 sampling buffer as ``(temperature,
+    top_k, top_p, seeds)``, each ``[R]``, the floats bit-cast back."""
+    return (samp[0].view(torch.float32), samp[1],
+            samp[2].view(torch.float32), samp[3])
 
 
 def _scatter_rows(entry, row, off, kc, vc) -> None:
@@ -247,6 +269,24 @@ class ServingEngine:
         self._slot_res: List[Optional[Reservation]] = [None] * s
         self._slot_filled = np.zeros(s, np.int32)
         self._chunk = {}  # slot -> _AdmitState of a chunked prefill
+        # per-slot sampling and constraint state, all data to the steps:
+        # temperature 0 is greedy, the mask row all-True is unconstrained.
+        # The four sampling parameters are the rows of one int32 array
+        # (floats bit-cast): one static buffer and one copy per run
+        self.vocab = int(mcfg.vocab_size)
+        self._samp = np.zeros((4, s), np.int32)
+        self._temp = self._samp[0].view(np.float32)
+        self._top_k = self._samp[1]
+        self._top_p = self._samp[2].view(np.float32)
+        self._seed = self._samp[3]
+        self._top_p[:] = 1.0
+        self._constrained = np.zeros(s, np.bool_)  # mask row not all-True
+        self._mask = ResidentBuffer(self.device, (s, self.vocab), torch.bool,
+                                    True)
+        self._mask_host = self._mask.host
+        # lifetime per-engine admission counts
+        self.sampled_admits = 0
+        self.constrained_admits = 0
         # lifetime counts of this engine's model calls (each runs every
         # layer's attention once): what the kernel launch counters are
         # held against -- decode steps, whole-prompt prefills, and chunks
@@ -260,7 +300,8 @@ class ServingEngine:
         self.prefill_traces: Dict[int, int] = {}
         self.prefix_prefill_traces: Dict[int, int] = {}
         self._graphs = StepGraphs(self.device,
-                                  counters=(paged_attention.launches,))
+                                  counters=(paged_attention.launches,
+                                            sampling_ops.launches))
         self._meter = metrics.Meter()
         metrics.set_gauge("slots.total", s)
         self._refresh_gauges()
@@ -276,14 +317,12 @@ class ServingEngine:
     def blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
         return _ceil_div(prompt_len + max_new_tokens, self.block_size)
 
-    def validate(self, prompt_len: int, max_new_tokens: int,
-                 sampling=None) -> None:
+    def validate(self, prompt_len: int, max_new_tokens: int) -> None:
         """Refuse at submit what could never be served."""
         if prompt_len < 1:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        check_supported(sampling)
         total = prompt_len + max_new_tokens
         if total > self.max_model_len:
             raise ValueError(f"prompt+new tokens {total} exceeds engine "
@@ -301,23 +340,26 @@ class ServingEngine:
 
     # ----------------------------------------------------- slot lifecycle
 
-    def admit(self, prompt, max_new_tokens: int,
-              sampling=None) -> Tuple[int, int]:
+    def admit(self, prompt, max_new_tokens: int, sampling=None,
+              mask=None) -> Tuple[int, int]:
         """Prefill ``prompt`` into a free slot. Returns ``(slot,
-        next_token)``: the first token comes out of the prefill itself.
-        Raises if there is no capacity; callers gate on :meth:`can_admit`."""
-        st = self._admit_setup(prompt, max_new_tokens, sampling)
+        next_token)``: the first token comes out of the prefill itself,
+        sampled under ``sampling`` (a ``SamplingParams`` with a seed; None is
+        greedy) and the constraint ``mask`` (``[vocab]`` bool; None is
+        unconstrained). Raises if there is no capacity; callers gate on
+        :meth:`can_admit`."""
+        st = self._admit_setup(prompt, max_new_tokens, sampling, mask)
         return st.slot, self._admit_prefill_all(st)
 
-    def admit_begin(self, prompt, max_new_tokens: int,
-                    sampling=None) -> Tuple[int, Optional[int]]:
+    def admit_begin(self, prompt, max_new_tokens: int, sampling=None,
+                    mask=None) -> Tuple[int, Optional[int]]:
         """Chunked admission: claim a slot and its blocks now, prefill
         incrementally. Returns ``(slot, first_token)`` when the prompt fits
         one chunk (as :meth:`admit`), else ``(slot, None)`` with the prefill
         in progress: the scheduler then calls :meth:`admit_chunk` once per
         step until the first token appears. Until then the slot is occupied
         (its blocks are held) but not active (the decode step masks it)."""
-        st = self._admit_setup(prompt, max_new_tokens, sampling)
+        st = self._admit_setup(prompt, max_new_tokens, sampling, mask)
         if self.chunk_size <= 0 or st.plen <= self.chunk_size:
             return st.slot, self._admit_prefill_all(st)
         self._chunk[st.slot] = st
@@ -336,6 +378,8 @@ class ServingEngine:
                                "progress")
         take = min(self.chunk_size, st.plen - st.done)
         try:
+            # every chunk samples its token, as the JAX engine does; only
+            # the last chunk's is the request's first
             nxt = self._suffix_prefill_call(st.prompt, st.done + take,
                                             st.done, slot)
         except BaseException:
@@ -354,19 +398,22 @@ class ServingEngine:
         """The one-call prefill of a whole prompt; unwinds the admission on
         failure."""
         try:
-            first = self._full_prefill_call(st.prompt, st.plen, st.res)
+            first = self._full_prefill_call(st.prompt, st.plen, st.res,
+                                            st.slot)
         except BaseException:
             self._admit_abort(st)
             raise
         return self._admit_finish(st, first)
 
-    def _admit_setup(self, prompt, max_new_tokens: int,
-                     sampling=None) -> _AdmitState:
+    def _admit_setup(self, prompt, max_new_tokens: int, sampling=None,
+                     mask=None) -> _AdmitState:
         """Claim the slot, the block reservation and the blocks covering the
-        prompt; unwinds completely on failure."""
+        prompt, and install the slot's sampling and constraint state before
+        any prefill (the prefill programs sample the first token under it);
+        unwinds completely on failure, a refused mask included."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = int(prompt.shape[0])
-        self.validate(plen, max_new_tokens, sampling)
+        self.validate(plen, max_new_tokens)
         slot = int(np.argmin(self._occupied))
         if self._occupied[slot]:
             raise RuntimeError("no free slot")
@@ -375,6 +422,7 @@ class ServingEngine:
         self._occupied[slot] = True
         self._slot_res[slot] = res
         try:
+            self._install_slot_scenario(slot, sampling, mask)
             n = _ceil_div(plen, self.block_size)
             for bi in range(n):
                 self._bt_host[slot, bi] = res.take()
@@ -390,6 +438,7 @@ class ServingEngine:
         self._slot_filled[st.slot] = 0
         self._bt_host[st.slot, :] = 0
         self._occupied[st.slot] = False
+        self._clear_slot_scenario(st.slot)
         self._refresh_gauges()
 
     def _admit_finish(self, st: _AdmitState, first: int) -> int:
@@ -423,22 +472,28 @@ class ServingEngine:
         if self.device.type == "cuda":
             metrics.bump("kernel.prefill_traces")
 
-    def _decode_fn(self, last_tok, positions, rows, offs, block_tables):
+    def _decode_fn(self, last_tok, positions, rows, offs, block_tables,
+                   samp, allowed):
         """The decode step over its static buffers: every lane's last token
         at its position, its k/v written at ``(rows, offs)`` (scratch block
-        0 for inactive lanes), one greedy token per lane."""
+        0 for inactive lanes), one token per lane sampled under the lane's
+        parameters and mask row, keyed at ``positions + 1``: the context
+        index where the new token will sit."""
         views = [_PagedCacheView(entry, block_tables, positions, rows, offs)
                  for entry in self.arena.pools]
         model = self._model
         h, _ = model.gpt(last_tok[:, None], caches=views, start_pos=positions)
-        return (sample_tokens(model._head_logits(h[:, 0])),)
+        return (sample_tokens(model._head_logits(h[:, 0]),
+                              *_samp_params(samp), positions + 1, allowed),)
 
-    def _full_prefill_fn(self, ids, rows, offs, true_len):
+    def _full_prefill_fn(self, ids, rows, offs, true_len, samp, spos,
+                         allowed):
         """The whole-prompt prefill of one bucket: the model over the padded
         prompt, the token after position ``true_len - 1`` (runtime data, as
         the JAX program's ``dynamic_index_in_dim``), and every position's
         k/v scattered at ``(rows, offs)`` (padded ones to scratch block
-        0)."""
+        0). The token is sampled under the slot's ``[1]`` parameters and
+        mask row, keyed at ``spos``, the context index it will sit at."""
         model = self._model
         views = [_CapturePrefillView(self.block_size)
                  for _ in range(model.cfg.num_layers)]
@@ -446,27 +501,39 @@ class ServingEngine:
         last = h.index_select(1, true_len.reshape(1) - 1)[:, 0]
         for (kc, vc), entry in zip(chunks, self.arena.pools):
             _scatter_rows(entry, rows, offs, kc[0], vc[0])
-        return (sample_tokens(model._head_logits(last)),)
+        return (sample_tokens(model._head_logits(last), *_samp_params(samp),
+                              spos, allowed),)
 
     def _suffix_prefill_fn(self, ids, rows, offs, bt_row, prefix_len,
-                           true_len):
+                           true_len, samp, spos, allowed):
         """The suffix/chunk prefill of one bucket through the slot's table
         row: positions ``prefix_len + i``, the chunk's k/v scattered before
         it is attended, the token after position ``true_len - 1`` of the
-        chunk."""
+        chunk, sampled as in :meth:`_full_prefill_fn`."""
         views = [_PrefixPrefillView(entry, bt_row, prefix_len, rows, offs)
                  for entry in self.arena.pools]
         model = self._model
         h, _ = model.gpt(ids, caches=views, start_pos=prefix_len)
         last = h.index_select(1, true_len.reshape(1) - 1)[:, 0]
-        return (sample_tokens(model._head_logits(last)),)
+        return (sample_tokens(model._head_logits(last), *_samp_params(samp),
+                              spos, allowed),)
+
+    def _samp_row(self, slot: int, pos: int) -> dict:
+        """One slot's sampling values for a prefill program: its ``[1]``
+        parameters, the positional key ``pos`` (the context index where the
+        emitted token will sit) and its mask row."""
+        one = slice(slot, slot + 1)
+        return dict(samp=self._samp[:, one], spos=np.int32(pos),
+                    allowed=self._mask_host[one])
 
     @torch.no_grad()
     def _full_prefill_call(self, ctx: np.ndarray, clen: int,
-                           res: Reservation) -> int:
+                           res: Reservation, slot: int) -> int:
         """The whole-context prefill, padded to its bucket: the bucket's
         program over the prompt, the real positions' k/v scattered into the
-        slot's blocks (padded positions to scratch block 0)."""
+        slot's blocks (padded positions to scratch block 0); the emitted
+        token sits at context index ``clen`` and samples under the slot's
+        parameters at that positional key."""
         bs = self.block_size
         p_bucket = compile_cache.prefill_bucket(clen, self.max_model_len,
                                                 self.prefill_bucket_min)
@@ -482,8 +549,11 @@ class ServingEngine:
             functools.partial(self._prefill_built, self.prefill_traces,
                               p_bucket),
             ids=((1, p_bucket), i64), rows=((p_bucket,), i64),
-            offs=((p_bucket,), i64), true_len=((), i64, 1))
-        prog.run(ids=ids, rows=row, offs=p_idx % bs, true_len=clen)
+            offs=((p_bucket,), i64), true_len=((), i64, 1),
+            samp=((4, 1), torch.int32), spos=((1,), torch.int32),
+            allowed=((1, self.vocab), torch.bool, 1))
+        prog.run(ids=ids, rows=row, offs=p_idx % bs, true_len=clen,
+                 **self._samp_row(slot, clen))
         nxt = int(prog.read()[0][0])
         self.prefills += 1
         # one count per call and bucket: the padding waste of the ladder
@@ -497,8 +567,9 @@ class ServingEngine:
         """Prefill ``ctx[prefix_len:clen]``, padded to its bucket, attending
         the first ``prefix_len`` positions through the slot's (already
         filled) table instead of recomputing them; returns the token after
-        position ``clen - 1``. The chunk's k/v is scattered before it is
-        attended; padded rows scatter to scratch block 0."""
+        position ``clen - 1``, sampled under the slot's parameters keyed at
+        ``clen``. The chunk's k/v is scattered before it is attended; padded
+        rows scatter to scratch block 0."""
         bs = self.block_size
         slen = clen - prefix_len
         s_bucket = compile_cache.prefill_bucket(slen, self.max_model_len,
@@ -523,9 +594,12 @@ class ServingEngine:
             ids=((1, s_bucket), i64), rows=((s_bucket,), i64),
             offs=((s_bucket,), i64),
             bt_row=((self.blocks_per_slot,), torch.int32),
-            prefix_len=((), torch.int32), true_len=((), i64, 1))
+            prefix_len=((), torch.int32), true_len=((), i64, 1),
+            samp=((4, 1), torch.int32), spos=((1,), torch.int32),
+            allowed=((1, self.vocab), torch.bool, 1))
         prog.run(ids=ids, rows=row, offs=gpos % bs, bt_row=table,
-                 prefix_len=prefix_len, true_len=slen)
+                 prefix_len=prefix_len, true_len=slen,
+                 **self._samp_row(slot, clen))
         nxt = int(prog.read()[0][0])
         self.prefill_chunks += 1
         compile_cache.bump(f"serving.suffix_prefill_bucket.{s_bucket}")
@@ -546,8 +620,65 @@ class ServingEngine:
         self._bt_host[slot, :] = 0
         self._positions[slot] = 0
         self._last_tok[slot] = 0
+        self._clear_slot_scenario(slot)
         metrics.bump("engine.retires")
         self._refresh_gauges()
+
+    # ------------------------------------------------- per-slot scenario
+
+    def _check_mask(self, mask) -> np.ndarray:
+        row = np.asarray(mask, np.bool_).reshape(-1)
+        if row.shape[0] != self.vocab:
+            raise ValueError(f"constraint mask covers {row.shape[0]} tokens, "
+                             f"vocab is {self.vocab}")
+        if not row.any():
+            raise ValueError("constraint mask allows no token")
+        return row
+
+    def _install_slot_scenario(self, slot: int, sampling, mask) -> None:
+        """Install the slot's sampling parameters and constraint mask row as
+        data. Runs at claim time, before any prefill; a refused mask raises
+        before anything is written."""
+        row = None if mask is None else self._check_mask(mask)
+        sp = sampling
+        greedy = sp is None or sp.temperature <= 0.0
+        self._temp[slot] = 0.0 if sp is None else float(sp.temperature)
+        self._top_k[slot] = 0 if sp is None else int(sp.top_k)
+        self._top_p[slot] = 1.0 if sp is None else float(sp.top_p)
+        # an unset seed is drawn once here, as a request draws it
+        self._seed[slot] = 0 if sp is None else int(sp.materialized().seed)
+        if row is not None:
+            self._mask.set_row(slot, row)
+            self._constrained[slot] = True
+            self.constrained_admits += 1
+            metrics.bump("constrain.admits")
+        if not greedy:
+            self.sampled_admits += 1
+            metrics.bump("sampling.admits")
+
+    def _clear_slot_scenario(self, slot: int) -> None:
+        """Reset the slot to greedy and unconstrained (retire and the
+        admission unwind)."""
+        self._temp[slot] = 0.0
+        self._top_k[slot] = 0
+        self._top_p[slot] = 1.0
+        self._seed[slot] = 0
+        if self._constrained[slot]:
+            self._mask.set_row(slot, True)
+            self._constrained[slot] = False
+
+    def set_slot_mask(self, slot: int, mask) -> None:
+        """A constrained slot's new allowed-vocab row (its walker advanced
+        one token), copied to the device before the next step; ``None``
+        lifts the constraint (all-True)."""
+        if mask is None:
+            if self._constrained[slot]:
+                self._mask.set_row(slot, True)
+                self._constrained[slot] = False
+            return
+        self._mask.set_row(slot, self._check_mask(mask))
+        self._constrained[slot] = True
+        metrics.bump("constrain.mask_updates")
 
     def check_invariants(self) -> None:
         """Audit the arena's refcounts against the occupied slots' tables."""
@@ -587,9 +718,10 @@ class ServingEngine:
             "decode", self._decode_fn, self._decode_built,
             last_tok=((S,), i64), positions=((S,), torch.int32),
             rows=((S,), i64), offs=((S,), i64),
-            block_tables=((S, self.blocks_per_slot), torch.int32))
+            block_tables=((S, self.blocks_per_slot), torch.int32),
+            samp=((4, S), torch.int32), resident=dict(allowed=self._mask))
         prog.run(last_tok=self._last_tok, positions=pos, rows=rows,
-                 offs=pos % bs, block_tables=self._bt_host)
+                 offs=pos % bs, block_tables=self._bt_host, samp=self._samp)
         out = prog.read()[0]
         self._positions[act] += 1
         self._last_tok[act] = out[act]
@@ -617,6 +749,10 @@ class ServingEngine:
 
     def _refresh_gauges(self) -> None:
         metrics.set_gauge("slots.active", self.active_slots())
+        metrics.set_gauge("sampling.active_slots",
+                          int(((self._temp > 0) & self._active).sum()))
+        metrics.set_gauge("constrain.active_slots",
+                          int((self._constrained & self._active).sum()))
         a = self.arena.stats()
         metrics.set_gauge("arena.blocks_free", a["blocks_free"])
         metrics.set_gauge("arena.blocks_total", a["blocks_total"])
@@ -634,6 +770,8 @@ class ServingEngine:
                "programs.graphs": self._graphs.graph_count(),
                "programs.pool_bytes": self._graphs.pool_bytes,
                "quant.weight_layers": len(layers),
+               "sampling.admits": self.sampled_admits,
+               "constrain.admits": self.constrained_admits,
                "kernel.route": self.kernel_route(),
                "device": str(self.device)}
         out.update({f"arena.{k}": v for k, v in self.arena.stats().items()})

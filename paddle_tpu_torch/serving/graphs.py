@@ -19,6 +19,13 @@ builds a program again.
 * On the CPU the same step function runs eagerly over the same buffers,
   through the same bookkeeping.
 
+A :class:`ResidentBuffer` is a static buffer that a run does not refill:
+the decode step's ``[S, vocab]`` constraint mask, of which a step changes a
+few rows at most. The host keeps its mirror and marks the rows it changes;
+each run of a program that holds it first copies those rows to the device,
+on the stream the replay runs on, then replays. So a step copies the rows
+that changed, never the whole mask.
+
 Launch counters (``paged_attention.launches``) promise one count per kernel
 launch. A capture launches nothing and a replay calls no Python, so the
 program measures how far each counter moved while it captured, takes that
@@ -40,7 +47,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["StepGraphs", "StepProgram", "LaunchCredit", "CudaGraphs"]
+__all__ = ["StepGraphs", "StepProgram", "LaunchCredit", "CudaGraphs",
+           "ResidentBuffer"]
 
 
 class LaunchCredit:
@@ -116,12 +124,52 @@ class CudaGraphs:
         torch.cuda.empty_cache()
 
 
+class ResidentBuffer:
+    """A static buffer whose rows the host changes between runs: ``host``
+    is its numpy mirror (the truth), ``tensor`` the device buffer the
+    programs read. :meth:`set_row` changes a row of the mirror and marks it;
+    :meth:`flush`, which every run of a program holding the buffer calls
+    before its step, copies the marked rows to the device in order on the
+    current stream -- through pinned staging on CUDA, so the copies are
+    asynchronous and the replay after them reads the new rows. The staging
+    rows are rewritten only at the next flush, after the previous run's
+    outputs were read (a blocking copy that follows the earlier copies)."""
+
+    def __init__(self, device, shape: Tuple[int, ...], dtype: torch.dtype,
+                 fill):
+        device = torch.device(device)
+        self.tensor = torch.full(shape, fill, dtype=dtype, device=device)
+        staging = torch.full(shape, fill, dtype=dtype,
+                             pin_memory=device.type == "cuda")
+        self._staging = staging if device.type == "cuda" else None
+        self.host = (staging if device.type == "cuda"
+                     else self.tensor).numpy().copy()
+        self._dirty = set()
+
+    def set_row(self, row: int, values) -> None:
+        self.host[row] = values
+        self._dirty.add(int(row))
+
+    def flush(self) -> None:
+        for row in sorted(self._dirty):
+            if self._staging is None:
+                self.tensor[row] = torch.from_numpy(self.host[row])
+            else:
+                self._staging[row].numpy()[...] = self.host[row]
+                self.tensor[row].copy_(self._staging[row], non_blocking=True)
+        self._dirty.clear()
+
+
 class StepProgram:
     """One key's program: its static input buffers, their host staging,
-    the step function and, on CUDA, its captured graph."""
+    the step function and, on CUDA, its captured graph. ``resident``
+    buffers (name -> :class:`ResidentBuffer`) join the step's inputs but are
+    not refilled by :meth:`run`; their marked rows are flushed before each
+    run."""
 
     def __init__(self, owner: "StepGraphs", key, fn: Callable,
-                 on_build: Callable[[], None], specs: Dict[str, tuple]):
+                 on_build: Callable[[], None], specs: Dict[str, tuple],
+                 resident: Optional[Dict[str, ResidentBuffer]] = None):
         self.key = key
         self._owner, self._fn, self._on_build = owner, fn, on_build
         dev = owner.device
@@ -129,6 +177,7 @@ class StepProgram:
                       for name, spec in specs.items()}
         self.buffers = {name: torch.zeros(spec[0], dtype=spec[1], device=dev)
                         for name, spec in specs.items()}
+        self._resident = dict(resident or {})
         # what the host writes: staging (pinned on CUDA) for a captured
         # program, the buffers themselves for an eager one
         pin = dev.type == "cuda"
@@ -146,16 +195,21 @@ class StepProgram:
         if backend is not None:
             for name, buf in self.buffers.items():
                 buf.fill_(self._warm[name])
-            step = lambda: self._fn(**self.buffers)  # noqa: E731
+            step = lambda: self._fn(**self.buffers,  # noqa: E731
+                                    **self._inputs())
             backend.warmup(step)
             self.graph, self.outputs = self._credit.capture(
                 lambda: backend.capture(step))
         self.built = True
         self._on_build()
 
+    def _inputs(self) -> Dict[str, torch.Tensor]:
+        return {name: res.tensor for name, res in self._resident.items()}
+
     def run(self, **values) -> Tuple[torch.Tensor, ...]:
         """Fill the static buffers with ``values`` (host arrays, by
-        buffer name; every buffer must be given) and run the step: replay
+        buffer name; every buffer must be given, the resident ones not),
+        flush the resident buffers' marked rows, and run the step: replay
         its graph on CUDA (building it on the first run), the step function
         on the CPU. Returns the step's outputs, valid until another run of
         this engine; read them with :meth:`read`."""
@@ -171,8 +225,10 @@ class StepProgram:
             self._build()
         for name, value in values.items():
             self._host[name].numpy()[...] = value
+        for res in self._resident.values():
+            res.flush()
         if self.graph is None:
-            self.outputs = self._fn(**self.buffers)
+            self.outputs = self._fn(**self.buffers, **self._inputs())
         else:
             for name, buf in self.buffers.items():
                 buf.copy_(self._host[name], non_blocking=True)
@@ -215,17 +271,19 @@ class StepGraphs:
             raise RuntimeError("the engine's step programs are closed")
 
     def program(self, key, fn: Callable, on_build: Callable[[], None],
+                resident: Optional[Dict[str, ResidentBuffer]] = None,
                 **specs: tuple) -> StepProgram:
         """The program of ``key``, made on first use over static buffers
         ``specs`` (name -> ``(shape, dtype[, warm-up value])``; the warm-up
-        value defaults to 0). ``fn(**buffers)`` returns a tuple of output
-        tensors. ``on_build`` runs once the program is built: after its
-        capture on CUDA, at its first run on the CPU."""
+        value defaults to 0) and the ``resident`` buffers, which keep their
+        contents through the warm-up. ``fn(**buffers)`` returns a tuple of
+        output tensors. ``on_build`` runs once the program is built: after
+        its capture on CUDA, at its first run on the CPU."""
         self.check_open()
         prog = self.programs.get(key)
         if prog is None:
             prog = self.programs[key] = StepProgram(self, key, fn, on_build,
-                                                    specs)
+                                                    specs, resident)
         return prog
 
     def graph_count(self) -> int:
@@ -246,7 +304,7 @@ class StepGraphs:
             if prog.graph is not None:
                 prog.graph.reset()
             prog.graph = prog.outputs = None
-            prog.buffers = prog._host = {}
+            prog.buffers = prog._host = prog._resident = {}
         self.programs.clear()
         if self.backend is not None:
             self.backend.close()

@@ -7,10 +7,14 @@ Counters: ``requests.*`` (submitted / finished / cancelled / failed),
 alloc_failed), ``chunk.*`` (admits / chunks / tokens of chunked prefill),
 ``quant.weight_layers`` (linears quantized by engines),
 ``kernel.decode_traces`` / ``kernel.prefill_traces`` (builds of a decode or
-prefill program on the kernel route: captures of a CUDA graph). Gauges:
-``queue.depth``, ``queue.prefilling``, ``slots.active``, ``slots.total``,
-``arena.blocks_free``, ``arena.blocks_total``, ``arena.high_water``,
-``tokens_per_sec``.
+prefill program on the kernel route: captures of a CUDA graph),
+``sampling.admits`` (sampled admissions), ``constrain.admits`` /
+``constrain.mask_updates`` / ``constrain.dead_ends`` (constrained
+admissions, mask rows replaced, walkers sanitized after an empty mask).
+Gauges: ``queue.depth``, ``queue.prefilling``, ``slots.active``,
+``slots.total``, ``arena.blocks_free``, ``arena.blocks_total``,
+``arena.high_water``, ``tokens_per_sec``, ``sampling.active_slots``,
+``constrain.active_slots``.
 """
 from __future__ import annotations
 

@@ -17,9 +17,15 @@ admits waiting ones into the freed slots:
   one chunk per step, not by its whole prefill. A cancel mid-prefill frees
   the slot and its blocks.
 
-Priorities, preemption, speculation and deadlines are later slices.
-Decoding is greedy, so served tokens are held token for token against
-``GPTForCausalLM.generate()``.
+* **Per-request scenario state**: a request's ``sampling`` (seed pinned
+  at creation) and ``constraint`` walker reach the engine at admission
+  (:func:`admit_kwargs`); after each emitted token the walker advances and
+  the slot's mask row is replaced (``ServingEngine.set_slot_mask``). A
+  walker that fails fails its own request only.
+
+Priorities, preemption, speculation and deadlines are later slices. Served
+tokens are held token for token against ``GPTForCausalLM.generate()``,
+with ``sampling=`` for sampled requests.
 """
 from __future__ import annotations
 
@@ -54,7 +60,12 @@ class Request:        # compare numpy prompt payloads
     max_new_tokens: int = 32
     stop_token_id: Optional[int] = None
     request_id: str = ""
+    # the request's scenario: sampling params (serving.sampling.
+    # SamplingParams; None is greedy) and an incremental decoding
+    # constraint (serving.constrain.Constraint), whose walker state
+    # `_cstate` is a pure function of `tokens`
     sampling: Optional[object] = None
+    constraint: Optional[object] = None
     state: str = RequestState.QUEUED
     tokens: List[int] = field(default_factory=list)
     error: Optional[BaseException] = None
@@ -66,8 +77,14 @@ class Request:        # compare numpy prompt payloads
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int64).reshape(-1)
+        if self.sampling is not None:
+            # pin an unset seed now: the request's stream is then fixed
+            self.sampling = self.sampling.materialized()
         if not self.request_id:
             self.request_id = f"req-{next(_req_counter)}"
+        self._cstate = (None if self.constraint is None
+                        else self.constraint.initial())
+        self._dead_ended = False
 
     @property
     def finished(self) -> bool:
@@ -81,6 +98,43 @@ class Request:        # compare numpy prompt payloads
         """prompt + generated tokens."""
         return np.concatenate([self.prompt,
                                np.asarray(self.tokens, np.int64)])
+
+    # ------------------------------------------------ constraint walker
+
+    def reset_constraint(self) -> None:
+        """Rebuild the walker state from the token journal."""
+        if self.constraint is None:
+            return
+        st = self.constraint.initial()
+        for t in self.tokens:
+            st = self.constraint.advance(st, int(t))
+        self._cstate = st
+        self._dead_ended = False
+
+    def advance_constraint(self, token: int) -> None:
+        if self.constraint is not None:
+            self._cstate = self.constraint.advance(self._cstate, int(token))
+
+    def allowed_mask(self) -> Optional[np.ndarray]:
+        """The walker's current allowed-vocab mask (None = unconstrained).
+        An empty mask -- a dead-ended user walker -- is sanitized to
+        unconstrained and counted once per dead end
+        (``constrain.dead_ends``), not once per token."""
+        if self.constraint is None:
+            return None
+        mask = self.constraint.allowed(self._cstate)
+        if mask is not None and not mask.any():
+            if not self._dead_ended:
+                self._dead_ended = True
+                metrics.bump("constrain.dead_ends")
+            return None
+        return mask
+
+
+def admit_kwargs(req: Request) -> dict:
+    """The engine-admission keywords of one request's scenario: its
+    sampling params and its walker's current mask."""
+    return {"sampling": req.sampling, "mask": req.allowed_mask()}
 
 
 class Scheduler:
@@ -96,7 +150,7 @@ class Scheduler:
     def submit(self, request: Request) -> Request:
         """Enqueue; what could never be served is refused here."""
         self.engine.validate(int(request.prompt.shape[0]),
-                             int(request.max_new_tokens), request.sampling)
+                             int(request.max_new_tokens))
         request.state = RequestState.QUEUED
         self.waiting.append(request)
         metrics.bump("requests.submitted")
@@ -126,8 +180,22 @@ class Scheduler:
         req.done_event.set()
 
     def _emit(self, req: Request, token: int) -> None:
+        if req.finished:
+            return  # its walker failed earlier in this step
         req.tokens.append(int(token))
         req.stream_queue.put(int(token))
+        if req.constraint is not None:
+            # advance the walker one token and replace the slot's mask row
+            # (data: the next step constrains under it, nothing is built)
+            try:
+                req.advance_constraint(token)
+                if req.slot is not None:
+                    self.engine.set_slot_mask(req.slot, req.allowed_mask())
+            # analysis: allow(broad-except) -- a user-supplied walker (a
+            # wrong-width mask, a raising advance) fails THIS request,
+            # never the pump
+            except Exception as e:
+                self._finish(req, RequestState.FAILED, e)
 
     def _check_boundary(self, req: Request) -> bool:
         """Finish rules at a step boundary; True if the request ended."""
@@ -196,7 +264,7 @@ class Scheduler:
             admit = self.engine.admit_begin if chunked else self.engine.admit
             try:
                 slot, first = admit(req.prompt, req.max_new_tokens,
-                                    sampling=req.sampling)
+                                    **admit_kwargs(req))
             # analysis: allow(broad-except) -- a failed prefill fails THIS
             # request (its error is delivered through its handle), never the
             # pump; the engine has already unwound the admission

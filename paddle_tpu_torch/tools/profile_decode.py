@@ -3,6 +3,7 @@ card.
 
     python3 -m paddle_tpu_torch.tools.profile_decode [--quant-kv]
         [--quant-weights] [--prefill]
+        [--sampling {greedy,sampled,constrained+sampled}]
 
 Serves 8 requests (prompt 512, 64 new tokens) through ``ServingAPI`` on 8
 slots, and after 16 scheduler steps traces 8 decode-only steps with
@@ -23,9 +24,12 @@ token on a bucket already captured (the first admission, which warms up
 and captures it, is timed apart on the host clock). The weights are the
 model's own seeded initialisation: the timing does not depend on their
 values. ``--quant-kv`` and ``--quant-weights`` serve with the int8 KV arena
-and int8 weights (``ServingConfig.quant_kv`` / ``quant_weights``). The
-last line is one JSON object of these numbers, with the settings and the
-card's name and power limit.
+and int8 weights (``ServingConfig.quant_kv`` / ``quant_weights``).
+``--sampling`` sets what the requests ask for (:func:`scenario_kw`):
+``greedy`` (the default), ``sampled`` (every request at :data:`SAMPLED`,
+seeded) or ``constrained+sampled`` (half of them also constrained to 1000
+tokens). The last line is one JSON object of these numbers, with the
+settings and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -41,9 +45,29 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..models.gpt import GPTForCausalLM, gpt_1p3b
-from ..serving import ServingAPI, ServingConfig
+from ..serving import SamplingParams, ServingAPI, ServingConfig, TokenDFA
 
 SLOTS, PROMPT, NEW, WARM, TRACED = 8, 512, 64, 16, 8
+#: the sampled requests' setting (a common chat default)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SCENARIOS = ("greedy", "sampled", "constrained+sampled")
+
+
+def scenario_kw(scenario: str, n: int, vocab: int) -> list:
+    """Each of ``n`` requests' ``submit`` arguments: ``greedy`` none;
+    ``sampled`` :data:`SAMPLED` with seed ``i``; ``constrained+sampled`` the
+    same, the first half also constrained to one fixed set of 1000 tokens
+    (a one-state ``TokenDFA``: its mask row is replaced after every token,
+    as a grammar walker's is)."""
+    if scenario == "greedy":
+        return [{} for _ in range(n)]
+    kw = [dict(sampling=SamplingParams(**SAMPLED, seed=i)) for i in range(n)]
+    if scenario == "constrained+sampled":
+        subset = np.random.default_rng(3).choice(vocab, 1000, replace=False)
+        for k in kw[: n // 2]:
+            k["constraint"] = TokenDFA({0: {int(t): 0 for t in subset}},
+                                       vocab)
+    return kw
 
 
 def _union_us(intervals) -> float:
@@ -90,6 +114,7 @@ def main() -> None:
     parser.add_argument("--quant-kv", action="store_true")
     parser.add_argument("--quant-weights", action="store_true")
     parser.add_argument("--prefill", action="store_true")
+    parser.add_argument("--sampling", choices=SCENARIOS, default="greedy")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -114,9 +139,9 @@ def main() -> None:
         eng.retire(slot)
         steps, label, marker = 1, "admission", "prefill"
     else:
-        for _ in range(SLOTS):
+        for kw in scenario_kw(args.sampling, SLOTS, model.cfg.vocab_size):
             api.submit(rng.integers(0, model.cfg.vocab_size, PROMPT),
-                       max_new_tokens=NEW)
+                       max_new_tokens=NEW, **kw)
         sched = api.scheduler
         for _ in range(WARM):  # the first step admits all slots
             sched.step()
@@ -180,7 +205,8 @@ def main() -> None:
         by_name[k.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = {
-        "card": card, **modes, "prefill": args.prefill, "slots": SLOTS,
+        "card": card, **modes, "prefill": args.prefill,
+        "sampling": args.sampling, "slots": SLOTS,
         "prompt": PROMPT, "steps": steps,
         "step_ms": window_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
