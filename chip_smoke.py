@@ -27,17 +27,25 @@ no result. Phases, in order; each raises on failure:
    scratch block that reads 1e4, and two launches on the same inputs equal
    bit for bit; at head dim 256 also the prefill's CUDA-core form. Each
    check prints its share of the bar. Then the sampling kernel
-   (``sampling_checks``) against its plain version on the card: 8 rows of
-   50304 float32 logits mixing greedy rows, temperatures, top-k 0/1/5/50/
-   V+10, top-p 0/0.05/0.9/0.95/1, tied logits, -inf entries, an all -inf
-   row and masks leaving 1, 3 or 1000 tokens, in one launch, a second
-   launch of 8 more, and each row alone (the prefill's [1, V]): the drawn
-   u bit-equal, tokens equal (a sampled token may differ only with the
-   draw within 1e-6, relative, of its interval of the plain version's cum:
-   printed), tokens inside their
-   masks, two launches bit-equal, a row alone equal to its row in the
-   batch. Then its time at [8, 50304], all sampled and all greedy, beside
-   its bound, the plain version and ``torch.argmax``.
+   (``sampling_checks``, launches of ``sampling_batches``) against its plain
+   version on the card: 8 rows of 50304 float32 logits mixing greedy rows,
+   temperatures, top-k 0/1/5/50/V+10, top-p 0/0.05/0.9/0.95/1, tied
+   logits, -inf entries, an all -inf row and masks leaving 1, 3 or 1000
+   tokens, in one launch, and a second launch of 8 more; rows where 64
+   halvings of the JAX bracket do not narrow to one float (a cluster of
+   values in [0, 1e-30) beside logits of 3-11 and -10, for top-k and for
+   top-p) and a zero top-p threshold that a bisection step hits exactly;
+   ties straddling the slice edges of the kernel's cluster; widths 50307
+   (no cluster divides it) and 37 (ranks left empty); Llama 3's 128,256;
+   600,000 (past the CTAs' shared memory: slices read again from L2);
+   bf16 and float16 logits, whose tokens and u must equal those of the
+   same logits cast to float32; each row also alone (the prefill's [1,
+   V]): the drawn u bit-equal, tokens equal (a sampled token may differ
+   only with the draw within 1e-6, relative, of its interval of the plain
+   version's cum: printed), tokens inside their masks, two launches
+   bit-equal, a row alone equal to its row in the batch. Then its time at
+   [8, 50304] and [1, 50304], float32 and bf16, all sampled and all greedy,
+   each beside its bound, the plain version and ``torch.argmax``.
 3. Serve ``gpt_1p3b`` at full width and depth (seeded random weights, f32,
    TF32 off) through ``ServingAPI``: 8 slots, 12 requests of mixed prompt
    lengths. The engine runs its decode step and each prefill bucket as
@@ -66,6 +74,9 @@ no result. Phases, in order; each raises on failure:
    constrained ones stay in their
    grammar, launches are exact, one decode graph and one per bucket; a
    second mixed wave builds nothing.
+3c. ``gpt_1p3b`` cut to 2 layers with Llama 3's vocabulary of 128,256
+   tokens (seeded f32 weights), chunks of 256 (``serve_wide_vocab``): 10
+   requests of phase 3b's mix, held as phase 3b holds them.
 4. A second f32 ``gpt_1p3b`` from the same weights, served with
    ``quant_weights`` (int8 weights, per-channel scales, quantized on the
    card: 8 of its linears, and one in bf16, must equal the CPU's
@@ -145,8 +156,8 @@ training phases.
 Then one JSON line of per-kernel results (a paged row's ``launches`` are
 phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
 instances its times belong to, and ``launches_f32`` phase 8's; the
-sampling row's phase 3b's, its times the all-sampled rows', with the
-all-greedy rows' and ``torch.argmax`` beside them),
+sampling row's phase 3b's, its times the 8 all-sampled float32 rows',
+with every timed setting and ``torch.argmax`` beside them),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -711,13 +722,24 @@ TRIE = [[5, 6, 7], [5, 9], [1000, 2000, 3000, 4000]]
 # over 50304 tokens, intervals are about 2e-5 wide and a boundary moves by
 # about the logits' relative difference, 1e-6 to 1e-5 after 24 layers)
 BOUNDARY, SERVED_BOUNDARY = 1e-6, 1e-4
+LLAMA3_VOCAB = 128256  # the vocabulary of Llama 3
+# a width past the cluster's shared memory (H100: 227 KB a CTA): each CTA
+# reads its slice again from the logits at every pass
+WIDE_VOCAB = 600000
 
 
-def sampling_rows(rng, vocab, cases):
+def sampling_rows(rng, vocab, cases, dtype=torch.float32):
     """One launch's inputs on the card from ``cases``, one per row: a dict
     of temperature, top_k, top_p and what to do to the row (``tie``:
     integer logits; ``half_inf``: every other entry -inf; ``all_inf``;
-    ``allow``: the number of tokens its mask allows). Logits are N(0, 3)."""
+    ``allow``: the number of tokens its mask allows; ``near_zero``: a
+    cluster of values in [0, 1e-30) with 16 logits of ``near_zero`` + U(0,
+    1) and one of -10, where 64 halvings of the bracket do not narrow to one
+    float; ``zeros``: exact zeros with 10 and -10 once each and every third
+    entry -inf, so the symmetric bracket's first step lands on the zero
+    threshold; ``boundary``: the row's maximum tied on both sides of every
+    multiple of ``boundary`` (the kernel's slice edges)). Logits are N(0, 3)
+    in ``dtype``."""
     rows = len(cases)
     logits = (rng.standard_normal((rows, vocab)) * 3).astype(np.float32)
     allowed = np.ones((rows, vocab), np.bool_)
@@ -728,12 +750,25 @@ def sampling_rows(rng, vocab, cases):
             logits[i, 1::2] = -np.inf
         if c.get("all_inf"):
             logits[i] = -np.inf
+        if "near_zero" in c:
+            logits[i] = rng.random(vocab) * 1e-30
+            logits[i, rng.choice(vocab, 16, replace=False)] = (
+                c["near_zero"] + rng.random(16))
+            logits[i, rng.integers(vocab)] = -10
+        if c.get("zeros"):
+            logits[i] = 0
+            logits[i, 2::3] = -np.inf
+            logits[i, [1, vocab - 2]] = [10, -10]
+        if "boundary" in c:
+            edges = np.arange(c["boundary"], vocab, c["boundary"])
+            top = logits[i].max() + 1
+            logits[i, np.concatenate([edges - 1, edges])] = top
         if "allow" in c:
             allowed[i] = False
             allowed[i, rng.choice(vocab, c["allow"], replace=False)] = True
     col = lambda key, default, dt: torch.tensor(  # noqa: E731
         [c.get(key, default) for c in cases], dtype=dt, device="cuda")
-    return (torch.from_numpy(logits).cuda(),
+    return (torch.from_numpy(logits).to(device="cuda", dtype=dtype),
             col("temperature", 0.0, torch.float32),
             col("top_k", 0, torch.int32), col("top_p", 1.0, torch.float32),
             torch.tensor(rng.integers(-2 ** 31, 2 ** 31, rows),
@@ -748,7 +783,8 @@ def hold_sampling(so, args, what, card):
     bit-equal, tokens equal (a sampled row's token may differ only with its
     draw within BOUNDARY of the kernel token's interval of the plain
     version's cum: printed), every token allowed by its mask, and two
-    launches bit-equal. Returns the number of
+    launches bit-equal; bf16 and float16 logits also give the tokens and u
+    of the same logits cast to float32, bit for bit. Returns the number of
     rows whose tokens differed and the largest |u - plain u|."""
     tok, u = so.sample(*args)
     tok2, u2 = so.sample(*args)
@@ -761,6 +797,13 @@ def hold_sampling(so, args, what, card):
         raise AssertionError(f"sampling {what}: u differs from the plain "
                              f"version's: {u.tolist()} vs {ref_u.tolist()}")
     logits, temperature, top_k, top_p, _, _, allowed = args
+    if logits.dtype != torch.float32:
+        tok32, u32 = so.sample(logits.float(), *args[1:])
+        if not (torch.equal(tok, tok32) and torch.equal(
+                u.view(torch.int32), u32.view(torch.int32))):
+            raise AssertionError(f"sampling {what}: {logits.dtype} logits "
+                                 f"give {tok.tolist()}, their float32 cast "
+                                 f"{tok32.tolist()}")
     rows = torch.arange(len(tok), device="cuda")
     if not bool(allowed[rows, tok].all()):
         raise AssertionError(f"sampling {what}: a token outside its mask")
@@ -782,88 +825,143 @@ def hold_sampling(so, args, what, card):
     return len(diff), float((u - ref_u).abs().max())
 
 
-def sampling_checks(so, vocab, card):
-    """Phase 2, sampling: the kernel against its plain version on 8 rows
-    of ``vocab`` float32 logits mixing every case (greedy, temperatures,
-    top-k 0/1/5/50/V+10, top-p 0/0.05/0.9/0.95/1, tied logits, -inf
-    entries, an all -inf row, masks leaving 1, 3 and 1000 tokens) in one
-    launch, and a second launch of 8 more; then each row alone ([1, V], the
-    prefill's shape), equal to its row of the batch. Returns the number of
-    rows whose tokens differed and the largest |u - plain u|."""
+def hold_alone(so, args, i, tok, what):
+    """Row ``i`` sampled alone ([1, V], a prefill's shape) gives its token
+    of the batch."""
+    one = tuple(a[i:i + 1] for a in args)
+    if int(so.sample(*one)[0][0]) != int(tok[i]):
+        raise AssertionError(f"sampling {what} row {i}: alone and in the "
+                             "batch differ")
+
+
+def sampling_batches(so, vocab):
+    """The sampling checks' launches: (what, vocab, dtype, seed, cases);
+    launches that name the same seed draw from one stream, in order. Two
+    batches of every case at ``vocab`` (greedy, temperatures, top-k
+    0/1/5/50/V+10, top-p 0/0.05/0.9/0.95/1, tied logits, -inf entries, an
+    all -inf row, masks leaving 1, 3 and 1000 tokens); the rows where the
+    JAX bisection keeps another set than an exact threshold (near-zero
+    clusters for top-k and for top-p, a zero threshold hit by a step) and
+    ties straddling the slice edges of the kernel's cluster plan; a width
+    that no cluster divides (V + 3, no 16-byte loads) and one that leaves
+    ranks empty (37); Llama 3's 128,256; ``WIDE_VOCAB``, past the CTAs'
+    shared memory (slices read again from L2); bf16 and float16 logits;
+    rows whose crossing bucket holds more entries than a warp sorts."""
     from paddle_tpu_torch.tools.profile_decode import SAMPLED
 
-    rng = np.random.default_rng(20)
-    batches = [
-        [dict(),
-         dict(temperature=0.7),
-         dict(temperature=1.3, top_k=5, top_p=0.9),
-         dict(SAMPLED),
-         dict(temperature=1.0, top_k=vocab + 10, top_p=0.05, tie=True),
-         dict(temperature=0.9, top_k=1, top_p=0.0, half_inf=True),
-         dict(temperature=1.1, top_p=0.9, allow=3),
-         dict(temperature=1.0, all_inf=True)],
-        [dict(temperature=0.5, top_k=40, allow=1000),
-         dict(temperature=1.5, top_p=0.5),
-         dict(temperature=1.0, top_k=vocab, top_p=0.9, allow=1000),
-         dict(allow=1),
-         dict(temperature=0.8, allow=1),
-         dict(tie=True),
-         dict(temperature=1.2, top_k=50, top_p=0.95, tie=True),
-         dict(temperature=0.6, top_p=0.99, half_inf=True)],
+    edge = so.slice_len(vocab)
+    mixed = [dict(), dict(temperature=0.7),
+             dict(temperature=1.3, top_k=5, top_p=0.9), dict(SAMPLED),
+             dict(temperature=1.0, top_k=vocab + 10, top_p=0.05, tie=True),
+             dict(temperature=0.9, top_k=1, top_p=0.0, half_inf=True),
+             dict(temperature=1.1, top_p=0.9, allow=3),
+             dict(temperature=1.0, all_inf=True)]
+    second = [dict(temperature=0.5, top_k=40, allow=1000),
+              dict(temperature=1.5, top_p=0.5),
+              dict(temperature=1.0, top_k=vocab, top_p=0.9, allow=1000),
+              dict(allow=1), dict(temperature=0.8, allow=1), dict(tie=True),
+              dict(temperature=1.2, top_k=50, top_p=0.95, tie=True),
+              dict(temperature=0.6, top_p=0.99, half_inf=True)]
+    bracket = [dict(temperature=1.0, top_k=40, near_zero=3),
+               dict(temperature=1.0, top_k=300, near_zero=10),
+               dict(temperature=1.0, top_p=0.95, near_zero=10),
+               dict(temperature=1.0, top_k=60, top_p=0.97, near_zero=3),
+               dict(temperature=2.0, top_p=0.95, zeros=True),
+               dict(temperature=2.0, top_p=0.9, zeros=True),
+               dict(boundary=edge),
+               dict(temperature=1.0, top_k=3, top_p=0.9, boundary=edge),
+               # tens to hundreds of entries in the crossing bucket: the
+               # gather sorts them in shared memory, not in one warp
+               dict(temperature=1.0, top_k=500),
+               dict(temperature=3.0, top_p=0.5)]
+    llama = LLAMA3_VOCAB
+    wide_edge = so.slice_len(llama)
+    wide = WIDE_VOCAB
+    return [
+        (f"batch 0 [8, {vocab}]", vocab, torch.float32, 20, mixed),
+        (f"batch 1 [8, {vocab}]", vocab, torch.float32, 20, second),
+        (f"bracket and edges [10, {vocab}], slice {edge}", vocab,
+         torch.float32, 23, bracket),
+        (f"[8, {vocab + 3}]", vocab + 3, torch.float32, 24, mixed),
+        ("[4, 37]", 37, torch.float32, 25,
+         [dict(), dict(SAMPLED), dict(temperature=1.0, top_p=0.6),
+          dict(temperature=0.9, top_k=3, tie=True)]),
+        (f"[8, {llama}], slice {wide_edge}", llama, torch.float32, 26,
+         [dict(), dict(SAMPLED), dict(temperature=1.2, top_p=0.9),
+          dict(temperature=1.0, top_k=50, near_zero=10),
+          dict(temperature=2.0, top_p=0.95, zeros=True),
+          dict(boundary=wide_edge),
+          dict(temperature=1.0, top_k=2, boundary=wide_edge),
+          dict(temperature=0.8, top_k=20, allow=1000)]),
+        (f"[4, {wide}], resident "
+         f"{so.row_resident(torch.device('cuda', 0), wide, torch.float32)}",
+         wide, torch.float32, 30,
+         [dict(), dict(SAMPLED), dict(temperature=1.2, top_p=0.9),
+          dict(temperature=1.0, top_k=5, boundary=so.slice_len(wide))]),
+        (f"bf16 [8, {vocab}]", vocab, torch.bfloat16, 27, mixed),
+        (f"float16 [8, {vocab}]", vocab, torch.float16, 28, second),
     ]
-    readings = []
-    for b, cases in enumerate(batches):
-        args = sampling_rows(rng, vocab, cases)
-        readings.append(hold_sampling(so, args, f"batch {b} [8, {vocab}]",
-                                      card))
+
+
+def sampling_checks(so, vocab, card):
+    """Phase 2, sampling: the kernel against its plain version on every
+    launch of ``sampling_batches``, each row also alone ([1, V], the
+    prefill's shape) and equal to its row of the batch. Returns the number
+    of rows whose tokens differed and the largest |u - plain u|."""
+    readings, streams = [], {}
+    for what, v, dtype, seed, cases in sampling_batches(so, vocab):
+        rng = streams.setdefault(seed, np.random.default_rng(seed))
+        args = sampling_rows(rng, v, cases, dtype)
+        readings.append(hold_sampling(so, args, what, card))
         tok = so.sample(*args)[0]
         for i in range(len(cases)):
             one = tuple(a[i:i + 1] for a in args)
-            readings.append(hold_sampling(
-                so, one, f"batch {b} row {i} [1, {vocab}]", card))
-            if int(so.sample(*one)[0][0]) != int(tok[i]):
-                raise AssertionError(f"sampling batch {b} row {i}: alone "
-                                     "and in the batch differ")
+            readings.append(hold_sampling(so, one, f"{what} row {i} alone",
+                                          card))
+            hold_alone(so, args, i, tok, what)
     return (sum(r[0] for r in readings), max(r[1] for r in readings))
 
 
 def sampling_times(so, vocab, card):
-    """The sampling kernel at the decode step's shape, 8 rows of ``vocab``:
-    all sampled at SAMPLED and all greedy, beside their bounds, the plain
-    version and ``torch.argmax`` (the greedy function; no one PyTorch call
-    samples with top-k/top-p under threefry keys)."""
+    """The sampling kernel at the decode step's shape, 8 rows of ``vocab``,
+    and at a prefill's, 1 row: float32 and bf16 logits, all sampled at
+    SAMPLED and all greedy, each beside its bound, the plain version and
+    ``torch.argmax`` on the same logits in the same call (the greedy
+    function; no one PyTorch call samples with top-k/top-p under threefry
+    keys). Keyed ``(dtype name, rows, "sampled" or "greedy")``."""
     from paddle_tpu_torch.tools.profile_decode import SAMPLED
 
     rng = np.random.default_rng(22)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    sampled = sampling_rows(rng, vocab, [dict(SAMPLED)] * 8)
-    greedy = sampling_rows(rng, vocab, [dict()] * 8)
-    rows = 8
-    nbytes = rows * vocab * 5 + rows * (5 * 4 + 8 + 4)
-    # float32 operations per element that the function needs (not the
-    # kernel's 2 x 64 bisection passes): mask, divide, the softmax's max,
-    # subtract, exp, sum and normalise, a radix select of the top-k and of
-    # the top-p threshold (4 passes of 8 bits over a 32-bit key, a compare
-    # and a count or sum each), the scan and the final count; a greedy
-    # row: mask, argmax
+    # float32 operations per element that the function needs: mask,
+    # divide, the softmax's max, subtract, exp, sum and normalise, a radix
+    # select of the top-k and of the top-p threshold (4 passes of 8 bits
+    # over a 32-bit key, a compare and a count or sum each), the scan and
+    # the final count; a greedy row: mask, argmax
     per_sampled = 2 + 5 + 2 * 4 * 2 + 2
     t = {}
-    for name, args, ops in (("sampled", sampled, rows * vocab * per_sampled),
-                            ("greedy", greedy, rows * vocab * 2)):
-        b_ms, b_by = bound(nbytes, 0)
-        t_ops = ops / F32_FLOPS_PER_S * 1e3
-        if t_ops > b_ms:
-            b_ms, b_by = t_ops, "operations"
-        t[name] = dict(
-            ms=time_ms(lambda: so.sample(*args), flush),
-            plain_ms=time_ms(lambda: so.sample_ref(*args), flush, iters=5),
-            bound_ms=b_ms, bound_by=b_by,
-            argmax_ms=time_ms(lambda: torch.argmax(args[0], dim=-1), flush))
-        r = t[name]
-        print(f"time sample_tokens {name} [8, {vocab}] f32: kernel "
-              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
-              f"torch.argmax {r['argmax_ms']:.4f} ms [{card}]")
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        esz = torch.empty((), dtype=dtype).element_size()
+        for rows in (8, 1):
+            for kind, case, per in (("sampled", dict(SAMPLED), per_sampled),
+                                    ("greedy", dict(), 2)):
+                args = sampling_rows(rng, vocab, [case] * rows, dtype)
+                nbytes = rows * vocab * (esz + 1) + rows * (5 * 4 + 8 + 4)
+                b_ms, b_by = bound(nbytes, 0)
+                t_ops = rows * vocab * per / F32_FLOPS_PER_S * 1e3
+                if t_ops > b_ms:
+                    b_ms, b_by = t_ops, "operations"
+                r = t[(name, rows, kind)] = dict(
+                    ms=time_ms(lambda: so.sample(*args), flush),
+                    plain_ms=time_ms(lambda: so.sample_ref(*args), flush,
+                                     iters=5),
+                    bound_ms=b_ms, bound_by=b_by,
+                    argmax_ms=time_ms(lambda: torch.argmax(args[0], dim=-1),
+                                      flush))
+                print(f"time sample_tokens {kind} [{rows}, {vocab}] {name}: "
+                      f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                      f"ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+                      f"torch.argmax {r['argmax_ms']:.4f} ms [{card}]")
     return t
 
 
@@ -885,129 +983,163 @@ def served_gap(model, ctx, sampling, token):
                                 row(token, torch.int64))[0])
 
 
-def serve_sampled(pa, model, serving, card):
-    """Phase 3b: phase 3's f32 model through ServingAPI with chunks of 256,
-    12 requests mixing greedy, sampled (SAMPLED, seeded), top-k 1 at
-    temperature 0.8, sampled at 1.2 with top-p 0.9, and two of each
-    constraint (a TrieConstraint, and a TokenDFA.from_regex over TABLE,
-    sampled). Unconstrained tokens equal ``generate(sampling=...)``; a
+def sampled_mix(vocab, n, seed):
+    """``submit`` arguments of ``n`` requests cycling through greedy,
+    sampled (SAMPLED, seeded), top-k 1 at temperature 0.8, sampled at 1.2
+    with top-p 0.9, a TrieConstraint, and a TokenDFA.from_regex over TABLE
+    (sampled); request i's seed is ``seed + i``."""
+    from paddle_tpu_torch.serving import (SamplingParams, TokenDFA,
+                                          TrieConstraint)
+    from paddle_tpu_torch.tools.profile_decode import SAMPLED
+
+    kinds = ["greedy", "sampled", "top_k1", "top_p", "trie", "regex"]
+    kw = []
+    for i in range(n):
+        kind = kinds[i % len(kinds)]
+        sp = {"greedy": None, "trie": None,
+              "sampled": dict(SAMPLED),
+              "top_k1": dict(temperature=0.8, top_k=1),
+              "top_p": dict(temperature=1.2, top_p=0.9),
+              "regex": dict(temperature=1.0)}[kind]
+        k = {} if sp is None else {
+            "sampling": SamplingParams(**sp, seed=seed + i)}
+        if kind == "trie":
+            k.update(constraint=TrieConstraint(TRIE, vocab,
+                                               stop_token_id=STOP),
+                     stop_token_id=STOP)
+        if kind == "regex":
+            k.update(constraint=TokenDFA.from_regex(
+                REGEX, TABLE, vocab, stop_token_id=STOP),
+                stop_token_id=STOP)
+        kw.append(k)
+    return kw
+
+
+def hold_sampled_wave(api, pa, model, prompts, news, kw, what, card):
+    """Serve one wave of ``sampled_mix`` requests and hold it: every launch
+    exact (the sampling kernel once per decode step, prefill, chunk and
+    warm-up); unconstrained tokens equal ``generate(sampling=...)``, where a
     sampled token may differ only with its draw within SERVED_BOUNDARY of
     its interval of the cum of the model's full causal forward at that
     context (printed), and the request's later tokens are then held against
     ``generate(sampling=...)`` over the prompt and the served tokens up to
     and including that one (positional keys continue the same stream);
-    constrained ones stay in their grammar, every launch is exact (the
-    sampling kernel once per decode step, prefill, chunk and warm-up), the
+    constrained ones stay in their grammar. Returns the launches and what
+    the engine ran."""
+    layers = model.cfg.num_layers
+    reqs, launches, ran = serve(api, pa, prompts, news, what, card, kw)
+    hold_launches(launches, want_launches(
+        layers, ran, chunk="paged_prefill_attention"),
+        f"{what} ({layers} x (decode steps + warm-ups), {layers} x "
+        "(prefills + chunks + warm-ups), sampling 1 x (decode steps + "
+        "prefills + chunks + warm-ups))")
+    t0, ok_gen, ok_grammar, diverged = time.perf_counter(), 0, 0, 0
+    for i, (p, r, n, k) in enumerate(zip(prompts, reqs, news, kw)):
+        c = k.get("constraint")
+        if c is not None:
+            state = c.initial()
+            for tok in r.tokens:
+                if not c.allowed(state)[tok]:
+                    raise AssertionError(f"{what}: request {i} emitted "
+                                         f"{tok} outside its grammar: "
+                                         f"{r.tokens}")
+                state = c.advance(state, tok)
+            ok_grammar += 1
+            continue
+        got = np.asarray(r.tokens)
+        if len(got) != n:
+            raise AssertionError(f"{what}: request {i} emitted "
+                                 f"{len(got)} tokens, asked {n}")
+        start, left = 0, False
+        while start < n:
+            # generate() from the prompt and got[:start] gives got[start:]
+            ctx = np.concatenate([p, got[:start]])
+            ref = model.generate(ctx[None], max_new_tokens=n - start,
+                                 sampling=r.sampling)[0, len(ctx):]
+            ref = ref.cpu().numpy()
+            off = np.flatnonzero(got[start:] != ref)
+            if not off.size:
+                break
+            j = start + int(off[0])
+            gap = served_gap(model, np.concatenate([p, got[:j]]),
+                             r.sampling, int(got[j]))
+            print(f"e2e {what}: request {i} ({r.sampling}) leaves "
+                  f"generate(sampling=...) at token {j}: {got[j]} vs "
+                  f"{ref[j - start]}, the draw {gap:.3e} (relative) "
+                  f"from the served token's interval of the full "
+                  f"forward's cum; tokens after it held against "
+                  f"generate() from there [{card}]")
+            if r.sampling is None or r.sampling.greedy \
+                    or gap > SERVED_BOUNDARY:
+                raise AssertionError(
+                    f"{what}: request {i} diverges from generate() at "
+                    f"{j}: {got[start:j + 2]} vs "
+                    f"{ref[:j - start + 2]}")
+            left, start = True, j + 1
+        diverged += left
+        ok_gen += not left
+    print(f"e2e {what}: {ok_gen} unconstrained requests equal "
+          f"generate(sampling=...), {diverged} left it at a boundary of "
+          f"cum and equal it after, {ok_grammar} constrained ones in "
+          f"their grammar ({time.perf_counter() - t0:.1f} s); stats "
+          f"sampling.admits {api.engine.sampled_admits}, "
+          f"constrain.admits {api.engine.constrained_admits} [{card}]")
+    return launches, ran
+
+
+def serve_sampled(pa, model, serving, card):
+    """Phase 3b: phase 3's f32 model through ServingAPI with chunks of 256,
+    12 requests of ``sampled_mix``, held by ``hold_sampled_wave``; the
     engine builds one decode graph and one per bucket, and a second mixed
     wave builds nothing. Returns the first wave's launches."""
-    from paddle_tpu_torch.serving import (SamplingParams, TokenDFA,
-                                          TrieConstraint)
-    from paddle_tpu_torch.tools.profile_decode import SAMPLED
-
-    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    vocab = model.cfg.vocab_size
     cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(
         num_slots=8, chunked_prefill=CHUNK), device="cuda")
     lens = [5, 700, 37, 129, 16, 300, 64, 511, 9, 250, 48, 17]
     news = [16, 24, 20, 16, 24, 16, 20, 18, 24, 16, 20, 24]
-
-    def mix(seed):
-        kinds = ["greedy", "sampled", "top_k1", "top_p", "trie", "regex"]
-        kw = []
-        for i in range(len(lens)):
-            kind = kinds[i % len(kinds)]
-            sp = {"greedy": None, "trie": None,
-                  "sampled": dict(SAMPLED),
-                  "top_k1": dict(temperature=0.8, top_k=1),
-                  "top_p": dict(temperature=1.2, top_p=0.9),
-                  "regex": dict(temperature=1.0)}[kind]
-            k = {} if sp is None else {
-                "sampling": SamplingParams(**sp, seed=seed + i)}
-            if kind == "trie":
-                k.update(constraint=TrieConstraint(TRIE, vocab,
-                                                   stop_token_id=STOP),
-                         stop_token_id=STOP)
-            if kind == "regex":
-                k.update(constraint=TokenDFA.from_regex(
-                    REGEX, TABLE, vocab, stop_token_id=STOP),
-                    stop_token_id=STOP)
-            kw.append(k)
-        return kw
-
-    def hold_wave(prompts, kw, what):
-        reqs, launches, ran = serve(api, pa, prompts, news, what, card, kw)
-        hold_launches(launches, want_launches(
-            layers, ran, chunk="paged_prefill_attention"),
-            f"{what} (24 x (decode steps + warm-ups), 24 x (prefills + "
-            "chunks + warm-ups), sampling 1 x (decode steps + prefills + "
-            "chunks + warm-ups))")
-        t0, ok_gen, ok_grammar, diverged = time.perf_counter(), 0, 0, 0
-        for i, (p, r, n, k) in enumerate(zip(prompts, reqs, news, kw)):
-            c = k.get("constraint")
-            if c is not None:
-                state = c.initial()
-                for tok in r.tokens:
-                    if not c.allowed(state)[tok]:
-                        raise AssertionError(f"{what}: request {i} emitted "
-                                             f"{tok} outside its grammar: "
-                                             f"{r.tokens}")
-                    state = c.advance(state, tok)
-                ok_grammar += 1
-                continue
-            got = np.asarray(r.tokens)
-            if len(got) != n:
-                raise AssertionError(f"{what}: request {i} emitted "
-                                     f"{len(got)} tokens, asked {n}")
-            start, left = 0, False
-            while start < n:
-                # generate() from the prompt and got[:start] gives got[start:]
-                ctx = np.concatenate([p, got[:start]])
-                ref = model.generate(ctx[None], max_new_tokens=n - start,
-                                     sampling=r.sampling)[0, len(ctx):]
-                ref = ref.cpu().numpy()
-                off = np.flatnonzero(got[start:] != ref)
-                if not off.size:
-                    break
-                j = start + int(off[0])
-                gap = served_gap(model, np.concatenate([p, got[:j]]),
-                                 r.sampling, int(got[j]))
-                print(f"e2e {what}: request {i} ({r.sampling}) leaves "
-                      f"generate(sampling=...) at token {j}: {got[j]} vs "
-                      f"{ref[j - start]}, the draw {gap:.3e} (relative) "
-                      f"from the served token's interval of the full "
-                      f"forward's cum; tokens after it held against "
-                      f"generate() from there [{card}]")
-                if r.sampling is None or r.sampling.greedy \
-                        or gap > SERVED_BOUNDARY:
-                    raise AssertionError(
-                        f"{what}: request {i} diverges from generate() at "
-                        f"{j}: {got[start:j + 2]} vs "
-                        f"{ref[:j - start + 2]}")
-                left, start = True, j + 1
-            diverged += left
-            ok_gen += not left
-        print(f"e2e {what}: {ok_gen} unconstrained requests equal "
-              f"generate(sampling=...), {diverged} left it at a boundary of "
-              f"cum and equal it after, {ok_grammar} constrained ones in "
-              f"their grammar ({time.perf_counter() - t0:.1f} s); stats "
-              f"sampling.admits {api.engine.sampled_admits}, "
-              f"constrain.admits {api.engine.constrained_admits} [{card}]")
-        return launches, ran
-
     rng = np.random.default_rng(21)
     prompts = [rng.integers(0, vocab, n) for n in lens]
     what = f"f32 mixed sampling, chunks of {CHUNK}"
-    launches, _ = hold_wave(prompts, mix(1000), what)
+    launches, _ = hold_sampled_wave(api, pa, model, prompts, news,
+                                    sampled_mix(vocab, len(lens), 1000),
+                                    what, card)
     hold_programs(api.engine, cc, lens, what, card, chunk=CHUNK)
     rng.shuffle(lens)
     prompts = [rng.integers(0, vocab, n) for n in lens]
-    _, ran = hold_wave(prompts, mix(2000), what + ", second wave")
+    _, ran = hold_sampled_wave(api, pa, model, prompts, news,
+                               sampled_mix(vocab, len(lens), 2000),
+                               what + ", second wave", card)
     if (ran.decode_builds, ran.prefill_builds, ran.chunk_builds) != (0, 0, 0):
         raise AssertionError(f"{what}: the second wave built programs {ran}")
     hold_programs(api.engine, cc, lens, what + ", second wave", card,
                   chunk=CHUNK)
     api.close()
     return launches
+
+
+def serve_wide_vocab(pa, gpt, serving, card):
+    """Phase 3c: gpt_1p3b cut to 2 layers with Llama 3's 128,256-token
+    vocabulary (seeded f32 weights), served with chunks of 256 through
+    ``hold_sampled_wave``: 10 requests of ``sampled_mix``, greedy tokens
+    equal to ``generate()`` and sampled ones to ``generate(sampling=...)``,
+    the sampling kernel at a width its first design refused."""
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=2,
+                              vocab_size=LLAMA3_VOCAB)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    gpt.load_functional_state(model, gpt.seeded_state(model, seed=5))
+    cc = decode_compiles()
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=8, chunked_prefill=CHUNK), device="cuda")
+    rng = np.random.default_rng(14)
+    lens = [5, 300, 37, 129, 16, 700, 64, 250, 9, 48]
+    news = [16, 24, 20, 16, 24, 16, 20, 18, 24, 16]
+    prompts = [rng.integers(0, LLAMA3_VOCAB, n) for n in lens]
+    what = f"f32 vocab {LLAMA3_VOCAB} (2 layers), chunks of {CHUNK}"
+    hold_sampled_wave(api, pa, model, prompts, news,
+                      sampled_mix(LLAMA3_VOCAB, len(lens), 3000), what, card)
+    hold_programs(api.engine, cc, lens, what, card, chunk=CHUNK)
+    api.close()
 
 
 class Shadow:
@@ -1895,6 +2027,7 @@ def main() -> int:
     # the sampling row's launches are phase 3b's, the sampled main path
     launches["sample_tokens"] = serve_sampled(pa, model, serving,
                                               card)["sample_tokens"]
+    serve_wide_vocab(pa, gpt, serving, card)
     quant_launches = serve_quantized(pa, gpt, serving, arrays, card)
     torch.cuda.empty_cache()
     # the int8 rows' launches are phase 5's, the path that runs them
@@ -1915,15 +2048,16 @@ def main() -> int:
     # a flash row's launches are the timed bf16 phase's (the tensor-core
     # instances its times belong to); launches_f32 the f32 phase's
     launches.update(flash_launches)
-    st, gt = samp_times["sampled"], samp_times["greedy"]
+    st = samp_times[("f32", 8, "sampled")]
     timing["sample_tokens"] = dict(
         max_abs_err=u_err, token_mismatches=differ, ms=st["ms"],
         plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
         bound_by=st["bound_by"], library_ms=None,
         library_note="no PyTorch call samples with top-k/top-p under "
                      "threefry keys; torch.argmax computes the greedy rows",
-        argmax_ms=st["argmax_ms"], greedy_ms=gt["ms"],
-        greedy_bound_ms=gt["bound_ms"], greedy_plain_ms=gt["plain_ms"])
+        argmax_ms=st["argmax_ms"],
+        times={f"{n} [{r}, {vocab}] {k}": v
+               for (n, r, k), v in samp_times.items()})
     kernels = [dict(name=name, route="cuda", source=SOURCES[src],
                     replaces=REPLACES[name], launches=launches[name],
                     **({"launches_f32": launches_f32[name]}

@@ -25,29 +25,49 @@ branch on the host: it computes both branches and selects with
 ``torch.where``, as the JAX function's last line does, so a captured step on
 the CPU's route sees no data-dependent ``if`` either.
 
+On the card each row is split across a thread block cluster of
+:data:`CLUSTER` CTAs; the top-k
+and top-p thresholds are found exactly (a pass over value buckets, then
+the crossing bucket's entries sorted; a radix select over the keys where a
+bucket is crowded) and the JAX function's 64 bisection steps are replayed
+on scalars against them, so the kept sets are the bisection's. The kernel reads bf16 and float16 logits in
+their own type (the conversion is exact); nothing is cast or allocated per
+launch beside the tokens and draws. :func:`row_resident` decides once per
+device, vocabulary width and dtype whether each CTA keeps its slice of the
+row in shared memory.
+
 Bound on an H100 SXM: the logits and the mask are read once (about 2.0 MB
-at 8 x 50304). The kernel's 2 x 64 bisection passes over a sampled row are
-its own cost, not the function's: a radix select finds the same thresholds
-in a few passes. The kernel's design and its known costs are in its
-source.
+at 8 x 50304 in float32, 1.2 MB in bf16). The kernel's design, its barrier
+count and its known costs are in its source.
 """
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
 from ..core import rng
 
 __all__ = ["sample", "sample_ref", "draw_margin", "launches",
-           "reset_launches", "load_kernels", "MAX_VOCAB"]
+           "reset_launches", "load_kernels", "row_resident", "slice_len",
+           "CLUSTER", "MAX_VOCAB"]
 
 #: kernel launches, one per launch
 launches = {"sample_tokens": 0}
-#: the widest row the kernel keeps in one block's shared memory (227 KB)
-MAX_VOCAB = 232448 // 4 - 256
+#: CTAs a row is split across (the kernel's kCluster, the largest portable
+#: cluster)
+CLUSTER = 8
+_VEC = 8     # a slice is a multiple of 8 logits (the kernel's kVec)
+#: the widest row whose indices the kernel keeps in int32 (each rank's
+#: slice is rounded up to a multiple of 8 within them)
+MAX_VOCAB = 2 ** 31 - 1 - _VEC * CLUSTER
 _STEPS = 64  # bisection steps, as the JAX function
+_DTYPE_CODES = types.MappingProxyType(  # as paged_attention's
+    {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2})
 _lib = None
+#: the kernel's form per (device, vocab, dtype): see row_resident
+_plans = {}
 
 
 def reset_launches() -> None:
@@ -65,10 +85,49 @@ def load_kernels() -> ctypes.CDLL:
 
         lib = library("sampling")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sample_tokens_launch.argtypes = [ptr] * 10 + [i32, i32, ptr]
+        lib.sample_tokens_launch.argtypes = ([i32] + [ptr] * 9
+                                             + [i32] * 3 + [ptr])
         lib.sample_tokens_launch.restype = i32
+        lib.sample_tokens_plan.argtypes = [i32, i32, ptr]
+        lib.sample_tokens_plan.restype = i32
         _lib = lib
     return _lib
+
+
+def slice_len(vocab: int) -> int:
+    """Logits of one rank's slice of a row (the kernel's ``slice_len``):
+    ``ceil(vocab / CLUSTER)`` rounded up to 8; rank ``c`` owns
+    ``[c * slice, (c + 1) * slice)`` of the row, the last ranks fewer or
+    none."""
+    per = -(-vocab // CLUSTER)
+    return -(-per // _VEC) * _VEC
+
+
+def row_resident(device: torch.device, vocab: int,
+                 dtype: torch.dtype) -> bool:
+    """Whether each CTA keeps its slice of a row of ``vocab`` logits of
+    ``dtype`` (its s and probabilities) in shared memory on ``device``, or
+    reads the slice again from the logits at every pass: decided on first
+    use by the kernel's own ``sample_tokens_plan`` (the slice fits, and
+    ``cudaOccupancyMaxActiveClusters`` finds room for the cluster; on an
+    H100, rows of up to about 196K logits: 227 KB a CTA less the kernel's
+    36 KB of static shared memory) and kept. It depends on the row's width
+    only, never on the number of rows, so a row gives the same bits alone
+    (a prefill's ``[1, V]``) and in a batch (the decode step). A serving
+    engine's warm-up makes it before any capture."""
+    key = (device, vocab, dtype)
+    # analysis: allow(mutable-global-capture) — decided once per device and
+    # shape before any capture (the warm-up launches first) and kept, as
+    # paged_attention's split count: a graph bakes in the launch it made
+    if key not in _plans:
+        resident = (ctypes.c_int * 1)()
+        with torch.cuda.device(device):
+            rc = load_kernels().sample_tokens_plan(_DTYPE_CODES[dtype], vocab,
+                                                   resident)
+        if rc != 0:
+            raise RuntimeError(f"sample_tokens_plan failed: CUDA error {rc}")
+        _plans[key] = bool(resident[0])
+    return _plans[key]
 
 
 def _bisect(pred, lo, hi):
@@ -81,9 +140,12 @@ def _bisect(pred, lo, hi):
     return lo, hi
 
 
-def _kept_cdf(logits, temperature, top_k, top_p, allowed):
-    """The greedy tokens ``[R]`` and the sampled rows' inclusive prefix sum
-    of the kept probabilities ``[R, V]``: steps 1-6 of the JAX function."""
+def _truncate(logits, temperature, top_k, top_p, allowed):
+    """Steps 1-5 of the JAX function: the greedy tokens ``[R]``, the scaled
+    row after the top-k cut and its softmax ``[R, V]``, the finite range
+    ``lo0``/``hi0`` and the two bisections' thresholds ``kth`` (the top-k
+    bracket's lower end) and ``p_thresh`` (the top-p bracket's upper end),
+    each ``[R]``."""
     vocab = logits.shape[-1]
     logits = logits.float()
     if allowed is not None:
@@ -104,9 +166,19 @@ def _kept_cdf(logits, temperature, top_k, top_p, allowed):
     _, p_thresh = _bisect(
         lambda mid: torch.where(scaled > mid[:, None], probs, 0.0).sum(-1)
         >= p, lo0, hi0)
+    return dict(greedy=greedy, scaled=scaled, probs=probs, lo0=lo0, hi0=hi0,
+                kth=kth, p_thresh=p_thresh)
+
+
+def _kept_cdf(logits, temperature, top_k, top_p, allowed):
+    """The greedy tokens ``[R]`` and the sampled rows' inclusive prefix sum
+    of the kept probabilities ``[R, V]``: steps 1-6 of the JAX function."""
+    t = _truncate(logits, temperature, top_k, top_p, allowed)
+    p = top_p.float()
     p_on = ((p > 0.0) & (p < 1.0))[:, None]
-    probs = torch.where(~p_on | (scaled >= p_thresh[:, None]), probs, 0.0)
-    return greedy, torch.cumsum(probs, dim=-1)
+    probs = torch.where(~p_on | (t["scaled"] >= t["p_thresh"][:, None]),
+                        t["probs"], 0.0)
+    return t["greedy"], torch.cumsum(probs, dim=-1)
 
 
 def sample_ref(logits, temperature, top_k, top_p, seeds, positions,
@@ -143,12 +215,12 @@ def draw_margin(logits, temperature, top_k, top_p, allowed, u, tokens):
 def sample(logits, temperature, top_k, top_p, seeds, positions,
            allowed=None):
     """Next tokens ``[R]`` int64 and the drawn uniforms ``[R]`` float32
-    from ``logits [R, V]`` (float32, bfloat16 or float16: cast to float32
-    first, as the JAX function does), ``temperature``/``top_p`` ``[R]``
-    float, ``top_k``/``seeds``/``positions`` ``[R]`` int and ``allowed``
-    ``[R, V]`` bool (None: every token allowed). ``positions`` is each
-    token's positional key. The plain version on the CPU, the kernel on a
-    CUDA device."""
+    from ``logits [R, V]`` (float32, bfloat16 or float16: the values of
+    their float32 cast, as the JAX function takes them), ``temperature``/
+    ``top_p`` ``[R]`` float, ``top_k``/``seeds``/``positions`` ``[R]`` int
+    and ``allowed`` ``[R, V]`` bool (None: every token allowed).
+    ``positions`` is each token's positional key. The plain version on the
+    CPU, the kernel on a CUDA device."""
     if logits.device.type == "cpu":
         return sample_ref(logits, temperature, top_k, top_p, seeds,
                           positions, allowed)
@@ -162,11 +234,14 @@ def _launch(logits, temperature, top_k, top_p, seeds, positions, allowed):
     if logits.dim() != 2:
         raise ValueError(f"logits must be [rows, vocab], got "
                          f"{tuple(logits.shape)}")
+    if logits.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the sampling kernel takes float32, bfloat16 or "
+                        f"float16 logits, got {logits.dtype}")
     rows, vocab = logits.shape
     if vocab > MAX_VOCAB:
-        raise ValueError(f"the sampling kernel keeps a row of at most "
-                         f"{MAX_VOCAB} logits in shared memory, got {vocab}")
-    logits = logits.float().contiguous()
+        raise ValueError(f"the sampling kernel indexes a row in int32: at "
+                         f"most {MAX_VOCAB} logits, got {vocab}")
+    logits = logits.contiguous()
     params = (temperature.float().contiguous(), top_k.int().contiguous(),
               top_p.float().contiguous(), seeds.int().contiguous(),
               positions.int().contiguous())
@@ -183,15 +258,15 @@ def _launch(logits, temperature, top_k, top_p, seeds, positions, allowed):
         if t.shape != (rows,):
             raise ValueError(f"per-row operands must be [{rows}], got "
                              f"{tuple(t.shape)}")
+    resident = row_resident(logits.device, vocab, logits.dtype)
     tokens = torch.empty(rows, dtype=torch.int64, device=logits.device)
     u = torch.empty(rows, dtype=torch.float32, device=logits.device)
-    work = torch.empty((rows, vocab), dtype=torch.float32,
-                       device=logits.device)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     rc = load_kernels().sample_tokens_launch(
-        logits.data_ptr(), allowed.data_ptr() if allowed is not None else None,
+        _DTYPE_CODES[logits.dtype], logits.data_ptr(),
+        allowed.data_ptr() if allowed is not None else None,
         *(t.data_ptr() for t in params), tokens.data_ptr(), u.data_ptr(),
-        work.data_ptr(), rows, vocab, stream)
+        rows, vocab, int(resident), stream)
     if rc != 0:
         raise RuntimeError(f"sample_tokens_launch failed: CUDA error {rc}")
     # analysis: allow(mutable-global-capture) — a capture counts here once;
