@@ -20,7 +20,10 @@ no result. Phases, in order; each raises on failure:
    permuted, partial tables, decode and chunks of 256 at prefixes 0 and
    768. Then the prefill kernel's tile edges, both instances, head dims
    128 and 64: 1, 37, 65 and 300 queries at prefixes 0, 5, 768 and 1000,
-   and the full-prefill route at the same counts. Then the decode kernel's
+   and the full-prefill route at the same counts; then the prefix cache's
+   inputs: a table sharing its first 32 blocks with another, 64 queries at
+   prefix 512, one query at prefixes 511 and 1023 (a copy-on-write
+   recompute). Then the decode kernel's
    edges (``decode_checks``): head dims 32, 64, 128 and 256, every dtype,
    both pools, the ragged positions ``DECODE_POS`` (block and split edges)
    in one launch, table entries past each slot's last block pointing at a
@@ -77,6 +80,16 @@ no result. Phases, in order; each raises on failure:
 3c. ``gpt_1p3b`` cut to 2 layers with Llama 3's vocabulary of 128,256
    tokens (seeded f32 weights), chunks of 256 (``serve_wide_vocab``): 10
    requests of phase 3b's mix, held as phase 3b holds them.
+3d. Phase 3's model and engine sizes with the radix prefix cache on and
+   the arena invariants audited at every release (``serve_prefix``): 8
+   requests sharing a 512-token prefix (one miss, 7 hits attached to its
+   blocks), the prefix resubmitted alone (copy-on-write, one query at
+   511), an eviction wave on an arena of 60 blocks, and a priority wave on
+   2 slots with ``serving_starvation_steps=1`` (a priority-0 arrival
+   preempts the priority-7 runner, which resumes from its journal). Tokens
+   equal ``generate()``, one suffix prefill per hit,
+   ``tokens.prefill_avoided`` = 7 x 512 and 511, launches exact (suffix
+   prefills through the prefill kernel), every program built once.
 4. A second f32 ``gpt_1p3b`` from the same weights, served with
    ``quant_weights`` (int8 weights, per-channel scales, quantized on the
    card: 8 of its linears, and one in bf16, must equal the CPU's
@@ -99,7 +112,14 @@ no result. Phases, in order; each raises on failure:
    to first token of a 512-token prompt at its bucket's first admission
    (warm-up and capture) and replayed, then every layer's kernel output
    of one such prefill and of an int8 chunk at prefix 768 held against its
-   plain version (phase 2's bars). Then the median decode-step time (a
+   plain version (phase 2's bars). Then the prefix cache in bf16,
+   unquantized and with ``quant_kv`` (``bf16_prefix``): the host-clock time
+   from admission to first token of a 512 + 64 prompt, miss against hit
+   (median of 5, captured buckets), every layer's prefill kernel output of
+   a hit over another slot's blocks and of a COW recompute at 511 held
+   against its plain version, the COW copy's time beside its bound, and
+   the token agreement of 4 hits with the cache off (printed, not held).
+   Then the median decode-step time (a
    graph replay) and tokens/s of 8 full slots, unquantized (greedy, all
    sampled, and 4 constrained + 4 sampled), with
    ``quant_kv``, and with ``quant_kv`` + ``quant_weights``, with the arena
@@ -157,7 +177,9 @@ Then one JSON line of per-kernel results (a paged row's ``launches`` are
 phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
 instances its times belong to, and ``launches_f32`` phase 8's; the
 sampling row's phase 3b's, its times the 8 all-sampled float32 rows',
-with every timed setting and ``torch.argmax`` beside them),
+with every timed setting and ``torch.argmax`` beside them; the two
+unquantized paged rows' and the sampling row's ``launches_prefix`` phase
+3d's shared-prefix wave),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -464,7 +486,9 @@ def prefill_edges(pa, rng, dtype):
     counts that end inside a 16-row warp tile, a 32- and a 64-row block tile
     (37, 65, 300), at prefixes 0, 5, 768 and 1000, so the last key (and the
     last 64-key tile) ends inside a block; and the full-prefill route at the
-    same counts."""
+    same counts. Then the prefix cache's inputs: a table sharing its first
+    32 blocks with the first, 64 queries at prefix 512, and one query at
+    prefixes 511 and 1023 (a copy-on-write recompute)."""
     h, MB = 4, 96  # 1536 keys: the longest walk is 1000 + 300
     for d in (D, 64):
         nb = MB + 1
@@ -486,6 +510,23 @@ def prefill_edges(pa, rng, dtype):
                           pa.paged_prefill_attention(q, entry, bt, prefix),
                           pa.paged_prefill_attention_ref(q, entry, bt,
                                                          prefix))
+        # the prefix cache's inputs: a table whose first 32 blocks are
+        # ``bt``'s (a hit attached to another slot's prefix, then its own
+        # blocks), a 64-token suffix at 512, and one query at clen - 1 (the
+        # copy-on-write recompute of a fully cached, block-aligned context)
+        # (queries from a generator of their own: the older checks keep
+        # their inputs)
+        hit = torch.cat([bt[:32], bt[32:].flip(0)])
+        qrng = np.random.default_rng(90 + d)
+        for table, sq, prefix in ((hit, 64, 512), (hit, 1, 511),
+                                  (bt, 1, 511), (hit, 1, 1023)):
+            q = qkv_split(qrng, sq, h, d, dtype)[0]
+            for name, entry in entries.items():
+                check(name, dtype, f"shared table sq={sq} prefix={prefix} "
+                      f"H={h} D={d}",
+                      pa.paged_prefill_attention(q, entry, table, prefix),
+                      pa.paged_prefill_attention_ref(q, entry, table,
+                                                     prefix))
 
 
 def decode_compiles() -> int:
@@ -502,41 +543,58 @@ def builds(eng):
             sum(eng.prefix_prefill_traces.values()))
 
 
-def serve(api, pa, prompts, news, what, card, submit_kw=None):
+def ran_counts(eng):
+    """What the engine has run so far: decode steps, whole-prompt
+    prefills, prefill chunks, cache hits' suffix prefills, then
+    ``builds``."""
+    return (eng.decode_steps, eng.prefills, eng.prefill_chunks,
+            eng.suffix_prefills) + builds(eng)
+
+
+def serve(api, pa, prompts, news, what, card, submit_kw=None, drive=None):
     """Serve ``prompts`` through ``api`` with the launch counters (paged
     attention and sampling) set to 0 just before and read just after;
-    ``submit_kw`` gives each request's other ``submit`` arguments. Every
+    ``submit_kw`` gives each request's other ``submit`` arguments;
+    ``drive(submit)``, where given, submits (``submit(i)`` submits request
+    i) and pumps in its own order instead of submitting all at once. Every
     request must finish with its budget of tokens (or at its stop token),
-    every block must be free again and the arena's invariants must hold.
-    Returns the requests, the launches and what the engine ran meanwhile:
-    decode steps, whole-prompt prefills, prefill chunks, and the builds of
-    each kind of program (``builds``)."""
+    every block must be free again (or held by the prefix cache) and the
+    arena's invariants must hold. Returns the requests, the launches and
+    what the engine ran meanwhile (``ran_counts``)."""
     from paddle_tpu_torch.ops import sampling as so
     from paddle_tpu_torch.serving import RequestState
 
     eng = api.engine
     submit_kw = submit_kw or [{}] * len(prompts)
-    before = (eng.decode_steps, eng.prefills, eng.prefill_chunks) \
-        + builds(eng)
+    before = ran_counts(eng)
     t0 = time.perf_counter()
     pa.reset_launches()
     so.reset_launches()
-    reqs = [api.submit(p, max_new_tokens=n, **kw)
-            for p, n, kw in zip(prompts, news, submit_kw)]
+    reqs = [None] * len(prompts)
+
+    def submit(i):
+        reqs[i] = api.submit(prompts[i], max_new_tokens=news[i],
+                             **submit_kw[i])
+        return reqs[i]
+
+    if drive is None:
+        for i in range(len(prompts)):
+            submit(i)
+    else:
+        drive(submit)
     api.run_until_idle()
     torch.cuda.synchronize()
     launches = dict(pa.launches) | dict(so.launches)
     ran = types.SimpleNamespace(**dict(zip(
-        ("steps", "prefills", "chunks", "decode_builds", "prefill_builds",
-         "chunk_builds"),
-        (a - b for a, b in zip((eng.decode_steps, eng.prefills,
-                                eng.prefill_chunks) + builds(eng),
-                               before)))))
+        ("steps", "prefills", "chunks", "suffix", "decode_builds",
+         "prefill_builds", "chunk_builds"),
+        (a - b for a, b in zip(ran_counts(eng), before)))))
     print(f"e2e {what}: served {len(reqs)} requests in "
           f"{time.perf_counter() - t0:.2f} s, {ran.prefills} prefills, "
-          f"{ran.chunks} prefill chunks, {ran.steps} decode steps (graphs "
-          f"built: decode {ran.decode_builds}, prefill {ran.prefill_builds},"
-          f" chunk {ran.chunk_builds}), launches {launches} [{card}]")
+          f"{ran.chunks} prefill chunks, {ran.suffix} suffix prefills, "
+          f"{ran.steps} decode steps (graphs built: decode "
+          f"{ran.decode_builds}, prefill {ran.prefill_builds}, chunk "
+          f"{ran.chunk_builds}), launches {launches} [{card}]")
     for r, n in zip(reqs, news):
         stopped = (r.stop_token_id is not None and r.tokens
                    and r.tokens[-1] == r.stop_token_id)
@@ -545,7 +603,7 @@ def serve(api, pa, prompts, news, what, card, submit_kw=None):
             raise AssertionError(f"{r.request_id}: state {r.state}, "
                                  f"{len(r.tokens)}/{n} tokens, {r.error!r}")
     eng.check_invariants()
-    if eng.arena.blocks_in_use() != 0:
+    if eng.arena.blocks_in_use() != eng.arena.blocks_cached():
         raise AssertionError("blocks still in use after every retire")
     return reqs, launches, ran
 
@@ -555,15 +613,17 @@ def want_launches(layers, ran, decode="paged_decode_attention",
     """The exact launch counts of a served run: each layer's kernel once per
     replay of a program that attends through it, and once per warm-up
     (one per build; a capture launches nothing and is not counted); the
-    sampling kernel once per replay and warm-up of every program."""
+    sampling kernel once per replay and warm-up of every program. Chunks
+    and cache hits' suffixes run the suffix programs, through the ``chunk``
+    kernel (the prefill kernel where None)."""
+    chunk = chunk or prefill
     want = {decode: layers * (ran.steps + ran.decode_builds),
             prefill: layers * (ran.prefills + ran.prefill_builds),
             "sample_tokens": (ran.steps + ran.decode_builds + ran.prefills
                               + ran.prefill_builds + ran.chunks
-                              + ran.chunk_builds)}
-    if chunk is not None:
-        want[chunk] = want.get(chunk, 0) + layers * (ran.chunks
-                                                     + ran.chunk_builds)
+                              + ran.suffix + ran.chunk_builds)}
+    want[chunk] = want.get(chunk, 0) + layers * (ran.chunks + ran.suffix
+                                                 + ran.chunk_builds)
     return want
 
 
@@ -1142,6 +1202,296 @@ def serve_wide_vocab(pa, gpt, serving, card):
     api.close()
 
 
+# the prefix-cache phase (3d): a 512-token prefix shared by a wave of 8
+# (suffixes of 5-100 tokens), its resubmission alone (block-aligned: COW)
+PREFIX_LEN = 512
+PREFIX_SUFFIXES = [5, 64, 17, 100, 33, 9, 48, 80]
+PREFIX_NEWS = [12, 16, 10, 14, 16, 12, 10, 16]
+
+
+def hold_built_once(eng, compiles_before, what, card, full=None,
+                    suffix=None, decoded=True):
+    """The no-rebuild contract of an engine whose admissions hit the prefix
+    cache: one decode program (``decoded``), each whole-prompt and each
+    suffix bucket built once -- exactly ``full`` and ``suffix`` where given
+    (a preempted request's re-admission may first use a bucket, and builds
+    it then, once) -- the copy-on-write program at most once, and one CUDA
+    graph per program."""
+    graphs = eng.stats()["programs.graphs"]
+    moved = decode_compiles() - compiles_before
+    print(f"programs {what}: decode_traces {eng.decode_traces} "
+          f"(serving.decode_compiles +{moved}), prefill_traces "
+          f"{dict(sorted(eng.prefill_traces.items()))}, prefix_prefill_traces"
+          f" {dict(sorted(eng.prefix_prefill_traces.items()))}, cow_traces "
+          f"{eng.cow_traces}, {graphs} CUDA graphs [{card}]")
+    if eng.decode_traces != decoded or moved != decoded:
+        raise AssertionError(f"{what}: {eng.decode_traces} decode builds, "
+                             f"serving.decode_compiles +{moved}")
+    for traces, want in ((eng.prefill_traces, full),
+                         (eng.prefix_prefill_traces, suffix)):
+        if any(v != 1 for v in traces.values()) or (
+                want is not None and set(traces) != set(want)):
+            raise AssertionError(f"{what}: builds {traces}, want each of "
+                                 f"{sorted(want or traces)} once")
+    if eng.cow_traces > 1:
+        raise AssertionError(f"{what}: {eng.cow_traces} COW builds")
+    if graphs != (decoded + len(eng.prefill_traces)
+                  + len(eng.prefix_prefill_traces) + eng.cow_traces):
+        raise AssertionError(f"{what}: {graphs} CUDA graphs")
+
+
+def metric_delta(before, keys):
+    from paddle_tpu_torch.serving import metrics
+
+    now = metrics.stats()
+    return {k: now.get(k, 0) - before.get(k, 0) for k in keys}
+
+
+PREFIX_KEYS = ("prefix.hits", "prefix.misses", "prefix.suffix_prefills",
+               "prefix.cow_copies", "prefix.evictions",
+               "tokens.prefill_avoided", "scheduler.preemptions")
+
+
+def serve_prefix(pa, model, serving, card):
+    """Phase 3d: phase 3's f32 model and engine sizes with the prefix cache
+    on (the arena invariants audited at every release). A wave of 8
+    requests sharing a 512-token prefix (the first a miss, the 7 after it
+    hits attached to its blocks), then the prefix alone resubmitted (a
+    fully cached block-aligned prompt: copy-on-write and a one-token suffix
+    at 511), then an eviction wave on an arena of 60 blocks, then a
+    priority wave on 2 slots with ``serving_starvation_steps=1`` whose
+    priority-0 arrival preempts the priority-7 runner, which resumes from
+    its journal. Held: tokens equal ``generate()``, one suffix prefill per
+    hit, ``tokens.prefill_avoided``, the exact launches of the prefill and
+    decode kernels, and the no-rebuild contract. Returns the launches of
+    the shared-prefix wave."""
+    from paddle_tpu_torch.core import compile_cache, flags
+    from paddle_tpu_torch.serving import metrics
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    max_pos = model.cfg.max_position_embeddings
+    bucket = lambda n: compile_cache.prefill_bucket(  # noqa: E731
+        n, max_pos, flags.flag("serving_prefill_bucket_min"))
+    keep = flags.get_flags(["serving_arena_invariants",
+                            "serving_starvation_steps"])
+    flags.set_flags({"serving_arena_invariants": 1})
+    try:
+        rng = np.random.default_rng(30)
+        cc = decode_compiles()
+        api = serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=8, prefix_cache=True), device="cuda")
+        eng = api.engine
+        shared = rng.integers(0, vocab, PREFIX_LEN)
+        prompts = [np.concatenate([shared, rng.integers(0, vocab, n)])
+                   for n in PREFIX_SUFFIXES]
+        what = f"f32 prefix cache, {len(prompts)} requests sharing 512"
+        m0 = metrics.stats()
+        reqs, launches, ran = serve(api, pa, prompts, PREFIX_NEWS, what,
+                                    card)
+        d = metric_delta(m0, PREFIX_KEYS)
+        hits = len(prompts) - 1
+        if (ran.prefills, ran.suffix, d["prefix.hits"],
+                d["prefix.suffix_prefills"], d["tokens.prefill_avoided"]) \
+                != (1, hits, hits, hits, hits * PREFIX_LEN):
+            raise AssertionError(f"{what}: {ran.prefills} prefills, "
+                                 f"{ran.suffix} suffix prefills, {d}")
+        hold_launches(launches, want_launches(layers, ran),
+                      f"{what} (24 x (decode steps + warm-ups), 24 x "
+                      "(prefills + suffix prefills + warm-ups))")
+        hold_to_generate(model, prompts, reqs, PREFIX_NEWS, what, card)
+        wave_launches = launches
+        what = "f32 prefix cache, the shared 512 resubmitted (COW)"
+        m0 = metrics.stats()
+        reqs, launches, ran = serve(api, pa, [shared], [12], what, card)
+        d = metric_delta(m0, PREFIX_KEYS)
+        if (ran.prefills, ran.suffix, d["prefix.cow_copies"],
+                d["tokens.prefill_avoided"]) != (0, 1, 1, PREFIX_LEN - 1):
+            raise AssertionError(f"{what}: {ran}, {d}")
+        hold_launches(launches, want_launches(layers, ran), what)
+        hold_to_generate(model, [shared], reqs, [12], what, card)
+        hold_built_once(
+            eng, cc, "f32 prefix cache", card,
+            full={bucket(PREFIX_LEN + PREFIX_SUFFIXES[0])},
+            suffix={min(bucket(n), max_pos - PREFIX_LEN)
+                    for n in PREFIX_SUFFIXES[1:]} | {bucket(1)})
+        print(f"e2e f32 prefix cache: engine stats "
+              + json.dumps({k: v for k, v in eng.stats().items()
+                            if k.startswith(("prefix.", "arena.blocks"))
+                            or k in ("suffix_prefills", "cow_copies")})
+              + f" [{card}]")
+        api.close()
+
+        # eviction: 60 allocatable blocks, 3 prompts of 300 fill them; the
+        # next wave reserves past the free list and evicts LRU leaves
+        cc = decode_compiles()
+        api = serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=4, num_blocks=61, prefix_cache=True), device="cuda")
+        a = [rng.integers(0, vocab, 300) for _ in range(5)]
+        waves = [a[:3], [a[3], a[4], a[0]],
+                 [a[3], np.concatenate([a[2][:256], rng.integers(0, vocab,
+                                                                 30)])]]
+        m0 = metrics.stats()
+        for i, wave in enumerate(waves):
+            what = f"f32 prefix cache, eviction wave {i + 1}"
+            news = [8] * len(wave)
+            reqs, launches, ran = serve(api, pa, wave, news, what, card)
+            hold_launches(launches, want_launches(layers, ran), what)
+            hold_to_generate(model, wave, reqs, news, what, card)
+        d = metric_delta(m0, PREFIX_KEYS)
+        print(f"e2e f32 prefix cache eviction: {d} [{card}]")
+        if d["prefix.evictions"] <= 0 or d["prefix.hits"] <= 0:
+            raise AssertionError(f"eviction waves: {d}")
+        hold_built_once(api.engine, cc, "f32 prefix cache eviction", card)
+        api.close()
+
+        # priority: 2 slots held by priorities 5 and 7; a priority-0
+        # arrival starves 2 steps, then preempts the priority-7 runner
+        flags.set_flags({"serving_starvation_steps": 1})
+        cc = decode_compiles()
+        api = serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=2, prefix_cache=True), device="cuda")
+        prompts = [rng.integers(0, vocab, n) for n in (300, 200, 100)]
+        news = [24, 24, 16]
+        kw = [dict(priority=5), dict(priority=7), dict(priority=0)]
+
+        def drive(submit):
+            submit(0), submit(1)
+            for _ in range(3):
+                api._pump_once()
+            submit(2)
+
+        what = "f32 priority wave, serving_starvation_steps=1"
+        m0 = metrics.stats()
+        reqs, launches, ran = serve(api, pa, prompts, news, what, card,
+                                    submit_kw=kw, drive=drive)
+        d = metric_delta(m0, PREFIX_KEYS)
+        print(f"e2e {what}: {d}, preemptions per request "
+              f"{[r.preemptions for r in reqs]} [{card}]")
+        if d["scheduler.preemptions"] != 1 or [
+                r.preemptions for r in reqs] != [0, 1, 0]:
+            raise AssertionError(f"{what}: {d}")
+        hold_launches(launches, want_launches(layers, ran), what)
+        hold_to_generate(model, prompts, reqs, news, what + " (resumed)",
+                         card)
+        hold_built_once(api.engine, cc, what, card)
+        api.close()
+    finally:
+        flags.set_flags(keep)
+    return wave_launches
+
+
+def bf16_prefix(model, pa, serving, card):
+    """Phase 6, the prefix cache in bf16, unquantized and with ``quant_kv``:
+    on 8 slots, one admission of a 512-token prefix plus a 64-token suffix
+    is kept (its blocks are shared by the next hit), then 5 misses (other
+    prefixes) and, after the first hit, 5 hits at prefix 512: the host-clock
+    time from ``admit()`` to the first token on the host, median of 5, on
+    captured buckets. Every layer's prefill kernel output of the first hit
+    (a table whose 32 first blocks are another slot's) and of a COW
+    recompute (one query at 511) is held against its plain version on the
+    engine's pools (``Shadow``). The COW copy is timed beside its bound (the
+    block's bytes read and written once). Then 4 hits are served 16 tokens
+    and their agreement with the cache off is printed, not held."""
+    from paddle_tpu_torch.core import compile_cache, flags
+    from paddle_tpu_torch.serving import engine as engine_mod
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    bucket = lambda n: compile_cache.prefill_bucket(  # noqa: E731
+        n, model.cfg.max_position_embeddings,
+        flags.flag("serving_prefill_bucket_min"))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for quant_kv in (False, True):
+        what = "bf16 prefix cache" + (" int8 KV" if quant_kv else "")
+        rng = np.random.default_rng(31)
+        cc = decode_compiles()
+        api = serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=8, prefix_cache=True, quant_kv=quant_kv), device="cuda")
+        eng = api.engine
+        prefixes = [rng.integers(0, vocab, PREFIX_LEN) for _ in range(6)]
+
+        def ctx(i):
+            return np.concatenate([prefixes[i], rng.integers(0, vocab, 64)])
+
+        def first_token_ms(prompt):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slot, _ = eng.admit(prompt, 8)  # the first token to the host
+            ms = (time.perf_counter() - t0) * 1e3
+            return slot, ms
+
+        holder, _ = first_token_ms(ctx(0))  # builds the 576 bucket
+        miss = []
+        for i in range(1, 6):
+            slot, ms = first_token_ms(ctx(i))
+            miss.append(ms)
+            eng.retire(slot)
+        with Shadow(engine_mod, pa, layers,
+                    {"paged_prefill_attention": 0}) as shadow:
+            slot, hit_capture = first_token_ms(ctx(0))  # builds the 64 bucket
+            eng.retire(slot)
+        shadow.report(f"{what}: a hit at prefix 512 over shared blocks",
+                      card)
+        hit = []
+        for i in range(1, 6):
+            slot, ms = first_token_ms(ctx(i))
+            hit.append(ms)
+            eng.retire(slot)
+        if eng.suffix_prefills != 6 or eng.prefills != 6:
+            raise AssertionError(f"{what}: {eng.prefills} prefills, "
+                                 f"{eng.suffix_prefills} suffix prefills")
+        with Shadow(engine_mod, pa, layers,
+                    {"paged_prefill_attention": 0}) as shadow:
+            slot, _ = eng.admit(prefixes[0], 8)  # COW: one query at 511
+            eng.retire(slot)
+        shadow.report(f"{what}: the COW recompute at prefix 511", card)
+        if eng.cow_copies != 1:
+            raise AssertionError(f"{what}: {eng.cow_copies} COW copies")
+        eng.retire(holder)
+        prog = eng._graphs.programs["cow"]
+        src = next(iter(eng.prefix_cache._nodes.values())).block
+        dst = eng.arena._free[-1]  # a free block: its contents are unread
+        cow_ms = time_ms(lambda: (prog.run(src=src, dst=dst), prog.read()),
+                         flush)
+        nbytes = 2 * sum(t[0].numel() * t.element_size()
+                         for entry in eng.arena.pools for t in entry)
+        cow_bound = nbytes / HBM_BYTES_PER_S * 1e3
+        r = dict(miss_ms=float(np.median(miss)),
+                 hit_ms=float(np.median(hit)), hit_capture_ms=hit_capture,
+                 cow_ms=cow_ms, cow_bound_ms=cow_bound,
+                 cow_bytes=nbytes // 2)
+        print(f"{what}: admission to first token of a 512 + 64 prompt, "
+              f"median of 5 on captured buckets: miss {r['miss_ms']:.3f} ms "
+              f"({min(miss):.3f}-{max(miss):.3f}), hit {r['hit_ms']:.3f} ms "
+              f"({min(hit):.3f}-{max(hit):.3f}; {hit_capture:.3f} at the "
+              f"bucket's capture); COW copy {cow_ms:.4f} ms, bound "
+              f"{cow_bound:.4f} ms ({nbytes // 2} bytes read and written) "
+              f"[{card}]")
+        # agreement with the cache off: 4 hits against whole prefills
+        prompts = [ctx(i) for i in range(1, 5)]
+        news = [16] * 4
+        reqs = [api.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, news)]
+        api.run_until_idle()
+        hold_built_once(eng, cc, what, card,
+                        full={bucket(PREFIX_LEN + 64)},
+                        suffix={bucket(64), bucket(1)})
+        api.close()
+        off = serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=8, quant_kv=quant_kv), device="cuda")
+        ref = [off.submit(p, max_new_tokens=n)
+               for p, n in zip(prompts, news)]
+        off.run_until_idle()
+        off.close()
+        same = sum(int(a == b) for x, y in zip(reqs, ref)
+                   for a, b in zip(x.tokens, y.tokens))
+        r["agree_with_cache_off"] = same / sum(news)
+        print(f"{what}: tokens of 4 hits equal to the cache off: {same} of "
+              f"{sum(news)} (printed, not held: bf16) [{card}]")
+        out[what] = r
+    return out
+
+
 class Shadow:
     """Wraps some of the engine's paged wrappers (in ``serving.engine``, for
     this script only) and the step programs' ``run``: ``pick`` maps a
@@ -1629,6 +1979,8 @@ def serve_bf16(model, pa, serving, card):
     torch.cuda.empty_cache()
     first = bf16_prefills(model, pa, serving, card)
     torch.cuda.empty_cache()
+    prefix = bf16_prefix(model, pa, serving, card)
+    torch.cuda.empty_cache()
     runs = {"unquantized": decode_run(model, serving, {}, card),
             "sampled": decode_run(model, serving, {}, card, "sampled"),
             "constrained+sampled": decode_run(model, serving, {}, card,
@@ -1647,7 +1999,7 @@ def serve_bf16(model, pa, serving, card):
               f"{r['pool_bytes']} bytes [{card}]")
     print("bf16 serving through CUDA graphs, one call: " + json.dumps(
         {name: {k: r[k] for k in ("median_ms", "tokens_per_s", "pool_bytes")}
-         for name, r in runs.items()} | first) + f" [{card}]")
+         for name, r in runs.items()} | first | prefix) + f" [{card}]")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     results = {}
@@ -2028,6 +2380,7 @@ def main() -> int:
     launches["sample_tokens"] = serve_sampled(pa, model, serving,
                                               card)["sample_tokens"]
     serve_wide_vocab(pa, gpt, serving, card)
+    prefix_launches = serve_prefix(pa, model, serving, card)
     quant_launches = serve_quantized(pa, gpt, serving, arrays, card)
     torch.cuda.empty_cache()
     # the int8 rows' launches are phase 5's, the path that runs them
@@ -2062,6 +2415,8 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     **({"launches_f32": launches_f32[name]}
                        if name in FLASH else {}),
+                    **({"launches_prefix": prefix_launches[name]}
+                       if name in PAGED[:2] + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),
                                   ("flash_attention", FLASH),

@@ -71,3 +71,31 @@ define_flag("serving_quant_kv", 0)
 # Chunked prefill: a prompt longer than this many tokens is prefilled one
 # chunk per scheduler step through the slot's block table (0 = off).
 define_flag("serving_chunked_prefill", 0)
+# Queue-overload shedding: submit() raises QueueOverloadError when this many
+# requests are already waiting (0 = unlimited).
+define_flag("serving_max_queue", 0)
+# Priority admission: scheduler steps the best waiting request may be blocked
+# on capacity before the scheduler preempts the lowest-priority (most
+# recently admitted) running request to make room. 0 disables preemption.
+define_flag("serving_starvation_steps", 8)
+# Radix prefix cache over the paged KV arena: full prompt blocks are
+# content-hashed into a tree and shared by reference across slots
+# (refcounted, copy-on-write), so an admission whose prefix is resident
+# prefills only its unmatched suffix. 0 (default): every admit prefills its
+# full prompt into private blocks.
+define_flag("serving_prefix_cache", 0)
+# Cache-aware admission: how many times the strict (priority, arrival)
+# head-of-line waiter may be skipped in favor of a same-priority waiter whose
+# prefix is resident in the radix cache. Bounded so a cache-cold head request
+# is never starved past this window. 0 disables the preference.
+define_flag("serving_cache_affinity", 0)
+# Audit the refcount layer after every release path (retire, cancel,
+# preemption): free-list blocks must have refcount zero, and a block id may
+# appear in several slots' tables only when its refcount says so. Costs a
+# host walk per retire; tests turn it on, production leaves it off.
+define_flag("serving_arena_invariants", 0)
+# Publish each finished full prompt block into the radix cache at every
+# chunked-prefill chunk boundary instead of only at admission finish, so a
+# partial chain is shareable as soon as it exists. Requires
+# FLAGS_serving_prefix_cache.
+define_flag("serving_publish_chunks", 0)

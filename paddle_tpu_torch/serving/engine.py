@@ -58,14 +58,28 @@ the resident mask (a :class:`.graphs.ResidentBuffer`: only rows that
 changed are copied, :meth:`set_slot_mask`), its tokens keyed at
 ``positions + 1``; each prefill program over ``[1]`` buffers and the slot's
 mask row, its token keyed at the context index it will sit at. On the card
-that is the sampling kernel, one launch per step, prefill or chunk. The
-prefix cache, preemption, speculation, LoRA, tiering and the supervisor are
-later slices.
+that is the sampling kernel, one launch per step, prefill or chunk.
+
+With the radix prefix cache (``ServingConfig.prefix_cache`` /
+``FLAGS_serving_prefix_cache``, off by default; :mod:`.prefix_cache`) an
+admission walks the tree and attaches each resident full prompt block to
+the slot's table by reference, then prefills only the unmatched suffix
+through the suffix programs (the prefix length and the table are already
+data, so a hit of any depth reuses them). A fully matched, block-aligned
+context copies its last matched block into a private block (copy-on-write:
+:meth:`ServingEngine._cow_copy`, one program of its own with the source and
+destination blocks as data) and recomputes its last token there as a
+one-token suffix at ``prefix_len = clen - 1``; shared blocks are never
+written. After the prefill the prompt's full blocks are inserted into the
+tree. An admission may also carry a token journal (``tokens=``): it
+prefills ``prompt + journal`` and decoding resumes at the journal's next
+token, which is how a preempted request re-enters. Speculation, LoRA,
+tiering and the supervisor are later slices.
 """
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -83,6 +97,7 @@ from ..quantization import quantize_kv
 from . import metrics
 from .graphs import ResidentBuffer, StepGraphs
 from .kv_arena import KVArena, Reservation
+from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
 
 
@@ -186,7 +201,8 @@ class ServingConfig:
     ``FLAGS_serving_quant_weights`` (int8 weight-only matmuls; quantizes
     the model in place), ``quant_kv`` -> ``FLAGS_serving_quant_kv`` (int8
     KV arena), ``chunked_prefill`` -> ``FLAGS_serving_chunked_prefill``
-    (chunk size in tokens, 0 = off)."""
+    (chunk size in tokens, 0 = off), ``prefix_cache`` ->
+    ``FLAGS_serving_prefix_cache`` (the radix prefix cache)."""
 
     num_slots: int = 0
     kv_block_size: int = 0
@@ -196,19 +212,31 @@ class ServingConfig:
     quant_weights: Optional[bool] = None
     quant_kv: Optional[bool] = None
     chunked_prefill: Optional[int] = None
+    prefix_cache: Optional[bool] = None
 
 
 @dataclass
 class _AdmitState:
-    """What an admission carries from its setup (slot and blocks claimed)
-    to its finish (first token emitted, slot active): the unit of progress
-    of a chunked prefill."""
+    """What an admission carries from its setup (slot, blocks and shared
+    references claimed) to its finish (first token emitted, slot active):
+    the unit of progress of a chunked prefill. ``ctx`` is ``prompt +
+    journal``; ``shared`` the blocks attached from the prefix cache (the
+    first ``n_attached`` table entries); ``cow`` a fully matched
+    block-aligned context whose last block was copied; ``prefix_len`` the
+    context positions not prefilled."""
 
     slot: int
     prompt: np.ndarray
+    ctx: np.ndarray
     plen: int
+    clen: int
+    max_new: int
     res: Reservation
-    done: int = 0  # prompt positions already scattered (chunk progress)
+    shared: List[int] = field(default_factory=list)
+    n_attached: int = 0
+    cow: bool = False
+    prefix_len: int = 0
+    done: int = 0  # context positions already scattered (chunk progress)
 
 
 class ServingEngine:
@@ -259,6 +287,10 @@ class ServingEngine:
         self.arena = KVArena(mcfg.num_layers, mcfg.num_heads, head_dim,
                              num_blocks, self.block_size, dtype=dtype,
                              quantized=self.quant_kv, device=self.device)
+        self.use_prefix_cache = bool(mode(cfg.prefix_cache,
+                                          "serving_prefix_cache"))
+        self.prefix_cache = (PrefixCache(self.arena, self.block_size)
+                             if self.use_prefix_cache else None)
 
         s = self.num_slots
         self._bt_host = np.zeros((s, self.blocks_per_slot), np.int32)
@@ -267,6 +299,9 @@ class ServingEngine:
         self._active = np.zeros(s, np.bool_)
         self._occupied = np.zeros(s, np.bool_)
         self._slot_res: List[Optional[Reservation]] = [None] * s
+        # blocks attached by reference from the prefix cache: dereferenced
+        # at retire, not owned by the reservation
+        self._slot_shared: List[List[int]] = [[] for _ in range(s)]
         self._slot_filled = np.zeros(s, np.int32)
         self._chunk = {}  # slot -> _AdmitState of a chunked prefill
         # per-slot sampling and constraint state, all data to the steps:
@@ -294,11 +329,14 @@ class ServingEngine:
         self.decode_steps = 0
         self.prefills = 0
         self.prefill_chunks = 0
+        self.suffix_prefills = 0  # cache hits' suffix-only prefills
+        self.cow_copies = 0
         # builds of each program (the JAX engine's trace counters): churn
         # must never move them once a key exists
         self.decode_traces = 0
         self.prefill_traces: Dict[int, int] = {}
         self.prefix_prefill_traces: Dict[int, int] = {}
+        self.cow_traces = 0
         self._graphs = StepGraphs(self.device,
                                   counters=(paged_attention.launches,
                                             sampling_ops.launches))
@@ -334,34 +372,83 @@ class ServingEngine:
                              f"has only {cap} allocatable; it could never be "
                              "admitted")
 
-    def can_admit(self, prompt_len: int, max_new_tokens: int) -> bool:
-        return (self.free_slots() > 0 and self.arena.grantable()
-                >= self.blocks_needed(prompt_len, max_new_tokens))
+    def reserved_blocks(self, slot: int) -> int:
+        """The block budget ``slot`` holds (0 if empty): what retiring it
+        returns to the arena's grantable pool, the quantity preemption's
+        feasibility sums."""
+        res = self._slot_res[slot]
+        return res.total if res is not None else 0
+
+    def admit_sizing(self, prompt_len: int, max_new_tokens: int,
+                     prompt=None, keys=None, journal_len: int = 0):
+        """Both admission-feasibility numbers from one radix walk: (blocks
+        this admission would reserve, matched blocks at refcount zero that
+        ``grantable()`` counts evictable but the admission will pin).
+        Matched prompt blocks attach by reference and leave the budget; a
+        match covering the whole prefilled context (``prompt_len +
+        journal_len``) reserves one block back, the copy-on-write target.
+        ``keys`` (``PrefixCache.chunk_keys``) makes the walk hash-free;
+        without ``prompt`` or ``keys``, or with the cache off, the plain
+        worst case."""
+        need = self.blocks_needed(prompt_len, max_new_tokens)
+        if self.prefix_cache is None or (prompt is None and keys is None):
+            return need, 0
+        resident, _, unpinned = self.prefix_cache.match_stats(prompt,
+                                                              keys=keys)
+        if resident:
+            need -= resident
+            if resident * self.block_size >= prompt_len + int(journal_len):
+                need += 1  # COW copy of the last fully matched block
+        return need, unpinned
+
+    def admit_blocks_needed(self, prompt_len: int, max_new_tokens: int,
+                            prompt=None, journal_len: int = 0) -> int:
+        """Blocks an admission would reserve (:meth:`admit_sizing`)."""
+        return self.admit_sizing(prompt_len, max_new_tokens, prompt,
+                                 journal_len=journal_len)[0]
+
+    def can_admit(self, prompt_len: int, max_new_tokens: int, prompt=None,
+                  keys=None, journal_len: int = 0) -> bool:
+        if self.free_slots() <= 0:
+            return False
+        need, pinned = self.admit_sizing(prompt_len, max_new_tokens, prompt,
+                                         keys=keys, journal_len=journal_len)
+        return self.arena.grantable() - pinned >= need
 
     # ----------------------------------------------------- slot lifecycle
 
     def admit(self, prompt, max_new_tokens: int, sampling=None,
-              mask=None) -> Tuple[int, int]:
+              mask=None, tokens=None) -> Tuple[int, int]:
         """Prefill ``prompt`` into a free slot. Returns ``(slot,
         next_token)``: the first token comes out of the prefill itself,
         sampled under ``sampling`` (a ``SamplingParams`` with a seed; None is
         greedy) and the constraint ``mask`` (``[vocab]`` bool; None is
-        unconstrained). Raises if there is no capacity; callers gate on
+        unconstrained).
+
+        ``tokens`` is the request's journal when this admission resumes it
+        (re-admission after preemption): the prefill runs over ``prompt +
+        tokens`` and emits the journal's next token, leaving the slot as an
+        uninterrupted decode would have (position ``len(prompt + tokens)``).
+        ``max_new_tokens`` stays the request's original budget; the journal
+        counts toward it. Raises if there is no capacity; callers gate on
         :meth:`can_admit`."""
-        st = self._admit_setup(prompt, max_new_tokens, sampling, mask)
+        st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens)
         return st.slot, self._admit_prefill_all(st)
 
     def admit_begin(self, prompt, max_new_tokens: int, sampling=None,
-                    mask=None) -> Tuple[int, Optional[int]]:
+                    mask=None, tokens=None) -> Tuple[int, Optional[int]]:
         """Chunked admission: claim a slot and its blocks now, prefill
-        incrementally. Returns ``(slot, first_token)`` when the prompt fits
-        one chunk (as :meth:`admit`), else ``(slot, None)`` with the prefill
-        in progress: the scheduler then calls :meth:`admit_chunk` once per
-        step until the first token appears. Until then the slot is occupied
-        (its blocks are held) but not active (the decode step masks it)."""
-        st = self._admit_setup(prompt, max_new_tokens, sampling, mask)
-        if self.chunk_size <= 0 or st.plen <= self.chunk_size:
+        incrementally. Returns ``(slot, first_token)`` when the context left
+        to prefill fits one chunk (as :meth:`admit`), else ``(slot, None)``
+        with the prefill in progress: the scheduler then calls
+        :meth:`admit_chunk` once per step until the first token appears. A
+        cache hit's chunks start at its prefix length. Until then the slot
+        is occupied (its blocks are held) but not active (the decode step
+        masks it)."""
+        st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens)
+        if self.chunk_size <= 0 or st.clen - st.prefix_len <= self.chunk_size:
             return st.slot, self._admit_prefill_all(st)
+        st.done = st.prefix_len
         self._chunk[st.slot] = st
         metrics.bump("chunk.admits")
         self._refresh_gauges()
@@ -370,86 +457,163 @@ class ServingEngine:
     def admit_chunk(self, slot: int) -> Optional[int]:
         """Prefill the next chunk (at most ``chunk_size`` tokens) of the
         slot's chunked admission. Returns the first generated token once the
-        whole prompt is scattered (the last chunk's last-position logits),
-        else None. A failed chunk unwinds the admission and raises."""
+        whole context is scattered (the last chunk's last-position logits),
+        else None. Under ``FLAGS_serving_publish_chunks`` every prompt block
+        a chunk finishes enters the prefix cache at once. A failed chunk
+        unwinds the admission and raises."""
         st = self._chunk.get(slot)
         if st is None:
             raise RuntimeError(f"slot {slot} has no chunked prefill in "
                                "progress")
-        take = min(self.chunk_size, st.plen - st.done)
+        take = min(self.chunk_size, st.clen - st.done)
         try:
             # every chunk samples its token, as the JAX engine does; only
             # the last chunk's is the request's first
-            nxt = self._suffix_prefill_call(st.prompt, st.done + take,
-                                            st.done, slot)
+            nxt = self._suffix_prefill_call(st.ctx, st.done + take,
+                                            st.done, slot, chunked=True)
+            st.done += take
+            metrics.bump("chunk.chunks")
+            metrics.bump("chunk.tokens", take)
+            if (self.prefix_cache is not None
+                    and flags.flag("serving_publish_chunks")):
+                # insert() skips the blocks already resident; the new ones
+                # are cached, so they outlive an abort of later chunks
+                full = min(st.done, st.plen) // self.block_size
+                if full > 0:
+                    self.prefix_cache.insert(st.prompt, self._bt_host[slot],
+                                             full)
         except BaseException:
             self._chunk.pop(slot, None)
             self._admit_abort(st)
             raise
-        st.done += take
-        metrics.bump("chunk.chunks")
-        metrics.bump("chunk.tokens", take)
-        if st.done < st.plen:
+        if st.done < st.clen:
             return None
         self._chunk.pop(slot, None)
         return self._admit_finish(st, nxt)
 
     def _admit_prefill_all(self, st: _AdmitState) -> int:
-        """The one-call prefill of a whole prompt; unwinds the admission on
-        failure."""
+        """The one-call prefill of a whole context, or of a cache hit's
+        suffix only; unwinds the admission on failure."""
         try:
-            first = self._full_prefill_call(st.prompt, st.plen, st.res,
-                                            st.slot)
+            if st.n_attached or st.cow:
+                first = self._suffix_prefill_call(st.ctx, st.clen,
+                                                  st.prefix_len, st.slot)
+            else:
+                first = self._full_prefill_call(st.ctx, st.clen, st.res,
+                                                st.slot)
         except BaseException:
             self._admit_abort(st)
             raise
         return self._admit_finish(st, first)
 
     def _admit_setup(self, prompt, max_new_tokens: int, sampling=None,
-                     mask=None) -> _AdmitState:
-        """Claim the slot, the block reservation and the blocks covering the
-        prompt, and install the slot's sampling and constraint state before
-        any prefill (the prefill programs sample the first token under it);
-        unwinds completely on failure, a refused mask included."""
+                     mask=None, tokens=None) -> _AdmitState:
+        """Claim everything an admission needs before any prefill: the slot,
+        the references to the matched prefix blocks, the block reservation,
+        the filled block table, the copy-on-write copy, and the slot's
+        sampling and constraint state (the prefill programs sample the
+        first token under it). Unwinds completely on any failure, a refused
+        mask included."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = int(prompt.shape[0])
         self.validate(plen, max_new_tokens)
+        journal = np.asarray([] if tokens is None else tokens,
+                             np.int64).reshape(-1)
+        ctx = np.concatenate([prompt, journal]) if journal.size else prompt
+        clen = int(ctx.shape[0])
+        if clen >= plen + max_new_tokens:
+            raise ValueError(
+                f"journal of {journal.size} tokens already exhausts the "
+                f"max_new_tokens={max_new_tokens} budget; nothing to resume")
         slot = int(np.argmin(self._occupied))
         if self._occupied[slot]:
             raise RuntimeError("no free slot")
-        res = self.arena.reserve(self.blocks_needed(plen, max_new_tokens))
-        st = _AdmitState(slot=slot, prompt=prompt, plen=plen, res=res)
+        bs = self.block_size
+        # the radix walk: every matched block is referenced BEFORE
+        # reserve(), so that its eviction pass can never reclaim a block
+        # this admission is about to share (or copy)
+        chain = (self.prefix_cache.match(prompt)
+                 if self.prefix_cache is not None else [])
+        for node in chain:
+            self.arena.ref(node.block)
+        # a fully matched block-aligned context has no suffix, but its last
+        # token must be recomputed for its logits: the last matched block
+        # is copied into a private block and the token re-scattered there
+        cow = bool(chain) and len(chain) * bs == clen
+        attached = chain[:-1] if cow else chain
+        shared = [node.block for node in attached]
+        # the COW source is read, not attached: its reference is the pin
+        # that keeps it across reserve(), dropped right after the copy
+        cow_src: Optional[int] = chain[-1].block if cow else None
+        try:
+            res = self.arena.reserve(self.blocks_needed(plen, max_new_tokens)
+                                     - len(attached))
+        except BaseException:
+            for node in chain:
+                self.arena.deref(node.block)
+            raise
+        n_attached = len(attached)
+        st = _AdmitState(slot=slot, prompt=prompt, ctx=ctx, plen=plen,
+                         clen=clen, max_new=int(max_new_tokens), res=res,
+                         shared=shared, n_attached=n_attached, cow=cow,
+                         prefix_len=clen - 1 if cow else n_attached * bs)
         self._occupied[slot] = True
         self._slot_res[slot] = res
+        self._slot_shared[slot] = shared
         try:
             self._install_slot_scenario(slot, sampling, mask)
-            n = _ceil_div(plen, self.block_size)
-            for bi in range(n):
+            self._bt_host[slot, :n_attached] = shared
+            n = _ceil_div(clen, bs)
+            for bi in range(n_attached, n):
                 self._bt_host[slot, bi] = res.take()
             self._slot_filled[slot] = n
+            if cow:
+                self._cow_copy(cow_src, res.taken[0])
+                self.arena.deref(cow_src)
+                cow_src = None  # the copy is private now
         except BaseException:
+            if cow_src is not None:
+                self.arena.deref(cow_src)
             self._admit_abort(st)
             raise
         return st
 
     def _admit_abort(self, st: _AdmitState) -> None:
+        """Unwind a claimed admission: drop the shared references, release
+        the reservation, clear the slot."""
+        for blk in st.shared:
+            self.arena.deref(blk)
+        st.shared = []
         st.res.release()
         self._slot_res[st.slot] = None
+        self._slot_shared[st.slot] = []
         self._slot_filled[st.slot] = 0
         self._bt_host[st.slot, :] = 0
         self._occupied[st.slot] = False
         self._clear_slot_scenario(st.slot)
+        if flags.flag("serving_arena_invariants"):
+            self.check_invariants()
         self._refresh_gauges()
 
     def _admit_finish(self, st: _AdmitState, first: int) -> int:
         """Activate the slot: its context is scattered and its next token
-        exists."""
+        exists. With the prefix cache, count the hit or miss and make the
+        prompt's freshly scattered full blocks shareable (the trailing
+        partial block and the journal stay private to the slot)."""
         slot = st.slot
-        self._positions[slot] = st.plen  # next write position
+        cache = self.prefix_cache
+        if cache is not None:
+            hit = bool(st.n_attached or st.cow)
+            cache.note_hit(st.prefix_len if hit else 0)
+            cache.insert(st.prompt, self._bt_host[slot],
+                         st.plen // self.block_size)
+            if hit:
+                metrics.bump("tokens.prefill_avoided", st.prefix_len)
+        self._positions[slot] = st.clen  # next write position
         self._last_tok[slot] = first
         self._active[slot] = True
         metrics.bump("engine.admits")
-        metrics.bump("tokens.prefill", st.plen)
+        metrics.bump("tokens.prefill", st.clen - st.prefix_len)
         metrics.bump("tokens.generated")  # the next token, out of prefill
         self._refresh_gauges()
         return first
@@ -471,6 +635,11 @@ class ServingEngine:
         compile_cache.bump("serving.prefill_compiles")
         if self.device.type == "cuda":
             metrics.bump("kernel.prefill_traces")
+
+    def _cow_built(self) -> None:
+        """Count one build of the copy-on-write program."""
+        self.cow_traces += 1
+        compile_cache.bump("serving.cow_compiles")
 
     def _decode_fn(self, last_tok, positions, rows, offs, block_tables,
                    samp, allowed):
@@ -518,6 +687,17 @@ class ServingEngine:
         return (sample_tokens(model._head_logits(last), *_samp_params(samp),
                               spos, allowed),)
 
+    def _cow_fn(self, src, dst):
+        """Copy block ``src`` into block ``dst`` in every array of every
+        layer's pool entry: with the int8 arena that includes the
+        ``[num_blocks, block_size]`` scale pools, without which the copy
+        would be dequantized with another block's scales. Returns no
+        output."""
+        for entry in self.arena.pools:
+            for pool in entry:
+                pool.index_copy_(0, dst, pool.index_select(0, src))
+        return ()
+
     def _samp_row(self, slot: int, pos: int) -> dict:
         """One slot's sampling values for a prefill program: its ``[1]``
         parameters, the positional key ``pos`` (the context index where the
@@ -562,11 +742,30 @@ class ServingEngine:
         return nxt
 
     @torch.no_grad()
+    def _cow_copy(self, src: int, dst: int) -> None:
+        """Copy-on-write: copy one physical block's K/V (every layer, every
+        array of the entry) into a privately taken block, so that a slot
+        that must write inside its matched prefix never writes a shared
+        block. One program for the engine, keyed by nothing but the arena's
+        block shape: ``src`` and ``dst`` are data, so a COW never builds it
+        again. On the card it is a captured graph replayed on the stream
+        the prefill replays run on, ahead of the suffix program."""
+        prog = self._graphs.program(
+            "cow", self._cow_fn, self._cow_built,
+            src=((1,), torch.int64), dst=((1,), torch.int64))
+        prog.run(src=src, dst=dst)
+        prog.read()
+        self.cow_copies += 1
+        metrics.bump("prefix.cow_copies")
+
+    @torch.no_grad()
     def _suffix_prefill_call(self, ctx: np.ndarray, clen: int,
-                             prefix_len: int, slot: int) -> int:
+                             prefix_len: int, slot: int,
+                             chunked: bool = False) -> int:
         """Prefill ``ctx[prefix_len:clen]``, padded to its bucket, attending
         the first ``prefix_len`` positions through the slot's (already
-        filled) table instead of recomputing them; returns the token after
+        filled) table instead of recomputing them: one chunk of a chunked
+        admission, or a cache hit's suffix. Returns the token after
         position ``clen - 1``, sampled under the slot's parameters keyed at
         ``clen``. The chunk's k/v is scattered before it is attended; padded
         rows scatter to scratch block 0."""
@@ -601,12 +800,19 @@ class ServingEngine:
                  prefix_len=prefix_len, true_len=slen,
                  **self._samp_row(slot, clen))
         nxt = int(prog.read()[0][0])
-        self.prefill_chunks += 1
+        if chunked:
+            self.prefill_chunks += 1
+        else:
+            self.suffix_prefills += 1
+            metrics.bump("prefix.suffix_prefills")
         compile_cache.bump(f"serving.suffix_prefill_bucket.{s_bucket}")
         return nxt
 
     def retire(self, slot: int) -> None:
-        """Free a slot: deactivate its lane and return its blocks."""
+        """Free a slot: deactivate its lane, return its private blocks and
+        drop its references to shared prefix blocks (a shared block stays
+        resident while the prefix cache holds it). Also frees a slot in the
+        middle of a chunked prefill."""
         if not self._occupied[slot]:
             return
         self._occupied[slot] = False
@@ -616,12 +822,17 @@ class ServingEngine:
         self._slot_res[slot] = None
         if res is not None:
             res.release()
+        for blk in self._slot_shared[slot]:
+            self.arena.deref(blk)
+        self._slot_shared[slot] = []
         self._slot_filled[slot] = 0
         self._bt_host[slot, :] = 0
         self._positions[slot] = 0
         self._last_tok[slot] = 0
         self._clear_slot_scenario(slot)
         metrics.bump("engine.retires")
+        if flags.flag("serving_arena_invariants"):
+            self.check_invariants()
         self._refresh_gauges()
 
     # ------------------------------------------------- per-slot scenario
@@ -681,7 +892,11 @@ class ServingEngine:
         metrics.bump("constrain.mask_updates")
 
     def check_invariants(self) -> None:
-        """Audit the arena's refcounts against the occupied slots' tables."""
+        """Audit the arena's refcounts against the tables of the occupied
+        slots (a slot in the middle of a chunked prefill holds blocks too),
+        shared blocks included: a shared block appears in as many tables
+        as its refcount says. Runs on every release path under
+        ``FLAGS_serving_arena_invariants``."""
         tables = [[int(b) for b in self._bt_host[s, :int(self._slot_filled[s])]]
                   for s in np.flatnonzero(self._occupied)]
         self.arena.check_invariants(tables)
@@ -757,6 +972,10 @@ class ServingEngine:
         metrics.set_gauge("arena.blocks_free", a["blocks_free"])
         metrics.set_gauge("arena.blocks_total", a["blocks_total"])
         metrics.set_gauge("arena.high_water", a["high_water"])
+        metrics.set_gauge("arena.blocks_cached", a["blocks_cached"])
+        if self.prefix_cache is not None:
+            metrics.set_gauge("prefix.resident_blocks",
+                              self.prefix_cache.resident_blocks())
 
     def stats(self) -> dict:
         layers = [m for m in self._model.modules()
@@ -766,7 +985,10 @@ class ServingEngine:
                "decode_steps": self.decode_steps,
                "prefills": self.prefills,
                "prefill_chunks": self.prefill_chunks,
+               "suffix_prefills": self.suffix_prefills,
+               "cow_copies": self.cow_copies,
                "decode_traces": self.decode_traces,
+               "cow_traces": self.cow_traces,
                "programs.graphs": self._graphs.graph_count(),
                "programs.pool_bytes": self._graphs.pool_bytes,
                "quant.weight_layers": len(layers),
@@ -775,4 +997,7 @@ class ServingEngine:
                "kernel.route": self.kernel_route(),
                "device": str(self.device)}
         out.update({f"arena.{k}": v for k, v in self.arena.stats().items()})
+        if self.prefix_cache is not None:
+            out.update({f"prefix.{k}": v
+                        for k, v in self.prefix_cache.stats().items()})
         return out

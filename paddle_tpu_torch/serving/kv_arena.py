@@ -21,7 +21,12 @@ worst-case block budget up front, so growth mid-decode cannot fail, and
 the context crosses a block boundary. Every block carries a refcount
 (``take`` starts it at 1, :meth:`KVArena.ref` adds a sharer,
 :meth:`KVArena.deref` drops one); a block returns to the free list at
-refcount zero.
+refcount zero, unless the radix prefix cache (:mod:`.prefix_cache`) holds
+it resident (:meth:`KVArena.mark_cached`): then it stays out of the free
+list at refcount zero as a cached prefix, reclaimed by LRU eviction only
+when :meth:`KVArena.reserve` would otherwise fail. Shared blocks are
+read-only; a slot that must write into one copies it first (copy-on-write,
+in the engine).
 """
 from __future__ import annotations
 
@@ -103,6 +108,11 @@ class KVArena:
         self._ever_used: set = set()
         self._high_water = 0
         self._refs: List[int] = [0] * self.num_blocks
+        # blocks resident in the prefix cache at refcount zero, and the
+        # cache itself (bound by PrefixCache.__init__): the eviction
+        # authority reserve() turns to under pressure
+        self._cached: set = set()
+        self._cache = None
 
     def _fresh_entry(self, shape) -> Tuple[torch.Tensor, ...]:
         """One layer's zeroed entry: ``(k, v)`` in the compute dtype, or
@@ -144,14 +154,32 @@ class KVArena:
     def blocks_in_use(self) -> int:
         return (self.num_blocks - 1) - len(self._free)
 
+    def blocks_cached(self) -> int:
+        """Blocks resident in the prefix cache (in use, but reclaimable)."""
+        return len(self._cached)
+
     def grantable(self) -> int:
         """Blocks a new reservation could claim now: the free list minus the
-        untaken remainder of outstanding reservations."""
-        return len(self._free) - self._reserved
+        untaken remainder of outstanding reservations, plus what the prefix
+        cache could evict (cached prefixes extend the free list)."""
+        n = len(self._free) - self._reserved
+        if self._cache is not None:
+            n += self._cache.evictable_blocks()
+        return n
 
     def reserve(self, n: int) -> Reservation:
+        """Claim a worst-case budget of ``n`` blocks (none taken yet). When
+        the free list alone cannot cover it, cold cached prefixes are
+        evicted (LRU leaves first): eviction happens only here, where it
+        would otherwise be an admission failure."""
         n = int(n)
-        if self.grantable() < n:
+        short = n - (len(self._free) - self._reserved)
+        if (short > 0 and self._cache is not None
+                and short <= self._cache.evictable_blocks()):
+            # feasibility first: a doomed reservation must not flush the
+            # cache on its way to raising anyway
+            self._cache.evict(short)
+        if len(self._free) - self._reserved < n:
             metrics.bump("arena.alloc_failed")
             raise ArenaExhaustedError(
                 f"cannot reserve {n} blocks ({len(self._free)} free, "
@@ -179,18 +207,51 @@ class KVArena:
             self.deref(blk)
         res.taken = []
 
+    def bind_cache(self, cache) -> None:
+        """Adopt a :class:`~.prefix_cache.PrefixCache` as this arena's
+        eviction authority (the cache's constructor calls this)."""
+        self._cache = cache
+
     def ref(self, blk: int) -> None:
-        """Attach one more reference to a live block."""
-        if blk <= 0 or self._refs[blk] == 0:
-            raise RuntimeError(f"ref() on block {blk} which is not live")
+        """Attach one more reference to a live or cached block (a slot
+        sharing a resident prefix block)."""
+        if blk <= 0 or (self._refs[blk] == 0 and blk not in self._cached):
+            raise RuntimeError(
+                f"ref() on block {blk} which is neither live nor cached")
         self._refs[blk] += 1
+        # only the 0 -> 1 transition can change evictability
+        if self._refs[blk] == 1 and self._cache is not None:
+            self._cache.invalidate()
 
     def deref(self, blk: int) -> None:
-        """Drop one reference; at refcount zero the block is free again."""
+        """Drop one reference; at refcount zero the block is free again,
+        unless the prefix cache holds it resident: then it stays allocated
+        (reclaimable by eviction) so its K/V survives for later
+        admissions to share."""
         if self._refs[blk] <= 0:
             raise RuntimeError(f"deref() on block {blk} with refcount 0: "
                                "double free in the caller's accounting")
         self._refs[blk] -= 1
+        if self._refs[blk] == 0:
+            if self._cache is not None:
+                self._cache.invalidate()
+            if blk not in self._cached:
+                self._free.append(blk)
+                metrics.bump("arena.freed")
+
+    def mark_cached(self, blk: int) -> None:
+        """The prefix cache took residency of ``blk``: at refcount zero it
+        is kept (not freed) until evicted."""
+        self._cached.add(blk)
+
+    def uncache(self, blk: int) -> None:
+        """The prefix cache evicted ``blk``: if no slot still references
+        it, it returns to the free list now."""
+        if blk not in self._cached:
+            raise RuntimeError(f"uncache() on block {blk} that is not "
+                               "cached: double eviction in the caller's "
+                               "accounting")
+        self._cached.discard(blk)
         if self._refs[blk] == 0:
             self._free.append(blk)
             metrics.bump("arena.freed")
@@ -199,8 +260,10 @@ class KVArena:
         return self._refs[blk]
 
     def check_invariants(self, tables=None) -> None:
-        """Audit the refcount layer: free blocks are refcount zero and
-        unique, and ``tables`` (per-slot block-id lists of occupied slots)
+        """Audit the refcount layer: free blocks are refcount zero, unique
+        and uncached; cached blocks are in use (off the free list) at any
+        refcount, zero included; every block is free, cached or referenced;
+        and ``tables`` (per-slot block-id lists of occupied slots)
         reference each block exactly ``refcount`` times. Every pool entry
         must have the arena's structure: 4 arrays with ``[num_blocks,
         block_size]`` float32 scale pools when quantized, else 2."""
@@ -226,6 +289,19 @@ class KVArena:
             if self._refs[blk] != 0:
                 raise RuntimeError(f"invariant violated: free block {blk} "
                                    f"has refcount {self._refs[blk]}")
+            if blk in self._cached:
+                raise RuntimeError(
+                    f"invariant violated: free block {blk} is marked cached")
+        if 0 in self._cached:
+            raise RuntimeError("invariant violated: scratch block 0 is "
+                               "cached")
+        free = set(self._free)
+        for blk in range(1, self.num_blocks):
+            if blk not in free and not self._refs[blk] \
+                    and blk not in self._cached:
+                raise RuntimeError(
+                    f"invariant violated: block {blk} is neither free, "
+                    "cached nor referenced: leaked")
         if self._reserved < 0:
             raise RuntimeError(
                 f"invariant violated: {self._reserved} blocks reserved")
@@ -274,6 +350,7 @@ class KVArena:
                 "blocks_free": self.blocks_free(),
                 "blocks_in_use": self.blocks_in_use(),
                 "blocks_reserved": self._reserved,
+                "blocks_cached": self.blocks_cached(),
                 "high_water": self._high_water,
                 "block_size": self.block_size,
                 "kv_bytes": self.bytes_total(),

@@ -1,8 +1,14 @@
 """Serving counters, gauges and the tokens/s meter (counterpart of
 ``paddle_tpu/serving/metrics.py``), limited to what this slice bumps.
 
-Counters: ``requests.*`` (submitted / finished / cancelled / failed),
-``tokens.*`` (``generated``, ``prefill``, ``prefill_padding``), ``engine.*``
+Counters: ``requests.*`` (submitted / finished / cancelled / failed, and
+``shed`` (refused at submit by the queue limit) / ``expired`` (failed by
+their deadline)), ``tokens.*`` (``generated``, ``prefill``,
+``prefill_padding``, ``prefill_avoided``: context positions a prefix-cache
+hit did not prefill), ``prefix.*`` (``hits``, ``misses``, ``hit_tokens``,
+``inserted_blocks``, ``evictions`` from the radix cache, and the engine's
+``suffix_prefills`` / ``cow_copies``), ``scheduler.preemptions`` /
+``scheduler.cache_skips``, ``engine.*``
 (steps / admits / retires), ``arena.*`` (alloc / freed / reuse /
 alloc_failed), ``chunk.*`` (admits / chunks / tokens of chunked prefill),
 ``quant.weight_layers`` (linears quantized by engines),
@@ -13,8 +19,8 @@ prefill program on the kernel route: captures of a CUDA graph),
 admissions, mask rows replaced, walkers sanitized after an empty mask).
 Gauges: ``queue.depth``, ``queue.prefilling``, ``slots.active``,
 ``slots.total``, ``arena.blocks_free``, ``arena.blocks_total``,
-``arena.high_water``, ``tokens_per_sec``, ``sampling.active_slots``,
-``constrain.active_slots``.
+``arena.high_water``, ``arena.blocks_cached``, ``prefix.resident_blocks``,
+``tokens_per_sec``, ``sampling.active_slots``, ``constrain.active_slots``.
 """
 from __future__ import annotations
 

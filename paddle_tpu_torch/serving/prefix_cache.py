@@ -1,0 +1,287 @@
+"""Radix prefix cache: content-addressed KV block sharing for the arena
+(counterpart of ``paddle_tpu/serving/prefix_cache.py``).
+
+Serving traffic shares prompt prefixes: system prompts, few-shot examples,
+chat history replayed every turn. The paged arena (:mod:`.kv_arena`)
+stores K/V at block granularity, which is the unit a prefix cache wants: a
+prompt's K/V is a chain of full blocks, and two prompts that agree on their
+first ``k * block_size`` tokens can share the same ``k`` physical blocks.
+
+This module is the tree over those chains:
+
+* **Nodes are block-granular token chunks.** A node's key is the content
+  hash of ``(parent_key, chunk_tokens)``, the tokens as **int32** bytes (as
+  the JAX package hashes them, so keys agree across the two packages), so a
+  chunk equals another chunk only in the same left context. Only FULL
+  blocks are inserted; the trailing partial block of a prompt stays private
+  to its slot, which is still writing it.
+* **Matching is admission's tree walk.** :meth:`PrefixCache.match` returns
+  the longest chain of resident full blocks. The engine attaches each
+  matched block to the slot's table by reference (``KVArena.ref``) and
+  prefills only the unmatched suffix. Shared blocks are read-only; a slot
+  that must write into one (a fully cached, block-aligned prompt
+  recomputing its last token) copies it first (copy-on-write, in the
+  engine).
+* **Insertion** follows a successful prefill: the prompt's full blocks are
+  inserted and ``arena.mark_cached`` keeps them off the free list when the
+  slot retires (refcount zero and cached is resident, not leaked).
+* **Eviction is LRU over leaves at refcount zero**, and only when
+  ``KVArena.reserve`` would otherwise fail: cached prefixes extend the free
+  list and never compete with live traffic. Evicting a leaf can expose its
+  parent, so a cold chain unwinds from its tail.
+
+Counters (``prefix.*`` in :mod:`.metrics`): ``hits`` (admissions with at
+least one matched block), ``misses``, ``hit_tokens``, ``inserted_blocks``,
+``evictions``, and the ``resident_blocks`` gauge; the engine bumps
+``cow_copies`` and ``suffix_prefills``. The host/disk spill tier and the
+gateway's cross-replica index are not ported yet: the constructor refuses
+``tier=``.
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from . import metrics
+
+_ROOT_KEY = b"prefix-cache-root"
+
+
+def _chunk_key(parent_key: bytes, chunk: np.ndarray) -> bytes:
+    """Content hash of one block-granular chunk in its left context: keyed
+    by (parent hash, int32 token bytes), so equal chunks under different
+    prefixes never alias."""
+    h = hashlib.blake2b(parent_key, digest_size=16)
+    h.update(np.ascontiguousarray(chunk, np.int32).tobytes())
+    return h.digest()
+
+
+class PrefixNode:
+    """One full block of the tree: its chunk's tokens, the physical arena
+    block holding the chunk's K/V, and its place in the tree."""
+
+    __slots__ = ("key", "chunk", "block", "parent", "children", "last_use")
+
+    def __init__(self, key: bytes, chunk: np.ndarray, block: int,
+                 parent: Optional["PrefixNode"]):
+        self.key = key
+        self.chunk = chunk
+        self.block = block
+        self.parent = parent
+        self.children: Dict[bytes, "PrefixNode"] = {}
+        self.last_use = 0
+
+
+class PrefixCache:
+    """The radix tree over one :class:`~.kv_arena.KVArena`'s blocks. Host
+    bookkeeping only: a hit is other int32 rows in a slot's block table and
+    never builds a program. Single-threaded: the API lock serialises
+    admission."""
+
+    def __init__(self, arena, block_size: Optional[int] = None, tier=None):
+        if tier is not None:
+            raise NotImplementedError(
+                "the tiered KV spill store is not ported yet")
+        self.arena = arena
+        self.block_size = int(block_size or arena.block_size)
+        self._root = PrefixNode(_ROOT_KEY, np.zeros(0, np.int32), -1, None)
+        self._nodes: Dict[bytes, PrefixNode] = {}
+        self._tick = 0
+        self._evictable_memo: Optional[int] = None
+        # per-instance lifetime counters (metrics are process-global)
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+        self.inserted_blocks = 0
+        self.evictions = 0
+        arena.bind_cache(self)
+
+    # ------------------------------------------------------------- walking
+
+    def _walk(self, tokens) -> List[PrefixNode]:
+        """Longest chain of resident FULL blocks of ``tokens``."""
+        out: List[PrefixNode] = []
+        node = self._root
+        for key in self.chunk_keys(tokens):
+            node = node.children.get(key)
+            if node is None:
+                break
+            out.append(node)
+        return out
+
+    def chunk_keys(self, tokens) -> List[bytes]:
+        """The content-key chain of ``tokens``' full blocks: a pure function
+        of the tokens (not of the tree), so a caller polling residency every
+        scheduler step hashes once and reuses it."""
+        bs = self.block_size
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        keys: List[bytes] = []
+        parent = _ROOT_KEY
+        for i in range(int(tokens.shape[0]) // bs):
+            parent = _chunk_key(parent, tokens[i * bs:(i + 1) * bs])
+            keys.append(parent)
+        return keys
+
+    def match_stats(self, tokens=None, keys: Optional[List[bytes]] = None):
+        """One walk, the admission-sizing numbers ``(resident, spilled,
+        unpinned)``: matched full blocks, tier-restorable ones (always 0
+        without a tier) and the matched blocks at refcount zero. The last
+        matters because ``grantable()`` counts refcount-zero cached blocks
+        as eviction headroom, but an admission of these tokens pins them
+        before it reserves: a feasibility check must subtract them. Pass
+        precomputed ``keys`` (:meth:`chunk_keys`) to skip hashing."""
+        if keys is None:
+            keys = self.chunk_keys(tokens)
+        resident = unpinned = 0
+        node = self._root
+        for k in keys:
+            node = node.children.get(k)
+            if node is None:
+                break
+            resident += 1
+            if self.arena.refcount(node.block) == 0:
+                unpinned += 1
+        return resident, 0, unpinned
+
+    def resident_tokens_for(self, keys: List[bytes]) -> int:
+        """Matched full blocks of a precomputed :meth:`chunk_keys` chain, in
+        tokens (cache-affinity scheduling)."""
+        return self.match_stats(keys=keys)[0] * self.block_size
+
+    def match(self, tokens) -> List[PrefixNode]:
+        """The admission walk: the matched chain, each node's LRU clock
+        touched. The caller takes the references (``arena.ref``)."""
+        chain = self._walk(tokens)
+        self._tick += 1
+        for node in chain:
+            node.last_use = self._tick
+        return chain
+
+    # ----------------------------------------------------------- insertion
+
+    def insert(self, tokens, blocks, num_blocks: int) -> int:
+        """Insert the first ``num_blocks`` full chunks of ``tokens``, whose
+        K/V was just scattered into physical ``blocks[i]``. A chunk already
+        resident is skipped: the existing block stays authoritative and the
+        caller's copy stays private to its slot, freed at retire. Returns
+        how many blocks became resident."""
+        bs = self.block_size
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        node = self._root
+        self._tick += 1
+        inserted = 0
+        for i in range(num_blocks):
+            chunk = tokens[i * bs:(i + 1) * bs]
+            key = _chunk_key(node.key, chunk)
+            child = node.children.get(key)
+            if child is None:
+                blk = int(blocks[i])
+                if blk <= 0:
+                    raise RuntimeError(
+                        f"insert of block {blk}: scratch block 0 (or no "
+                        "block) can never enter the tree")
+                child = PrefixNode(key, np.array(chunk), blk, node)
+                node.children[key] = child
+                self._nodes[key] = child
+                self.arena.mark_cached(blk)
+                inserted += 1
+            child.last_use = self._tick
+            node = child
+        if inserted:
+            self.invalidate()
+            self.inserted_blocks += inserted
+            metrics.bump("prefix.inserted_blocks", inserted)
+            metrics.set_gauge("prefix.resident_blocks",
+                              self.resident_blocks())
+        return inserted
+
+    # ------------------------------------------------------------ eviction
+
+    def _is_evictable_leaf(self, node: PrefixNode) -> bool:
+        return (node is not self._root and not node.children
+                and self.arena.refcount(node.block) == 0)
+
+    def invalidate(self) -> None:
+        """Drop the memoized evictable count (the arena calls this on every
+        refcount transition that can change it; insert and evict too)."""
+        self._evictable_memo = None
+
+    def evictable_blocks(self) -> int:
+        """Blocks reclaimable by (possibly cascading) eviction: nodes whose
+        whole subtree is at refcount zero. The arena adds this to
+        ``grantable()``. Memoized between transitions."""
+        if self._evictable_memo is not None:
+            return self._evictable_memo
+        order: List[PrefixNode] = []
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            order.append(node)
+            stack.extend(node.children.values())
+        blocked: Dict[bytes, bool] = {}
+        n = 0
+        for node in reversed(order):  # children before parents
+            pinned = self.arena.refcount(node.block) > 0 or any(
+                blocked[c.key] for c in node.children.values())
+            blocked[node.key] = pinned
+            n += not pinned
+        self._evictable_memo = n
+        return n
+
+    def evict(self, need: int) -> int:
+        """Free up to ``need`` blocks, least recently used leaves first
+        (evicting a leaf may expose its parent, which joins the
+        candidates). The arena calls this from ``reserve()`` when the free
+        list alone cannot cover a budget. Returns the blocks freed."""
+        freed = 0
+        leaves = {n.key: n for n in self._nodes.values()
+                  if self._is_evictable_leaf(n)}
+        while freed < need and leaves:
+            victim = min(leaves.values(), key=lambda n: n.last_use)
+            del leaves[victim.key]
+            parent = victim.parent
+            self._remove(victim)
+            freed += 1
+            if self._is_evictable_leaf(parent):
+                leaves[parent.key] = parent
+        if freed:
+            self.evictions += freed
+            metrics.bump("prefix.evictions", freed)
+            metrics.set_gauge("prefix.resident_blocks",
+                              self.resident_blocks())
+        return freed
+
+    def _remove(self, node: PrefixNode) -> None:
+        assert not node.children, "only leaves are evicted"
+        node.parent.children.pop(node.key, None)
+        self._nodes.pop(node.key, None)
+        self.invalidate()
+        self.arena.uncache(node.block)
+
+    # --------------------------------------------------------------- admin
+
+    def resident_blocks(self) -> int:
+        return len(self._nodes)
+
+    def note_hit(self, matched_tokens: int) -> None:
+        """Engine callback after a successful admission (counted on
+        success, not at walk time, so a failed prefill is not a hit)."""
+        if matched_tokens > 0:
+            self.hits += 1
+            self.hit_tokens += matched_tokens
+            metrics.bump("prefix.hits")
+            metrics.bump("prefix.hit_tokens", matched_tokens)
+        else:
+            self.misses += 1
+            metrics.bump("prefix.misses")
+
+    def stats(self) -> dict:
+        return {"resident_blocks": self.resident_blocks(),
+                "evictable_blocks": self.evictable_blocks(),
+                "hits": self.hits,
+                "misses": self.misses,
+                "hit_tokens": self.hit_tokens,
+                "inserted_blocks": self.inserted_blocks,
+                "evictions": self.evictions}

@@ -4,12 +4,30 @@
 Between any two decode steps the scheduler retires finished requests and
 admits waiting ones into the freed slots:
 
-* **FCFS admission with capacity gating**: the oldest waiting request is
-  admitted when a slot is free AND the KV arena can reserve its worst-case
-  block budget (``ServingEngine.can_admit``), so a running request is never
-  starved of cache mid-decode. Nothing jumps a blocked head.
-* **Finish rules** at every step boundary: the stop token, the token budget
-  and cancellation.
+* **Priority admission with capacity gating**: the best waiting request
+  (lowest ``priority`` value, then earliest arrival; default 0, FCFS within
+  a class) is admitted when a slot is free AND the KV arena can reserve its
+  block budget (``ServingEngine.can_admit``, which subtracts the blocks a
+  resident prefix attaches by reference), so a running request is never
+  starved of cache mid-decode. Admission is strict head-of-line: nothing
+  jumps a blocked better waiter.
+* **Preemption under starvation**: when the best waiter has been blocked on
+  capacity for more than ``FLAGS_serving_starvation_steps`` steps and a
+  strictly lower-priority request is running, the lowest-priority, most
+  recently admitted victim is preempted: its slot and blocks are released
+  and it re-queues with its token journal, so re-admission prefills
+  ``prompt + journal`` and resumes token for token (its walker state is
+  rebuilt from the journal; a seeded sampled request's keys are
+  positional). The preemption is declined when even every eligible victim
+  could not seat the waiter.
+* **Cache-aware admission** (``FLAGS_serving_cache_affinity`` = W > 0):
+  with the prefix cache on, a same-priority waiter whose prefix is
+  resident may be admitted ahead of a cache-cold head, at most W times per
+  head.
+* **Finish rules** at every step boundary: the stop token, the token
+  budget, cancellation and the request's wall-clock deadline
+  (``core.resilience.Deadline``); cancelled and expired waiters are culled
+  before they cost a prefill.
 * **Chunked prefill** (engine ``chunk_size > 0``): a prompt longer than a
   chunk is admitted through ``ServingEngine.admit_begin`` and waits in
   ``prefilling``; each step advances the oldest such admission by one chunk
@@ -23,9 +41,9 @@ admits waiting ones into the freed slots:
   the slot's mask row is replaced (``ServingEngine.set_slot_mask``). A
   walker that fails fails its own request only.
 
-Priorities, preemption, speculation and deadlines are later slices. Served
-tokens are held token for token against ``GPTForCausalLM.generate()``,
-with ``sampling=`` for sampled requests.
+Speculation, telemetry spans and the supervisor's transient-error re-queue
+are later slices. Served tokens are held token for token against
+``GPTForCausalLM.generate()``, with ``sampling=`` for sampled requests.
 """
 from __future__ import annotations
 
@@ -37,9 +55,11 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..core import flags, resilience
 from . import metrics
 
 _req_counter = itertools.count()
+_seq_counter = itertools.count()  # arrival and admission ordering ticks
 
 
 class RequestState:
@@ -54,18 +74,25 @@ class RequestState:
 class Request:        # compare numpy prompt payloads
     """One generation request moving through the engine. ``tokens``
     accumulates generated ids; the stop token, when hit, is the last one.
-    ``stream_queue``/``done_event`` are what ``ServingAPI.stream`` reads."""
+    ``tokens`` is also the request's journal: a preempted request
+    re-prefills ``prompt + tokens`` to resume where it left off.
+    ``priority`` follows the vLLM convention: lower values are served
+    first, 0 is normal traffic. ``stream_queue``/``done_event`` are what
+    ``ServingAPI.stream`` reads."""
 
     prompt: np.ndarray
     max_new_tokens: int = 32
     stop_token_id: Optional[int] = None
     request_id: str = ""
+    priority: int = 0
     # the request's scenario: sampling params (serving.sampling.
     # SamplingParams; None is greedy) and an incremental decoding
     # constraint (serving.constrain.Constraint), whose walker state
     # `_cstate` is a pure function of `tokens`
     sampling: Optional[object] = None
     constraint: Optional[object] = None
+    deadline: resilience.Deadline = field(
+        default_factory=resilience.Deadline)
     state: str = RequestState.QUEUED
     tokens: List[int] = field(default_factory=list)
     error: Optional[BaseException] = None
@@ -74,9 +101,17 @@ class Request:        # compare numpy prompt payloads
         default_factory=_queue.SimpleQueue)
     done_event: threading.Event = field(default_factory=threading.Event)
     _cancel: bool = False
+    _arrival: int = 0      # submit-order tick (priority tie-break)
+    _admit_seq: int = 0    # last admission tick (the most recent victim)
+    _starved: int = 0      # steps blocked at the head of the queue
+    _cache_skips: int = 0  # times cache affinity admitted someone past it
+    _prefix_keys: Optional[list] = None  # memoized radix chunk-key chain
+    preemptions: int = 0   # times this request was preempted
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int64).reshape(-1)
+        self.priority = int(self.priority)
+        self._arrival = next(_seq_counter)
         if self.sampling is not None:
             # pin an unset seed now: the request's stream is then fixed
             self.sampling = self.sampling.materialized()
@@ -148,7 +183,8 @@ class Scheduler:
         self.prefilling: List[Request] = []  # chunked prefills in progress
 
     def submit(self, request: Request) -> Request:
-        """Enqueue; what could never be served is refused here."""
+        """Enqueue; what could never be served is refused here (overload
+        shedding is ``ServingAPI.submit``'s)."""
         self.engine.validate(int(request.prompt.shape[0]),
                              int(request.max_new_tokens))
         request.state = RequestState.QUEUED
@@ -176,6 +212,9 @@ class Scheduler:
         metrics.bump({RequestState.FINISHED: "requests.finished",
                       RequestState.CANCELLED: "requests.cancelled",
                       RequestState.FAILED: "requests.failed"}[state])
+        if isinstance(error, resilience.DeadlineExceededError):
+            metrics.bump("requests.expired")
+            resilience.bump("deadline.exceeded")
         req.stream_queue.put(None)  # stream sentinel
         req.done_event.set()
 
@@ -198,7 +237,9 @@ class Scheduler:
                 self._finish(req, RequestState.FAILED, e)
 
     def _check_boundary(self, req: Request) -> bool:
-        """Finish rules at a step boundary; True if the request ended."""
+        """Finish rules at a step boundary; True if the request ended.
+        Completion outranks the deadline: output that is whole on the step
+        the clock ran out is returned."""
         if req._cancel:
             self._finish(req, RequestState.CANCELLED)
             return True
@@ -207,22 +248,127 @@ class Scheduler:
                            or len(req.tokens) >= req.max_new_tokens):
             self._finish(req, RequestState.FINISHED)
             return True
+        if req.deadline.expired():
+            self._finish(req, RequestState.FAILED,
+                         resilience.DeadlineExceededError(
+                             f"{req.request_id} exceeded its deadline"))
+            return True
         return False
 
     def _start(self, req: Request, first: int) -> None:
         """The request's prefill is done: it decodes from the next step."""
+        req._admit_seq = next(_seq_counter)
         self.running.append(req)
         self._emit(req, first)
         self._check_boundary(req)  # may retire at once (stop/budget)
 
+    # ----------------------------------------------------- admission order
+
+    def _next_waiter(self) -> Optional[Request]:
+        """Best waiting request: lowest priority value, earliest arrival."""
+        if not self.waiting:
+            return None
+        return min(self.waiting, key=lambda r: (r.priority, r._arrival))
+
+    def _keys_for(self, r: Request):
+        """The request's radix chunk-key chain, hashed once at its first
+        probe (None with the prefix cache off: sizing is then the plain
+        worst case)."""
+        cache = self.engine.prefix_cache
+        if cache is None:
+            return None
+        if r._prefix_keys is None:
+            r._prefix_keys = cache.chunk_keys(r.prompt)
+        return r._prefix_keys
+
+    def _can_admit(self, r: Request) -> bool:
+        return self.engine.can_admit(int(r.prompt.shape[0]),
+                                     int(r.max_new_tokens),
+                                     keys=self._keys_for(r),
+                                     journal_len=len(r.tokens))
+
+    def _cache_preferred(self, head: Request) -> Request:
+        """Cache-aware admission (``FLAGS_serving_cache_affinity`` = W > 0):
+        prefer a same-priority waiter whose prefix is resident over a
+        cache-cold head. The head may be skipped at most W times (each skip
+        is counted on it), priorities are never crossed, and a head that is
+        warm itself, or not admissible, is never skipped."""
+        window = int(flags.flag("serving_cache_affinity"))
+        if window <= 0 or head._cache_skips >= window:
+            return head
+        engine = self.engine
+        cache = engine.prefix_cache
+        if cache is None or engine.free_slots() == 0:
+            return head
+        if cache.resident_tokens_for(self._keys_for(head)) > 0:
+            return head  # the head is warm: no reason to skip it
+        if not self._can_admit(head):
+            # a blocked head belongs to the starvation machinery: skipping
+            # it would spend its window on passes it could not use
+            return head
+        best, best_tokens = head, 0
+        for r in self.waiting:
+            if r is head or r.priority != head.priority:
+                continue
+            tokens = cache.resident_tokens_for(self._keys_for(r))
+            if tokens > best_tokens and self._can_admit(r):
+                best, best_tokens = r, tokens
+        if best is not head:
+            head._cache_skips += 1
+            metrics.bump("scheduler.cache_skips")
+        return best
+
+    def _preempt_for(self, waiter: Request) -> bool:
+        """Preempt the lowest-priority, most recently admitted running
+        request that is strictly lower-priority than ``waiter``: it releases
+        its slot and blocks and re-queues with its journal. Declines (False)
+        when retiring every eligible victim still could not seat the waiter:
+        the victims' work would be lost for nothing. Feasibility uses
+        admission's own cache-aware sizing."""
+        candidates = [r for r in self.running if r.priority > waiter.priority]
+        if not candidates:
+            return False
+        eng = self.engine
+        need, pinned = eng.admit_sizing(int(waiter.prompt.shape[0]),
+                                        int(waiter.max_new_tokens),
+                                        keys=self._keys_for(waiter),
+                                        journal_len=len(waiter.tokens))
+        reclaimable = (eng.arena.grantable() - pinned
+                       + sum(eng.reserved_blocks(r.slot) for r in candidates))
+        if reclaimable < need:
+            return False
+        victim = max(candidates, key=lambda r: (r.priority, r._admit_seq))
+        eng.retire(victim.slot)
+        self.running.remove(victim)
+        victim.slot = None
+        victim.state = RequestState.QUEUED
+        victim._starved = 0
+        victim.preemptions += 1
+        # the walker is a pure function of the journal: rebuild it so the
+        # re-admission installs the mask of the next token
+        victim.reset_constraint()
+        self.waiting.append(victim)
+        metrics.bump("scheduler.preemptions")
+        return True
+
+    # --------------------------------------------------------------- step
+
+    def _expired(self, req: Request, where: str):
+        return resilience.DeadlineExceededError(
+            f"{req.request_id} expired {where}")
+
     def _advance_prefill(self) -> bool:
-        """Retire every cancelled in-progress admission, then advance the
-        oldest survivor by one chunk; its last chunk emits the first token
-        and moves it to ``running``."""
+        """Retire every cancelled or expired in-progress admission, then
+        advance the oldest survivor by one chunk; its last chunk emits the
+        first token and moves it to ``running``."""
         progress = False
         for req in list(self.prefilling):
             if req._cancel:
                 self._finish(req, RequestState.CANCELLED)  # frees the slot
+                progress = True
+            elif req.deadline.expired():
+                self._finish(req, RequestState.FAILED,
+                             self._expired(req, "mid-prefill"))
                 progress = True
         if not self.prefilling:
             return progress
@@ -242,29 +388,48 @@ class Scheduler:
         return True
 
     def step(self) -> bool:
-        """One iteration: cull cancelled waiters, advance one chunked
-        prefill, admit in FCFS order while capacity allows, run one decode
-        step, retire finished requests. Returns True if any request made
-        progress."""
+        """One iteration: cull cancelled and expired waiters, advance one
+        chunked prefill, admit in priority order while capacity allows
+        (preempting under starvation), run one decode step, retire finished
+        requests. Returns True if any request made progress."""
         progress = False
         for req in list(self.waiting):
-            if req._cancel:
+            if req._cancel or req.deadline.expired():
                 self.waiting.remove(req)
-                self._finish(req, RequestState.CANCELLED)
+                if req._cancel:
+                    self._finish(req, RequestState.CANCELLED)
+                else:
+                    self._finish(req, RequestState.FAILED,
+                                 self._expired(req, "in queue"))
                 progress = True
         if self.prefilling:
             progress |= self._advance_prefill()
+        starve_after = int(flags.flag("serving_starvation_steps"))
+        starved_this_step = False
         chunked = self.engine.chunk_size > 0
-        while self.waiting:
-            req = self.waiting[0]
-            if not self.engine.can_admit(int(req.prompt.shape[0]),
-                                         int(req.max_new_tokens)):
+        while True:
+            req = self._next_waiter()
+            if req is None:
                 break
-            self.waiting.pop(0)
+            req = self._cache_preferred(req)
+            if not self._can_admit(req):
+                # the head is blocked on capacity: count its starvation
+                # once per step, then preempt one victim per pass until it
+                # fits or no strictly lower-priority victim is left
+                if not starved_this_step:
+                    req._starved += 1
+                    starved_this_step = True
+                if (starve_after > 0 and req._starved > starve_after
+                        and self._preempt_for(req)):
+                    progress = True
+                    continue
+                break
+            self.waiting.remove(req)
+            req._starved = 0
             admit = self.engine.admit_begin if chunked else self.engine.admit
             try:
                 slot, first = admit(req.prompt, req.max_new_tokens,
-                                    **admit_kwargs(req))
+                                    tokens=req.tokens, **admit_kwargs(req))
             # analysis: allow(broad-except) -- a failed prefill fails THIS
             # request (its error is delivered through its handle), never the
             # pump; the engine has already unwound the admission
