@@ -90,6 +90,36 @@ no result. Phases, in order; each raises on failure:
    equal ``generate()``, one suffix prefill per hit,
    ``tokens.prefill_avoided`` = 7 x 512 and 511, launches exact (suffix
    prefills through the prefill kernel), every program built once.
+3e. Recovery and the front door, phase 3's model (``serve_recovery``),
+   with fault injection, spans and the arena audit on. A background
+   ``ServingAPI`` (8 slots, the prefix cache) serves a first wave of 8
+   requests -- greedy and seeded sampled (0.8 / top-k 50 / top-p 0.95), the
+   first two sharing a 512-token prefix -- while the main thread computes
+   the greedy references with ``generate()``: at least one of the pump
+   thread's captures must overlap that CUDA work (captures run in
+   ``thread_local`` mode). A second wave of the same shape: once all 8 are
+   RUNNING a ``serving_device`` fault (armed inside ``api.paused()``, so it
+   hits the next decode step), then, with a slot free, an ``arena_corrupt``
+   fault on a 9th request's admission. Held: every output against
+   ``generate()`` / ``generate(sampling=)`` (phase 3b's boundary rule),
+   ``supervisor.rebuilds`` 2 and ``supervisor.replays`` 8 + the requests
+   live at the second fault, each rebuild keeping every pool's
+   ``data_ptr()``, ``torch.cuda.memory_reserved``, the graph count, the
+   graph pool's bytes and every build counter, one decode program and
+   every prefill key built once, exactly the buckets admitted (replays
+   included; the keys new after the first fault printed), the paged and
+   sampling launches exact (a replay prefill counts as a prefill), each
+   request's spans (SUBMITTED, QUEUED, ..., one REPLAYED per fault it was
+   live for, ..., FINISHED on one trace id), and a clean arena after
+   ``drain(grace=5)``. Then the crash-loop breaker (``serving_device``
+   armed ``max_rebuilds + 1`` times: 3 rebuilds, ``CrashLoopError`` for
+   every request, nothing leaked, a fresh request equal to
+   ``generate()``), ``cancel`` mid-decode, ``result``, ``outstanding`` and
+   ``drain(grace=0)`` (stragglers fail with ``RequestDrainedError``), a
+   bound ``PreemptionGuard`` drained by the background pump on the
+   ``preempt`` fault, and ``EnginePredictor.run`` on 8 prompts equal to
+   ``generate(stop_token_id=)`` row for row. Its times run in phase 6's
+   bf16 setting (``recovery_times``).
 4. A second f32 ``gpt_1p3b`` from the same weights, served with
    ``quant_weights`` (int8 weights, per-channel scales, quantized on the
    card: 8 of its linears, and one in bf16, must equal the CPU's
@@ -119,6 +149,13 @@ no result. Phases, in order; each raises on failure:
    a hit over another slot's blocks and of a COW recompute at 511 held
    against its plain version, the COW copy's time beside its bound, and
    the token agreement of 4 hits with the cache off (printed, not held).
+   Then phase 3e's times (``recovery_times``, 8 slots, prompts of 512):
+   ``rebuild()`` alone beside its bound (the arena's bytes over 3.35
+   TB/s), the TTFT and inter-token p50/p99 of a clean wave from
+   ``engine.hists``, the host decode-step median with
+   ``FLAGS_serving_telemetry`` 0, 1, 1, 0, and the outage from a
+   ``serving_device`` fault to the next token of all 8 streams, with the
+   replays' bucket captured during the recovery and already captured.
    Then the median decode-step time (a
    graph replay) and tokens/s of 8 full slots, unquantized (greedy, all
    sampled, and 4 constrained + 4 sampled), with
@@ -179,7 +216,7 @@ instances its times belong to, and ``launches_f32`` phase 8's; the
 sampling row's phase 3b's, its times the 8 all-sampled float32 rows',
 with every timed setting and ``torch.argmax`` beside them; the two
 unquantized paged rows' and the sampling row's ``launches_prefix`` phase
-3d's shared-prefix wave),
+3d's shared-prefix wave, ``launches_recovery`` phase 3e's faulted wave),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -1093,6 +1130,17 @@ def hold_sampled_wave(api, pa, model, prompts, news, kw, what, card):
         f"{what} ({layers} x (decode steps + warm-ups), {layers} x "
         "(prefills + chunks + warm-ups), sampling 1 x (decode steps + "
         "prefills + chunks + warm-ups))")
+    hold_served_tokens(api, model, prompts, reqs, news, kw, what, card)
+    return launches, ran
+
+
+def hold_served_tokens(api, model, prompts, reqs, news, kw, what, card,
+                       greedy_refs=None):
+    """``hold_sampled_wave``'s token hold: unconstrained tokens equal
+    ``generate(sampling=...)`` under the boundary rule, constrained ones
+    stay in their grammar. ``greedy_refs`` (request index -> tokens)
+    gives greedy references computed beforehand."""
+    greedy_refs = greedy_refs or {}
     t0, ok_gen, ok_grammar, diverged = time.perf_counter(), 0, 0, 0
     for i, (p, r, n, k) in enumerate(zip(prompts, reqs, news, kw)):
         c = k.get("constraint")
@@ -1114,9 +1162,12 @@ def hold_sampled_wave(api, pa, model, prompts, news, kw, what, card):
         while start < n:
             # generate() from the prompt and got[:start] gives got[start:]
             ctx = np.concatenate([p, got[:start]])
-            ref = model.generate(ctx[None], max_new_tokens=n - start,
-                                 sampling=r.sampling)[0, len(ctx):]
-            ref = ref.cpu().numpy()
+            if start == 0 and i in greedy_refs:
+                ref = np.asarray(greedy_refs[i])
+            else:
+                ref = model.generate(ctx[None], max_new_tokens=n - start,
+                                     sampling=r.sampling)[0, len(ctx):]
+                ref = ref.cpu().numpy()
             off = np.flatnonzero(got[start:] != ref)
             if not off.size:
                 break
@@ -1144,7 +1195,6 @@ def hold_sampled_wave(api, pa, model, prompts, news, kw, what, card):
           f"their grammar ({time.perf_counter() - t0:.1f} s); stats "
           f"sampling.admits {api.engine.sampled_admits}, "
           f"constrain.admits {api.engine.constrained_admits} [{card}]")
-    return launches, ran
 
 
 def serve_sampled(pa, model, serving, card):
@@ -1378,6 +1428,556 @@ def serve_prefix(pa, model, serving, card):
     finally:
         flags.set_flags(keep)
     return wave_launches
+
+
+# phase 3e: recovery on the card. Each wave is 8 requests, greedy (even) and
+# seeded sampled (odd, SAMPLED), the first two sharing a 512-token prefix
+# (suffixes of 40 and 70 tokens); the first wave captures the buckets the
+# second (the faulted one) admits in
+RECOVERY_LENS = [40, 70, 37, 100, 140, 300, 200, 64]
+RECOVERY_NEWS = [40, 36, 32, 40, 36, 32, 40, 36]
+RECOVERY_KEYS = ("supervisor.rebuilds", "supervisor.replays",
+                 "engine.rebuilds", "api.recoveries", "prefix.hits",
+                 "prefix.misses")
+
+
+def wait_for(cond, what, timeout=120.0):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not reached in {timeout} s")
+        time.sleep(0.001)
+
+
+class Recorder:
+    """Host-side records of one background API's engine, by wrapping its
+    methods: the bucket of every whole-prompt and suffix prefill (the keys
+    the engine must hold, each built once), every capture's interval on
+    the host clock, every emitted token's time, the program key each
+    injected fault hit, and what each rebuild kept (pool addresses,
+    reserved bytes, graphs, pool bytes, builds)."""
+
+    def __init__(self, api):
+        from paddle_tpu_torch.core import compile_cache, resilience
+
+        eng = self.eng = api.engine
+        self.full, self.suffix = set(), set()
+        self.captures, self.rebuilds, self.emits = [], [], {}
+        max_pos = eng._model.cfg.max_position_embeddings
+
+        def bucket(n):
+            return compile_cache.prefill_bucket(n, eng.max_model_len,
+                                                eng.prefill_bucket_min)
+
+        full_call, suffix_call = eng._full_prefill_call, eng._suffix_prefill_call
+
+        def full(ctx, clen, res, slot):
+            self.full.add(bucket(clen))
+            return full_call(ctx, clen, res, slot)
+
+        def suffix(ctx, clen, prefix_len, slot, chunked=False):
+            self.suffix.add(min(bucket(clen - prefix_len),
+                                max_pos - prefix_len))
+            return suffix_call(ctx, clen, prefix_len, slot, chunked)
+
+        eng._full_prefill_call, eng._suffix_prefill_call = full, suffix
+        backend = eng._graphs.backend
+        capture = backend.capture
+
+        def timed_capture(fn):
+            t0 = time.perf_counter()
+            try:
+                return capture(fn)
+            finally:
+                self.captures.append((t0, time.perf_counter()))
+
+        backend.capture = timed_capture
+        rebuild = eng.rebuild
+
+        def kept():
+            return dict(ptrs=[t.data_ptr() for e in eng.arena.pools
+                              for t in e],
+                        reserved=torch.cuda.memory_reserved(),
+                        graphs=eng._graphs.graph_count(),
+                        pool_bytes=eng._graphs.pool_bytes,
+                        builds=(eng.decode_traces, dict(eng.prefill_traces),
+                                dict(eng.prefix_prefill_traces),
+                                eng.cow_traces))
+
+        def recorded():
+            before, t0 = kept(), time.perf_counter()
+            rebuild()
+            self.rebuilds.append((t0, before, kept(), program_keys(eng)))
+
+        eng.rebuild = recorded
+        emit = api.scheduler._emit
+
+        def emitted(req, token):
+            self.emits.setdefault(req.request_id, []).append(
+                time.perf_counter())
+            return emit(req, token)
+
+        api.scheduler._emit = emitted
+        self.faults = []
+        run = eng._run
+
+        def probed(prog, hist, **values):
+            try:
+                return run(prog, hist, **values)
+            except (resilience.ServingDeviceError,
+                    resilience.ArenaCorruptError) as e:
+                self.faults.append((prog.key, type(e).__name__))
+                raise
+
+        eng._run = probed
+
+
+def program_keys(eng):
+    """The engine's prefill program keys: ("prefill" | "suffix", bucket)."""
+    return ({("prefill", b) for b in eng.prefill_traces}
+            | {("suffix", b) for b in eng.prefix_prefill_traces})
+
+
+def recovery_wave(vocab, rng, seed):
+    from paddle_tpu_torch.serving import SamplingParams
+    from paddle_tpu_torch.tools.profile_decode import SAMPLED
+
+    shared = rng.integers(0, vocab, PREFIX_LEN)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, n)])
+               for n in RECOVERY_LENS[:2]]
+    prompts += [rng.integers(0, vocab, n) for n in RECOVERY_LENS[2:]]
+    kw = [{} if i % 2 == 0 else
+          {"sampling": SamplingParams(**SAMPLED, seed=seed + i)}
+          for i in range(len(prompts))]
+    return prompts, kw
+
+
+def greedy_refs(model, prompts, news, kw):
+    return {i: model.generate(p[None], max_new_tokens=n)[0, len(p):]
+            .cpu().numpy()
+            for i, (p, n, k) in enumerate(zip(prompts, news, kw))
+            if "sampling" not in k}
+
+
+def serve_recovery(pa, so, model, serving, card):
+    """Phase 3e: recovery and the front door at full width (phase 3's f32
+    ``gpt_1p3b``). Returns the faulted wave's launches."""
+    from paddle_tpu_torch.core import flags, resilience
+
+    keep = flags.get_flags(["fault_injection", "serving_telemetry",
+                            "serving_arena_invariants"])
+    flags.set_flags({"fault_injection": 1, "serving_telemetry": 1,
+                     "serving_arena_invariants": 1})
+    try:
+        launches = recovery_under_load(pa, so, model, serving, card)
+        torch.cuda.empty_cache()
+        front_door(model, serving, card)
+    finally:
+        flags.set_flags(keep)
+        resilience.clear_faults()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recovery_under_load(pa, so, model, serving, card):
+    """Phase 3e, first: a background ``ServingAPI`` with the prefix cache.
+    Wave 1 is served while the main thread computes the greedy references
+    of both waves (its CUDA work overlaps the pump thread's captures, which
+    run in ``thread_local`` mode). Wave 2: once all 8 are RUNNING a
+    ``serving_device`` fault (the next decode step), then, with a slot free,
+    an ``arena_corrupt`` fault on a 9th request's admission. Held: every
+    output against ``generate()`` / ``generate(sampling=)``, the rebuild and
+    replay counts, each rebuild keeping pool addresses, reserved bytes,
+    graphs, pool bytes and builds, every program built once with its keys
+    exactly the buckets admitted (replays included), the launches exact,
+    each request's spans, and a clean arena after ``drain(grace=5)``."""
+    from paddle_tpu_torch.core import compile_cache, resilience
+    from paddle_tpu_torch.serving import RequestState, metrics, telemetry
+
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    cc = decode_compiles()
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=8, prefix_cache=True), device="cuda", background=True)
+    eng = api.engine
+    rec = Recorder(api)
+    rng = np.random.default_rng(31)
+    news = RECOVERY_NEWS
+    prompts1, kw1 = recovery_wave(vocab, rng, 5000)
+    prompts2, kw2 = recovery_wave(vocab, rng, 6000)
+    what = "f32 recovery, wave 1 (background pump)"
+    reqs1 = [api.submit(p, max_new_tokens=n, **k)
+             for p, n, k in zip(prompts1, news, kw1)]
+    t0 = time.perf_counter()
+    refs1 = greedy_refs(model, prompts1, news, kw1)
+    refs2 = greedy_refs(model, prompts2, news, kw2)
+    t1 = time.perf_counter()
+    for r in reqs1:
+        api.result(r, timeout=120)
+    overlap = [c for c in rec.captures if c[0] < t1 and c[1] > t0]
+    print(f"e2e {what}: {len(rec.captures)} captures in the pump thread, "
+          f"{len(overlap)} of them while the main thread ran generate() "
+          f"({t1 - t0:.2f} s of references) [{card}]")
+    if not overlap:
+        raise AssertionError(f"{what}: no capture overlapped the main "
+                             "thread's CUDA work")
+    hold_served_tokens(api, model, prompts1, reqs1, news, kw1, what, card,
+                       greedy_refs=refs1)
+
+    what = "f32 recovery, wave 2 (two faults)"
+    sup = api.supervisor
+    telemetry.reset_tracelog()
+    m0, before = metrics.stats(), ran_counts(eng)
+    pa.reset_launches()
+    so.reset_launches()
+    reqs2 = [api.submit(p, max_new_tokens=n, **k)
+             for p, n, k in zip(prompts2, news, kw2)]
+    wait_for(lambda: all(r.state == RequestState.RUNNING and r.tokens
+                         for r in reqs2), what + ", all 8 running")
+    with api.paused():  # no step runs while the fault is armed
+        live1 = list(api.scheduler.running)
+        journal = {r.request_id: len(r.tokens) for r in live1}
+        resilience.inject_fault("serving_device", times=1)
+    # once a request finished after the recovery, a 9th request meets the
+    # arena_corrupt fault at its admission (the step's first program run)
+    late_prompt, late, t0 = rng.integers(0, vocab, 90), None, time.time()
+    while late is None:
+        if time.time() - t0 > 120:
+            raise AssertionError(f"{what}: no slot came free")
+        with api.paused():
+            if sup.rebuild_count == 1 and eng.free_slots() > 0:
+                late = api.submit(late_prompt, max_new_tokens=24)
+                live2 = list(api.scheduler.running)
+                resilience.inject_fault("arena_corrupt", times=1)
+        time.sleep(0.001)
+    for r in reqs2 + [late]:
+        api.result(r, timeout=120)
+    torch.cuda.synchronize()
+    launches = dict(pa.launches) | dict(so.launches)
+    ran = types.SimpleNamespace(**dict(zip(
+        ("steps", "prefills", "chunks", "suffix", "decode_builds",
+         "prefill_builds", "chunk_builds"),
+        (a - b for a, b in zip(ran_counts(eng), before)))))
+    d = metric_delta(m0, RECOVERY_KEYS)
+    print(f"e2e {what}: {d}; journals at the first fault {journal}; "
+          f"{len(live2)} live at the second; launches {launches}; ran "
+          f"{vars(ran)} [{card}]")
+    want = {"supervisor.rebuilds": 2, "engine.rebuilds": 2,
+            "api.recoveries": 2, "supervisor.replays": 8 + len(live2)}
+    late_key = ("prefill", compile_cache.prefill_bucket(
+        len(late_prompt), eng.max_model_len, eng.prefill_bucket_min))
+    print(f"e2e {what}: the faults hit {rec.faults} [{card}]")
+    if (len(live1) != 8 or {k: d[k] for k in want} != want
+            or sup.rebuild_count != 2
+            or rec.faults != [("decode", "ServingDeviceError"),
+                              (late_key, "ArenaCorruptError")]):
+        raise AssertionError(f"{what}: {len(live1)} live at the first "
+                             f"fault, counts {d}, want {want}, faults "
+                             f"{rec.faults}")
+    hold_launches(launches, want_launches(layers, ran),
+                  f"{what} (24 x (decode steps + warm-ups), 24 x (prefills "
+                  "+ replay prefills + suffix prefills + warm-ups))")
+    for t_fault, kept_before, kept_after, keys in rec.rebuilds:
+        same = {k: kept_before[k] == kept_after[k] for k in kept_before}
+        print(f"e2e {what}: rebuild kept pool addresses, reserved "
+              f"{kept_after['reserved']} bytes, {kept_after['graphs']} "
+              f"graphs, pool {kept_after['pool_bytes']} bytes, builds "
+              f"{kept_after['builds']}: {same} [{card}]")
+        if not all(same.values()):
+            raise AssertionError(f"{what}: the rebuild changed {same}")
+    print(f"programs {what}: prefill keys built after the first fault "
+          f"{sorted(program_keys(eng) - rec.rebuilds[0][3])} (buckets of "
+          f"the replays and of the 9th request) [{card}]")
+    hold_built_once(eng, cc, what, card, full=rec.full, suffix=rec.suffix)
+    # outage: the fault to the next token of every stream
+    t_fault = rec.rebuilds[0][0]
+    outage = max(min(t for t in rec.emits[r.request_id] if t > t_fault)
+                 for r in live1) - t_fault
+    print(f"e2e {what}: outage from the first rebuild to the next token "
+          f"of all 8 streams {outage * 1e3:.1f} ms (f32, host clock) "
+          f"[{card}]")
+    # spans: one trace per request, SUBMITTED ... REPLAYED ... FINISHED
+    for r in reqs2 + [late]:
+        evs = telemetry.trace(r.trace_id)
+        kinds = [e["event"] for e in evs]
+        replays = (r in live1) + (r in live2)
+        ok = (kinds[:2] == [telemetry.SUBMITTED, telemetry.QUEUED]
+              and kinds.count(telemetry.SUBMITTED) == 1
+              and kinds.count(telemetry.REPLAYED) == replays
+              and kinds.count(telemetry.FIRST_TOKEN) == 1
+              and kinds[-1] == telemetry.FINISHED
+              and {e["trace_id"] for e in evs} == {r.trace_id})
+        if not ok:
+            raise AssertionError(f"{what}: {r.request_id} spans {kinds}")
+    print(f"e2e {what}: spans of the 9 requests well formed, e.g. "
+          f"{[e['event'] for e in telemetry.trace(reqs2[0].trace_id)]} "
+          f"[{card}]")
+    hold_served_tokens(api, model, prompts2, reqs2, news, kw2, what, card,
+                       greedy_refs=refs2)
+    hold_to_generate(model, [late_prompt], [late], [24],
+                     what + ", the admission that failed", card)
+    api.drain(grace=5)
+    eng.check_invariants()
+    a = eng.arena.stats()
+    if (a["blocks_reserved"], a["blocks_in_use"] - a["blocks_cached"],
+            eng.active_slots()) != (0, 0, 0):
+        raise AssertionError(f"{what}: arena after drain {a}")
+    api.close()
+    return launches
+
+
+def front_door(model, serving, card):
+    """Phase 3e, then: the crash-loop breaker (``serving_device`` armed
+    ``max_rebuilds + 1`` times: 3 rebuilds, then every request fails with
+    ``CrashLoopError`` and nothing leaks; a fresh request equals
+    ``generate()``); ``cancel`` mid-decode, ``result``, ``outstanding`` and
+    ``drain(grace=0)``; a bound ``PreemptionGuard`` (the ``preempt``
+    fault) drained by the background pump; ``EnginePredictor.run`` on 8
+    prompts equal to ``generate(stop_token_id=)`` row for row."""
+    import logging
+
+    from paddle_tpu_torch.core import resilience
+    from paddle_tpu_torch.serving import (CrashLoopError, EnginePredictor,
+                                          PreemptionGuard, RequestState)
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(32)
+    what = "f32 crash-loop breaker"
+    api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
+                             device="cuda")
+    eng, sup = api.engine, api.supervisor
+    reqs = [api.submit(rng.integers(0, vocab, n), max_new_tokens=16)
+            for n in (20, 40, 60)]
+    for _ in range(2):
+        api._pump_once()
+    resilience.inject_fault("serving_device", times=sup.max_rebuilds + 1)
+    try:
+        api.run_until_idle()
+        raise AssertionError(f"{what}: no CrashLoopError")
+    except CrashLoopError:
+        pass
+    a = eng.arena.stats()
+    print(f"e2e {what}: {sup.rebuild_count} rebuilds, then "
+          f"{[type(r.error).__name__ for r in reqs]} (caused by "
+          f"{type(reqs[0].error.__cause__).__name__}); arena in use "
+          f"{a['blocks_in_use']}, reserved {a['blocks_reserved']} [{card}]")
+    if (sup.rebuild_count != sup.max_rebuilds or not sup.breaker_open
+            or any(not isinstance(r.error, CrashLoopError) for r in reqs)
+            or (a["blocks_in_use"], a["blocks_reserved"],
+                eng.active_slots()) != (0, 0, 0)):
+        raise AssertionError(f"{what}: {sup.rebuild_count} rebuilds, {a}")
+    eng.check_invariants()
+    fresh = rng.integers(0, vocab, 50)
+    r = api.submit(fresh, max_new_tokens=16)
+    out = api.result(r)
+    hold_to_generate(model, [fresh], [r], [16], what + ", then fresh", card)
+    if not np.array_equal(out, r.output_ids()):
+        raise AssertionError(f"{what}: result() is not prompt + tokens")
+
+    what = "f32 front door"
+    long = api.submit(rng.integers(0, vocab, 30), max_new_tokens=64)
+    for _ in range(3):
+        api._pump_once()
+    api.cancel(long)
+    a = eng.arena.stats()
+    if (long.state != RequestState.CANCELLED or eng.active_slots()
+            or a["blocks_in_use"] or a["blocks_reserved"]):
+        raise AssertionError(f"{what}: cancel left {long.state}, {a}")
+    waiting = [api.submit(rng.integers(0, vocab, 30), max_new_tokens=64)
+               for _ in range(3)]
+    counted = [api.outstanding()]
+    api._pump_once()
+    counted.append(api.outstanding())
+    api.drain(grace=0)
+    counted.append(api.outstanding())
+    a = eng.arena.stats()
+    print(f"e2e {what}: cancel mid-decode freed its slot and blocks; "
+          f"outstanding {counted} (queued, running, drained); drain(grace=0) "
+          f"failed {[type(w.error).__name__ for w in waiting]} [{card}]")
+    if (counted != [3, 3, 0] or a["blocks_in_use"] or any(
+            not isinstance(w.error, resilience.RequestDrainedError)
+            for w in waiting)):
+        raise AssertionError(f"{what}: {counted}, {a}")
+    api.close()
+
+    what = "f32 preemption guard, background pump"
+    api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
+                             device="cuda", background=True)
+    guard = PreemptionGuard(install=False)
+    api.bind_preemption_guard(guard, grace=0.0)
+    r = api.submit(rng.integers(0, vocab, 30), max_new_tokens=200)
+    wait_for(lambda: len(r.tokens) >= 2, what)
+    resilience.inject_fault("preempt", times=1)
+    if not r.done_event.wait(60):
+        raise AssertionError(f"{what}: no drain")
+    print(f"e2e {what}: {r.state} after {len(r.tokens)} tokens, "
+          f"{type(r.error).__name__}: {r.error} [{card}]")
+    if not (isinstance(r.error, resilience.RequestDrainedError)
+            and "preemption requested" in str(r.error)
+            and api.drain_count == 1):
+        raise AssertionError(f"{what}: {r.state} {r.error!r}")
+    api.close()
+
+    what = "f32 EnginePredictor"
+    ids = rng.integers(0, vocab, (8, 48)).astype(np.int32)
+    first = model.generate(ids[:1].astype(np.int64), max_new_tokens=16)
+    stop = int(first[0, 48 + 5])  # row 0 stops at its 6th token
+    pred = EnginePredictor(model, max_new_tokens=16, stop_token_id=stop,
+                           config=serving.ServingConfig(num_slots=8),
+                           device="cuda")
+    (out,) = pred.run([ids])
+    logs = []
+    handler = logging.Handler()
+    handler.emit = lambda record: logs.append(record.getMessage())
+    logger = logging.getLogger("paddle_tpu_torch.serving")
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        pred.close()
+    finally:
+        logger.removeHandler(handler)
+    for i in range(8):
+        ref = model.generate(ids[i:i + 1].astype(np.int64),
+                             max_new_tokens=16, stop_token_id=stop)
+        if not np.array_equal(out[i], ref[0].cpu().numpy()):
+            raise AssertionError(f"{what}: row {i} {out[i, 48:]} vs "
+                                 f"{ref[0, 48:].cpu().numpy()}")
+    print(f"e2e {what}: 8 rows of [8, 48] + 16 equal generate("
+          f"stop_token_id={stop}) row for row; {logs[-1]} [{card}]")
+
+
+def recovery_times(model, serving, card):
+    """Phase 3e's times, bf16, on phase 6's engine shape (8 slots, prompts
+    of 512, 64 new tokens): ``rebuild()`` alone beside its bound (the
+    arena's bytes written once), the TTFT and inter-token p50/p99 of a
+    clean wave from ``engine.hists``, the host decode-step median with
+    ``FLAGS_serving_telemetry`` 0, 1, 1, 0, and the outage of a
+    ``serving_device`` fault after 4 steps -- the fault to the next token
+    of all 8 streams -- first with the replays' bucket (768) captured
+    during the recovery, then captured already."""
+    from paddle_tpu_torch.core import flags, resilience
+    from paddle_tpu_torch.serving import RequestState
+
+    keep = flags.get_flags(["fault_injection", "serving_telemetry"])
+    flags.set_flags({"fault_injection": 1, "serving_telemetry": 0})
+    vocab, slots, plen, new = model.cfg.vocab_size, 8, 512, 64
+    rng = np.random.default_rng(41)
+    cc = decode_compiles()
+    api = serving.ServingAPI(model, serving.ServingConfig(num_slots=slots),
+                             device="cuda")
+    eng, sched = api.engine, api.scheduler
+    out = {}
+
+    def wave():
+        return [api.submit(rng.integers(0, vocab, plen), max_new_tokens=new)
+                for _ in range(slots)]
+
+    def finish(reqs, what):
+        api.run_until_idle()
+        for r in reqs:
+            if r.state != RequestState.FINISHED or len(r.tokens) != new:
+                raise AssertionError(f"{what}: {r.request_id} {r.state} "
+                                     f"{len(r.tokens)} {r.error!r}")
+
+    try:
+        finish(wave(), "bf16 recovery warm-up")
+        # rebuild() alone, the engine idle
+        ptrs = [t.data_ptr() for e in eng.arena.pools for t in e]
+        kept = (torch.cuda.memory_reserved(), eng._graphs.graph_count(),
+                eng._graphs.pool_bytes, builds(eng))
+        host, dev = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            eng.rebuild()
+            b.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(a.elapsed_time(b))
+        kv_bytes = eng.stats()["arena.kv_bytes"]
+        bound_ms = kv_bytes / HBM_BYTES_PER_S * 1e3
+        now = (torch.cuda.memory_reserved(), eng._graphs.graph_count(),
+               eng._graphs.pool_bytes, builds(eng))
+        out["rebuild_ms"] = float(np.median(host[1:]))
+        out["rebuild_device_ms"] = float(np.median(dev[1:]))
+        out["rebuild_bound_ms"] = bound_ms
+        print(f"bf16 recovery: rebuild() alone {out['rebuild_ms']:.3f} ms "
+              f"host clock, {out['rebuild_device_ms']:.3f} ms between "
+              f"events (median of 5, {min(host[1:]):.3f}-"
+              f"{max(host[1:]):.3f}), bound {bound_ms:.3f} ms "
+              f"({kv_bytes} arena bytes over 3.35 TB/s); kept pool "
+              f"addresses, reserved, graphs, pool bytes, builds: "
+              f"{ptrs == [t.data_ptr() for e in eng.arena.pools for t in e]}"
+              f", {kept == now} {now} [{card}]")
+        if ptrs != [t.data_ptr() for e in eng.arena.pools
+                    for t in e] or kept != now:
+            raise AssertionError(f"bf16 rebuild changed {kept} -> {now}")
+        # a clean wave's latency percentiles
+        eng.hists.clear()
+        finish(wave(), "bf16 recovery clean wave")
+        ttft = eng.hists.peek("latency.ttft")
+        gap = eng.hists.peek("latency.inter_token")
+        out.update(ttft_p50_ms=ttft.percentile(50) * 1e3,
+                   ttft_p99_ms=ttft.percentile(99) * 1e3,
+                   inter_token_p50_ms=gap.percentile(50) * 1e3,
+                   inter_token_p99_ms=gap.percentile(99) * 1e3)
+        print(f"bf16 recovery: a clean wave of 8 x (512 + 64) from "
+              f"engine.hists: TTFT p50 {out['ttft_p50_ms']:.2f} / p99 "
+              f"{out['ttft_p99_ms']:.2f} ms ({ttft.n} samples), "
+              f"inter-token p50 {out['inter_token_p50_ms']:.3f} / p99 "
+              f"{out['inter_token_p99_ms']:.3f} ms ({gap.n}) [{card}]")
+        # the host decode step with span collection off and on
+        steps = {}
+        for on in (0, 1, 1, 0):
+            flags.set_flags({"serving_telemetry": on})
+            reqs, times = wave(), []
+            while sched.has_work():
+                full = not sched.waiting and eng.active_slots() == slots
+                t0 = time.perf_counter()
+                sched.step()
+                if full:
+                    times.append(time.perf_counter() - t0)
+            finish(reqs, "bf16 telemetry wave")
+            steps.setdefault(on, []).append(float(np.median(times)) * 1e3)
+        flags.set_flags({"serving_telemetry": 0})
+        out["telemetry_step_ms"] = steps
+        print(f"bf16 recovery: median host decode step, telemetry off "
+              f"{steps[0]} / on {steps[1]} ms (order off, on, on, off) "
+              f"[{card}]")
+        # the outage of a fault after 4 steps: the next pump recovers, and
+        # every stream's next token is its replayed one
+        lens = [plen]
+        for what in ("replay bucket captured in the recovery",
+                     "replay bucket captured already"):
+            reqs = wave()
+            for _ in range(4):
+                api._pump_once()
+            journal = {len(r.tokens) for r in reqs}
+            lens += [plen + j for j in journal]
+            keys = set(eng.prefill_traces)
+            resilience.inject_fault("serving_device", times=1)
+            n0 = [len(r.tokens) for r in reqs]
+            t0 = time.perf_counter()
+            api._pump_once()
+            outage = (time.perf_counter() - t0) * 1e3
+            if [len(r.tokens) for r in reqs] != [n + 1 for n in n0]:
+                raise AssertionError(f"bf16 outage: {n0} -> "
+                                     f"{[len(r.tokens) for r in reqs]}")
+            finish(reqs, "bf16 outage wave")
+            out.setdefault("outage_ms", {})[what] = outage
+            print(f"bf16 recovery: outage {outage:.1f} ms from the fault "
+                  f"to the next token of all 8 streams (rebuild + 8 replay "
+                  f"prefills of 512 + {sorted(journal)} tokens), {what}; "
+                  f"new prefill keys {sorted(set(eng.prefill_traces) - keys)}"
+                  f" [{card}]")
+        hold_programs(eng, cc, lens, "bf16 recovery", card)
+    finally:
+        flags.set_flags(keep)
+        resilience.clear_faults()
+        api.close()
+    return out
 
 
 def bf16_prefix(model, pa, serving, card):
@@ -1981,6 +2581,10 @@ def serve_bf16(model, pa, serving, card):
     torch.cuda.empty_cache()
     prefix = bf16_prefix(model, pa, serving, card)
     torch.cuda.empty_cache()
+    recovery = recovery_times(model, serving, card)
+    print("bf16 recovery, one call: " + json.dumps(recovery)
+          + f" [{card}]")
+    torch.cuda.empty_cache()
     runs = {"unquantized": decode_run(model, serving, {}, card),
             "sampled": decode_run(model, serving, {}, card, "sampled"),
             "constrained+sampled": decode_run(model, serving, {}, card,
@@ -2381,6 +2985,7 @@ def main() -> int:
                                               card)["sample_tokens"]
     serve_wide_vocab(pa, gpt, serving, card)
     prefix_launches = serve_prefix(pa, model, serving, card)
+    recovery_launches = serve_recovery(pa, so, model, serving, card)
     quant_launches = serve_quantized(pa, gpt, serving, arrays, card)
     torch.cuda.empty_cache()
     # the int8 rows' launches are phase 5's, the path that runs them
@@ -2415,7 +3020,8 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     **({"launches_f32": launches_f32[name]}
                        if name in FLASH else {}),
-                    **({"launches_prefix": prefix_launches[name]}
+                    **({"launches_prefix": prefix_launches[name],
+                        "launches_recovery": recovery_launches[name]}
                        if name in PAGED[:2] + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),

@@ -32,6 +32,22 @@ def stats() -> dict:
         return dict(_counts)
 
 
+def stats_delta(before: dict, after: dict, *, drop_zero: bool = False) -> dict:
+    """Numeric difference of two ``stats()`` snapshots; non-numeric keys
+    pass through from ``after`` (``paddle_tpu/core/compile_cache.py:159``;
+    the one definition the resilience and serving deltas share)."""
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            d = round(v - before.get(k, 0), 6)
+            if drop_zero and d == 0:
+                continue
+            out[k] = d
+        else:
+            out[k] = v
+    return out
+
+
 def bucket_dim(n: int, min_bucket: Optional[int] = None) -> int:
     """Round ``n`` up to the next power-of-two-ish bucket (powers of two plus
     the 3*2^k midpoints: 8, 12, 16, 24, 32, 48, 64, ...). Values at or below

@@ -3,21 +3,38 @@
 Only the flags the ported slices read are defined, with the JAX package's
 defaults. ``FLAGS_<name>`` in the environment overrides a default at import
 time, and :func:`set_flags` / :func:`get_flags` take ``FLAGS_``-prefixed
-(or bare) names at run time, as in the JAX package.
+(or bare) names at run time, as in the JAX package. A flag keeps the type
+of its default (int, float, bool or str; ``paddle_tpu/core/flags.py:33
+_parse``): a string value is parsed into that type, any other value cast.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Union
+from typing import Any, Dict, List, Union
 
-_VALUES: Dict[str, int] = {}
+_VALUES: Dict[str, Any] = {}
+_TYPES: Dict[str, type] = {}
 
 
-def define_flag(name: str, default: int) -> None:
-    """Register an integer flag; ``FLAGS_<name>`` in the environment
-    overrides its default."""
+def _parse(type_: type, raw: str):
+    if type_ is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    return type_(raw)
+
+
+def _coerce(type_: type, value):
+    if isinstance(value, str) and type_ is not str:
+        return _parse(type_, value)
+    return type_(value)
+
+
+def define_flag(name: str, default: Any) -> None:
+    """Register a flag of ``default``'s type; ``FLAGS_<name>`` in the
+    environment overrides its default."""
+    type_ = type(default)
     env = os.environ.get("FLAGS_" + name)
-    _VALUES[name] = default if env is None else int(env)
+    _TYPES[name] = type_
+    _VALUES[name] = default if env is None else _parse(type_, env)
 
 
 def _key(name: str) -> str:
@@ -27,21 +44,22 @@ def _key(name: str) -> str:
     return key
 
 
-def get_flags(names: Union[str, List[str]]) -> Dict[str, int]:
+def get_flags(names: Union[str, List[str]]) -> Dict[str, Any]:
     """``{name: value}`` for each name as given (``FLAGS_x`` or ``x``)."""
     if isinstance(names, str):
         names = [names]
     return {n: _VALUES[_key(n)] for n in names}
 
 
-def set_flags(values: Dict[str, int]) -> None:
-    """Set flags by name (``FLAGS_x`` or ``x``); an unknown name raises
-    ``KeyError``."""
+def set_flags(values: Dict[str, Any]) -> None:
+    """Set flags by name (``FLAGS_x`` or ``x``), each in its default's
+    type; an unknown name raises ``KeyError``."""
     for n, v in values.items():
-        _VALUES[_key(n)] = int(v)
+        key = _key(n)
+        _VALUES[key] = _coerce(_TYPES[key], v)
 
 
-def flag(name: str) -> int:
+def flag(name: str):
     return _VALUES[name]
 
 
@@ -99,3 +117,28 @@ define_flag("serving_arena_invariants", 0)
 # partial chain is shareable as soon as it exists. Requires
 # FLAGS_serving_prefix_cache.
 define_flag("serving_publish_chunks", 0)
+# Serving supervisor crash-loop breaker: after this many engine rebuilds
+# within FLAGS_serving_rebuild_window scheduler steps, transient failures stop
+# being recovered and fail fast (CrashLoopError).
+define_flag("serving_max_rebuilds", 3)
+# Scheduler-step window over which the supervisor counts rebuilds toward the
+# crash-loop breaker.
+define_flag("serving_rebuild_window", 200)
+# Default grace budget (seconds) of ServingAPI.drain(): admissions stop at
+# once, in-flight requests pump to completion within the budget, stragglers
+# fail with the retriable RequestDrainedError.
+define_flag("serving_drain_grace", 30.0)
+# Request-lifecycle span collection (serving.telemetry): span events keyed by
+# each request's trace_id land in a bounded ring. Latency histograms are
+# always on; this gates only the span path. Host-side only: never read in a
+# captured step.
+define_flag("serving_telemetry", False)
+# Capacity of the span ring (serving.telemetry.TraceLog): the newest N events
+# are kept, older ones dropped oldest-first (telemetry.spans_dropped).
+define_flag("serving_trace_events", 4096)
+# Master gate of the fault-injection registry (core.resilience.inject_fault):
+# off, every probe is a no-op and no fault can be armed.
+define_flag("fault_injection", False)
+# Arm faults from the environment: 'kind:times[:after],...'. Honoured only
+# with FLAGS_fault_injection=1.
+define_flag("inject_faults", "")

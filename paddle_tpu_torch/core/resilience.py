@@ -1,19 +1,34 @@
-"""Deadlines and queue shedding for serving (the host-side subset of
-``paddle_tpu/core/resilience.py`` that the port's scheduler and API use).
+"""Serving resilience: deadlines, shedding, the serving error classes, the
+fault registry and the preemption guard (the serving subset of
+``paddle_tpu/core/resilience.py``).
 
 :class:`Deadline` is a request's absolute wall-clock budget on the monotonic
 clock; :func:`check_overload` is the admission probe that sheds a submit
-when the waiting queue is at ``FLAGS_serving_max_queue``. Counters
-(``overload.*``, ``deadline.*``) mirror the JAX module's: :func:`bump` /
-:func:`stats`. Retry, fault injection, preemption guards and the serving
-supervisor's error classes are not ported yet.
+when the waiting queue is at ``FLAGS_serving_max_queue``.
+:class:`ServingDeviceError` and :class:`ArenaCorruptError` (JAX ``:195``,
+``:202``) are what the serving supervisor recovers by rebuild and replay;
+:class:`RequestDrainedError` (``:209``) is the retriable error of a drain.
+The fault registry (``:424-545``: :func:`inject_fault`, :func:`clear_faults`,
+:func:`fault_armed`, the ``FLAGS_inject_faults`` loader, :func:`maybe_fault`)
+arms deterministic faults only under ``FLAGS_fault_injection``; its serving
+kinds are ``serving_device``, ``arena_corrupt`` and ``preempt``.
+:class:`PreemptionGuard` (``:574``) turns SIGTERM/SIGINT into a request that
+a serving pump polls at step boundaries; a second signal escalates to the
+previous handler. Counters (``overload.*``, ``deadline.*``, ``fault.*``,
+``preempt.*``, ``serving.*``) mirror the JAX module's: :func:`bump`,
+:func:`stats`, :func:`reset_stats`, :func:`stats_delta`.
+
+Not ported yet: ``RetryPolicy`` with the ``serving_step`` kind, and
+``PreemptionGuard.maybe_finalize`` (the training checkpoint's half).
 """
 from __future__ import annotations
 
+import os
+import signal
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 from . import flags
 
@@ -31,13 +46,47 @@ class DeadlineExceededError(TimeoutError):
     """A request's wall-clock deadline expired before it finished."""
 
 
+class ServingDeviceError(RuntimeError):
+    """Transient device failure around a serving step program. The serving
+    supervisor treats it as recoverable: it rebuilds the engine's arena in
+    place and replays in-flight requests from their journals
+    (``serving.supervisor``)."""
+
+
+class ArenaCorruptError(RuntimeError):
+    """The serving KV arena's contents cannot be trusted. Recoverable by
+    the serving supervisor as :class:`ServingDeviceError` is: the pools are
+    zeroed in place and live requests are prefilled again."""
+
+
+class RequestDrainedError(RuntimeError):
+    """The request was failed by a serving drain or shutdown before it
+    completed. Retriable by construction: the request performed no
+    externally visible work, so the caller can resubmit it elsewhere."""
+
+
 def bump(key: str, n: int = 1) -> None:
     _counts[key] = _counts.get(key, 0) + n
 
 
 def stats() -> dict:
+    """Snapshot of every counter plus the armed-fault total."""
     with _lock:
-        return dict(_counts)
+        out: dict = dict(_counts)
+        out["faults.armed"] = sum(s.times for s in _faults.values())
+    return out
+
+
+def reset_stats() -> None:
+    with _lock:
+        _counts.clear()
+
+
+def stats_delta(before: dict, after: dict, *, drop_zero: bool = False) -> dict:
+    """Numeric difference of two :func:`stats` snapshots."""
+    from . import compile_cache
+
+    return compile_cache.stats_delta(before, after, drop_zero=drop_zero)
 
 
 @dataclass
@@ -86,3 +135,175 @@ def check_overload(depth: int, limit: Optional[int] = None,
         raise QueueOverloadError(
             f"{name} queue is full ({depth} waiting >= limit {limit}); "
             "request shed")
+
+
+# ---------------------------------------------------------- fault injection
+
+
+@dataclass
+class _FaultSpec:
+    kind: str
+    times: int = 1          # how many probes fire before the fault disarms
+    after: int = 0          # how many probes to let pass first
+    exc: Any = None         # exception instance or class; None = flag kind
+    fired: int = 0
+    passed: int = 0
+
+
+_faults: Dict[str, _FaultSpec] = {}
+_env_faults_loaded = False
+
+#: kinds with probes in the port; inject_fault takes other kinds too, for
+#: tests that place maybe_fault probes in their own code
+KNOWN_FAULTS = ("preempt", "serving_device", "arena_corrupt")
+
+#: kinds whose probe sites are bare statements (they only react to an
+#: exception): inject_fault defaults their exc to the error the real
+#: failure would raise, so a flag-kind fault cannot exercise nothing
+_DEFAULT_FAULT_EXC = {
+    "serving_device": lambda k: ServingDeviceError(f"injected {k} fault"),
+    "arena_corrupt": lambda k: ArenaCorruptError(f"injected {k} fault"),
+}
+
+
+def inject_fault(kind: str, times: int = 1, after: int = 0,
+                 exc: Any = None) -> None:
+    """Arm a deterministic fault: the next ``after`` probes of ``kind``
+    pass, then ``times`` probes fire (raising ``exc``, else returning True),
+    then the fault disarms. ``serving_device`` / ``arena_corrupt`` default
+    ``exc`` to their error classes. Requires ``FLAGS_fault_injection``."""
+    if not flags.flag("fault_injection"):
+        raise RuntimeError(
+            "fault injection is disabled; set FLAGS_fault_injection=1 "
+            "(environment or flags.set_flags) before arming faults")
+    if exc is None and kind in _DEFAULT_FAULT_EXC:
+        exc = _DEFAULT_FAULT_EXC[kind](kind)
+    with _lock:
+        _faults[kind] = _FaultSpec(kind, times=int(times), after=int(after),
+                                   exc=exc)
+
+
+def clear_faults() -> None:
+    with _lock:
+        _faults.clear()
+
+
+def fault_armed(kind: str) -> bool:
+    spec = _faults.get(kind)
+    return spec is not None and spec.times > 0
+
+
+def _load_env_faults() -> None:
+    """One-shot parse of ``FLAGS_inject_faults`` ("kind:times[:after],..."),
+    so a subprocess can be armed through its environment alone."""
+    global _env_faults_loaded
+    _env_faults_loaded = True
+    raw = flags.flag("inject_faults")
+    if not raw or not flags.flag("fault_injection"):
+        return
+    for part in raw.split(","):
+        fields = part.strip().split(":")
+        if not fields[0]:
+            continue
+        times = int(fields[1]) if len(fields) > 1 else 1
+        after = int(fields[2]) if len(fields) > 2 else 0
+        mk = _DEFAULT_FAULT_EXC.get(fields[0])
+        exc = mk(fields[0]) if mk is not None else None
+        with _lock:
+            _faults[fields[0]] = _FaultSpec(fields[0], times=times,
+                                            after=after, exc=exc)
+
+
+def maybe_fault(kind: str) -> bool:
+    """Probe point: False unless a matching fault is armed. Raises the armed
+    exception for exception kinds, returns True for flag kinds. One
+    empty-dict check when nothing is armed."""
+    if not _faults:
+        if not _env_faults_loaded:
+            _load_env_faults()
+            if not _faults:
+                return False
+        else:
+            return False
+    spec = _faults.get(kind)
+    if spec is None or not flags.flag("fault_injection"):
+        return False
+    with _lock:
+        if spec.passed < spec.after:
+            spec.passed += 1
+            return False
+        if spec.times <= 0:
+            return False
+        spec.times -= 1
+        spec.fired += 1
+    bump(f"fault.{kind}")
+    if spec.exc is not None:
+        raise spec.exc if isinstance(spec.exc, BaseException) else spec.exc()
+    return True
+
+
+# --------------------------------------------------------------- preemption
+
+
+class PreemptionGuard:
+    """Convert preemption signals into a step-boundary shutdown: handlers
+    for SIGTERM/SIGINT *request* shutdown instead of killing the process
+    mid-step, and a serving pump polls :meth:`requested` at its step
+    boundaries (``ServingAPI.bind_preemption_guard`` turns it into a
+    drain). A second signal restores the previous handler and re-delivers,
+    so an operator who insists is never swallowed."""
+
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT),
+                 install: bool = True):
+        self._event = threading.Event()
+        self.reason: Optional[str] = None
+        self._prev: Dict[int, Any] = {}
+        if install:
+            self.install(signals)
+
+    def install(self, signals=(signal.SIGTERM, signal.SIGINT)) -> None:
+        for s in signals:
+            if s in self._prev:
+                continue  # already ours: "previous" must never be us
+            try:
+                self._prev[s] = signal.signal(s, self._on_signal)
+            except ValueError:  # not the main thread: a poll-only guard
+                pass
+
+    def uninstall(self) -> None:
+        for s, h in self._prev.items():
+            try:
+                signal.signal(s, h)
+            except ValueError:
+                pass
+        self._prev.clear()
+
+    def _on_signal(self, signum, frame) -> None:
+        if self._event.is_set():
+            # the second signal: the boundary poll is not being reached and
+            # the operator insists; re-deliver to the previous handler
+            prev = self._prev.get(signum)
+            if prev is None or prev == self._on_signal:
+                prev = signal.SIG_DFL  # never chain back to ourselves
+            try:
+                signal.signal(signum, prev)
+            except (ValueError, TypeError):
+                signal.signal(signum, signal.SIG_DFL)
+            bump("preempt.escalations")
+            os.kill(os.getpid(), signum)
+            return
+        # the first signal: swallowed, to survive until the next boundary
+        self.request(f"signal {signum}")
+
+    def request(self, reason: str = "requested") -> None:
+        if not self._event.is_set():
+            bump("preempt.requests")
+            self.reason = reason
+        self._event.set()
+
+    def requested(self) -> bool:
+        """Poll at step boundaries. Also consumes an armed ``preempt``
+        fault (the stand-in for SIGTERM in tests)."""
+        if not self._event.is_set() and maybe_fault("preempt"):
+            self.request("injected preempt fault")
+        return self._event.is_set()

@@ -2,19 +2,31 @@
 seeded and constrained decoding through the slot engine, priority
 scheduling with deadlines, shedding and preemption with journal resume,
 chunked prefill, the radix prefix cache with copy-on-write, int8 weights
-and an int8 arena on request, and ``ServingAPI``."""
-from . import metrics
-from ..core.resilience import (Deadline, DeadlineExceededError,
-                               QueueOverloadError)
-from .api import ServingAPI
+and an int8 arena on request, ``ServingAPI`` with its background pump,
+drain and preemption guard, supervisor rebuild-and-replay recovery,
+request telemetry, and ``EnginePredictor``."""
+from . import metrics, telemetry
+from ..core.resilience import (ArenaCorruptError, Deadline,
+                               DeadlineExceededError, PreemptionGuard,
+                               QueueOverloadError, RequestDrainedError,
+                               ServingDeviceError)
+from .api import EnginePredictor, ServingAPI, drain_all
 from .constrain import Constraint, TokenDFA, TrieConstraint
 from .engine import ServingConfig, ServingEngine
+from .kv_arena import (ArenaExhaustedError, KVArena,
+                       ReservationExhaustedError)
 from .prefix_cache import PrefixCache, PrefixNode
 from .sampling import SamplingParams
 from .scheduler import Request, RequestState, Scheduler
+from .supervisor import (CrashLoopError, EngineSupervisor,
+                         is_transient_serving_error)
 
 __all__ = ["ServingAPI", "ServingConfig", "ServingEngine", "SamplingParams",
            "Constraint", "TokenDFA", "TrieConstraint", "Request",
            "RequestState", "Scheduler", "PrefixCache", "PrefixNode",
+           "KVArena", "ArenaExhaustedError", "ReservationExhaustedError",
            "Deadline", "DeadlineExceededError", "QueueOverloadError",
-           "metrics"]
+           "RequestDrainedError", "ServingDeviceError", "ArenaCorruptError",
+           "PreemptionGuard", "EnginePredictor", "drain_all",
+           "EngineSupervisor", "CrashLoopError",
+           "is_transient_serving_error", "metrics", "telemetry"]

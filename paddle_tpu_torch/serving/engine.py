@@ -73,19 +73,32 @@ one-token suffix at ``prefix_len = clen - 1``; shared blocks are never
 written. After the prefill the prompt's full blocks are inserted into the
 tree. An admission may also carry a token journal (``tokens=``): it
 prefills ``prompt + journal`` and decoding resumes at the journal's next
-token, which is how a preempted request re-enters. Speculation, LoRA,
-tiering and the supervisor are later slices.
+token, which is how a preempted or replayed request re-enters.
+
+Recovery (:meth:`ServingEngine.rebuild`, the counterpart of
+``paddle_tpu/serving/engine.py:1745``) starts the engine over **in place**:
+the JAX engine allocates a fresh arena because its programs depend only on
+shapes, but every captured graph here holds the pool tensors' addresses,
+so the pools are zeroed and kept, the host bookkeeping and every slot
+start over, and no program is built again. Every step program's run goes
+through one host-side helper (:meth:`ServingEngine._run`, the counterpart
+of ``paddle_tpu/serving/engine.py:1188 _call``) that probes the
+``serving_device`` and ``arena_corrupt`` faults before the run and times
+the run and its read into ``self.hists`` (``latency.prefill``,
+``latency.decode_step``), outside any captured function. Speculation, LoRA
+and tiering are later slices.
 """
 from __future__ import annotations
 
 import functools
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core import compile_cache, flags
+from ..core import compile_cache, flags, resilience
 from ..core import device as device_mod
 from ..models.gpt import quantize_serving_weights, serving_compute_dtype
 from ..ops import paged_attention
@@ -94,7 +107,7 @@ from ..ops.paged_attention import (check_servable, paged_decode_attention,
                                    paged_full_prefill_attention,
                                    paged_prefill_attention)
 from ..quantization import quantize_kv
-from . import metrics
+from . import metrics, telemetry
 from .graphs import ResidentBuffer, StepGraphs
 from .kv_arena import KVArena, Reservation
 from .prefix_cache import PrefixCache
@@ -331,6 +344,10 @@ class ServingEngine:
         self.prefill_chunks = 0
         self.suffix_prefills = 0  # cache hits' suffix-only prefills
         self.cow_copies = 0
+        self.rebuilds = 0
+        # this engine's latency histograms (every sample also lands in the
+        # process-global set: telemetry.observe)
+        self.hists = telemetry.HistogramSet()
         # builds of each program (the JAX engine's trace counters): churn
         # must never move them once a key exists
         self.decode_traces = 0
@@ -698,6 +715,23 @@ class ServingEngine:
                 pool.index_copy_(0, dst, pool.index_select(0, src))
         return ()
 
+    def _run(self, prog, hist: Optional[str], **values) -> tuple:
+        """Run one step program and read its outputs: the one host-side
+        path of every run (decode, whole-prompt prefill, suffix or chunk
+        prefill, COW). The ``serving_device`` and ``arena_corrupt`` fault
+        probes fire here, before the run: never inside a step function,
+        which runs once, at capture, so a probe there would never fire on
+        a replay. ``hist`` names the latency histogram of the run and its
+        read (which blocks, so the host clock covers the device work)."""
+        resilience.maybe_fault("serving_device")
+        resilience.maybe_fault("arena_corrupt")
+        t0 = time.perf_counter()
+        prog.run(**values)
+        out = prog.read()
+        if hist is not None:
+            telemetry.observe(hist, time.perf_counter() - t0, self.hists)
+        return out
+
     def _samp_row(self, slot: int, pos: int) -> dict:
         """One slot's sampling values for a prefill program: its ``[1]``
         parameters, the positional key ``pos`` (the context index where the
@@ -732,9 +766,9 @@ class ServingEngine:
             offs=((p_bucket,), i64), true_len=((), i64, 1),
             samp=((4, 1), torch.int32), spos=((1,), torch.int32),
             allowed=((1, self.vocab), torch.bool, 1))
-        prog.run(ids=ids, rows=row, offs=p_idx % bs, true_len=clen,
-                 **self._samp_row(slot, clen))
-        nxt = int(prog.read()[0][0])
+        nxt = int(self._run(prog, "latency.prefill", ids=ids, rows=row,
+                            offs=p_idx % bs, true_len=clen,
+                            **self._samp_row(slot, clen))[0][0])
         self.prefills += 1
         # one count per call and bucket: the padding waste of the ladder
         compile_cache.bump(f"serving.prefill_bucket.{p_bucket}")
@@ -753,8 +787,7 @@ class ServingEngine:
         prog = self._graphs.program(
             "cow", self._cow_fn, self._cow_built,
             src=((1,), torch.int64), dst=((1,), torch.int64))
-        prog.run(src=src, dst=dst)
-        prog.read()
+        self._run(prog, None, src=src, dst=dst)
         self.cow_copies += 1
         metrics.bump("prefix.cow_copies")
 
@@ -796,10 +829,10 @@ class ServingEngine:
             prefix_len=((), torch.int32), true_len=((), i64, 1),
             samp=((4, 1), torch.int32), spos=((1,), torch.int32),
             allowed=((1, self.vocab), torch.bool, 1))
-        prog.run(ids=ids, rows=row, offs=gpos % bs, bt_row=table,
-                 prefix_len=prefix_len, true_len=slen,
-                 **self._samp_row(slot, clen))
-        nxt = int(prog.read()[0][0])
+        nxt = int(self._run(prog, "latency.prefill", ids=ids, rows=row,
+                            offs=gpos % bs, bt_row=table,
+                            prefix_len=prefix_len, true_len=slen,
+                            **self._samp_row(slot, clen))[0][0])
         if chunked:
             self.prefill_chunks += 1
         else:
@@ -935,9 +968,10 @@ class ServingEngine:
             rows=((S,), i64), offs=((S,), i64),
             block_tables=((S, self.blocks_per_slot), torch.int32),
             samp=((4, S), torch.int32), resident=dict(allowed=self._mask))
-        prog.run(last_tok=self._last_tok, positions=pos, rows=rows,
-                 offs=pos % bs, block_tables=self._bt_host, samp=self._samp)
-        out = prog.read()[0]
+        out = self._run(prog, "latency.decode_step",
+                        last_tok=self._last_tok, positions=pos, rows=rows,
+                        offs=pos % bs, block_tables=self._bt_host,
+                        samp=self._samp)[0]
         self._positions[act] += 1
         self._last_tok[act] = out[act]
         self.decode_steps += 1
@@ -947,6 +981,54 @@ class ServingEngine:
         self._meter.tick(n)
         metrics.set_gauge("tokens_per_sec", self._meter.rate())
         return out
+
+    def rebuild(self) -> None:
+        """Start the engine over after a transient device or arena failure
+        (the supervisor's recovery primitive; ``paddle_tpu/serving/
+        engine.py:1745``), in place: the arena's pools are zeroed on the
+        engine's stream, outside any capture, and keep their storage, so
+        every captured graph -- which holds their addresses -- stays
+        valid; the arena's bookkeeping starts over (``KVArena.reset``); a
+        fresh prefix tree over it carries the lifetime counters; every slot
+        array is cleared and the constraint mask set back to all-True with
+        every row marked, so the next run writes them all (a replayed
+        unconstrained slot must not inherit a dead request's row). No
+        program, graph or build counter is touched: the supervisor then
+        replays each live request from its journal through the same
+        programs.
+
+        The decode kernel's workspace (``ops.paged_attention._workspace``)
+        is left alone: its ticket counters are zero after every launch
+        that ran to its end, and the faults recovered here fire on the
+        host before a run. A kernel fault on the card is a sticky CUDA
+        error that no rebuild clears; the supervisor fails fast on it."""
+        with self._graphs.on_stream():
+            self.arena.reset()
+        if self.use_prefix_cache:
+            old = self.prefix_cache
+            self.prefix_cache = PrefixCache(self.arena, self.block_size)
+            if old is not None:
+                for k in ("hits", "misses", "hit_tokens", "inserted_blocks",
+                          "evictions"):
+                    setattr(self.prefix_cache, k, getattr(old, k))
+        self._bt_host[:] = 0
+        self._positions[:] = 0
+        self._last_tok[:] = 0
+        self._active[:] = False
+        self._occupied[:] = False
+        self._slot_res = [None] * self.num_slots
+        self._slot_shared = [[] for _ in range(self.num_slots)]
+        self._slot_filled[:] = 0
+        self._chunk.clear()
+        self._temp[:] = 0.0
+        self._top_k[:] = 0
+        self._top_p[:] = 1.0
+        self._seed[:] = 0
+        self._constrained[:] = False
+        self._mask.fill_all(True)
+        self.rebuilds += 1
+        metrics.bump("engine.rebuilds")
+        self._refresh_gauges()
 
     def close(self) -> None:
         """Drop the step programs (on CUDA their graphs and pool); any later
@@ -987,6 +1069,7 @@ class ServingEngine:
                "prefill_chunks": self.prefill_chunks,
                "suffix_prefills": self.suffix_prefills,
                "cow_copies": self.cow_copies,
+               "rebuilds": self.rebuilds,
                "decode_traces": self.decode_traces,
                "cow_traces": self.cow_traces,
                "programs.graphs": self._graphs.graph_count(),

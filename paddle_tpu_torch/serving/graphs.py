@@ -19,6 +19,16 @@ builds a program again.
 * On the CPU the same step function runs eagerly over the same buffers,
   through the same bookkeeping.
 
+Every device call of an engine's programs -- staging copies, resident
+flushes, warm-ups, replays, reads -- runs on one stream, the one current
+where the engine was made (:meth:`StepGraphs.on_stream`), whichever thread
+calls: PyTorch's current stream is per thread, and the decode kernel's
+workspace is sound only for in-order launches on one stream. A capture
+runs in ``"thread_local"`` error mode, so that another thread's CUDA calls
+while a background pump captures (the caller's own model calls, its
+allocations) neither fail nor invalidate the capture; the capture stream
+is a non-blocking pool stream, so such work never joins it.
+
 A :class:`ResidentBuffer` is a static buffer that a run does not refill:
 the decode step's ``[S, vocab]`` constraint mask, of which a step changes a
 few rows at most. The host keeps its mirror and marks the rows it changes;
@@ -42,6 +52,7 @@ host-to-device copies on the same stream.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -113,7 +124,8 @@ class CudaGraphs:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
             out = fn()
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - before
         return graph, out
@@ -149,6 +161,12 @@ class ResidentBuffer:
     def set_row(self, row: int, values) -> None:
         self.host[row] = values
         self._dirty.add(int(row))
+
+    def fill_all(self, value) -> None:
+        """Set every row of the mirror to ``value`` and mark them all, so
+        the next flush writes the whole buffer."""
+        self.host[...] = value
+        self._dirty.update(range(self.host.shape[0]))
 
     def flush(self) -> None:
         for row in sorted(self._dirty):
@@ -221,19 +239,20 @@ class StepProgram:
         if set(values) != set(self.buffers):
             raise ValueError(f"step program {self.key!r} takes "
                              f"{sorted(self.buffers)}, got {sorted(values)}")
-        if not self.built:
-            self._build()
-        for name, value in values.items():
-            self._host[name].numpy()[...] = value
-        for res in self._resident.values():
-            res.flush()
-        if self.graph is None:
-            self.outputs = self._fn(**self.buffers, **self._inputs())
-        else:
-            for name, buf in self.buffers.items():
-                buf.copy_(self._host[name], non_blocking=True)
-            self.graph.replay()
-            self._credit.replay()
+        with owner.on_stream():
+            if not self.built:
+                self._build()
+            for name, value in values.items():
+                self._host[name].numpy()[...] = value
+            for res in self._resident.values():
+                res.flush()
+            if self.graph is None:
+                self.outputs = self._fn(**self.buffers, **self._inputs())
+            else:
+                for name, buf in self.buffers.items():
+                    buf.copy_(self._host[name], non_blocking=True)
+                self.graph.replay()
+                self._credit.replay()
         owner.pending = self
         return self.outputs
 
@@ -244,7 +263,9 @@ class StepProgram:
             raise RuntimeError(f"step program {self.key!r}: no unread run "
                                "(another run of the engine overwrote its "
                                "outputs, or it never ran)")
-        host = tuple(t.to("cpu", copy=True).numpy() for t in self.outputs)
+        with self._owner.on_stream():
+            host = tuple(t.to("cpu", copy=True).numpy()
+                         for t in self.outputs)
         self._owner.pending = None
         return host
 
@@ -262,9 +283,20 @@ class StepGraphs:
         if backend is None and self.device.type == "cuda":
             backend = CudaGraphs(self.device)
         self.backend = backend
+        # the engine's one stream: the current stream of the thread that
+        # made the engine (None on the CPU)
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
         self.programs: Dict[object, StepProgram] = {}
         self.pending: Optional[StepProgram] = None
         self.closed = False
+
+    def on_stream(self):
+        """Context in which device work runs on the engine's stream,
+        whichever thread enters it (a no-op on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
 
     def check_open(self) -> None:
         if self.closed:

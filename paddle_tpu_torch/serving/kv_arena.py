@@ -125,6 +125,28 @@ class KVArena:
                 + tuple(torch.zeros(shape[:2], dtype=torch.float32,
                                     device=self.device) for _ in range(2)))
 
+    def reset(self) -> None:
+        """Return the arena to what a fresh one of the same arguments
+        holds, keeping every tensor's storage: each pool array (k and v,
+        and the scale pools of an int8 arena) is zeroed in place on the
+        current stream, and the host bookkeeping -- free list, refcounts,
+        reservations, cached residency, reuse history, high water, the
+        bound prefix cache -- starts over. The serving engine's rebuild
+        (the JAX package throws its arena away and allocates a new one,
+        ``paddle_tpu/serving/engine.py:1754``): the captured step programs
+        hold these tensors' addresses, so they stay valid."""
+        with torch.no_grad():
+            for entry in self._pools:
+                for t in entry:
+                    t.zero_()
+        self._free = list(range(1, self.num_blocks))
+        self._reserved = 0
+        self._ever_used = set()
+        self._high_water = 0
+        self._refs = [0] * self.num_blocks
+        self._cached = set()
+        self._cache = None
+
     @property
     def pools(self) -> List[Tuple[torch.Tensor, ...]]:
         return self._pools

@@ -40,23 +40,34 @@ admits waiting ones into the freed slots:
   (:func:`admit_kwargs`); after each emitted token the walker advances and
   the slot's mask row is replaced (``ServingEngine.set_slot_mask``). A
   walker that fails fails its own request only.
+* **Transient failures** (``supervisor.is_transient_serving_error``): an
+  admission or chunk that fails transiently re-queues its request
+  untouched and re-raises, so the API's supervisor rebuilds the engine and
+  replays everything (``paddle_tpu/serving/scheduler.py:489-498``,
+  ``:571-580``); any other failure fails that request alone.
+* **Telemetry** (``serving.telemetry``): ``Request.trace_id`` is minted at
+  creation and kept through preemption re-queue and supervisor replay; the
+  spans QUEUED, ADMITTED, PREFILL_CHUNK, FIRST_TOKEN, PREEMPTED, FINISHED
+  and FAILED, and the ``latency.{ttft,inter_token,queue_wait,e2e}``
+  histograms, are recorded where the JAX scheduler records them.
 
-Speculation, telemetry spans and the supervisor's transient-error re-queue
-are later slices. Served tokens are held token for token against
-``GPTForCausalLM.generate()``, with ``sampling=`` for sampled requests.
+Speculation is a later slice. Served tokens are held token for token
+against ``GPTForCausalLM.generate()``, with ``sampling=`` for sampled
+requests.
 """
 from __future__ import annotations
 
 import itertools
 import queue as _queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 
 from ..core import flags, resilience
-from . import metrics
+from . import metrics, telemetry
 
 _req_counter = itertools.count()
 _seq_counter = itertools.count()  # arrival and admission ordering ticks
@@ -107,11 +118,20 @@ class Request:        # compare numpy prompt payloads
     _cache_skips: int = 0  # times cache affinity admitted someone past it
     _prefix_keys: Optional[list] = None  # memoized radix chunk-key chain
     preemptions: int = 0   # times this request was preempted
+    # one id names the request's whole life: minted here unless the caller
+    # carries one, kept through preemption re-queue and supervisor replay
+    trace_id: str = ""
+    _submit_ts: float = 0.0     # perf_counter at creation (ttft, e2e)
+    _queued_ts: float = 0.0     # perf_counter at enqueue (queue_wait)
+    _last_emit_ts: float = 0.0  # perf_counter of the last emitted token
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int64).reshape(-1)
         self.priority = int(self.priority)
         self._arrival = next(_seq_counter)
+        self._submit_ts = time.perf_counter()
+        if not self.trace_id:
+            self.trace_id = telemetry.mint_trace_id()
         if self.sampling is not None:
             # pin an unset seed now: the request's stream is then fixed
             self.sampling = self.sampling.materialized()
@@ -181,6 +201,13 @@ class Scheduler:
         self.waiting: List[Request] = []
         self.running: List[Request] = []
         self.prefilling: List[Request] = []  # chunked prefills in progress
+        self.preempt_count = 0  # this scheduler's lifetime preemptions
+
+    @property
+    def _hists(self):
+        """The engine's own histogram set (None for an engine without
+        one): every latency sample lands there and in the global set."""
+        return getattr(self.engine, "hists", None)
 
     def submit(self, request: Request) -> Request:
         """Enqueue; what could never be served is refused here (overload
@@ -188,8 +215,13 @@ class Scheduler:
         self.engine.validate(int(request.prompt.shape[0]),
                              int(request.max_new_tokens))
         request.state = RequestState.QUEUED
+        request._queued_ts = time.perf_counter()
         self.waiting.append(request)
         metrics.bump("requests.submitted")
+        telemetry.span(request.trace_id, telemetry.QUEUED,
+                       request_id=request.request_id,
+                       priority=request.priority,
+                       journal_tokens=len(request.tokens))
         self._gauges()
         return request
 
@@ -215,12 +247,37 @@ class Scheduler:
         if isinstance(error, resilience.DeadlineExceededError):
             metrics.bump("requests.expired")
             resilience.bump("deadline.exceeded")
+        if state == RequestState.FINISHED:
+            # only requests that delivered their output: failures and
+            # cancels would skew the tail
+            telemetry.observe("latency.e2e",
+                              time.perf_counter() - req._submit_ts,
+                              self._hists)
+        telemetry.span(req.trace_id,
+                       telemetry.FINISHED if state == RequestState.FINISHED
+                       else telemetry.FAILED,
+                       request_id=req.request_id, state=state,
+                       tokens=len(req.tokens),
+                       error=type(error).__name__ if error else None)
         req.stream_queue.put(None)  # stream sentinel
         req.done_event.set()
 
     def _emit(self, req: Request, token: int) -> None:
         if req.finished:
             return  # its walker failed earlier in this step
+        now = time.perf_counter()
+        if not req.tokens and req._last_emit_ts == 0.0:
+            # the true first token only: a journal-seeded submit arrives
+            # with tokens, a replayed or preempted request keeps its
+            # _last_emit_ts; neither records TTFT again
+            telemetry.observe("latency.ttft", now - req._submit_ts,
+                              self._hists)
+            telemetry.span(req.trace_id, telemetry.FIRST_TOKEN,
+                           request_id=req.request_id, token=int(token))
+        elif req._last_emit_ts > 0.0:
+            telemetry.observe("latency.inter_token",
+                              now - req._last_emit_ts, self._hists)
+        req._last_emit_ts = now
         req.tokens.append(int(token))
         req.stream_queue.put(int(token))
         if req.constraint is not None:
@@ -339,16 +396,26 @@ class Scheduler:
             return False
         victim = max(candidates, key=lambda r: (r.priority, r._admit_seq))
         eng.retire(victim.slot)
+        telemetry.span(victim.trace_id, telemetry.PREEMPTED,
+                       request_id=victim.request_id, slot=victim.slot,
+                       by=waiter.request_id, tokens=len(victim.tokens))
         self.running.remove(victim)
         victim.slot = None
         victim.state = RequestState.QUEUED
+        victim._queued_ts = time.perf_counter()  # re-queued: a new wait
+        telemetry.span(victim.trace_id, telemetry.QUEUED,
+                       request_id=victim.request_id,
+                       journal_tokens=len(victim.tokens))
         victim._starved = 0
         victim.preemptions += 1
         # the walker is a pure function of the journal: rebuild it so the
-        # re-admission installs the mask of the next token
+        # re-admission installs the mask of the next token (the trace_id
+        # stays: one timeline)
         victim.reset_constraint()
         self.waiting.append(victim)
+        self.preempt_count += 1
         metrics.bump("scheduler.preemptions")
+        resilience.bump("serving.preemptions")
         return True
 
     # --------------------------------------------------------------- step
@@ -375,11 +442,22 @@ class Scheduler:
         req = self.prefilling[0]
         try:
             first = self.engine.admit_chunk(req.slot)
-        # analysis: allow(broad-except) -- a failed chunk fails THIS
-        # request, never the pump; the engine has already unwound it
+            telemetry.span(req.trace_id, telemetry.PREFILL_CHUNK,
+                           request_id=req.request_id, slot=req.slot,
+                           done=first is not None)
+        # analysis: allow(broad-except) -- classified here: a transient
+        # failure re-queues the request and re-raises for the supervisor;
+        # any other fails THIS request, never the pump. The engine has
+        # already unwound the admission.
         except Exception as e:
+            from .supervisor import is_transient_serving_error
+
             self.prefilling.remove(req)
             req.slot = None
+            if is_transient_serving_error(e):
+                req.state = RequestState.QUEUED
+                self.waiting.append(req)
+                raise
             self._finish(req, RequestState.FAILED, e)
             return True
         if first is not None:
@@ -430,15 +508,31 @@ class Scheduler:
             try:
                 slot, first = admit(req.prompt, req.max_new_tokens,
                                     tokens=req.tokens, **admit_kwargs(req))
-            # analysis: allow(broad-except) -- a failed prefill fails THIS
-            # request (its error is delivered through its handle), never the
-            # pump; the engine has already unwound the admission
+            # analysis: allow(broad-except) -- classified here: a transient
+            # failure means the engine is sick, not this request, which
+            # re-queues untouched while the supervisor rebuilds; any other
+            # failed prefill fails THIS request (its error is delivered
+            # through its handle), never the pump. The engine has already
+            # unwound the admission.
             except Exception as e:
+                from .supervisor import is_transient_serving_error
+
+                if is_transient_serving_error(e):
+                    req.state = RequestState.QUEUED
+                    self.waiting.append(req)
+                    raise
                 self._finish(req, RequestState.FAILED, e)
                 progress = True
                 continue
             req.slot = slot
             req.state = RequestState.RUNNING
+            telemetry.observe("latency.queue_wait",
+                              time.perf_counter() - req._queued_ts,
+                              self._hists)
+            telemetry.span(req.trace_id, telemetry.ADMITTED,
+                           request_id=req.request_id, slot=slot,
+                           chunked=first is None,
+                           journal_tokens=len(req.tokens))
             progress = True
             if first is None:
                 # chunked prefill in progress: the slot and its blocks are
@@ -467,9 +561,16 @@ class Scheduler:
             self._finish(req, RequestState.FAILED, error)
         self._gauges()
 
-    def run_until_idle(self) -> None:
+    def run_until_idle(self, max_steps: Optional[int] = None) -> None:
+        """Step until no request is left; with ``max_steps``, raise
+        ``RuntimeError`` once that many steps ran and work remains."""
+        steps = 0
         while self.has_work():
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"scheduler still busy after {max_steps} steps")
             self.step()
+            steps += 1
 
     def _gauges(self) -> None:
         metrics.set_gauge("queue.depth", len(self.waiting))

@@ -5,8 +5,12 @@ strings, handed to the step-program helper as a step function the way the
 engine does); suppressions; reachability; every name of ``CAPTURED``
 resolving to a function of the port; the code this slice repaired
 (``GPTModel.forward``'s host copy of the start position and the quantizer's
-host-made constant) flagged as it was; and the gate: zero unsuppressed
-findings over ``paddle_tpu_torch/``.
+host-made constant) flagged as it was; telemetry inside a step function
+flagged as ``traced-cast`` and timestamps around a program's run clean
+(the JAX lint's ``compiled_telemetry_{bad,good}`` fixtures); the engine's
+fault probes, timers and rebuild, the supervisor, telemetry and
+resilience modules unreachable from a captured step; and the gate: zero
+unsuppressed findings over ``paddle_tpu_torch/``.
 """
 import pathlib
 import textwrap
@@ -119,6 +123,76 @@ def test_each_host_transfer_form_is_flagged():
             if "torch.tensor" in line or "as_tensor" in line
             or ".cuda()" in line}
     assert want <= lines and len(want) == 2
+
+
+# the JAX lint's compiled_telemetry fixtures
+# (tests/fixtures/analysis/compiled_telemetry_{bad,good}.py): a histogram
+# fed from inside a step function casts a tensor to the host (twice); the
+# timestamps around a program's run and read are host code
+TELEMETRY_BAD = """
+import time
+
+from paddle_tpu_torch.serving import telemetry
+
+
+def step_fn(x):
+    t0 = time.perf_counter()
+    y = (x * x).sum()
+    telemetry.observe("latency.decode_step", float(y))
+    dt = time.perf_counter() - t0
+    telemetry.observe("latency.decode_step", dt + float(y * 0))
+    return y
+"""
+
+TELEMETRY_GOOD = """
+import time
+
+from paddle_tpu_torch.serving import telemetry
+
+
+def step_fn(x):
+    return (x * x).sum()
+
+
+def timed_run(prog, x):
+    t0 = time.perf_counter()
+    prog.run(x=x)
+    out = prog.read()
+    telemetry.observe("latency.decode_step", time.perf_counter() - t0)
+    return out
+"""
+
+
+def test_telemetry_inside_a_step_is_traced_cast():
+    report = _report(TELEMETRY_BAD)
+    text = HEADER + textwrap.dedent(TELEMETRY_BAD)
+    want = {i for i, line in enumerate(text.splitlines(), 1)
+            if "float(y" in line}
+    got = {f.line for f in report.findings if f.rule == "traced-cast"}
+    assert len(want) == 2 and want <= got, [str(f) for f in report.findings]
+
+
+def test_telemetry_around_a_run_is_clean():
+    report = _report(TELEMETRY_GOOD)
+    assert report.findings == [], [str(f) for f in report.findings]
+
+
+def test_fault_probes_and_timers_stay_host_side():
+    """The engine's run helper (fault probes, histogram timers) and its
+    rebuild are host code, and nothing of the supervisor, telemetry or
+    resilience modules is reachable from a captured step."""
+    (sf,) = load_corpus(["paddle_tpu_torch/serving/engine.py"], str(ROOT))
+    fns = CaptureAnalyzer().reachable(sf)
+    for qual in ("ServingEngine._run", "ServingEngine.rebuild"):
+        assert not fns[qual].captured, qual
+    host_only = ("paddle_tpu_torch/serving/supervisor.py",
+                 "paddle_tpu_torch/serving/telemetry.py",
+                 "paddle_tpu_torch/core/resilience.py")
+    assert not [n for n in CAPTURED if n.partition(":")[0] in host_only]
+    for path in host_only:
+        (sf,) = load_corpus([path], str(ROOT))
+        assert not [q for q, fn in CaptureAnalyzer().reachable(sf).items()
+                    if fn.captured], path
 
 
 SUPPRESSED = """
