@@ -201,10 +201,37 @@ no result. Phases, in order; each raises on failure:
    dv together) as a yardstick only. Each flash kernel launches exactly
    24 x steps times here too (its bf16 instances, on the tensor cores,
    where phase 8 ran the f32 instances).
-10. Serve ``gpt_1p3b`` cut to 2 layers of 8 heads of 256 (full width
+10a. The dropout kernel (``dropout_checks``) against its plain version on
+    the card in float32, bf16 and float16 at the residual [8, 2048,
+    2048], the attention probabilities [1, 16, 2048, 2048] and 1,000,003
+    elements, p 0.1/0.5/0.999, the axis form and ``downscale_in_infer``:
+    keep masks with 0 differing elements, outputs and the backward (the
+    autograd Function) bit-equal, a second launch bit-equal; p 0 and eval
+    mode draw no key and launch nothing. Then its time at [8, 2048, 2048]
+    and [8, 16, 2048, 2048] bf16 beside its bound, its plain version and
+    torch's Philox dropout (a yardstick only).
+10b. Memory levers on phase 9's weights and batch (bf16 O1, 8 x 2048,
+    flash route), 3 TrainSteps each: recompute ``full``, ``core_attn``,
+    ``loss_chunk_size=1024`` with ``full``, and an untied head (``lm_head``
+    = wte^T): step 1's loss within ROUTE_TOL of phase 9's, the exact flash
+    launches (``LEVERS``), median step time, tokens/s, FLOP share and peak
+    memory; one JSON line ``{"levers": [...]}``.
+10c. ``gpt_1p3b`` with dropout 0.1, bf16 O1, recompute ``full``, batch 1 x
+    2048 (attention on the plain route): one step's loss and qkv/proj
+    gradients equal with recompute on and off under one key; 3 TrainSteps
+    from ``rng.seed(0)`` with finite losses and exactly
+    ``dropout_sites`` kernel launches a step; the plain attention's share
+    of the step.
+10d. float16 AMP O2 (``decorate``) with ``GradScaler`` at full width, 4
+    layers, batch 1 x 2048: the step whose gradients overflow is skipped
+    with parameters and slots bit-unchanged, the scale follows
+    ``scaler_rule``.
+11. Serve ``gpt_1p3b`` cut to 2 layers of 8 heads of 256 (full width
     2048), seeded f32 weights: tokens equal ``generate()``, the head_dim
     256 kernels launch 2 x (decode steps + warm-ups) and 2 x (prefills +
     warm-ups), and the engine's programs hold as in phase 3.
+
+Each phase prints its seconds.
 
 Every serving engine is closed at the end of its phase
 (``ServingAPI.close``), which drops its graphs and their pool before the
@@ -214,6 +241,7 @@ Then one JSON line of per-kernel results (a paged row's ``launches`` are
 phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
 instances its times belong to, and ``launches_f32`` phase 8's; the
 sampling row's phase 3b's, its times the 8 all-sampled float32 rows',
+the dropout row's phase 10c's, its times 10a's at [8, 16, 2048, 2048],
 with every timed setting and ``torch.argmax`` beside them; the two
 unquantized paged rows' and the sampling row's ``launches_prefix`` phase
 3d's shared-prefix wave, ``launches_recovery`` phase 3e's faulted wave),
@@ -234,11 +262,13 @@ import numpy as np
 import torch
 
 SOURCES = {name: f"paddle_tpu_torch/ops/csrc/{name}.cu"
-           for name in ("paged_attention", "flash_attention", "sampling")}
+           for name in ("paged_attention", "flash_attention", "sampling",
+                        "dropout")}
 PAGED = ("paged_decode_attention", "paged_prefill_attention",
          "paged_decode_attention_int8", "paged_prefill_attention_int8")
 FLASH = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 SAMPLING = ("sample_tokens",)
+DROPOUT = ("dropout",)
 REPLACES = {
     "paged_decode_attention":
         "paddle_tpu/ops/paged_attention.py:141 _decode_kernel",
@@ -255,6 +285,9 @@ REPLACES = {
         "paddle_tpu/ops/pallas_ops.py:269 _flash_bwd_dq_kernel",
     # no Pallas body: the JAX package computes it with XLA ops
     "sample_tokens": "paddle_tpu/serving/sampling.py:84 sample_tokens",
+    "dropout": ("paddle_tpu/nn/functional/common.py:32 dropout; "
+                "paddle_tpu/nn/functional/attention.py:26 _prob_dropout "
+                "(XLA ops, no Pallas body)"),
 }
 H, D, BS = 16, 128, 16          # gpt_1p3b heads, head_dim; kv_block_size
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
@@ -2294,7 +2327,7 @@ def serve_quantized(pa, gpt, serving, arrays, card):
 
 
 def serve_d256(pa, gpt, serving, card):
-    """Phase 10: gpt_1p3b cut to 8 heads of 256 and 2 layers (full width
+    """Phase 11: gpt_1p3b cut to 8 heads of 256 and 2 layers (full width
     2048), seeded f32 weights, served on 8 slots through the head_dim 256
     kernels: greedy tokens equal generate(), the decode kernel launched 2
     x decode steps and the prefill kernel 2 x prefills."""
@@ -2845,13 +2878,8 @@ def train_bf16(model, arrays, port, card):
     cfg = model.cfg
     if any(n != cfg.num_layers * STEPS_BF16 for n in launches.values()):
         raise AssertionError(f"bf16 launches {launches} != 24 x steps")
-    n_params = sum(p.numel() for p in model.parameters())
     tokens = BATCH_BF16 * SEQ
-    hd = cfg.hidden_size // cfg.num_heads
-    # 6 N per token, plus causal attention: 12 b s^2 h d per layer for
-    # fwd + bwd over all pairs, half of the pairs kept
-    flops = 6 * n_params * tokens + 6 * BATCH_BF16 * SEQ * SEQ \
-        * cfg.num_heads * hd * cfg.num_layers
+    flops = model_flops(model, BATCH_BF16)
     med = float(np.median(step_s))
     print(f"train bf16 O1: batch {BATCH_BF16} x {SEQ}, losses {losses}; "
           f"median step {med * 1e3:.1f} ms over {STEPS_BF16} steps, "
@@ -2861,7 +2889,22 @@ def train_bf16(model, arrays, port, card):
     del step, opt
     model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
-    return flash_times(fa, card), launches
+    base = dict(loss1=losses[0], step_ms=med * 1e3, tokens_s=tokens / med,
+                flop_share=flops / med / BF16_FLOPS_PER_S,
+                peak_gib=peak / 2**30)
+    return flash_times(fa, card), launches, base
+
+
+def model_flops(model, batch) -> float:
+    """Model FLOPs of one training step on ``batch`` x SEQ tokens: 6 N per
+    token, plus causal attention, 12 b s^2 h d per layer for forward and
+    backward over all pairs, half of the pairs kept. A recompute adds no
+    model FLOPs."""
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    hd = cfg.hidden_size // cfg.num_heads
+    return 6 * n_params * batch * SEQ + 6 * batch * SEQ * SEQ \
+        * cfg.num_heads * hd * cfg.num_layers
 
 
 def flash_times(fa, card):
@@ -2935,6 +2978,480 @@ def flash_times(fa, card):
     return results
 
 
+# ------------------------------------------------------------------ phase 10
+# the dropout kernel's bound: threefry's 32-bit integer operations a mask
+# element (2 + 20 rounds x 3 + 5 injections x 2, and the draw's xor, shift
+# and or) over the most 32-bit operations the SMs can issue: one per lane
+# per clock on 128 lanes an SM (4 schedulers x 32), the lanes of the
+# published 67 TFLOP/s float32 (132 SMs x 128 x 2 FLOPs of an FMA x 1.98
+# GHz), so 33.5 T/s. The 64 dedicated INT32 lanes an SM would give half
+# that, but nvcc issues integer adds as IMAD on the float32 lanes too: the
+# kernel measured faster than that half rate allows on an H100 (PERF.md)
+INT32_OPS_PER_S = F32_FLOPS_PER_S / 2
+THREEFRY_INT_OPS = 75
+DROPOUT_SHAPES = [(BATCH_BF16, SEQ, 2048), (1, H, SEQ, SEQ), (1000003,)]
+DROPOUT_AXES = [((8, H, 64, 64), (0, 1)), ((4, SEQ, 2048), 1)]
+DROPOUT_PS = (0.1, 0.5, 0.999)
+# buf[1:] of this many elements: a contiguous view whose base is not
+# 16-byte aligned (the wrapper copies it before the kernel's 16-byte packs)
+DROPOUT_OFFSET_BUF = 1000004
+DROPOUT_TIMED = [(BATCH_BF16, SEQ, 2048), (BATCH_BF16, H, SEQ, SEQ)]
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.float16: torch.int16}
+
+
+def nonzero_input(gen, shape, dtype):
+    """Values of magnitude 0.5 to 4 with random signs (none is 0, so a
+    dropped element is the only 0 of an output)."""
+    mag = torch.rand(shape, generator=gen, device="cuda") * 3.5 + 0.5
+    sign = torch.randint(0, 2, shape, generator=gen, device="cuda") * 2 - 1
+    return (mag * sign).to(dtype)
+
+
+def same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(_INT_VIEW[a.dtype]),
+                                              b.view(_INT_VIEW[b.dtype]))
+
+
+def dropout_case(do, rng_mod, x, key, p, axis, upscale, what):
+    """One kernel launch against the plain version on the same x and key:
+    the keep masks (0 differing elements), the outputs bit for bit, the
+    backward (the Function on a random gradient) bit for bit, and a second
+    launch equal to the first. Returns the max abs error."""
+    y = do.dropout_apply(x, key, p, axis, upscale)
+    ref = do.dropout_ref(x, key, p, axis, upscale)
+    keep = rng_mod.bernoulli(key, 1.0 - p, do.mask_shape(x.shape, axis))
+    mask_diff = int(((y != 0) != keep).sum())
+    xg = x.detach().clone().requires_grad_(True)
+    g = torch.randn_like(x.float()).to(x.dtype)
+    do.Dropout.apply(xg, key, p, axis, upscale).backward(g)
+    g_ref = do.dropout_ref(g, key, p, axis, upscale)
+    again = do.dropout_apply(x, key, p, axis, upscale)
+    torch.cuda.synchronize()
+    err = float((y.float() - ref.float()).abs().max())
+    ok = (mask_diff == 0 and same_bits(y, ref) and same_bits(xg.grad, g_ref)
+          and same_bits(again, y))
+    kept = float(keep.float().mean())
+    print(f"check dropout {str(x.dtype)[6:]} {list(x.shape)} p={p} "
+          f"{what}: mask differs at {mask_diff} elements, kept {kept:.4f}, "
+          f"output bits equal {same_bits(y, ref)}, backward bits equal "
+          f"{same_bits(xg.grad, g_ref)}, second launch equal "
+          f"{same_bits(again, y)}, max_abs_err={err:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dropout kernel {x.dtype} {tuple(x.shape)} p={p}"
+                             f" {what} disagrees with its plain version")
+    return err
+
+
+def dropout_checks(do, rng_mod, functional, card):
+    """Phase 10a: the dropout kernel against its plain version on the card
+    (``dropout_case``) in every dtype at the residual, the attention
+    probabilities' and a ragged 1,000,003 elements, p 0.1/0.5/0.999; the
+    axis form; downscale_in_infer; a view at an offset of one element; p 0
+    and eval mode draw no key and launch nothing. Returns the max abs error
+    over all checks."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    err, n = 0.0, 0
+    for dtype in DTYPES:
+        for shape in DROPOUT_SHAPES:
+            x = nonzero_input(gen, shape, dtype)
+            for p in DROPOUT_PS:
+                key = rng_mod.fold_in(rng_mod.prng_key(n, device="cuda"), 7)
+                err = max(err, dropout_case(do, rng_mod, x, key, p, None,
+                                            True, "upscale_in_train"))
+                n += 1
+            if shape == DROPOUT_SHAPES[0]:
+                key = rng_mod.prng_key(n, device="cuda")
+                err = max(err, dropout_case(do, rng_mod, x, key, 0.5, None,
+                                            False, "downscale_in_infer"))
+                n += 1
+            del x
+            torch.cuda.empty_cache()
+        for shape, axis in DROPOUT_AXES:
+            x = nonzero_input(gen, shape, dtype)
+            key = rng_mod.prng_key(n, device="cuda")
+            err = max(err, dropout_case(do, rng_mod, x, key, 0.5, axis, True,
+                                        f"axis {axis}"))
+            n += 1
+        buf = nonzero_input(gen, (DROPOUT_OFFSET_BUF,), dtype)
+        key = rng_mod.prng_key(n, device="cuda")
+        err = max(err, dropout_case(do, rng_mod, buf[1:], key, 0.1, None, True,
+                                    "offset view buf[1:]"))
+        n += 1
+    x = nonzero_input(gen, DROPOUT_SHAPES[0], torch.bfloat16)
+    state, count = rng_mod.get_rng_state(), do.launches["dropout"]
+    ident = (functional.dropout(x, 0.0) is x
+             and functional.dropout(x, 0.5, training=False) is x)
+    if not (ident and torch.equal(rng_mod.get_rng_state(), state)
+            and do.launches["dropout"] == count):
+        raise AssertionError("dropout at p 0 or in eval mode must return its "
+                             "input, draw no key and launch nothing")
+    print(f"check dropout: {n} kernel checks bit-equal to the plain version "
+          f"(masks, outputs, backward, relaunch); p 0 and eval draw no key "
+          f"and launch nothing [{card}]")
+    return err
+
+
+def dropout_times(do, rng_mod, card):
+    """The kernel's time at the residual [8, 2048, 2048] and attention
+    probabilities' [8, 16, 2048, 2048] bf16, p 0.1, beside its bound, its
+    plain version and torch's Philox dropout (a yardstick only: it draws
+    other bits)."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    key = rng_mod.prng_key(5, device="cuda")
+    out = {}
+    for shape in DROPOUT_TIMED:
+        x = nonzero_input(gen, shape, torch.bfloat16)
+        n = x.numel()
+        t_bytes = 2 * n * x.element_size() / HBM_BYTES_PER_S * 1e3
+        t_ops = THREEFRY_INT_OPS * n / INT32_OPS_PER_S * 1e3
+        r = dict(ms=time_ms(lambda: do.dropout_apply(x, key, 0.1), flush,
+                            iters=10),
+                 plain_ms=time_ms(lambda: do.dropout_ref(x, key, 0.1), flush,
+                                  iters=3),
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 philox_ms=time_ms(lambda: torch.nn.functional.dropout(
+                     x, 0.1), flush, iters=10))
+        out[str(list(shape))] = r
+        print(f"time dropout bf16 {list(shape)} p=0.1: kernel {r['ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{t_bytes:.4f} ms of bytes at 3.35 TB/s, {t_ops:.4f} ms of "
+              f"{THREEFRY_INT_OPS} integer operations an element at "
+              f"{INT32_OPS_PER_S / 1e12:.1f} T/s), plain {r['plain_ms']:.4f} "
+              f"ms, torch Philox dropout (yardstick) {r['philox_ms']:.4f} ms "
+              f"[{card}]")
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 10b: the memory levers on phase 9's batch and weights; each
+# setting's expected flash launches per step per layer: a full recompute
+# runs the flash forward again in backward (the Function's saved o and lse
+# are rebuilt), and so does core_attn (a custom kernel is no matmul the
+# policy could save)
+RECOMPUTED = {"flash_forward": 2, "flash_backward_dkv": 1,
+              "flash_backward_dq": 1}
+PLAIN_STEP = {"flash_forward": 1, "flash_backward_dkv": 1,
+              "flash_backward_dq": 1}
+LEVERS = [("recompute full", dict(use_recompute=True,
+                                  recompute_policy="full"), RECOMPUTED),
+          ("recompute core_attn", dict(use_recompute=True,
+                                       recompute_policy="core_attn"),
+           RECOMPUTED),
+          ("loss_chunk_size 1024 + recompute full",
+           dict(use_recompute=True, recompute_policy="full",
+                loss_chunk_size=1024), RECOMPUTED),
+          ("untied head", dict(tie_word_embeddings=False), PLAIN_STEP)]
+STEPS_LEVER = 3
+
+
+def train_lever(model, arrays, port, card, name, per_layer, base):
+    """Three bf16 O1 TrainSteps of ``model`` (its config set to one
+    lever) on phase 9's batch and weights through the flash kernels: step
+    1's loss against phase 9's within ROUTE_TOL["bf16"], the exact flash
+    launches, then the median step time, tokens/s, FLOP share and peak
+    memory."""
+    fa, flags, amp = port.fa, port.flags, port.amp
+    opt, x, y = train_setup(model, arrays, port, BATCH_BF16, seed=5)
+
+    def loss_fn(a, b):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model(a, b)
+
+    flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+    step = port.TrainStep(loss_fn, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(STEPS_LEVER):
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(fa.launches)
+    layers = model.cfg.num_layers
+    want = {k: v * layers * STEPS_LEVER for k, v in per_layer.items()}
+    med = float(np.median(step_s))
+    flops = model_flops(model, BATCH_BF16)
+    tokens = BATCH_BF16 * SEQ
+    rel = abs(losses[0] - base["loss1"]) / abs(base["loss1"])
+    row = dict(setting=name, step_ms=med * 1e3, tokens_s=tokens / med,
+               flop_share=flops / med / BF16_FLOPS_PER_S,
+               peak_gib=peak / 2**30, loss1=losses[0], loss1_rel=rel,
+               launches=launches)
+    print(f"train bf16 O1 {name}: batch {BATCH_BF16} x {SEQ}, losses "
+          f"{losses}, step 1 against phase 9's {base['loss1']!r}: rel "
+          f"{rel:.3e} (bound {ROUTE_TOL['bf16'][0]:g}); median step "
+          f"{med * 1e3:.1f} ms over {STEPS_LEVER} steps, "
+          f"{tokens / med:.0f} tokens/s, {row['flop_share']:.4f} of 989 "
+          f"TFLOP/s, peak memory {peak / 2**30:.2f} GiB, launches "
+          f"{launches} (expected {want}) [{card}]")
+    del step, opt
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and rel <= ROUTE_TOL["bf16"][0]):
+        raise AssertionError(f"{name}: step 1's loss {losses[0]} disagrees "
+                             f"with phase 9's {base['loss1']}")
+    if launches != want:
+        raise AssertionError(f"{name}: flash launches {launches} != {want}")
+    return row
+
+
+def train_levers(model, arrays, port, card, base):
+    """Phase 10b on phase 9's model: the three tied settings of LEVERS,
+    each set on the model's config and put back after."""
+    rows = []
+    for name, kw, per_layer in LEVERS[:3]:
+        old = {k: getattr(model.cfg, k) for k in kw}
+        for k, v in kw.items():
+            setattr(model.cfg, k, v)
+        try:
+            rows.append(train_lever(model, arrays, port, card, name,
+                                    per_layer, base))
+        finally:
+            for k, v in old.items():
+                setattr(model.cfg, k, v)
+    return rows
+
+
+def train_untied(arrays, port, card, base):
+    """Phase 10b's last setting: a model with its own lm_head, loaded with
+    the tied weights and ``lm_head = wte^T`` (so step 1 computes what phase
+    9's step 1 computed)."""
+    gpt = port.gpt
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(tie_word_embeddings=False),
+                               device="cuda")
+    untied = dict(arrays)
+    untied["lm_head.weight"] = np.ascontiguousarray(
+        arrays["gpt.wte.weight"].T)
+    name, _, per_layer = LEVERS[3]
+    row = train_lever(model, untied, port, card, name, per_layer, base)
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+STEPS_DROPOUT = 3
+
+
+def dropout_sites(layers):
+    """Dropout launches of one TrainStep with recompute "full": the forward
+    draws 1 + 3 per layer (the embedding, the attention probabilities and
+    the two residual branches); the recompute of a block stops after its
+    last saved tensor (torch's early stop), the input of the MLP's down
+    matmul, so it runs the attention probabilities' and the first
+    residual's dropout again (2 per layer) but not the last; backward runs
+    the kernel once per forward site."""
+    fwd = 1 + 3 * layers
+    return fwd + 2 * layers + fwd
+
+
+def train_dropout(arrays, port, card):
+    """Phase 10c: gpt_1p3b with dropout 0.1, bf16 O1, recompute "full",
+    batch 1 x 2048, attention on the plain route (live dropout never takes
+    the flash kernels). One forward and backward under one key with
+    recompute on and off: equal losses, qkv/proj gradients within
+    ROUTE_TOL["bf16"] (recompute replayed the keys). Then 3 TrainSteps from
+    rng.seed(0): finite losses, step 1's equal to the recompute-on loss, the
+    dropout kernel launched exactly ``dropout_sites`` per step and no flash
+    kernel. Returns the dropout launches."""
+    gpt, rng_mod, do, fa, amp = port.gpt, port.rng, port.do, port.fa, port.amp
+    cfg = gpt.gpt_1p3b(dropout=0.1, use_recompute=True,
+                       recompute_policy="full")
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    port.flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+
+    def loss_fn(a, b):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model(a, b)
+
+    opt, x, y = train_setup(model, arrays, port, 1, seed=7)
+    leaves = [p for layer in model.gpt.layers
+              for p in (layer.attn.qkv.weight, layer.attn.proj.weight)]
+    res = {}
+    for on in (True, False):
+        model.cfg.use_recompute = on
+        rng_mod.seed(0)
+        key = rng_mod.next_key("cuda")
+        with rng_mod.key_guard(key):
+            loss = loss_fn(x, y)
+        res[on] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+        del loss
+    model.cfg.use_recompute = True
+    (l_on, g_on), (l_off, g_off) = res[True], res[False]
+    loss_rel = abs(l_on - l_off) / abs(l_off)
+    grad_rel = max(float((a - b).norm() / b.norm())
+                   for a, b in zip(g_on, g_off))
+    print(f"train dropout 0.1 bf16 O1, batch 1 x {SEQ}: recompute on "
+          f"{l_on!r} vs off {l_off!r}, rel {loss_rel:.3e}; qkv/proj "
+          f"gradients worst relative L2 {grad_rel:.3e} (bounds "
+          f"{ROUTE_TOL['bf16'][0]:g}, {ROUTE_TOL['bf16'][1]:g}) [{card}]")
+    if not (loss_rel <= ROUTE_TOL["bf16"][0]
+            and grad_rel <= ROUTE_TOL["bf16"][1]):
+        raise AssertionError("recompute did not replay the forward's "
+                             "dropout keys: its loss or gradients differ")
+    del res, g_on, g_off
+    step = port.TrainStep(loss_fn, opt)
+    rng_mod.seed(0)
+    do.reset_launches()
+    fa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(STEPS_DROPOUT):
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        step_s.append(time.perf_counter() - t0)
+    secs = sum(step_s)
+    launches = do.launches["dropout"]
+    want = dropout_sites(cfg.num_layers) * STEPS_DROPOUT
+    rel1 = abs(losses[0] - l_on) / abs(l_on)
+    print(f"train dropout 0.1: {STEPS_DROPOUT} TrainSteps, losses {losses} "
+          f"in {secs:.2f} s, step 1 against the recompute-on loss rel "
+          f"{rel1:.3e}; dropout launches {launches} (expected {want}: "
+          f"{dropout_sites(cfg.num_layers)} a step), flash launches "
+          f"{dict(fa.launches)} [{card}]")
+    if not (np.isfinite(losses).all() and rel1 <= ROUTE_TOL["bf16"][0]):
+        raise AssertionError(f"dropout losses {losses} must be finite, step "
+                             f"1's equal to {l_on}")
+    if launches != want or any(fa.launches.values()):
+        raise AssertionError(f"dropout launches {launches} != {want}, or a "
+                             f"flash kernel ran: {fa.launches}")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    attention_share(port, float(np.median(step_s)) * 1e3, cfg, card)
+    return launches
+
+
+def attention_share(port, step_ms, cfg, card):
+    """How much of phase 10c's step the plain attention route with live
+    dropout takes: one layer's forward, and its forward plus backward, at
+    the step's shape (bf16 [1, 2048, 16, 128], causal, p 0.1), times the
+    layers, the forward counted twice (the recompute), over the median
+    step."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v, g = (torch.randn((1, SEQ, H, D), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    key = port.rng.prng_key(3, device="cuda")
+    scale = 1.0 / np.sqrt(D)
+
+    def fwd():
+        return port.attention._sdpa_reference(q, k, v, scale=scale,
+                                               causal=True, dropout_p=0.1,
+                                               key=key)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fwd_ms = time_ms(fwd, flush, iters=5)
+    both_ms = time_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), g),
+                      flush, iters=5)
+    share = cfg.num_layers * (fwd_ms + both_ms) / step_ms
+    print(f"train dropout 0.1: plain attention with dropout, one layer bf16 "
+          f"[1, {SEQ}, {H}, {D}]: forward {fwd_ms:.3f} ms, forward + "
+          f"backward {both_ms:.3f} ms; x {cfg.num_layers} layers with the "
+          f"recompute's second forward = {share:.3f} of the median step "
+          f"{step_ms:.1f} ms [{card}]")
+    return share
+
+
+# phase 10d: float16 O2 with GradScaler on gpt_1p3b cut to 4 layers. After
+# two good steps the scale rises from 2^15 to 2^32, whose gradients
+# overflow float16 (the head's logit gradients alone reach 2^32 / 2048):
+# step 3 is skipped and the scale falls back to 2^15
+FP16_LAYERS, FP16_STEPS = 4, 4
+SCALER_KW = dict(init_loss_scaling=2.0 ** 15, incr_ratio=2.0 ** 17,
+                 decr_ratio=2.0 ** -17, incr_every_n_steps=4,
+                 decr_every_n_nan_or_inf=2)
+
+
+def scaler_rule(state, found_inf):
+    """The JAX package's ``GradScaler.update`` on ``(scale, good, bad)``,
+    transcribed, for the expected schedule."""
+    scale, good, bad = state
+    if found_inf:
+        good, bad = 0, bad + 1
+        if bad >= SCALER_KW["decr_every_n_nan_or_inf"]:
+            scale, bad = max(scale * SCALER_KW["decr_ratio"], 1.0), 0
+    else:
+        good, bad = good + 1, 0
+        if good >= SCALER_KW["incr_every_n_steps"]:
+            scale, good = scale * SCALER_KW["incr_ratio"], 0
+    return scale, good, bad
+
+
+def train_fp16_scaler(arrays, port, card):
+    """Phase 10d: float16 AMP O2 (``decorate``: float16 parameters, f32
+    master weights) at full width, 4 layers, batch 1 x 2048, eager
+    ``scaler.scale(loss).backward(); scaler.step(opt); scaler.update()``
+    (the JAX package's ``step`` updates the scale itself, so each step
+    updates it twice). The step whose gradients overflow is skipped with
+    parameters and optimizer slots bit-unchanged, the others update; the
+    scale follows ``scaler_rule`` step for step."""
+    gpt, amp = port.gpt, port.amp
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=FP16_LAYERS)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    keep = {n for n, _ in model.named_parameters()}
+    opt, x, y = train_setup(model, {k: v for k, v in arrays.items()
+                                    if k in keep}, port, 1, seed=8)
+    amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(**SCALER_KW)
+    state = (SCALER_KW["init_loss_scaling"], 0, 0)
+    skipped, scales = [], []
+    for i in range(FP16_STEPS):
+        before = [p.detach().clone() for p in model.parameters()]
+        slots = {(i, k): v.clone() for i, acc in opt._accumulators.items()
+                 for k, v in acc.items()}
+        count = opt._step_count
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = model(x, y)
+        scaler.scale(loss).backward()
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in model.parameters())
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        for _ in range(2):
+            state = scaler_rule(state, not finite)
+        same = all(torch.equal(a, p.detach())
+                   for a, p in zip(before, model.parameters()))
+        same_slots = all(torch.equal(v, opt._accumulators[i][k])
+                         for (i, k), v in slots.items())
+        skipped.append(not finite)
+        scales.append(scaler.get_loss_scaling())
+        print(f"train float16 O2 + GradScaler step {i + 1}: loss "
+              f"{float(loss.detach()):.6f}, scaled gradients finite {finite}, "
+              f"parameters unchanged {same}, slots unchanged {same_slots}, "
+              f"optimizer steps {count} -> {opt._step_count}, scale "
+              f"{scaler.get_loss_scaling():g} (expected {state[0]:g}) "
+              f"[{card}]")
+        if (not finite) != (same and same_slots and opt._step_count == count):
+            raise AssertionError(f"step {i + 1}: a step with non-finite "
+                                 "gradients must leave parameters, slots and "
+                                 "the step count bit-unchanged, and only it")
+        if scaler.get_loss_scaling() != state[0] or not np.isfinite(
+                float(loss.detach())):
+            raise AssertionError(f"step {i + 1}: scale "
+                                 f"{scaler.get_loss_scaling()} != "
+                                 f"{state[0]} or the loss is not finite")
+    if skipped.count(True) != 1:
+        raise AssertionError(f"exactly one step must overflow: {skipped}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return scales
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, printing the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
@@ -2946,18 +3463,22 @@ def main() -> int:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch import amp, serving
-    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core import flags, rng
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.nn import functional
+    from paddle_tpu_torch.nn.functional import attention
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import dropout as do
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import sampling as so
     from paddle_tpu_torch.optimizer import AdamW
-    port = types.SimpleNamespace(gpt=gpt, fa=fa, flags=flags, amp=amp,
-                                 TrainStep=TrainStep, AdamW=AdamW,
-                                 ClipGradByGlobalNorm=ClipGradByGlobalNorm)
+    port = types.SimpleNamespace(gpt=gpt, fa=fa, do=do, rng=rng, flags=flags,
+                                 amp=amp, TrainStep=TrainStep, AdamW=AdamW,
+                                 ClipGradByGlobalNorm=ClipGradByGlobalNorm,
+                                 attention=attention)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2971,38 +3492,60 @@ def main() -> int:
     pa.load_kernels()
     fa.load_kernels()
     so.load_kernels()
+    do.load_kernels()
     print(f"build: {', '.join(SOURCES.values())} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           + ", ".join(f"{n} {_build.build_seconds.get(n, 0.0):.1f} s"
                       for n in SOURCES) + ")")
-    kernel_checks(pa)
+    print(f"phase 1 (build): {time.perf_counter() - t0:.1f} s")
+    t = timed
+    t("2", kernel_checks, pa)
     vocab = gpt.gpt_1p3b().vocab_size
-    differ, u_err = sampling_checks(so, vocab, card)
-    samp_times = sampling_times(so, vocab, card)
-    model, launches, arrays = serve_f32(pa, gpt, serving, card)
+    differ, u_err = t("2 (sampling checks)", sampling_checks, so, vocab,
+                      card)
+    samp_times = t("2 (sampling times)", sampling_times, so, vocab, card)
+    model, launches, arrays = t("3", serve_f32, pa, gpt, serving, card)
     # the sampling row's launches are phase 3b's, the sampled main path
-    launches["sample_tokens"] = serve_sampled(pa, model, serving,
-                                              card)["sample_tokens"]
-    serve_wide_vocab(pa, gpt, serving, card)
-    prefix_launches = serve_prefix(pa, model, serving, card)
-    recovery_launches = serve_recovery(pa, so, model, serving, card)
-    quant_launches = serve_quantized(pa, gpt, serving, arrays, card)
+    launches["sample_tokens"] = t("3b", serve_sampled, pa, model, serving,
+                                  card)["sample_tokens"]
+    t("3c", serve_wide_vocab, pa, gpt, serving, card)
+    prefix_launches = t("3d", serve_prefix, pa, model, serving, card)
+    recovery_launches = t("3e", serve_recovery, pa, so, model, serving, card)
+    quant_launches = t("4-5", serve_quantized, pa, gpt, serving, arrays,
+                       card)
     torch.cuda.empty_cache()
     # the int8 rows' launches are phase 5's, the path that runs them
     for name in PAGED[2:]:
         launches[name] = quant_launches[name]
-    timing = serve_bf16(model, pa, serving, card)
+    timing = t("6", serve_bf16, model, pa, serving, card)
     del model
     torch.cuda.empty_cache()
 
-    flash_checks(fa)
+    t("7", flash_checks, fa)
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
-    launches_f32 = train_f32(model, arrays, port, card)
-    flash_timing, flash_launches = train_bf16(model, arrays, port, card)
+    launches_f32 = t("8", train_f32, model, arrays, port, card)
+    flash_timing, flash_launches, base = t("9", train_bf16, model, arrays,
+                                           port, card)
+    drop_err = t("10a (checks)", dropout_checks, do, rng, functional, card)
+    drop_times = t("10a (times)", dropout_times, do, rng, card)
+    levers = t("10b", train_levers, model, arrays, port, card, base)
     del model
     torch.cuda.empty_cache()
-    serve_d256(pa, gpt, serving, card)
+    levers.append(t("10b (untied head)", train_untied, arrays, port, card,
+                    base))
+    print(json.dumps({"levers": [dict(setting="phase 9 (baseline)",
+                                      **base)] + levers}))
+    launches["dropout"] = t("10c", train_dropout, arrays, port, card)
+    t("10d", train_fp16_scaler, arrays, port, card)
+    t("11", serve_d256, pa, gpt, serving, card)
     timing.update(flash_timing)
+    res = drop_times[str(list(DROPOUT_TIMED[1]))]
+    timing["dropout"] = dict(
+        max_abs_err=drop_err, ms=res["ms"], plain_ms=res["plain_ms"],
+        bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=None,
+        library_note="no PyTorch call draws JAX's threefry bits; torch's "
+                     "Philox dropout is timed beside it as a yardstick",
+        philox_ms=res["philox_ms"], times=drop_times)
     # a flash row's launches are the timed bf16 phase's (the tensor-core
     # instances its times belong to); launches_f32 the f32 phase's
     launches.update(flash_launches)
@@ -3026,7 +3569,8 @@ def main() -> int:
                     **timing[name])
                for src, names in (("paged_attention", PAGED),
                                   ("flash_attention", FLASH),
-                                  ("sampling", SAMPLING))
+                                  ("sampling", SAMPLING),
+                                  ("dropout", DROPOUT))
                for name in names]
     print(json.dumps({"kernels": kernels}))
     print(card)

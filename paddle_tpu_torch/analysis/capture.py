@@ -76,6 +76,9 @@ CAPTURED = (
     "paddle_tpu_torch/core/rng.py:prng_key",
     "paddle_tpu_torch/core/rng.py:fold_in",
     "paddle_tpu_torch/core/rng.py:uniform",
+    # the eval-mode dropout a captured step passes through (no draw)
+    "paddle_tpu_torch/nn/layers.py:Dropout.forward",
+    "paddle_tpu_torch/nn/functional/common.py:dropout",
 )
 
 #: the step-program helper's method, whose second argument is the step

@@ -31,19 +31,44 @@ Words are uint32 values held in int64 and masked to 32 bits after every
 add; a rotation is ``((x << r) | (x >> (32 - r))) & 0xFFFFFFFF``. PyTorch's
 ``uint32`` lacks CUDA arithmetic in many builds, and int64 needs none of it.
 Everything is device tensor arithmetic with no read on the host, so the
-functions run inside a captured CUDA graph. The stateful part of the JAX
-module (``seed``, ``next_key``, ``key_guard``, ``RNGStatesTracker``) is not
-ported: training dropout, its user, is a later slice.
+functions run inside a captured CUDA graph.
+
+The stateful part of the JAX module, used by dropout:
+
+* one global key (``seed``, ``get_rng_state`` / ``set_rng_state``);
+  ``next_key()`` splits it, ``k, sub = split(key)``, keeps ``k`` and
+  returns ``sub``. The key is made on the CPU and moves, once, to the
+  device a draw names (``next_key(device)``), where it stays: the splits
+  then run on that device with no copy and no host read;
+* ``key_guard(base)``: inside it, draw number n returns
+  ``fold_in(base, n)`` on the base key's device and the global key does
+  not move (a ``TrainStep`` runs its loss under one);
+* ``RNGStatesTracker``: named streams, each scope a ``key_guard`` over the
+  stream's key, which then advances to ``split(key)[0]``;
+* :class:`KeyTape`: the keys a region drew, recorded in order and handed
+  back in the same order when the region runs again (activation recompute:
+  the recomputed forward must draw the forward's masks, and must not move
+  the global key or a guard's counter a second time).
+
+``bernoulli(key, p, shape)`` is ``jax.random.bernoulli``'s default "low"
+mode, ``uniform(key, shape, float32) < float32(p)``, drawn in chunks of
+the flat index so its int64 temporaries stay bounded.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 import types
+
+import numpy as np
 
 import torch
 
 __all__ = ["threefry_2x32", "prng_key", "fold_in", "split", "random_bits",
-           "uniform", "gumbel", "categorical"]
+           "uniform", "gumbel", "categorical", "bernoulli", "seed",
+           "get_rng_state", "set_rng_state", "key_guard", "next_key",
+           "KeyTape", "RNGStatesTracker", "get_rng_state_tracker"]
 
 MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -170,3 +195,191 @@ def categorical(key, logits):
     array)."""
     noise = gumbel(key, tuple(logits.shape), logits.dtype)
     return torch.argmax(noise + logits, dim=-1)
+
+
+# flat elements per chunk of a bernoulli draw: bounds its int64 temporaries
+# (about ten of them live at once) to a few hundred MB
+_CHUNK = 1 << 24
+
+
+def _keep_flat(key, thr, start: int, stop: int):
+    """``uniform(key) < thr`` at the flat indices ``[start, stop)``."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    w0, w1 = threefry_2x32(key[0], key[1], torch.zeros_like(idx), idx)
+    word = ((w0 ^ w1) >> 9) | 0x3F800000
+    return word.to(torch.int32).view(torch.float32) - 1.0 < thr
+
+
+def bernoulli(key, p, shape=()):
+    """``jax.random.bernoulli(key, p, shape)`` in its default "low" mode
+    for one key ``[2]`` and a Python ``p``: ``uniform(key, shape,
+    float32) < float32(p)``, a bool tensor of ``shape``. Arrays of 2**32
+    elements or more raise (the counters' high word would not be 0)."""
+    shape = tuple(int(d) for d in shape)
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise ValueError(f"bernoulli draws below 2**32 elements, got {n}")
+    thr = torch.tensor(np.float32(p), device=key.device)
+    out = torch.empty(n, dtype=torch.bool, device=key.device)
+    for a in range(0, n, _CHUNK):
+        b = min(n, a + _CHUNK)
+        out[a:b] = _keep_flat(key, thr, a, b)
+    return out.reshape(shape)
+
+
+# ------------------------------------------------------------ global state
+
+_local = threading.local()
+_lock = threading.Lock()
+# the key is made at first use from the seed (0 until seed() is called)
+_global = {"key": None, "seed": 0}
+
+
+def _key():
+    if _global["key"] is None:
+        _global["key"] = prng_key(_global["seed"])
+    return _global["key"]
+
+
+def seed(s: int) -> int:
+    """``paddle.seed``: the global key becomes ``PRNGKey(s)``."""
+    with _lock:
+        _global["key"] = prng_key(int(s))
+        _global["seed"] = int(s)
+    return s
+
+
+def get_rng_state(device=None):
+    """The global key (a copy; ``device`` selects nothing, as in the JAX
+    package)."""
+    with _lock:
+        return _key().clone()
+
+
+def set_rng_state(state, device=None) -> None:
+    """Make ``state`` (two uint32 words, for instance a saved
+    ``get_rng_state()``) the global key."""
+    key = torch.as_tensor(np.asarray(state) if not isinstance(
+        state, torch.Tensor) else state).to(torch.int64).reshape(2)
+    with _lock:
+        _global["key"] = key.clone()
+
+
+def _frames(name: str) -> list:
+    stack = getattr(_local, name, None)
+    if stack is None:
+        stack = []
+        setattr(_local, name, stack)
+    return stack
+
+
+@contextlib.contextmanager
+def key_guard(base_key):
+    """Inside the block, draw number n returns ``fold_in(base_key, n)``
+    (an int is ``PRNGKey(base_key)``)."""
+    if not isinstance(base_key, torch.Tensor):
+        base_key = prng_key(int(base_key))
+    stack = _frames("guards")
+    stack.append({"key": base_key, "counter": 0})
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def next_key(device=None):
+    """The key of the next draw: a replayed one inside
+    :meth:`KeyTape.replay`, else ``fold_in(base, counter)`` inside a
+    :func:`key_guard` (on the base key's device), else a split of the
+    global key, moved first to ``device`` when one is given. Every tape
+    that is recording receives it, a replayed key too (a region
+    checkpointed inside a region being recomputed records the keys it is
+    handed, and its own recompute replays them)."""
+    replays = _frames("replays")
+    guards = _frames("guards")
+    if replays:
+        k = replays[-1].next()
+    elif guards:
+        frame = guards[-1]
+        k = fold_in(frame["key"], frame["counter"])
+        frame["counter"] += 1
+    else:
+        with _lock:
+            key = _key()
+            if device is not None and key.device != torch.device(device):
+                key = key.to(device)
+            keep, k = split(key).unbind(0)
+            _global["key"] = keep
+    for tape in _frames("recording"):
+        tape.keys.append(k)
+    return k
+
+
+class KeyTape:
+    """The keys one region drew, in order. :meth:`record` appends every
+    key :func:`next_key` returns inside it; :meth:`replay` makes
+    :func:`next_key` return them again from the first, without touching
+    the global key or a guard's counter. A replay that asks for more keys
+    than were recorded raises."""
+
+    def __init__(self):
+        self.keys = []
+        self._cursor = 0
+
+    def next(self):
+        if self._cursor >= len(self.keys):
+            raise RuntimeError(
+                f"the replayed region drew more keys than the "
+                f"{len(self.keys)} its first run drew")
+        k = self.keys[self._cursor]
+        self._cursor += 1
+        return k
+
+    @contextlib.contextmanager
+    def record(self):
+        stack = _frames("recording")
+        stack.append(self)
+        try:
+            yield
+        finally:
+            stack.remove(self)
+
+    @contextlib.contextmanager
+    def replay(self):
+        self._cursor = 0
+        stack = _frames("replays")
+        stack.append(self)
+        try:
+            yield
+        finally:
+            stack.remove(self)
+
+
+class RNGStatesTracker:
+    """Named key streams (the JAX package's mirror of paddle's
+    ``mpu/random.py``): each ``rng_state(name)`` scope draws under a
+    :func:`key_guard` of the stream's key, which then advances to the
+    first key of its split."""
+
+    def __init__(self):
+        self.states = {}
+
+    def add(self, name, seed_):
+        if name in self.states:
+            raise ValueError(f"rng state {name} already exists")
+        self.states[name] = prng_key(int(seed_))
+
+    @contextlib.contextmanager
+    def rng_state(self, name="model_parallel_rng"):
+        if name not in self.states:
+            self.states[name] = prng_key(0)
+        with key_guard(self.states[name]):
+            self.states[name] = split(self.states[name])[0]
+            yield
+
+
+_tracker = RNGStatesTracker()
+
+
+def get_rng_state_tracker() -> RNGStatesTracker:
+    return _tracker

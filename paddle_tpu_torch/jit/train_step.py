@@ -10,6 +10,12 @@ and updates them in place (the JAX package donates their buffers instead).
   microbatches, takes each one's gradients at the step's initial
   parameters, sums them in f32 and averages them before one update; the
   returned loss is the microbatch mean.
+* Keys, as the JAX TrainStep threads them: one ``rng.next_key()`` per
+  call, on the device of the first tensor argument; the loss runs
+  under ``rng.key_guard(key)`` (its draw number n is ``fold_in(key, n)``),
+  microbatch i of ``accumulate_steps`` under ``key_guard(fold_in(key,
+  i))``. After the same ``seed``, the port and the JAX package draw the
+  same dropout masks step after step.
 * With ``FLAGS_trainstep_sentinel`` (read at the first call), a nonfinite
   loss or gradient skips the update: parameters, optimizer slots and the
   step count stay bit-identical and ``sentinel.skipped`` is bumped.
@@ -25,7 +31,7 @@ from typing import Callable, List
 
 import torch
 
-from ..core import compile_cache, flags
+from ..core import compile_cache, flags, rng
 
 __all__ = ["TrainStep"]
 
@@ -49,14 +55,15 @@ class TrainStep:
         self._built = False
         self._sentinel = False
 
-    def _loss_and_grads(self, args):
-        loss = self._fn(*args).float()
+    def _loss_and_grads(self, args, key):
+        with rng.key_guard(key):
+            loss = self._fn(*args).float()
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self._params, grads)]
         return loss.detach(), grads
 
-    def _accumulated(self, args):
+    def _accumulated(self, args, key):
         k = self._accumulate_steps
         leading = {a.shape[0] if isinstance(a, torch.Tensor) and a.dim()
                    else None for a in args}
@@ -70,7 +77,8 @@ class TrainStep:
                for p in self._params]
         lsum = None
         for i in range(k):
-            loss, grads = self._loss_and_grads([m[i] for m in micro])
+            loss, grads = self._loss_and_grads([m[i] for m in micro],
+                                               rng.fold_in(key, i))
             for a, g in zip(acc, grads):
                 a.add_(g.float())
             lsum = loss if lsum is None else lsum + loss
@@ -84,10 +92,13 @@ class TrainStep:
             self._sentinel = bool(flags.flag("trainstep_sentinel"))
             self._built = True
         compile_cache.bump("train_step.steps")
+        dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+                   None)
+        key = rng.next_key(dev)
         if self._accumulate_steps > 1:
-            loss, grads = self._accumulated(args)
+            loss, grads = self._accumulated(args, key)
         else:
-            loss, grads = self._loss_and_grads(args)
+            loss, grads = self._loss_and_grads(args, key)
         if self._sentinel:
             finite = torch.stack([torch.isfinite(loss)] + [
                 torch.isfinite(g).all() for g in grads]).all()

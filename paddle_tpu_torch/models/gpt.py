@@ -18,17 +18,27 @@ Attention has three routes, as in the JAX package:
   package's ``_sdpa_reference`` math otherwise.
 
 ``GPTForCausalLM(ids, labels)`` returns the mean cross-entropy loss over
-the tied head's f32 logits; its gradient flows through the flash kernels'
-backward.
+the head's f32 logits (the head is the token embedding, tied, or an
+``lm_head`` of its own with ``tie_word_embeddings=False``); its gradient
+flows through the flash kernels' backward. ``loss_chunk_size > 0`` fuses
+the head and the loss over chunks of tokens, so the ``[tokens, vocab]``
+logits never exist whole.
+
+Training options, as in the JAX package: ``dropout`` (the embedding, the
+residual branches and the attention probabilities, each a draw of the
+port's threefry dropout, bit-equal to the JAX package's masks);
+``use_recompute`` runs each decoder block under
+:func:`paddle_tpu_torch.distributed.fleet.recompute.recompute` with
+``recompute_policy`` while gradients are recorded; ``use_scan_layers`` is
+accepted and runs the unrolled stack: a scan is XLA's lever for compile
+time, eager PyTorch compiles nothing, and the JAX scan path computes the
+same math (it too falls back to the unrolled stack with live dropout).
 
 Serving quantization: :func:`quantize_serving_weights` turns the attention
 and MLP weights into int8 with per-output-channel float32 scales, in place,
 and every such matmul runs through :func:`_serving_linear`, so
 ``generate()`` and the serving engine share one numerics contract on a
 quantized model, as in the JAX package.
-
-The JAX package's recompute, scan-layers and chunked-loss options and
-dropout while training are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -43,8 +53,9 @@ from torch import nn
 from .. import amp, quantization
 from ..core import device as device_mod
 from ..core import rng
+from ..distributed.fleet.recompute import recompute
 from ..nn.functional import cross_entropy, scaled_dot_product_attention
-from ..nn.layers import Embedding, LayerNorm, Linear, gelu_tanh
+from ..nn.layers import Dropout, Embedding, LayerNorm, Linear, gelu_tanh
 from ..ops.flash_attention import plain_attention
 from ..ops.sampling import sample as sample_rows
 
@@ -59,9 +70,14 @@ class GPTConfig:
     intermediate_size: int = 0  # 0 -> 4*hidden
     dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
-    # JAX-package training options not ported yet: any non-default raises
     use_recompute: bool = False
+    # "full" (save nothing), "core_attn" (save the weight matmuls' outputs)
+    # or "full_attn" (every matmul's): distributed.fleet.recompute
+    recompute_policy: str = "full"
+    # accepted for the JAX package's recipes; runs the unrolled stack
     use_scan_layers: bool = False
+    tie_word_embeddings: bool = True
+    # > 0: the head and the loss over chunks of this many tokens
     loss_chunk_size: int = 0
 
     def __post_init__(self):
@@ -118,9 +134,10 @@ def quantize_serving_weights(model) -> int:
     an int8 parameter without gradient, quantized per OUTPUT channel by
     :func:`paddle_tpu_torch.quantization.quantize_weight`, and its float32
     ``[1, out]`` scale a ``weight_scale`` buffer. No full-precision copy is
-    kept. Embeddings, the tied head and the LayerNorms stay in the compute
-    dtype. Quantize after the model's dtype is set: ``Module.to(dtype)``
-    would cast the scale buffers (:func:`_serving_linear` then raises).
+    kept. Embeddings, the head (tied or not) and the LayerNorms stay in
+    the compute dtype. Quantize after the model's dtype is set:
+    ``Module.to(dtype)`` would cast the scale buffers
+    (:func:`_serving_linear` then raises).
     Idempotent; returns the number of layers quantized by this call."""
     n = 0
     for blk in model.gpt.layers:
@@ -244,7 +261,7 @@ class GPTDecoderLayer(nn.Module):
         self.attn = GPTAttention(cfg, device=device)
         self.ln2 = LayerNorm(cfg.hidden_size, eps, device=device)
         self.mlp = GPTMLP(cfg, device=device)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout)
 
     def forward(self, x, cache=None, start_pos=0):
         if cache is not None:
@@ -264,7 +281,7 @@ class GPTModel(nn.Module):
         self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, device=device)
         self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
                              device=device)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout)
         self.layers = nn.ModuleList([GPTDecoderLayer(cfg, device=device)
                                      for _ in range(cfg.num_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
@@ -296,8 +313,10 @@ class GPTModel(nn.Module):
             pos = steps + start_pos
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
         if caches is None:
+            remat = self.cfg.use_recompute and torch.is_grad_enabled()
             for layer in self.layers:
-                x = layer(x)
+                x = (recompute(layer, x, policy=self.cfg.recompute_policy)
+                     if remat else layer(x))
             return self.ln_f(x)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
@@ -307,22 +326,23 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """GPT with the LM head tied to the token embedding (every config of the
-    family ties it). Built on ``device`` (default ``"cuda"``, raising without
-    CUDA) and initialised with an explicit ``torch.Generator`` seeded 0:
-    N(0, 0.02) matrices and embeddings, zero biases, unit LayerNorm scales.
-    :func:`load_functional_state` replaces them. ``train()`` / ``eval()``
-    switch dropout as in torch; a model starts in eval mode."""
+    """GPT with the LM head tied to the token embedding or, with
+    ``tie_word_embeddings=False``, an ``lm_head`` of its own (weight
+    ``[hidden, vocab]``, no bias). Built on ``device`` (default ``"cuda"``,
+    raising without CUDA) and initialised with an explicit
+    ``torch.Generator`` seeded 0: N(0, 0.02) matrices and embeddings, zero
+    biases, unit LayerNorm scales. :func:`load_functional_state` replaces
+    them. ``train()`` / ``eval()`` switch dropout as in torch; a model
+    starts in eval mode."""
 
     def __init__(self, cfg: GPTConfig, device=device_mod.DEFAULT_DEVICE):
         super().__init__()
-        for opt in ("use_recompute", "use_scan_layers", "loss_chunk_size"):
-            if getattr(cfg, opt):
-                raise NotImplementedError(f"GPTConfig.{opt} is not ported "
-                                          "yet")
         dev = device_mod.resolve(device)
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device=dev)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                                  device=dev, bias=False)
         gen = torch.Generator(device=dev).manual_seed(0)
         with torch.no_grad():
             for name, p in self.named_parameters():
@@ -338,27 +358,62 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
 
+    def _head(self, h):
+        """The LM head: ``h @ wte^T`` (tied) or ``lm_head(h)``, each the
+        JAX package's ``linear`` without bias (``linear_nb`` under AMP)."""
+        if not self.cfg.tie_word_embeddings:
+            return self.lm_head(h)
+        h, w = amp.cast_inputs("linear_nb", h, self.gpt.wte.weight)
+        return torch.matmul(h, w.t())
+
     def forward(self, input_ids, labels=None):
         """Logits ``[b, s, vocab]`` of a full causal forward (no cache) or,
         with ``labels`` ``[b, s]``, the mean cross entropy of the f32
-        logits over ``[-1, vocab]`` (labels -100 are ignored). The tied
-        head is the JAX package's ``linear`` without bias (``linear_nb``
-        under AMP)."""
-        h, w = amp.cast_inputs("linear_nb", self.gpt(input_ids),
-                               self.gpt.wte.weight)
-        logits = torch.matmul(h, w.t())
+        logits over ``[-1, vocab]`` (labels -100 are ignored), chunked
+        when ``loss_chunk_size > 0``."""
+        h = self.gpt(input_ids)
+        if labels is not None and self.cfg.loss_chunk_size > 0:
+            return self._chunked_loss(h, labels)
+        logits = self._head(h)
         if labels is None:
             return logits
         return cross_entropy(logits.reshape(-1, self.cfg.vocab_size).float(),
                              labels.reshape(-1), reduction="mean")
 
+    def _chunked_loss(self, h, labels):
+        """The JAX package's fused head and cross entropy over chunks of
+        ``loss_chunk_size`` tokens: the tokens padded to whole chunks with
+        label -100, each chunk's ``[chunk, vocab]`` logits made in the
+        ambient dtype under :func:`recompute` (made again in backward,
+        never kept), logsumexp and the picked logit in f32, the
+        chunks' sums added in order and divided by ``max(valid tokens,
+        1)``. Under AMP the hidden states and the head weight are cast as
+        the JAX package's ``chunked_lm_loss`` op (white-listed)."""
+        w = (self.gpt.wte.weight.t() if self.cfg.tie_word_embeddings
+             else self.lm_head.weight)
+        h, w = amp.cast_inputs("chunked_lm_loss", h, w)
+        chunk = int(self.cfg.loss_chunk_size)
+        hf = h.reshape(-1, h.shape[-1])
+        yf = labels.reshape(-1).long()
+        pad = (-hf.shape[0]) % chunk
+        if pad:
+            hf = torch.nn.functional.pad(hf, (0, 0, 0, pad))
+            yf = torch.nn.functional.pad(yf, (0, pad), value=-100)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for a in range(0, hf.shape[0], chunk):
+            total = total + recompute(_chunk_loss_sum, hf[a:a + chunk],
+                                      yf[a:a + chunk], w)
+        count = (yf != -100).sum().float()
+        return total / torch.clamp_min(count, 1.0)
+
     def _head_logits(self, h_last):
         """Next-token logits ``[b, vocab]`` from last hidden states
         ``[b, hidden]``: the one head computation ``generate()`` and the
-        serving engine share: ``h @ wte^T``."""
+        serving engine share: ``h @ wte^T``, or ``lm_head`` untied."""
+        if not self.cfg.tie_word_embeddings:
+            return self.lm_head(h_last)
         return torch.matmul(h_last, self.gpt.wte.weight.t())
 
-    @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0, eos_token_id: int = -1,
@@ -389,7 +444,23 @@ class GPTForCausalLM(nn.Module):
         ``eos_token_id >= 0`` (used only without ``stop_token_id``) a
         finished row is filled with it. Positions after a finish carry
         that token. Returns ``[batch, prompt_len + max_new_tokens]`` int64
-        token ids on the model's device."""
+        token ids on the model's device.
+
+        Runs in eval mode (no dropout), then restores the training mode,
+        as the JAX package does."""
+        was_training = self.training
+        self.eval()
+        try:
+            return self._generate(input_ids, max_new_tokens, do_sample,
+                                  temperature, top_k, top_p, eos_token_id,
+                                  seed, use_cache, stop_token_id, sampling)
+        finally:
+            self.train(was_training)
+
+    @torch.no_grad()
+    def _generate(self, input_ids, max_new_tokens, do_sample, temperature,
+                  top_k, top_p, eos_token_id, seed, use_cache,
+                  stop_token_id, sampling):
         ids = torch.as_tensor(np.asarray(input_ids), device=self.device).long()
         b, prompt_len = ids.shape
         total = prompt_len + int(max_new_tokens)
@@ -454,6 +525,14 @@ class GPTForCausalLM(nn.Module):
                                      start_pos=pos)
                 h_last = h[:, 0]
         return out
+
+
+def _chunk_loss_sum(h, y, w):
+    """One chunk of :meth:`GPTForCausalLM._chunked_loss`: the summed
+    cross entropy of ``h [chunk, hidden] @ w [hidden, vocab]`` (in h's
+    dtype) over the labels that are not -100, logsumexp and the picked
+    logit in f32."""
+    return cross_entropy(torch.matmul(h, w), y, reduction="sum")
 
 
 def load_functional_state(model: nn.Module,

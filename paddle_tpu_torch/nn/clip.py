@@ -42,10 +42,15 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """All gradients scaled by one factor so that their joint L2 norm is at
-    most ``clip_norm``."""
+    most ``clip_norm``. ``group_name`` and ``auto_skip_clip`` are paddle's
+    arguments and change nothing here, as in the JAX package (one group on
+    one card)."""
 
-    def __init__(self, clip_norm):
+    def __init__(self, clip_norm, group_name="default_group",
+                 auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
+        self.group_name = group_name
+        self.auto_skip_clip = bool(auto_skip_clip)
 
     def _clip_arrays(self, grads):
         gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))

@@ -8,7 +8,10 @@ routes as the JAX package does, with "the tensor is on CUDA" in place of
 takes the hand-written flash kernels (:mod:`paddle_tpu_torch.ops.
 flash_attention`); everything else takes :func:`_sdpa_reference`, the JAX
 package's own off-TPU math. Never calls torch's
-``scaled_dot_product_attention``. Sequence parallelism (the JAX package's
+``scaled_dot_product_attention``. Live dropout (``dropout_p`` while
+training) takes the plain route with the probabilities dropped after the
+softmax, never the flash kernels, and draws its key only then, as the JAX
+package does. Sequence parallelism (the JAX package's
 ring/ulysses modes) is not ported: one card runs no ``sep`` mesh axis.
 """
 from __future__ import annotations
@@ -18,20 +21,22 @@ import math
 import torch
 
 from ... import amp
-from ...core import flags
-from ...ops.flash_attention import causal_mask, flash_attention, \
-    plain_attention
+from ...core import flags, rng
+from ...ops import flash_attention as fa
+from ...ops.flash_attention import causal_mask, plain_attention
 
 # the JAX package's untuned flash threshold: what its FLAGS default (-1,
 # "auto") resolves to without an on-chip tuning record (the port has none)
 _UNTUNED_MIN_SEQLEN = 4608
 
 
-def _sdpa_reference(q, k, v, *, scale, causal):
+def _sdpa_reference(q, k, v, *, scale, causal, dropout_p=0.0, key=None):
     """Plain attention: logits in the input dtype, causal offset
-    ``sk - sq`` masked to ``finfo.min``, softmax in fp32 cast back."""
+    ``sk - sq`` masked to ``finfo.min``, softmax in fp32 cast back, then
+    the probabilities dropped under ``key`` when ``dropout_p``."""
     mask = causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
-    return plain_attention(q, k, v, scale, mask, torch.finfo(q.dtype).min)
+    return plain_attention(q, k, v, scale, mask, torch.finfo(q.dtype).min,
+                           dropout_p, key)
 
 
 def _effective_min_seqlen(sk: int) -> int:
@@ -55,21 +60,34 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal: bool = False,
                                  training: bool = True):
     """paddle's ``scaled_dot_product_attention``, layout
-    ``[batch, seq, num_heads, head_dim]``. Dropout while training raises
-    ``NotImplementedError``: it needs the JAX package's random bits."""
-    if dropout_p and training:
-        raise NotImplementedError(
-            "attention dropout needs the bit-exact threefry port, which is "
-            "not done yet")
+    ``[batch, seq, num_heads, head_dim]``. Dropout while training takes the
+    plain route and one key from ``rng.next_key()``."""
+    drop = float(dropout_p) if (dropout_p and training) else 0.0
     query, key, value = amp.cast_inputs("sdpa", query, key, value)
     scale = 1.0 / math.sqrt(query.shape[-1])
     if attn_mask is not None:
         # plain torch math: a bool mask keeps where true (finfo.min
         # elsewhere), any other mask is added to the logits
         return plain_attention(query, key, value, scale, attn_mask,
-                               torch.finfo(query.dtype).min)
+                               torch.finfo(query.dtype).min, drop,
+                               rng.next_key(query.device) if drop else None)
+    if drop:
+        return _sdpa_reference(query, key, value, scale=scale,
+                               causal=bool(is_causal), dropout_p=drop,
+                               key=rng.next_key(query.device))
     if _use_flash(query, int(key.shape[1])):
-        return flash_attention(query, key, value, scale=scale,
-                               causal=bool(is_causal))
+        return fa.flash_attention(query, key, value, scale=scale,
+                                  causal=bool(is_causal))
     return _sdpa_reference(query, key, value, scale=scale,
                            causal=bool(is_causal))
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True):
+    """paddle's ``flash_attention``: :func:`scaled_dot_product_attention`
+    with ``dropout`` and ``causal``; returns ``(out, None)`` (the softmax
+    is not returned, as in the JAX package)."""
+    out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
+                                       is_causal=causal, training=training)
+    return out, None

@@ -16,16 +16,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import amp
+from .functional import common
 
 
 class Linear(nn.Module):
-    def __init__(self, in_features: int, out_features: int, device=None):
+    """``y = x @ W + b``; with ``bias=False`` there is no ``b`` and the op
+    is the JAX package's ``linear_nb`` under AMP."""
+
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_features, out_features,
                                                device=device))
-        self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device))
+                     if bias else None)
 
     def forward(self, x):
+        if self.bias is None:
+            x, w = amp.cast_inputs("linear_nb", x, self.weight)
+            return torch.matmul(x, w)
         x, w, b = amp.cast_inputs("linear", x, self.weight, self.bias)
         return torch.matmul(x, w) + b
 
@@ -57,6 +66,39 @@ class LayerNorm(nn.Module):
         out = F.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(),
                            self.epsilon)
         return out.to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """paddle's ``Dropout`` (:func:`paddle_tpu_torch.nn.functional.dropout`
+    in the module's training mode: no key is drawn in eval or at p 0)."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return common.dropout(x, self.p, axis=self.axis,
+                              training=self.training, mode=self.mode)
+
+
+class Dropout2D(nn.Module):
+    def __init__(self, p=0.5, data_format="NCHW"):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return common.dropout2d(x, self.p, training=self.training,
+                                data_format=self.data_format)
+
+
+class Dropout3D(nn.Module):
+    def __init__(self, p=0.5, data_format="NCDHW"):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return common.dropout3d(x, self.p, training=self.training,
+                                data_format=self.data_format)
 
 
 def gelu_tanh(x):

@@ -97,6 +97,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "threefry.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace smp {
@@ -121,30 +123,7 @@ static_assert(kPerThread * kThreads >= kGather, "the candidates' scan");
 
 // ------------------------------------------------------------ threefry
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds, as jax/_src/prng.py threefry_2x32: counters
-// (x0, x1) are hashed in place under key (k1, k2).
-__device__ void threefry2x32(uint32_t k1, uint32_t k2, uint32_t& x0,
-                             uint32_t& x1) {
-  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int g = 0; g < 5; ++g) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, rot[g & 1][j]);
-      x1 ^= x0;
-    }
-    x0 += ks[(g + 1) % 3];
-    x1 += ks[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
-  }
-}
+using rng::threefry2x32;  // threefry.cuh, shared with dropout.cu
 
 // max(jax.random.uniform(fold_in(PRNGKey(seed), position)), 1e-12f):
 // PRNGKey of an int32 seed is (0, uint32(seed)); fold_in hashes the counters

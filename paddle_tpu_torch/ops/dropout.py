@@ -1,0 +1,193 @@
+"""Dropout under JAX's threefry keys (counterpart of the XLA ops of
+``paddle_tpu/nn/functional/common.py:dropout`` and
+``paddle_tpu/nn/functional/attention.py:_prob_dropout``).
+
+One kernel, ``drop::dropout_kernel`` of ``csrc/dropout.cu``, behind
+:func:`dropout_apply`, with its plain PyTorch version :func:`dropout_ref`
+beside it under the same signature. Both compute, for a key ``[2]`` (two
+uint32 words in int64) and a Python ``p``:
+
+* ``keep = bernoulli(key, 1 - p, mask_shape)`` (``core.rng.bernoulli``:
+  ``uniform < float32(1 - p)``), ``mask_shape`` x's shape or, in the axis
+  form, x's shape with every dimension outside ``axis`` set to 1;
+* ``upscale_in_train``: ``y = keep ? x * scale : 0``, the product in
+  float32 rounded once to x's dtype; ``downscale_in_infer`` (training):
+  ``y = keep ? x : 0``.
+
+``scale`` is :func:`upscale_factor`: the float32 number the JAX package's
+program multiplies by. XLA rewrites ``x / (1 - p)`` with its weak-typed
+divisor as a product with the divisor's reciprocal, computed in float32
+for float32 and bfloat16 (of ``1 - p`` rounded to bfloat16 first) and in
+float16 for float16; the port multiplies by the same number, so both are
+bit-equal to the JAX package on the CPU in all three dtypes.
+
+:class:`Dropout` is the ``torch.autograd.Function``: its backward is the
+same computation on the upstream gradient under the same key (the JAX
+gradient of ``where(keep, x * scale, 0)``); it keeps the key and ``p``,
+never a mask.
+
+Route: a wrapper runs its plain version only because its tensor lies on
+the CPU. On a CUDA tensor it launches the kernel (built on first use by
+:mod:`._build`) or raises. ``launches["dropout"]`` counts kernel launches.
+Bound on an H100 SXM: the integer operations of threefry (about 75 a mask
+element, see the source), not the bytes.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..core import rng
+
+__all__ = ["dropout_apply", "dropout_ref", "Dropout", "dropout",
+           "mask_shape", "upscale_factor", "launches", "reset_launches",
+           "load_kernels"]
+
+#: kernel launches, one per launch
+launches = {"dropout": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_NP_DTYPES = {torch.float32: np.float32, torch.float16: np.float16}
+MAX_DIMS = 8
+_lib = None
+
+
+def reset_launches() -> None:
+    launches["dropout"] = 0
+
+
+def load_kernels() -> ctypes.CDLL:
+    """Build (on first use) and load the CUDA library; bind its launcher."""
+    global _lib
+    if _lib is None:
+        from ._build import library
+
+        lib = library("dropout")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        i64 = ctypes.c_longlong
+        lib.dropout_launch.argtypes = [i32, ptr, ptr, ptr, i64, f32, f32,
+                                       i32, i32, ptr, ptr, ptr]
+        lib.dropout_launch.restype = i32
+        _lib = lib
+    return _lib
+
+
+def mask_shape(shape, axis=None) -> tuple:
+    """The keep mask's shape: ``shape``, or with ``axis`` (an int or a
+    sequence) every other dimension set to 1."""
+    shape = tuple(int(s) for s in shape)
+    if axis is None:
+        return shape
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    kept = {a % len(shape) for a in axes}
+    return tuple(s if i in kept else 1 for i, s in enumerate(shape))
+
+
+def rounded_to(value: float, dtype: torch.dtype) -> np.float32:
+    """``value`` rounded to ``dtype``, as a float32."""
+    if dtype == torch.bfloat16:
+        return np.float32(torch.tensor(value, dtype=torch.float32)
+                          .to(torch.bfloat16).item())
+    return np.float32(_NP_DTYPES[dtype](value))
+
+
+@functools.lru_cache(maxsize=64)
+def upscale_factor(p: float, dtype: torch.dtype) -> float:
+    """The float32 factor of ``upscale_in_train`` for x of ``dtype``: the
+    reciprocal of ``1 - p`` rounded to ``dtype``, taken in float32
+    (float32, bfloat16) or rounded to float16 (float16)."""
+    recip = np.float32(1.0) / rounded_to(1.0 - p, dtype)
+    if dtype == torch.float16:
+        recip = np.float32(np.float16(recip))
+    return float(recip)
+
+
+def keep_threshold(p: float) -> float:
+    """``float32(1 - p)``, the bernoulli threshold of the keep mask."""
+    return float(np.float32(1.0 - p))
+
+
+def dropout_ref(x, key, p: float, axis=None, upscale: bool = True):
+    """Plain version: the keep mask from :func:`core.rng.bernoulli`, then
+    the select and the scale in PyTorch ops."""
+    keep = rng.bernoulli(key.to(x.device), 1.0 - p,
+                         mask_shape(x.shape, axis))
+    y = (x.float() * upscale_factor(p, x.dtype)).to(x.dtype) if upscale \
+        else x
+    return torch.where(keep, y, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def _launch(x, key, p: float, axis, upscale: bool):
+    """Check what the kernel takes, launch it on the current stream and
+    return y."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the dropout kernel takes float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
+    n = x.numel()
+    if n >= 2 ** 32:
+        raise ValueError(f"the dropout kernel's counters are 32-bit: fewer "
+                         f"than 2**32 elements, got {n}")
+    if x.dim() > MAX_DIMS:
+        raise ValueError(f"at most {MAX_DIMS} dimensions, got {x.dim()}")
+    key = key.to(device=x.device, dtype=torch.int64).contiguous()
+    if key.shape != (2,):
+        raise ValueError(f"a key is two words, got {tuple(key.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        # a view at an odd offset: the kernel reads and writes 16-byte packs
+        # (y, a fresh allocation, is aligned)
+        x = x.clone()
+    y = torch.empty_like(x)
+    ndim, shape, mstride = 0, None, None
+    if axis is not None:
+        ms = mask_shape(x.shape, axis)
+        strides = [0] * len(ms)
+        acc = 1
+        for d in range(len(ms) - 1, -1, -1):
+            strides[d] = acc if ms[d] > 1 else 0
+            acc *= ms[d]
+        ndim = x.dim()
+        shape = (ctypes.c_longlong * ndim)(*x.shape)
+        mstride = (ctypes.c_longlong * ndim)(*strides)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = load_kernels().dropout_launch(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(), key.data_ptr(), n,
+        keep_threshold(p), upscale_factor(p, x.dtype) if upscale else 1.0,
+        int(upscale), ndim, shape, mstride, stream)
+    if rc != 0:
+        raise RuntimeError(f"dropout_launch failed: CUDA error {rc}")
+    launches["dropout"] += 1
+    return y
+
+
+def dropout_apply(x, key, p: float, axis=None, upscale: bool = True):
+    """``keep ? x * scale : 0`` (``upscale``) or ``keep ? x : 0`` under
+    ``key``: the plain version on the CPU, the kernel on a CUDA device.
+    No gradient (see :class:`Dropout`)."""
+    if x.device.type == "cpu":
+        return dropout_ref(x, key, p, axis, upscale)
+    return _launch(x, key, p, axis, upscale)
+
+
+class Dropout(torch.autograd.Function):
+    """``dropout_apply`` with its gradient: the same function of the
+    upstream gradient under the same key. Keeps the key and ``p``."""
+
+    @staticmethod
+    def forward(ctx, x, key, p, axis, upscale):
+        ctx.key, ctx.args = key, (p, axis, upscale)
+        return dropout_apply(x, key, p, axis, upscale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dropout_apply(g, ctx.key, *ctx.args), None, None, None, None
+
+
+def dropout(x, key, p: float, axis=None, upscale: bool = True):
+    """Differentiable dropout of ``x`` under ``key`` (see the module
+    docstring)."""
+    return Dropout.apply(x, key, float(p), axis, bool(upscale))

@@ -45,6 +45,8 @@ import math
 
 import torch
 
+from . import dropout as dropout_op
+
 __all__ = ["flash_attention", "FlashAttention", "flash_forward",
            "flash_backward_dkv", "flash_backward_dq", "flash_forward_ref",
            "flash_backward_dkv_ref", "flash_backward_dq_ref", "launches",
@@ -97,14 +99,17 @@ def causal_mask(sq, sk, device):
     return torch.ones(sq, sk, dtype=torch.bool, device=device).tril(sk - sq)
 
 
-def plain_attention(q, k, v, scale, mask=None, mask_value=NEG_INF):
+def plain_attention(q, k, v, scale, mask=None, mask_value=NEG_INF,
+                    dropout_p=0.0, key=None):
     """The one plain attention body of the port's reference routes, layout
     ``[b, s, h, d]``: logits in the input dtype; a bool ``mask``
     (broadcasting against ``[b, h, sq, sk]``) keeps where true and sets
     ``mask_value`` rounded to the logits' dtype elsewhere (as ``jnp.where``
     does: -1e30 is -inf in float16, whose masked keys then get p = 0), any
     other mask is added to the logits; the softmax in fp32, the
-    probabilities cast back before P.V."""
+    probabilities cast back before P.V. With ``dropout_p`` the
+    probabilities are dropped under ``key`` first (the JAX package's
+    ``_prob_dropout``: :func:`paddle_tpu_torch.ops.dropout.dropout`)."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     logits = torch.matmul(qt, kt.transpose(-1, -2)) * scale
     if mask is not None and mask.dtype == torch.bool:
@@ -113,6 +118,8 @@ def plain_attention(q, k, v, scale, mask=None, mask_value=NEG_INF):
     elif mask is not None:
         logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if dropout_p:
+        probs = dropout_op.dropout(probs, key, dropout_p)
     return torch.matmul(probs, vt).transpose(1, 2)
 
 

@@ -26,6 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
@@ -52,11 +53,23 @@ class Optimizer:
         self._param_names, self._parameter_list = _named(parameters)
         self._multi_precision = bool(multi_precision)
         self._learning_rate = learning_rate
-        self._weight_decay = 0.0 if weight_decay is None else float(
-            weight_decay)
+        self._set_weight_decay(weight_decay)
         self._grad_clip = grad_clip
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
+
+    def _set_weight_decay(self, weight_decay) -> None:
+        """``weight_decay``: a float (L2), ``L2Decay`` or ``L1Decay`` (the
+        decay term then follows ``sign(param)``), or None (no decay)."""
+        self._wd_l1 = isinstance(weight_decay, L1Decay)
+        if isinstance(weight_decay, (L1Decay, L2Decay)):
+            weight_decay = weight_decay.coeff
+        self._weight_decay = float(weight_decay or 0.0)
+
+    def _decay_dir(self, p32):
+        """The direction the decay term scales: the f32 parameter, or its
+        sign under ``L1Decay``."""
+        return torch.sign(p32) if self._wd_l1 else p32
 
     # ------------------------------------------------------------ LR access
     def get_lr(self) -> float:
@@ -214,7 +227,7 @@ class Adam(Optimizer):
         p32 = param.float()
         g = grad.float()
         if self._weight_decay:
-            g = g + self._weight_decay * p32
+            g = g + self._weight_decay * self._decay_dir(p32)
         m, v, m_hat, v_hat = self._moments(g, slots, step)
         new_p = p32 - lr * m_hat / (torch.sqrt(v_hat) + self._epsilon)
         md = self._moment_dtype
@@ -224,7 +237,8 @@ class Adam(Optimizer):
 
 class AdamW(Adam):
     """Adam with decoupled weight decay: ``p -= lr * (m_hat / (sqrt(v_hat)
-    + eps) + weight_decay * p)``. With ``apply_decay_param_fun``, only the
+    + eps) + weight_decay * p)`` (``sign(p)`` in place of ``p`` under
+    ``L1Decay``). With ``apply_decay_param_fun``, only the
     parameters whose name it accepts are decayed (the JAX package stores
     the function but never reads it)."""
 
@@ -235,7 +249,7 @@ class AdamW(Adam):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, multi_precision=multi_precision,
                          moment_dtype=moment_dtype)
-        self._weight_decay = float(weight_decay or 0.0)
+        self._set_weight_decay(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
 
     def _update_for(self, name):
@@ -249,7 +263,7 @@ class AdamW(Adam):
         m, v, m_hat, v_hat = self._moments(grad.float(), slots, step)
         p32 = param.float()
         new_p = p32 - lr * (m_hat / (torch.sqrt(v_hat) + self._epsilon)
-                            + wd * p32)
+                            + wd * self._decay_dir(p32))
         md = self._moment_dtype
         return new_p.to(param.dtype), {"moment1": m.to(md),
                                        "moment2": v.to(md)}

@@ -34,10 +34,19 @@ flags and bound through ``ops.sampling``.
 
 The last line is one JSON object of the summaries and times, with the
 card's name and power limit.
+
+    python3 -m paddle_tpu_torch.tools.sampling_variants --against DIR
+
+times instead this tree's kernel against the ``sampling.cu`` of the
+checkout at ``DIR`` (built from its own sources, its headers included),
+in the order theirs, this tree, this tree, theirs, at the same settings;
+no mutants. Each run's tokens are compared with this tree's.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -170,7 +179,7 @@ def timing_runs(cs, libs) -> dict:
     print(f"time of one trivial launch: {out['floor']:.4f} ms; "
           f"torch.argmax {out['argmax']}", flush=True)
     for name, lib in libs.items():
-        use(lib, VARIANTS[name][1])
+        use(lib, VARIANTS.get(name, (None, None))[1])
         row = {}
         for k, a in inputs.items():
             fn = lambda a=a: so.sample(*a)  # noqa: E731
@@ -183,6 +192,16 @@ def timing_runs(cs, libs) -> dict:
     return out
 
 
+def build_other(root: Path, tmp: Path):
+    """The sampling kernel of the checkout at ``root``, built with this
+    tree's NVCC_FLAGS (its ``#include``s resolve beside its source)."""
+    src = root / "paddle_tpu_torch" / "ops" / "csrc" / "sampling.cu"
+    out = tmp / "other_sampling.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True)
+    return ctypes.CDLL(str(out))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sampling_variants needs a CUDA device")
@@ -191,6 +210,17 @@ def main() -> None:
 
     card = cs.card_line()
     print(f"card: {card}", flush=True)
+    if sys.argv[1:2] == ["--against"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            other = build_other(Path(sys.argv[2]).resolve(), Path(tmp))
+            mine = _build.build_edited("sampling", {"this_tree": None},
+                                       Path(tmp))["this_tree"]
+            times = timing_runs(cs, {"theirs": other, "this_tree": mine,
+                                     "this_tree_again": mine,
+                                     "theirs_again": other})
+        print(json.dumps({"card": card, "against": sys.argv[2],
+                          "times": times}))
+        return
     with tempfile.TemporaryDirectory() as tmp:
         edits = {n: e for n, (e, _) in VARIANTS.items() if e is not None}
         libs = _build.build_edited("sampling", {

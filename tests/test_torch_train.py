@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from paddle_tpu import amp as jamp
+from paddle_tpu.core import rng as jrng
 from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.models.gpt import GPTConfig as JaxConfig
@@ -32,7 +33,7 @@ from paddle_tpu.nn.functional import cross_entropy as jax_cross_entropy
 from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu_torch import amp
-from paddle_tpu_torch.core import compile_cache
+from paddle_tpu_torch.core import compile_cache, rng
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import gpt
 from paddle_tpu_torch.nn import clip
@@ -417,9 +418,13 @@ def test_cross_entropy_matches_jax(reduction):
                         reduction=reduction)
     np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
                                rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                      label_smoothing=0.1)
+    # label smoothing, ported: the JAX package's smoothed targets
+    want = jax_cross_entropy(Tensor(logits), Tensor(labels.astype(np.int32)),
+                             reduction=reduction, label_smoothing=0.1)
+    got = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                        reduction=reduction, label_smoothing=0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("name,args", [("ClipGradByValue", (0.05,)),
@@ -453,17 +458,26 @@ def test_schedulers_match_jax():
 
 
 def test_unported_options_raise(arrays):
-    for opt in ("use_recompute", "use_scan_layers"):
-        with pytest.raises(NotImplementedError, match=opt):
-            gpt.GPTForCausalLM(gpt.GPTConfig(**CFG, **{opt: True}),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="loss_chunk_size"):
-        gpt.GPTForCausalLM(gpt.GPTConfig(**CFG, loss_chunk_size=64),
-                           device="cpu")
-    m = gpt.GPTForCausalLM(gpt.GPTConfig(**CFG, dropout=0.1), device="cpu")
+    """The options this test once held unported (recompute, scan layers,
+    the chunked loss, dropout while training) now run: each setting's loss
+    equals the JAX package's on the same weights (rtol 1e-5), dropout from
+    the same seed; dropout is still the identity in eval mode."""
     x, y = _batch(7)
+    for kw in (dict(use_recompute=True), dict(use_scan_layers=True),
+               dict(loss_chunk_size=64), dict(dropout=0.1)):
+        m = gpt.GPTForCausalLM(gpt.GPTConfig(**CFG, **kw), device="cpu")
+        gpt.load_functional_state(m, arrays)
+        jm = JaxGPT(JaxConfig(**CFG, **kw))
+        for name, t in jm.functional_state()[0].items():
+            t._data = jnp.asarray(arrays[name])
+        m.train()
+        jm.train()
+        rng.seed(1)
+        jrng.seed(1)
+        got = float(m(_t(x), _t(y)).detach())
+        want = float(jm(_j(x), _j(y)))
+        assert abs(got - want) <= 1e-5 * abs(want), kw
     m.eval()
-    assert torch.isfinite(m(_t(x), _t(y)))  # dropout is identity in eval
-    m.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        m(_t(x), _t(y))
+    jm.eval()
+    want = float(jm(_j(x), _j(y)))
+    assert abs(float(m(_t(x), _t(y)).detach()) - want) <= 1e-5 * abs(want)
