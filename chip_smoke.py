@@ -209,7 +209,12 @@ no result. Phases, in order; each raises on failure:
     autograd Function) bit-equal, a second launch bit-equal; p 0 and eval
     mode draw no key and launch nothing. Then its time at [8, 2048, 2048]
     and [8, 16, 2048, 2048] bf16 beside its bound, its plain version and
-    torch's Philox dropout (a yardstick only).
+    torch's Philox dropout (a yardstick only). Then the alpha form
+    (``alpha_checks``) in every dtype at [8, 2048, 2048] and 1,000,003
+    elements, p 0.1 and 0.5: every dropped element holds the fill, output
+    and backward bit-equal to the plain version, a second launch
+    bit-equal; the ``AlphaDropout`` layer's forward and backward launch
+    it twice; its time at [8, 16, 2048, 2048] bf16 beside its bound.
 10b. Memory levers on phase 9's weights and batch (bf16 O1, 8 x 2048,
     flash route), 3 TrainSteps each: recompute ``full``, ``core_attn``,
     ``loss_chunk_size=1024`` with ``full``, and an untied head (``lm_head``
@@ -230,6 +235,38 @@ no result. Phases, in order; each raises on failure:
     2048), seeded f32 weights: tokens equal ``generate()``, the head_dim
     256 kernels launch 2 x (decode steps + warm-ups) and 2 x (prefills +
     warm-ups), and the engine's programs hold as in phase 3.
+12c. The optimizer family at full width (``optimizer_family``): one bf16
+    O1 gradient of ``gpt_1p3b`` at 1 x 2048; SGD, Momentum, Adagrad,
+    Adadelta, RMSProp, Adamax, Lamb and LarsMomentum each take their first
+    update from the same parameters through ``_apply_gradients`` (the
+    TrainStep path), held per element against a float64 recomputation
+    written from the update rules (within half an f32 ulp of the result
+    twice over plus 1e-4 of the update); each update's time (median of 3),
+    its device operations (a profiler trace) and its bound (parameters,
+    gradients and slots read and written once, over 3.35 TB/s).
+12a. ``hapi.Model.fit`` on full ``gpt_1p3b`` (``fit_gpt``): bf16 O2
+    (``amp.decorate``), Lamb(multi_precision) under
+    LinearWarmup(CosineAnnealingDecay), ClipGradByGlobalNorm, the flash
+    route; a ``TensorDataset`` of seeded ids through a ``DataLoader`` with
+    2 worker processes (spawned: CUDA is initialised) over shared memory,
+    6 steps of 4 x 2048: each flash kernel launches exactly 24 x 6, the
+    loss is finite and falls, the LRs equal the scheduler's own. Prints the
+    median step beside a bare ``TrainStep`` of the same loss, the loader's
+    wait per step, tokens/s and peak memory.
+12b. Checkpoint and resume (``checkpoint_resume``), ``gpt_1p3b`` at full
+    width cut to 4 layers, 12a's setup: an uninterrupted fit of 6 steps;
+    a fit of 4 with ``TrainCheckpointer(async_save=True)`` saving step 2,
+    ``ModelCheckpoint``, and an armed ``preempt`` fault so that
+    ``PreemptionGuard.maybe_finalize`` writes step 4 and the resume marker;
+    a rebuilt model, optimizer and scheduler restored from disk fit the
+    last 2 steps: parameters, slots, step and LR bit-equal to the
+    uninterrupted run's. Step 4 truncated: ``restore`` falls back to step
+    2, and step 4 asked for by number raises CheckpointIntegrityError.
+    Prints the async save's return time, the final save's, the bytes and
+    the restore's time; removes ``build/chip_checkpoints``.
+12d. LBFGS (``lbfgs_full``) on ``gpt_1p3b`` cut to 2 layers, f32, 1 x 2048,
+    history 4, 3 iterations, without and with the strong Wolfe search: the
+    loss falls and the state dict (with the history) round-trips.
 
 Each phase prints its seconds.
 
@@ -242,20 +279,24 @@ phase 3's, an int8 row's phase 5's; a flash row's are phase 9's, the
 instances its times belong to, and ``launches_f32`` phase 8's; the
 sampling row's phase 3b's, its times the 8 all-sampled float32 rows',
 the dropout row's phase 10c's, its times 10a's at [8, 16, 2048, 2048],
+with the alpha form's (``launches_alpha``, ``alpha_*``) beside them,
 with every timed setting and ``torch.argmax`` beside them; the two
 unquantized paged rows' and the sampling row's ``launches_prefix`` phase
 3d's shared-prefix wave, ``launches_recovery`` phase 3e's faulted wave),
 the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+{...}}``. Phase 12 prints its own JSON line before them
+(``training_loop``: 12a-12d's numbers).
 """
 import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 import types
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -3128,6 +3169,102 @@ def dropout_times(do, rng_mod, card):
     return out
 
 
+# phase 10a, the alpha form: the same keys and inputs, p 0.1 and 0.5
+ALPHA_SHAPES = [(BATCH_BF16, SEQ, 2048), (1000003,)]
+ALPHA_PS = (0.1, 0.5)
+
+
+def alpha_case(do, rng_mod, x, key, p):
+    """The alpha form against its plain version on one x and key: every
+    dropped element holds the fill (the keep mask), the output and the
+    backward (the Function on a random gradient) bit for bit, a second
+    launch equal to the first. Returns the max abs error."""
+    y = do.alpha_dropout_apply(x, key, p)
+    ref = do.alpha_dropout_ref(x, key, p)
+    keep = rng_mod.bernoulli(key, 1.0 - p, tuple(x.shape))
+    fill = do.alpha_constants(p, x.dtype)[2]
+    mask_diff = int(((~keep) & (y.float() != fill)).sum())
+    xg = x.detach().clone().requires_grad_(True)
+    g = torch.randn_like(x.float()).to(x.dtype)
+    do.AlphaDropout.apply(xg, key, p).backward(g)
+    g_ref = do._alpha_grad_ref(g, key, p)
+    again = do.alpha_dropout_apply(x, key, p)
+    torch.cuda.synchronize()
+    err = float((y.float() - ref.float()).abs().max())
+    ok = (mask_diff == 0 and same_bits(y, ref) and same_bits(xg.grad, g_ref)
+          and same_bits(again, y))
+    print(f"check alpha_dropout {str(x.dtype)[6:]} {list(x.shape)} p={p}: "
+          f"dropped elements off the fill {mask_diff}, output bits equal "
+          f"{same_bits(y, ref)}, backward bits equal "
+          f"{same_bits(xg.grad, g_ref)}, second launch equal "
+          f"{same_bits(again, y)}, max_abs_err={err:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"alpha dropout {x.dtype} {tuple(x.shape)} p={p}"
+                             " disagrees with its plain version")
+    return err
+
+
+def alpha_checks(do, rng_mod, nn_layers, card):
+    """Phase 10a, the alpha form (``alpha_case``) in every dtype at [8,
+    2048, 2048] and 1,000,003 elements, p 0.1 and 0.5; then the
+    ``AlphaDropout`` layer's forward and backward with the counts at 0:
+    the alpha form launches twice (its launches). Returns the max abs
+    error and those launches."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    err, n = 0.0, 0
+    for dtype in DTYPES:
+        for shape in ALPHA_SHAPES:
+            x = nonzero_input(gen, shape, dtype)
+            for p in ALPHA_PS:
+                key = rng_mod.fold_in(rng_mod.prng_key(100 + n, device="cuda"),
+                                      3)
+                err = max(err, alpha_case(do, rng_mod, x, key, p))
+                n += 1
+            del x
+            torch.cuda.empty_cache()
+    layer = nn_layers.AlphaDropout(0.1)
+    x = nonzero_input(gen, ALPHA_SHAPES[0], torch.bfloat16).requires_grad_(
+        True)
+    do.reset_launches()
+    with rng_mod.key_guard(rng_mod.prng_key(9, device="cuda")):
+        layer(x).float().sum().backward()
+    torch.cuda.synchronize()
+    launches = do.launches["alpha_dropout"]
+    if launches != 2:
+        raise AssertionError(f"AlphaDropout forward + backward launched the "
+                             f"alpha form {launches} times, not 2")
+    print(f"check alpha_dropout: {n} kernel checks bit-equal to the plain "
+          f"version; the AlphaDropout layer launched it {launches} times "
+          f"(forward, backward) [{card}]")
+    return err, launches
+
+
+def alpha_times(do, rng_mod, card):
+    """The alpha form's time at [8, 16, 2048, 2048] bf16, p 0.1, beside its
+    bound (the same threefry instruction bound as dropout's) and its plain
+    version."""
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    key = rng_mod.prng_key(6, device="cuda")
+    x = nonzero_input(gen, DROPOUT_TIMED[1], torch.bfloat16)
+    n = x.numel()
+    t_bytes = 2 * n * x.element_size() / HBM_BYTES_PER_S * 1e3
+    t_ops = THREEFRY_INT_OPS * n / INT32_OPS_PER_S * 1e3
+    r = dict(ms=time_ms(lambda: do.alpha_dropout_apply(x, key, 0.1), flush,
+                        iters=10),
+             plain_ms=time_ms(lambda: do.alpha_dropout_ref(x, key, 0.1),
+                              flush, iters=3),
+             bound_ms=max(t_bytes, t_ops),
+             bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"time alpha_dropout bf16 {list(x.shape)} p=0.1: kernel "
+          f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms [{card}]")
+    del x
+    torch.cuda.empty_cache()
+    return r
+
+
 # phase 10b: the memory levers on phase 9's batch and weights; each
 # setting's expected flash launches per step per layer: a full recompute
 # runs the flash forward again in backward (the Function's saved o and lse
@@ -3444,6 +3581,498 @@ def train_fp16_scaler(arrays, port, card):
     return scales
 
 
+# phase 12: the training loop around TrainStep
+FIT_STEPS, FIT_BATCH = 6, 4
+LOADER_TIMEOUT = 120  # seconds a worker batch may take: a hung worker fails
+CKPT_LAYERS, LBFGS_LAYERS = 4, 2
+CKPT_DIR = os.path.join("build", "chip_checkpoints")
+# 12c: each optimizer's first update from fresh slots, and the bytes an
+# update must move per parameter (f32 parameter, gradient and the slots the
+# algorithm reads and writes, each once)
+FAMILY = [("SGD", dict(learning_rate=1.0), 0),
+          ("Momentum", dict(learning_rate=1.0, momentum=0.9), 1),
+          ("Adagrad", dict(learning_rate=1e-3, epsilon=1e-6), 1),
+          ("Adadelta", dict(learning_rate=1.0, rho=0.95, epsilon=1e-6), 2),
+          ("RMSProp", dict(learning_rate=1e-3, rho=0.95, epsilon=1e-6), 2),
+          ("Adamax", dict(learning_rate=1e-3, beta1=0.9, epsilon=1e-8), 2),
+          ("Lamb", dict(learning_rate=1e-3, lamb_weight_decay=0.01,
+                        epsilon=1e-6), 2),
+          ("LarsMomentum", dict(learning_rate=0.1, lars_coeff=0.001,
+                                lars_weight_decay=5e-4), 1)]
+# bound on |p_f32 - p_f64| per element: the f32 rounding of the new
+# parameter (two halves of an ulp) plus 1e-4 of the update's size
+FAMILY_REL = 1e-4
+
+
+def lm_loss(functional):
+    """The GPT's own loss on its logits: mean cross entropy in f32."""
+    def loss(logits, y):
+        return functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]).float(), y.reshape(-1))
+    return loss
+
+
+def f64_first_update(name, hp, p, g):
+    """Float64 recomputation of the first update of optimizer ``name``
+    from fresh slots, written from the update rules, not the port's
+    code."""
+    lr = hp["learning_rate"]
+    if name == "SGD" or name == "Momentum":
+        return p - lr * g
+    if name == "Adagrad":
+        return p - lr * g / (g.abs() + hp["epsilon"])
+    if name == "Adadelta":
+        rho, eps = hp["rho"], hp["epsilon"]
+        upd = (eps ** 0.5) / torch.sqrt((1 - rho) * g * g + eps) * g
+        return p - lr * upd
+    if name == "RMSProp":
+        rho, eps = hp["rho"], hp["epsilon"]
+        return p - lr * g / torch.sqrt((1 - rho) * g * g + eps)
+    if name == "Adamax":
+        b1 = hp["beta1"]
+        return p - lr / (1 - b1) * ((1 - b1) * g) / (g.abs() + hp["epsilon"])
+    if name == "Lamb":
+        r = g / (g.abs() + hp["epsilon"]) + hp["lamb_weight_decay"] * p
+        wn, rn = p.norm(), r.norm()
+        trust = wn / rn if (wn > 0 and rn > 0) else 1.0
+        return p - lr * trust * r
+    if name == "LarsMomentum":
+        wd, pn, gn = hp["lars_weight_decay"], p.norm(), g.norm()
+        local = (lr * hp["lars_coeff"] * pn / (gn + wd * pn)
+                 if (wd > 0 and pn > 0 and gn > 0) else lr)
+        return p - local * (g + wd * p)
+    raise KeyError(name)
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) ``fn`` runs, from a
+    torch.profiler trace; None when the trace shows no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def optimizer_family(model, arrays, t, card):
+    """Phase 12c: one bf16 O1 gradient of gpt_1p3b at batch 1 x 2048; for
+    each optimizer of FAMILY, its first update from the same parameters
+    through ``_apply_gradients`` (the TrainStep path) against a float64
+    recomputation on the card, then its time (median of 3 more updates),
+    its device operations and its bound (the bytes of parameters,
+    gradients and slots read and written, over 3.35 TB/s)."""
+    t.gpt.load_functional_state(model, arrays)
+    model.train()
+    t.flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+    ids = np.random.default_rng(41).integers(0, model.cfg.vocab_size,
+                                             (1, SEQ + 1))
+    ids = torch.as_tensor(ids, device="cuda")
+    names, params = zip(*model.named_parameters())
+    with t.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = model(ids[:, :-1], ids[:, 1:])
+    grads = torch.autograd.grad(loss, params)
+    del loss
+    p0 = [p.detach().clone() for p in params]
+    n_params = sum(p.numel() for p in params)
+    out = {}
+    for name, hp, n_slots in FAMILY:
+        opt = getattr(t.optimizer, name)(
+            parameters=list(zip(names, params)), **hp)
+        opt._apply_gradients(list(params), list(grads))
+        torch.cuda.synchronize()
+        worst, num, den = 0.0, 0.0, 0.0
+        with torch.no_grad():
+            for p, a, g in zip(params, p0, grads):
+                ref = f64_first_update(name, hp, a.double(), g.double())
+                err = (p.double() - ref).abs()
+                bound = (2.0 ** -23 * ref.abs() + FAMILY_REL
+                         * (ref - a.double()).abs() + 1e-30)
+                worst = max(worst, float((err / bound).max()))
+                num += float(((p.double() - a.double())
+                              - (ref - a.double())).norm() ** 2)
+                den += float((ref - a.double()).norm() ** 2)
+                del ref, err, bound
+        rel = (num / den) ** 0.5 if den else 0.0
+        ms = []
+        for _ in range(3):
+            a_ev = torch.cuda.Event(enable_timing=True)
+            b_ev = torch.cuda.Event(enable_timing=True)
+            a_ev.record()
+            opt._apply_gradients(list(params), list(grads))
+            b_ev.record()
+            torch.cuda.synchronize()
+            ms.append(a_ev.elapsed_time(b_ev))
+        ops = device_ops(lambda: opt._apply_gradients(list(params),
+                                                      list(grads)))
+        nbytes = n_params * 4 * (3 + 2 * n_slots)
+        r = dict(ms=float(np.median(ms)), device_ops=ops,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+                 worst_share=worst, normwise_rel=rel)
+        out[name] = r
+        print(f"optimizer {name}: first update within {worst:.3f} of its "
+              f"bound per element (f32 rounding + {FAMILY_REL:g} of the "
+              f"update), normwise rel {rel:.3e}; update {r['ms']:.2f} ms "
+              f"(median of 3), {ops} device operations, bound "
+              f"{r['bound_ms']:.3f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s) "
+              f"[{card}]")
+        with torch.no_grad():
+            for p, a in zip(params, p0):
+                p.copy_(a)
+        del opt
+        torch.cuda.empty_cache()
+        if not worst <= 1.0:
+            raise AssertionError(f"{name}: the f32 update leaves its float64 "
+                                 f"recomputation ({worst:.3f} of the bound)")
+    del grads, p0
+    torch.cuda.empty_cache()
+    print(json.dumps({"optimizer_updates": out}))
+    return out
+
+
+class _TimedLoader:
+    """An iterable over ``loader``'s batches that records how long the
+    caller waited for each; the first wait includes ``iter()``, where the
+    workers start (a spawned worker reads its pickled dataset before
+    ``start`` returns)."""
+
+    def __init__(self, loader):
+        self.loader, self.waits = loader, []
+
+    def __iter__(self):
+        t0 = time.perf_counter()
+        it = iter(self.loader)
+        while True:
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+            t0 = time.perf_counter()
+
+
+def fit_dataset(t, vocab, batches, seed):
+    """A TensorDataset of ``batches`` x FIT_BATCH sequences: the same
+    FIT_BATCH seeded sequences in every batch."""
+    ids = np.random.default_rng(seed).integers(0, vocab, (FIT_BATCH,
+                                                          SEQ + 1))
+    ids = np.tile(ids, (batches, 1))
+    return t.io.TensorDataset([ids[:, :-1], ids[:, 1:]])
+
+
+def fit_schedule(t):
+    return t.lr.LinearWarmup(t.lr.CosineAnnealingDecay(1e-3,
+                                                       T_max=FIT_STEPS),
+                             2, 1e-4, 1e-3)
+
+
+def fit_model(t, model, functional):
+    """``hapi.Model`` over ``model``: bf16 O2 (``amp.decorate``),
+    Lamb(multi_precision) under LinearWarmup(Cosine),
+    ClipGradByGlobalNorm(1.0), the LM loss."""
+    sched = fit_schedule(t)
+    opt = t.optimizer.Lamb(learning_rate=sched,
+                           parameters=model.named_parameters(),
+                           lamb_weight_decay=0.01, multi_precision=True,
+                           grad_clip=t.ClipGradByGlobalNorm(1.0))
+    t.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    hm = t.Model(model)
+    hm.prepare(opt, loss=lm_loss(functional))
+    return hm, opt, sched
+
+
+def fit_gpt(model, arrays, t, functional, card):
+    """Phase 12a: ``Model.fit`` on full gpt_1p3b (bf16 O2, Lamb under
+    LinearWarmup(Cosine), global-norm clip, flash route) over a
+    ``DataLoader`` with 2 worker processes (shared memory) for FIT_STEPS
+    steps of FIT_BATCH x 2048: each flash kernel launches exactly 24 x
+    steps, the loss is finite and falls, the LR sequence is the
+    scheduler's own. Then the same loss driven by a bare TrainStep for 4
+    steps. Prints both median step times, the loader wait per step,
+    tokens/s and peak memory."""
+    t.flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+    t.gpt.load_functional_state(model, arrays)
+    hm, opt, sched = fit_model(t, model, functional)
+    loader = t.io.DataLoader(fit_dataset(t, model.cfg.vocab_size, FIT_STEPS,
+                                         31),
+                             batch_size=FIT_BATCH, num_workers=2,
+                             timeout=LOADER_TIMEOUT, device="cuda")
+    timed_loader = _TimedLoader(loader)
+    start_method = t.io._start_method()
+
+    class Recorder(t.callbacks.Callback):
+        """Each step's LR, loss and host time."""
+
+        def __init__(self):
+            super().__init__()
+            self.lrs, self.losses, self.step_s = [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.lrs.append(opt.get_lr())
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])  # float(loss): synchronised
+            self.step_s.append(time.perf_counter() - self._t0)
+
+    rec = Recorder()
+    torch.cuda.reset_peak_memory_stats()
+    t.fa.reset_launches()
+    t0 = time.perf_counter()
+    hm.fit(timed_loader, epochs=1, verbose=0,
+           callbacks=[rec, t.callbacks.LRScheduler()])
+    fit_s = time.perf_counter() - t0
+    launches = dict(t.fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want_lrs = []
+    ref = fit_schedule(t)
+    for _ in range(FIT_STEPS):
+        want_lrs.append(ref())
+        ref.step()
+    layers = model.cfg.num_layers
+    if any(n != layers * FIT_STEPS for n in launches.values()):
+        raise AssertionError(f"fit launches {launches} != 24 x {FIT_STEPS}")
+    if not (np.isfinite(rec.losses).all() and rec.losses[-1] < rec.losses[0]):
+        raise AssertionError(f"fit losses {rec.losses} must be finite and "
+                             "fall")
+    if rec.lrs != want_lrs:
+        raise AssertionError(f"fit LRs {rec.lrs} != the scheduler's "
+                             f"{want_lrs}")
+    x, y = next(iter(t.io.DataLoader(
+        fit_dataset(t, model.cfg.vocab_size, 1, 31), batch_size=FIT_BATCH,
+        device="cuda")))
+    bare = t.TrainStep(hm._loss_of, opt)
+    bare_s = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        float(bare(x, y))
+        bare_s.append(time.perf_counter() - t1)
+    tokens = FIT_BATCH * SEQ
+    med = float(np.median(rec.step_s[1:]))
+    bare_med = float(np.median(bare_s[1:]))
+    waits = timed_loader.waits
+    r = dict(step_ms=med * 1e3, bare_step_ms=bare_med * 1e3,
+             steps_ms=[x * 1e3 for x in rec.step_s],
+             bare_steps_ms=[x * 1e3 for x in bare_s],
+             start_method=start_method,
+             first_wait_ms=waits[0] * 1e3,
+             wait_ms=float(np.median(waits[1:])) * 1e3,
+             max_wait_ms=float(max(waits[1:])) * 1e3,
+             tokens_s=tokens / med, peak_gib=peak / 2**30, fit_s=fit_s,
+             losses=rec.losses, lrs=rec.lrs)
+    print(f"fit gpt_1p3b bf16 O2 Lamb: {FIT_STEPS} steps of {FIT_BATCH} x "
+          f"{SEQ} through a DataLoader of 2 workers ({start_method}) in "
+          f"{fit_s:.1f} s; losses "
+          f"{rec.losses}; LRs equal the scheduler's; median step "
+          f"{r['step_ms']:.1f} ms against a bare TrainStep's "
+          f"{r['bare_step_ms']:.1f} ms; loader wait {r['wait_ms']:.3f} ms "
+          f"median, {r['max_wait_ms']:.3f} ms max (first batch "
+          f"{r['first_wait_ms']:.1f} ms, the workers' start); "
+          f"{r['tokens_s']:.0f} tokens/s; peak memory {r['peak_gib']:.2f} "
+          f"GiB; launches {launches} [{card}]")
+    loader.close()
+    del hm, opt, bare
+    torch.cuda.empty_cache()
+    return r
+
+
+def ckpt_build(t, arrays, functional):
+    cfg = dataclasses.replace(t.gpt.gpt_1p3b(), num_layers=CKPT_LAYERS)
+    m = t.gpt.GPTForCausalLM(cfg, device="cuda")
+    t.gpt.load_functional_state(m, {n: arrays[n]
+                                    for n, _ in m.named_parameters()})
+    return fit_model(t, m, functional)
+
+
+def ckpt_loader(t, vocab, batches):
+    return t.io.DataLoader(fit_dataset(t, vocab, batches, 32),
+                           batch_size=FIT_BATCH, device="cuda")
+
+
+def _same_state(a, b) -> bool:
+    if set(a) != set(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def checkpoint_resume(arrays, t, functional, card):
+    """Phase 12b: gpt_1p3b at full width cut to CKPT_LAYERS layers, phase
+    12a's setup. An uninterrupted fit of 6 steps; then a fit of 4 steps
+    with ``TrainCheckpointer(async_save=True)`` saving step 2 from a
+    callback and ``ModelCheckpoint``, an armed ``preempt`` fault so that
+    ``PreemptionGuard.maybe_finalize`` writes step 4 and the resume marker
+    at the 4th step boundary; a model, optimizer and scheduler rebuilt and
+    restored from disk then fit the last 2 steps: parameters, slots, step
+    and LR bit-equal to the uninterrupted run's. Then step 4's data
+    truncated: ``restore`` falls back to step 2, and asking for step 4
+    raises CheckpointIntegrityError. Prints save seconds (async: until
+    ``save`` returns; blocking: the final save), bytes and restore
+    seconds. Removes its directory."""
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ck = t.checkpoint
+    lrcb = t.callbacks.LRScheduler
+    hm, opt, sched = ckpt_build(t, arrays, functional)
+    vocab = hm.network.cfg.vocab_size
+    hm.fit(ckpt_loader(t, vocab, 6), epochs=1, verbose=0, callbacks=[lrcb()])
+    want = {"params": {k: v.detach().clone()
+                       for k, v in hm.network.state_dict().items()},
+            "opt": opt.state_dict(), "lr": opt.get_lr()}
+    del hm, opt, sched
+    torch.cuda.empty_cache()
+
+    hm, opt, sched = ckpt_build(t, arrays, functional)
+    ckpt = ck.TrainCheckpointer(os.path.join(CKPT_DIR, "steps"),
+                                max_to_keep=2, async_save=True)
+    guard = t.resilience.PreemptionGuard(install=False)
+    times = {}
+
+    def state():
+        return {"model": hm.network.state_dict(), "opt": opt.state_dict()}
+
+    class StepCheckpoint(t.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if step + 1 == 2:
+                t0 = time.perf_counter()
+                ckpt.save(2, state())
+                times["async_save_s"] = time.perf_counter() - t0
+            if step + 1 == 4:
+                t.flags.set_flags({"fault_injection": 1})
+                t.resilience.inject_fault("preempt")
+                t0 = time.perf_counter()
+                times["finalized"] = guard.maybe_finalize(
+                    4, ckpt, state, exit_process=False)
+                times["final_save_s"] = time.perf_counter() - t0
+
+    try:
+        hm.fit(ckpt_loader(t, vocab, 4), epochs=1, verbose=0,
+               callbacks=[lrcb(), StepCheckpoint(),
+                          t.callbacks.ModelCheckpoint(
+                              1, os.path.join(CKPT_DIR, "model"))])
+    finally:
+        t.resilience.clear_faults()
+        t.flags.set_flags({"fault_injection": 0})
+    marker = ckpt.resume_marker()
+    if not (times.get("finalized") and marker and marker["step"] == 4
+            and ckpt.all_steps() == [2, 4]
+            and os.path.exists(os.path.join(CKPT_DIR, "model", "0",
+                                            "model.pdopt"))):
+        raise AssertionError(f"the preempted run must end with steps [2, 4],"
+                             f" the marker at 4 and the epoch's model files: "
+                             f"{ckpt.all_steps()}, {marker}")
+    del hm, opt, sched
+    torch.cuda.empty_cache()
+
+    hm, opt, sched = ckpt_build(t, arrays, functional)
+    t0 = time.perf_counter()
+    restored = ckpt.restore()
+    ck.apply_state_dict(hm.network, restored["model"])
+    opt.set_state_dict(restored["opt"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if ckpt.last_restored_step != 4:
+        raise AssertionError(f"restored step {ckpt.last_restored_step}")
+    hm.fit(ckpt_loader(t, vocab, 2), epochs=1, verbose=0, callbacks=[lrcb()])
+    got = {"params": dict(hm.network.state_dict()), "opt": opt.state_dict(),
+           "lr": opt.get_lr()}
+    same = (_same_state(got["params"], want["params"])
+            and _same_state(got["opt"], want["opt"])
+            and got["lr"] == want["lr"])
+    data4 = os.path.join(CKPT_DIR, "steps", "4", "data.bin")
+    nbytes = os.path.getsize(data4)
+    with open(data4, "r+b") as f:
+        f.truncate(nbytes // 2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fallback = ckpt.restore()
+    fell_back = ckpt.last_restored_step == 2 and fallback is not None
+    try:
+        ckpt.restore(step=4)
+        refused = False
+    except ck.CheckpointIntegrityError:
+        refused = True
+    ckpt.close()
+    del hm, opt, sched, restored, fallback, want, got
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    r = dict(async_save_s=times["async_save_s"],
+             final_save_s=times["final_save_s"], bytes=nbytes,
+             restore_s=restore_s)
+    print(f"checkpoint gpt_1p3b {CKPT_LAYERS} layers: resumed run bit-equal "
+          f"to the uninterrupted one {same} (parameters, slots, step, LR); "
+          f"truncated step 4 falls back to step 2 {fell_back}, asked for "
+          f"by number refused {refused}; async save returned in "
+          f"{r['async_save_s']:.3f} s, final (blocking) save "
+          f"{r['final_save_s']:.3f} s, {nbytes / 1e9:.3f} GB a step, "
+          f"restore {restore_s:.3f} s [{card}]")
+    if not (same and fell_back and refused):
+        raise AssertionError("checkpoint resume, fallback or refusal failed")
+    return r
+
+
+def lbfgs_full(arrays, t, card):
+    """Phase 12d: LBFGS (history 4, 3 iterations in one step) on gpt_1p3b
+    at full width cut to LBFGS_LAYERS layers, f32, batch 1 x 2048, without
+    and with the strong Wolfe line search, each from the seeded weights:
+    the loss falls, and the state dict (with the history) round-trips into
+    a second optimizer."""
+    cfg = dataclasses.replace(t.gpt.gpt_1p3b(), num_layers=LBFGS_LAYERS)
+    m = t.gpt.GPTForCausalLM(cfg, device="cuda")
+    sub = {n: arrays[n] for n, _ in m.named_parameters()}
+    ids = np.random.default_rng(43).integers(0, cfg.vocab_size, (1, SEQ + 1))
+    ids = torch.as_tensor(ids, device="cuda")
+    x, y = ids[:, :-1], ids[:, 1:]
+    out = {}
+    for ls in (None, "strong_wolfe"):
+        t.gpt.load_functional_state(m, sub)
+        opt = t.optimizer.LBFGS(learning_rate=1.0, max_iter=3,
+                                history_size=4, line_search_fn=ls,
+                                parameters=m.named_parameters())
+
+        def closure():
+            opt.clear_grad()
+            loss = m(x, y)
+            loss.backward()
+            return loss
+
+        with torch.no_grad():
+            first = float(m(x, y))
+        t0 = time.perf_counter()
+        last = float(opt.step(closure).detach())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        sd = opt.state_dict()
+        opt2 = t.optimizer.LBFGS(learning_rate=1.0, max_iter=3,
+                                 history_size=4, line_search_fn=ls,
+                                 parameters=m.named_parameters())
+        opt2.set_state_dict(sd)
+        trips = (len(opt2._s) == len(opt._s) > 0
+                 and all(torch.equal(a, b) for a, b in zip(opt2._s, opt._s))
+                 and all(torch.equal(a, b) for a, b in zip(opt2._y, opt._y)))
+        print(f"lbfgs {ls or 'no line search'}: loss {first!r} -> {last!r} "
+              f"in {secs:.2f} s, history {len(opt._s)} pairs, state dict "
+              f"round-trips {trips} [{card}]")
+        if not (np.isfinite(last) and last < first and trips):
+            raise AssertionError(f"LBFGS {ls}: the loss must fall and the "
+                                 "state dict round-trip")
+        out[ls or "none"] = dict(first=first, last=last, seconds=secs)
+        del opt, opt2, sd
+        torch.cuda.empty_cache()
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -3474,6 +4103,12 @@ def main() -> int:
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops import sampling as so
+    from paddle_tpu_torch import callbacks, optimizer
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.core import resilience
+    from paddle_tpu_torch.distributed import checkpoint
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import layers as nn_layers
     from paddle_tpu_torch.optimizer import AdamW
     port = types.SimpleNamespace(gpt=gpt, fa=fa, do=do, rng=rng, flags=flags,
                                  amp=amp, TrainStep=TrainStep, AdamW=AdamW,
@@ -3528,6 +4163,9 @@ def main() -> int:
                                            port, card)
     drop_err = t("10a (checks)", dropout_checks, do, rng, functional, card)
     drop_times = t("10a (times)", dropout_times, do, rng, card)
+    alpha_err, alpha_launches = t("10a (alpha checks)", alpha_checks, do,
+                                  rng, nn_layers, card)
+    alpha_time = t("10a (alpha times)", alpha_times, do, rng, card)
     levers = t("10b", train_levers, model, arrays, port, card, base)
     del model
     torch.cuda.empty_cache()
@@ -3538,6 +4176,21 @@ def main() -> int:
     launches["dropout"] = t("10c", train_dropout, arrays, port, card)
     t("10d", train_fp16_scaler, arrays, port, card)
     t("11", serve_d256, pa, gpt, serving, card)
+    train = types.SimpleNamespace(
+        gpt=gpt, fa=fa, flags=flags, amp=amp, TrainStep=TrainStep,
+        ClipGradByGlobalNorm=ClipGradByGlobalNorm, Model=Model,
+        callbacks=callbacks, io=pio, optimizer=optimizer, lr=optimizer.lr,
+        checkpoint=checkpoint, resilience=resilience)
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    family = t("12c", optimizer_family, model, arrays, train, card)
+    fit = t("12a", fit_gpt, model, arrays, train, functional, card)
+    del model
+    torch.cuda.empty_cache()
+    ckpt = t("12b", checkpoint_resume, arrays, train, functional, card)
+    lbfgs = t("12d", lbfgs_full, arrays, train, card)
+    print(json.dumps({"training_loop": dict(fit=fit, checkpoint=ckpt,
+                                            lbfgs=lbfgs,
+                                            optimizer_updates=family)}))
     timing.update(flash_timing)
     res = drop_times[str(list(DROPOUT_TIMED[1]))]
     timing["dropout"] = dict(
@@ -3545,7 +4198,11 @@ def main() -> int:
         bound_ms=res["bound_ms"], bound_by=res["bound_by"], library_ms=None,
         library_note="no PyTorch call draws JAX's threefry bits; torch's "
                      "Philox dropout is timed beside it as a yardstick",
-        philox_ms=res["philox_ms"], times=drop_times)
+        philox_ms=res["philox_ms"], times=drop_times,
+        launches_alpha=alpha_launches, alpha_max_abs_err=alpha_err,
+        alpha_ms=alpha_time["ms"], alpha_plain_ms=alpha_time["plain_ms"],
+        alpha_bound_ms=alpha_time["bound_ms"],
+        alpha_bound_by=alpha_time["bound_by"])
     # a flash row's launches are the timed bf16 phase's (the tensor-core
     # instances its times belong to); launches_f32 the f32 phase's
     launches.update(flash_launches)

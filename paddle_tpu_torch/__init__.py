@@ -10,3 +10,7 @@ raises when CUDA is missing and runs on the CPU only when asked
 (``device="cpu"``), where the hand-written kernels give way to their plain
 PyTorch versions.
 """
+
+from .framework.io import load, save
+
+__all__ = ["save", "load"]

@@ -142,3 +142,19 @@ define_flag("fault_injection", False)
 # Arm faults from the environment: 'kind:times[:after],...'. Honoured only
 # with FLAGS_fault_injection=1.
 define_flag("inject_faults", "")
+# Retried IO (core.resilience.default_policy): attempts (the first try
+# included), the base delay of the jittered exponential backoff in seconds,
+# and the wall-clock budget in seconds across all attempts of one operation.
+define_flag("io_retries", 3)
+define_flag("io_retry_backoff", 0.05)
+define_flag("io_retry_deadline", 120.0)
+# After this many consecutive nonfinite TrainStep steps, trigger rollback to
+# the last checkpoint (resilience.trigger_rollback). 0: keep skipping.
+define_flag("max_bad_steps", 0)
+# TrainCheckpointer writes a per-step manifest (tree paths and a crc32 per
+# leaf) and verifies it on restore, so a truncated or corrupt step is skipped
+# for the previous valid one.
+define_flag("ckpt_manifest", True)
+# Per-save byte budget of the manifest checksums, smallest leaves first;
+# leaves past it are recorded by shape and dtype only.
+define_flag("ckpt_manifest_crc_max_bytes", 256 * 1024 * 1024)

@@ -1,5 +1,5 @@
-"""Serving resilience: deadlines, shedding, the serving error classes, the
-fault registry and the preemption guard (the serving subset of
+"""Resilience: deadlines, shedding, the error classes, retry, the fault
+registry, rollback and the preemption guard (counterpart of
 ``paddle_tpu/core/resilience.py``).
 
 :class:`Deadline` is a request's absolute wall-clock budget on the monotonic
@@ -18,23 +18,44 @@ previous handler. Counters (``overload.*``, ``deadline.*``, ``fault.*``,
 ``preempt.*``, ``serving.*``) mirror the JAX module's: :func:`bump`,
 :func:`stats`, :func:`reset_stats`, :func:`stats_delta`.
 
-Not ported yet: ``RetryPolicy`` with the ``serving_step`` kind, and
-``PreemptionGuard.maybe_finalize`` (the training checkpoint's half).
+The training half: :class:`RetryPolicy`, :func:`call_with_retry`,
+:func:`io_policy`, :func:`atomic_write` and :func:`retry` (``:285-420``; a
+retry bumps ``retry.retries`` and ``retry.<name>``); the ``ckpt_io`` fault
+(an ``OSError`` at every probe of :func:`atomic_write` and the checkpoint
+IO) and ``nonfinite_grads`` (``TrainStep`` scales its gradients by NaN);
+the rollback registry (:func:`set_rollback_handler`,
+:func:`trigger_rollback`, raising :class:`NonfiniteStepError` without a
+handler); and :meth:`PreemptionGuard.maybe_finalize`, the final checkpoint
+at a step boundary. Not ported: the ``serving_step`` kind and its retry
+around the engine's program runs.
 """
 from __future__ import annotations
 
+import functools
 import os
+import random
 import signal
+import tempfile
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from . import flags
 
 _lock = threading.Lock()
 # plain dict mutated under the GIL: bumps take no lock, snapshots do
 _counts: Dict[str, int] = {}
+
+
+class NonfiniteStepError(FloatingPointError):
+    """``FLAGS_max_bad_steps`` consecutive TrainStep steps were nonfinite
+    and no rollback handler is registered."""
+
+
+class CheckpointIntegrityError(RuntimeError):
+    """A checkpoint step failed manifest verification (a truncated write, a
+    corrupt leaf or a structural mismatch)."""
 
 
 class QueueOverloadError(RuntimeError):
@@ -137,6 +158,147 @@ def check_overload(depth: int, limit: Optional[int] = None,
             "request shed")
 
 
+# -------------------------------------------------------------------- retry
+
+
+@dataclass
+class RetryPolicy:
+    """Jittered exponential backoff with an attempt cap and a deadline.
+
+    ``max_attempts`` counts the first try; the delay before retry ``k``
+    (1-based) is ``min(max_delay, base_delay * 2**(k-1))`` scaled by a
+    uniform jitter in ``[1, 1 + jitter)``. ``deadline`` bounds the
+    wall-clock across attempts; ``giveup(exc)`` stops retrying an error
+    that can never heal."""
+
+    max_attempts: int = 3
+    base_delay: float = 0.05
+    max_delay: float = 2.0
+    deadline: float = 120.0
+    jitter: float = 0.5
+    retry_on: Tuple[type, ...] = (Exception,)
+    giveup: Optional[Callable[[BaseException], bool]] = None
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.max_delay, self.base_delay * (2 ** max(0, attempt - 1)))
+        return d * (1.0 + self.jitter * random.random())
+
+
+def default_policy(**overrides) -> RetryPolicy:
+    """The flag-configured policy (``FLAGS_io_retries``,
+    ``FLAGS_io_retry_backoff``, ``FLAGS_io_retry_deadline``)."""
+    base = dict(max_attempts=int(flags.flag("io_retries")),
+                base_delay=float(flags.flag("io_retry_backoff")),
+                deadline=float(flags.flag("io_retry_deadline")))
+    base.update(overrides)
+    return RetryPolicy(**base)
+
+
+def call_with_retry(fn: Callable, *args, policy: Optional[RetryPolicy] = None,
+                    name: str = "", **kwargs):
+    """``fn(*args, **kwargs)`` under ``policy`` (default: the flags'). The
+    last failure re-raises the original exception; every retry bumps
+    ``retry.retries`` and ``retry.<name>``, an exhausted one
+    ``retry.exhausted`` and ``retry.<name>.exhausted``."""
+    policy = policy or default_policy()
+    start = time.monotonic()
+    attempt = 0
+    while True:
+        attempt += 1
+        try:
+            return fn(*args, **kwargs)
+        except policy.retry_on as e:
+            if policy.giveup is not None and policy.giveup(e):
+                raise
+            elapsed = time.monotonic() - start
+            if attempt >= policy.max_attempts or elapsed >= policy.deadline:
+                bump("retry.exhausted")
+                if name:
+                    bump(f"retry.{name}.exhausted")
+                raise
+            delay = min(policy.delay(attempt),
+                        max(0.0, policy.deadline - elapsed))
+            bump("retry.retries")
+            if name:
+                bump(f"retry.{name}")
+            time.sleep(delay)
+
+
+#: errors worth retrying on filesystem paths; a structural error (a
+#: ValueError on a torn format, a TypeError) fails at once
+IO_RETRY_ON: Tuple[type, ...] = (OSError, ConnectionError, TimeoutError)
+
+
+def io_policy(**overrides) -> RetryPolicy:
+    """The flag-configured policy narrowed to transient IO errors."""
+    return default_policy(retry_on=IO_RETRY_ON, **overrides)
+
+
+def _fsync_dir(d: str) -> None:
+    """Make a rename in ``d`` durable (a no-op where a directory cannot be
+    opened for fsync)."""
+    try:
+        dfd = os.open(d, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(dfd)
+    except OSError:
+        pass
+    finally:
+        os.close(dfd)
+
+
+def atomic_write(path: str, data, *, name: str = "atomic_write",
+                 policy: Optional[RetryPolicy] = None) -> None:
+    """Durable file write: a temp file in the target directory, fsync,
+    ``os.replace``, then an fsync of the directory, so a kill mid-write
+    never leaves a torn file at ``path``. ``data`` is bytes, or a callable
+    taking the open binary file (re-invoked on a retry). Retried under
+    :func:`io_policy` with a ``ckpt_io`` probe before each attempt."""
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+
+    def _write():
+        maybe_fault("ckpt_io")
+        fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path) + ".",
+                                   suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                if callable(data):
+                    data(f)
+                else:
+                    f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except BaseException:
+            # the temp file goes on any exit, an interrupt too; re-raised
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        _fsync_dir(d)
+
+    call_with_retry(_write, name=name, policy=policy or io_policy())
+
+
+def retry(policy: Optional[RetryPolicy] = None, *, name: str = ""):
+    """Decorator form of :func:`call_with_retry`."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            return call_with_retry(
+                fn, *args, policy=policy,
+                name=name or getattr(fn, "__name__", ""), **kwargs)
+
+        return wrapped
+
+    return deco
+
+
 # ---------------------------------------------------------- fault injection
 
 
@@ -155,12 +317,14 @@ _env_faults_loaded = False
 
 #: kinds with probes in the port; inject_fault takes other kinds too, for
 #: tests that place maybe_fault probes in their own code
-KNOWN_FAULTS = ("preempt", "serving_device", "arena_corrupt")
+KNOWN_FAULTS = ("ckpt_io", "nonfinite_grads", "preempt", "serving_device",
+                "arena_corrupt")
 
 #: kinds whose probe sites are bare statements (they only react to an
 #: exception): inject_fault defaults their exc to the error the real
 #: failure would raise, so a flag-kind fault cannot exercise nothing
 _DEFAULT_FAULT_EXC = {
+    "ckpt_io": lambda k: OSError(f"injected {k} fault"),
     "serving_device": lambda k: ServingDeviceError(f"injected {k} fault"),
     "arena_corrupt": lambda k: ArenaCorruptError(f"injected {k} fault"),
 }
@@ -170,8 +334,8 @@ def inject_fault(kind: str, times: int = 1, after: int = 0,
                  exc: Any = None) -> None:
     """Arm a deterministic fault: the next ``after`` probes of ``kind``
     pass, then ``times`` probes fire (raising ``exc``, else returning True),
-    then the fault disarms. ``serving_device`` / ``arena_corrupt`` default
-    ``exc`` to their error classes. Requires ``FLAGS_fault_injection``."""
+    then the fault disarms. ``ckpt_io`` / ``serving_device`` /
+    ``arena_corrupt`` default ``exc`` to the error the real failure raises. Requires ``FLAGS_fault_injection``."""
     if not flags.flag("fault_injection"):
         raise RuntimeError(
             "fault injection is disabled; set FLAGS_fault_injection=1 "
@@ -242,6 +406,34 @@ def maybe_fault(kind: str) -> bool:
     return True
 
 
+# ----------------------------------------------------------------- rollback
+
+_rollback_handler: Optional[Callable[[str], None]] = None
+
+
+def set_rollback_handler(fn: Optional[Callable[[str], None]]) -> None:
+    """Register what "roll back to the last checkpoint" means for this run,
+    typically restoring the model and optimizer from a
+    ``TrainCheckpointer``; ``None`` unregisters."""
+    global _rollback_handler
+    _rollback_handler = fn
+
+
+def rollback_handler() -> Optional[Callable[[str], None]]:
+    return _rollback_handler
+
+
+def trigger_rollback(reason: str) -> None:
+    """Invoke the registered rollback handler, or raise
+    :class:`NonfiniteStepError` when none is registered."""
+    bump("sentinel.rollbacks")
+    if _rollback_handler is None:
+        raise NonfiniteStepError(
+            f"{reason}; no rollback handler registered "
+            "(resilience.set_rollback_handler)")
+    _rollback_handler(reason)
+
+
 # --------------------------------------------------------------- preemption
 
 
@@ -250,7 +442,7 @@ class PreemptionGuard:
     for SIGTERM/SIGINT *request* shutdown instead of killing the process
     mid-step, and a serving pump polls :meth:`requested` at its step
     boundaries (``ServingAPI.bind_preemption_guard`` turns it into a
-    drain). A second signal restores the previous handler and re-delivers,
+    drain); a training loop calls :meth:`maybe_finalize` there instead. A second signal restores the previous handler and re-delivers,
     so an operator who insists is never swallowed."""
 
     def __init__(self, signals=(signal.SIGTERM, signal.SIGINT),
@@ -307,3 +499,27 @@ class PreemptionGuard:
         if not self._event.is_set() and maybe_fault("preempt"):
             self.request("injected preempt fault")
         return self._event.is_set()
+
+    def maybe_finalize(self, step: int, checkpointer, state,
+                       exit_process: bool = True) -> bool:
+        """At a step boundary: if preemption was requested, save ``state``
+        (a state dict, or a callable returning one) at ``step``
+        synchronously, wait until the write committed, write the resume
+        marker and exit with ``SystemExit(0)``. False when no preemption is
+        pending; True once finalized with ``exit_process=False``. A save of
+        ``step`` already in flight is committed, not written twice."""
+        if not self.requested():
+            return False
+        sd = state() if callable(state) else state
+        checkpointer.wait_until_finished()
+        latest = (checkpointer.latest_step()
+                  if hasattr(checkpointer, "latest_step") else None)
+        if latest != step:
+            checkpointer.save(step, sd, force=True)
+            checkpointer.wait_until_finished()
+        if hasattr(checkpointer, "write_resume_marker"):
+            checkpointer.write_resume_marker(step, reason=self.reason or "")
+        bump("preempt.final_saves")
+        if exit_process:
+            raise SystemExit(0)
+        return True

@@ -1,2 +1,3 @@
 """Distributed training helpers of the port (counterpart of
-``paddle_tpu.distributed``); on one card only activation recompute."""
+``paddle_tpu.distributed``); on one card: activation recompute
+(``fleet.recompute``) and step checkpoints (``checkpoint``)."""

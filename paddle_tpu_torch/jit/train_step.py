@@ -18,12 +18,22 @@ and updates them in place (the JAX package donates their buffers instead).
   same dropout masks step after step.
 * With ``FLAGS_trainstep_sentinel`` (read at the first call), a nonfinite
   loss or gradient skips the update: parameters, optimizer slots and the
-  step count stay bit-identical and ``sentinel.skipped`` is bumped.
+  step count stay bit-identical and ``sentinel.skipped`` is bumped. An
+  armed ``nonfinite_grads`` fault scales the step's loss and gradients
+  by NaN.
+  After ``FLAGS_max_bad_steps`` consecutive skipped steps (0: never) the
+  step calls ``resilience.trigger_rollback``.
+* The optimizer's slots are read from ``optimizer._accumulators`` at every
+  call, so an ``optimizer.set_state_dict`` between two calls (a resume or
+  a rollback) is what the next step continues from, as the JAX package's
+  ``_state_version`` re-seed makes it. Each parameter's update is
+  ``optimizer._update_for(name, param)``: Lamb's and LARS's exclusion
+  from weight decay holds inside the step.
 
 Counters (``core.compile_cache``): ``train_step.builds`` once per
 TrainStep, at its first call (the JAX package's compile); ``train_step.
-steps`` every call; ``sentinel.skipped`` every skipped step (the JAX
-package keeps this one in ``core/resilience.py``, not ported yet).
+steps`` every call; ``sentinel.skipped`` every skipped step (also in
+``core.resilience``'s counters, where the JAX package keeps it).
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ from typing import Callable, List
 
 import torch
 
-from ..core import compile_cache, flags, rng
+from ..core import compile_cache, flags, resilience, rng
 
 __all__ = ["TrainStep"]
 
@@ -54,6 +64,7 @@ class TrainStep:
             p for p in optimizer._parameter_list or [] if p.requires_grad]
         self._built = False
         self._sentinel = False
+        self._bad_steps = 0  # consecutive skipped steps
 
     def _loss_and_grads(self, args, key):
         with rng.key_guard(key):
@@ -100,10 +111,27 @@ class TrainStep:
         else:
             loss, grads = self._loss_and_grads(args, key)
         if self._sentinel:
+            if resilience.maybe_fault("nonfinite_grads"):
+                # the JAX step multiplies its loss by NaN: loss and grads
+                loss = loss * float("nan")
+                grads = [g * float("nan") for g in grads]
             finite = torch.stack([torch.isfinite(loss)] + [
                 torch.isfinite(g).all() for g in grads]).all()
             if not bool(finite):
-                compile_cache.bump("sentinel.skipped")
+                self._skip()
                 return loss
+            self._bad_steps = 0
         self._opt._apply_gradients(self._params, grads)
         return loss
+
+    def _skip(self) -> None:
+        """Count a skipped step; roll back after FLAGS_max_bad_steps."""
+        compile_cache.bump("sentinel.skipped")
+        resilience.bump("sentinel.skipped")
+        self._bad_steps += 1
+        limit = int(flags.flag("max_bad_steps"))
+        if limit > 0 and self._bad_steps >= limit:
+            self._bad_steps = 0
+            resilience.trigger_rollback(
+                f"TrainStep: {limit} consecutive nonfinite steps "
+                "(loss/grads)")

@@ -1,5 +1,6 @@
 """Dropout functionals (counterpart of the dropout part of
-``paddle_tpu/nn/functional/common.py``).
+``paddle_tpu/nn/functional/common.py``): dropout, its axis forms and
+alpha dropout.
 
 Each live draw takes one key from
 :func:`paddle_tpu_torch.core.rng.next_key` (a split of the global key on
@@ -14,7 +15,7 @@ from __future__ import annotations
 from ...core import rng
 from ...ops import dropout as dropout_op
 
-__all__ = ["dropout", "dropout2d", "dropout3d"]
+__all__ = ["dropout", "dropout2d", "dropout3d", "alpha_dropout"]
 
 _MODES = ("upscale_in_train", "downscale_in_infer")
 
@@ -48,3 +49,13 @@ def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
     """One keep decision per (sample, channel) of a 5-D input."""
     axis = (0, 1) if data_format == "NCDHW" else (0, 4)
     return dropout(x, p, axis=axis, training=training)
+
+
+def alpha_dropout(x, p: float = 0.5, training: bool = True):
+    """paddle's ``alpha_dropout``: the SELU-preserving dropout, ``a *
+    where(keep, x, alpha_p) + b`` under one key, on the dropout kernel's
+    alpha form (:func:`paddle_tpu_torch.ops.dropout.alpha_dropout`). In
+    eval mode or at ``p == 0`` it returns ``x`` and draws no key."""
+    if not training or p == 0.0:
+        return x
+    return dropout_op.alpha_dropout(x, rng.next_key(x.device), float(p))

@@ -101,6 +101,18 @@ class Dropout3D(nn.Module):
                                 data_format=self.data_format)
 
 
+class AlphaDropout(nn.Module):
+    """paddle's ``AlphaDropout`` (:func:`paddle_tpu_torch.nn.functional.
+    alpha_dropout` in the module's training mode)."""
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return common.alpha_dropout(x, self.p, training=self.training)
+
+
 def gelu_tanh(x):
     """paddle's ``gelu(approximate=True)``."""
     return F.gelu(x, approximate="tanh")

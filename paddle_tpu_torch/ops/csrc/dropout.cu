@@ -17,6 +17,7 @@
 //   keep = u < keep_p            (keep_p = float32(1 - p): bernoulli "low")
 //   y    = keep ? T(float(x) * scale) : 0      (upscale_in_train)
 //   y    = keep ? x : 0                        (downscale_in_infer, training)
+//   y    = keep ? affine(x) : fill             (alpha_dropout)
 // The product is one IEEE float32 multiply rounded once to T. `scale` is the
 // float32 value the JAX package's XLA program multiplies by: XLA rewrites
 // x / (1 - p) as x times the reciprocal of the divisor (float32: 1 / f32(1 -
@@ -26,6 +27,18 @@
 // (nothing is read on the host, so a captured graph may hold the launch).
 // The backward of dropout is this kernel on the upstream gradient with the
 // same key: nothing but the key is kept between them.
+//
+// The alpha form computes paddle_tpu/nn/functional/common.py:70
+// alpha_dropout, a * where(keep, x, alpha_p) + b with a, b and alpha_p weakly
+// typed Python floats, under the same keep mask. Its bits follow what XLA's
+// CPU program gives, found by test (tests/test_torch_dropout.py): a kept
+// element is fma(a, x, b) rounded once for float32 and float16 (a float16
+// product is exact in float32, so the fma equals a multiply then an add),
+// and the product rounded to bfloat16 before the add for bfloat16; a, b are
+// the Python floats rounded to T. A dropped element is `fill`, the constant
+// XLA folds: T(T(a * alpha_p) + b) from the rounded a, alpha_p and b,
+// computed on the host. Its gradient, a * keep * g, is the upscale form on g
+// with scale a rounded to T.
 //
 // Bound on an H100 SXM: threefry is about 75 32-bit integer operations a
 // mask element (two adds, then 20 rounds of add, rotate and xor, five key
@@ -39,7 +52,8 @@
 //
 // Design: a grid-stride loop over 16-byte packs of x (4 float32 or 8 16-bit
 // elements a thread an iteration), each element hashing its own counter, and
-// a scalar loop over the ragged tail. x and y must be 16-byte aligned (the
+// a scalar loop over the ragged tail. The form is a template mode, so each
+// instance carries only its own arithmetic after the shared draw. x and y must be 16-byte aligned (the
 // wrapper copies a misaligned x; the launcher refuses one). No shared memory:
 // each element's bits depend on its index alone.
 
@@ -115,22 +129,45 @@ __device__ __forceinline__ uint32_t mask_index(long long i, const Bcast& b) {
   return static_cast<uint32_t>(m);
 }
 
+// the forms, a template mode of the kernel
+constexpr int kDownscale = 0;  // keep ? x : 0
+constexpr int kUpscale = 1;    // keep ? T(x * scale) : 0
+constexpr int kAlpha = 2;      // keep ? affine(x) : fill
+
+// the alpha form's kept element: fma(a, x, b) rounded once, except in
+// bfloat16, where XLA rounds the product before the add
 template <typename T>
+__device__ __forceinline__ float affine(float v, float a, float b) {
+  return __fmaf_rn(a, v, b);
+}
+template <>
+__device__ __forceinline__ float affine<__nv_bfloat16>(float v, float a,
+                                                       float b) {
+  const float prod = __bfloat162float(__float2bfloat16_rn(__fmul_rn(a, v)));
+  return __fadd_rn(prod, b);
+}
+
+template <typename T, int kMode>
 __device__ __forceinline__ T drop_one(T v, bool keep, float scale,
-                                      bool upscale) {
+                                      float shift, float fill) {
+  if (kMode == kAlpha) {
+    return Conv<T>::store(keep ? affine<T>(Conv<T>::load(v), scale, shift)
+                               : fill);
+  }
   if (!keep) return Conv<T>::store(0.0f);
-  return upscale ? Conv<T>::store(__fmul_rn(Conv<T>::load(v), scale)) : v;
+  return kMode == kUpscale ? Conv<T>::store(__fmul_rn(Conv<T>::load(v), scale))
+                           : v;
 }
 
 // V elements a pack (16 bytes); x and y 16-byte aligned
-template <typename T, int V, bool kBcast>
+template <typename T, int V, bool kBcast, int kMode>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
                    const long long* __restrict__ key, long long n,
-                   float keep_p, float scale, int upscale, Bcast b) {
+                   float keep_p, float scale, float shift, float fill,
+                   Bcast b) {
   const uint32_t k1 = static_cast<uint32_t>(key[0]);
   const uint32_t k2 = static_cast<uint32_t>(key[1]);
-  const bool up = upscale != 0;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -142,13 +179,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < V; ++j) {
       const bool keep =
           keep_of(k1, k2, mask_index<kBcast>(g * V + j, b), keep_p);
-      out.v[j] = drop_one(in.v[j], keep, scale, up);
+      out.v[j] = drop_one<T, kMode>(in.v[j], keep, scale, shift, fill);
     }
     reinterpret_cast<Pack<T, V>*>(y)[g] = out;
   }
   for (long long i = packs * V + tid; i < n; i += stride) {
     const bool keep = keep_of(k1, k2, mask_index<kBcast>(i, b), keep_p);
-    y[i] = drop_one(x[i], keep, scale, up);
+    y[i] = drop_one<T, kMode>(x[i], keep, scale, shift, fill);
   }
 }
 
@@ -162,43 +199,66 @@ int sm_count() {
   return sms;
 }
 
-template <typename T, bool kBcast>
+template <typename T, bool kBcast, int kMode>
 void launch(const void* x, void* y, const long long* key, long long n,
-            float keep_p, float scale, int upscale, const Bcast& b,
-            cudaStream_t stream) {
+            float keep_p, float scale, float shift, float fill,
+            const Bcast& b, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   long long blocks = ((n + V - 1) / V + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(sm_count()) * kBlocksPerSM;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
-  dropout_kernel<T, V, kBcast><<<static_cast<int>(blocks), kThreads, 0,
-                                 stream>>>(static_cast<const T*>(x),
-                                           static_cast<T*>(y), key, n, keep_p,
-                                           scale, upscale, b);
+  dropout_kernel<T, V, kBcast, kMode>
+      <<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<T*>(y), key, n, keep_p, scale,
+          shift, fill, b);
 }
 
+// the axis form (kBcast) exists for the zero-filled forms only
 template <typename T>
-void dispatch_bcast(const void* x, void* y, const long long* key, long long n,
-                    float keep_p, float scale, int upscale, const Bcast& b,
-                    cudaStream_t stream) {
-  if (b.ndim > 0) {
-    launch<T, true>(x, y, key, n, keep_p, scale, upscale, b, stream);
+int dispatch(const void* x, void* y, const long long* key, long long n,
+             float keep_p, float scale, float shift, float fill, int mode,
+             const Bcast& b, cudaStream_t stream) {
+  const bool bc = b.ndim > 0;
+  if (mode == kAlpha) {
+    if (bc) return cudaErrorInvalidValue;
+    launch<T, false, kAlpha>(x, y, key, n, keep_p, scale, shift, fill, b,
+                             stream);
+  } else if (mode == kUpscale) {
+    if (bc) {
+      launch<T, true, kUpscale>(x, y, key, n, keep_p, scale, shift, fill, b,
+                                stream);
+    } else {
+      launch<T, false, kUpscale>(x, y, key, n, keep_p, scale, shift, fill, b,
+                                 stream);
+    }
+  } else if (mode == kDownscale) {
+    if (bc) {
+      launch<T, true, kDownscale>(x, y, key, n, keep_p, scale, shift, fill, b,
+                                  stream);
+    } else {
+      launch<T, false, kDownscale>(x, y, key, n, keep_p, scale, shift, fill,
+                                   b, stream);
+    }
   } else {
-    launch<T, false>(x, y, key, n, keep_p, scale, upscale, b, stream);
+    return cudaErrorInvalidValue;
   }
+  return 0;
 }
 
 }  // namespace drop
 
 // dtype: 0 float32, 1 bfloat16, 2 float16. x and y contiguous, n elements,
 // both 16-byte aligned (else cudaErrorMisalignedAddress, and no launch);
-// key a device int64 [2]. ndim > 0 selects the axis form: shape[ndim] is
-// x's shape and mstride[ndim] the mask's strides over it (0: broadcast).
-// Returns cudaGetLastError() after the launch (0 on success).
+// key a device int64 [2]. mode: 0 downscale_in_infer (keep ? x : 0), 1
+// upscale_in_train (keep ? x * scale : 0), 2 alpha (keep ? affine(x; a =
+// scale, b = shift) : fill). ndim > 0 selects the axis form (modes 0 and 1):
+// shape[ndim] is x's shape and mstride[ndim] the mask's strides over it (0:
+// broadcast). Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int dropout_launch(int dtype, const void* x, void* y,
                               const void* key, long long n, float keep_p,
-                              float scale, int upscale, int ndim,
-                              const long long* shape,
+                              float scale, float shift, float fill, int mode,
+                              int ndim, const long long* shape,
                               const long long* mstride, void* stream) {
   using namespace drop;
   if (n <= 0) return 0;
@@ -215,18 +275,22 @@ extern "C" int dropout_launch(int dtype, const void* x, void* y,
   }
   const long long* k = static_cast<const long long*>(key);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
   switch (dtype) {
     case 0:
-      dispatch_bcast<float>(x, y, k, n, keep_p, scale, upscale, b, s);
+      rc = dispatch<float>(x, y, k, n, keep_p, scale, shift, fill, mode, b, s);
       break;
     case 1:
-      dispatch_bcast<__nv_bfloat16>(x, y, k, n, keep_p, scale, upscale, b, s);
+      rc = dispatch<__nv_bfloat16>(x, y, k, n, keep_p, scale, shift, fill,
+                                   mode, b, s);
       break;
     case 2:
-      dispatch_bcast<__half>(x, y, k, n, keep_p, scale, upscale, b, s);
+      rc = dispatch<__half>(x, y, k, n, keep_p, scale, shift, fill, mode, b,
+                            s);
       break;
     default:
       return cudaErrorInvalidValue;
   }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

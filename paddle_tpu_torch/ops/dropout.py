@@ -29,6 +29,17 @@ never a mask.
 Route: a wrapper runs its plain version only because its tensor lies on
 the CPU. On a CUDA tensor it launches the kernel (built on first use by
 :mod:`._build`) or raises. ``launches["dropout"]`` counts kernel launches.
+The alpha form (:func:`alpha_dropout_apply`, plain version
+:func:`alpha_dropout_ref`, Function :class:`AlphaDropout`) is the kernel's
+third mode, under the same keep mask: ``keep ? a * x + b : fill`` with the
+JAX package's SELU constants (:func:`alpha_constants`). Its bits are the
+JAX package's compiled program's on the CPU, found by test: a kept element
+is ``fma(a, x, b)`` rounded once in float32 and float16, and
+``bf16(bf16(a * x) + b)`` in bfloat16; ``a``, ``b`` and ``alpha_p`` are
+rounded to x's dtype first (they are weak-typed Python floats), and a
+dropped element is the folded constant ``T(T(a * alpha_p) + b)``. Its
+gradient is ``a * keep * g``: the upscale form on ``g`` with scale ``a``.
+
 Bound on an H100 SXM: the integer operations of threefry (about 75 a mask
 element, see the source), not the bytes.
 """
@@ -43,11 +54,13 @@ import torch
 from ..core import rng
 
 __all__ = ["dropout_apply", "dropout_ref", "Dropout", "dropout",
-           "mask_shape", "upscale_factor", "launches", "reset_launches",
-           "load_kernels"]
+           "alpha_dropout_apply", "alpha_dropout_ref", "AlphaDropout",
+           "alpha_dropout", "alpha_constants", "mask_shape",
+           "upscale_factor", "launches", "reset_launches", "load_kernels"]
 
-#: kernel launches, one per launch
-launches = {"dropout": 0}
+#: kernel launches, one per launch (``alpha_dropout``: alpha dropout's,
+#: forward and backward; they count under ``dropout`` too)
+launches = {"dropout": 0, "alpha_dropout": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NP_DTYPES = {torch.float32: np.float32, torch.float16: np.float16}
@@ -56,7 +69,8 @@ _lib = None
 
 
 def reset_launches() -> None:
-    launches["dropout"] = 0
+    for k in launches:
+        launches[k] = 0
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -69,7 +83,7 @@ def load_kernels() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         i64 = ctypes.c_longlong
         lib.dropout_launch.argtypes = [i32, ptr, ptr, ptr, i64, f32, f32,
-                                       i32, i32, ptr, ptr, ptr]
+                                       f32, f32, i32, i32, ptr, ptr, ptr]
         lib.dropout_launch.restype = i32
         _lib = lib
     return _lib
@@ -121,9 +135,16 @@ def dropout_ref(x, key, p: float, axis=None, upscale: bool = True):
                                             device=x.device))
 
 
-def _launch(x, key, p: float, axis, upscale: bool):
+#: the kernel's forms (its template modes)
+_DOWNSCALE, _UPSCALE, _ALPHA = 0, 1, 2
+
+
+def _launch(x, key, p: float, axis, upscale: bool, alpha=None, scale=None):
     """Check what the kernel takes, launch it on the current stream and
-    return y."""
+    return y. ``alpha``: the alpha form's ``(a, b, fill)``, rounded to x's
+    dtype (then ``axis`` must be None and ``upscale`` is not read);
+    ``scale``: the upscale form's factor in place of
+    :func:`upscale_factor`."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the dropout kernel takes float32, bfloat16 or "
                         f"float16, got {x.dtype}")
@@ -153,14 +174,23 @@ def _launch(x, key, p: float, axis, upscale: bool):
         ndim = x.dim()
         shape = (ctypes.c_longlong * ndim)(*x.shape)
         mstride = (ctypes.c_longlong * ndim)(*strides)
+    if alpha is not None:
+        mode, (scale, shift, fill) = _ALPHA, alpha
+    else:
+        mode = _UPSCALE if upscale else _DOWNSCALE
+        if scale is None:
+            scale = upscale_factor(p, x.dtype) if upscale else 1.0
+        shift = fill = 0.0
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = load_kernels().dropout_launch(
         _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(), key.data_ptr(), n,
-        keep_threshold(p), upscale_factor(p, x.dtype) if upscale else 1.0,
-        int(upscale), ndim, shape, mstride, stream)
+        keep_threshold(p), scale, shift, fill, mode, ndim, shape, mstride,
+        stream)
     if rc != 0:
         raise RuntimeError(f"dropout_launch failed: CUDA error {rc}")
     launches["dropout"] += 1
+    if alpha is not None:
+        launches["alpha_dropout"] += 1
     return y
 
 
@@ -191,3 +221,102 @@ def dropout(x, key, p: float, axis=None, upscale: bool = True):
     """Differentiable dropout of ``x`` under ``key`` (see the module
     docstring)."""
     return Dropout.apply(x, key, float(p), axis, bool(upscale))
+
+
+# ----------------------------------------------------------- alpha dropout
+
+SELU_ALPHA = 1.6732632423543772
+SELU_SCALE = 1.0507009873554805
+
+
+@functools.lru_cache(maxsize=64)
+def alpha_constants(p: float, dtype: torch.dtype):
+    """``(a, b, fill)`` of the alpha form for x of ``dtype``, each a
+    float32 value of that dtype: the JAX package's ``a`` and ``b`` rounded
+    to it, and ``fill = T(T(a * alpha_p) + b)`` from the rounded
+    ``alpha_p``."""
+    alpha_p = -SELU_ALPHA * SELU_SCALE
+    a = 1.0 / ((1.0 - p) * (1.0 + p * alpha_p ** 2)) ** 0.5
+    b = -a * alpha_p * p
+    a_t, b_t, ap_t = (rounded_to(v, dtype) for v in (a, b, alpha_p))
+    fill = rounded_to(float(rounded_to(float(a_t * ap_t), dtype) + b_t),
+                      dtype)
+    return float(a_t), float(b_t), float(fill)
+
+
+def _fma_f32(a: float, x, b: float):
+    """``fma(a, x, b)`` of float32 ``x``, rounded once to float32: the
+    product is exact in float64, the sum is taken exactly as a float64 and
+    its rounding error (TwoSum), the float64 is made round-to-odd, whose
+    rounding to float32 is the correctly rounded result."""
+    p = x.double() * a
+    d = p + b
+    bb = d - p
+    err = (p - (d - bb)) + (b - bb)
+    even = (d.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(d, float("inf")),
+                         torch.full_like(d, float("-inf")))
+    odd = torch.where((err != 0) & even & torch.isfinite(d),
+                      torch.nextafter(d, toward), d)
+    return odd.float()
+
+
+def alpha_dropout_ref(x, key, p: float):
+    """Plain version of the alpha form: the keep mask from
+    :func:`core.rng.bernoulli`, then the dtype's rule in PyTorch ops."""
+    keep = rng.bernoulli(key.to(x.device), 1.0 - p, tuple(x.shape))
+    a, b, fill = alpha_constants(p, x.dtype)
+    xf = x.float()
+    if x.dtype == torch.bfloat16:
+        kept = (xf * a).to(torch.bfloat16).float() + b
+    elif x.dtype == torch.float16:
+        kept = xf * a + b  # the product is exact in float32
+    else:
+        kept = _fma_f32(a, xf, b)
+    return torch.where(keep, kept, torch.full_like(kept, fill)).to(x.dtype)
+
+
+def _alpha_grad_ref(g, key, p: float):
+    """``a * keep * g``: the upscale form's plain version with scale a."""
+    keep = rng.bernoulli(key.to(g.device), 1.0 - p, tuple(g.shape))
+    a = alpha_constants(p, g.dtype)[0]
+    return torch.where(keep, (g.float() * a).to(g.dtype),
+                       torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def alpha_dropout_apply(x, key, p: float):
+    """The alpha form under ``key``: the plain version on the CPU, the
+    kernel on a CUDA device. No gradient (see :class:`AlphaDropout`)."""
+    if x.device.type == "cpu":
+        return alpha_dropout_ref(x, key, p)
+    return _launch(x, key, p, None, True, alpha_constants(p, x.dtype))
+
+
+def _alpha_grad_apply(g, key, p: float):
+    """``a * keep * g``: the kernel's upscale form with scale a (a product,
+    not the affine with b = 0: ``-0 * a`` stays -0, as in JAX's
+    gradient)."""
+    if g.device.type == "cpu":
+        return _alpha_grad_ref(g, key, p)
+    y = _launch(g, key, p, None, True, scale=alpha_constants(p, g.dtype)[0])
+    launches["alpha_dropout"] += 1
+    return y
+
+
+class AlphaDropout(torch.autograd.Function):
+    """``alpha_dropout_apply`` with its gradient ``a * keep * g`` (the
+    kernel's upscale form on g with scale a). Keeps the key and ``p``."""
+
+    @staticmethod
+    def forward(ctx, x, key, p):
+        ctx.key, ctx.p = key, p
+        return alpha_dropout_apply(x, key, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _alpha_grad_apply(g, ctx.key, ctx.p), None, None
+
+
+def alpha_dropout(x, key, p: float):
+    """Differentiable alpha dropout of ``x`` under ``key``."""
+    return AlphaDropout.apply(x, key, float(p))
