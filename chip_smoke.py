@@ -267,6 +267,42 @@ no result. Phases, in order; each raises on failure:
 12d. LBFGS (``lbfgs_full``) on ``gpt_1p3b`` cut to 2 layers, f32, 1 x 2048,
     history 4, 3 iterations, without and with the strong Wolfe search: the
     loss falls and the state dict (with the history) round-trips.
+13. Speculative decoding (``serve_spec``, run after phase 6) on phase 6's
+    engine shape: bf16 ``gpt_1p3b``, 8 slots, 8 prompts of 512 with
+    budgets of 41-48, k 4. A spec-off engine serves wave 1, wave 2 (other
+    lengths of the same bucket) and the edge request (2027 + 21 tokens:
+    its budget ends at max_model_len 2048) first, and an int8 arena
+    (``quant_kv``, chunks of 256) wave 1; then lockstep, a
+    ``gpt_base``-width draft (12 layers, 12 heads of 64, 2048 positions,
+    seeded), the same draft over the int8 arena (its namespace int8 with
+    scales), the same draft with ``quant_draft`` and a tied draft (the
+    target itself), each on wave 1 (and, but over the int8 arena, the
+    edge): every stream equal to the spec-off engine's of the same arena
+    token for token; the launches exact: per replay or warm-up of the
+    speculative step 24 k decode launches in lockstep, 24 (k + 1) + 12 k
+    with the draft (24 k for the tied draft's part; the int8 decode kernel
+    over the int8 arena, whose chunks take the int8 prefill kernel), k or
+    2k + 1 sampling launches, 12 prefill launches a draft prefill (and per
+    draft prefill warm-up); the gpt_base-width draft's own kernels, held
+    to their plain versions at its shapes after wave 1 (the decode kernel,
+    int8 over the int8 arena, at H 12, D 64, 8 lanes, every layer, every
+    draft sub-step's positions and tables of the wave's first and last
+    speculative runs; the full prefill at 512 and 2048 queries): a wrong
+    draft kernel would only lower acceptance, which the streams cannot
+    see; the 5th speculative run of each mode, replayed twice on its own
+    values after wave 1, gives its outputs bit for bit; the draft engine's
+    wave 2 builds nothing (one speculative graph, one draft prefill graph
+    per bucket). The tied draft accepts everything. Then an f32 wave (TF32
+    off) at gpt_1p3b's width cut to 4 layers, lockstep and a 2-layer
+    draft, equal to
+    ``generate()``, where the draft engine also meets a ``serving_device``
+    fault at a speculative run (rebuild and replay, the pools in place, the
+    step not built again; streams equal ``generate()``) and two
+    ``serving_step`` faults retried inside one run (no rebuild). Prints
+    each mode's median full-step host time, traced busy time and idle share
+    beside the plain decode step's, tokens/s, acceptance, the engine's
+    graph pool, the peak bytes of the speculative step's build beside the
+    decode step's and ``memory_summary()``'s draft line.
 
 Each phase prints its seconds.
 
@@ -282,7 +318,9 @@ the dropout row's phase 10c's, its times 10a's at [8, 16, 2048, 2048],
 with the alpha form's (``launches_alpha``, ``alpha_*``) beside them,
 with every timed setting and ``torch.argmax`` beside them; the two
 unquantized paged rows' and the sampling row's ``launches_prefix`` phase
-3d's shared-prefix wave, ``launches_recovery`` phase 3e's faulted wave),
+3d's shared-prefix wave, ``launches_recovery`` phase 3e's faulted wave;
+``launches_spec`` phase 13's draft engine's wave 1, over the int8 arena
+for the int8 rows),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
@@ -1595,9 +1633,9 @@ class Recorder:
         self.faults = []
         run = eng._run
 
-        def probed(prog, hist, **values):
+        def probed(prog, *args, **values):
             try:
-                return run(prog, hist, **values)
+                return run(prog, *args, **values)
             except (resilience.ServingDeviceError,
                     resilience.ArenaCorruptError) as e:
                 self.faults.append((prog.key, type(e).__name__))
@@ -4073,6 +4111,590 @@ def lbfgs_full(arrays, t, card):
     return out
 
 
+# ------------------------------------------------------------------ phase 13
+# speculative decoding on phase 6's engine shape: bf16 gpt_1p3b, 8 slots,
+# prompts of 512, k 4. Wave 1's budgets differ by one token each; wave 2
+# admits other lengths of wave 1's prefill bucket (385-512) and must build
+# nothing; the edge request's budget ends exactly at max_model_len (2048)
+SPEC_K, SPEC_SLOTS, SPEC_PLEN = 4, 8, 512
+SPEC_NEWS = [48, 47, 46, 45, 44, 43, 42, 41]
+SPEC_WAVE2 = ([400, 480, 390, 511, 450, 420, 500, 386],
+              [9, 14, 7, 12, 10, 8, 11, 13])
+SPEC_EDGE = (2048 - 21, 21)
+SPEC_TRACED = 3  # iterations in the profiler's window
+SPEC_F32 = (4, 2)  # the f32 wave's target and draft depths
+SPEC_F32_LENS = ([5, 700, 37, 129, 16, 300, 64, 511],
+                 [16, 23, 9, 30, 17, 12, 26, 21])
+SPEC_RAN = ("steps", "prefills", "chunks", "suffix", "decode_builds",
+            "prefill_builds", "chunk_builds", "iters", "spec_builds",
+            "draft_prefills", "draft_builds")
+
+
+def spec_draft(gpt, dtype, seed, layers=12):
+    """A ``gpt_base``-width draft (hidden 768, 12 heads of 64: the decode
+    kernel at head dim 64) with ``gpt_1p3b``'s vocabulary of 50304 and 2048
+    positions, seeded random weights, ``layers`` deep."""
+    cfg = dataclasses.replace(gpt.gpt_base(max_position_embeddings=2048),
+                              num_layers=layers)
+    draft = gpt.GPTForCausalLM(cfg, device="cuda")
+    gpt.load_functional_state(draft, gpt.seeded_state(draft, seed=seed))
+    return draft.to(dtype)
+
+
+def spec_ran(eng):
+    """``ran_counts`` and what the speculative sidecar ran: its iterations
+    (one replay of the speculative step each), its step's builds, the draft
+    prefills and their builds."""
+    sp = eng.spec
+    extra = ((sp.iterations, sp.spec_traces, sp.draft_prefills,
+              sum(sp.draft_prefill_traces.values())) if sp is not None
+             else (0, 0, 0, 0))
+    return ran_counts(eng) + extra
+
+
+def want_spec_launches(layers, d_layers, k, ran, draft, quant_kv=False):
+    """The exact launches of a speculative run: ``want_launches`` of the
+    plain programs (prefills, chunks, fallback decode steps), plus per
+    replay and per warm-up of the speculative step k target sub-steps in
+    lockstep, or k + 1 target and k draft sub-steps with a draft (the
+    decode kernel, its int8 form over a ``quant_kv`` arena, whose chunks
+    take the int8 prefill kernel), and one greedy pick per sub-step
+    (sampling kernel: k, or 2k + 1); plus each draft prefill's and each
+    draft prefill warm-up's ``d_layers`` full-prefill launches."""
+    decode = "paged_decode_attention" + ("_int8" if quant_kv else "")
+    want = want_launches(layers, ran, decode=decode, chunk=(
+        "paged_prefill_attention_int8" if quant_kv else None))
+    runs = ran.iters + ran.spec_builds
+    want[decode] += runs * (
+        (k + 1) * layers + k * d_layers if draft else k * layers)
+    want["paged_prefill_attention"] += d_layers * (ran.draft_prefills
+                                                   + ran.draft_builds)
+    want["sample_tokens"] += runs * (2 * k + 1 if draft else k)
+    return want
+
+
+def traced_window(sched, n, attention_per_step):
+    """``n`` scheduler steps under ``torch.profiler`` (and CUDA events
+    around every graph replay): per step, the host range, the device busy
+    time (the union of the kernels' intervals when the trace shows the
+    graphs' attention kernels, else the replays' event time) and the idle
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.tools.profile_decode import _ReplayTimer, _union_us
+
+    torch.cuda.synchronize()
+    with _ReplayTimer() as timer, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            with record_function("spec_window"):
+                sched.step()
+    events = prof.events()
+    ranges = [e.time_range for e in events
+              if e.name == "spec_window" and e.device_type == DeviceType.CPU]
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.name != "spec_window"]
+    window_us = sum(r.end - r.start for r in ranges)
+    if sum("decode" in e.name for e in kernels) >= attention_per_step * n:
+        method = "profiler intervals"
+        busy_us = _union_us((e.time_range.start, e.time_range.end)
+                            for e in kernels)
+    else:
+        method = "CUDA events around each replay"
+        busy_us = timer.ms() * 1e3
+    return dict(window_ms=window_us / n / 1e3, busy_ms=busy_us / n / 1e3,
+                busy_method=method, idle_share=1.0 - busy_us / window_us)
+
+
+def spec_serve(api, pa, so, prompts, news, what, card, trace=None):
+    """Serve ``prompts`` (launch counters at 0 just before, read just after)
+    by stepping the scheduler: the host clock of every full step (all
+    SPEC_SLOTS lanes decoding, nothing waiting) and the tokens it emitted;
+    with ``trace`` (attention launches per step) a profiler window of
+    SPEC_TRACED full steps after the third, outside those clocks. Every
+    request must finish with its budget, every block be free, the arena's
+    invariants hold. Returns the requests, the launches, what ran
+    (``spec_ran`` by SPEC_RAN) and the timing."""
+    from paddle_tpu_torch.serving import RequestState
+
+    eng, sched = api.engine, api.scheduler
+    before = spec_ran(eng)
+    pa.reset_launches()
+    so.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    step_s, step_tok, traced = [], [], None
+    while sched.has_work():
+        full = (not sched.waiting and not sched.prefilling
+                and eng.active_slots() == SPEC_SLOTS)
+        if full and trace and traced is None and len(step_s) >= 3:
+            traced = traced_window(sched, SPEC_TRACED, trace)
+            continue
+        n0 = sum(len(r.tokens) for r in reqs)
+        t1 = time.perf_counter()
+        sched.step()  # ends in a device-to-host copy of the tokens
+        if full:
+            step_s.append(time.perf_counter() - t1)
+            step_tok.append(sum(len(r.tokens) for r in reqs) - n0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa.launches) | dict(so.launches)
+    ran = types.SimpleNamespace(**dict(zip(
+        SPEC_RAN, (a - b for a, b in zip(spec_ran(eng), before)))))
+    for r, n in zip(reqs, news):
+        if r.state != RequestState.FINISHED or len(r.tokens) != n:
+            raise AssertionError(f"{what} {r.request_id}: {r.state} "
+                                 f"{len(r.tokens)}/{n} {r.error!r}")
+    eng.check_invariants()
+    if eng.arena.blocks_in_use() != 0:
+        raise AssertionError(f"{what}: blocks still in use")
+    timing = dict(wall_s=wall, full_steps=len(step_s))
+    if step_s:
+        timing.update(step_ms=float(np.median(step_s)) * 1e3,
+                      tokens_per_step=float(np.mean(step_tok)),
+                      tokens_per_s=float(sum(step_tok) / sum(step_s)))
+    if traced is not None:
+        timing["traced"] = traced
+        if step_s:
+            # the traced busy time over the untraced host step: the
+            # profiler's own cost inflates the traced window's host time
+            timing["untraced_idle_share"] = 1.0 - traced["busy_ms"] / \
+                timing["step_ms"]
+    print(f"e2e {what}: {len(reqs)} requests in {wall:.2f} s, ran "
+          f"{vars(ran)}, full steps: median {timing.get('step_ms', 0):.3f} ms"
+          f" host, {timing.get('tokens_per_step', 0):.2f} tokens/step, "
+          f"{timing.get('tokens_per_s', 0):.1f} tokens/s"
+          + (f", traced {traced}" if traced else "") + f" [{card}]")
+    return reqs, launches, ran, timing
+
+
+def hold_streams(reqs, want, what, card, ref="the spec-off engine's"):
+    """Every request's tokens must equal ``want`` (lists of tokens), the
+    streams of ``ref``."""
+    for i, (r, w) in enumerate(zip(reqs, want)):
+        got = list(r.tokens)
+        if got != list(w):
+            j = next((j for j, (a, b) in enumerate(zip(got, w)) if a != b),
+                     min(len(got), len(w)))
+            raise AssertionError(f"{what}: request {i} diverges from {ref} "
+                                 f"at token {j}: {got[:j + 2]} vs "
+                                 f"{list(w)[:j + 2]}")
+    print(f"e2e {what}: the streams of all {len(reqs)} requests equal "
+          f"{ref} [{card}]")
+
+
+SPEC_REPLAYED = 5  # the speculative run replayed again after wave 1
+
+
+def record_spec_run(eng):
+    """Wrap the engine's run helper to keep the values and outputs of the
+    SPEC_REPLAYED-th run of the speculative step, and the draft positions
+    and tables of the first and the last run (copies: the engine's arrays
+    move on). Returns the record and the unwrapped helper."""
+    run, seen, count = eng._run, {}, [0]
+
+    def recording(prog, *args, **values):
+        out = run(prog, *args, **values)
+        if prog.key == "spec":
+            count[0] += 1
+            lanes = {k: np.array(values[k], copy=True)
+                     for k in ("d_pos", "d_bt") if k in values}
+            seen.setdefault("first", lanes)
+            seen["last"] = lanes
+            if count[0] == SPEC_REPLAYED:
+                seen["values"] = {k: np.array(v, copy=True)
+                                  for k, v in values.items()}
+                seen["out"] = [np.array(o, copy=True) for o in out]
+        return out
+
+    eng._run = recording
+    return seen, run
+
+
+def hold_spec_replays(eng, seen, run, what, card):
+    """Replay the recorded speculative run twice on its own values once
+    its wave has ended (no block reused yet): each replay rewrites the
+    positions it reads past the context, so both must give the recorded
+    outputs bit for bit (the decode kernel's workspace and ticket counters
+    reused by every launch of the graph, cuBLAS's picks) in every lane
+    that run served. A lane it did not serve (a slot still prefilling in
+    chunks) reads blocks that later chunks wrote: its outputs, discarded
+    by the host, are not held."""
+    eng._run = run
+    prog = eng._graphs.programs["spec"]
+    live = seen["values"]["t_rows"][0] != 0  # block 0 is the scratch block
+    if not live.any():
+        raise AssertionError(f"{what}: speculative run {SPEC_REPLAYED} "
+                             "served no lane")
+    for i in range(2):
+        out = run(prog, None, "serving.spec_step", **seen["values"])
+        if not all(np.array_equal(np.asarray(a)[live], b[live])
+                   for a, b in zip(out, seen["out"])):
+            raise AssertionError(f"{what}: replay {i} of speculative run "
+                                 f"{SPEC_REPLAYED} differs from it")
+    print(f"e2e {what}: speculative run {SPEC_REPLAYED} ({int(live.sum())} "
+          f"lanes) replayed twice on its own values, both bit-equal to it "
+          f"[{card}]")
+
+
+def hold_draft_kernels(pa, eng, seen, what, card):
+    """The draft's own attention launches held against their plain
+    versions at the shapes the main path gave them (a wrong draft kernel
+    would only lower acceptance, which the streams cannot see): the decode
+    kernel over the draft namespace's pools -- its int8 form over a
+    ``quant_kv`` arena -- at every layer, each draft sub-step's positions
+    and the draft tables of the wave's first and last speculative runs
+    (``record_spec_run``; the pools still hold the wave's K/V), a fresh
+    bf16 query per launch; and the full prefill of the draft prefill
+    buckets (SPEC_PLEN and 2048 queries). TOL's bf16 bar, row bound
+    included; non-finite output fails it."""
+    pools = eng.arena.ns_pools("draft")
+    dec = "paged_decode_attention" + ("_int8" if len(pools[0]) == 4 else "")
+    _, bs, h, d = pools[0][0].shape
+    dt, rng = torch.bfloat16, np.random.default_rng(45)
+    got, positions = {dec: [], "paged_full_prefill_attention": []}, set()
+    for key in ("first", "last"):
+        bt = torch.as_tensor(seen[key]["d_bt"], device="cuda")
+        for pos in seen[key]["d_pos"]:
+            positions.update(int(p) for p in pos)
+            pos = torch.as_tensor(pos, device="cuda")
+            for entry in pools:
+                q = randn(rng, (bt.shape[0], h, d), dt)
+                got[dec].append(readings(
+                    pa.paged_decode_attention(q, entry, bt, pos),
+                    pa.paged_decode_attention_ref(q, entry, bt, pos),
+                    TOL[dt]))
+    for sq in (SPEC_PLEN, 2048):
+        q, k, v = qkv_split(rng, sq, h, d, dt)
+        out = pa.paged_full_prefill_attention(q, k, v, bs)
+        ref = pa.paged_full_prefill_attention_ref(q, k, v, bs)
+        if out.shape != ref.shape:
+            raise AssertionError(f"{what}: draft prefill shape "
+                                 f"{tuple(out.shape)} != {tuple(ref.shape)}")
+        got["paged_full_prefill_attention"].append(readings(out, ref,
+                                                            TOL[dt]))
+    for name, seen_r in got.items():
+        worst = max(seen_r, key=lambda r: r[1])
+        ok = all(r[3] for r in seen_r)
+        print(f"check {what}, the draft's {name} (H {h}, D {d}, "
+              + (f"S {bt.shape[0]}, positions {min(positions)}-"
+                 f"{max(positions)}" if name == dec else
+                 f"{SPEC_PLEN} and 2048 queries")
+              + f"): {len(seen_r)} launches, worst {worst[4]} "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            bad = [r[4] for r in seen_r if not r[3]]
+            raise AssertionError(f"{what}: the draft's {name} disagrees with "
+                                 f"its plain version: {bad[:3]}")
+
+
+def build_bytes(eng, key):
+    """Wrap the engine's run helper: at the run that builds program
+    ``key`` (its warm-up and capture), the peak bytes allocated above what
+    was allocated before it -- the step's own working set, which its graph
+    takes from the shared pool, whether or not an earlier capture left
+    room there. Returns the dict it fills under ``key``."""
+    run, got = eng._run, {}
+
+    def measuring(prog, *args, **values):
+        if prog.key != key or prog.built:
+            return run(prog, *args, **values)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = run(prog, *args, **values)
+        torch.cuda.synchronize()
+        got[key] = torch.cuda.max_memory_allocated() - before
+        return out
+
+    eng._run = measuring
+    return got
+
+
+def spec_engine(model, serving, draft=None, **kw):
+    return serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=SPEC_SLOTS, spec_k=SPEC_K, draft_model=draft, **kw),
+        device="cuda")
+
+
+def spec_mode(model, serving, pa, so, waves, base, name, draft, card,
+              quant=False, d_layers=0, quant_kv=False):
+    """One speculative mode on ``waves`` (wave 1; with ``draft`` of
+    gpt_base width also wave 2 and the faults, and without ``quant_kv`` the
+    edge request): streams equal to the spec-off engine's (``base``; with
+    ``quant_kv`` the int8 arena's, both prefilling in chunks of CHUNK),
+    exact launches, the draft's own kernels held to their plain versions
+    (``hold_draft_kernels``), one speculative graph and one draft prefill
+    graph per bucket, each built once, and nothing built by wave 2.
+    Returns the timing, the launches and the memory readings."""
+    from paddle_tpu_torch.core import compile_cache, memory_stats
+
+    layers = model.cfg.num_layers
+    kv = dict(quant_kv=True, chunked_prefill=CHUNK) if quant_kv else {}
+    api = spec_engine(model, serving, draft, quant_draft=quant, **kv)
+    eng = api.engine
+    sp = eng.spec
+    attn = (SPEC_K + 1) * layers + SPEC_K * d_layers if draft else \
+        SPEC_K * layers
+    what = f"bf16 spec {name}"
+    built_bytes = build_bytes(eng, "spec")
+    seen, run = record_spec_run(eng)
+    reqs, launches, ran, timing = spec_serve(api, pa, so, *waves["w1"], what,
+                                             card, trace=attn)
+    hold_streams(reqs, base["kv8" if quant_kv else "w1"], what, card)
+    hold_launches(launches, want_spec_launches(layers, d_layers, SPEC_K, ran,
+                                               draft is not None, quant_kv),
+                  f"{what} (decode {attn} a speculative replay)")
+    drafting = draft is not None and name != "tied draft"
+    if drafting:
+        hold_draft_kernels(pa, eng, seen, what, card)
+    hold_spec_replays(eng, seen, run, what, card)
+    out = dict(timing, acceptance=sp.acceptance_rate(),
+               iterations=ran.iters, spec_build_bytes=built_bytes["spec"],
+               pool_bytes=eng.stats()["programs.pool_bytes"],
+               launches=launches, mode=sp.mode())
+    if drafting:
+        line = [ln for ln in memory_stats.memory_summary().splitlines()
+                if "kv_arena_draft_bytes" in ln]
+        print(f"memory_summary, {what}: {line[0].strip()} [{card}]")
+        out["draft_line"] = line[0].strip()
+    if name == "draft":
+        built = (sp.spec_traces, dict(sp.draft_prefill_traces),
+                 dict(eng.prefill_traces), eng.decode_traces,
+                 eng.stats()["programs.graphs"], decode_compiles())
+        reqs, launches, ran, _ = spec_serve(api, pa, so, *waves["w2"],
+                                            what + ", wave 2", card)
+        hold_streams(reqs, base["w2"], what + ", wave 2", card)
+        hold_launches(launches, want_spec_launches(
+            layers, d_layers, SPEC_K, ran, True), what + ", wave 2")
+        now = (sp.spec_traces, dict(sp.draft_prefill_traces),
+               dict(eng.prefill_traces), eng.decode_traces,
+               eng.stats()["programs.graphs"], decode_compiles())
+        bucket = compile_cache.prefill_bucket(
+            SPEC_PLEN, eng.max_model_len, eng.prefill_bucket_min)
+        if now != built or built[0] != 1 or built[1] != {bucket: 1}:
+            raise AssertionError(f"{what}: builds before wave 2 {built}, "
+                                 f"after {now}")
+        print(f"programs {what}: one speculative graph, draft prefill "
+              f"builds {built[1]}, prefill builds {built[2]}, decode builds "
+              f"{built[3]}, {built[4]} CUDA graphs; wave 2 built nothing "
+              f"[{card}]")
+    if (draft is None or drafting) and not quant_kv:
+        reqs, launches, ran, _ = spec_serve(api, pa, so, *waves["edge"],
+                                            what + ", edge", card)
+        hold_streams(reqs, base["edge"], what + ", edge (budget ends at "
+                     "max_model_len 2048)", card)
+        hold_launches(launches, want_spec_launches(
+            layers, d_layers, SPEC_K, ran, draft is not None), what + ", edge")
+    api.close()
+    return out
+
+
+def spec_faults(api, wave, want, what, card):
+    """On a draft engine: a ``serving_device`` fault at a speculative
+    step's run (all 8 running), recovered by rebuild and replay (each replay
+    prefills its draft cache again): the streams equal ``want``, one
+    rebuild, the pools (both namespaces) in place, the speculative step not
+    built again. Then two ``serving_step`` faults (OSError) at a
+    speculative run, retried inside it: no rebuild, the streams equal. In
+    f32: a replay prefills the journal, and in bf16 the prefill's K/V are
+    not bit for bit the decode steps' (so a bf16 replay may part from the
+    uninterrupted stream, with or without speculation)."""
+    from paddle_tpu_torch.core import flags, resilience
+    from paddle_tpu_torch.serving import RequestState
+
+    eng, sched = api.engine, api.scheduler
+    keep = flags.get_flags(["fault_injection", "io_retry_backoff"])
+    flags.set_flags({"fault_injection": 1, "io_retry_backoff": 0.001})
+    ptrs = lambda: [t.data_ptr() for pools in (  # noqa: E731
+        eng.arena.pools, eng.arena.ns_pools("draft")) for e in pools
+        for t in e]
+    out = {}
+    try:
+        p0, spec0 = ptrs(), eng.spec.spec_traces
+        rb0 = resilience.stats().get("serving.rebuilds", 0)
+        reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(*wave)]
+        for _ in range(3):
+            sched.step()
+        if not all(r.state == RequestState.RUNNING for r in reqs):
+            raise AssertionError(f"{what}: not all 8 running at the fault")
+        resilience.inject_fault("serving_device", times=1)
+        t0 = time.perf_counter()
+        api.run_until_idle()
+        out["device_fault_s"] = time.perf_counter() - t0
+        hold_streams(reqs, want, what + ", serving_device fault mid-verify",
+                     card, "generate()'s")
+        rb = resilience.stats().get("serving.rebuilds", 0) - rb0
+        if rb != 1 or ptrs() != p0 or eng.spec.spec_traces != spec0:
+            raise AssertionError(f"{what}: {rb} rebuilds, pools moved "
+                                 f"{ptrs() != p0}, spec builds "
+                                 f"{eng.spec.spec_traces}")
+        r0 = resilience.stats().get("retry.serving.spec_step", 0)
+        reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(*wave)]
+        for _ in range(2):
+            sched.step()
+        resilience.inject_fault("serving_step", times=2,
+                                exc=OSError("injected serving_step fault"))
+        api.run_until_idle()
+        hold_streams(reqs, want, what + ", serving_step fault retried", card,
+                     "generate()'s")
+        retried = resilience.stats().get("retry.serving.spec_step", 0) - r0
+        rb = resilience.stats().get("serving.rebuilds", 0) - rb0
+        if retried != 2 or rb != 1:
+            raise AssertionError(f"{what}: {retried} retries, {rb} rebuilds "
+                                 "(want 2 and still 1)")
+        print(f"e2e {what}: serving_device fault mid-verify recovered "
+              f"(1 rebuild, pools in place, the speculative graph kept) in "
+              f"{out['device_fault_s']:.2f} s; serving_step fault retried "
+              f"twice, no rebuild [{card}]")
+    finally:
+        flags.set_flags(keep)
+        resilience.clear_faults()
+    return out
+
+
+def spec_f32(gpt, serving, pa, so, arrays, card):
+    """Phase 13's f32 wave (TF32 off) at a cut depth: gpt_1p3b's width at
+    SPEC_F32[0] layers, lockstep and a gpt_base-width draft of SPEC_F32[1]
+    layers, every stream equal to ``generate()``, the launches exact; then
+    the faults on the draft engine (``spec_faults``). Returns what they
+    measured."""
+    layers, d_layers = SPEC_F32
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=layers)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    names = dict(model.named_parameters())
+    gpt.load_functional_state(model, {n: a for n, a in arrays.items()
+                                      if n in names})
+    draft = spec_draft(gpt, torch.float32, 3, d_layers)
+    rng = np.random.default_rng(41)
+    lens, news = SPEC_F32_LENS
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    want = [model.generate(p[None], max_new_tokens=n)[0, len(p):].tolist()
+            for p, n in zip(prompts, news)]
+    for name, d in (("lockstep", None), ("draft", draft)):
+        api = spec_engine(model, serving, d)
+        what = f"f32 spec {name} ({layers} layers)"
+        reqs, launches, ran, _ = spec_serve(api, pa, so, prompts, news, what,
+                                            card)
+        hold_launches(launches, want_spec_launches(
+            layers, d_layers if d is not None else 0, SPEC_K, ran,
+            d is not None), what)
+        hold_streams(reqs, want, what, card, "generate()'s")
+        if d is not None:
+            faults = spec_faults(api, (prompts, news), want, what, card)
+        api.close()
+    del model, draft
+    torch.cuda.empty_cache()
+    return faults
+
+
+def serve_spec(gpt, serving, pa, so, arrays, card):
+    """Phase 13: speculative decoding on bf16 gpt_1p3b (8 slots, prompts of
+    512, k 4): a spec-off engine's streams and decode step first, then
+    lockstep, a gpt_base-width draft (with wave 2, the max_model_len edge
+    and the faults), the same draft with ``quant_draft``, and a tied draft
+    (the target itself: acceptance 1), each held to the spec-off streams
+    with exact launches; then the f32 wave against ``generate()``. Prints
+    each mode's host and traced-busy times beside the plain decode step's,
+    tokens/s, acceptance, the speculative graph's pool bytes beside the
+    decode graph's and ``memory_summary()``'s draft line. Returns the
+    draft mode's launches and the times."""
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    model.to(torch.bfloat16)
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    rng = np.random.default_rng(40)
+    waves = {"w1": ([rng.integers(0, vocab, SPEC_PLEN)
+                     for _ in SPEC_NEWS], SPEC_NEWS),
+             "w2": ([rng.integers(0, vocab, n) for n in SPEC_WAVE2[0]],
+                    SPEC_WAVE2[1]),
+             "edge": ([rng.integers(0, vocab, SPEC_EDGE[0])],
+                      [SPEC_EDGE[1]])}
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=SPEC_SLOTS), device="cuda")
+    built_bytes = build_bytes(api.engine, "decode")
+    base, times = {}, {}
+    for key, (prompts, news) in waves.items():
+        reqs, launches, ran, timing = spec_serve(
+            api, pa, so, prompts, news, f"bf16 spec off, {key}", card,
+            trace=layers if key == "w1" else None)
+        hold_launches(launches, want_launches(layers, ran),
+                      f"bf16 spec off, {key}")
+        base[key] = [list(r.tokens) for r in reqs]
+        if key == "w1":
+            times["spec off"] = dict(
+                timing, decode_build_bytes=built_bytes["decode"],
+                pool_bytes=api.engine.stats()["programs.pool_bytes"])
+    api.close()
+    # the int8 arena's spec-off streams, prefilled in chunks
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=SPEC_SLOTS, quant_kv=True, chunked_prefill=CHUNK),
+        device="cuda")
+    reqs, launches, ran, _ = spec_serve(api, pa, so, *waves["w1"],
+                                        "bf16 spec off, quant_kv", card)
+    hold_launches(launches, want_launches(
+        layers, ran, decode="paged_decode_attention_int8",
+        chunk="paged_prefill_attention_int8"), "bf16 spec off, quant_kv")
+    base["kv8"] = [list(r.tokens) for r in reqs]
+    api.close()
+    torch.cuda.empty_cache()
+    draft = spec_draft(gpt, torch.bfloat16, 1)
+    d_layers = draft.cfg.num_layers
+    times["lockstep"] = spec_mode(model, serving, pa, so, waves, base,
+                                  "lockstep", None, card)
+    times["draft"] = spec_mode(model, serving, pa, so, waves, base, "draft",
+                               draft, card, d_layers=d_layers)
+    times["draft, quant_kv"] = spec_mode(
+        model, serving, pa, so, waves, base, "draft, quant_kv", draft, card,
+        d_layers=d_layers, quant_kv=True)
+    del draft
+    torch.cuda.empty_cache()
+    times["draft-int8"] = spec_mode(
+        model, serving, pa, so, waves, base, "draft-int8",
+        spec_draft(gpt, torch.bfloat16, 1), card, quant=True,
+        d_layers=d_layers)
+    torch.cuda.empty_cache()
+    times["tied draft"] = spec_mode(model, serving, pa, so, waves, base,
+                                    "tied draft", model, card,
+                                    d_layers=layers)
+    if times["tied draft"]["acceptance"] != 1.0:
+        raise AssertionError(f"tied draft acceptance "
+                             f"{times['tied draft']['acceptance']}")
+    del model
+    torch.cuda.empty_cache()
+    off = times["spec off"]
+    for name, t in times.items():
+        tr = t["traced"]
+        acc = t.get("acceptance")
+        print(f"bf16 spec {name}: full step {t['step_ms']:.3f} ms host "
+              f"({t['step_ms'] / off['step_ms']:.3f} x the plain decode "
+              f"step), traced busy {tr['busy_ms']:.3f} ms "
+              f"({tr['busy_method']}; plain {off['traced']['busy_ms']:.3f} "
+              f"ms), idle share {t['untraced_idle_share']:.3f} of the "
+              f"untraced step ({tr['idle_share']:.3f} traced), "
+              f"{t['tokens_per_step']:.2f} tokens/step, "
+              f"{t['tokens_per_s']:.1f} tokens/s ("
+              f"{t['tokens_per_s'] / off['tokens_per_s']:.3f} x), acceptance "
+              + ("n/a" if acc is None else f"{acc:.4f}") + ", the engine's "
+              f"graph pool {t['pool_bytes']} bytes (spec off "
+              f"{off['pool_bytes']}); its step's build peaked "
+              f"{t.get('spec_build_bytes', t.get('decode_build_bytes'))} "
+              f"bytes above what was allocated before it (the decode "
+              f"step's {off['decode_build_bytes']}) [{card}]")
+    faults = spec_f32(gpt, serving, pa, so, arrays, card)
+    summary = {name: {k: v for k, v in t.items() if k != "launches"}
+               for name, t in times.items()}
+    summary["f32 faults"] = faults
+    print("bf16 speculative decoding, one call: " + json.dumps(summary)
+          + f" [{card}]")
+    # the int8 rows' speculative launches are the quant_kv draft wave's
+    launches = dict(times["draft"]["launches"])
+    for name in PAGED[2:]:
+        launches[name] = times["draft, quant_kv"]["launches"][name]
+    return launches, summary
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -4155,6 +4777,7 @@ def main() -> int:
     timing = t("6", serve_bf16, model, pa, serving, card)
     del model
     torch.cuda.empty_cache()
+    spec_launches, _ = t("13", serve_spec, gpt, serving, pa, so, arrays, card)
 
     t("7", flash_checks, fa)
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
@@ -4223,6 +4846,8 @@ def main() -> int:
                     **({"launches_prefix": prefix_launches[name],
                         "launches_recovery": recovery_launches[name]}
                        if name in PAGED[:2] + SAMPLING else {}),
+                    **({"launches_spec": spec_launches[name]}
+                       if name in PAGED + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),
                                   ("flash_attention", FLASH),

@@ -11,6 +11,7 @@ raises when CUDA is missing and runs on the CPU only when asked
 PyTorch versions.
 """
 
+from . import device, inference
 from .framework.io import load, save
 
-__all__ = ["save", "load"]
+__all__ = ["save", "load", "device", "inference"]

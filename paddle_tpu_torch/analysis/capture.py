@@ -60,6 +60,12 @@ CAPTURED = (
     "paddle_tpu_torch/models/gpt.py:GPTMLP.forward",
     "paddle_tpu_torch/models/gpt.py:_serving_linear",
     "paddle_tpu_torch/models/gpt.py:GPTForCausalLM._head_logits",
+    "paddle_tpu_torch/models/gpt.py:GPTForCausalLM.verify_logits",
+    # the speculative step and the draft prefill (also found as the steps
+    # handed to StepGraphs.program)
+    "paddle_tpu_torch/serving/spec_decode.py:SpecDecoder._draft_fn",
+    "paddle_tpu_torch/serving/spec_decode.py:SpecDecoder._lockstep_fn",
+    "paddle_tpu_torch/serving/spec_decode.py:SpecDecoder._draft_prefill_fn",
     "paddle_tpu_torch/ops/paged_attention.py:paged_decode_attention",
     "paddle_tpu_torch/ops/paged_attention.py:paged_prefill_attention",
     "paddle_tpu_torch/ops/paged_attention.py:paged_full_prefill_attention",

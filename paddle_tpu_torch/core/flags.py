@@ -89,6 +89,16 @@ define_flag("serving_quant_kv", 0)
 # Chunked prefill: a prompt longer than this many tokens is prefilled one
 # chunk per scheduler step through the slot's block table (0 = off).
 define_flag("serving_chunked_prefill", 0)
+# Speculative decoding: tokens proposed per decode iteration (0 = off). With
+# ServingConfig.draft_model the draft proposes k tokens from its own arena
+# namespace and the target verifies them in one captured step; without one
+# the engine self-drafts (lockstep: k target sub-steps per step). Greedy
+# streams stay those of plain decode, token for token.
+define_flag("serving_spec_k", 0)
+# Quantize the speculative draft model's attention and MLP weights to int8
+# (models.gpt.quantize_serving_weights on ServingConfig.draft_model). Moves
+# acceptance only, never the emitted tokens; no effect without a draft.
+define_flag("serving_quant_draft", False)
 # Queue-overload shedding: submit() raises QueueOverloadError when this many
 # requests are already waiting (0 = unlimited).
 define_flag("serving_max_queue", 0)

@@ -317,12 +317,14 @@ _env_faults_loaded = False
 
 #: kinds with probes in the port; inject_fault takes other kinds too, for
 #: tests that place maybe_fault probes in their own code
-KNOWN_FAULTS = ("ckpt_io", "nonfinite_grads", "preempt", "serving_device",
-                "arena_corrupt")
+KNOWN_FAULTS = ("ckpt_io", "nonfinite_grads", "preempt", "serving_step",
+                "serving_device", "arena_corrupt")
 
 #: kinds whose probe sites are bare statements (they only react to an
 #: exception): inject_fault defaults their exc to the error the real
-#: failure would raise, so a flag-kind fault cannot exercise nothing
+#: failure would raise, so a flag-kind fault cannot exercise nothing.
+#: ``serving_step`` has none: its caller picks the exception, typically an
+#: IO-class one that the serving engine's retry policy retries
 _DEFAULT_FAULT_EXC = {
     "ckpt_io": lambda k: OSError(f"injected {k} fault"),
     "serving_device": lambda k: ServingDeviceError(f"injected {k} fault"),

@@ -1,13 +1,115 @@
-"""Inference predictor surface (counterpart of ``paddle_tpu/inference``),
-so far only the tensor handle that ``serving.api.EnginePredictor`` hands out
-(``paddle_tpu/inference/__init__.py:110 PredictorTensor``). ``Config``,
-``Config.enable_serving_engine()`` and ``create_predictor`` come with the
-rest of the inference module."""
+"""Inference predictor surface (counterpart of ``paddle_tpu/inference``):
+``Config``, ``create_predictor`` and the tensor handle.
+
+``Config(model_path)`` keeps the reference's path conventions (a
+``.pdmodel`` / ``.pdiparams`` / ``.pdparams`` file or its prefix, or a
+directory holding exactly one ``.pdmodel``) and its knobs: ``enable_use_gpu``
+picks the CUDA device, ``enable_serving_engine`` routes the predictor
+through the continuous-batching engine, and the rest are accepted no-ops.
+The requested placement is logged once per (requested, actual) pair and
+maps to a torch device: ``"cuda:<device_id>"`` after ``enable_use_gpu``,
+else the port's default device (``"cuda"``); an ``enable_serving_engine``
+``device=`` argument overrides both (``"cpu"`` runs the plain versions of
+the kernels, for tests).
+
+``create_predictor(config)`` after ``config.enable_serving_engine(model=
+...)`` returns :class:`paddle_tpu_torch.serving.EnginePredictor`. The
+exported-program route (the JAX ``Predictor`` over ``jit.load`` of a
+``.pdmodel``) needs ``jit.save`` / ``jit.load``, which the port does not
+have yet: it raises ``NotImplementedError``.
+"""
 from __future__ import annotations
+
+import logging
+import os
+from typing import Optional
 
 import numpy as np
 
-__all__ = ["PredictorTensor"]
+from ..core import device as device_mod
+
+__all__ = ["Config", "PredictorTensor", "create_predictor"]
+
+_logger = logging.getLogger("paddle_tpu_torch.inference")
+_logged_placements: set = set()
+
+
+def _log_once(key: str, msg: str) -> None:
+    if key not in _logged_placements:
+        _logged_placements.add(key)
+        _logger.warning(msg)
+
+
+class Config:
+    """A predictor's configuration (``paddle_tpu/inference/__init__.py:30``).
+    ``model_prefix`` is the path prefix without its suffix."""
+
+    def __init__(self, model_path: Optional[str] = None,
+                 params_path: Optional[str] = None):
+        prefix = model_path or ""
+        if prefix and os.path.isdir(prefix):
+            pdmodels = sorted(n for n in os.listdir(prefix)
+                              if n.endswith(".pdmodel"))
+            if len(pdmodels) != 1:
+                raise ValueError(
+                    f"Config(dir) needs exactly one .pdmodel in {prefix!r}; "
+                    f"found {pdmodels or 'none'}")
+            prefix = os.path.join(prefix, pdmodels[0])
+        for suffix in (".pdmodel", ".pdiparams", ".pdparams"):
+            if prefix.endswith(suffix):
+                prefix = prefix[: -len(suffix)]
+        self.model_prefix = prefix
+        self._mem_optim = True
+        self._device = None
+        self._serving: Optional[dict] = None
+
+    def enable_use_gpu(self, memory_pool_init_size_mb=100, device_id=0):
+        """Run on CUDA device ``device_id`` (the pool size is the caching
+        allocator's business and is ignored)."""
+        self._device = ("gpu", int(device_id))
+
+    def _resolve_placement(self) -> str:
+        """The torch device the predictor runs on, logged once per
+        (requested, actual) pair."""
+        serving = self._serving or {}
+        if serving.get("engine_kw", {}).get("device") is not None:
+            actual = str(serving["engine_kw"]["device"])
+        elif self._device is not None:
+            actual = f"cuda:{self._device[1]}"
+        else:
+            actual = device_mod.DEFAULT_DEVICE
+        if self._device is None:
+            return actual
+        want, dev_id = self._device
+        _log_once(f"{want}:{dev_id}:{actual}",
+                  f"inference placement: {want}:{dev_id} requested, running "
+                  f"on {actual}")
+        return actual
+
+    def enable_serving_engine(self, model=None, max_new_tokens: int = 32,
+                              stop_token_id: Optional[int] = None,
+                              **engine_kw) -> None:
+        """Route this config's predictor through the continuous-batching
+        engine. ``model`` is an in-memory ``GPTForCausalLM`` (the slot
+        engine drives its decode step, which an exported program cannot
+        give); ``engine_kw`` goes to ``EnginePredictor`` (``config=`` a
+        ``ServingConfig``, ``priority``, ``sampling``, ``device``,
+        ``max_queue``)."""
+        self._serving = dict(model=model, max_new_tokens=max_new_tokens,
+                             stop_token_id=stop_token_id,
+                             engine_kw=engine_kw)
+
+    def enable_memory_optim(self, flag=True):
+        self._mem_optim = flag
+
+    def disable_glog_info(self):
+        pass
+
+    def switch_ir_optim(self, flag=True):
+        pass  # nothing is compiled ahead of time
+
+    def set_cpu_math_library_num_threads(self, n):
+        pass
 
 
 class PredictorTensor:
@@ -30,3 +132,29 @@ class PredictorTensor:
         if src is None:
             src = self._owner._outputs.get(self._name)
         return list(np.asarray(src).shape)
+
+
+def create_predictor(config: Config):
+    """The predictor of ``config``: after ``enable_serving_engine`` an
+    ``EnginePredictor`` over the slot engine, on the device
+    ``config`` resolves. Without it the exported-program route, which
+    raises ``NotImplementedError``: the port has no ``jit.load``."""
+    opts = config._serving
+    if opts is None:
+        raise NotImplementedError(
+            "create_predictor without enable_serving_engine() loads an "
+            f"exported program ({config.model_prefix or '<no path>'}"
+            ".pdmodel) through jit.load, which paddle_tpu_torch does not "
+            "have yet; call config.enable_serving_engine(model=...)")
+    if opts.get("model") is None:
+        raise ValueError(
+            "enable_serving_engine() needs an in-memory GPT model (pass "
+            "model=...); an exported .pdmodel program cannot be driven "
+            "per slot")
+    kw = dict(opts["engine_kw"])
+    kw["device"] = config._resolve_placement()
+    from ..serving import EnginePredictor
+
+    return EnginePredictor(opts["model"],
+                           max_new_tokens=opts["max_new_tokens"],
+                           stop_token_id=opts["stop_token_id"], **kw)

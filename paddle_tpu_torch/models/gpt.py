@@ -414,6 +414,18 @@ class GPTForCausalLM(nn.Module):
             return self.lm_head(h_last)
         return torch.matmul(h_last, self.gpt.wte.weight.t())
 
+    def verify_logits(self, h_seq):
+        """Verify-k head (``paddle_tpu/models/gpt.py:621``): next-token
+        logits ``[b, s, vocab]`` of ``s`` hidden states ``[b, s, hidden]``,
+        the head of the serving engine's speculative verify step. Never one
+        ``[b*s, hidden]`` product: each position goes through
+        :meth:`_head_logits` as a dense ``[b, hidden]`` operand, the shape
+        and layout the decode step hands it, so that the product picks the
+        same kernel and verifying k proposals gives the logits of k decode
+        steps bit for bit. ``s`` is the engine's static ``k + 1``."""
+        return torch.stack([self._head_logits(h_seq[:, j].contiguous())
+                            for j in range(h_seq.shape[1])], dim=1)
+
     def generate(self, input_ids, max_new_tokens: int = 32,
                  do_sample: bool = False, temperature: float = 1.0,
                  top_k: int = 0, top_p: float = 1.0, eos_token_id: int = -1,

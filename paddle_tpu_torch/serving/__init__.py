@@ -4,7 +4,9 @@ scheduling with deadlines, shedding and preemption with journal resume,
 chunked prefill, the radix prefix cache with copy-on-write, int8 weights
 and an int8 arena on request, ``ServingAPI`` with its background pump,
 drain and preemption guard, supervisor rebuild-and-replay recovery,
-request telemetry, and ``EnginePredictor``."""
+request telemetry, ``EnginePredictor``, and speculative decoding
+(``SpecDecoder``: a draft model's or the target's own lockstep proposals
+verified by the target in one captured step)."""
 from . import metrics, telemetry
 from ..core.resilience import (ArenaCorruptError, Deadline,
                                DeadlineExceededError, PreemptionGuard,
@@ -18,6 +20,7 @@ from .kv_arena import (ArenaExhaustedError, KVArena,
 from .prefix_cache import PrefixCache, PrefixNode
 from .sampling import SamplingParams
 from .scheduler import Request, RequestState, Scheduler
+from .spec_decode import SpecDecoder
 from .supervisor import (CrashLoopError, EngineSupervisor,
                          is_transient_serving_error)
 
@@ -29,4 +32,5 @@ __all__ = ["ServingAPI", "ServingConfig", "ServingEngine", "SamplingParams",
            "RequestDrainedError", "ServingDeviceError", "ArenaCorruptError",
            "PreemptionGuard", "EnginePredictor", "drain_all",
            "EngineSupervisor", "CrashLoopError",
-           "is_transient_serving_error", "metrics", "telemetry"]
+           "is_transient_serving_error", "SpecDecoder", "metrics",
+           "telemetry"]

@@ -544,9 +544,11 @@ class EnginePredictor:
     def close(self) -> None:
         """Close the API (a drain with zero grace) and log this predictor's
         lifetime summary from its own engine stack: supervisor replays and
-        rebuilds, preemptions, drains, the prefix hit rate, the quantized
-        arena's bytes, sampled and constrained admissions, and the TTFT and
-        inter-token percentiles of the engine's histograms."""
+        rebuilds, preemptions, drains, the prefix hit rate, speculation
+        (proposed, accepted, acceptance, emitted, mode and k), the
+        quantized arena's bytes per namespace, sampled and constrained
+        admissions, and the TTFT and inter-token percentiles of the
+        engine's histograms."""
         api = self._api
         api.close()
         engine = api.engine
@@ -558,8 +560,17 @@ class EnginePredictor:
                           100.0 * cache.hits / (cache.hits + cache.misses),
                           cache.hits, cache.hits + cache.misses,
                           cache.hit_tokens)
+        spec = engine.spec
+        speculation = ""
+        if spec is not None and spec.proposed:
+            speculation = (", speculation %d proposed / %d accepted "
+                           "(%.0f%% acceptance, %d emitted, %s k=%d)") % (
+                               spec.proposed, spec.accepted,
+                               100.0 * spec.acceptance_rate(), spec.emitted,
+                               spec.mode(), spec.k)
         quant = ""
-        if engine.quant_weights or engine.quant_kv:
+        if engine.quant_weights or engine.quant_kv or engine.quant_draft:
+            # per arena namespace, the draft's included
             by_ns = engine.arena.bytes_by_namespace()
             arena_desc = " + ".join(
                 "%s %s %.2f MiB%s" % (
@@ -567,8 +578,9 @@ class EnginePredictor:
                     (" (%.2f MiB scales)" % (d["scale_bytes"] / 2 ** 20)
                      if d["scale_bytes"] else ""))
                 for name, d in by_ns.items())
-            quant = ", quantized serving [weights=%d kv=%d]: %s" % (
-                int(engine.quant_weights), int(engine.quant_kv), arena_desc)
+            quant = ", quantized serving [weights=%d kv=%d draft=%d]: %s" % (
+                int(engine.quant_weights), int(engine.quant_kv),
+                int(engine.quant_draft), arena_desc)
         scenario = ""
         if engine.sampled_admits or engine.constrained_admits:
             scenario = ", scenarios: %d sampled / %d constrained admits" % (
@@ -587,8 +599,8 @@ class EnginePredictor:
         _logger.info(
             "EnginePredictor closed: %d finished, %d failed, "
             "%d supervisor replays (%d rebuilds), %d preemptions, "
-            "%d drains%s%s%s%s",
+            "%d drains%s%s%s%s%s",
             self._finished, self._failed,
             api.supervisor.replay_count, api.supervisor.rebuild_count,
-            api.scheduler.preempt_count, api.drain_count, prefix, quant,
-            scenario, latency)
+            api.scheduler.preempt_count, api.drain_count, prefix,
+            speculation, quant, scenario, latency)

@@ -85,8 +85,26 @@ through one host-side helper (:meth:`ServingEngine._run`, the counterpart
 of ``paddle_tpu/serving/engine.py:1188 _call``) that probes the
 ``serving_device`` and ``arena_corrupt`` faults before the run and times
 the run and its read into ``self.hists`` (``latency.prefill``,
-``latency.decode_step``), outside any captured function. Speculation, LoRA
-and tiering are later slices.
+``latency.decode_step``), outside any captured function. The probes --
+``serving_step`` beside those two -- and the run go through
+``resilience.call_with_retry`` under ``ServingConfig.retry_policy`` (the
+IO-class ``resilience.io_policy()`` by default), as the JAX ``_call`` does:
+the port donates nothing, its runs write the pools in place, and every
+probe fires on the host before the run, so a retried attempt has written
+nothing. A CUDA runtime error is none of the retried classes and stays
+fatal (sticky: ``supervisor.is_transient_serving_error``).
+
+Speculative decoding (``ServingConfig.spec_k`` / ``FLAGS_serving_spec_k``,
+off by default; :mod:`.spec_decode`) is the sidecar :class:`SpecDecoder`:
+with a ``draft_model`` the arena gains a ``"draft"`` namespace (the default
+arena doubles, and every admission reserves a second table's worst case),
+each admission prefills the draft too, and :meth:`ServingEngine.
+spec_decode_step` replaces the decode step: up to k tokens per slot from
+one run of the captured speculative step, every one the token plain decode
+would emit. Sampled and constrained slots (:meth:`ServingEngine.
+spec_ineligible`, sticky per request) fall back to the decode step over
+their own lanes (``decode_step(active=)``). LoRA and tiering are later
+slices.
 """
 from __future__ import annotations
 
@@ -215,7 +233,13 @@ class ServingConfig:
     the model in place), ``quant_kv`` -> ``FLAGS_serving_quant_kv`` (int8
     KV arena), ``chunked_prefill`` -> ``FLAGS_serving_chunked_prefill``
     (chunk size in tokens, 0 = off), ``prefix_cache`` ->
-    ``FLAGS_serving_prefix_cache`` (the radix prefix cache)."""
+    ``FLAGS_serving_prefix_cache`` (the radix prefix cache), ``spec_k`` ->
+    ``FLAGS_serving_spec_k`` (tokens proposed per speculative iteration, 0
+    = off; ``draft_model`` a GPT of the target's vocabulary on the same
+    device, else the target drafts for itself), ``quant_draft`` ->
+    ``FLAGS_serving_quant_draft`` (int8 weights for the draft, quantized in
+    place), ``retry_policy`` -> ``resilience.io_policy()`` (the policy a
+    step program's run is retried under)."""
 
     num_slots: int = 0
     kv_block_size: int = 0
@@ -226,6 +250,10 @@ class ServingConfig:
     quant_kv: Optional[bool] = None
     chunked_prefill: Optional[int] = None
     prefix_cache: Optional[bool] = None
+    spec_k: Optional[int] = None
+    draft_model: Optional[object] = None
+    quant_draft: Optional[bool] = None
+    retry_policy: Optional[resilience.RetryPolicy] = None
 
 
 @dataclass
@@ -250,6 +278,7 @@ class _AdmitState:
     cow: bool = False
     prefix_len: int = 0
     done: int = 0  # context positions already scattered (chunk progress)
+    skip_draft: bool = False  # spec-ineligible: no draft blocks or prefill
 
 
 class ServingEngine:
@@ -288,8 +317,18 @@ class ServingEngine:
             raise ValueError("max_model_len exceeds the model's "
                              "max_position_embeddings")
         self.blocks_per_slot = _ceil_div(self.max_model_len, self.block_size)
+        spec_k = int(mode(cfg.spec_k, "serving_spec_k"))
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.quant_draft = bool(mode(cfg.quant_draft, "serving_quant_draft"))
+        # a draft doubles the default arena: every slot carries a second
+        # (draft-namespace) table of the same worst case
+        draft_on = spec_k > 0 and cfg.draft_model is not None
         num_blocks = int(cfg.num_blocks
-                         or self.num_slots * self.blocks_per_slot + 1)
+                         or self.num_slots * self.blocks_per_slot
+                         * (2 if draft_on else 1) + 1)
+        self._retry = (cfg.retry_policy if cfg.retry_policy is not None
+                       else resilience.io_policy())
         self.prefill_bucket_min = int(
             cfg.prefill_bucket_min or flags.flag("serving_prefill_bucket_min"))
         if self.quant_weights:
@@ -311,6 +350,10 @@ class ServingEngine:
         self._last_tok = np.zeros(s, np.int64)
         self._active = np.zeros(s, np.bool_)
         self._occupied = np.zeros(s, np.bool_)
+        # each slot's context cap (prompt + max_new): the bound speculation
+        # depth keeps within, so that neither the reservation nor the
+        # model's positions are overrun
+        self._slot_limit = np.zeros(s, np.int32)
         self._slot_res: List[Optional[Reservation]] = [None] * s
         # blocks attached by reference from the prefix cache: dereferenced
         # at retire, not owned by the reservation
@@ -329,6 +372,10 @@ class ServingEngine:
         self._seed = self._samp[3]
         self._top_p[:] = 1.0
         self._constrained = np.zeros(s, np.bool_)  # mask row not all-True
+        # sticky speculation ineligibility: a slot that has sampled or worn
+        # a constraint this request stays on the plain step, since the
+        # draft cache saw none of its fallback tokens
+        self._scenario_once = np.zeros(s, np.bool_)
         self._mask = ResidentBuffer(self.device, (s, self.vocab), torch.bool,
                                     True)
         self._mask_host = self._mask.host
@@ -358,7 +405,19 @@ class ServingEngine:
                                   counters=(paged_attention.launches,
                                             sampling_ops.launches))
         self._meter = metrics.Meter()
+        # the speculative sidecar, made after the arena (its draft namespace
+        # binds there) and the step programs (its own live beside them)
+        if spec_k > 0:
+            from .spec_decode import SpecDecoder
+
+            self.spec = SpecDecoder(self, cfg.draft_model, spec_k)
+        else:
+            self.spec = None
         metrics.set_gauge("slots.total", s)
+        metrics.set_gauge("quant.weights", int(self.quant_weights))
+        metrics.set_gauge("quant.kv", int(self.quant_kv))
+        metrics.set_gauge("quant.draft", int(self._draft_quantized()))
+        self._publish_arena_bytes()
         self._refresh_gauges()
 
     # ----------------------------------------------------------- capacity
@@ -370,6 +429,17 @@ class ServingEngine:
         return int(self._active.sum())
 
     def blocks_needed(self, prompt_len: int, max_new_tokens: int) -> int:
+        """The worst-case blocks of an admission: the slot's table, plus the
+        draft table's with a draft model."""
+        need = self._target_blocks_needed(prompt_len, max_new_tokens)
+        if self.spec is not None:
+            need += self.spec.blocks_needed(prompt_len, max_new_tokens)
+        return need
+
+    def _target_blocks_needed(self, prompt_len: int,
+                              max_new_tokens: int) -> int:
+        """The slot's own table's worst case alone: what matched prefix
+        blocks subtract from."""
         return _ceil_div(prompt_len + max_new_tokens, self.block_size)
 
     def validate(self, prompt_len: int, max_new_tokens: int) -> None:
@@ -392,9 +462,12 @@ class ServingEngine:
     def reserved_blocks(self, slot: int) -> int:
         """The block budget ``slot`` holds (0 if empty): what retiring it
         returns to the arena's grantable pool, the quantity preemption's
-        feasibility sums."""
+        feasibility sums. The draft reservation is included."""
         res = self._slot_res[slot]
-        return res.total if res is not None else 0
+        n = res.total if res is not None else 0
+        if self.spec is not None:
+            n += self.spec.reserved_blocks(slot)
+        return n
 
     def admit_sizing(self, prompt_len: int, max_new_tokens: int,
                      prompt=None, keys=None, journal_len: int = 0):
@@ -435,7 +508,8 @@ class ServingEngine:
     # ----------------------------------------------------- slot lifecycle
 
     def admit(self, prompt, max_new_tokens: int, sampling=None,
-              mask=None, tokens=None) -> Tuple[int, int]:
+              mask=None, tokens=None,
+              spec_exclude: bool = False) -> Tuple[int, int]:
         """Prefill ``prompt`` into a free slot. Returns ``(slot,
         next_token)``: the first token comes out of the prefill itself,
         sampled under ``sampling`` (a ``SamplingParams`` with a seed; None is
@@ -447,13 +521,19 @@ class ServingEngine:
         tokens`` and emits the journal's next token, leaving the slot as an
         uninterrupted decode would have (position ``len(prompt + tokens)``).
         ``max_new_tokens`` stays the request's original budget; the journal
-        counts toward it. Raises if there is no capacity; callers gate on
-        :meth:`can_admit`."""
-        st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens)
+        counts toward it. ``spec_exclude`` marks a request that must never
+        take the speculative path (it carries a constraint, even one whose
+        current mask is None): the slot skips the draft blocks and prefill.
+        With a draft model the admission prefills the draft's cache over
+        the same context too. Raises if there is no capacity; callers gate
+        on :meth:`can_admit`."""
+        st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens,
+                               spec_exclude)
         return st.slot, self._admit_prefill_all(st)
 
     def admit_begin(self, prompt, max_new_tokens: int, sampling=None,
-                    mask=None, tokens=None) -> Tuple[int, Optional[int]]:
+                    mask=None, tokens=None,
+                    spec_exclude: bool = False) -> Tuple[int, Optional[int]]:
         """Chunked admission: claim a slot and its blocks now, prefill
         incrementally. Returns ``(slot, first_token)`` when the context left
         to prefill fits one chunk (as :meth:`admit`), else ``(slot, None)``
@@ -461,8 +541,9 @@ class ServingEngine:
         :meth:`admit_chunk` once per step until the first token appears. A
         cache hit's chunks start at its prefix length. Until then the slot
         is occupied (its blocks are held) but not active (the decode step
-        masks it)."""
-        st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens)
+        masks it). The draft prefill runs when the last chunk lands."""
+        st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens,
+                               spec_exclude)
         if self.chunk_size <= 0 or st.clen - st.prefix_len <= self.chunk_size:
             return st.slot, self._admit_prefill_all(st)
         st.done = st.prefix_len
@@ -499,6 +580,9 @@ class ServingEngine:
                 if full > 0:
                     self.prefix_cache.insert(st.prompt, self._bt_host[slot],
                                              full)
+            if (st.done >= st.clen and self.spec is not None
+                    and not st.skip_draft):
+                self.spec.prefill(slot, st.ctx)
         except BaseException:
             self._chunk.pop(slot, None)
             self._admit_abort(st)
@@ -510,7 +594,8 @@ class ServingEngine:
 
     def _admit_prefill_all(self, st: _AdmitState) -> int:
         """The one-call prefill of a whole context, or of a cache hit's
-        suffix only; unwinds the admission on failure."""
+        suffix only, then the draft's prefill of the whole context; unwinds
+        the admission on failure."""
         try:
             if st.n_attached or st.cow:
                 first = self._suffix_prefill_call(st.ctx, st.clen,
@@ -518,15 +603,19 @@ class ServingEngine:
             else:
                 first = self._full_prefill_call(st.ctx, st.clen, st.res,
                                                 st.slot)
+            if self.spec is not None and not st.skip_draft:
+                self.spec.prefill(st.slot, st.ctx)
         except BaseException:
             self._admit_abort(st)
             raise
         return self._admit_finish(st, first)
 
     def _admit_setup(self, prompt, max_new_tokens: int, sampling=None,
-                     mask=None, tokens=None) -> _AdmitState:
+                     mask=None, tokens=None,
+                     spec_exclude: bool = False) -> _AdmitState:
         """Claim everything an admission needs before any prefill: the slot,
-        the references to the matched prefix blocks, the block reservation,
+        the references to the matched prefix blocks, the block reservations
+        (the draft table's too, unless the slot is spec-ineligible),
         the filled block table, the copy-on-write copy, and the slot's
         sampling and constraint state (the prefill programs sample the
         first token under it). Unwinds completely on any failure, a refused
@@ -563,22 +652,38 @@ class ServingEngine:
         # that keeps it across reserve(), dropped right after the copy
         cow_src: Optional[int] = chain[-1].block if cow else None
         try:
-            res = self.arena.reserve(self.blocks_needed(plen, max_new_tokens)
-                                     - len(attached))
+            res = self.arena.reserve(
+                self._target_blocks_needed(plen, max_new_tokens)
+                - len(attached))
         except BaseException:
             for node in chain:
                 self.arena.deref(node.block)
             raise
+        # a spec-ineligible lane never reads a draft cache: no draft blocks
+        # and no draft prefill (feasibility stays the conservative worst
+        # case, so this only under-consumes)
+        skip_draft = self.spec is not None and (
+            bool(spec_exclude) or mask is not None
+            or (sampling is not None and sampling.temperature > 0))
+        if self.spec is not None and not skip_draft:
+            try:
+                self.spec.alloc_slot(slot, plen, max_new_tokens)
+            except BaseException:
+                res.release()
+                for node in chain:
+                    self.arena.deref(node.block)
+                raise
         n_attached = len(attached)
         st = _AdmitState(slot=slot, prompt=prompt, ctx=ctx, plen=plen,
                          clen=clen, max_new=int(max_new_tokens), res=res,
                          shared=shared, n_attached=n_attached, cow=cow,
-                         prefix_len=clen - 1 if cow else n_attached * bs)
+                         prefix_len=clen - 1 if cow else n_attached * bs,
+                         skip_draft=skip_draft)
         self._occupied[slot] = True
         self._slot_res[slot] = res
         self._slot_shared[slot] = shared
         try:
-            self._install_slot_scenario(slot, sampling, mask)
+            self._install_slot_scenario(slot, sampling, mask, spec_exclude)
             self._bt_host[slot, :n_attached] = shared
             n = _ceil_div(clen, bs)
             for bi in range(n_attached, n):
@@ -597,11 +702,13 @@ class ServingEngine:
 
     def _admit_abort(self, st: _AdmitState) -> None:
         """Unwind a claimed admission: drop the shared references, release
-        the reservation, clear the slot."""
+        both reservations, clear the slot."""
         for blk in st.shared:
             self.arena.deref(blk)
         st.shared = []
         st.res.release()
+        if self.spec is not None:
+            self.spec.release_slot(st.slot)
         self._slot_res[st.slot] = None
         self._slot_shared[st.slot] = []
         self._slot_filled[st.slot] = 0
@@ -628,6 +735,7 @@ class ServingEngine:
                 metrics.bump("tokens.prefill_avoided", st.prefix_len)
         self._positions[slot] = st.clen  # next write position
         self._last_tok[slot] = first
+        self._slot_limit[slot] = st.plen + st.max_new
         self._active[slot] = True
         metrics.bump("engine.admits")
         metrics.bump("tokens.prefill", st.clen - st.prefix_len)
@@ -715,22 +823,35 @@ class ServingEngine:
                 pool.index_copy_(0, dst, pool.index_select(0, src))
         return ()
 
-    def _run(self, prog, hist: Optional[str], **values) -> tuple:
+    def _run(self, prog, hist: Optional[str], name: str, **values) -> tuple:
         """Run one step program and read its outputs: the one host-side
         path of every run (decode, whole-prompt prefill, suffix or chunk
-        prefill, COW). The ``serving_device`` and ``arena_corrupt`` fault
+        prefill, COW, the speculative step, a draft prefill). The
+        ``serving_step``, ``serving_device`` and ``arena_corrupt`` fault
         probes fire here, before the run: never inside a step function,
-        which runs once, at capture, so a probe there would never fire on
-        a replay. ``hist`` names the latency histogram of the run and its
-        read (which blocks, so the host clock covers the device work)."""
-        resilience.maybe_fault("serving_device")
-        resilience.maybe_fault("arena_corrupt")
-        t0 = time.perf_counter()
-        prog.run(**values)
-        out = prog.read()
-        if hist is not None:
-            telemetry.observe(hist, time.perf_counter() - t0, self.hists)
-        return out
+        which runs once, at capture, so a probe there would never fire on a
+        replay. The probes and the run are retried under the engine's
+        policy (``paddle_tpu/serving/engine.py:1188 _call``; ``name``
+        keys its ``retry.<name>`` counters): an IO-class failure, such as
+        an injected ``serving_step`` fault, is retried; the supervisor's
+        classes and every CUDA runtime error are not retried. Nothing is
+        donated and every probe fires before the run, so a retried attempt
+        has written nothing. ``hist`` names the latency histogram of the
+        run and its read (which blocks, so the host clock covers the device
+        work)."""
+        def attempt():
+            resilience.maybe_fault("serving_step")
+            resilience.maybe_fault("serving_device")
+            resilience.maybe_fault("arena_corrupt")
+            t0 = time.perf_counter()
+            prog.run(**values)
+            out = prog.read()
+            if hist is not None:
+                telemetry.observe(hist, time.perf_counter() - t0, self.hists)
+            return out
+
+        return resilience.call_with_retry(attempt, name=name,
+                                          policy=self._retry)
 
     def _samp_row(self, slot: int, pos: int) -> dict:
         """One slot's sampling values for a prefill program: its ``[1]``
@@ -766,8 +887,8 @@ class ServingEngine:
             offs=((p_bucket,), i64), true_len=((), i64, 1),
             samp=((4, 1), torch.int32), spos=((1,), torch.int32),
             allowed=((1, self.vocab), torch.bool, 1))
-        nxt = int(self._run(prog, "latency.prefill", ids=ids, rows=row,
-                            offs=p_idx % bs, true_len=clen,
+        nxt = int(self._run(prog, "latency.prefill", "serving.prefill",
+                            ids=ids, rows=row, offs=p_idx % bs, true_len=clen,
                             **self._samp_row(slot, clen))[0][0])
         self.prefills += 1
         # one count per call and bucket: the padding waste of the ladder
@@ -787,7 +908,7 @@ class ServingEngine:
         prog = self._graphs.program(
             "cow", self._cow_fn, self._cow_built,
             src=((1,), torch.int64), dst=((1,), torch.int64))
-        self._run(prog, None, src=src, dst=dst)
+        self._run(prog, None, "serving.cow_copy", src=src, dst=dst)
         self.cow_copies += 1
         metrics.bump("prefix.cow_copies")
 
@@ -829,8 +950,8 @@ class ServingEngine:
             prefix_len=((), torch.int32), true_len=((), i64, 1),
             samp=((4, 1), torch.int32), spos=((1,), torch.int32),
             allowed=((1, self.vocab), torch.bool, 1))
-        nxt = int(self._run(prog, "latency.prefill", ids=ids, rows=row,
-                            offs=gpos % bs, bt_row=table,
+        nxt = int(self._run(prog, "latency.prefill", "serving.prefix_prefill",
+                            ids=ids, rows=row, offs=gpos % bs, bt_row=table,
                             prefix_len=prefix_len, true_len=slen,
                             **self._samp_row(slot, clen))[0][0])
         if chunked:
@@ -857,11 +978,14 @@ class ServingEngine:
             res.release()
         for blk in self._slot_shared[slot]:
             self.arena.deref(blk)
+        if self.spec is not None:
+            self.spec.release_slot(slot)
         self._slot_shared[slot] = []
         self._slot_filled[slot] = 0
         self._bt_host[slot, :] = 0
         self._positions[slot] = 0
         self._last_tok[slot] = 0
+        self._slot_limit[slot] = 0
         self._clear_slot_scenario(slot)
         metrics.bump("engine.retires")
         if flags.flag("serving_arena_invariants"):
@@ -879,10 +1003,12 @@ class ServingEngine:
             raise ValueError("constraint mask allows no token")
         return row
 
-    def _install_slot_scenario(self, slot: int, sampling, mask) -> None:
+    def _install_slot_scenario(self, slot: int, sampling, mask,
+                               spec_exclude: bool = False) -> None:
         """Install the slot's sampling parameters and constraint mask row as
         data. Runs at claim time, before any prefill; a refused mask raises
-        before anything is written."""
+        before anything is written. A sampled, masked or ``spec_exclude``
+        slot is spec-ineligible for the request's life."""
         row = None if mask is None else self._check_mask(mask)
         sp = sampling
         greedy = sp is None or sp.temperature <= 0.0
@@ -899,6 +1025,8 @@ class ServingEngine:
         if not greedy:
             self.sampled_admits += 1
             metrics.bump("sampling.admits")
+        self._scenario_once[slot] = (not greedy or row is not None
+                                     or bool(spec_exclude))
 
     def _clear_slot_scenario(self, slot: int) -> None:
         """Reset the slot to greedy and unconstrained (retire and the
@@ -907,6 +1035,7 @@ class ServingEngine:
         self._top_k[slot] = 0
         self._top_p[slot] = 1.0
         self._seed[slot] = 0
+        self._scenario_once[slot] = False
         if self._constrained[slot]:
             self._mask.set_row(slot, True)
             self._constrained[slot] = False
@@ -922,7 +1051,18 @@ class ServingEngine:
             return
         self._mask.set_row(slot, self._check_mask(mask))
         self._constrained[slot] = True
+        self._scenario_once[slot] = True  # sticky: see spec_ineligible
         metrics.bump("constrain.mask_updates")
+
+    def spec_ineligible(self) -> np.ndarray:
+        """Per-slot mask of the lanes speculation must not cover
+        (``paddle_tpu/serving/engine.py:1562``): sampled slots (the verify
+        step is greedy), constrained slots (it applies no mask) and, sticky
+        per request, any slot that was either (a constraint that lifts
+        mid-stream does not hand the lane back: its draft cache missed
+        every token of the fallback). They take the plain decode step over
+        their own lanes instead."""
+        return (self._temp > 0) | self._constrained | self._scenario_once
 
     def check_invariants(self) -> None:
         """Audit the arena's refcounts against the tables of the occupied
@@ -932,6 +1072,9 @@ class ServingEngine:
         ``FLAGS_serving_arena_invariants``."""
         tables = [[int(b) for b in self._bt_host[s, :int(self._slot_filled[s])]]
                   for s in np.flatnonzero(self._occupied)]
+        if self.spec is not None:
+            # the draft tables: private blocks, one reference per entry
+            tables.extend(self.spec.slot_tables())
         self.arena.check_invariants(tables)
 
     # --------------------------------------------------------- decode step
@@ -947,14 +1090,17 @@ class ServingEngine:
             self._slot_filled[slot] = bi + 1
 
     @torch.no_grad()
-    def decode_step(self) -> np.ndarray:
+    def decode_step(self, active=None) -> np.ndarray:
         """One iteration: every active slot's last token is forwarded at its
         own position, its k/v lands in its current block, and one new token
         per slot comes back (``[num_slots]`` int64; inactive lanes carry
         garbage -- callers mask by activity). The step is one run of the
         decode program; the host owns the tables and positions and refills
-        its buffers."""
-        act = self._active
+        its buffers. ``active`` overrides the lane mask (data, the same
+        program): the speculative decoder drives its fallback lanes through
+        here, and the other lanes write to scratch block 0."""
+        act = (self._active if active is None
+               else np.asarray(active, np.bool_))
         for slot in np.flatnonzero(act):
             self._grow_slot_to(slot, int(self._positions[slot]))
         bs = self.block_size
@@ -968,7 +1114,7 @@ class ServingEngine:
             rows=((S,), i64), offs=((S,), i64),
             block_tables=((S, self.blocks_per_slot), torch.int32),
             samp=((4, S), torch.int32), resident=dict(allowed=self._mask))
-        out = self._run(prog, "latency.decode_step",
+        out = self._run(prog, "latency.decode_step", "serving.step",
                         last_tok=self._last_tok, positions=pos, rows=rows,
                         offs=pos % bs, block_tables=self._bt_host,
                         samp=self._samp)[0]
@@ -980,6 +1126,17 @@ class ServingEngine:
         metrics.bump("tokens.generated", n)
         self._meter.tick(n)
         metrics.set_gauge("tokens_per_sec", self._meter.rate())
+        return out
+
+    @torch.no_grad()
+    def spec_decode_step(self) -> Dict[int, List[int]]:
+        """One speculative iteration (``spec_k`` > 0): up to k tokens per
+        active slot, ``{slot: [tokens]}``, every one what plain decode would
+        emit (:meth:`.spec_decode.SpecDecoder.step`)."""
+        t0 = time.perf_counter()
+        out = self.spec.step()
+        telemetry.observe("latency.spec_step", time.perf_counter() - t0,
+                          self.hists)
         return out
 
     def rebuild(self) -> None:
@@ -995,7 +1152,10 @@ class ServingEngine:
         unconstrained slot must not inherit a dead request's row). No
         program, graph or build counter is touched: the supervisor then
         replays each live request from its journal through the same
-        programs.
+        programs. The draft namespace's pools are zeroed in place with the
+        others and the speculative decoder's slot state cleared
+        (``SpecDecoder.rebuild``); each replay prefills its draft cache
+        again at admission.
 
         The decode kernel's workspace (``ops.paged_attention._workspace``)
         is left alone: its ticket counters are zero after every launch
@@ -1016,6 +1176,8 @@ class ServingEngine:
         self._last_tok[:] = 0
         self._active[:] = False
         self._occupied[:] = False
+        self._slot_limit[:] = 0
+        self._scenario_once[:] = False
         self._slot_res = [None] * self.num_slots
         self._slot_shared = [[] for _ in range(self.num_slots)]
         self._slot_filled[:] = 0
@@ -1026,8 +1188,11 @@ class ServingEngine:
         self._seed[:] = 0
         self._constrained[:] = False
         self._mask.fill_all(True)
+        if self.spec is not None:
+            self.spec.rebuild()
         self.rebuilds += 1
         metrics.bump("engine.rebuilds")
+        self._publish_arena_bytes()
         self._refresh_gauges()
 
     def close(self) -> None:
@@ -1043,6 +1208,26 @@ class ServingEngine:
         the CPU (their plain PyTorch versions)."""
         route = "kernel" if self.device.type == "cuda" else "plain"
         return f"{route}@single"
+
+    def _draft_quantized(self) -> bool:
+        """``quant_draft`` in effect: it quantizes nothing without a draft
+        model."""
+        return bool(self.quant_draft and self.spec is not None
+                    and self.spec.draft_mode)
+
+    def _publish_arena_bytes(self) -> None:
+        """Byte and dtype gauges per arena namespace, scale pools broken out
+        (``arena.kv_bytes``, ``arena.scale_bytes``, ``arena.bytes.<ns>``,
+        ``arena.dtype.<ns>``): the int8 arena's and the draft namespace's
+        memory, reported."""
+        by_ns = self.arena.bytes_by_namespace()
+        metrics.set_gauge("arena.kv_bytes",
+                          sum(d["bytes"] for d in by_ns.values()))
+        metrics.set_gauge("arena.scale_bytes",
+                          sum(d["scale_bytes"] for d in by_ns.values()))
+        for name, d in by_ns.items():
+            metrics.set_gauge(f"arena.bytes.{name}", d["bytes"])
+            metrics.set_gauge(f"arena.dtype.{name}", d["dtype"])
 
     def _refresh_gauges(self) -> None:
         metrics.set_gauge("slots.active", self.active_slots())
@@ -1075,6 +1260,9 @@ class ServingEngine:
                "programs.graphs": self._graphs.graph_count(),
                "programs.pool_bytes": self._graphs.pool_bytes,
                "quant.weight_layers": len(layers),
+               "quant.weights": int(self.quant_weights),
+               "quant.kv": int(self.quant_kv),
+               "quant.draft": int(self._draft_quantized()),
                "sampling.admits": self.sampled_admits,
                "constrain.admits": self.constrained_admits,
                "kernel.route": self.kernel_route(),
@@ -1083,4 +1271,6 @@ class ServingEngine:
         if self.prefix_cache is not None:
             out.update({f"prefix.{k}": v
                         for k, v in self.prefix_cache.stats().items()})
+        if self.spec is not None:
+            out.update(self.spec.stats())
         return out

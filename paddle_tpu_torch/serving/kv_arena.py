@@ -27,11 +27,18 @@ list at refcount zero as a cached prefix, reclaimed by LRU eviction only
 when :meth:`KVArena.reserve` would otherwise fail. Shared blocks are
 read-only; a slot that must write into one copies it first (copy-on-write,
 in the engine).
+
+Named **namespaces** (:meth:`KVArena.add_namespace`; the speculative
+decoder's ``"draft"`` cache) are further per-layer pool sets addressed by
+the same block ids and the same free list, refcounts and reservations: a
+block taken for a slot's draft table is one allocation like any other, it
+only indexes another physical pool, shaped for the draft's layers, heads and
+head dim. A namespace of an int8 arena is int8 with its scale pools too.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -98,10 +105,13 @@ class KVArena:
         self.dtype = dtype
         self.quantized = bool(quantized)
         self.device = device_mod.resolve(device)
-        shape = (self.num_blocks, self.block_size, int(num_heads),
-                 int(head_dim))
         self._pools: List[Tuple[torch.Tensor, ...]] = [
-            self._fresh_entry(shape) for _ in range(self.num_layers)]
+            self._fresh_entry(num_heads, head_dim)
+            for _ in range(self.num_layers)]
+        # named namespaces: name -> per-layer entries, and name ->
+        # (layers, heads, head_dim, dtype, quantized)
+        self._ns_pools: Dict[str, List[Tuple[torch.Tensor, ...]]] = {}
+        self._ns_shapes: Dict[str, tuple] = {}
         # LIFO: churn re-takes the most recently freed blocks
         self._free: List[int] = list(range(1, self.num_blocks))
         self._reserved = 0
@@ -114,12 +124,20 @@ class KVArena:
         self._cached: set = set()
         self._cache = None
 
-    def _fresh_entry(self, shape) -> Tuple[torch.Tensor, ...]:
+    def _fresh_entry(self, num_heads: int, head_dim: int,
+                     dtype: Optional[torch.dtype] = None,
+                     quantized: Optional[bool] = None
+                     ) -> Tuple[torch.Tensor, ...]:
         """One layer's zeroed entry: ``(k, v)`` in the compute dtype, or
-        int8 ``(k, v, k_scale, v_scale)``."""
-        if not self.quantized:
-            return tuple(torch.zeros(shape, dtype=self.dtype,
-                                     device=self.device) for _ in range(2))
+        int8 ``(k, v, k_scale, v_scale)``; the arena's dtype and mode
+        unless given."""
+        dtype = self.dtype if dtype is None else dtype
+        quantized = self.quantized if quantized is None else quantized
+        shape = (self.num_blocks, self.block_size, int(num_heads),
+                 int(head_dim))
+        if not quantized:
+            return tuple(torch.zeros(shape, dtype=dtype, device=self.device)
+                         for _ in range(2))
         return (tuple(torch.zeros(shape, dtype=torch.int8, device=self.device)
                       for _ in range(2))
                 + tuple(torch.zeros(shape[:2], dtype=torch.float32,
@@ -134,11 +152,16 @@ class KVArena:
         bound prefix cache -- starts over. The serving engine's rebuild
         (the JAX package throws its arena away and allocates a new one,
         ``paddle_tpu/serving/engine.py:1754``): the captured step programs
-        hold these tensors' addresses, so they stay valid."""
+        hold these tensors' addresses, so they stay valid. Every
+        namespace's pools are zeroed in place too and the namespaces kept
+        (the JAX ``SpecDecoder.rebuild`` binds a fresh draft namespace to
+        its fresh arena; the captured speculative step holds these
+        addresses as well)."""
         with torch.no_grad():
-            for entry in self._pools:
-                for t in entry:
-                    t.zero_()
+            for pools in [self._pools] + list(self._ns_pools.values()):
+                for entry in pools:
+                    for t in entry:
+                        t.zero_()
         self._free = list(range(1, self.num_blocks))
         self._reserved = 0
         self._ever_used = set()
@@ -150,6 +173,34 @@ class KVArena:
     @property
     def pools(self) -> List[Tuple[torch.Tensor, ...]]:
         return self._pools
+
+    def add_namespace(self, name: str, num_layers: int, num_heads: int,
+                      head_dim: int, dtype: Optional[torch.dtype] = None,
+                      quantized: Optional[bool] = None) -> None:
+        """Make a named pool set over the same block ids (the speculative
+        decoder's draft cache), ``num_layers`` entries of ``[num_blocks,
+        block_size, num_heads, head_dim]``. It shares the allocator: a block
+        id taken from the free list is valid in every namespace, and the
+        engine decides which namespace a slot table writes. ``quantized``
+        defaults to the arena's own mode (an int8 arena's namespace is
+        int8 with scale pools). A name is added once; :meth:`reset` keeps
+        it."""
+        if name in self._ns_pools or name == "primary":
+            raise ValueError(f"namespace {name!r} already exists")
+        dtype = self.dtype if dtype is None else dtype
+        quantized = self.quantized if quantized is None else bool(quantized)
+        self._ns_pools[name] = [
+            self._fresh_entry(num_heads, head_dim, dtype, quantized)
+            for _ in range(int(num_layers))]
+        self._ns_shapes[name] = (int(num_layers), int(num_heads),
+                                 int(head_dim), dtype, quantized)
+
+    def ns_pools(self, name: str) -> List[Tuple[torch.Tensor, ...]]:
+        """The per-layer entries of namespace ``name``."""
+        return self._ns_pools[name]
+
+    def namespaces(self) -> List[str]:
+        return list(self._ns_pools)
 
     def kernel_layout(self) -> dict:
         """The layout contract the paged kernels
@@ -285,23 +336,30 @@ class KVArena:
         """Audit the refcount layer: free blocks are refcount zero, unique
         and uncached; cached blocks are in use (off the free list) at any
         refcount, zero included; every block is free, cached or referenced;
-        and ``tables`` (per-slot block-id lists of occupied slots)
-        reference each block exactly ``refcount`` times. Every pool entry
-        must have the arena's structure: 4 arrays with ``[num_blocks,
-        block_size]`` float32 scale pools when quantized, else 2."""
-        want = 4 if self.quantized else 2
-        for li, entry in enumerate(self._pools):
-            if len(entry) != want:
-                raise RuntimeError(
-                    f"invariant violated: pool entry {li} has {len(entry)} "
-                    f"arrays (expected {want}): a quantized pool without its "
-                    "scales")
-            if self.quantized and any(
-                    tuple(t.shape) != (self.num_blocks, self.block_size)
-                    or t.dtype != torch.float32 for t in entry[2:]):
-                raise RuntimeError(
-                    f"invariant violated: scale pools of entry {li} are not "
-                    f"float32 {(self.num_blocks, self.block_size)}")
+        and ``tables`` (per-slot block-id lists of occupied slots, a
+        namespace's tables included: a draft block is private, one
+        reference) reference each block exactly ``refcount`` times. Every
+        pool entry of every namespace must have its structure: 4 arrays
+        with ``[num_blocks, block_size]`` float32 scale pools when
+        quantized, else 2."""
+        sets = [("primary", self._pools, self.quantized)] + [
+            (name, pools, self._ns_shapes[name][4])
+            for name, pools in self._ns_pools.items()]
+        for name, pools, quantized in sets:
+            want = 4 if quantized else 2
+            for li, entry in enumerate(pools):
+                if len(entry) != want:
+                    raise RuntimeError(
+                        f"invariant violated: {name} pool entry {li} has "
+                        f"{len(entry)} arrays (expected {want}): a quantized "
+                        "pool without its scales")
+                if quantized and any(
+                        tuple(t.shape) != (self.num_blocks, self.block_size)
+                        or t.dtype != torch.float32 for t in entry[2:]):
+                    raise RuntimeError(
+                        f"invariant violated: {name} scale pools of entry "
+                        f"{li} are not float32 "
+                        f"{(self.num_blocks, self.block_size)}")
         if len(self._free) != len(set(self._free)):
             raise RuntimeError(
                 "invariant violated: duplicate block id on the free list")
@@ -342,10 +400,11 @@ class KVArena:
 
     # ------------------------------------------------------------- stats
 
-    def _pool_bytes(self) -> Tuple[int, int]:
-        """(K/V payload bytes, scale-pool bytes) of every layer."""
+    @staticmethod
+    def _pool_bytes(pools) -> Tuple[int, int]:
+        """(K/V payload bytes, scale-pool bytes) of one pool set."""
         kv = scale = 0
-        for entry in self._pools:
+        for entry in pools:
             for i, t in enumerate(entry):
                 b = t.numel() * t.element_size()
                 if i < 2:
@@ -355,17 +414,25 @@ class KVArena:
         return kv, scale
 
     def bytes_total(self) -> int:
-        """All pool bytes: K/V payload plus scale pools."""
-        return sum(self._pool_bytes())
+        """All pool bytes of every namespace: K/V payload plus scale
+        pools."""
+        return sum(d["bytes"] for d in self.bytes_by_namespace().values())
 
     def bytes_by_namespace(self) -> dict:
-        """``{"primary": {kv_bytes, scale_bytes, bytes, dtype, quantized}}``
-        (the JAX package's breakdown; the port has no other namespace)."""
-        kv, scale = self._pool_bytes()
-        dtype = "int8" if self.quantized else str(self.dtype)[6:]
-        return {"primary": {"kv_bytes": kv, "scale_bytes": scale,
-                            "bytes": kv + scale, "dtype": dtype,
-                            "quantized": self.quantized}}
+        """``{name: {kv_bytes, scale_bytes, bytes, dtype, quantized}}``,
+        the main pools under ``"primary"`` (the JAX package's
+        breakdown)."""
+        out = {}
+        sets = [("primary", self._pools, self.dtype, self.quantized)] + [
+            (name, pools, self._ns_shapes[name][3], self._ns_shapes[name][4])
+            for name, pools in self._ns_pools.items()]
+        for name, pools, dtype, quantized in sets:
+            kv, scale = self._pool_bytes(pools)
+            out[name] = {"kv_bytes": kv, "scale_bytes": scale,
+                         "bytes": kv + scale,
+                         "dtype": "int8" if quantized else str(dtype)[6:],
+                         "quantized": bool(quantized)}
+        return out
 
     def stats(self) -> dict:
         return {"blocks_total": self.num_blocks - 1,
@@ -377,4 +444,5 @@ class KVArena:
                 "block_size": self.block_size,
                 "kv_bytes": self.bytes_total(),
                 "quantized": self.quantized,
-                "bytes_by_namespace": self.bytes_by_namespace()}
+                "bytes_by_namespace": self.bytes_by_namespace(),
+                "namespaces": len(self._ns_pools)}

@@ -11,7 +11,13 @@ hit did not prefill), ``prefix.*`` (``hits``, ``misses``, ``hit_tokens``,
 ``scheduler.cache_skips``, ``engine.*``
 (steps / admits / retires), ``arena.*`` (alloc / freed / reuse /
 alloc_failed), ``chunk.*`` (admits / chunks / tokens of chunked prefill),
-``quant.weight_layers`` (linears quantized by engines),
+``quant.weight_layers`` / ``quant.draft_layers`` (linears quantized by
+engines, of the target and of a speculative draft), ``spec.*``
+(speculative decoding: ``proposed`` / ``accepted`` / ``rollback_tokens``
+(proposed but rejected: positions rolled back on the host) / ``emitted`` /
+``iterations`` / ``draft_prefills``), ``sampling.spec_fallback_slots``
+(lanes a speculative engine ran through the plain step: sampled or
+constrained),
 ``kernel.decode_traces`` / ``kernel.prefill_traces`` (builds of a decode or
 prefill program on the kernel route: captures of a CUDA graph),
 ``sampling.admits`` (sampled admissions), ``constrain.admits`` /
@@ -24,7 +30,16 @@ they failed; ``guard_drains``: drains a bound ``PreemptionGuard`` started;
 (``spans`` / ``spans_dropped`` of the span ring). Gauges: ``queue.depth``, ``queue.prefilling``, ``slots.active``,
 ``slots.total``, ``arena.blocks_free``, ``arena.blocks_total``,
 ``arena.high_water``, ``arena.blocks_cached``, ``prefix.resident_blocks``,
-``tokens_per_sec``, ``sampling.active_slots``, ``constrain.active_slots``.
+``tokens_per_sec``, ``sampling.active_slots``, ``constrain.active_slots``,
+``spec.acceptance_rate``, ``quant.weights`` / ``quant.kv`` / ``quant.draft``
+(the modes in effect, 0/1), ``quant.draft_acceptance`` (a quantized
+draft's acceptance rate), ``arena.kv_bytes`` / ``arena.scale_bytes`` /
+``arena.bytes.<namespace>`` / ``arena.dtype.<namespace>``.
+
+Headline numbers are registered as ``core.memory_stats`` providers
+(``paddle_tpu/serving/metrics.py:276-290``), so ``memory_summary()`` shows
+the serving picture beside the allocator's; the port adds the draft
+namespace's bytes (``serving.kv_arena_draft_bytes``).
 """
 from __future__ import annotations
 
@@ -37,6 +52,7 @@ _lock = threading.Lock()
 # the lock, snapshots read under it
 _counts: Dict[str, int] = {}
 _gauges: Dict[str, float] = {}
+_providers_registered = False
 
 
 def bump(key: str, n: int = 1) -> None:
@@ -120,3 +136,34 @@ class Meter:
                 if sec >= horizon - 1.0)
         dt = min(now - self._t0, self._window)
         return n / dt if dt > 0 else 0.0
+
+
+def _register_providers() -> None:
+    """Headline serving numbers on the ``core.memory_stats`` surface (read
+    when polled: a provider is a lookup, never a device call)."""
+    global _providers_registered
+    with _lock:
+        if _providers_registered:
+            return
+        from ..core import memory_stats
+
+        for name, key, table in (
+                ("serving.tokens_generated", "tokens.generated", _counts),
+                ("serving.requests_finished", "requests.finished", _counts),
+                ("serving.requests_shed", "requests.shed", _counts),
+                ("serving.tokens_per_sec", "tokens_per_sec", _gauges),
+                ("serving.prefix_hit_tokens", "prefix.hit_tokens", _counts),
+                ("serving.prefix_resident_blocks",
+                 "prefix.resident_blocks", _gauges),
+                ("serving.queue_depth", "queue.depth", _gauges),
+                ("serving.slots_active", "slots.active", _gauges),
+                ("serving.arena_blocks_free", "arena.blocks_free", _gauges),
+                ("serving.kv_arena_bytes", "arena.kv_bytes", _gauges),
+                ("serving.kv_arena_draft_bytes", "arena.bytes.draft",
+                 _gauges)):
+            memory_stats.register_stat_provider(
+                name, lambda k=key, t=table: t.get(k, 0))
+        _providers_registered = True
+
+
+_register_providers()

@@ -51,9 +51,14 @@ admits waiting ones into the freed slots:
   and FAILED, and the ``latency.{ttft,inter_token,queue_wait,e2e}``
   histograms, are recorded where the JAX scheduler records them.
 
-Speculation is a later slice. Served tokens are held token for token
-against ``GPTForCausalLM.generate()``, with ``sampling=`` for sampled
-requests.
+* **Speculative decoding** (engine ``spec`` set): the step's iteration is
+  ``ServingEngine.spec_decode_step``, up to k tokens per slot, emitted one
+  at a time through the same finish rules, so stop, budget and deadline
+  boundaries keep ``generate()``'s semantics: tokens past a stop are
+  dropped, as the sequential path would never have made them.
+
+Served tokens are held token for token against
+``GPTForCausalLM.generate()``, with ``sampling=`` for sampled requests.
 """
 from __future__ import annotations
 
@@ -187,9 +192,14 @@ class Request:        # compare numpy prompt payloads
 
 
 def admit_kwargs(req: Request) -> dict:
-    """The engine-admission keywords of one request's scenario: its
-    sampling params and its walker's current mask."""
-    return {"sampling": req.sampling, "mask": req.allowed_mask()}
+    """The engine-admission keywords of one request's scenario, shared by
+    the scheduler's admissions and the supervisor's replay: its sampling
+    params, its walker's current mask, and ``spec_exclude`` when it carries
+    a constraint at all (even one whose current mask is None): such a lane
+    never takes the speculative path, so its draft blocks and prefill are
+    skipped from the start."""
+    return {"sampling": req.sampling, "mask": req.allowed_mask(),
+            "spec_exclude": req.constraint is not None}
 
 
 class Scheduler:
@@ -541,10 +551,20 @@ class Scheduler:
             else:
                 self._start(req, first)
         if self.running:
-            toks = self.engine.decode_step()
-            for req in list(self.running):
-                self._emit(req, int(toks[req.slot]))
-                self._check_boundary(req)
+            if self.engine.spec is not None:
+                # up to k tokens per slot from one speculative iteration,
+                # emitted one at a time through the finish rules
+                accepted = self.engine.spec_decode_step()
+                for req in list(self.running):
+                    for tok in accepted.get(req.slot, ()):
+                        self._emit(req, int(tok))
+                        if self._check_boundary(req):
+                            break
+            else:
+                toks = self.engine.decode_step()
+                for req in list(self.running):
+                    self._emit(req, int(toks[req.slot]))
+                    self._check_boundary(req)
             progress = True
         self._gauges()
         return progress

@@ -29,7 +29,10 @@ requests in flight. The API routes every pump step through
    A replay of ``prompt + journal`` may fall in a prefill bucket not yet
    captured; its first admission captures it then, a new key, not a
    rebuilt one. With the prefix cache on, the replays re-insert their
-   prompts' blocks into the fresh tree and share them again.
+   prompts' blocks into the fresh tree and share them again. With
+   speculation on, each replay's admission prefills its draft cache again
+   over ``prompt + journal`` (``paddle_tpu/serving/supervisor.py:178``), so
+   a fault in the middle of a verify replays to the same streams.
 4. **Break the crash loop**: ``FLAGS_serving_max_rebuilds`` rebuilds within
    ``FLAGS_serving_rebuild_window`` scheduler steps open the breaker; later
    transient failures fail fast with :class:`CrashLoopError`.

@@ -16,14 +16,17 @@
 Everything here stays outside captured code: a timestamp is taken around a
 step program's run, never inside its step function (a ``time.*`` read or a
 ``float()`` there would run once, at capture -- the capture lint's
-``traced-cast`` rule). The ``memory_stats`` providers wait for the port's
-``memory_stats``.
+``traced-cast`` rule). The TTFT and inter-token percentiles are
+``core.memory_stats`` providers (``paddle_tpu/serving/telemetry.py:556``).
 
 Histogram keys (all in SECONDS): ``latency.ttft`` (submit to the first
 emitted token), ``latency.inter_token`` (gap between consecutive tokens of
 one stream), ``latency.queue_wait`` (enqueue to admission),
 ``latency.prefill`` (one prefill or chunk program run and its read),
 ``latency.decode_step`` (one decode program run and its read),
+``latency.spec_verify`` (one run of the speculative step and its read),
+``latency.spec_step`` (a whole speculative iteration, its fallback lanes'
+decode step included),
 ``latency.e2e`` (submit to FINISHED). Counters (``serving.metrics``):
 ``telemetry.spans`` and ``telemetry.spans_dropped`` (ring overflow,
 oldest first).
@@ -490,3 +493,25 @@ def prometheus_text() -> str:
         if h.n:
             _hist_lines(lines, name, h, replica="pool")
     return "\n".join(lines) + "\n"
+
+
+# ------------------------------------------------- shared observability hooks
+
+
+def _register_providers() -> None:
+    """Headline latency percentiles (milliseconds) on the
+    ``core.memory_stats`` surface, beside the serving counters that
+    ``metrics._register_providers`` put there."""
+    from ..core import memory_stats
+
+    for stat, name, q in (
+            ("serving.ttft_p50_ms", "latency.ttft", 50),
+            ("serving.ttft_p99_ms", "latency.ttft", 99),
+            ("serving.inter_token_p50_ms", "latency.inter_token", 50),
+            ("serving.inter_token_p99_ms", "latency.inter_token", 99)):
+        memory_stats.register_stat_provider(
+            stat, lambda n=name, p=q: round(
+                histogram(n).percentile(p) * 1e3, 3))
+
+
+_register_providers()
