@@ -303,6 +303,32 @@ no result. Phases, in order; each raises on failure:
     beside the plain decode step's, tokens/s, acceptance, the engine's
     graph pool, the peak bytes of the speculative step's build beside the
     decode step's and ``memory_summary()``'s draft line.
+14. Multi-LoRA and the tiered KV cache (``serve_lora_tier``, run after
+    phase 13) on phase 6's engine shape. 14a: bf16 ``gpt_1p3b``, an
+    adapter arena of rank 16 and capacity 4 (5 rows of 48 MiB), three
+    adapters drawn from numpy seeds; a wave of 8 requests of 512 + 48 with
+    ids 0-3 on two lanes each: the id-0 lanes equal a no-arena engine's
+    streams, each adapter changes at least one token, each adapter lane
+    equals its request served alone on the same engine, the launches are
+    exact; a second wave after an unregister and a fresh register reuses
+    the row and builds nothing; the decode step's host time, traced busy
+    time and idle share with 0, 3 and 1 live adapters beside the no-arena
+    engine's. 14c: the prefix cache over the tiers, an arena that one wave
+    fills: a primer, wave A (8 hits on a shared 512-token prefix), a
+    pressure wave that spills it, wave B restoring its 32 blocks from the
+    host tier through one captured restore program (streams equal wave
+    A's, the restored blocks bit-equal to the spilled payloads, launches
+    exact); the same over an int8 arena (payload and scales bit-equal);
+    a disk pass (a host budget of one byte: every entry on disk) restoring
+    from disk, then a corrupted file of the chain's first block, which
+    sends the next wave's first admission to a full prefill (its stream
+    the primer's, the others wave A's); the spill and restore times
+    beside a pinned host-to-device copy of the chain's bytes; the first
+    token of 512 + 64 for a miss, a resident hit (also without tiers, in
+    the same call) and a host- and a disk-restored hit. 14b: f32 (TF32
+    off) at 4 layers, 8 requests with ids 0-3, greedy and sampled: each
+    adapter's streams equal ``generate()`` under the arena's binding for
+    its id (a sampled draw within SERVED_BOUNDARY excepted).
 
 Each phase prints its seconds.
 
@@ -320,7 +346,8 @@ with every timed setting and ``torch.argmax`` beside them; the two
 unquantized paged rows' and the sampling row's ``launches_prefix`` phase
 3d's shared-prefix wave, ``launches_recovery`` phase 3e's faulted wave;
 ``launches_spec`` phase 13's draft engine's wave 1, over the int8 arena
-for the int8 rows),
+for the int8 rows; ``launches_lora`` phase 14a's wave 1, ``launches_tier``
+phase 14c's host-tier wave B, the int8 rows' over the int8 arena),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
@@ -4207,12 +4234,14 @@ def traced_window(sched, n, attention_per_step):
                 busy_method=method, idle_share=1.0 - busy_us / window_us)
 
 
-def spec_serve(api, pa, so, prompts, news, what, card, trace=None):
+def spec_serve(api, pa, so, prompts, news, what, card, trace=None,
+               submit_kw=None):
     """Serve ``prompts`` (launch counters at 0 just before, read just after)
     by stepping the scheduler: the host clock of every full step (all
     SPEC_SLOTS lanes decoding, nothing waiting) and the tokens it emitted;
     with ``trace`` (attention launches per step) a profiler window of
-    SPEC_TRACED full steps after the third, outside those clocks. Every
+    SPEC_TRACED full steps after the third, outside those clocks;
+    ``submit_kw`` gives each request's other ``submit`` arguments. Every
     request must finish with its budget, every block be free, the arena's
     invariants hold. Returns the requests, the launches, what ran
     (``spec_ran`` by SPEC_RAN) and the timing."""
@@ -4223,7 +4252,9 @@ def spec_serve(api, pa, so, prompts, news, what, card, trace=None):
     pa.reset_launches()
     so.reset_launches()
     t0 = time.perf_counter()
-    reqs = [api.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    submit_kw = submit_kw or [{}] * len(prompts)
+    reqs = [api.submit(p, max_new_tokens=n, **kw)
+            for p, n, kw in zip(prompts, news, submit_kw)]
     step_s, step_tok, traced = [], [], None
     while sched.has_work():
         full = (not sched.waiting and not sched.prefilling
@@ -4695,6 +4726,523 @@ def serve_spec(gpt, serving, pa, so, arrays, card):
     return launches, summary
 
 
+# ------------------------------------------------------------------ phase 14
+# multi-LoRA and the tiered KV cache on phase 6's engine shape: bf16
+# gpt_1p3b, 8 slots, prompts of 512. 14a: adapters of rank 16 in an arena of
+# 4 (5 rows of 48 MiB), three registered from numpy seeds, one wave with
+# ids 0-3 on two lanes each; 14b: the same in f32 at 4 layers against
+# generate() under the arena's binding; 14c: the prefix cache over host and
+# disk tiers, an arena that a pressure wave empties
+LORA_RANK, LORA_CAP, LORA_SCALE = 16, 4, 0.25
+LORA_SEEDS = (141, 142, 143, 144)  # three registered; the fourth replaces 2
+LORA_PLEN, LORA_NEW = 512, 48
+LORA_IDS = [0, 1, 2, 3, 0, 1, 2, 3]
+LORA_F32 = (4, [5, 700, 37, 129, 16, 300, 64, 511],
+            [16, 23, 9, 30, 17, 12, 26, 21])
+# 14c: every prompt is one shared 512-token prefix (32 blocks of 16) and a
+# private tail shorter than a block, so a chain is exactly the prefix; a
+# primer (request 0 alone, a miss) fills the cache first, so every request
+# of waves A and B attaches the same prefix bytes and prefills its tail
+TIER_PREFIX, TIER_TAIL, TIER_NEW, TIER_BLOCK = 512, 15, 64, 16
+# the pressure wave: 15-token prompts (no full block to insert) whose
+# 572-token budgets reserve 37 blocks each, the whole arena, so the last
+# admissions evict every cached block; cancelled once admitted
+TIER_PRESSURE = (15, 572)
+TIER_TIMED, TIER_DISK_TIMED = 5, 3  # first-token samples per kind
+TIER_SUFFIX = 64  # the timed prompts: prefix 512 + a fresh suffix of 64
+
+
+def lora_adapter(serving, cfg, seed):
+    """A dense random adapter of rank LORA_RANK over every site of ``cfg``,
+    drawn from numpy's ``default_rng(seed)``."""
+    return serving.LoraAdapter.random(cfg, rank=LORA_RANK, seed=seed,
+                                      scale=LORA_SCALE, name=f"seed-{seed}")
+
+
+def lora_engine(model, serving, lora=True):
+    cfg = dict(num_slots=SPEC_SLOTS)
+    if lora:
+        cfg.update(lora_rank=LORA_RANK, lora_adapters=LORA_CAP)
+    return serving.ServingAPI(model, serving.ServingConfig(**cfg),
+                              device="cuda")
+
+
+def print_step(what, t, base, card):
+    tr = t["traced"]
+    print(f"{what}: decode step {t['step_ms']:.3f} ms host "
+          f"({t['step_ms'] / base['step_ms']:.3f} x the no-arena engine's), "
+          f"traced busy {tr['busy_ms']:.3f} ms ({tr['busy_method']}; no "
+          f"arena {base['traced']['busy_ms']:.3f} ms), idle share "
+          f"{t['untraced_idle_share']:.3f} of the untraced step "
+          f"({tr['idle_share']:.3f} traced), {t['tokens_per_s']:.1f} "
+          f"tokens/s [{card}]")
+
+
+def serve_lora_bf16(model, serving, pa, so, card):
+    """Phase 14a: a no-arena engine's streams and decode step, then an
+    engine with an adapter arena: its decode step with 0 live adapters,
+    three adapters registered, one wave with ids 0-3 on two lanes each
+    (the id-0 lanes equal the no-arena engine's, each adapter lane its
+    request served alone on the same engine, the launches exact, each
+    adapter changing at least one token), a second wave after an
+    unregister and a fresh register that reuses the row and builds
+    nothing, and the decode step with 3 and with 1 live adapters. Returns
+    wave 1's launches and the times."""
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    rng = np.random.default_rng(50)
+    prompts = [rng.integers(0, vocab, LORA_PLEN) for _ in LORA_IDS]
+    news = [LORA_NEW] * len(prompts)
+    kw = [{"adapter": a} for a in LORA_IDS]
+    times = {}
+    api = lora_engine(model, serving, lora=False)
+    reqs, launches, ran = serve(api, pa, prompts, news,
+                                "bf16 lora, no arena", card)
+    hold_launches(launches, want_launches(layers, ran), "bf16 lora, no arena")
+    base = [list(r.tokens) for r in reqs]
+    times["no arena"] = spec_serve(api, pa, so, prompts, news,
+                                   "bf16 lora timing, no arena", card,
+                                   trace=layers)[3]
+    api.close()
+    torch.cuda.empty_cache()
+
+    api = lora_engine(model, serving)
+    eng = api.engine
+    arena_bytes = eng.lora.bytes_total()
+    row = arena_bytes // (LORA_CAP + 1)
+    print(f"bf16 lora arena: rank {LORA_RANK}, {LORA_CAP} rows + the "
+          f"identity, {LORA_CAP + 1} rows of {row / 2 ** 20:.1f} MiB "
+          f"({arena_bytes} bytes) [{card}]")
+    times["arena, 0 live"] = spec_serve(api, pa, so, prompts, news,
+                                        "bf16 lora timing, 0 live", card,
+                                        trace=layers)[3]
+    t0 = time.perf_counter()
+    ids = [api.register_adapter(lora_adapter(serving, model.cfg, s))
+           for s in LORA_SEEDS[:3]]
+    print(f"bf16 lora: 3 adapters drawn and registered in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    if ids != [1, 2, 3]:
+        raise AssertionError(f"adapter ids {ids}, not 1, 2, 3")
+    what = "bf16 lora wave 1"
+    reqs, launches, ran = serve(api, pa, prompts, news, what, card, kw)
+    hold_launches(launches, want_launches(layers, ran), what)
+    got = [list(r.tokens) for r in reqs]
+    changed = {a: 0 for a in ids}
+    for i, a in enumerate(LORA_IDS):
+        if a == 0:
+            hold_streams([reqs[i]], [base[i]], f"{what}, lane {i} (id 0)",
+                         card, "the no-arena engine's")
+        else:
+            changed[a] += sum(x != y for x, y in zip(got[i], base[i]))
+    print(f"{what}: tokens each adapter changes against the base stream "
+          f"over its two lanes: {changed} [{card}]")
+    if min(changed.values()) < 1:
+        raise AssertionError(f"{what}: an adapter changed no token: "
+                             f"{changed}")
+    built = builds(eng)
+    for i, a in enumerate(LORA_IDS):
+        if a:
+            solo, _, _ = serve(api, pa, [prompts[i]], [LORA_NEW],
+                               f"{what}, lane {i} alone", card, [kw[i]])
+            hold_streams(solo, [got[i]], f"{what}, lane {i} (id {a}) alone",
+                         card, "its lane's in the wave")
+    api.unregister_adapter(2)
+    if api.register_adapter(lora_adapter(serving, model.cfg,
+                                         LORA_SEEDS[3])) != 2:
+        raise AssertionError("the re-registered adapter did not reuse row 2")
+    what = "bf16 lora wave 2 (row 2 re-registered)"
+    reqs2, launches2, ran2 = serve(api, pa, prompts, news, what, card, kw)
+    hold_launches(launches2, want_launches(layers, ran2), what)
+    for i, a in enumerate(LORA_IDS):
+        if a != 2:
+            hold_streams([reqs2[i]], [got[i]], f"{what}, lane {i}", card,
+                         "wave 1's")
+        else:
+            solo, _, _ = serve(api, pa, [prompts[i]], [LORA_NEW],
+                               f"{what}, lane {i} alone", card, [kw[i]])
+            hold_streams(solo, [list(reqs2[i].tokens)],
+                         f"{what}, lane {i} alone", card, "its lane's")
+    if builds(eng) != built:
+        raise AssertionError(f"bf16 lora: builds {builds(eng)} after the "
+                             f"first wave's {built}")
+    times["arena, 3 live"] = spec_serve(api, pa, so, prompts, news,
+                                        "bf16 lora timing, 3 live", card,
+                                        trace=layers, submit_kw=kw)[3]
+    api.unregister_adapter(2)
+    api.unregister_adapter(3)
+    one = [{"adapter": i % 2} for i in range(len(prompts))]
+    times["arena, 1 live"] = spec_serve(api, pa, so, prompts, news,
+                                        "bf16 lora timing, 1 live", card,
+                                        trace=layers, submit_kw=one)[3]
+    if builds(eng) != built:
+        raise AssertionError("bf16 lora: the timing waves built a program")
+    api.close()
+    torch.cuda.empty_cache()
+    for name, t in times.items():
+        print_step(f"bf16 lora {name}", t, times["no arena"], card)
+    return launches, times
+
+
+def serve_lora_f32(gpt, serving, pa, so, arrays, card):
+    """Phase 14b (TF32 off): gpt_1p3b's width cut to LORA_F32[0] layers, an
+    arena with three adapters, 8 requests with ids 0-3, greedy and sampled
+    by turns: each adapter's streams equal ``generate()`` of the same model
+    under the arena's binding for that one id (a sampled draw within
+    SERVED_BOUNDARY of its interval excepted, ``hold_served_tokens``), the
+    launches exact."""
+    from paddle_tpu_torch.serving import SamplingParams
+    from paddle_tpu_torch.tools.profile_decode import SAMPLED
+
+    layers, lens, news = LORA_F32
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=layers)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    names = dict(model.named_parameters())
+    gpt.load_functional_state(model, {n: a for n, a in arrays.items()
+                                      if n in names})
+    api = lora_engine(model, serving)
+    for s in LORA_SEEDS[:3]:
+        api.register_adapter(lora_adapter(serving, cfg, s))
+    rng = np.random.default_rng(51)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    kw = [dict(adapter=a, **({"sampling": SamplingParams(**SAMPLED,
+                                                         seed=60 + i)}
+                             if i % 2 else {}))
+          for i, a in enumerate(LORA_IDS)]
+    what = f"f32 lora ({layers} layers)"
+    reqs, launches, ran = serve(api, pa, prompts, news, what, card, kw)
+    hold_launches(launches, want_launches(layers, ran), what)
+    device = model.gpt.wte.weight.device
+    for a in sorted(set(LORA_IDS)):
+        idx = [i for i, b in enumerate(LORA_IDS) if b == a]
+        with api.engine.lora.bind(torch.tensor([a], device=device)):
+            hold_served_tokens(api, model, [prompts[i] for i in idx],
+                               [reqs[i] for i in idx],
+                               [news[i] for i in idx], [kw[i] for i in idx],
+                               f"{what}, adapter {a} against generate() "
+                               "under its binding", card)
+    api.close()
+    del model
+    torch.cuda.empty_cache()
+
+
+def tier_prompts(vocab, seed):
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, TIER_PREFIX)
+    return rng, [np.concatenate([prefix, rng.integers(0, vocab, TIER_TAIL)])
+                 for _ in range(SPEC_SLOTS)]
+
+
+def tier_engine(model, serving, store, quant_kv=False):
+    """An engine whose arena one wave of SPEC_SLOTS x (prompt + TIER_NEW)
+    fills: the pressure wave then evicts every cached block."""
+    per = -(-(TIER_PREFIX + TIER_TAIL + TIER_NEW) // TIER_BLOCK)
+    return serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=SPEC_SLOTS, kv_block_size=TIER_BLOCK, prefix_cache=True,
+        kv_tiering=True, tier_store=store, quant_kv=quant_kv,
+        num_blocks=SPEC_SLOTS * per + 1), device="cuda")
+
+
+def tier_pressure(api, rng, vocab, chain, what):
+    """The pressure wave (TIER_PRESSURE), cancelled once admitted; every
+    node of ``chain`` must be spilled after it."""
+    from paddle_tpu_torch.serving import RequestState
+
+    sched = api.scheduler
+    reqs = [api.submit(rng.integers(0, vocab, TIER_PRESSURE[0]),
+                       max_new_tokens=TIER_PRESSURE[1])
+            for _ in range(SPEC_SLOTS)]
+    while sched.waiting or sched.prefilling:
+        sched.step()
+    for r in reqs:
+        r.cancel()
+    api.run_until_idle()
+    if any(r.state != RequestState.CANCELLED for r in reqs):
+        raise AssertionError(f"{what}: pressure wave {[r.state for r in reqs]}")
+    if not all(n.spilled for n in chain):
+        raise AssertionError(f"{what}: the pressure wave left "
+                             f"{sum(not n.spilled for n in chain)} of the "
+                             f"chain's {len(chain)} blocks resident")
+
+
+def same_payload(a, b) -> bool:
+    return all(len(x) == len(y) and all(
+        u.dtype == v.dtype and u.tobytes() == v.tobytes()
+        for u, v in zip(x, y)) for x, y in zip(a, b))
+
+
+def hold_restored(eng, chain, snap, what, card):
+    """Every restored block of ``chain`` bit-equal (payload and, in int8,
+    scales) to its snapshot taken before the spill and to the tier's
+    spilled payload."""
+    view = eng.tier
+    for i, (node, want) in enumerate(zip(chain, snap)):
+        if node.spilled:
+            raise AssertionError(f"{what}: chain block {i} still spilled")
+        got = eng.arena.read_block(node.block)
+        spilled, _ = view.store.get(view._k(node.key))
+        if not same_payload(got, want) or not same_payload(got, spilled):
+            raise AssertionError(f"{what}: restored block {i} differs from "
+                                 "the spilled one")
+    print(f"e2e {what}: the {len(chain)} restored blocks are bit-equal to "
+          f"the spilled payloads ({len(snap[0][0])} arrays a layer) [{card}]")
+
+
+def tier_waves(model, pa, api, what, card, kernels, seed):
+    """The primer (request 0 alone, a miss), wave A (every request a hit on
+    the primer's prefix), the pressure wave, wave B (the first admission
+    restores the chain, the others hit it): wave B's streams equal wave A's,
+    its restored blocks bit-equal to the spilled ones, TIER_PREFIX / 16
+    blocks restored, the launches exact, one restore program built.
+    Returns the prompts, the primer's and wave A's streams, the chain, the
+    rng and wave B's launches."""
+    eng = api.engine
+    view = eng.tier
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    rng, prompts = tier_prompts(vocab, seed)
+    news = [TIER_NEW] * len(prompts)
+    primer, _, _ = serve(api, pa, prompts[:1], news[:1], f"{what}, primer",
+                         card)
+    reqs, launches, ran = serve(api, pa, prompts, news, f"{what}, wave A",
+                                card)
+    hold_launches(launches, want_launches(layers, ran, **kernels),
+                  f"{what}, wave A")
+    if ran.suffix != len(prompts):
+        raise AssertionError(f"{what}: wave A ran {ran.suffix} hits")
+    want = [list(r.tokens) for r in reqs]
+    chain = eng.prefix_cache.match(prompts[0])
+    if len(chain) != TIER_PREFIX // eng.block_size:
+        raise AssertionError(f"{what}: a chain of {len(chain)} blocks")
+    snap = [eng.arena.read_block(n.block) for n in chain]
+    tier_pressure(api, rng, vocab, chain, what)
+    before = view.stats()
+    reqs, launches, ran = serve(api, pa, prompts, news, f"{what}, wave B",
+                                card)
+    hold_launches(launches, want_launches(layers, ran, **kernels),
+                  f"{what}, wave B")
+    hold_streams(reqs, want, f"{what}, wave B", card, "wave A's")
+    moved = {k: v - before[k] for k, v in view.stats().items()
+             if k in ("tier.restored_blocks", "tier.host_hits",
+                      "tier.disk_hits", "tier.misses")}
+    print(f"e2e {what}: wave B moved {moved}, restore builds "
+          f"{eng.restore_traces} (captures {eng.restore_captures}) [{card}]")
+    if moved["tier.restored_blocks"] != len(chain) or moved["tier.misses"]:
+        raise AssertionError(f"{what}: wave B {moved}")
+    hold_restored(eng, eng.prefix_cache.match(prompts[0]), snap, what, card)
+    if (eng.restore_traces, eng.restore_captures) != (
+            1, int(eng.device.type == "cuda")):
+        raise AssertionError(f"{what}: restore built "
+                             f"{eng.restore_traces} times")
+    return prompts, list(primer[0].tokens), want, chain, rng, launches
+
+
+def tier_ttft(api, rng, prefixes, kind, restored):
+    """Host ms from ``admit()`` to the first token of each of ``prefixes``
+    with TIER_SUFFIX fresh tokens, each slot retired at once; the admissions
+    must restore ``restored`` blocks in all (``kind`` names them)."""
+    eng = api.engine
+    vocab = eng.vocab
+    restored_blocks = lambda: (0 if eng.tier is None  # noqa: E731
+                               else eng.tier.restored_blocks)
+    before = restored_blocks()
+    ms = []
+    for p in prefixes:
+        prompt = np.concatenate([p, rng.integers(0, vocab, TIER_SUFFIX)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot, _ = eng.admit(prompt, 8)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        eng.retire(slot)
+    if restored_blocks() - before != restored:
+        raise AssertionError(f"first token, {kind}: "
+                             f"{restored_blocks() - before} blocks "
+                             f"restored, not {restored}")
+    return ms
+
+
+def tier_times(api, rng, n, resident=True):
+    """First-token times on ``api``, ``n`` samples a kind after one warm-up
+    prefix (every bucket then built): misses (a full prefill, and the
+    prompt's blocks written through to the tiers), with ``resident`` hits
+    on the device-resident prefix, and, on an engine with tiers, hits on
+    the prefix spilled to the engine's store first, restored from it."""
+    eng = api.engine
+    chain = TIER_PREFIX // eng.block_size
+    prefixes = [rng.integers(0, eng.vocab, TIER_PREFIX) for _ in range(n + 1)]
+    out = {"miss": tier_ttft(api, rng, prefixes, "miss", 0)[1:]}
+    if resident:
+        out["resident"] = tier_ttft(api, rng, prefixes, "resident", 0)[1:]
+    if eng.tier is None:
+        return out
+    eng.prefix_cache.evict(eng.prefix_cache.evictable_blocks())
+    out["restored"] = tier_ttft(api, rng, prefixes[1:], "restored",
+                                n * chain)
+    return out
+
+
+def tier_restore_times(api, chain, card, flush):
+    """A spilled block's host ms (``read_block``: its device-to-host copy
+    into pinned memory) and a restored chain's (its host buffers copied to
+    the staging and one run of the restore program, synchronised), beside
+    the bound measured here: one pinned host-to-device copy of the chain's
+    bytes."""
+    eng = api.engine
+    view = eng.tier
+    blocks = [n.block for n in chain]
+    payloads = [view.store.get(view._k(n.key))[0] for n in chain]
+    spill = []
+    for blk in blocks[:10]:
+        t0 = time.perf_counter()
+        eng.arena.read_block(blk)
+        spill.append((time.perf_counter() - t0) * 1e3)
+    restore = []
+    for _ in range(6):  # rewrites the chain's own bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._restore_call(payloads, blocks)
+        torch.cuda.synchronize()
+        restore.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(p.buffer.numel() for p in payloads)
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    bound_ms = time_ms(lambda: dst.copy_(src, non_blocking=True), flush,
+                       iters=10)
+    out = dict(spill_block_ms=float(np.median(spill)),
+               restore_chain_ms=float(np.median(restore[1:])),
+               chain_blocks=len(blocks), chain_bytes=nbytes,
+               restore_bound_ms=bound_ms,
+               h2d_gb_per_s=nbytes / bound_ms / 1e6)
+    print(f"e2e bf16 tiers: a spilled block {out['spill_block_ms']:.3f} ms "
+          f"host (device to pinned host, into a buffer the host allocator "
+          f"reuses; median of {len(spill)}); a "
+          f"restored chain of {len(blocks)} blocks ({nbytes} bytes) "
+          f"{out['restore_chain_ms']:.3f} ms host, synchronised (median of "
+          f"5), bound {bound_ms:.3f} ms: one pinned host-to-device copy of "
+          f"its bytes ({out['h2d_gb_per_s']:.1f} GB/s), "
+          f"{out['restore_chain_ms'] / bound_ms:.2f} x [{card}]")
+    return out
+
+
+def serve_tiers(model, serving, pa, card):
+    """Phase 14c: the tiered KV cache in bf16 (``tier_waves`` over a host
+    store, then over an int8 arena, where payload and scales must come back
+    bit-equal), the spill and restore times against their bound, the first
+    token of a miss, a resident hit and a host-restored hit; then a disk
+    pass: a host budget below one block, so every entry lives on disk,
+    wave B restored from disk, and a corrupted file of the chain's first
+    block, which sends the next wave's first admission to a full prefill
+    (its stream then the primer's, the others' wave A's), and the first
+    token of a disk-restored hit. Returns wave B's launches, the int8
+    ones and the times."""
+    import tempfile
+
+    from paddle_tpu_torch.serving import HostKVCache
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    layers = model.cfg.num_layers
+    out = {}
+    store = HostKVCache(max_bytes=8 << 30, disk_dir="")
+    api = tier_engine(model, serving, store)
+    prompts, _, _, chain, rng, launches = tier_waves(
+        model, pa, api, "bf16 tiers (host)", card, {}, 53)
+    out.update(tier_restore_times(api, chain, card, flush))
+    out.update({f"ttft_{k}_ms": v
+                for k, v in tier_times(api, rng, TIER_TIMED).items()})
+    print(f"bf16 tiers (host): engine {api.engine.stats()['tier.enabled']}, "
+          f"store {store.stats()} [{card}]")
+    api.close()
+    del store
+    torch.cuda.empty_cache()
+    # the same first tokens with the prefix cache and no tiers, in this call
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=SPEC_SLOTS, kv_block_size=TIER_BLOCK, prefix_cache=True),
+        device="cuda")
+    out.update({f"ttft_{k}_no_tier_ms": v
+                for k, v in tier_times(api, rng, TIER_TIMED).items()})
+    api.close()
+    torch.cuda.empty_cache()
+
+    store = HostKVCache(max_bytes=8 << 30, disk_dir="")
+    api = tier_engine(model, serving, store, quant_kv=True)
+    kv8 = dict(decode="paged_decode_attention_int8",
+               chunk="paged_prefill_attention_int8")
+    launches8 = tier_waves(model, pa, api, "bf16 tiers (quant_kv)", card,
+                           kv8, 54)[5]
+    api.close()
+    del store
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        store = HostKVCache(max_bytes=1, disk_dir=root)
+        api = tier_engine(model, serving, store)
+        eng = api.engine
+        what = "bf16 tiers (disk)"
+        prompts, primer, want, chain, rng, _ = tier_waves(
+            model, pa, api, what, card, {}, 55)
+        if eng.tier.disk_hits < len(chain) - 1:
+            raise AssertionError(f"{what}: {eng.tier.disk_hits} disk hits")
+        tier_pressure(api, rng, eng.vocab, chain, what)
+        path = os.path.join(root, eng.tier._k(chain[0].key).hex() + ".kv")
+        raw = bytearray(open(path, "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        with open(path, "wb") as f:
+            f.write(raw)
+        misses, corrupt = eng.tier.misses, store.disk.stats()
+        reqs, _, _ = serve(api, pa, prompts, [TIER_NEW] * len(prompts),
+                           f"{what}, wave C (first block corrupted)", card)
+        if eng.tier.misses != misses + 1:
+            raise AssertionError(f"{what}: wave C counted "
+                                 f"{eng.tier.misses - misses} misses")
+        hold_streams(reqs[:1], [primer], f"{what}, wave C request 0 (a "
+                     "miss: the corrupted chain prefilled again)", card,
+                     "the primer's")
+        hold_streams(reqs[1:], want[1:], f"{what}, wave C", card,
+                     "wave A's")
+        out["ttft_disk_restored_ms"] = tier_times(
+            api, rng, TIER_DISK_TIMED, resident=False)["restored"]
+        print(f"{what}: disk {store.disk.stats()} (was {corrupt}), view "
+              f"{eng.tier.stats()} [{card}]")
+        api.close()
+    torch.cuda.empty_cache()
+    med = {k: float(np.median(v)) for k, v in out.items()
+           if k.startswith("ttft_")}
+    print(f"bf16 tiers: first token of {TIER_PREFIX} + {TIER_SUFFIX}, "
+          f"median ms: miss {med['ttft_miss_ms']:.3f} (no tiers "
+          f"{med['ttft_miss_no_tier_ms']:.3f}), resident hit "
+          f"{med['ttft_resident_ms']:.3f} (no tiers "
+          f"{med['ttft_resident_no_tier_ms']:.3f}), host-restored hit "
+          f"{med['ttft_restored_ms']:.3f}, disk-restored hit "
+          f"{med['ttft_disk_restored_ms']:.3f}; samples "
+          + json.dumps({k: [round(x, 3) for x in v] for k, v in out.items()
+                        if k.startswith("ttft_")}) + f" [{card}]")
+    out.update({k.replace("_ms", "_median_ms"): v for k, v in med.items()})
+    return launches, launches8, out
+
+
+def serve_lora_tier(gpt, serving, pa, so, arrays, card):
+    """Phase 14: 14a and 14c on bf16 gpt_1p3b, 14b in f32 at 4 layers.
+    Returns the launches of 14a's wave 1 and of 14c's wave B (the int8
+    rows' from the quant_kv wave B) and the times."""
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    model.to(torch.bfloat16)
+    t0 = time.perf_counter()
+    lora_launches, lora_times = serve_lora_bf16(model, serving, pa, so, card)
+    print(f"phase 14a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tier_launches, tier_launches8, tier = serve_tiers(model, serving, pa,
+                                                      card)
+    print(f"phase 14c: {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_lora_f32(gpt, serving, pa, so, arrays, card)
+    print(f"phase 14b: {time.perf_counter() - t0:.1f} s")
+    for name in PAGED[2:]:
+        tier_launches[name] = tier_launches8[name]
+    summary = dict(lora=lora_times, tiers=tier)
+    print("phase 14, one call: " + json.dumps(summary) + f" [{card}]")
+    return lora_launches, tier_launches, summary
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -4778,6 +5326,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     spec_launches, _ = t("13", serve_spec, gpt, serving, pa, so, arrays, card)
+    lora_launches, tier_launches, _ = t("14", serve_lora_tier, gpt, serving,
+                                        pa, so, arrays, card)
 
     t("7", flash_checks, fa)
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
@@ -4846,7 +5396,9 @@ def main() -> int:
                     **({"launches_prefix": prefix_launches[name],
                         "launches_recovery": recovery_launches[name]}
                        if name in PAGED[:2] + SAMPLING else {}),
-                    **({"launches_spec": spec_launches[name]}
+                    **({"launches_spec": spec_launches[name],
+                        "launches_lora": lora_launches.get(name, 0),
+                        "launches_tier": tier_launches.get(name, 0)}
                        if name in PAGED + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),

@@ -59,6 +59,13 @@ CAPTURED = (
     "paddle_tpu_torch/models/gpt.py:GPTAttention.forward",
     "paddle_tpu_torch/models/gpt.py:GPTMLP.forward",
     "paddle_tpu_torch/models/gpt.py:_serving_linear",
+    # the adapter hook _serving_linear calls and the per-lane gather and
+    # products it adds (the binding is entered inside the engine's steps)
+    "paddle_tpu_torch/serving/adapters.py:_lora_hook",
+    "paddle_tpu_torch/serving/adapters.py:lora_delta",
+    "paddle_tpu_torch/serving/adapters.py:AdapterArena.bind",
+    "paddle_tpu_torch/serving/adapters.py:AdapterArena.site_of",
+    "paddle_tpu_torch/serving/adapters.py:AdapterArena.pools",
     "paddle_tpu_torch/models/gpt.py:GPTForCausalLM._head_logits",
     "paddle_tpu_torch/models/gpt.py:GPTForCausalLM.verify_logits",
     # the speculative step and the draft prefill (also found as the steps

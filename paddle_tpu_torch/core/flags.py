@@ -127,6 +127,29 @@ define_flag("serving_arena_invariants", 0)
 # partial chain is shareable as soon as it exists. Requires
 # FLAGS_serving_prefix_cache.
 define_flag("serving_publish_chunks", 0)
+# Tiered KV cache (serving.tiered): an evicted refcount-zero cached prefix
+# block spills its pool rows (an int8 arena's payload and scales as one unit)
+# to a host-RAM tier keyed by the radix cache's content hashes, overflowing
+# to a disk tier; a later hit restores it through one captured program.
+# Requires FLAGS_serving_prefix_cache. 0: eviction frees the block.
+define_flag("serving_kv_tiering", False)
+# Byte budget of the host-RAM spill tier (serving.tiered.HostKVCache): LRU
+# entries past it overflow to FLAGS_serving_disk_cache_dir when set, else
+# drop (the next hit recomputes).
+define_flag("serving_host_cache_bytes", 256 * 1024 * 1024)
+# Directory of the on-disk spill tier: atomic tmp + rename files with a crc32
+# header; a corrupt or truncated entry reads as a miss. Empty: no disk tier.
+define_flag("serving_disk_cache_dir", "")
+# Byte budget of the disk tier: past it the oldest-written entries are
+# deleted.
+define_flag("serving_disk_cache_bytes", 8 * 1024 * 1024 * 1024)
+# Multi-LoRA serving: the adapter arena's rank (serving.adapters). 0 = off,
+# no arena. Rank and capacity are fixed per engine; which adapters are live
+# and which slot wears which are data to the captured steps.
+define_flag("serving_lora_rank", 0)
+# Capacity of the adapter arena: adapters registered at once, on top of the
+# identity row 0.
+define_flag("serving_lora_adapters", 4)
 # Serving supervisor crash-loop breaker: after this many engine rebuilds
 # within FLAGS_serving_rebuild_window scheduler steps, transient failures stop
 # being recovered and fail fast (CrashLoopError).

@@ -15,8 +15,11 @@ kinds are ``serving_device``, ``arena_corrupt`` and ``preempt``.
 :class:`PreemptionGuard` (``:574``) turns SIGTERM/SIGINT into a request that
 a serving pump polls at step boundaries; a second signal escalates to the
 previous handler. Counters (``overload.*``, ``deadline.*``, ``fault.*``,
-``preempt.*``, ``serving.*``) mirror the JAX module's: :func:`bump`,
-:func:`stats`, :func:`reset_stats`, :func:`stats_delta`.
+``preempt.*``, ``serving.*``, and ``tier.*``: ``tier.disk_corrupt`` and
+``tier.disk_write_failed``, the tiered KV cache's disk entries that failed
+their crc on load or could not be written, mirrored from
+``serving.tiered``) mirror the JAX module's: :func:`bump`, :func:`stats`,
+:func:`reset_stats`, :func:`stats_delta`.
 
 The training half: :class:`RetryPolicy`, :func:`call_with_retry`,
 :func:`io_policy`, :func:`atomic_write` and :func:`retry` (``:285-420``; a
@@ -26,8 +29,8 @@ IO) and ``nonfinite_grads`` (``TrainStep`` scales its gradients by NaN);
 the rollback registry (:func:`set_rollback_handler`,
 :func:`trigger_rollback`, raising :class:`NonfiniteStepError` without a
 handler); and :meth:`PreemptionGuard.maybe_finalize`, the final checkpoint
-at a step boundary. Not ported: the ``serving_step`` kind and its retry
-around the engine's program runs.
+at a step boundary. The ``serving_step`` kind fires before a serving step
+program's run, which the engine retries under :func:`io_policy`.
 """
 from __future__ import annotations
 

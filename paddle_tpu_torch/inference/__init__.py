@@ -93,8 +93,10 @@ class Config:
         engine. ``model`` is an in-memory ``GPTForCausalLM`` (the slot
         engine drives its decode step, which an exported program cannot
         give); ``engine_kw`` goes to ``EnginePredictor`` (``config=`` a
-        ``ServingConfig``, ``priority``, ``sampling``, ``device``,
-        ``max_queue``)."""
+        ``ServingConfig``, ``priority``, ``sampling``, ``adapter``,
+        ``device``, ``max_queue``). The predictor's ``close()`` logs its
+        lifetime summary, with the prefix and tier hit rates and the
+        adapter arena's admissions and rows when the config has them."""
         self._serving = dict(model=model, max_new_tokens=max_new_tokens,
                              stop_token_id=stop_token_id,
                              engine_kw=engine_kw)

@@ -153,20 +153,45 @@ def quantize_serving_weights(model) -> int:
     return n
 
 
+#: the multi-LoRA hook (``serving.adapters``): called as ``hook(layer, x,
+#: y)`` on the base output of every :func:`_serving_linear`; it adds a
+#: per-lane low-rank update while an adapter binding is entered and returns
+#: ``y`` untouched otherwise. None until an adapter arena exists.
+_lora_hook = None
+
+
+def set_lora_hook(fn) -> None:
+    """Install the serving adapter hook (``serving.adapters`` does so when
+    its first :class:`~paddle_tpu_torch.serving.adapters.AdapterArena` is
+    made; ``paddle_tpu/models/gpt.py:127``). Idempotent."""
+    global _lora_hook
+    _lora_hook = fn
+
+
 def _serving_linear(layer, x):
     """The attention/MLP matmul shared by the quantized and plain paths. An
     unquantized layer runs its own forward (the default path is unchanged);
     a layer with a ``weight_scale`` computes ``x @ ((int8 weight * scale)
-    cast to x's dtype) + bias``, the JAX package's dequant-then-matmul."""
+    cast to x's dtype) + bias``, the JAX package's dequant-then-matmul.
+    Either output then goes through the adapter hook, which is the identity
+    unless an adapter binding is entered (training, ``generate()`` and the
+    speculative verify run the same ops as without it)."""
     scale = getattr(layer, "weight_scale", None)
     if scale is None:
-        return layer(x)
-    if scale.dtype != torch.float32:
-        raise TypeError(f"weight_scale is {scale.dtype}, not float32: the "
-                        "model's dtype was changed after quantization")
-    w = (layer.weight.float() * scale).to(x.dtype)
-    y = torch.matmul(x, w)
-    return y + layer.bias.to(y.dtype)
+        y = layer(x)
+    else:
+        if scale.dtype != torch.float32:
+            raise TypeError(f"weight_scale is {scale.dtype}, not float32: "
+                            "the model's dtype was changed after "
+                            "quantization")
+        w = (layer.weight.float() * scale).to(x.dtype)
+        y = torch.matmul(x, w)
+        y = y + layer.bias.to(y.dtype)
+    # analysis: allow(mutable-global-capture) -- the hook is installed once,
+    # before any engine with an adapter arena captures; what it adds is
+    # decided by the binding its steps enter, not by this global
+    hook = _lora_hook
+    return y if hook is None else hook(layer, x, y)
 
 
 def serving_compute_dtype(model) -> torch.dtype:

@@ -4,14 +4,18 @@ scheduling with deadlines, shedding and preemption with journal resume,
 chunked prefill, the radix prefix cache with copy-on-write, int8 weights
 and an int8 arena on request, ``ServingAPI`` with its background pump,
 drain and preemption guard, supervisor rebuild-and-replay recovery,
-request telemetry, ``EnginePredictor``, and speculative decoding
+request telemetry, ``EnginePredictor``, speculative decoding
 (``SpecDecoder``: a draft model's or the target's own lockstep proposals
-verified by the target in one captured step)."""
+verified by the target in one captured step), multi-LoRA serving
+(``AdapterArena``, ``LoraAdapter``) and the tiered KV cache (``HostKVCache``,
+``DiskTier``, ``TierView``: evicted prefix blocks spill to host RAM and disk
+and are restored by one captured program)."""
 from . import metrics, telemetry
 from ..core.resilience import (ArenaCorruptError, Deadline,
                                DeadlineExceededError, PreemptionGuard,
                                QueueOverloadError, RequestDrainedError,
                                ServingDeviceError)
+from .adapters import AdapterArena, AdapterExhaustedError, LoraAdapter
 from .api import EnginePredictor, ServingAPI, drain_all
 from .constrain import Constraint, TokenDFA, TrieConstraint
 from .engine import ServingConfig, ServingEngine
@@ -23,6 +27,8 @@ from .scheduler import Request, RequestState, Scheduler
 from .spec_decode import SpecDecoder
 from .supervisor import (CrashLoopError, EngineSupervisor,
                          is_transient_serving_error)
+from .tiered import (DiskTier, HostKVCache, TierView, get_tier_store,
+                     reset_tier_store)
 
 __all__ = ["ServingAPI", "ServingConfig", "ServingEngine", "SamplingParams",
            "Constraint", "TokenDFA", "TrieConstraint", "Request",
@@ -32,5 +38,7 @@ __all__ = ["ServingAPI", "ServingConfig", "ServingEngine", "SamplingParams",
            "RequestDrainedError", "ServingDeviceError", "ArenaCorruptError",
            "PreemptionGuard", "EnginePredictor", "drain_all",
            "EngineSupervisor", "CrashLoopError",
-           "is_transient_serving_error", "SpecDecoder", "metrics",
-           "telemetry"]
+           "is_transient_serving_error", "SpecDecoder", "LoraAdapter",
+           "AdapterArena", "AdapterExhaustedError", "HostKVCache",
+           "DiskTier", "TierView", "get_tier_store", "reset_tier_store",
+           "metrics", "telemetry"]

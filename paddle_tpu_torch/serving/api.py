@@ -34,10 +34,12 @@ background pump may capture a step program while the caller's thread does
 its own CUDA work: captures run in ``"thread_local"`` error mode
 (``serving/graphs.py``).
 
-:class:`EnginePredictor` (``paddle_tpu/serving/api.py:505``) gives the
-``paddle.inference`` predictor surface a continuous-batching backend: one
-request per row of a batch. ``register_adapter`` / ``unregister_adapter``
-and ``prefetch`` come with the LoRA and gateway slices.
+:meth:`ServingAPI.register_adapter` / :meth:`ServingAPI.unregister_adapter`
+manage the engine's LoRA adapter rows under the API lock, between two
+steps; ``submit(adapter=)`` names one. :class:`EnginePredictor`
+(``paddle_tpu/serving/api.py:505``) gives the ``paddle.inference``
+predictor surface a continuous-batching backend: one request per row of a
+batch, under one adapter. ``prefetch`` comes with the gateway slice.
 """
 from __future__ import annotations
 
@@ -127,7 +129,7 @@ class ServingAPI:
                timeout: Optional[float] = None, request_id: str = "",
                priority: int = 0, journal: Optional[Sequence[int]] = None,
                shed: bool = True, sampling=None, constraint=None,
-               trace_id: str = "") -> Request:
+               adapter: int = 0, trace_id: str = "") -> Request:
         """Enqueue one generation request; returns its handle at once.
         Refuses what could never be served (too long or empty).
 
@@ -148,11 +150,13 @@ class ServingAPI:
 
         ``sampling`` (a :class:`~.sampling.SamplingParams`; None is greedy)
         and ``constraint`` (a :class:`~.constrain.Constraint` walker that
-        masks the vocabulary at each step) select the request's decode
-        scenario. Both are per-slot data in the one decode step: mixing
-        them across a batch builds no program. A seed left unset is drawn
-        once, here; the same seed, prompt and params give the same
-        tokens.
+        masks the vocabulary at each step) and ``adapter`` (a row id
+        :meth:`register_adapter` returned; 0 is the base model) select the
+        request's decode scenario. All three are per-slot data in the one
+        decode step: mixing them across a batch builds no program. A seed
+        left unset is drawn once, here; the same seed, prompt and params
+        give the same tokens. An adapter that is not registered is refused
+        here.
 
         ``trace_id`` carries an existing lifecycle trace onto the request;
         empty mints one and emits its SUBMITTED span here."""
@@ -177,7 +181,7 @@ class ServingAPI:
                           stop_token_id=stop_token_id,
                           request_id=request_id, priority=priority,
                           sampling=sampling, constraint=constraint,
-                          trace_id=trace_id,
+                          adapter_id=int(adapter), trace_id=trace_id,
                           deadline=resilience.Deadline.after(timeout))
             if minted:
                 telemetry.span(req.trace_id, telemetry.SUBMITTED,
@@ -193,6 +197,42 @@ class ServingAPI:
                 # the walker never saw the journal's tokens
                 req.reset_constraint()
             return self.scheduler.submit(req)
+
+    def register_adapter(self, adapter, name: Optional[str] = None) -> int:
+        """Write a :class:`~.adapters.LoraAdapter` into a free row of the
+        engine's adapter arena; returns the id requests pass as
+        ``adapter=``. The rows are written in place between two steps:
+        nothing is built again. The engine needs ``lora_rank`` > 0."""
+        lora = self.engine.lora
+        if lora is None:
+            raise RuntimeError("this engine has no adapter arena "
+                               "(FLAGS_serving_lora_rank is 0)")
+        with self._locked():
+            return lora.register(adapter, name=name)
+
+    def unregister_adapter(self, adapter) -> None:
+        """Free one adapter row (by id or name). Refused while any request,
+        running, prefilling or still queued, names it: the arena's own
+        guard sees occupied slots only, and a queued request would
+        otherwise be admitted onto a freed row, or one recycled to another
+        adapter."""
+        lora = self.engine.lora
+        if lora is None:
+            raise RuntimeError("this engine has no adapter arena "
+                               "(FLAGS_serving_lora_rank is 0)")
+        with self._locked():
+            idx = (lora.adapter_id(adapter) if isinstance(adapter, str)
+                   else int(adapter))
+            sched = self.scheduler
+            worn = [r.request_id for r in (sched.waiting + sched.prefilling
+                                           + sched.running)
+                    if r.adapter_id == idx]
+            if worn:
+                raise RuntimeError(
+                    f"adapter {adapter!r} (id {idx}) is named by "
+                    f"in-flight/queued request(s) {worn[:4]}; let them "
+                    "finish (or cancel them) before unregistering")
+            lora.unregister(idx)
 
     def outstanding(self) -> int:
         """Waiting + prefilling + running requests: committed work, a
@@ -457,7 +497,8 @@ class EnginePredictor:
     filled with it (0 without one): ``GPTForCausalLM.generate(
     stop_token_id=...)``'s contract. ``priority`` (the constructor's
     default, overridable per ``run``) rides the scheduler's priority
-    admission. LoRA adapters are a later slice: ``adapter`` must be 0."""
+    admission; every row decodes with ``sampling`` and the adapter row
+    ``adapter`` (0: the base model; register it on ``self._api`` first)."""
 
     def __init__(self, model, max_new_tokens: int = 32,
                  stop_token_id: Optional[int] = None, priority: int = 0,
@@ -465,15 +506,13 @@ class EnginePredictor:
                  config: Optional[ServingConfig] = None,
                  device=device_mod.DEFAULT_DEVICE,
                  max_queue: Optional[int] = None):
-        if int(adapter) != 0:
-            raise NotImplementedError(
-                "LoRA adapters are not ported yet; adapter must be 0")
         self._api = ServingAPI(model, config, device=device,
                                max_queue=max_queue)
         self._max_new = int(max_new_tokens)
         self._stop = stop_token_id
         self._priority = int(priority)
         self._sampling = sampling  # SamplingParams of every row (None: greedy)
+        self._adapter = int(adapter)  # the rows' adapter row (0: base)
         self._inputs = {}
         self._outputs = {}
         self._finished = 0  # this predictor's own rows, for close()'s
@@ -514,7 +553,8 @@ class EnginePredictor:
                                              max_new_tokens=self._max_new,
                                              stop_token_id=self._stop,
                                              priority=pr,
-                                             sampling=self._sampling))
+                                             sampling=self._sampling,
+                                             adapter=self._adapter))
         # analysis: allow(broad-except) -- cleanup and re-raise: a submit
         # that fails mid-batch (a shed, a refusal) must not strand the rows
         # already queued, whose handles would be unreachable. Every cancel
@@ -544,11 +584,13 @@ class EnginePredictor:
     def close(self) -> None:
         """Close the API (a drain with zero grace) and log this predictor's
         lifetime summary from its own engine stack: supervisor replays and
-        rebuilds, preemptions, drains, the prefix hit rate, speculation
-        (proposed, accepted, acceptance, emitted, mode and k), the
-        quantized arena's bytes per namespace, sampled and constrained
-        admissions, and the TTFT and inter-token percentiles of the
-        engine's histograms."""
+        rebuilds, preemptions, drains, the prefix hit rate, the tiers' hit
+        rate (host and disk hits, blocks spilled and restored),
+        speculation (proposed, accepted, acceptance, emitted, mode and k),
+        the quantized arena's bytes per namespace, sampled, constrained and
+        adapter admissions with the adapter arena's rank, live rows and
+        bytes, and the TTFT and inter-token percentiles of the engine's
+        histograms."""
         api = self._api
         api.close()
         engine = api.engine
@@ -560,6 +602,19 @@ class EnginePredictor:
                           100.0 * cache.hits / (cache.hits + cache.misses),
                           cache.hits, cache.hits + cache.misses,
                           cache.hit_tokens)
+        tier = ""
+        view = engine.tier
+        if view is not None and (view.host_hits or view.disk_hits
+                                 or view.misses or view.spilled_blocks):
+            # each lookup of a spilled block answered by a tier, or a miss:
+            # the entry was lost and the prefix recomputed
+            lookups = view.host_hits + view.disk_hits + view.misses
+            rate = (100.0 * (view.host_hits + view.disk_hits) / lookups
+                    if lookups else 0.0)
+            tier = (", tier hit-rate %.0f%% (%d host / %d disk hits, "
+                    "%d blocks spilled, %d restored)") % (
+                        rate, view.host_hits, view.disk_hits,
+                        view.spilled_blocks, view.restored_blocks)
         spec = engine.spec
         speculation = ""
         if spec is not None and spec.proposed:
@@ -582,9 +637,18 @@ class EnginePredictor:
                 int(engine.quant_weights), int(engine.quant_kv),
                 int(engine.quant_draft), arena_desc)
         scenario = ""
-        if engine.sampled_admits or engine.constrained_admits:
-            scenario = ", scenarios: %d sampled / %d constrained admits" % (
-                engine.sampled_admits, engine.constrained_admits)
+        if (engine.sampled_admits or engine.constrained_admits
+                or engine.adapter_admits or engine.lora is not None):
+            lora = ""
+            if engine.lora is not None:
+                st = engine.lora.stats()
+                lora = ", lora arena rank %d: %d/%d live (%.2f MiB)" % (
+                    st["lora.rank"], st["lora.live"], st["lora.slots"],
+                    st["lora.arena_bytes"] / 2 ** 20)
+            scenario = (", scenarios: %d sampled / %d constrained / "
+                        "%d adapter admits%s") % (
+                            engine.sampled_admits, engine.constrained_admits,
+                            engine.adapter_admits, lora)
         latency = ""
         ttft_h = engine.hists.peek("latency.ttft")
         gap_h = engine.hists.peek("latency.inter_token")
@@ -599,8 +663,8 @@ class EnginePredictor:
         _logger.info(
             "EnginePredictor closed: %d finished, %d failed, "
             "%d supervisor replays (%d rebuilds), %d preemptions, "
-            "%d drains%s%s%s%s%s",
+            "%d drains%s%s%s%s%s%s",
             self._finished, self._failed,
             api.supervisor.replay_count, api.supervisor.rebuild_count,
-            api.scheduler.preempt_count, api.drain_count, prefix,
+            api.scheduler.preempt_count, api.drain_count, prefix, tier,
             speculation, quant, scenario, latency)

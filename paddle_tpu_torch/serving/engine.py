@@ -103,11 +103,35 @@ spec_decode_step` replaces the decode step: up to k tokens per slot from
 one run of the captured speculative step, every one the token plain decode
 would emit. Sampled and constrained slots (:meth:`ServingEngine.
 spec_ineligible`, sticky per request) fall back to the decode step over
-their own lanes (``decode_step(active=)``). LoRA and tiering are later
-slices.
+their own lanes (``decode_step(active=)``).
+
+Multi-LoRA (``ServingConfig.lora_rank`` / ``lora_adapters``, or
+``FLAGS_serving_lora_rank`` / ``FLAGS_serving_lora_adapters``; off by
+default; :mod:`.adapters`): the engine owns an :class:`AdapterArena` of
+stacked per-site adapter pools on its device, and each slot's adapter id is
+a row of one ``[S]`` resident buffer (written when the slot is claimed and
+cleared when it is freed), which the decode step binds around its model
+call; a prefill binds its slot's ``[1]`` id. ``_serving_linear`` adds each
+lane's low-rank update to the base output. Rank and capacity are fixed per
+engine; ids, registration and unregistration are data, so adapter churn
+builds nothing. An adapter lane is spec-ineligible: the speculative verify
+binds no adapter.
+
+The tiered KV cache (``ServingConfig.kv_tiering`` /
+``FLAGS_serving_kv_tiering``, with the prefix cache; :mod:`.tiered`):
+eviction spills a cold prefix block's rows to a host tier shared through
+``ServingConfig.tier_store`` (else :func:`.tiered.get_tier_store`), which
+overflows to disk, and an admission whose walk reaches spilled nodes
+restores them first (:meth:`ServingEngine._restore_nodes`): only the live
+blocks' host buffers are copied to the head of a device staging buffer,
+then one captured program (key ``"restore"``) scatters the staging into
+the destination blocks named by a ``[blocks_per_slot]`` id buffer padded
+with scratch block 0. The tier view survives :meth:`ServingEngine.rebuild`,
+so replays restore warm.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from dataclasses import dataclass, field
@@ -126,10 +150,12 @@ from ..ops.paged_attention import (check_servable, paged_decode_attention,
                                    paged_prefill_attention)
 from ..quantization import quantize_kv
 from . import metrics, telemetry
+from .adapters import AdapterArena
 from .graphs import ResidentBuffer, StepGraphs
-from .kv_arena import KVArena, Reservation
+from .kv_arena import ArenaExhaustedError, KVArena, Reservation
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
+from .tiered import TierView, get_tier_store
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -239,7 +265,13 @@ class ServingConfig:
     device, else the target drafts for itself), ``quant_draft`` ->
     ``FLAGS_serving_quant_draft`` (int8 weights for the draft, quantized in
     place), ``retry_policy`` -> ``resilience.io_policy()`` (the policy a
-    step program's run is retried under)."""
+    step program's run is retried under), ``lora_rank`` /
+    ``lora_adapters`` -> ``FLAGS_serving_lora_rank`` /
+    ``FLAGS_serving_lora_adapters`` (the adapter arena's rank, 0 = off,
+    and capacity), ``kv_tiering`` -> ``FLAGS_serving_kv_tiering`` (spill
+    evicted prefix blocks to the host and disk tiers; needs the prefix
+    cache), ``tier_store`` -> :func:`.tiered.get_tier_store` (the
+    :class:`.tiered.HostKVCache` to share)."""
 
     num_slots: int = 0
     kv_block_size: int = 0
@@ -254,6 +286,10 @@ class ServingConfig:
     draft_model: Optional[object] = None
     quant_draft: Optional[bool] = None
     retry_policy: Optional[resilience.RetryPolicy] = None
+    kv_tiering: Optional[bool] = None
+    tier_store: Optional[object] = None
+    lora_rank: Optional[int] = None
+    lora_adapters: Optional[int] = None
 
 
 @dataclass
@@ -336,12 +372,31 @@ class ServingEngine:
             n = quantize_serving_weights(model)
             if n:
                 metrics.bump("quant.weight_layers", n)
+        # the adapter arena: rank and capacity fixed, rows and ids data
+        lora_rank = int(mode(cfg.lora_rank, "serving_lora_rank"))
+        self.lora = (AdapterArena(model, lora_rank,
+                                  int(mode(cfg.lora_adapters,
+                                           "serving_lora_adapters")))
+                     if lora_rank > 0 else None)
+        if self.lora is not None:
+            self.lora.bind_engine(self)
         self.arena = KVArena(mcfg.num_layers, mcfg.num_heads, head_dim,
                              num_blocks, self.block_size, dtype=dtype,
                              quantized=self.quant_kv, device=self.device)
         self.use_prefix_cache = bool(mode(cfg.prefix_cache,
                                           "serving_prefix_cache"))
-        self.prefix_cache = (PrefixCache(self.arena, self.block_size)
+        # the tier view outlives rebuild(): its tiers are off the device.
+        # Its signature keeps engines of other arena shapes from ever
+        # exchanging entries through a shared store
+        self.kv_tiering = bool(mode(cfg.kv_tiering, "serving_kv_tiering"))
+        self.tier = (TierView(cfg.tier_store if cfg.tier_store is not None
+                              else get_tier_store(),
+                              signature=(mcfg.num_layers, mcfg.num_heads,
+                                         head_dim, self.block_size,
+                                         str(dtype), self.quant_kv))
+                     if self.kv_tiering and self.use_prefix_cache else None)
+        self.prefix_cache = (PrefixCache(self.arena, self.block_size,
+                                         tier=self.tier)
                              if self.use_prefix_cache else None)
 
         s = self.num_slots
@@ -379,9 +434,16 @@ class ServingEngine:
         self._mask = ResidentBuffer(self.device, (s, self.vocab), torch.bool,
                                     True)
         self._mask_host = self._mask.host
+        # each slot's adapter row (0: the base model), one [S] resident
+        # buffer the decode step binds; without an arena always 0
+        self._adapter_ids = (ResidentBuffer(self.device, (s,), torch.int64, 0)
+                             if self.lora is not None else None)
+        self._adapter = (self._adapter_ids.host if self.lora is not None
+                         else np.zeros(s, np.int64))
         # lifetime per-engine admission counts
         self.sampled_admits = 0
         self.constrained_admits = 0
+        self.adapter_admits = 0
         # lifetime counts of this engine's model calls (each runs every
         # layer's attention once): what the kernel launch counters are
         # held against -- decode steps, whole-prompt prefills, and chunks
@@ -401,9 +463,20 @@ class ServingEngine:
         self.prefill_traces: Dict[int, int] = {}
         self.prefix_prefill_traces: Dict[int, int] = {}
         self.cow_traces = 0
+        # builds of the restore program (the JAX ``restore_traces``), and of
+        # them the CUDA graph captures
+        self.restore_traces = 0
+        self.restore_captures = 0
+        # the restore's device staging, [blocks_per_slot, block bytes], and
+        # its per-layer, per-array views: made at the first restore
+        self._restore_staging: Optional[torch.Tensor] = None
+        self._restore_views: list = []
+        self._trace_ctx = ""  # the trace of the admission in progress
         self._graphs = StepGraphs(self.device,
                                   counters=(paged_attention.launches,
                                             sampling_ops.launches))
+        # spills copy blocks on the stream whose replays wrote them
+        self.arena.stream = self._graphs.stream
         self._meter = metrics.Meter()
         # the speculative sidecar, made after the arena (its draft namespace
         # binds there) and the step programs (its own live beside them)
@@ -417,6 +490,7 @@ class ServingEngine:
         metrics.set_gauge("quant.weights", int(self.quant_weights))
         metrics.set_gauge("quant.kv", int(self.quant_kv))
         metrics.set_gauge("quant.draft", int(self._draft_quantized()))
+        metrics.set_gauge("tier.enabled", int(self.tier is not None))
         self._publish_arena_bytes()
         self._refresh_gauges()
 
@@ -442,12 +516,20 @@ class ServingEngine:
         blocks subtract from."""
         return _ceil_div(prompt_len + max_new_tokens, self.block_size)
 
-    def validate(self, prompt_len: int, max_new_tokens: int) -> None:
-        """Refuse at submit what could never be served."""
+    def validate(self, prompt_len: int, max_new_tokens: int,
+                 adapter: int = 0) -> None:
+        """Refuse at submit what could never be served: an empty or too long
+        request, or one naming an adapter this engine does not hold."""
         if prompt_len < 1:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if int(adapter) != 0:
+            if self.lora is None:
+                raise ValueError(
+                    f"request names adapter {adapter} but the engine has "
+                    "no adapter arena (FLAGS_serving_lora_rank is 0)")
+            self.lora.check_live(adapter)
         total = prompt_len + max_new_tokens
         if total > self.max_model_len:
             raise ValueError(f"prompt+new tokens {total} exceeds engine "
@@ -474,20 +556,24 @@ class ServingEngine:
         """Both admission-feasibility numbers from one radix walk: (blocks
         this admission would reserve, matched blocks at refcount zero that
         ``grantable()`` counts evictable but the admission will pin).
-        Matched prompt blocks attach by reference and leave the budget; a
-        match covering the whole prefilled context (``prompt_len +
-        journal_len``) reserves one block back, the copy-on-write target.
-        ``keys`` (``PrefixCache.chunk_keys``) makes the walk hash-free;
-        without ``prompt`` or ``keys``, or with the cache off, the plain
-        worst case."""
+        Device-resident matched prompt blocks attach by reference and leave
+        the budget; a tier-restorable (spilled) one skips its prefill but
+        takes a fresh block, its restore target, so it stays in the budget
+        (restore cost, not prefill cost). A match covering the whole
+        prefilled context (``prompt_len + journal_len``) reserves one block
+        back, the copy-on-write target. ``keys``
+        (``PrefixCache.chunk_keys``) makes the walk hash-free; without
+        ``prompt`` or ``keys``, or with the cache off, the plain worst
+        case."""
         need = self.blocks_needed(prompt_len, max_new_tokens)
         if self.prefix_cache is None or (prompt is None and keys is None):
             return need, 0
-        resident, _, unpinned = self.prefix_cache.match_stats(prompt,
-                                                              keys=keys)
-        if resident:
+        resident, spilled, unpinned = self.prefix_cache.match_stats(
+            prompt, keys=keys)
+        matched = resident + spilled
+        if matched:
             need -= resident
-            if resident * self.block_size >= prompt_len + int(journal_len):
+            if matched * self.block_size >= prompt_len + int(journal_len):
                 need += 1  # COW copy of the last fully matched block
         return need, unpinned
 
@@ -508,8 +594,8 @@ class ServingEngine:
     # ----------------------------------------------------- slot lifecycle
 
     def admit(self, prompt, max_new_tokens: int, sampling=None,
-              mask=None, tokens=None,
-              spec_exclude: bool = False) -> Tuple[int, int]:
+              mask=None, tokens=None, spec_exclude: bool = False,
+              adapter: int = 0, trace_id: str = "") -> Tuple[int, int]:
         """Prefill ``prompt`` into a free slot. Returns ``(slot,
         next_token)``: the first token comes out of the prefill itself,
         sampled under ``sampling`` (a ``SamplingParams`` with a seed; None is
@@ -525,15 +611,18 @@ class ServingEngine:
         take the speculative path (it carries a constraint, even one whose
         current mask is None): the slot skips the draft blocks and prefill.
         With a draft model the admission prefills the draft's cache over
-        the same context too. Raises if there is no capacity; callers gate
-        on :meth:`can_admit`."""
+        the same context too. ``adapter`` is the adapter row the slot
+        decodes with (0: the base model); ``trace_id`` the request's trace,
+        where a tier restore's RESTORED span lands. Raises if there is no
+        capacity; callers gate on :meth:`can_admit`."""
         st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens,
-                               spec_exclude)
+                               spec_exclude, adapter, trace_id)
         return st.slot, self._admit_prefill_all(st)
 
     def admit_begin(self, prompt, max_new_tokens: int, sampling=None,
-                    mask=None, tokens=None,
-                    spec_exclude: bool = False) -> Tuple[int, Optional[int]]:
+                    mask=None, tokens=None, spec_exclude: bool = False,
+                    adapter: int = 0, trace_id: str = ""
+                    ) -> Tuple[int, Optional[int]]:
         """Chunked admission: claim a slot and its blocks now, prefill
         incrementally. Returns ``(slot, first_token)`` when the context left
         to prefill fits one chunk (as :meth:`admit`), else ``(slot, None)``
@@ -543,7 +632,7 @@ class ServingEngine:
         is occupied (its blocks are held) but not active (the decode step
         masks it). The draft prefill runs when the last chunk lands."""
         st = self._admit_setup(prompt, max_new_tokens, sampling, mask, tokens,
-                               spec_exclude)
+                               spec_exclude, adapter, trace_id)
         if self.chunk_size <= 0 or st.clen - st.prefix_len <= self.chunk_size:
             return st.slot, self._admit_prefill_all(st)
         st.done = st.prefix_len
@@ -611,18 +700,19 @@ class ServingEngine:
         return self._admit_finish(st, first)
 
     def _admit_setup(self, prompt, max_new_tokens: int, sampling=None,
-                     mask=None, tokens=None,
-                     spec_exclude: bool = False) -> _AdmitState:
+                     mask=None, tokens=None, spec_exclude: bool = False,
+                     adapter: int = 0, trace_id: str = "") -> _AdmitState:
         """Claim everything an admission needs before any prefill: the slot,
-        the references to the matched prefix blocks, the block reservations
-        (the draft table's too, unless the slot is spec-ineligible),
-        the filled block table, the copy-on-write copy, and the slot's
-        sampling and constraint state (the prefill programs sample the
-        first token under it). Unwinds completely on any failure, a refused
-        mask included."""
+        the references to the matched prefix blocks (a spilled tail
+        restored first), the block reservations (the draft table's too,
+        unless the slot is spec-ineligible), the filled block table, the
+        copy-on-write copy, and the slot's sampling, constraint and adapter
+        state (the prefill programs sample the first token under it).
+        Unwinds completely on any failure, a refused mask included."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         plen = int(prompt.shape[0])
-        self.validate(plen, max_new_tokens)
+        self.validate(plen, max_new_tokens, adapter)
+        self._trace_ctx = trace_id
         journal = np.asarray([] if tokens is None else tokens,
                              np.int64).reshape(-1)
         ctx = np.concatenate([prompt, journal]) if journal.size else prompt
@@ -637,11 +727,30 @@ class ServingEngine:
         bs = self.block_size
         # the radix walk: every matched block is referenced BEFORE
         # reserve(), so that its eviction pass can never reclaim a block
-        # this admission is about to share (or copy)
-        chain = (self.prefix_cache.match(prompt)
-                 if self.prefix_cache is not None else [])
-        for node in chain:
-            self.arena.ref(node.block)
+        # this admission is about to share (or copy). With a tier the walk
+        # is a resident prefix, each node pinned as it is reached (so a
+        # restore's evictions cannot take it), then a spilled tail, first
+        # restored into fresh blocks and then pinned. A restore that stops
+        # short (an entry lost, no free block) truncates the match: the
+        # rest prefills
+        walked = (self.prefix_cache.match(prompt)
+                  if self.prefix_cache is not None else [])
+        chain = []
+        try:
+            split = next((i for i, n in enumerate(walked) if n.spilled),
+                         len(walked))
+            for node in walked[:split]:
+                self.arena.ref(node.block)
+                chain.append(node)
+            if split < len(walked):
+                restored = self._restore_nodes(walked[split:])
+                for node in walked[split:split + restored]:
+                    self.arena.ref(node.block)
+                    chain.append(node)
+        except BaseException:
+            for node in chain:
+                self.arena.deref(node.block)
+            raise
         # a fully matched block-aligned context has no suffix, but its last
         # token must be recomputed for its logits: the last matched block
         # is copied into a private block and the token re-scattered there
@@ -663,7 +772,7 @@ class ServingEngine:
         # and no draft prefill (feasibility stays the conservative worst
         # case, so this only under-consumes)
         skip_draft = self.spec is not None and (
-            bool(spec_exclude) or mask is not None
+            bool(spec_exclude) or mask is not None or int(adapter) != 0
             or (sampling is not None and sampling.temperature > 0))
         if self.spec is not None and not skip_draft:
             try:
@@ -683,7 +792,8 @@ class ServingEngine:
         self._slot_res[slot] = res
         self._slot_shared[slot] = shared
         try:
-            self._install_slot_scenario(slot, sampling, mask, spec_exclude)
+            self._install_slot_scenario(slot, sampling, mask, spec_exclude,
+                                        int(adapter))
             self._bt_host[slot, :n_attached] = shared
             n = _ceil_div(clen, bs)
             for bi in range(n_attached, n):
@@ -766,32 +876,49 @@ class ServingEngine:
         self.cow_traces += 1
         compile_cache.bump("serving.cow_compiles")
 
+    def _lora_bound(self, ids):
+        """The adapter binding of a step's model call over one id per lane
+        (a no-op without an arena)."""
+        if self.lora is None:
+            return contextlib.nullcontext()
+        return self.lora.bind(ids)
+
+    def _lora_spec(self) -> dict:
+        """A prefill program's adapter buffer: the slot's ``[1]`` id."""
+        return {} if self.lora is None else {"adapter": ((1,), torch.int64)}
+
     def _decode_fn(self, last_tok, positions, rows, offs, block_tables,
-                   samp, allowed):
+                   samp, allowed, adapter_ids=None):
         """The decode step over its static buffers: every lane's last token
         at its position, its k/v written at ``(rows, offs)`` (scratch block
         0 for inactive lanes), one token per lane sampled under the lane's
         parameters and mask row, keyed at ``positions + 1``: the context
-        index where the new token will sit."""
+        index where the new token will sit. With an adapter arena each
+        lane's linears add the update of its row of ``adapter_ids``."""
         views = [_PagedCacheView(entry, block_tables, positions, rows, offs)
                  for entry in self.arena.pools]
         model = self._model
-        h, _ = model.gpt(last_tok[:, None], caches=views, start_pos=positions)
+        with self._lora_bound(adapter_ids):
+            h, _ = model.gpt(last_tok[:, None], caches=views,
+                             start_pos=positions)
         return (sample_tokens(model._head_logits(h[:, 0]),
                               *_samp_params(samp), positions + 1, allowed),)
 
     def _full_prefill_fn(self, ids, rows, offs, true_len, samp, spos,
-                         allowed):
+                         allowed, adapter=None):
         """The whole-prompt prefill of one bucket: the model over the padded
         prompt, the token after position ``true_len - 1`` (runtime data, as
         the JAX program's ``dynamic_index_in_dim``), and every position's
         k/v scattered at ``(rows, offs)`` (padded ones to scratch block
         0). The token is sampled under the slot's ``[1]`` parameters and
-        mask row, keyed at ``spos``, the context index it will sit at."""
+        mask row, keyed at ``spos``, the context index it will sit at; the
+        model runs under the slot's ``adapter`` row when there is an
+        arena."""
         model = self._model
         views = [_CapturePrefillView(self.block_size)
                  for _ in range(model.cfg.num_layers)]
-        h, chunks = model.gpt(ids, caches=views, start_pos=0)
+        with self._lora_bound(adapter):
+            h, chunks = model.gpt(ids, caches=views, start_pos=0)
         last = h.index_select(1, true_len.reshape(1) - 1)[:, 0]
         for (kc, vc), entry in zip(chunks, self.arena.pools):
             _scatter_rows(entry, rows, offs, kc[0], vc[0])
@@ -799,7 +926,7 @@ class ServingEngine:
                               spos, allowed),)
 
     def _suffix_prefill_fn(self, ids, rows, offs, bt_row, prefix_len,
-                           true_len, samp, spos, allowed):
+                           true_len, samp, spos, allowed, adapter=None):
         """The suffix/chunk prefill of one bucket through the slot's table
         row: positions ``prefix_len + i``, the chunk's k/v scattered before
         it is attended, the token after position ``true_len - 1`` of the
@@ -807,7 +934,8 @@ class ServingEngine:
         views = [_PrefixPrefillView(entry, bt_row, prefix_len, rows, offs)
                  for entry in self.arena.pools]
         model = self._model
-        h, _ = model.gpt(ids, caches=views, start_pos=prefix_len)
+        with self._lora_bound(adapter):
+            h, _ = model.gpt(ids, caches=views, start_pos=prefix_len)
         last = h.index_select(1, true_len.reshape(1) - 1)[:, 0]
         return (sample_tokens(model._head_logits(last), *_samp_params(samp),
                               spos, allowed),)
@@ -821,6 +949,16 @@ class ServingEngine:
         for entry in self.arena.pools:
             for pool in entry:
                 pool.index_copy_(0, dst, pool.index_select(0, src))
+        return ()
+
+    def _restore_fn(self, dsts):
+        """Scatter the restore staging's rows into blocks ``dsts``
+        (``[blocks_per_slot]``; padded entries name scratch block 0, where
+        duplicates are harmless) in every array of every layer's entry, an
+        int8 arena's scale pools included. Returns no output."""
+        for entry, views in zip(self.arena.pools, self._restore_views):
+            for pool, src in zip(entry, views):
+                pool.index_copy_(0, dsts, src)
         return ()
 
     def _run(self, prog, hist: Optional[str], name: str, **values) -> tuple:
@@ -854,12 +992,16 @@ class ServingEngine:
                                           policy=self._retry)
 
     def _samp_row(self, slot: int, pos: int) -> dict:
-        """One slot's sampling values for a prefill program: its ``[1]``
-        parameters, the positional key ``pos`` (the context index where the
-        emitted token will sit) and its mask row."""
+        """One slot's scenario values for a prefill program: its ``[1]``
+        sampling parameters, the positional key ``pos`` (the context index
+        where the emitted token will sit), its mask row and, with an
+        adapter arena, its adapter id."""
         one = slice(slot, slot + 1)
-        return dict(samp=self._samp[:, one], spos=np.int32(pos),
-                    allowed=self._mask_host[one])
+        out = dict(samp=self._samp[:, one], spos=np.int32(pos),
+                   allowed=self._mask_host[one])
+        if self.lora is not None:
+            out["adapter"] = self._adapter[one]
+        return out
 
     @torch.no_grad()
     def _full_prefill_call(self, ctx: np.ndarray, clen: int,
@@ -886,7 +1028,7 @@ class ServingEngine:
             ids=((1, p_bucket), i64), rows=((p_bucket,), i64),
             offs=((p_bucket,), i64), true_len=((), i64, 1),
             samp=((4, 1), torch.int32), spos=((1,), torch.int32),
-            allowed=((1, self.vocab), torch.bool, 1))
+            allowed=((1, self.vocab), torch.bool, 1), **self._lora_spec())
         nxt = int(self._run(prog, "latency.prefill", "serving.prefill",
                             ids=ids, rows=row, offs=p_idx % bs, true_len=clen,
                             **self._samp_row(slot, clen))[0][0])
@@ -911,6 +1053,97 @@ class ServingEngine:
         self._run(prog, None, "serving.cow_copy", src=src, dst=dst)
         self.cow_copies += 1
         metrics.bump("prefix.cow_copies")
+
+    def _restore_built(self) -> None:
+        """Count one build of the restore program."""
+        self.restore_traces += 1
+        if self.device.type == "cuda":
+            self.restore_captures += 1
+        compile_cache.bump("serving.restore_compiles")
+
+    def _restore_buffers(self) -> torch.Tensor:
+        """The restore's device staging, made once: ``[blocks_per_slot,
+        block bytes]`` uint8 rows laid out as a payload's buffer
+        (``KVArena.block_layout``), with a view per layer and array in the
+        pool's dtype and block shape for :meth:`_restore_fn`."""
+        if self._restore_staging is None:
+            pieces, total = self.arena.block_layout()
+            staging = torch.zeros((self.blocks_per_slot, total),
+                                  dtype=torch.uint8, device=self.device)
+            self._restore_views = [
+                tuple(staging[:, off:off + n].view(t.dtype).unflatten(1, shape)
+                      for t, (off, n, shape, _) in zip(entry, row))
+                for entry, row in zip(self.arena.pools, pieces)]
+            self._restore_staging = staging
+        return self._restore_staging
+
+    @torch.no_grad()
+    def _restore_call(self, payloads, blocks: List[int]) -> None:
+        """Write ``payloads`` into ``blocks``: each live block's host buffer
+        is copied to the head of the staging (asynchronously from pinned
+        memory on the card, on the engine's stream), never the padded
+        batch, then one run of the restore program scatters the staging
+        into the destinations. One program for the engine: the destinations
+        are data, padded with scratch block 0."""
+        staging = self._restore_buffers()
+        cuda = self.device.type == "cuda"
+        with self._graphs.on_stream():
+            for i, payload in enumerate(payloads):
+                staging[i].copy_(payload.buffer, non_blocking=cuda)
+        dsts = np.zeros(self.blocks_per_slot, np.int64)
+        dsts[:len(blocks)] = blocks
+        prog = self._graphs.program(
+            "restore", self._restore_fn, self._restore_built,
+            dsts=((self.blocks_per_slot,), torch.int64))
+        self._run(prog, None, "serving.tier_restore", dsts=dsts)
+
+    def _restore_nodes(self, nodes) -> int:
+        """Restore a spilled radix chain into fresh arena blocks
+        (``paddle_tpu/serving/engine.py:1065``): load each node's payload
+        from the tier, take cached refcount-zero blocks (evicting colder
+        prefixes under pressure), write them all through one run of the
+        restore program, and re-point each node at its block. Stops at the
+        first node whose entry was lost (pruned: the match truncates there
+        and the rest prefills) or when no block is left to take (what fits
+        is restored, the tail prefills). A failed restore returns the
+        blocks it took and raises. Returns how many leading nodes of
+        ``nodes`` were restored."""
+        t0 = time.perf_counter()
+        cache = self.prefix_cache
+        payloads, live = [], []
+        for node in nodes:
+            if len(live) >= self.blocks_per_slot:
+                break  # a chain never exceeds one slot's table
+            payload = self.tier.lookup(node.key)
+            if payload is None:
+                cache.prune_lost(node)
+                break
+            payloads.append(payload)
+            live.append(node)
+        blocks: List[int] = []
+        for _ in live:
+            try:
+                blocks.append(self.arena.take_cached_block())
+            except ArenaExhaustedError:
+                break
+        if not blocks:
+            return 0
+        live, payloads = live[:len(blocks)], payloads[:len(blocks)]
+        try:
+            self._restore_call(payloads, blocks)
+        except BaseException:
+            for blk in blocks:
+                self.arena.uncache(blk)
+            raise
+        for node, blk in zip(live, blocks):
+            cache.mark_restored(node, blk)
+        self.tier.note_restored(payloads)
+        telemetry.observe("latency.restore", time.perf_counter() - t0,
+                          self.hists)
+        # the admission's own timeline (the API lock serialises them)
+        telemetry.span(self._trace_ctx, telemetry.RESTORED,
+                       blocks=len(live))
+        return len(live)
 
     @torch.no_grad()
     def _suffix_prefill_call(self, ctx: np.ndarray, clen: int,
@@ -949,7 +1182,7 @@ class ServingEngine:
             bt_row=((self.blocks_per_slot,), torch.int32),
             prefix_len=((), torch.int32), true_len=((), i64, 1),
             samp=((4, 1), torch.int32), spos=((1,), torch.int32),
-            allowed=((1, self.vocab), torch.bool, 1))
+            allowed=((1, self.vocab), torch.bool, 1), **self._lora_spec())
         nxt = int(self._run(prog, "latency.prefill", "serving.prefix_prefill",
                             ids=ids, rows=row, offs=gpos % bs, bt_row=table,
                             prefix_len=prefix_len, true_len=slen,
@@ -1004,11 +1237,13 @@ class ServingEngine:
         return row
 
     def _install_slot_scenario(self, slot: int, sampling, mask,
-                               spec_exclude: bool = False) -> None:
-        """Install the slot's sampling parameters and constraint mask row as
-        data. Runs at claim time, before any prefill; a refused mask raises
-        before anything is written. A sampled, masked or ``spec_exclude``
-        slot is spec-ineligible for the request's life."""
+                               spec_exclude: bool = False,
+                               adapter: int = 0) -> None:
+        """Install the slot's sampling parameters, constraint mask row and
+        adapter id as data. Runs at claim time, before any prefill; a
+        refused mask raises before anything is written. A sampled, masked,
+        adapter-wearing or ``spec_exclude`` slot is spec-ineligible for the
+        request's life."""
         row = None if mask is None else self._check_mask(mask)
         sp = sampling
         greedy = sp is None or sp.temperature <= 0.0
@@ -1025,8 +1260,12 @@ class ServingEngine:
         if not greedy:
             self.sampled_admits += 1
             metrics.bump("sampling.admits")
+        if adapter:
+            self._adapter_ids.set_row(slot, adapter)
+            self.adapter_admits += 1
+            metrics.bump("lora.admits")
         self._scenario_once[slot] = (not greedy or row is not None
-                                     or bool(spec_exclude))
+                                     or bool(adapter) or bool(spec_exclude))
 
     def _clear_slot_scenario(self, slot: int) -> None:
         """Reset the slot to greedy and unconstrained (retire and the
@@ -1039,6 +1278,8 @@ class ServingEngine:
         if self._constrained[slot]:
             self._mask.set_row(slot, True)
             self._constrained[slot] = False
+        if self._adapter[slot]:
+            self._adapter_ids.set_row(slot, 0)
 
     def set_slot_mask(self, slot: int, mask) -> None:
         """A constrained slot's new allowed-vocab row (its walker advanced
@@ -1057,12 +1298,14 @@ class ServingEngine:
     def spec_ineligible(self) -> np.ndarray:
         """Per-slot mask of the lanes speculation must not cover
         (``paddle_tpu/serving/engine.py:1562``): sampled slots (the verify
-        step is greedy), constrained slots (it applies no mask) and, sticky
-        per request, any slot that was either (a constraint that lifts
+        step is greedy), constrained slots (it applies no mask),
+        adapter-wearing slots (it binds no adapter) and, sticky per
+        request, any slot that was one of these (a constraint that lifts
         mid-stream does not hand the lane back: its draft cache missed
         every token of the fallback). They take the plain decode step over
         their own lanes instead."""
-        return (self._temp > 0) | self._constrained | self._scenario_once
+        return ((self._temp > 0) | self._constrained | (self._adapter != 0)
+                | self._scenario_once)
 
     def check_invariants(self) -> None:
         """Audit the arena's refcounts against the tables of the occupied
@@ -1089,6 +1332,14 @@ class ServingEngine:
             self._bt_host[slot, bi] = res.take()
             self._slot_filled[slot] = bi + 1
 
+    def _decode_resident(self) -> dict:
+        """The decode step's resident buffers: the constraint mask and, with
+        an adapter arena, the lanes' adapter ids."""
+        out = dict(allowed=self._mask)
+        if self.lora is not None:
+            out["adapter_ids"] = self._adapter_ids
+        return out
+
     @torch.no_grad()
     def decode_step(self, active=None) -> np.ndarray:
         """One iteration: every active slot's last token is forwarded at its
@@ -1113,7 +1364,7 @@ class ServingEngine:
             last_tok=((S,), i64), positions=((S,), torch.int32),
             rows=((S,), i64), offs=((S,), i64),
             block_tables=((S, self.blocks_per_slot), torch.int32),
-            samp=((4, S), torch.int32), resident=dict(allowed=self._mask))
+            samp=((4, S), torch.int32), resident=self._decode_resident())
         out = self._run(prog, "latency.decode_step", "serving.step",
                         last_tok=self._last_tok, positions=pos, rows=rows,
                         offs=pos % bs, block_tables=self._bt_host,
@@ -1165,11 +1416,13 @@ class ServingEngine:
         with self._graphs.on_stream():
             self.arena.reset()
         if self.use_prefix_cache:
+            # the tier view is kept: the replays' walks restore from it
             old = self.prefix_cache
-            self.prefix_cache = PrefixCache(self.arena, self.block_size)
+            self.prefix_cache = PrefixCache(self.arena, self.block_size,
+                                            tier=self.tier)
             if old is not None:
                 for k in ("hits", "misses", "hit_tokens", "inserted_blocks",
-                          "evictions"):
+                          "evictions", "spills", "restores"):
                     setattr(self.prefix_cache, k, getattr(old, k))
         self._bt_host[:] = 0
         self._positions[:] = 0
@@ -1188,6 +1441,9 @@ class ServingEngine:
         self._seed[:] = 0
         self._constrained[:] = False
         self._mask.fill_all(True)
+        # the adapter arena keeps its rows: replays re-install their ids
+        if self._adapter_ids is not None:
+            self._adapter_ids.fill_all(0)
         if self.spec is not None:
             self.spec.rebuild()
         self.rebuilds += 1
@@ -1199,6 +1455,8 @@ class ServingEngine:
         """Drop the step programs (on CUDA their graphs and pool); any later
         model call raises. The arena stays until the engine is dropped."""
         self._graphs.close()
+        self._restore_staging = None
+        self._restore_views = []
 
     # -------------------------------------------------------------- stats
 
@@ -1235,6 +1493,10 @@ class ServingEngine:
                           int(((self._temp > 0) & self._active).sum()))
         metrics.set_gauge("constrain.active_slots",
                           int((self._constrained & self._active).sum()))
+        if self.lora is not None:
+            metrics.set_gauge("lora.active_slots",
+                              int(((self._adapter != 0)
+                                   & self._active).sum()))
         a = self.arena.stats()
         metrics.set_gauge("arena.blocks_free", a["blocks_free"])
         metrics.set_gauge("arena.blocks_total", a["blocks_total"])
@@ -1257,6 +1519,9 @@ class ServingEngine:
                "rebuilds": self.rebuilds,
                "decode_traces": self.decode_traces,
                "cow_traces": self.cow_traces,
+               "restore_traces": self.restore_traces,
+               "restore_captures": self.restore_captures,
+               "tier.enabled": int(self.tier is not None),
                "programs.graphs": self._graphs.graph_count(),
                "programs.pool_bytes": self._graphs.pool_bytes,
                "quant.weight_layers": len(layers),
@@ -1265,12 +1530,17 @@ class ServingEngine:
                "quant.draft": int(self._draft_quantized()),
                "sampling.admits": self.sampled_admits,
                "constrain.admits": self.constrained_admits,
+               "lora.admits": self.adapter_admits,
                "kernel.route": self.kernel_route(),
                "device": str(self.device)}
         out.update({f"arena.{k}": v for k, v in self.arena.stats().items()})
         if self.prefix_cache is not None:
             out.update({f"prefix.{k}": v
                         for k, v in self.prefix_cache.stats().items()})
+        if self.tier is not None:
+            out.update(self.tier.stats())
         if self.spec is not None:
             out.update(self.spec.stats())
+        if self.lora is not None:
+            out.update(self.lora.stats())
         return out

@@ -171,7 +171,7 @@ class ResidentBuffer:
     def flush(self) -> None:
         for row in sorted(self._dirty):
             if self._staging is None:
-                self.tensor[row] = torch.from_numpy(self.host[row])
+                self.tensor[row] = torch.as_tensor(self.host[row])
             else:
                 self._staging[row].numpy()[...] = self.host[row]
                 self.tensor[row].copy_(self._staging[row], non_blocking=True)

@@ -28,6 +28,11 @@ when :meth:`KVArena.reserve` would otherwise fail. Shared blocks are
 read-only; a slot that must write into one copies it first (copy-on-write,
 in the engine).
 
+With the tiered KV cache (:mod:`.tiered`), :meth:`KVArena.read_block`
+copies one block's rows of every primary array to the host (a spill) and
+:meth:`KVArena.take_cached_block` hands out a free block at refcount zero,
+cached, as the target of a restore.
+
 Named **namespaces** (:meth:`KVArena.add_namespace`; the speculative
 decoder's ``"draft"`` cache) are further per-layer pool sets addressed by
 the same block ids and the same free list, refcounts and reservations: a
@@ -37,6 +42,7 @@ head dim. A namespace of an int8 arena is int8 with its scale pools too.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -44,7 +50,7 @@ import torch
 
 from ..core import device as device_mod
 from ..core import flags
-from . import metrics
+from . import metrics, tiered
 
 
 class ArenaExhaustedError(RuntimeError):
@@ -123,6 +129,11 @@ class KVArena:
         # authority reserve() turns to under pressure
         self._cached: set = set()
         self._cache = None
+        # the stream whose work writes the pools (the serving engine's):
+        # read_block copies there, after what it queued; None is the
+        # current stream
+        self.stream: Optional[torch.cuda.Stream] = None
+        self._layout = None  # memoized block_layout()
 
     def _fresh_entry(self, num_heads: int, head_dim: int,
                      dtype: Optional[torch.dtype] = None,
@@ -279,6 +290,70 @@ class KVArena:
         for blk in res.taken:
             self.deref(blk)
         res.taken = []
+
+    def take_cached_block(self) -> int:
+        """Pop one free block as a tier restore's target
+        (``paddle_tpu/serving/kv_arena.py:330``): it starts at refcount
+        zero and cached, so once the restore has written it, it is a
+        resident prefix block like any other (admissions ``ref`` it,
+        eviction can spill it again). It is outside the reservations but
+        never eats into their headroom; under pressure it evicts cold
+        cached prefixes as :meth:`reserve` does."""
+        short = 1 - (len(self._free) - self._reserved)
+        if (short > 0 and self._cache is not None
+                and short <= self._cache.evictable_blocks()):
+            self._cache.evict(short)
+        if len(self._free) - self._reserved < 1:
+            metrics.bump("arena.alloc_failed")
+            raise ArenaExhaustedError(
+                "no free block for a tier restore "
+                f"({len(self._free)} free, {self._reserved} reserved)")
+        blk = self._free.pop()
+        self._refs[blk] = 0
+        self._cached.add(blk)
+        metrics.bump("arena.alloc")
+        if blk in self._ever_used:
+            metrics.bump("arena.reuse")
+        self._ever_used.add(blk)
+        self._high_water = max(self._high_water, self.blocks_in_use())
+        if self._cache is not None:
+            self._cache.invalidate()
+        return blk
+
+    def block_layout(self):
+        """The :func:`.tiered.block_layout` of one primary block: per layer,
+        per array (k, v and an int8 arena's scales), ``(offset, nbytes,
+        shape, numpy dtype)``, and the bytes of the whole block."""
+        if self._layout is None:
+            self._layout = tiered.block_layout(
+                [[(tuple(t.shape[1:]), tiered.NP_DTYPE[t.dtype])
+                  for t in entry] for entry in self._pools])
+        return self._layout
+
+    def read_block(self, blk: int) -> "tiered.Payload":
+        """Host copy of physical block ``blk``'s rows in every array of
+        every PRIMARY layer entry (``paddle_tpu/serving/kv_arena.py:360``):
+        the spill payload, an int8 arena's payload and scales as one unit.
+        The draft namespace is never spilled (its blocks are private). On
+        the card the rows are copied into one pinned buffer on the
+        arena's stream, after the work queued there, and the stream is
+        synchronised before this returns, so the block may be handed out
+        again at once. A bfloat16 pool's rows come as their raw 16-bit
+        words."""
+        pieces, total = self.block_layout()
+        cuda = self.device.type == "cuda"
+        buf = torch.empty(total, dtype=torch.uint8, pin_memory=cuda)
+        stream = (torch.cuda.stream(self.stream)
+                  if cuda and self.stream is not None
+                  else contextlib.nullcontext())
+        with torch.no_grad(), stream:
+            for entry, row in zip(self._pools, pieces):
+                for t, (off, n, shape, _) in zip(entry, row):
+                    buf[off:off + n].view(t.dtype).view(shape).copy_(
+                        t[blk], non_blocking=cuda)
+            if cuda:
+                torch.cuda.current_stream(self.device).synchronize()
+        return tiered.Payload.views(buf, pieces)
 
     def bind_cache(self, cache) -> None:
         """Adopt a :class:`~.prefix_cache.PrefixCache` as this arena's

@@ -23,6 +23,16 @@ prefill program on the kernel route: captures of a CUDA graph),
 ``sampling.admits`` (sampled admissions), ``constrain.admits`` /
 ``constrain.mask_updates`` / ``constrain.dead_ends`` (constrained
 admissions, mask rows replaced, walkers sanitized after an empty mask),
+``lora.*`` (the adapter arena, ``serving.adapters``: ``registered`` /
+``unregistered`` / ``register_failed`` (capacity) / ``admits`` (slots
+admitted with a non-zero adapter)), ``tier.*`` (the tiered KV cache,
+``serving.tiered``: ``spilled_blocks`` / ``spilled_bytes`` (bytes only
+when the write-through copy was gone) / ``restored_blocks`` /
+``restored_bytes``, ``host_hits`` / ``disk_hits`` / ``misses`` (a spilled
+node whose entry was lost: recomputed), ``host_evictions`` /
+``host_drops`` (past the host budget, with and without a disk tier),
+``disk_writes`` / ``disk_evictions`` / ``disk_write_failed`` /
+``disk_corrupt``),
 ``api.*`` (``drains`` / ``drain_stragglers``: drains and the requests
 they failed; ``guard_drains``: drains a bound ``PreemptionGuard`` started;
 ``recoveries``: pump steps the supervisor recovered), ``supervisor.*``
@@ -34,7 +44,11 @@ they failed; ``guard_drains``: drains a bound ``PreemptionGuard`` started;
 ``spec.acceptance_rate``, ``quant.weights`` / ``quant.kv`` / ``quant.draft``
 (the modes in effect, 0/1), ``quant.draft_acceptance`` (a quantized
 draft's acceptance rate), ``arena.kv_bytes`` / ``arena.scale_bytes`` /
-``arena.bytes.<namespace>`` / ``arena.dtype.<namespace>``.
+``arena.bytes.<namespace>`` / ``arena.dtype.<namespace>``,
+``lora.slots`` / ``lora.live`` / ``lora.arena_bytes`` /
+``lora.active_slots``, ``tier.enabled`` and the tiers' occupancy
+``tier.host_bytes`` / ``tier.host_entries`` / ``tier.disk_bytes`` /
+``tier.disk_entries``.
 
 Headline numbers are registered as ``core.memory_stats`` providers
 (``paddle_tpu/serving/metrics.py:276-290``), so ``memory_summary()`` shows

@@ -33,9 +33,19 @@ This module is the tree over those chains:
 Counters (``prefix.*`` in :mod:`.metrics`): ``hits`` (admissions with at
 least one matched block), ``misses``, ``hit_tokens``, ``inserted_blocks``,
 ``evictions``, and the ``resident_blocks`` gauge; the engine bumps
-``cow_copies`` and ``suffix_prefills``. The host/disk spill tier and the
-gateway's cross-replica index are not ported yet: the constructor refuses
-``tier=``.
+``cow_copies`` and ``suffix_prefills``.
+
+**Tiered spill** (``tier=``, a :class:`.tiered.TierView`;
+``FLAGS_serving_kv_tiering``): eviction does not discard a block's K/V.
+Its rows are already in a tier (written through at insert) or are copied
+out now, and the node stays in the tree, spilled (``block == -1``). A walk
+that reaches a spilled node, or a chunk key another engine wrote into the
+shared store, counts it as matched: the engine restores it into a fresh
+block before attaching. A spilled node whose tier entry was lost (dropped
+from the host tier with no disk tier, or a disk file that failed its crc)
+is pruned when found, and the walk stops there: the admission recomputes.
+The gateway's cross-replica index (``bind_index``, the ``_publish_*``
+deltas) comes with the gateway slice.
 """
 from __future__ import annotations
 
@@ -60,9 +70,14 @@ def _chunk_key(parent_key: bytes, chunk: np.ndarray) -> bytes:
 
 class PrefixNode:
     """One full block of the tree: its chunk's tokens, the physical arena
-    block holding the chunk's K/V, and its place in the tree."""
+    block holding the chunk's K/V, and its place in the tree. With a tier a
+    node may be spilled instead: ``block == -1`` and its rows in the tier
+    under ``key``. A resident node's ancestors are all resident (eviction
+    takes leaves first; restores and inserts walk from the root), so every
+    matched chain is a resident prefix followed by a spilled tail."""
 
-    __slots__ = ("key", "chunk", "block", "parent", "children", "last_use")
+    __slots__ = ("key", "chunk", "block", "parent", "children", "last_use",
+                 "spilled")
 
     def __init__(self, key: bytes, chunk: np.ndarray, block: int,
                  parent: Optional["PrefixNode"]):
@@ -72,6 +87,7 @@ class PrefixNode:
         self.parent = parent
         self.children: Dict[bytes, "PrefixNode"] = {}
         self.last_use = 0
+        self.spilled = False
 
 
 class PrefixCache:
@@ -81,13 +97,13 @@ class PrefixCache:
     admission."""
 
     def __init__(self, arena, block_size: Optional[int] = None, tier=None):
-        if tier is not None:
-            raise NotImplementedError(
-                "the tiered KV spill store is not ported yet")
         self.arena = arena
         self.block_size = int(block_size or arena.block_size)
+        # the spill store (a tiered.TierView); None: eviction discards
+        self.tier = tier
         self._root = PrefixNode(_ROOT_KEY, np.zeros(0, np.int32), -1, None)
         self._nodes: Dict[bytes, PrefixNode] = {}
+        self._n_spilled = 0
         self._tick = 0
         self._evictable_memo: Optional[int] = None
         # per-instance lifetime counters (metrics are process-global)
@@ -96,19 +112,39 @@ class PrefixCache:
         self.hit_tokens = 0
         self.inserted_blocks = 0
         self.evictions = 0
+        self.spills = 0
+        self.restores = 0
         arena.bind_cache(self)
 
     # ------------------------------------------------------------- walking
 
     def _walk(self, tokens) -> List[PrefixNode]:
-        """Longest chain of resident FULL blocks of ``tokens``."""
+        """Longest chain of matchable FULL blocks of ``tokens``: resident
+        nodes, then (with a tier) spilled nodes whose entry is still in a
+        tier. A key absent from the tree but present in the shared store
+        (another engine's write-through) becomes a spilled node; a spilled
+        node whose entry was lost is pruned, with its subtree, and the walk
+        stops there."""
+        bs = self.block_size
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
         out: List[PrefixNode] = []
         node = self._root
-        for key in self.chunk_keys(tokens):
-            node = node.children.get(key)
-            if node is None:
+        for i, key in enumerate(self.chunk_keys(tokens)):
+            child = node.children.get(key)
+            if child is None:
+                if self.tier is None or not self.tier.has(key):
+                    break
+                child = PrefixNode(key, np.array(tokens[i * bs:(i + 1) * bs]),
+                                   -1, node)
+                child.spilled = True
+                node.children[key] = child
+                self._nodes[key] = child
+                self._n_spilled += 1
+            elif child.spilled and not self.tier.has(key):
+                self.prune_lost(child)
                 break
-            out.append(node)
+            out.append(child)
+            node = child
         return out
 
     def chunk_keys(self, tokens) -> List[bytes]:
@@ -125,30 +161,42 @@ class PrefixCache:
         return keys
 
     def match_stats(self, tokens=None, keys: Optional[List[bytes]] = None):
-        """One walk, the admission-sizing numbers ``(resident, spilled,
-        unpinned)``: matched full blocks, tier-restorable ones (always 0
-        without a tier) and the matched blocks at refcount zero. The last
-        matters because ``grantable()`` counts refcount-zero cached blocks
-        as eviction headroom, but an admission of these tokens pins them
-        before it reserves: a feasibility check must subtract them. Pass
-        precomputed ``keys`` (:meth:`chunk_keys`) to skip hashing."""
+        """One probe, the admission-sizing numbers ``(resident, spilled,
+        unpinned)``: device-resident matched full blocks (attached by
+        reference), tier-restorable matched blocks (spilled in the tree or
+        in the shared store: no prefill, but each takes a fresh block) and
+        the resident ones at refcount zero. The last matters because
+        ``grantable()`` counts refcount-zero cached blocks as eviction
+        headroom, but an admission of these tokens pins them before it
+        reserves: a feasibility check must subtract them. Changes nothing;
+        pass precomputed ``keys`` (:meth:`chunk_keys`) to skip hashing."""
         if keys is None:
             keys = self.chunk_keys(tokens)
-        resident = unpinned = 0
-        node = self._root
+        resident = spilled = unpinned = 0
+        node: Optional[PrefixNode] = self._root
         for k in keys:
-            node = node.children.get(k)
-            if node is None:
-                break
-            resident += 1
-            if self.arena.refcount(node.block) == 0:
-                unpinned += 1
-        return resident, 0, unpinned
+            child = node.children.get(k) if node is not None else None
+            if child is not None and not child.spilled:
+                resident += 1
+                if self.arena.refcount(child.block) == 0:
+                    unpinned += 1
+                node = child
+                continue
+            # spilled or absent: matchable while the tier holds it (past
+            # the resident prefix everything is spilled or absent)
+            if self.tier is not None and self.tier.has(k):
+                spilled += 1
+                node = child
+                continue
+            break
+        return resident, spilled, unpinned
 
     def resident_tokens_for(self, keys: List[bytes]) -> int:
-        """Matched full blocks of a precomputed :meth:`chunk_keys` chain, in
-        tokens (cache-affinity scheduling)."""
-        return self.match_stats(keys=keys)[0] * self.block_size
+        """Matchable full blocks of a precomputed :meth:`chunk_keys` chain,
+        device-resident or tier-restorable, in tokens (cache-affinity
+        scheduling: either skips the prefill)."""
+        resident, spilled, _ = self.match_stats(keys=keys)
+        return (resident + spilled) * self.block_size
 
     def match(self, tokens) -> List[PrefixNode]:
         """The admission walk: the matched chain, each node's LRU clock
@@ -165,29 +213,42 @@ class PrefixCache:
         """Insert the first ``num_blocks`` full chunks of ``tokens``, whose
         K/V was just scattered into physical ``blocks[i]``. A chunk already
         resident is skipped: the existing block stays authoritative and the
-        caller's copy stays private to its slot, freed at retire. Returns
-        how many blocks became resident."""
+        caller's copy stays private to its slot, freed at retire. A spilled
+        node is revived onto the caller's block (the same tokens in the
+        same left context: the same bytes). With a tier every full block is
+        also written through to the host tier. Returns how many blocks
+        became resident."""
         bs = self.block_size
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         node = self._root
         self._tick += 1
         inserted = 0
+        arena = self.arena
         for i in range(num_blocks):
             chunk = tokens[i * bs:(i + 1) * bs]
             key = _chunk_key(node.key, chunk)
             child = node.children.get(key)
-            if child is None:
+            if child is None or child.spilled:
                 blk = int(blocks[i])
                 if blk <= 0:
                     raise RuntimeError(
                         f"insert of block {blk}: scratch block 0 (or no "
                         "block) can never enter the tree")
-                child = PrefixNode(key, np.array(chunk), blk, node)
-                node.children[key] = child
-                self._nodes[key] = child
-                self.arena.mark_cached(blk)
+                if child is None:
+                    child = PrefixNode(key, np.array(chunk), blk, node)
+                    node.children[key] = child
+                    self._nodes[key] = child
+                else:
+                    child.block = blk
+                    child.spilled = False
+                    self._n_spilled -= 1
+                arena.mark_cached(blk)
                 inserted += 1
             child.last_use = self._tick
+            if self.tier is not None:
+                blk = child.block
+                self.tier.write_through(key,
+                                        lambda b=blk: arena.read_block(b))
             node = child
         if inserted:
             self.invalidate()
@@ -200,8 +261,11 @@ class PrefixCache:
     # ------------------------------------------------------------ eviction
 
     def _is_evictable_leaf(self, node: PrefixNode) -> bool:
-        return (node is not self._root and not node.children
-                and self.arena.refcount(node.block) == 0)
+        # a leaf for eviction has no RESIDENT child: spilled descendants
+        # hold no device block
+        return (node is not self._root and not node.spilled
+                and self.arena.refcount(node.block) == 0
+                and not any(not c.spilled for c in node.children.values()))
 
     def invalidate(self) -> None:
         """Drop the memoized evictable count (the arena calls this on every
@@ -223,18 +287,22 @@ class PrefixCache:
         blocked: Dict[bytes, bool] = {}
         n = 0
         for node in reversed(order):  # children before parents
-            pinned = self.arena.refcount(node.block) > 0 or any(
+            # spilled nodes hold no device block: never pinned or counted
+            pinned = (not node.spilled
+                      and self.arena.refcount(node.block) > 0) or any(
                 blocked[c.key] for c in node.children.values())
             blocked[node.key] = pinned
-            n += not pinned
+            n += not pinned and not node.spilled
         self._evictable_memo = n
         return n
 
     def evict(self, need: int) -> int:
-        """Free up to ``need`` blocks, least recently used leaves first
-        (evicting a leaf may expose its parent, which joins the
-        candidates). The arena calls this from ``reserve()`` when the free
-        list alone cannot cover a budget. Returns the blocks freed."""
+        """Free up to ``need`` device blocks, least recently used leaves
+        first (evicting a leaf may expose its parent, which joins the
+        candidates). With a tier a victim is spilled, its node kept;
+        without one it is removed. The arena calls this from ``reserve()``
+        and ``take_cached_block()`` when the free list alone cannot cover
+        a budget. Returns the blocks freed."""
         freed = 0
         leaves = {n.key: n for n in self._nodes.values()
                   if self._is_evictable_leaf(n)}
@@ -242,7 +310,10 @@ class PrefixCache:
             victim = min(leaves.values(), key=lambda n: n.last_use)
             del leaves[victim.key]
             parent = victim.parent
-            self._remove(victim)
+            if self.tier is not None:
+                self._spill(victim)
+            else:
+                self._remove(victim)
             freed += 1
             if self._is_evictable_leaf(parent):
                 leaves[parent.key] = parent
@@ -252,6 +323,44 @@ class PrefixCache:
             metrics.set_gauge("prefix.resident_blocks",
                               self.resident_blocks())
         return freed
+
+    def _spill(self, node: PrefixNode) -> None:
+        """Demote a resident refcount-zero node to the tier: make its rows
+        tier-resident (usually free: the write-through copy is there), then
+        free its device block. The node stays for a later walk."""
+        blk = node.block
+        self.tier.spill(node.key, lambda: self.arena.read_block(blk))
+        node.spilled = True
+        node.block = -1
+        self._n_spilled += 1
+        self.spills += 1
+        self.invalidate()
+        self.arena.uncache(blk)
+
+    def mark_restored(self, node: PrefixNode, blk: int) -> None:
+        """The engine restored ``node``'s rows into the fresh cached block
+        ``blk`` (refcount zero: the restoring admission refs it next)."""
+        node.block = int(blk)
+        node.spilled = False
+        self._n_spilled -= 1
+        self.restores += 1
+        self.invalidate()
+        metrics.set_gauge("prefix.resident_blocks", self.resident_blocks())
+
+    def prune_lost(self, node: PrefixNode) -> None:
+        """Drop a spilled node whose tier entry vanished, with its subtree
+        (all spilled, by the resident-ancestors invariant). Spilled nodes
+        hold no device block: tree bookkeeping only."""
+        stack = [node]
+        while stack:
+            n = stack.pop()
+            if not n.spilled:
+                raise RuntimeError("prune_lost() reached a resident node")
+            stack.extend(n.children.values())
+            n.parent.children.pop(n.key, None)
+            self._nodes.pop(n.key, None)
+            self._n_spilled -= 1
+        self.invalidate()
 
     def _remove(self, node: PrefixNode) -> None:
         assert not node.children, "only leaves are evicted"
@@ -263,7 +372,11 @@ class PrefixCache:
     # --------------------------------------------------------------- admin
 
     def resident_blocks(self) -> int:
-        return len(self._nodes)
+        """Device-resident nodes (spilled ones hold no block)."""
+        return len(self._nodes) - self._n_spilled
+
+    def spilled_nodes(self) -> int:
+        return self._n_spilled
 
     def note_hit(self, matched_tokens: int) -> None:
         """Engine callback after a successful admission (counted on
@@ -278,10 +391,15 @@ class PrefixCache:
             metrics.bump("prefix.misses")
 
     def stats(self) -> dict:
-        return {"resident_blocks": self.resident_blocks(),
-                "evictable_blocks": self.evictable_blocks(),
-                "hits": self.hits,
-                "misses": self.misses,
-                "hit_tokens": self.hit_tokens,
-                "inserted_blocks": self.inserted_blocks,
-                "evictions": self.evictions}
+        out = {"resident_blocks": self.resident_blocks(),
+               "evictable_blocks": self.evictable_blocks(),
+               "hits": self.hits,
+               "misses": self.misses,
+               "hit_tokens": self.hit_tokens,
+               "inserted_blocks": self.inserted_blocks,
+               "evictions": self.evictions}
+        if self.tier is not None:
+            out["spilled_nodes"] = self._n_spilled
+            out["spills"] = self.spills
+            out["restores"] = self.restores
+        return out

@@ -107,6 +107,8 @@ class Request:        # compare numpy prompt payloads
     # `_cstate` is a pure function of `tokens`
     sampling: Optional[object] = None
     constraint: Optional[object] = None
+    # the adapter arena row this request decodes with (0: the base model)
+    adapter_id: int = 0
     deadline: resilience.Deadline = field(
         default_factory=resilience.Deadline)
     state: str = RequestState.QUEUED
@@ -133,6 +135,7 @@ class Request:        # compare numpy prompt payloads
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int64).reshape(-1)
         self.priority = int(self.priority)
+        self.adapter_id = int(self.adapter_id)
         self._arrival = next(_seq_counter)
         self._submit_ts = time.perf_counter()
         if not self.trace_id:
@@ -194,12 +197,15 @@ class Request:        # compare numpy prompt payloads
 def admit_kwargs(req: Request) -> dict:
     """The engine-admission keywords of one request's scenario, shared by
     the scheduler's admissions and the supervisor's replay: its sampling
-    params, its walker's current mask, and ``spec_exclude`` when it carries
-    a constraint at all (even one whose current mask is None): such a lane
-    never takes the speculative path, so its draft blocks and prefill are
-    skipped from the start."""
-    return {"sampling": req.sampling, "mask": req.allowed_mask(),
-            "spec_exclude": req.constraint is not None}
+    params, its adapter id, its walker's current mask, ``spec_exclude`` when
+    it carries a constraint at all (even one whose current mask is None:
+    such a lane never takes the speculative path, so its draft blocks and
+    prefill are skipped from the start), and its trace, where a tier
+    restore's span lands."""
+    return {"sampling": req.sampling, "adapter": req.adapter_id,
+            "mask": req.allowed_mask(),
+            "spec_exclude": req.constraint is not None,
+            "trace_id": req.trace_id}
 
 
 class Scheduler:
@@ -223,7 +229,8 @@ class Scheduler:
         """Enqueue; what could never be served is refused here (overload
         shedding is ``ServingAPI.submit``'s)."""
         self.engine.validate(int(request.prompt.shape[0]),
-                             int(request.max_new_tokens))
+                             int(request.max_new_tokens),
+                             adapter=request.adapter_id)
         request.state = RequestState.QUEUED
         request._queued_ts = time.perf_counter()
         self.waiting.append(request)

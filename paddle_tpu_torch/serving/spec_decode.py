@@ -365,9 +365,10 @@ class SpecDecoder:
     def step(self) -> Dict[int, List[int]]:
         """One speculative iteration over every active slot: ``{slot:
         tokens}``, 1 to ``k`` tokens each. Spec-ineligible lanes
-        (``engine.spec_ineligible()``: sampled or constrained, sticky) fall
-        back to one plain decode step over their own lanes, sampled and
-        masked as a speculation-off engine does; both programs are built
+        (``engine.spec_ineligible()``: sampled, constrained or wearing an
+        adapter, sticky) fall back to one plain decode step over their own
+        lanes, sampled, masked and adapted as a speculation-off engine
+        does (the verify step binds no adapter); both programs are built
         once and cover disjoint lanes of the same arena."""
         engine = self.engine
         inel = engine.spec_ineligible()

@@ -28,8 +28,13 @@ requests in flight. The API routes every pump step through
    seeded (keys are positional; the walker is a function of the journal).
    A replay of ``prompt + journal`` may fall in a prefill bucket not yet
    captured; its first admission captures it then, a new key, not a
-   rebuilt one. With the prefix cache on, the replays re-insert their
-   prompts' blocks into the fresh tree and share them again. With
+   rebuilt one. Each replay re-admits with the request's own scenario
+   (sampling, constraint mask and adapter id: ``scheduler.admit_kwargs``;
+   the adapter arena keeps its rows through the rebuild). With the prefix
+   cache on, the replays re-insert their prompts' blocks into the fresh
+   tree and share them again; with the tiered KV cache their walks find
+   the prefixes spilled before the fault in the tier, which the rebuild
+   keeps, and restore them instead of prefilling them. With
    speculation on, each replay's admission prefills its draft cache again
    over ``prompt + journal`` (``paddle_tpu/serving/supervisor.py:178``), so
    a fault in the middle of a verify replays to the same streams.

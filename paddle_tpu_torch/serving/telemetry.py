@@ -26,7 +26,9 @@ one stream), ``latency.queue_wait`` (enqueue to admission),
 ``latency.decode_step`` (one decode program run and its read),
 ``latency.spec_verify`` (one run of the speculative step and its read),
 ``latency.spec_step`` (a whole speculative iteration, its fallback lanes'
-decode step included),
+decode step included), ``latency.restore`` (restoring one spilled chain
+from the tiered KV cache: the tier lookups and the restore program's run),
+``latency.spill`` (making one evicted block tier-resident),
 ``latency.e2e`` (submit to FINISHED). Counters (``serving.metrics``):
 ``telemetry.spans`` and ``telemetry.spans_dropped`` (ring overflow,
 oldest first).
@@ -53,8 +55,8 @@ DOCUMENTED_NAMESPACES = (
 
 # ------------------------------------------------------------- span taxonomy
 # The JAX package's whole taxonomy: the port emits SUBMITTED through
-# FIRST_TOKEN, PREEMPTED, REPLAYED, DRAINED, FINISHED and FAILED; the
-# others belong to the gateway, tiering and disaggregation slices.
+# FIRST_TOKEN, PREEMPTED, REPLAYED, RESTORED, DRAINED, FINISHED and FAILED;
+# the others belong to the gateway and disaggregation slices.
 
 SUBMITTED = "SUBMITTED"          # accepted by the front door (api/gateway)
 QUEUED = "QUEUED"                # enqueued in a scheduler's waiting list

@@ -434,7 +434,8 @@ def test_predictor_priority_kwarg_and_close_summary(model, monkeypatch,
     seen = []
 
     def fake_submit(prompt, max_new_tokens=32, stop_token_id=None,
-                    priority=0, sampling=None):
+                    priority=0, sampling=None, adapter=0):
+        assert adapter == 0  # the predictor's default row: the base model
         seen.append(priority)
         r = Request(prompt, max_new_tokens=max_new_tokens, priority=priority)
         r.state = RequestState.FINISHED
@@ -480,9 +481,16 @@ def test_predictor_mid_batch_submit_failure_strands_nothing(model):
 
 
 def test_predictor_refuses_adapters(model):
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        EnginePredictor(model, adapter=1, config=ServingConfig(**CFG),
-                        device="cpu")
+    """An adapter the engine cannot serve (no adapter arena) is refused at
+    the predictor's run, before any row is queued."""
+    pred = EnginePredictor(model, adapter=1, config=ServingConfig(**CFG),
+                           device="cpu")
+    try:
+        with pytest.raises(ValueError, match="no adapter arena"):
+            pred.run([np.ones((2, 4), np.int32)])
+        assert not pred._api.scheduler.has_work()
+    finally:
+        pred.close()
 
 
 def test_flags_keep_their_default_type():
