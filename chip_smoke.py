@@ -329,6 +329,43 @@ no result. Phases, in order; each raises on failure:
     off) at 4 layers, 8 requests with ids 0-3, greedy and sampled: each
     adapter's streams equal ``generate()`` under the arena's binding for
     its id (a sampled draw within SERVED_BOUNDARY excepted).
+15. The gateway (``serve_gateway``, run after phase 14). 15a, the two
+    repairs, bf16 ``gpt_1p3b``, 8 slots, prompts of 512 + 15 and 64 new
+    tokens: with the prefix cache and an adapter arena of rank 16, a base
+    then an adapter request of one prompt, and an adapter then a base
+    request of another, each equal to its cache-off solo run (0 hits of
+    4), and the adapter's shared prefix a hit of 512 tokens; the served
+    state's fingerprint timed cold and memoized; an engine of the model
+    with one layer's weights changed, sharing a ``HostKVCache`` with one of
+    the model, equal to its solo run with 0 blocks restored, and a second
+    engine of the model restoring the chain with the first's hit stream.
+    15b: a reference engine of one replica's shape (8 slots, prefix cache
+    and tiers on) serves a primer, a host-restored hit and the wave: 16
+    requests of 512 + 15 + 64, the even ones on one shared prefix, two of
+    every four sampled (0.8 / 50 / 0.95, seeded). Then two replicas of
+    that shape sharing the model and one store, with background pumps,
+    behind a ``Gateway`` on 127.0.0.1: each replica's first wave builds
+    its programs (replica 1's a host-tier hit of the shared prefix replica
+    0 wrote through, equal to the reference's host-restored hit; replica 1
+    then spills its cache); 16 client threads ``POST /v1/stream`` the wave
+    while a thread scrapes ``/v1/metrics``: every SSE stream equals the
+    reference's along the same cache path (shared prefix: hits; own
+    prefixes: misses), launches exact over both replicas' steps and
+    prefills, no build, affinity routes taken, every scrape with
+    ``replica="0"`` and ``replica="1"`` series; a tenant past its bucket
+    gets 429 with Retry-After. Times: tokens/s of the pool through HTTP
+    and through ``pool.submit`` against one engine of 8 and one of 16
+    slots on the same traffic; both replicas decoding, the union of their
+    graph replays' device intervals, the idle share and the time both
+    streams replayed at once (CUDA events around each replay); first
+    token of a hit through ``POST /v1/stream``, ``pool.submit`` and a bare
+    ``ServingAPI.submit``. 15c, f32 (TF32 off) at 4 layers, a foreground
+    pool of two replicas: replica 0 crash-loops on injected
+    ``ServingDeviceError``s, its streams re-route to replica 1 and equal
+    the uninterrupted streams, with each one's fault-to-next-token time;
+    it respawns after the backoff and serves again, with the allocated
+    bytes within one arena of their value before the fault; ``scale_to(1)``
+    drains and re-routes without dropping a stream.
 
 Each phase prints its seconds.
 
@@ -347,18 +384,21 @@ unquantized paged rows' and the sampling row's ``launches_prefix`` phase
 3d's shared-prefix wave, ``launches_recovery`` phase 3e's faulted wave;
 ``launches_spec`` phase 13's draft engine's wave 1, over the int8 arena
 for the int8 rows; ``launches_lora`` phase 14a's wave 1, ``launches_tier``
-phase 14c's host-tier wave B, the int8 rows' over the int8 arena),
+phase 14c's host-tier wave B, the int8 rows' over the int8 arena;
+``launches_pool`` phase 15b's HTTP wave, both replicas'),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
 """
 import copy
 import dataclasses
+import gc
 import json
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import types
 import warnings
@@ -5243,6 +5283,752 @@ def serve_lora_tier(gpt, serving, pa, so, arrays, card):
     return lora_launches, tier_launches, summary
 
 
+# ------------------------------------------------------------------ phase 15
+# the gateway: two replicas of phase 6's engine shape sharing one model
+POOL_SLOTS = 8                  # each replica's slots
+POOL_PREFIX, POOL_TAIL, POOL_NEW = 512, 15, 64
+POOL_CLIENTS = 16               # 15b's client threads, one request each
+POOL_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+POOL_TTFT = 5                   # first-token samples per front door
+POOL_TRACE_NEW = 192            # the traced wave's budget: decode-bound
+POOL_TRACE_S = 0.25             # its profiler window, seconds
+POOL_F32 = (4, [40, 70, 37, 100, 140, 300, 200, 64], 32)  # 15c
+POOL_BACKOFF = 0.2              # 15c's respawn backoff, seconds
+
+
+def pool_prefixes(vocab, seed, n):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, POOL_PREFIX) for _ in range(n)]
+
+
+def pool_wave(vocab, sysp, seed):
+    """POOL_CLIENTS requests of POOL_PREFIX + POOL_TAIL tokens and
+    POOL_NEW new ones: the even ones share the system prefix ``sysp``
+    (block-aligned, so their chain is exactly it), the odd ones have a
+    prefix of their own (a miss wherever they land); requests 2 and 3 of
+    every 4 sample (POOL_SAMPLED, seeded), the others are greedy. Returns
+    the prompts and each request's ``submit`` keywords."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    own = pool_prefixes(vocab, seed + 1, POOL_CLIENTS)
+    prompts = [np.concatenate([sysp if i % 2 == 0 else own[i],
+                               rng.integers(0, vocab, POOL_TAIL)])
+               for i in range(POOL_CLIENTS)]
+    kws = [{"sampling": SamplingParams(**POOL_SAMPLED, seed=80 + i)}
+           if i % 4 >= 2 else {} for i in range(POOL_CLIENTS)]
+    return prompts, kws
+
+
+def body_of(prompt, n, kw, **extra):
+    """The HTTP body of one request of ``pool_wave``."""
+    body = {"prompt": [int(t) for t in prompt], "max_new_tokens": n, **extra}
+    sp = kw.get("sampling")
+    if sp is not None:
+        body.update(temperature=sp.temperature, top_k=sp.top_k,
+                    top_p=sp.top_p, seed=sp.seed)
+    return body
+
+
+def sse_stream(base, body, timeout=300):
+    """POST ``/v1/stream``: the tokens, the done event and the host ms
+    from the request's start to its first token."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/stream",
+                                 data=json.dumps(body).encode(),
+                                 method="POST")
+    t0 = time.perf_counter()
+    toks, done, first = [], None, None
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        event = None
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("event:"):
+                event = line.split(":", 1)[1].strip()
+            elif line.startswith("data:"):
+                d = json.loads(line.split(":", 1)[1])
+                if event == "done":
+                    done = d
+                elif event == "error":
+                    raise AssertionError(f"SSE error event: {d}")
+                else:
+                    if first is None:
+                        first = (time.perf_counter() - t0) * 1e3
+                    toks.append(d["token"])
+                event = None
+    return toks, done, first
+
+
+def repair_adapter_roots(model, serving, pa, card):
+    """15a, adapter-rooted prefix chains (bf16, an arena of rank
+    LORA_RANK): with the prefix cache, a base request then an adapter
+    request of one prompt, and an adapter request then a base request of
+    another, each equal to its cache-off solo run (the second of each pair
+    a miss: a full prefill, as its solo run); then an adapter request
+    sharing the first prompt's prefix hits the adapter's chain. Launches
+    exact in every wave."""
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    dev = model.gpt.wte.weight.device
+    rng = np.random.default_rng(70)
+    prompts = [np.concatenate([p, rng.integers(0, vocab, POOL_TAIL)])
+               for p in pool_prefixes(vocab, 71, 2)]
+    prompts.append(np.concatenate([prompts[0][:POOL_PREFIX],
+                                   rng.integers(0, vocab, POOL_TAIL)]))
+    cfg = dict(num_slots=POOL_SLOTS, lora_rank=LORA_RANK,
+               lora_adapters=LORA_CAP)
+    adapter = lora_adapter(serving, model.cfg, LORA_SEEDS[0])
+    off = serving.ServingAPI(model, serving.ServingConfig(**cfg), device=dev)
+    aid = off.register_adapter(adapter)
+    solo = {}
+    for i, a in ((0, 0), (0, aid), (1, aid), (1, 0)):
+        reqs, _, _ = serve(off, pa, [prompts[i]], [POOL_NEW],
+                           f"bf16 roots, prompt {i} adapter {a}, cache off",
+                           card, [{"adapter": a}])
+        solo[i, a] = list(reqs[0].tokens)
+    off.close()
+    if solo[0, 0] == solo[0, aid]:
+        raise AssertionError("bf16 roots: the adapter changed no token")
+    on = serving.ServingAPI(model, serving.ServingConfig(
+        **cfg, prefix_cache=True), device=dev)
+    if on.register_adapter(adapter) != aid:
+        raise AssertionError("bf16 roots: another adapter id")
+    cache = on.engine.prefix_cache
+    for i, order in ((0, (0, aid)), (1, (aid, 0))):
+        for a in order:
+            what = f"bf16 roots, prompt {i} adapter {a} (order {order})"
+            reqs, launches, ran = serve(on, pa, [prompts[i]], [POOL_NEW],
+                                        what, card, [{"adapter": a}])
+            hold_launches(launches, want_launches(layers, ran), what)
+            hold_streams(reqs, [solo[i, a]], what, card,
+                         "its cache-off solo run's")
+    if (cache.hits, cache.misses) != (0, 4):
+        raise AssertionError(f"bf16 roots: {cache.hits} hits, "
+                             f"{cache.misses} misses, not 0 and 4")
+    what = "bf16 roots, the adapter's shared prefix"
+    reqs, launches, ran = serve(on, pa, [prompts[2]], [POOL_NEW], what, card,
+                                [{"adapter": aid}])
+    hold_launches(launches, want_launches(layers, ran), what)
+    if (cache.hits, cache.hit_tokens, ran.suffix) != (1, POOL_PREFIX, 1):
+        raise AssertionError(f"{what}: {cache.hits} hits of "
+                             f"{cache.hit_tokens} tokens, {ran.suffix} "
+                             "suffix prefills")
+    print(f"e2e bf16 roots: base and adapter chains of one prompt stay "
+          f"apart in both orders (0 hits of 4), and the adapter's own "
+          f"prefix is a hit of {cache.hit_tokens} tokens [{card}]")
+    on.close()
+    del on, off
+    release()
+
+
+def repair_tier_signature(model, serving, pa, card):
+    """15a, the weights in the tier signature (bf16): the served state's
+    fingerprint timed cold and memoized; an engine of a copy of the model
+    with one layer's weights changed, sharing a ``HostKVCache`` with an
+    engine of the model that wrote the prompt's blocks through, gives its
+    solo stream with nothing restored; a second engine of the model on the
+    same store restores the chain and gives the first engine's hit
+    stream. Returns the fingerprint times."""
+    from paddle_tpu_torch.serving import HostKVCache, tiered
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in list(model.parameters()) + list(model.buffers()))
+    model.__dict__.pop("_state_fingerprint", None)
+    t0 = time.perf_counter()
+    tiered.state_fingerprint(model)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiered.state_fingerprint(model)
+    memo = time.perf_counter() - t0
+    print(f"bf16 tier signature: state fingerprint of {nbytes} bytes, cold "
+          f"{cold:.3f} s ({nbytes / cold / 1e9:.2f} GB/s: device-to-host "
+          f"copies and blake2b), memoized {memo * 1e3:.3f} ms [{card}]")
+    other = copy.deepcopy(model)
+    other.__dict__.pop("_state_fingerprint", None)
+    with torch.no_grad():
+        other.gpt.layers[layers // 2].mlp.down.weight.mul_(1.0625)
+    rng = np.random.default_rng(72)
+    prompt = np.concatenate([pool_prefixes(vocab, 73, 1)[0],
+                             rng.integers(0, vocab, POOL_TAIL)])
+    api = tier_engine(other, serving, HostKVCache(max_bytes=8 << 30,
+                                                  disk_dir=""))
+    solo = serve(api, pa, [prompt], [POOL_NEW], "bf16 tier signature, the "
+                 "changed model alone", card)[0]
+    api.close()
+    store = HostKVCache(max_bytes=8 << 30, disk_dir="")
+    a = tier_engine(model, serving, store)
+    serve(a, pa, [prompt], [POOL_NEW], "bf16 tier signature, engine A",
+          card)
+    hit, _, _ = serve(a, pa, [prompt], [POOL_NEW],
+                      "bf16 tier signature, engine A again (a hit)", card)
+    b = tier_engine(other, serving, store)
+    what = "bf16 tier signature, engine B (other weights) after A"
+    reqs, launches, ran = serve(b, pa, [prompt], [POOL_NEW], what, card)
+    hold_launches(launches, want_launches(layers, ran), what)
+    hold_streams(reqs, [list(solo[0].tokens)], what, card,
+                 "the changed model's solo run's")
+    view = b.engine.tier
+    if view.restored_blocks or view.host_hits or b.engine.prefix_cache.hits:
+        raise AssertionError(f"{what}: {view.restored_blocks} blocks "
+                             f"restored, {view.host_hits} host hits")
+    differ = sum(x != y for x, y in zip(solo[0].tokens, hit[0].tokens))
+    b.close()
+    c = tier_engine(model, serving, store)
+    what = "bf16 tier signature, engine C (the same weights) after A"
+    reqs, launches, ran = serve(c, pa, [prompt], [POOL_NEW], what, card)
+    hold_launches(launches, want_launches(layers, ran), what)
+    hold_streams(reqs, [list(hit[0].tokens)], what, card, "A's hit's")
+    chain = POOL_PREFIX // c.engine.block_size
+    if c.engine.tier.restored_blocks != chain:
+        raise AssertionError(f"{what}: {c.engine.tier.restored_blocks} "
+                             f"blocks restored, not {chain}")
+    print(f"e2e bf16 tier signature: other weights restore 0 blocks (their "
+          f"stream differs from A's in {differ} of {POOL_NEW} tokens); the "
+          f"same weights restore {chain} [{card}]")
+    a.close()
+    c.close()
+    del a, b, c, other
+    release()
+    return dict(fingerprint_bytes=nbytes, fingerprint_cold_s=cold,
+                fingerprint_memoized_ms=memo * 1e3)
+
+
+def pool_config(serving, store, slots=POOL_SLOTS):
+    return serving.ServingConfig(num_slots=slots, prefix_cache=True,
+                                 kv_tiering=True, tier_store=store)
+
+
+def engine_wave(api, pa, prompts, kws, what, card):
+    """Serve one wave on a single engine: the streams, tokens/s on the
+    host clock and what ran (``serve``)."""
+    layers = api.engine._model.cfg.num_layers
+    t0 = time.perf_counter()
+    reqs, launches, ran = serve(api, pa, prompts, [POOL_NEW] * len(prompts),
+                                what, card, kws)
+    wall = time.perf_counter() - t0
+    hold_launches(launches, want_launches(layers, ran), what)
+    return [list(r.tokens) for r in reqs], POOL_NEW * len(prompts) / wall
+
+
+def pool_ran(pool):
+    return [ran_counts(rep.api.engine) for rep in pool.replicas()]
+
+
+class _ReplaySpans:
+    """CUDA events around every ``CUDAGraph.replay`` while installed, on
+    the stream the replay runs on, whichever thread replays: each replay's
+    device interval against one base event."""
+
+    def __init__(self):
+        self.spans = []
+        self._replay = torch.cuda.CUDAGraph.replay
+
+    def __enter__(self):
+        replay, spans = self._replay, self.spans
+
+        def timed(graph):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            replay(graph)
+            b.record()
+            spans.append((torch.cuda.current_stream().stream_id, a, b))
+        torch.cuda.synchronize()
+        self.base = torch.cuda.Event(enable_timing=True)
+        self.base.record()
+        torch.cuda.CUDAGraph.replay = timed
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.replay = self._replay
+
+
+def pool_trace(pool, sysp, vocab, card):
+    """Both replicas decoding their lanes (shared-prefix hits of
+    POOL_TRACE_NEW tokens): over a POOL_TRACE_S host window, CUDA events
+    around every graph replay on each replica's stream give the device
+    intervals the replays occupied: busy is their union, the idle share
+    what of the window it leaves, the overlap the time replays of the two
+    streams ran at once (the sum of each stream's busy time less the
+    union). (``torch.profiler`` showed no kernel of the replicas' graph
+    replays in such a window.)"""
+    from paddle_tpu_torch.tools.profile_decode import _union_us
+
+    rng = np.random.default_rng(75)
+    rrs = [pool.submit(np.concatenate([sysp, rng.integers(0, vocab,
+                                                          POOL_TAIL)]),
+                       max_new_tokens=POOL_TRACE_NEW, tenant="trace")
+           for _ in range(2 * POOL_SLOTS)]
+    scheds = [rep.api.scheduler for rep in pool.replicas()]
+    wait_for(lambda: all(len(s.running) == min(POOL_SLOTS, len(s.running)
+                                               + len(s.waiting)
+                                               + len(s.prefilling))
+                         for s in scheds)
+             and min(len(s.running) for s in scheds) > 0,
+             "both replicas decoding every lane they can")
+    with _ReplaySpans() as spans:
+        t0 = time.perf_counter()
+        time.sleep(POOL_TRACE_S)
+        window = (time.perf_counter() - t0) * 1e3
+    for rr in rrs:
+        pool.result(rr, timeout=300)
+    torch.cuda.synchronize()
+    by_stream = {}
+    for sid, a, b in spans.spans:
+        s0 = spans.base.elapsed_time(a)
+        s1 = min(spans.base.elapsed_time(b), window)
+        if s1 > s0:
+            by_stream.setdefault(sid, []).append((s0, s1))
+    busy = _union_us(iv for ivs in by_stream.values() for iv in ivs)
+    per = {s: _union_us(ivs) for s, ivs in by_stream.items()}
+    overlap = sum(per.values()) - busy
+    out = dict(window_ms=window, busy_ms=busy, idle_share=1.0 - busy / window,
+               replays=len(spans.spans),
+               streams={str(s): round(v, 3) for s, v in per.items()},
+               overlap_ms=overlap,
+               overlap_share_of_busy=overlap / busy if busy else 0.0,
+               busy_method="CUDA events around each replay")
+    print(f"bf16 pool trace: a {window:.1f} ms window with both replicas "
+          f"decoding, {out['replays']} replays: device busy (union of the "
+          f"replays' intervals) {busy:.3f} ms, idle share "
+          f"{out['idle_share']:.3f}; busy per replica stream (ms) "
+          f"{out['streams']}; both streams replaying at once for "
+          f"{overlap:.3f} ms ({out['overlap_share_of_busy']:.3f} of busy) "
+          f"[{card}]")
+    return out
+
+
+def pool_ttft(pool, base, ref, sysp, vocab, card):
+    """First-token host ms of a shared-prefix hit (POOL_TTFT samples each,
+    one at a time on an idle system): through ``POST /v1/stream``, through
+    ``pool.submit`` and on a bare ``ServingAPI.submit`` (``ref``, an
+    engine of one replica's shape with a background pump)."""
+    rng = np.random.default_rng(76)
+
+    def prompt():
+        return np.concatenate([sysp, rng.integers(0, vocab, POOL_TAIL)])
+
+    out = {"http": [], "pool": [], "api": []}
+    for _ in range(POOL_TTFT):
+        out["http"].append(sse_stream(base, body_of(prompt(), 8, {}))[2])
+        t0 = time.perf_counter()
+        rr = pool.submit(prompt(), max_new_tokens=8, tenant="ttft")
+        next(pool.stream(rr))
+        out["pool"].append((time.perf_counter() - t0) * 1e3)
+        pool.result(rr, timeout=120)
+        t0 = time.perf_counter()
+        req = ref.submit(prompt(), max_new_tokens=8)
+        next(ref.stream(req))
+        out["api"].append((time.perf_counter() - t0) * 1e3)
+        ref.result(req, timeout=120)
+    med = {k: float(np.median(v)) for k, v in out.items()}
+    print(f"bf16 pool first token of a {POOL_PREFIX} + {POOL_TAIL} hit, "
+          f"median of {POOL_TTFT} (ms): POST /v1/stream {med['http']:.3f}, "
+          f"pool.submit {med['pool']:.3f}, bare ServingAPI.submit "
+          f"{med['api']:.3f}; samples "
+          + json.dumps({k: [round(x, 3) for x in v] for k, v in out.items()})
+          + f" [{card}]")
+    return {f"ttft_{k}_ms": v for k, v in med.items()}
+
+
+def serve_pool_http(model, serving, pa, so, card):
+    """Phase 15b (bf16): a reference engine of one replica's shape, then
+    two replicas sharing the model behind a ``Gateway``, then one engine
+    of both replicas' slots (the module docstring's phase 15). Returns
+    the held HTTP wave's launches and the times."""
+    import urllib.error
+    import urllib.request
+
+    from paddle_tpu_torch.serving import HostKVCache
+    from paddle_tpu_torch.serving.gateway import Gateway
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    dev = model.gpt.wte.weight.device
+    sysp = pool_prefixes(vocab, 77, 1)[0]
+    prompts, kws = pool_wave(vocab, sysp, 78)
+    primer = np.concatenate([sysp, np.arange(POOL_TAIL) + 7])
+    pushed = np.concatenate([sysp, np.arange(POOL_TAIL) + 99])
+    times = {}
+
+    # the reference: one engine of a replica's shape, its own store
+    ref = serving.ServingAPI(model, pool_config(
+        serving, HostKVCache(max_bytes=8 << 30, disk_dir="")),
+        device=dev, background=True)
+    serve(ref, pa, [primer], [POOL_NEW], "bf16 pool reference, primer", card)
+    cache = ref.engine.prefix_cache
+    cache.evict(cache.evictable_blocks())  # spilled: the next hit restores
+    want_pushed = list(serve(ref, pa, [pushed], [POOL_NEW], "bf16 pool "
+                             "reference, a host-restored hit", card)[0][0]
+                       .tokens)
+    if ref.engine.tier.restored_blocks != POOL_PREFIX // 16:
+        raise AssertionError("bf16 pool reference: the hit restored "
+                             f"{ref.engine.tier.restored_blocks} blocks")
+    want, times["tokens_per_s_1x8"] = engine_wave(
+        ref, pa, prompts, kws, "bf16 pool reference wave (1 x 8 slots)",
+        card)
+
+    store = HostKVCache(max_bytes=8 << 30, disk_dir="")
+    tm = serving.TenantManager()
+    tm.configure(serving.TenantConfig("metered", rate=1.0,
+                                      burst=float(POOL_NEW)))
+    pool = serving.ReplicaPool(model, replicas=2, config=pool_config(
+        serving, store), tenants=tm, background=True, device=dev)
+    gw = Gateway(pool, port=0).start()
+    base = f"http://127.0.0.1:{gw.port}"
+    try:
+        rep0, rep1 = pool.replicas()
+        # each replica's first wave builds every program the next waves
+        # run: replica 0 a miss and a hit, replica 1 a miss and the pushed
+        # request, a host-tier hit on the prefix replica 0 wrote through
+        serve(rep0.api, pa, [primer], [POOL_NEW],
+              "bf16 pool, replica 0's first miss", card)
+        serve(rep0.api, pa, [np.concatenate([sysp, np.arange(POOL_TAIL)])],
+              [POOL_NEW], "bf16 pool, replica 0's first hit", card)
+        serve(rep1.api, pa, [np.concatenate([pool_prefixes(vocab, 74, 1)[0],
+                                             np.arange(POOL_TAIL)])],
+              [POOL_NEW], "bf16 pool, replica 1's first miss", card)
+        what = "bf16 pool, a request pushed to the cold replica 1"
+        reqs, launches, ran = serve(rep1.api, pa, [pushed], [POOL_NEW], what,
+                                    card)
+        hold_launches(launches, want_launches(layers, ran), what)
+        hold_streams(reqs, [want_pushed], what, card,
+                     "the single engine's host-restored hit's")
+        view = rep1.api.engine.tier
+        if (view.host_hits, view.restored_blocks) != (POOL_PREFIX // 16,) * 2:
+            raise AssertionError(f"{what}: {view.host_hits} host hits, "
+                                 f"{view.restored_blocks} restored")
+        # replica 1 device-cold again: its blocks spill to the shared
+        # store, so that the shared prefix draws affinity to replica 0
+        with rep1.api.paused():
+            c1 = rep1.api.engine.prefix_cache
+            c1.evict(c1.evictable_blocks())
+        built = [builds(rep.api.engine) for rep in pool.replicas()]
+        # affinity within the slack: replica 0 one request busier, a
+        # shared-prefix request still goes there
+        a0 = metrics_counter("gateway.affinity_routes")
+        tail = np.arange(POOL_TAIL) + 300
+        busy = rep0.api.submit(np.concatenate(
+            [pool_prefixes(vocab, 82, 1)[0], tail]), max_new_tokens=POOL_NEW)
+        rr = pool.submit(np.concatenate([sysp, tail]),
+                         max_new_tokens=POOL_NEW, tenant="aff")
+        if (rr._replica_idx, metrics_counter("gateway.affinity_routes")) != (
+                0, a0 + 1):
+            raise AssertionError(f"bf16 pool: the warm request went to "
+                                 f"replica {rr._replica_idx}, not by "
+                                 f"affinity to replica 0")
+        pool.result(rr, timeout=300)
+        rep0.api.result(busy, timeout=300)
+        print(f"e2e bf16 pool: with replica 0 one request busier, a "
+              f"shared-prefix request routes to it by affinity (slack "
+              f"{pool._affinity_slack}) [{card}]")
+
+        # the held wave: 16 client threads through POST /v1/stream, a
+        # scraper on /v1/metrics meanwhile
+        results = [None] * POOL_CLIENTS
+        scrapes, errors = [], []
+        stop = threading.Event()
+        start = threading.Barrier(POOL_CLIENTS)
+
+        def client(i):
+            try:
+                start.wait(timeout=60)
+                results[i] = sse_stream(base, body_of(prompts[i], POOL_NEW,
+                                                      kws[i]))
+            except BaseException as e:  # held below, on the main thread
+                errors.append(e)
+
+        def scraper():
+            while not stop.is_set():
+                try:
+                    with urllib.request.urlopen(base + "/v1/metrics",
+                                                timeout=60) as resp:
+                        scrapes.append(resp.read().decode())
+                except BaseException as e:  # held below
+                    errors.append(e)
+                    return
+                time.sleep(0.05)
+
+        a0 = metrics_counter("gateway.affinity_routes")
+        ran0 = pool_ran(pool)
+        torch.cuda.synchronize()
+        pa.reset_launches()
+        so.reset_launches()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(POOL_CLIENTS)]
+        scrape = threading.Thread(target=scraper, daemon=True)
+        t0 = time.perf_counter()
+        scrape.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        stop.set()
+        scrape.join(timeout=60)
+        if errors or any(th.is_alive() for th in threads + [scrape]):
+            raise AssertionError(f"bf16 pool HTTP wave: {errors[:2]}")
+        torch.cuda.synchronize()
+        launches = dict(pa.launches) | dict(so.launches)
+        moved = [[a - b for a, b in zip(now, before)]
+                 for now, before in zip(pool_ran(pool), ran0)]
+        ran = types.SimpleNamespace(**dict(zip(
+            ("steps", "prefills", "chunks", "suffix", "decode_builds",
+             "prefill_builds", "chunk_builds"),
+            (sum(col) for col in zip(*moved)))))
+        what = "bf16 pool HTTP wave"
+        print(f"e2e {what}: {POOL_CLIENTS} SSE streams in {wall:.2f} s, per "
+              f"replica (steps, prefills, chunks, suffix prefills, builds) "
+              f"{moved}, launches {launches} [{card}]")
+        hold_launches(launches, want_launches(layers, ran), what)
+        if [builds(rep.api.engine) for rep in pool.replicas()] != built:
+            raise AssertionError(f"{what}: a replica built a program")
+        for i, (toks, done, _) in enumerate(results):
+            if toks != want[i] or done["state"] != "FINISHED":
+                raise AssertionError(f"{what}: request {i} ({done}) "
+                                     f"diverges from the single engine's")
+        print(f"e2e {what}: all {POOL_CLIENTS} streams equal the single "
+              f"engine's along the same cache path (shared prefix: hits, "
+              f"own prefixes: misses) [{card}]")
+        wins = metrics_counter("gateway.affinity_routes") - a0
+        last = scrapes[-1] if scrapes else ""
+        for idx in (0, 1):
+            if f'replica="{idx}"' not in last:
+                raise AssertionError(f"{what}: the scrape has no "
+                                     f'replica="{idx}" series')
+        for line in last.splitlines():
+            if line and not line.startswith("#") and len(line.split()) != 2:
+                raise AssertionError(f"{what}: scrape line {line!r}")
+        print(f"e2e {what}: {wins} affinity routes in the wave; "
+              f"{len(scrapes)} "
+              f"/v1/metrics scrapes during the streams, the last "
+              f"{len(last.splitlines())} lines with replica=\"0\" and "
+              f"replica=\"1\" series [{card}]")
+        times["tokens_per_s_pool_http"] = POOL_NEW * POOL_CLIENTS / wall
+
+        mbody = body_of(prompts[1], POOL_NEW, {}, tenant="metered")
+        urllib.request.urlopen(urllib.request.Request(
+            base + "/v1/submit", data=json.dumps(mbody).encode(),
+            method="POST"), timeout=60)
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                base + "/v1/submit", data=json.dumps(mbody).encode(),
+                method="POST"), timeout=60)
+            raise AssertionError("the metered tenant was not shed")
+        except urllib.error.HTTPError as e:
+            if e.code != 429 or float(e.headers["Retry-After"]) <= 0:
+                raise AssertionError(f"the metered tenant got {e.code}")
+            print(f"e2e bf16 pool: a tenant past its bucket gets 429, "
+                  f"Retry-After {e.headers['Retry-After']} s [{card}]")
+
+        # the same traffic in process (fresh own prefixes: misses again)
+        p2, k2 = pool_wave(vocab, sysp, 79)
+        t0 = time.perf_counter()
+        rrs = [pool.submit(p, max_new_tokens=POOL_NEW, tenant="inproc", **k)
+               for p, k in zip(p2, k2)]
+        for rr in rrs:
+            pool.result(rr, timeout=600)
+        times["tokens_per_s_pool_submit"] = (POOL_NEW * POOL_CLIENTS
+                                             / (time.perf_counter() - t0))
+        times["trace"] = pool_trace(pool, sysp, vocab, card)
+        times.update(pool_ttft(pool, base, ref, sysp, vocab, card))
+        if [builds(rep.api.engine) for rep in pool.replicas()] != built:
+            raise AssertionError("bf16 pool: a later wave built a program")
+    finally:
+        gw.close()
+        ref.close()
+    del gw, pool, ref
+    release()
+
+    # one engine of both replicas' slots on the same traffic
+    big = serving.ServingAPI(model, pool_config(
+        serving, HostKVCache(max_bytes=8 << 30, disk_dir=""),
+        slots=2 * POOL_SLOTS), device=dev)
+    serve(big, pa, [primer], [POOL_NEW], "bf16 1 x 16 slots, primer", card)
+    engine_wave(big, pa, *pool_wave(vocab, sysp, 80),
+                "bf16 1 x 16 slots, first wave", card)
+    times["tokens_per_s_1x16"] = engine_wave(
+        big, pa, *pool_wave(vocab, sysp, 81),
+        "bf16 1 x 16 slots, timed wave", card)[1]
+    big.close()
+    del big
+    release()
+    print(f"bf16 pool tokens/s ({POOL_CLIENTS} requests of {POOL_PREFIX} + "
+          f"{POOL_TAIL} + {POOL_NEW}, host clock): pool 2 x {POOL_SLOTS} "
+          f"through HTTP {times['tokens_per_s_pool_http']:.1f}, through "
+          f"pool.submit {times['tokens_per_s_pool_submit']:.1f}; one engine "
+          f"1 x {POOL_SLOTS} {times['tokens_per_s_1x8']:.1f}, 1 x "
+          f"{2 * POOL_SLOTS} {times['tokens_per_s_1x16']:.1f} [{card}]")
+    return launches, times
+
+
+def release():
+    """Collect closed engines held in reference cycles (an adapter arena
+    points back at its engine, a gateway at its server), so that their
+    arenas go back to the device before the next phase allocates."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def metrics_counter(key):
+    from paddle_tpu_torch.serving import metrics
+
+    return metrics.stats().get(key, 0)
+
+
+def pool_faults(gpt, serving, arrays, card):
+    """Phase 15c (f32, TF32 off, gpt_1p3b's width cut to POOL_F32[0]
+    layers, a foreground pool of two replicas of 8 slots): replica 0 is
+    driven into a crash loop (every decode step raises the injected
+    ``ServingDeviceError``; one rebuild allowed): its streams re-route to
+    replica 1 and equal the uninterrupted streams (one engine's) token for
+    token, and the fault-to-next-token time of each is printed; after the
+    backoff it respawns and serves the wave again, and the allocated bytes
+    are then within one arena of their value before the fault; then
+    ``scale_to(1)`` drains replica 1 with no grace and re-routes its
+    streams to replica 0, none dropped. Returns the times."""
+    from paddle_tpu_torch.core import flags, resilience
+    from paddle_tpu_torch.serving import RequestState
+
+    layers, lens, new = POOL_F32
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=layers)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    names = dict(model.named_parameters())
+    gpt.load_functional_state(model, {n: a for n, a in arrays.items()
+                                      if n in names})
+    dev = model.gpt.wte.weight.device
+    rng = np.random.default_rng(90)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    one = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=POOL_SLOTS), device=dev)
+    reqs = [one.submit(p, max_new_tokens=new) for p in prompts]
+    one.run_until_idle()
+    want = [list(r.tokens) for r in reqs]
+    one.close()
+    torch.cuda.empty_cache()
+
+    def submit_all(pool):
+        return [pool.submit(p, max_new_tokens=new, tenant="f32")
+                for p in prompts]
+
+    def hold(rrs, what):
+        if any(rr.state != RequestState.FINISHED for rr in rrs):
+            raise AssertionError(f"{what}: {[rr.state for rr in rrs]}")
+        hold_streams([types.SimpleNamespace(tokens=rr.tokens())
+                      for rr in rrs], want, what, card,
+                     "the uninterrupted engine's")
+
+    keep = flags.get_flags("serving_max_rebuilds")
+    flags.set_flags({"serving_max_rebuilds": 1})
+    pool = serving.ReplicaPool(model, replicas=2, num_slots=POOL_SLOTS,
+                               respawn_backoff=POOL_BACKOFF, device=dev)
+    try:
+        rrs = submit_all(pool)
+        pool.run_until_idle(timeout=300)
+        hold(rrs, "f32 pool, first wave")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        arena = pool.replicas()[0].api.engine.arena.bytes_total()
+        victim = pool.replicas()[0]
+        rrs = submit_all(pool)
+        for _ in range(4):
+            pool.pump_once()
+        moved = [rr for rr in rrs if rr._replica_idx == victim.idx]
+        if not moved or any(rr.finished for rr in moved):
+            raise AssertionError("f32 pool: replica 0 has no stream left "
+                                 "in flight to fault")
+        seen = {id(rr): len(rr.tokens()) for rr in moved}
+
+        def dying():
+            raise resilience.ServingDeviceError(
+                "injected: replica 0's device lost")
+
+        victim.api.engine.decode_step = dying
+        t_fault = time.perf_counter()
+        gaps = {}
+        deadline = t_fault + 300
+        while not all(rr.finished for rr in rrs):
+            if time.perf_counter() > deadline:
+                raise AssertionError("f32 pool fault: not done in 300 s")
+            pool.pump_once()
+            now = time.perf_counter()
+            for rr in moved:
+                if id(rr) not in gaps and len(rr.tokens()) > seen[id(rr)]:
+                    gaps[id(rr)] = (now - t_fault) * 1e3
+            for rr in rrs:
+                pool._observe(rr)
+        what = "f32 pool, replica 0 crash-looping"
+        hold(rrs, what)
+        if victim.ejections != 1 or any(rr.reroutes != 1 for rr in moved):
+            raise AssertionError(f"{what}: {victim.ejections} ejections, "
+                                 f"reroutes {[rr.reroutes for rr in moved]}")
+        ms = sorted(gaps.values())
+        print(f"e2e {what}: its {len(moved)} streams re-routed to replica 1 "
+              f"and equal the uninterrupted ones; fault to next token (host "
+              f"ms, each stream) {[round(x, 3) for x in ms]} [{card}]")
+        time.sleep(POOL_BACKOFF * 1.5)
+        pool.pump_once()  # past the backoff: the respawn, if not yet done
+        if victim.generation != 1 or len(pool.healthy_replicas()) != 2:
+            raise AssertionError("f32 pool: replica 0 did not respawn")
+        rrs = submit_all(pool)
+        pool.run_until_idle(timeout=300)
+        what = "f32 pool, after replica 0's respawn"
+        hold(rrs, what)
+        if not any(rr._replica_idx == victim.idx for rr in rrs):
+            raise AssertionError(f"{what}: the respawn served nothing")
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        print(f"e2e {what}: allocated {after} bytes against {before} before "
+              f"the fault ({after - before:+d}; one arena {arena}) [{card}]")
+        if abs(after - before) > arena:
+            raise AssertionError(f"{what}: memory moved by more than one "
+                                 "arena")
+        rrs = submit_all(pool)
+        for _ in range(3):
+            pool.pump_once()
+        pool.scale_to(1, grace=0.0)
+        pool.run_until_idle(timeout=300)
+        what = "f32 pool, scale_to(1)"
+        hold(rrs, what)
+        n = sum(rr.reroutes for rr in rrs)
+        if not n or pool.stats()["replicas_total"] != 1:
+            raise AssertionError(f"{what}: {n} re-routes")
+        print(f"e2e {what}: {n} streams re-routed to the survivor, none "
+              f"dropped [{card}]")
+    finally:
+        pool.close()
+        flags.set_flags(keep)
+    del model
+    torch.cuda.empty_cache()
+    return dict(fault_to_next_token_ms=ms, memory_before=before,
+                memory_after=after, arena_bytes=arena)
+
+
+def serve_gateway(gpt, serving, pa, so, arrays, card):
+    """Phase 15: 15a and 15b on bf16 gpt_1p3b, 15c in f32 at 4 layers.
+    Returns the launches of 15b's held HTTP wave and the times."""
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    model.to(torch.bfloat16)
+    t0 = time.perf_counter()
+    repair_adapter_roots(model, serving, pa, card)
+    out = dict(repairs=repair_tier_signature(model, serving, pa, card))
+    print(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, out["pool"] = serve_pool_http(model, serving, pa, so, card)
+    print(f"phase 15b: {time.perf_counter() - t0:.1f} s")
+    del model
+    release()
+    t0 = time.perf_counter()
+    out["faults"] = pool_faults(gpt, serving, arrays, card)
+    print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
+    release()
+    print(f"phase 15: {torch.cuda.memory_allocated()} bytes still allocated "
+          f"[{card}]")
+    print("phase 15, one call: " + json.dumps(out) + f" [{card}]")
+    return launches, out
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -5328,6 +6114,8 @@ def main() -> int:
     spec_launches, _ = t("13", serve_spec, gpt, serving, pa, so, arrays, card)
     lora_launches, tier_launches, _ = t("14", serve_lora_tier, gpt, serving,
                                         pa, so, arrays, card)
+    pool_launches, _ = t("15", serve_gateway, gpt, serving, pa, so, arrays,
+                         card)
 
     t("7", flash_checks, fa)
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
@@ -5398,7 +6186,8 @@ def main() -> int:
                        if name in PAGED[:2] + SAMPLING else {}),
                     **({"launches_spec": spec_launches[name],
                         "launches_lora": lora_launches.get(name, 0),
-                        "launches_tier": tier_launches.get(name, 0)}
+                        "launches_tier": tier_launches.get(name, 0),
+                        "launches_pool": pool_launches.get(name, 0)}
                        if name in PAGED + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),

@@ -161,6 +161,35 @@ define_flag("serving_rebuild_window", 200)
 # once, in-flight requests pump to completion within the budget, stragglers
 # fail with the retriable RequestDrainedError.
 define_flag("serving_drain_grace", 30.0)
+# Serving gateway (serving.gateway): the replica router, tenant quotas and
+# the HTTP/SSE front door.
+# Default replica count of a ReplicaPool: ServingAPI engine replicas (threads
+# of one process, sharing one model) routed by least outstanding work.
+define_flag("serving_replicas", 2)
+# Default TCP port of the HTTP/SSE gateway (0 binds an ephemeral port;
+# Gateway.port reports the bound one).
+define_flag("gateway_port", 8100)
+# Bounded prefix-cache affinity: a replica holding the request's prefix on
+# its device may win routing over the least-loaded replica only while its
+# outstanding work exceeds the minimum by at most this many requests. 0: pure
+# least-outstanding-work routing. No effect without the prefix cache.
+define_flag("gateway_affinity_slack", 2)
+# Re-routes one gateway request may take (crash-loop ejection, scale-down)
+# before it fails; each resumes from the request's token journal.
+define_flag("gateway_max_reroutes", 3)
+# Seconds before the router respawns an ejected replica (doubling per
+# ejection of that replica, capped at 30 s).
+define_flag("gateway_respawn_backoff", 0.5)
+# Defaults of a tenant without a TenantConfig: token-bucket refill (generated
+# tokens per second, 0 = unlimited), bucket capacity (tokens, 0 = one second
+# of the rate) and cap on requests in flight (0 = unlimited).
+define_flag("gateway_tenant_rate", 0.0)
+define_flag("gateway_tenant_burst", 0.0)
+define_flag("gateway_tenant_concurrency", 0)
+# Weighted fair share under overload: once outstanding work reaches twice the
+# pool's slot capacity, a tenant holding more than its weight-proportional
+# share of that budget is shed with the retriable QuotaExceededError.
+define_flag("gateway_fair_share", True)
 # Request-lifecycle span collection (serving.telemetry): span events keyed by
 # each request's trace_id land in a bounded ring. Latency histograms are
 # always on; this gates only the span path. Host-side only: never read in a

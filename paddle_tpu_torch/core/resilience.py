@@ -7,7 +7,9 @@ clock; :func:`check_overload` is the admission probe that sheds a submit
 when the waiting queue is at ``FLAGS_serving_max_queue``.
 :class:`ServingDeviceError` and :class:`ArenaCorruptError` (JAX ``:195``,
 ``:202``) are what the serving supervisor recovers by rebuild and replay;
-:class:`RequestDrainedError` (``:209``) is the retriable error of a drain.
+:class:`RequestDrainedError` (``:209``) is the retriable error of a drain;
+:class:`QuotaExceededError` (``:215``) the retriable shed of a gateway
+tenant gate, with its ``retry_after`` and ``tenant``.
 The fault registry (``:424-545``: :func:`inject_fault`, :func:`clear_faults`,
 :func:`fault_armed`, the ``FLAGS_inject_faults`` loader, :func:`maybe_fault`)
 arms deterministic faults only under ``FLAGS_fault_injection``; its serving
@@ -15,7 +17,10 @@ kinds are ``serving_device``, ``arena_corrupt`` and ``preempt``.
 :class:`PreemptionGuard` (``:574``) turns SIGTERM/SIGINT into a request that
 a serving pump polls at step boundaries; a second signal escalates to the
 previous handler. Counters (``overload.*``, ``deadline.*``, ``fault.*``,
-``preempt.*``, ``serving.*``, and ``tier.*``: ``tier.disk_corrupt`` and
+``preempt.*``, ``quota.*`` (``quota.shed``: tenant-gate sheds of the
+gateway), ``serving.*`` (the gateway's ``serving.replica_ejections`` and
+``serving.replica_respawns`` among them), and ``tier.*``:
+``tier.disk_corrupt`` and
 ``tier.disk_write_failed``, the tiered KV cache's disk entries that failed
 their crc on load or could not be written, mirrored from
 ``serving.tiered``) mirror the JAX module's: :func:`bump`, :func:`stats`,
@@ -87,6 +92,19 @@ class RequestDrainedError(RuntimeError):
     """The request was failed by a serving drain or shutdown before it
     completed. Retriable by construction: the request performed no
     externally visible work, so the caller can resubmit it elsewhere."""
+
+
+class QuotaExceededError(RuntimeError):
+    """A tenant's rate limit, concurrency quota or fair share was exceeded
+    at gateway admission (``serving.gateway.tenancy``). Retriable: nothing
+    was enqueued; ``retry_after`` is the seconds to wait before resubmitting
+    (the gateway's 429 ``Retry-After``)."""
+
+    def __init__(self, message: str, retry_after: float = 0.0,
+                 tenant: str = ""):
+        super().__init__(message)
+        self.retry_after = float(retry_after)
+        self.tenant = tenant
 
 
 def bump(key: str, n: int = 1) -> None:
@@ -528,3 +546,21 @@ class PreemptionGuard:
         if exit_process:
             raise SystemExit(0)
         return True
+
+
+def _register_providers() -> None:
+    """The gateway's resilience counters on the ``core.memory_stats``
+    surface, as the JAX module registers them (``paddle_tpu/core/
+    resilience.py:157-163``)."""
+    from . import memory_stats
+
+    for name, key in (("resilience.replica_ejections",
+                       "serving.replica_ejections"),
+                      ("resilience.replica_respawns",
+                       "serving.replica_respawns"),
+                      ("resilience.quota_shed", "quota.shed")):
+        memory_stats.register_stat_provider(
+            name, lambda k=key: _counts.get(k, 0))
+
+
+_register_providers()

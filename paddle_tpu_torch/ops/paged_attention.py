@@ -27,8 +27,9 @@ is bound by latency. Both kernels read each needed K/V row once and never
 read a block past the position. The decode kernel splits each slot's walk
 over several thread blocks, reads 16 bytes a lane and merges the splits in
 the same launch, in split order, through a workspace and ticket counters
-this module owns (:func:`_workspace`); the output is the same bits on every
-launch. With bf16 queries at head_dim <= 128 the prefill kernel runs on the
+this module owns (:func:`_workspace`), one set per stream the launches run
+in order on (:func:`workspace_stream`); the output is the same bits on
+every launch. With bf16 queries at head_dim <= 128 the prefill kernel runs on the
 tensor cores (``mma.sync``) over 64-key tiles that ``cp.async`` gathers
 through the table ahead of the products; float32, float16 and head_dim 256
 take its CUDA-core form. :func:`load_alignment` gives what each form needs
@@ -50,8 +51,10 @@ K/V, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 import types
 
 import torch
@@ -64,7 +67,7 @@ __all__ = ["paged_decode_attention", "paged_prefill_attention",
            "paged_full_prefill_attention", "paged_decode_attention_ref",
            "paged_prefill_attention_ref", "paged_full_prefill_attention_ref",
            "launches", "reset_launches", "load_kernels", "load_alignment",
-           "aligned", "check_servable"]
+           "aligned", "check_servable", "workspace_stream"]
 
 #: kernel launches, one per launch of each CUDA kernel (``_int8``: the
 #: variants over an int8 arena)
@@ -77,8 +80,11 @@ _DTYPE_CODES = types.MappingProxyType(
 HEAD_DIMS = (32, 64, 128, 256)
 _lib = None
 #: the decode kernel's split partials, ticket counters and split count, per
-#: device and shape (see :func:`_workspace`)
+#: device, stream and shape (see :func:`_workspace`)
 _work = {}
+#: per thread: the stream a program being built will replay on
+#: (:func:`workspace_stream`)
+_owner = threading.local()
 #: the decode kernel's most splits per (slot, head) (``kMaxMerge`` in the
 #: source), and the thread blocks per SM its grid aims at in one wave
 MAX_SPLITS, WAVE_BLOCKS = 64, 4
@@ -138,18 +144,39 @@ def decode_splits(S: int, H: int, sms: int) -> int:
     return min(max(WAVE_BLOCKS * sms // (S * H), 1), MAX_SPLITS)
 
 
+@contextlib.contextmanager
+def workspace_stream(stream):
+    """Context in which this thread's decode launches take the workspace
+    of ``stream`` (:func:`_workspace`) instead of the current stream's: a
+    serving engine builds its programs under it with its replay stream,
+    since the warm-up and the capture run on a side stream while the
+    graph they make replays on the engine's own."""
+    prev = getattr(_owner, "stream", None)
+    _owner.stream = stream
+    try:
+        yield
+    finally:
+        _owner.stream = prev
+
+
 def _workspace(device: torch.device, S: int, H: int, D: int):
-    """The decode kernel's workspace on ``device`` for this shape, made on
-    first use and kept: the split count (:func:`decode_splits`), each
-    split's float32 partial ``(acc[D], m, l)`` and ``S * H`` int32 ticket
-    counters, zero at allocation and left zero by every launch. The grid
-    and the workspace take the one split count decided here. Launches that
-    share them run in stream order; nothing is allocated per launch, so a
-    decode step can be captured in a CUDA graph. A serving engine's warm-up
-    makes it before any capture, and every graph bakes in its addresses;
-    engines of one shape share it, since their replays run in stream
-    order on one stream."""
-    key = (device, S, H, D)
+    """The decode kernel's workspace on ``device`` for this shape and
+    stream, made on first use and kept: the split count
+    (:func:`decode_splits`), each split's float32 partial ``(acc[D], m,
+    l)`` and ``S * H`` int32 ticket counters, zero at allocation and left
+    zero by every launch. The grid and the workspace take the one split
+    count decided here. Launches that share them must run in order, so
+    they are keyed by the stream those launches run on: the one
+    :func:`workspace_stream` names, else the current stream. Nothing is
+    allocated per launch, so a decode step can be captured in a CUDA
+    graph. A serving engine's warm-up makes it before any capture, and
+    every graph bakes in its addresses: the engine's replay stream is
+    fixed when it is built, and engines on other streams (the replicas of
+    a gateway pool, each replaying on its own) never share one."""
+    stream = getattr(_owner, "stream", None)
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    key = (device, stream.cuda_stream, S, H, D)
     # analysis: allow(mutable-global-capture) — made before any capture (the
     # warm-up launches first) and kept for the process: a graph bakes in the
     # workspace's addresses, which this table keeps alive

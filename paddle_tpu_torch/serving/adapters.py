@@ -34,6 +34,15 @@ gather from those buffers. Entered eagerly around ``generate()`` with one id
 it runs that adapter alone. Without a binding (training, ``generate()``,
 the speculative verify step) the hook returns the base output untouched.
 
+Each live row carries a **fingerprint** (:meth:`AdapterArena.fingerprint`),
+a blake2b of the adapter's A and B bytes, its rank and its alpha, computed
+once on the host at registration and cleared at unregister. The prefix
+cache roots an adapter's chains at a key derived from it
+(:func:`.prefix_cache.adapter_root`): a lane's K/V depends on its adapter,
+so chains of different adapters never meet, and a freed row registered
+again with other weights misses the old chain. The JAX package keys a
+chain by its tokens alone, whatever the adapter (a deliberate difference).
+
 Counters and gauges (``lora.*`` in :mod:`.metrics`): ``registered`` /
 ``unregistered`` / ``register_failed`` / ``admits``, gauges ``lora.slots``
 / ``lora.live`` / ``lora.arena_bytes`` / ``lora.active_slots``.
@@ -41,6 +50,7 @@ Counters and gauges (``lora.*`` in :mod:`.metrics`): ``registered`` /
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -172,6 +182,7 @@ class AdapterArena:
         self._free: List[int] = list(range(capacity, 0, -1))
         self._live: Dict[int, str] = {}   # id -> name
         self._names: Dict[str, int] = {}  # name -> id
+        self._fingerprints: Dict[int, bytes] = {}  # id -> weights digest
         self._engine = None  # the liveness guard and stream of unregister
         gpt_mod.set_lora_hook(_lora_hook)
         metrics.set_gauge("lora.slots", self.capacity)
@@ -253,6 +264,7 @@ class AdapterArena:
                     f"{tuple(self._a[si].shape[1:])}/"
                     f"{tuple(self._b[si].shape[1:])} (rank {self.rank})")
         idx = self._free.pop()
+        self._fingerprints[idx] = self._digest(adapter)
         scale = adapter.alpha / self.rank
         with self._writing():
             for si, site in enumerate(self._site_names):
@@ -290,6 +302,7 @@ class AdapterArena:
                     "before unregistering")
         name = self._live.pop(idx)
         del self._names[name]
+        del self._fingerprints[idx]
         with self._writing():
             for a, b in zip(self._a, self._b):
                 a[idx].zero_()
@@ -297,6 +310,30 @@ class AdapterArena:
         self._free.append(idx)
         metrics.bump("lora.unregistered")
         metrics.set_gauge("lora.live", len(self._live))
+
+    def _digest(self, adapter: LoraAdapter) -> bytes:
+        """The fingerprint of what :meth:`register` writes: every site's A
+        and B bytes (float32, before the ``alpha / rank`` fold) in site
+        order, an absent site marked as the identity, then the rank and
+        the alpha."""
+        h = hashlib.blake2b(digest_size=16)
+        for site in self._site_names:
+            h.update(site.encode())
+            ab = adapter.weights.get(site)
+            if ab is None:
+                h.update(b"\0identity")
+                continue
+            for m in ab:
+                h.update(repr(m.shape).encode())
+                h.update(np.ascontiguousarray(m, np.float32).tobytes())
+        h.update(f"rank={self.rank};alpha={adapter.alpha!r}".encode())
+        return h.digest()
+
+    def fingerprint(self, adapter_id: int) -> bytes:
+        """The weights fingerprint of live row ``adapter_id`` (the base
+        model's row 0 has none: raises ``KeyError`` for it and for a row
+        not registered)."""
+        return self._fingerprints[int(adapter_id)]
 
     def check_live(self, adapter_id: int) -> None:
         """Admission-time check: a request naming an unregistered adapter

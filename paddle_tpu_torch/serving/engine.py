@@ -153,9 +153,9 @@ from . import metrics, telemetry
 from .adapters import AdapterArena
 from .graphs import ResidentBuffer, StepGraphs
 from .kv_arena import ArenaExhaustedError, KVArena, Reservation
-from .prefix_cache import PrefixCache
+from .prefix_cache import _ROOT_KEY, PrefixCache, adapter_root
 from .sampling import sample_tokens
-from .tiered import TierView, get_tier_store
+from .tiered import TierView, get_tier_store, state_fingerprint
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -315,6 +315,7 @@ class _AdmitState:
     prefix_len: int = 0
     done: int = 0  # context positions already scattered (chunk progress)
     skip_draft: bool = False  # spec-ineligible: no draft blocks or prefill
+    root: bytes = _ROOT_KEY  # the prefix cache's chain root (the adapter's)
 
 
 class ServingEngine:
@@ -386,14 +387,18 @@ class ServingEngine:
         self.use_prefix_cache = bool(mode(cfg.prefix_cache,
                                           "serving_prefix_cache"))
         # the tier view outlives rebuild(): its tiers are off the device.
-        # Its signature keeps engines of other arena shapes from ever
-        # exchanging entries through a shared store
+        # Its signature keeps engines of other arena shapes, and arenas
+        # filled by other weights (the served state's fingerprint, taken
+        # after any in-place quantization), from ever exchanging entries
+        # through a shared store
         self.kv_tiering = bool(mode(cfg.kv_tiering, "serving_kv_tiering"))
         self.tier = (TierView(cfg.tier_store if cfg.tier_store is not None
                               else get_tier_store(),
                               signature=(mcfg.num_layers, mcfg.num_heads,
                                          head_dim, self.block_size,
-                                         str(dtype), self.quant_kv))
+                                         str(dtype), self.quant_kv,
+                                         self.quant_weights,
+                                         state_fingerprint(model).hex()))
                      if self.kv_tiering and self.use_prefix_cache else None)
         self.prefix_cache = (PrefixCache(self.arena, self.block_size,
                                          tier=self.tier)
@@ -551,6 +556,14 @@ class ServingEngine:
             n += self.spec.reserved_blocks(slot)
         return n
 
+    def prefix_root(self, adapter: int = 0) -> bytes:
+        """The prefix cache's chain root for lanes of ``adapter``: the base
+        model's ``_ROOT_KEY`` for 0, else the root derived from the live
+        row's weights fingerprint (``AdapterArena.fingerprint``)."""
+        if int(adapter) == 0:
+            return _ROOT_KEY
+        return adapter_root(self.lora.fingerprint(adapter))
+
     def admit_sizing(self, prompt_len: int, max_new_tokens: int,
                      prompt=None, keys=None, journal_len: int = 0):
         """Both admission-feasibility numbers from one radix walk: (blocks
@@ -562,9 +575,10 @@ class ServingEngine:
         (restore cost, not prefill cost). A match covering the whole
         prefilled context (``prompt_len + journal_len``) reserves one block
         back, the copy-on-write target. ``keys``
-        (``PrefixCache.chunk_keys``) makes the walk hash-free; without
-        ``prompt`` or ``keys``, or with the cache off, the plain worst
-        case."""
+        (``PrefixCache.chunk_keys`` under the request's adapter root, as
+        the scheduler passes them) makes the walk hash-free; ``prompt`` is
+        hashed under the base model's root; without ``prompt`` or ``keys``,
+        or with the cache off, the plain worst case."""
         need = self.blocks_needed(prompt_len, max_new_tokens)
         if self.prefix_cache is None or (prompt is None and keys is None):
             return need, 0
@@ -668,7 +682,7 @@ class ServingEngine:
                 full = min(st.done, st.plen) // self.block_size
                 if full > 0:
                     self.prefix_cache.insert(st.prompt, self._bt_host[slot],
-                                             full)
+                                             full, st.root)
             if (st.done >= st.clen and self.spec is not None
                     and not st.skip_draft):
                 self.spec.prefill(slot, st.ctx)
@@ -732,8 +746,10 @@ class ServingEngine:
         # restore's evictions cannot take it), then a spilled tail, first
         # restored into fresh blocks and then pinned. A restore that stops
         # short (an entry lost, no free block) truncates the match: the
-        # rest prefills
-        walked = (self.prefix_cache.match(prompt)
+        # rest prefills. The walk is under the adapter's root: a lane never
+        # attaches blocks filled under other weights
+        root = self.prefix_root(adapter)
+        walked = (self.prefix_cache.match(prompt, root)
                   if self.prefix_cache is not None else [])
         chain = []
         try:
@@ -787,7 +803,7 @@ class ServingEngine:
                          clen=clen, max_new=int(max_new_tokens), res=res,
                          shared=shared, n_attached=n_attached, cow=cow,
                          prefix_len=clen - 1 if cow else n_attached * bs,
-                         skip_draft=skip_draft)
+                         skip_draft=skip_draft, root=root)
         self._occupied[slot] = True
         self._slot_res[slot] = res
         self._slot_shared[slot] = shared
@@ -840,7 +856,7 @@ class ServingEngine:
             hit = bool(st.n_attached or st.cow)
             cache.note_hit(st.prefix_len if hit else 0)
             cache.insert(st.prompt, self._bt_host[slot],
-                         st.plen // self.block_size)
+                         st.plen // self.block_size, st.root)
             if hit:
                 metrics.bump("tokens.prefill_avoided", st.prefix_len)
         self._positions[slot] = st.clen  # next write position
@@ -1424,6 +1440,11 @@ class ServingEngine:
                 for k in ("hits", "misses", "hit_tokens", "inserted_blocks",
                           "evictions", "spills", "restores"):
                     setattr(self.prefix_cache, k, getattr(old, k))
+                if old._index is not None:
+                    # a gateway replica: the fresh tree is empty, so the
+                    # binding resets its published residency; the replays
+                    # publish again
+                    self.prefix_cache.bind_index(old._index, old._replica)
         self._bt_host[:] = 0
         self._positions[:] = 0
         self._last_tok[:] = 0
@@ -1453,7 +1474,9 @@ class ServingEngine:
 
     def close(self) -> None:
         """Drop the step programs (on CUDA their graphs and pool); any later
-        model call raises. The arena stays until the engine is dropped."""
+        model call raises. The arena stays until the engine is dropped (a
+        gateway pool frees a retired replica's at once:
+        ``KVArena.free_storage``)."""
         self._graphs.close()
         self._restore_staging = None
         self._restore_views = []

@@ -20,14 +20,28 @@ builds a program again.
   through the same bookkeeping.
 
 Every device call of an engine's programs -- staging copies, resident
-flushes, warm-ups, replays, reads -- runs on one stream, the one current
+flushes, replays, reads -- runs on the engine's own stream, the one current
 where the engine was made (:meth:`StepGraphs.on_stream`), whichever thread
-calls: PyTorch's current stream is per thread, and the decode kernel's
-workspace is sound only for in-order launches on one stream. A capture
-runs in ``"thread_local"`` error mode, so that another thread's CUDA calls
-while a background pump captures (the caller's own model calls, its
-allocations) neither fail nor invalidate the capture; the capture stream
-is a non-blocking pool stream, so such work never joins it.
+calls: PyTorch's current stream is per thread. Engines may each have their
+own (a gateway pool makes each replica under a stream of its own), and
+their replays then run side by side on the card. A graph bakes in the
+workspaces its kernels keep per stream, sound only for launches in order
+on one stream: cuBLAS's (one per stream it ran on) and the decode
+kernel's. So an engine on a stream of its own warms up and captures on
+that stream, and its graphs hold its own cuBLAS workspace; an engine on
+the default stream, where no capture can run, warms up and captures on
+one side stream for the process, whose workspace its graphs share with
+every such engine's, all replaying in order on the default stream. A
+program is built under ``paged_attention.workspace_stream`` of the
+engine's stream, so the graph bakes in that stream's decode workspace
+wherever its capture ran. A capture runs in ``"thread_local"`` error
+mode, so that another thread's CUDA calls while a background pump
+captures (the caller's own model calls, another replica's replays)
+neither fail nor invalidate the capture; a capture stream is a
+non-blocking pool stream, so such work never joins it. Warm-ups and
+captures of every engine of the process take one lock
+(:data:`_BUILD_LOCK`): engines may share the side stream, and each build
+measures the launch counters it moved.
 
 A :class:`ResidentBuffer` is a static buffer that a run does not refill:
 the decode step's ``[S, vocab]`` constraint mask, of which a step changes a
@@ -41,6 +55,8 @@ launch. A capture launches nothing and a replay calls no Python, so the
 program measures how far each counter moved while it captured, takes that
 back out, and credits the same amount on every replay
 (:class:`LaunchCredit`). The warm-up launches for real and counts as it is.
+A credit takes the build lock too, so that another engine's capture never
+measures it, and two replicas' credits never lose one another's.
 
 A run's outputs live in the shared pool: another graph of the engine may
 reuse their memory once it replays. :meth:`StepProgram.run` refuses to
@@ -53,6 +69,7 @@ host-to-device copies on the same stream.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,6 +77,14 @@ import torch
 
 __all__ = ["StepGraphs", "StepProgram", "LaunchCredit", "CudaGraphs",
            "ResidentBuffer"]
+
+#: one process-wide lock around every engine's warm-up and capture, and
+#: around every launch credit. The warm-ups and captures share the side
+#: stream, and a capture measures how far the launch counters moved while
+#: it ran, so no other engine may build, or credit a replay, meanwhile.
+#: Replays themselves take no lock: replicas replay concurrently, each on
+#: its own stream; only their counter bookkeeping is serialised
+_BUILD_LOCK = threading.RLock()
 
 
 class LaunchCredit:
@@ -86,9 +111,10 @@ class LaunchCredit:
                     c[k] -= n
 
     def replay(self) -> None:
-        for c, moved in zip(self._counters, self.moved):
-            for k, n in moved.items():
-                c[k] += n
+        with _BUILD_LOCK:
+            for c, moved in zip(self._counters, self.moved):
+                for k, n in moved.items():
+                    c[k] += n
 
 
 class CudaGraphs:
@@ -96,23 +122,35 @@ class CudaGraphs:
     shared graph pool, whose growth over the captures is ``pool_bytes``
     (the reserved bytes' increase, measured from an emptied cache).
 
-    Warm-ups run on ``torch.cuda.graph``'s own capture stream, one side
-    stream for the process, where every capture runs too: cuBLAS keeps a
-    workspace per stream for good (32 MiB on an H100), so a fresh stream
+    Warm-ups and captures run on the engine's ``stream`` when it is a
+    stream of its own, else on ``torch.cuda.graph``'s capture stream, one
+    side stream for the process: cuBLAS keeps a workspace per stream for
+    good (32 MiB on an H100), and a graph replays with the one of the
+    stream it was captured on, so the graphs of engines that replay side by
+    side must be captured on streams of their own, while a fresh stream
     per warm-up would pin one workspace for each of PyTorch's 32 pooled
-    streams; and the capture stream's workspace then exists before the
-    first capture."""
+    streams. Warming up on the capture stream makes its workspace before
+    the first capture. Engines of the process take turns
+    (:data:`_BUILD_LOCK`, held by :meth:`StepProgram._build`)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stream=None):
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
         self.pool_bytes = 0
+        default = torch.cuda.default_stream(device)
+        self._own = stream if stream is not None and stream != default \
+            else None
 
-    def warmup(self, fn: Callable[[], object]) -> None:
+    def _capture_stream(self):
+        if self._own is not None:
+            return self._own
         graph_ctx = torch.cuda.graph
         if graph_ctx.default_capture_stream is None:
             graph_ctx.default_capture_stream = torch.cuda.Stream(self.device)
-        side = graph_ctx.default_capture_stream
+        return graph_ctx.default_capture_stream
+
+    def warmup(self, fn: Callable[[], object]) -> None:
+        side = self._capture_stream()
         current = torch.cuda.current_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
@@ -125,6 +163,7 @@ class CudaGraphs:
         before = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool,
+                              stream=self._capture_stream(),
                               capture_error_mode="thread_local"):
             out = fn()
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - before
@@ -209,15 +248,20 @@ class StepProgram:
         self.built = False
 
     def _build(self) -> None:
+        from ..ops.paged_attention import workspace_stream
+
         backend = self._owner.backend
         if backend is not None:
             for name, buf in self.buffers.items():
                 buf.fill_(self._warm[name])
             step = lambda: self._fn(**self.buffers,  # noqa: E731
                                     **self._inputs())
-            backend.warmup(step)
-            self.graph, self.outputs = self._credit.capture(
-                lambda: backend.capture(step))
+            # the graph replays on the engine's stream: the decode kernel's
+            # kept workspace is that stream's, wherever the capture runs
+            with _BUILD_LOCK, workspace_stream(self._owner.stream):
+                backend.warmup(step)
+                self.graph, self.outputs = self._credit.capture(
+                    lambda: backend.capture(step))
         self.built = True
         self._on_build()
 
@@ -280,13 +324,13 @@ class StepGraphs:
                  backend: Optional[CudaGraphs] = None):
         self.device = torch.device(device)
         self.counters = tuple(counters)
-        if backend is None and self.device.type == "cuda":
-            backend = CudaGraphs(self.device)
-        self.backend = backend
         # the engine's one stream: the current stream of the thread that
         # made the engine (None on the CPU)
         self.stream = (torch.cuda.current_stream(self.device)
                        if self.device.type == "cuda" else None)
+        if backend is None and self.device.type == "cuda":
+            backend = CudaGraphs(self.device, self.stream)
+        self.backend = backend
         self.programs: Dict[object, StepProgram] = {}
         self.pending: Optional[StepProgram] = None
         self.closed = False

@@ -134,6 +134,8 @@ class KVArena:
         # current stream
         self.stream: Optional[torch.cuda.Stream] = None
         self._layout = None  # memoized block_layout()
+        # bytes_by_namespace() as it stood when free_storage() ran
+        self._freed_bytes: Optional[dict] = None
 
     def _fresh_entry(self, num_heads: int, head_dim: int,
                      dtype: Optional[torch.dtype] = None,
@@ -180,6 +182,20 @@ class KVArena:
         self._refs = [0] * self.num_blocks
         self._cached = set()
         self._cache = None
+
+    def free_storage(self) -> None:
+        """Give every pool's device memory back (a gateway pool retiring a
+        closed replica's engine): each array of every namespace is set to
+        empty storage in place, so whatever still holds the arena -- the
+        closed engine, until the garbage collector reaches it -- holds no
+        device memory. The byte reports keep the sizes the pools had. The
+        arena serves nothing afterwards."""
+        self._freed_bytes = self.bytes_by_namespace()
+        with torch.no_grad():
+            for pools in [self._pools] + list(self._ns_pools.values()):
+                for entry in pools:
+                    for t in entry:
+                        t.set_()
 
     @property
     def pools(self) -> List[Tuple[torch.Tensor, ...]]:
@@ -497,6 +513,8 @@ class KVArena:
         """``{name: {kv_bytes, scale_bytes, bytes, dtype, quantized}}``,
         the main pools under ``"primary"`` (the JAX package's
         breakdown)."""
+        if self._freed_bytes is not None:
+            return {k: dict(v) for k, v in self._freed_bytes.items()}
         out = {}
         sets = [("primary", self._pools, self.dtype, self.quantized)] + [
             (name, pools, self._ns_shapes[name][3], self._ns_shapes[name][4])

@@ -1,5 +1,5 @@
 """Serving counters, gauges and the tokens/s meter (counterpart of
-``paddle_tpu/serving/metrics.py``), limited to what this slice bumps.
+``paddle_tpu/serving/metrics.py``), limited to what the port bumps.
 
 Counters: ``requests.*`` (submitted / finished / cancelled / failed, and
 ``shed`` (refused at submit by the queue limit) / ``expired`` (failed by
@@ -37,7 +37,18 @@ node whose entry was lost: recomputed), ``host_evictions`` /
 they failed; ``guard_drains``: drains a bound ``PreemptionGuard`` started;
 ``recoveries``: pump steps the supervisor recovered), ``supervisor.*``
 (``rebuilds`` / ``replays``), ``engine.rebuilds``, ``telemetry.*``
-(``spans`` / ``spans_dropped`` of the span ring). Gauges: ``queue.depth``, ``queue.prefilling``, ``slots.active``,
+(``spans`` / ``spans_dropped`` of the span ring), ``gateway.*`` (the
+replica router and the HTTP front door, ``serving.gateway``: ``routed`` /
+``rerouted`` (journaled fail-over onto a healthy replica) /
+``affinity_routes`` (warm-prefix wins within the bounded slack) /
+``ejected`` / ``respawned`` / ``scale_downs`` / ``drains`` /
+``guard_drains`` / ``http_submits`` / ``http_streams`` /
+``client_disconnects``), ``tenant.*`` (quota admission: ``admitted`` /
+``completed`` / ``shed_rate`` / ``shed_concurrency`` / ``shed_share``, and
+for configured tenants ``tenant.<name>.admitted`` / ``.shed`` /
+``.tokens_out``), ``lora.pool_registered`` / ``lora.denied`` (adapters
+registered on a whole pool; per-request adapters a tenant may not use).
+Gauges: ``queue.depth``, ``queue.prefilling``, ``slots.active``,
 ``slots.total``, ``arena.blocks_free``, ``arena.blocks_total``,
 ``arena.high_water``, ``arena.blocks_cached``, ``prefix.resident_blocks``,
 ``tokens_per_sec``, ``sampling.active_slots``, ``constrain.active_slots``,
@@ -48,7 +59,9 @@ draft's acceptance rate), ``arena.kv_bytes`` / ``arena.scale_bytes`` /
 ``lora.slots`` / ``lora.live`` / ``lora.arena_bytes`` /
 ``lora.active_slots``, ``tier.enabled`` and the tiers' occupancy
 ``tier.host_bytes`` / ``tier.host_entries`` / ``tier.disk_bytes`` /
-``tier.disk_entries``.
+``tier.disk_entries``, and the router's fleet picture
+``gateway.replicas_healthy`` / ``gateway.replicas_total`` /
+``gateway.outstanding``.
 
 Headline numbers are registered as ``core.memory_stats`` providers
 (``paddle_tpu/serving/metrics.py:276-290``), so ``memory_summary()`` shows

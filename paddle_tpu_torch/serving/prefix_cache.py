@@ -44,8 +44,22 @@ shared store, counts it as matched: the engine restores it into a fresh
 block before attaching. A spilled node whose tier entry was lost (dropped
 from the host tier with no disk tier, or a disk file that failed its crc)
 is pruned when found, and the walk stops there: the admission recomputes.
-The gateway's cross-replica index (``bind_index``, the ``_publish_*``
-deltas) comes with the gateway slice.
+
+**Adapter roots.** A chain is rooted at a key per adapter: the base model
+(adapter 0) at ``_ROOT_KEY``, so its keys stay byte-equal to the JAX
+package's, and an adapter at :func:`adapter_root` of its weights
+fingerprint (``AdapterArena.fingerprint``), never of its recyclable row
+id. An adapter lane's K/V depends on its adapter, so a chain under one
+root never serves a lane of another, and a tier entry written under it
+is keyed honestly too. :meth:`PrefixCache.chunk_keys`, :meth:`match`,
+:meth:`match_stats` and :meth:`insert` take the root; the JAX package
+roots every chain at ``_ROOT_KEY`` whatever the adapter.
+
+**Cross-replica index** (:meth:`PrefixCache.bind_index`, a gateway
+``GlobalRadixIndex``): device-residency deltas are published per replica,
+an insert or a restore as ``publish_insert``, an eviction, a spill or a
+removal as ``publish_evict`` (the index is device-only: a spilled block
+lives in the shared tier, which every replica reads).
 """
 from __future__ import annotations
 
@@ -57,6 +71,14 @@ import numpy as np
 from . import metrics
 
 _ROOT_KEY = b"prefix-cache-root"
+
+
+def adapter_root(fingerprint: bytes) -> bytes:
+    """The root key of an adapter's chains, from its weights fingerprint:
+    disjoint from ``_ROOT_KEY`` and from every other adapter's root."""
+    h = hashlib.blake2b(_ROOT_KEY + b"/adapter/", digest_size=16)
+    h.update(fingerprint)
+    return h.digest()
 
 
 def _chunk_key(parent_key: bytes, chunk: np.ndarray) -> bytes:
@@ -106,6 +128,9 @@ class PrefixCache:
         self._n_spilled = 0
         self._tick = 0
         self._evictable_memo: Optional[int] = None
+        # the cross-replica residency index and this cache's replica id
+        self._index = None
+        self._replica: Optional[int] = None
         # per-instance lifetime counters (metrics are process-global)
         self.hits = 0
         self.misses = 0
@@ -116,9 +141,32 @@ class PrefixCache:
         self.restores = 0
         arena.bind_cache(self)
 
+    # ------------------------------------------------------ index plumbing
+
+    def bind_index(self, index, replica: int) -> None:
+        """Attach a gateway ``GlobalRadixIndex``: this cache's
+        device-residency deltas are published under ``replica``. Binding
+        resets the replica's published state first (a respawned or
+        rebuilt engine starts cold), then publishes the blocks already
+        resident."""
+        self._index = index
+        self._replica = int(replica)
+        index.publish_reset(self._replica)
+        resident = [n.key for n in self._nodes.values() if not n.spilled]
+        if resident:
+            index.publish_insert(self._replica, resident)
+
+    def _publish_insert(self, keys: List[bytes]) -> None:
+        if self._index is not None and keys:
+            self._index.publish_insert(self._replica, keys)
+
+    def _publish_evict(self, key: bytes) -> None:
+        if self._index is not None:
+            self._index.publish_evict(self._replica, key)
+
     # ------------------------------------------------------------- walking
 
-    def _walk(self, tokens) -> List[PrefixNode]:
+    def _walk(self, tokens, root: bytes = _ROOT_KEY) -> List[PrefixNode]:
         """Longest chain of matchable FULL blocks of ``tokens``: resident
         nodes, then (with a tier) spilled nodes whose entry is still in a
         tier. A key absent from the tree but present in the shared store
@@ -129,7 +177,7 @@ class PrefixCache:
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         out: List[PrefixNode] = []
         node = self._root
-        for i, key in enumerate(self.chunk_keys(tokens)):
+        for i, key in enumerate(self.chunk_keys(tokens, root)):
             child = node.children.get(key)
             if child is None:
                 if self.tier is None or not self.tier.has(key):
@@ -147,20 +195,22 @@ class PrefixCache:
             node = child
         return out
 
-    def chunk_keys(self, tokens) -> List[bytes]:
-        """The content-key chain of ``tokens``' full blocks: a pure function
-        of the tokens (not of the tree), so a caller polling residency every
-        scheduler step hashes once and reuses it."""
+    def chunk_keys(self, tokens, root: bytes = _ROOT_KEY) -> List[bytes]:
+        """The content-key chain of ``tokens``' full blocks under ``root``
+        (the adapter's: ``_ROOT_KEY`` for the base model): a pure function
+        of the tokens and the root (not of the tree), so a caller polling
+        residency every scheduler step hashes once and reuses it."""
         bs = self.block_size
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         keys: List[bytes] = []
-        parent = _ROOT_KEY
+        parent = root
         for i in range(int(tokens.shape[0]) // bs):
             parent = _chunk_key(parent, tokens[i * bs:(i + 1) * bs])
             keys.append(parent)
         return keys
 
-    def match_stats(self, tokens=None, keys: Optional[List[bytes]] = None):
+    def match_stats(self, tokens=None, keys: Optional[List[bytes]] = None,
+                    root: bytes = _ROOT_KEY):
         """One probe, the admission-sizing numbers ``(resident, spilled,
         unpinned)``: device-resident matched full blocks (attached by
         reference), tier-restorable matched blocks (spilled in the tree or
@@ -169,9 +219,10 @@ class PrefixCache:
         ``grantable()`` counts refcount-zero cached blocks as eviction
         headroom, but an admission of these tokens pins them before it
         reserves: a feasibility check must subtract them. Changes nothing;
-        pass precomputed ``keys`` (:meth:`chunk_keys`) to skip hashing."""
+        pass precomputed ``keys`` (:meth:`chunk_keys`) to skip hashing,
+        else ``tokens`` are hashed under ``root``."""
         if keys is None:
-            keys = self.chunk_keys(tokens)
+            keys = self.chunk_keys(tokens, root)
         resident = spilled = unpinned = 0
         node: Optional[PrefixNode] = self._root
         for k in keys:
@@ -192,16 +243,18 @@ class PrefixCache:
         return resident, spilled, unpinned
 
     def resident_tokens_for(self, keys: List[bytes]) -> int:
-        """Matchable full blocks of a precomputed :meth:`chunk_keys` chain,
+        """Matchable full blocks of a precomputed :meth:`chunk_keys` chain
+        (hashed under the request's adapter root),
         device-resident or tier-restorable, in tokens (cache-affinity
         scheduling: either skips the prefill)."""
         resident, spilled, _ = self.match_stats(keys=keys)
         return (resident + spilled) * self.block_size
 
-    def match(self, tokens) -> List[PrefixNode]:
-        """The admission walk: the matched chain, each node's LRU clock
-        touched. The caller takes the references (``arena.ref``)."""
-        chain = self._walk(tokens)
+    def match(self, tokens, root: bytes = _ROOT_KEY) -> List[PrefixNode]:
+        """The admission walk under ``root``: the matched chain, each
+        node's LRU clock touched. The caller takes the references
+        (``arena.ref``)."""
+        chain = self._walk(tokens, root)
         self._tick += 1
         for node in chain:
             node.last_use = self._tick
@@ -209,9 +262,11 @@ class PrefixCache:
 
     # ----------------------------------------------------------- insertion
 
-    def insert(self, tokens, blocks, num_blocks: int) -> int:
-        """Insert the first ``num_blocks`` full chunks of ``tokens``, whose
-        K/V was just scattered into physical ``blocks[i]``. A chunk already
+    def insert(self, tokens, blocks, num_blocks: int,
+               root: bytes = _ROOT_KEY) -> int:
+        """Insert the first ``num_blocks`` full chunks of ``tokens`` under
+        ``root`` (the adapter's), whose K/V was just scattered into
+        physical ``blocks[i]``. A chunk already
         resident is skipped: the existing block stays authoritative and the
         caller's copy stays private to its slot, freed at retire. A spilled
         node is revived onto the caller's block (the same tokens in the
@@ -223,10 +278,11 @@ class PrefixCache:
         node = self._root
         self._tick += 1
         inserted = 0
+        new_keys: List[bytes] = []
         arena = self.arena
-        for i in range(num_blocks):
+        keys = self.chunk_keys(tokens[:num_blocks * bs], root)
+        for i, key in enumerate(keys):
             chunk = tokens[i * bs:(i + 1) * bs]
-            key = _chunk_key(node.key, chunk)
             child = node.children.get(key)
             if child is None or child.spilled:
                 blk = int(blocks[i])
@@ -244,6 +300,7 @@ class PrefixCache:
                     self._n_spilled -= 1
                 arena.mark_cached(blk)
                 inserted += 1
+                new_keys.append(key)
             child.last_use = self._tick
             if self.tier is not None:
                 blk = child.block
@@ -252,6 +309,7 @@ class PrefixCache:
             node = child
         if inserted:
             self.invalidate()
+            self._publish_insert(new_keys)
             self.inserted_blocks += inserted
             metrics.bump("prefix.inserted_blocks", inserted)
             metrics.set_gauge("prefix.resident_blocks",
@@ -336,6 +394,7 @@ class PrefixCache:
         self.spills += 1
         self.invalidate()
         self.arena.uncache(blk)
+        self._publish_evict(node.key)
 
     def mark_restored(self, node: PrefixNode, blk: int) -> None:
         """The engine restored ``node``'s rows into the fresh cached block
@@ -345,6 +404,7 @@ class PrefixCache:
         self._n_spilled -= 1
         self.restores += 1
         self.invalidate()
+        self._publish_insert([node.key])
         metrics.set_gauge("prefix.resident_blocks", self.resident_blocks())
 
     def prune_lost(self, node: PrefixNode) -> None:
@@ -368,6 +428,7 @@ class PrefixCache:
         self._nodes.pop(node.key, None)
         self.invalidate()
         self.arena.uncache(node.block)
+        self._publish_evict(node.key)
 
     # --------------------------------------------------------------- admin
 

@@ -345,14 +345,16 @@ class Scheduler:
         return min(self.waiting, key=lambda r: (r.priority, r._arrival))
 
     def _keys_for(self, r: Request):
-        """The request's radix chunk-key chain, hashed once at its first
-        probe (None with the prefix cache off: sizing is then the plain
-        worst case)."""
+        """The request's radix chunk-key chain under its adapter's root
+        (``ServingEngine.prefix_root``), hashed once at its first probe
+        (None with the prefix cache off: sizing is then the plain worst
+        case)."""
         cache = self.engine.prefix_cache
         if cache is None:
             return None
         if r._prefix_keys is None:
-            r._prefix_keys = cache.chunk_keys(r.prompt)
+            r._prefix_keys = cache.chunk_keys(
+                r.prompt, self.engine.prefix_root(r.adapter_id))
         return r._prefix_keys
 
     def _can_admit(self, r: Request) -> bool:

@@ -10,8 +10,9 @@
   preemption re-queue and its supervisor replay, so one id names a
   request's whole life. Span collection is gated by
   ``FLAGS_serving_telemetry``.
-* :func:`prometheus_text` (``:491``, without ``pool=``: the gateway is a
-  later slice) and :func:`chrome_events` (``:424``).
+* :func:`prometheus_text` (``:491``; with ``pool=`` a gateway
+  ``ReplicaPool``'s per-replica quantiles and its replica and tenant
+  series) and :func:`chrome_events` (``:424``).
 
 Everything here stays outside captured code: a timestamp is taken around a
 step program's run, never inside its step function (a ``time.*`` read or a
@@ -475,11 +476,14 @@ def _hist_lines(lines: List[str], name: str, h: Histogram,
             f'{h.percentile(q)!r}')
 
 
-def prometheus_text() -> str:
-    """The serving stats in the Prometheus text exposition format: every
-    ``serving.metrics`` counter and gauge, and every latency histogram
-    (cumulative buckets, sum, count and p50/p95/p99). A pure read of the
-    snapshots."""
+def prometheus_text(pool=None) -> str:
+    """The serving stats in the Prometheus text exposition format (``GET
+    /v1/metrics``): every ``serving.metrics`` counter and gauge, and every
+    latency histogram (cumulative buckets, sum, count and p50/p95/p99).
+    With ``pool`` (a gateway ``ReplicaPool``) also each live replica's
+    quantiles labelled ``replica="<idx>"``, its health row
+    (``paddle_gateway_replica_*``) and each tenant's accounting
+    (``paddle_tenant_*``). A pure read of the snapshots."""
     lines: List[str] = []
     gauges = metrics.gauges()
     stats = metrics.stats()
@@ -494,6 +498,25 @@ def prometheus_text() -> str:
     for name, h in sorted(histograms().items()):
         if h.n:
             _hist_lines(lines, name, h, replica="pool")
+    if pool is not None:
+        for rep in pool.replicas():
+            for name, h in sorted(rep.api.engine.hists.snapshot().items()):
+                if h.n:
+                    _hist_lines(lines, name, h, replica=str(rep.idx))
+        snap = pool.stats()
+        for row in snap["replicas"]:
+            for key in ("healthy", "outstanding", "generation",
+                        "ejections"):
+                val = _prom_value(int(row[key]))
+                lines.append(f'paddle_gateway_replica_{key}'
+                             f'{{replica="{row["idx"]}"}} {val}')
+        for tenant, row in sorted(snap["tenants"].items()):
+            for key in ("admitted", "shed", "completed", "failed",
+                        "inflight", "tokens_out", "tokens_per_sec"):
+                val = _prom_value(row[key])
+                if val is not None:
+                    lines.append(
+                        f'paddle_tenant_{key}{{tenant="{tenant}"}} {val}')
     return "\n".join(lines) + "\n"
 
 

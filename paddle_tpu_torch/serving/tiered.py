@@ -35,8 +35,13 @@ payload read from disk is copied into a pinned buffer when it enters the
 host tier; a dropped entry's buffer returns to PyTorch's host allocator.
 
 Entries are namespaced by the arena's signature (layers, heads, head dim,
-block size, dtype, quantized; the port has no mesh fingerprint yet), so only
-byte-compatible engines exchange entries. Counters and gauges: ``tier.*``
+block size, dtype, quantized; the port has no mesh fingerprint yet) and by
+what filled it: the int8-weights mode and :func:`state_fingerprint`, a hash
+of every byte of the served model's parameters and buffers. So only engines
+of byte-compatible arenas over the same weights exchange entries; two
+checkpoints of one shape, or int8 weights against float ones, never
+restore each other's K/V (the JAX signature names the shape only, a
+deliberate difference). Counters and gauges: ``tier.*``
 in :mod:`.metrics` (the corrupt and failed disk entries in
 ``core.resilience`` too), ``latency.spill`` in :mod:`.telemetry`.
 """
@@ -60,7 +65,7 @@ from . import metrics, telemetry
 
 __all__ = ["Payload", "DiskTier", "HostKVCache", "TierView",
            "get_tier_store", "reset_tier_store", "block_layout", "pack",
-           "NP_DTYPE"]
+           "NP_DTYPE", "state_fingerprint"]
 
 #: disk entry layout: MAGIC + 4-byte little-endian crc32(body) + body, the
 #: body an ``np.savez`` archive of the entry's arrays
@@ -429,6 +434,32 @@ class HostKVCache:
             out["disk_bytes"] = d["bytes"]
             out["disk_dir"] = self.disk.root
         return out
+
+
+def state_fingerprint(model) -> bytes:
+    """A blake2b of every byte of ``model``'s parameters and buffers (int8
+    payloads and their ``weight_scale`` buffers included), each with its
+    name, dtype and shape: what a tier signature needs to tell two sets of
+    weights apart, however few tensors differ. Every byte is hashed (a
+    device tensor is copied to the host first), so the first call on a
+    large model takes seconds. Memoized on the model, keyed by each
+    tensor's ``(data_ptr(), _version)``: engines sharing one model hash it
+    once, and an in-place update, or a tensor swapped in, is hashed
+    again."""
+    tensors = list(model.named_parameters()) + list(model.named_buffers())
+    stamp = tuple((name, t.data_ptr(), t._version) for name, t in tensors)
+    memo = getattr(model, "_state_fingerprint", None)
+    if memo is not None and memo[0] == stamp:
+        return memo[1]
+    h = hashlib.blake2b(digest_size=16)
+    with torch.no_grad():
+        for name, t in tensors:
+            h.update(f"{name}:{t.dtype}:{tuple(t.shape)};".encode())
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            h.update(raw.cpu().numpy().data)
+    digest = h.digest()
+    model._state_fingerprint = (stamp, digest)
+    return digest
 
 
 class TierView:

@@ -573,3 +573,113 @@ def test_engine_predictor_adapter(model, caplog):
     msg = caplog.text
     assert "2 adapter admits" in msg
     assert "lora arena rank 4: 1/3 live" in msg
+
+
+# ------------------------------------------------- prefix chains by adapter
+
+
+def _serve_one(api, prompt, n, adapter):
+    return _serve(api, [(prompt, n, {"adapter": adapter})])[0]
+
+
+@pytest.mark.parametrize("first", ["base", "adapter"])
+def test_prefix_cache_roots_chains_by_adapter(model, jax_model, first):
+    """With the prefix cache, a request served after another of the same
+    prompt under other weights (the base model, then an adapter, or the
+    other way round) gives its cache-off solo stream: each adapter's
+    chains are rooted at its own key, so neither attaches the other's
+    blocks. The JAX engine keys chains by tokens alone and gives the
+    second request another stream (a deliberate difference)."""
+    rng = np.random.default_rng(61)
+    prompt = _prompt(rng, 24)
+    order = [0, 1] if first == "base" else [1, 0]
+    off, _ = _port_api(model)
+    solo = {a: _serve_one(off, prompt, 8, a) for a in order}
+    off.close()
+    on, _ = _port_api(model, prefix_cache=True)
+    got = [_serve_one(on, prompt, 8, a) for a in order]
+    cache = on.engine.prefix_cache
+    assert got == [solo[a] for a in order]
+    assert solo[0] != solo[1]
+    assert cache.hits == 0 and cache.misses == 2
+    # both chains are resident, side by side: 3 full blocks each
+    assert cache.resident_blocks() == 6
+    on.close()
+    japi, _ = _jax_api(jax_model, prefix_cache=True)
+    jgot = _serve_jax(japi, [(prompt, 8, {"adapter": order[0]})]) \
+        + _serve_jax(japi, [(prompt, 8, {"adapter": order[1]})])
+    assert jgot[0] == solo[order[0]]
+    assert jgot[1] != solo[order[1]]
+    japi.close()
+
+
+def test_prefix_cache_shares_within_one_adapter(model):
+    """Two requests of one adapter still share: the second attaches the
+    first's blocks (a hit) and gives its solo stream."""
+    rng = np.random.default_rng(62)
+    sysp = _prompt(rng, 16)
+    p1 = np.concatenate([sysp, _prompt(rng, 5)])
+    p2 = np.concatenate([sysp, _prompt(rng, 7)])
+    off, _ = _port_api(model)
+    want = [_serve_one(off, p, 8, 1) for p in (p1, p2)]
+    off.close()
+    on, _ = _port_api(model, prefix_cache=True)
+    got = [_serve_one(on, p, 8, 1) for p in (p1, p2)]
+    cache = on.engine.prefix_cache
+    assert got == want
+    assert cache.hits == 1 and cache.hit_tokens == 16
+    # the base model's lane misses the adapter's chain
+    _serve_one(on, p1, 4, 0)
+    assert cache.hits == 1
+    on.close()
+
+
+def test_reregistered_row_misses_old_chain(model):
+    """A freed row registered again with other weights gets another
+    fingerprint, so its lanes miss the chain the old adapter left and give
+    the new adapter's solo stream; the same weights registered again hit
+    it."""
+    rng = np.random.default_rng(63)
+    prompt = _prompt(rng, 24)
+    off, _ = _port_api(model)
+    off.unregister_adapter(2)
+    assert off.register_adapter(_adapter(model, 9, "tenant-9")) == 2
+    want = _serve_one(off, prompt, 8, 2)
+    off.close()
+    on, ids = _port_api(model, prefix_cache=True)
+    lora, cache = on.engine.lora, on.engine.prefix_cache
+    old_fp = lora.fingerprint(2)
+    first = _serve_one(on, prompt, 8, 2)
+    on.unregister_adapter(2)
+    with pytest.raises(KeyError):
+        lora.fingerprint(2)
+    assert on.register_adapter(_adapter(model, 9, "tenant-9")) == 2
+    assert lora.fingerprint(2) != old_fp
+    assert _serve_one(on, prompt, 8, 2) == want != first
+    assert cache.hits == 0
+    on.unregister_adapter(2)
+    assert on.register_adapter(_adapter(model, SEEDS[1], "again")) == 2
+    assert lora.fingerprint(2) == old_fp
+    assert _serve_one(on, prompt, 8, 2) == first
+    assert cache.hits == 1
+    on.close()
+
+
+def test_base_chunk_keys_equal_jax(model, jax_model):
+    """Id 0 keeps the JAX package's root: the base model's chunk keys are
+    byte-equal to the JAX prefix cache's; an adapter's are disjoint from
+    them."""
+    rng = np.random.default_rng(64)
+    prompt = _prompt(rng, 37)
+    on, ids = _port_api(model, prefix_cache=True)
+    japi, _ = _jax_api(jax_model, prefix_cache=True)
+    eng = on.engine
+    ours = eng.prefix_cache.chunk_keys(prompt, eng.prefix_root(0))
+    theirs = japi.engine.prefix_cache.chunk_keys(np.asarray(prompt,
+                                                            np.int32))
+    assert ours == theirs and len(ours) == 4
+    adapted = eng.prefix_cache.chunk_keys(prompt, eng.prefix_root(ids[0]))
+    assert not set(adapted) & set(ours)
+    assert eng.prefix_root(ids[0]) != eng.prefix_root(ids[1])
+    on.close()
+    japi.close()

@@ -574,3 +574,103 @@ def test_bf16_rows_round_trip_bit_for_bit(arrays, tmp_path, via_disk):
                     assert got.tobytes() == want.tobytes()
     finally:
         api.close()
+
+
+# ------------------------------------------------ the tier signature's weights
+
+
+def _seeded_model(seed):
+    m = gpt.GPTForCausalLM(gpt.gpt_tiny(), device="cpu")
+    gpt.load_functional_state(m, gpt.seeded_state(m, seed=seed))
+    return m
+
+
+def _solo(model, prompt, **kw):
+    """``prompt`` served alone on a tiered engine with a store of its
+    own."""
+    api = _tiered_api(model, HostKVCache(max_bytes=1 << 30, disk_dir=""),
+                      **kw)
+    try:
+        return _serve(api, prompt)
+    finally:
+        api.close()
+
+
+@pytest.mark.parametrize("other", ["seed 1", "int8 weights"])
+def test_other_weights_never_restore_each_other(model, other):
+    """Two engines of one arena shape but other weights (``gpt_tiny`` seeds
+    0 and 1, or the same seed with int8 weights) share one
+    ``HostKVCache``: B serves the prompt A wrote through and gives its solo
+    stream with nothing restored from the tier, since the signature
+    carries ``quant_weights`` and the served state's fingerprint (the JAX
+    signature names the shape only)."""
+    rng = np.random.default_rng(71)
+    prompt = _prompt(rng, 18)
+    kw = {"quant_weights": True} if other == "int8 weights" else {}
+    make = ((lambda: _seeded_model(1)) if other == "seed 1"
+            else (lambda: _seeded_model(0)))
+    want = _solo(make(), prompt, **kw)
+    store = HostKVCache(max_bytes=1 << 30, disk_dir="")
+    a = _tiered_api(model, store)
+    b = _tiered_api(make(), store, **kw)
+    try:
+        _serve(a, prompt)
+        assert store.stats()["host_entries"] == 2
+        assert a.engine.tier.signature != b.engine.tier.signature
+        assert _serve(b, prompt) == want
+        view = b.engine.tier
+        assert view.restored_blocks == 0 and view.host_hits == 0
+        assert b.engine.prefix_cache.hits == 0
+        assert store.stats()["host_entries"] == 4
+    finally:
+        a.close()
+        b.close()
+
+
+def test_same_weights_still_share(model, arrays):
+    """Engines over the same weights, the same model instance or another
+    one loaded with the same arrays, keep sharing the store: B restores
+    the prompt's blocks that A wrote through, with A's stream."""
+    rng = np.random.default_rng(72)
+    prompt = _prompt(rng, 18)
+    twin = gpt.GPTForCausalLM(gpt.gpt_tiny(), device="cpu")
+    gpt.load_functional_state(twin, arrays)
+    for other in (model, twin):
+        store = HostKVCache(max_bytes=1 << 30, disk_dir="")
+        a = _tiered_api(model, store)
+        b = _tiered_api(other, store)
+        try:
+            out = _serve(a, prompt)
+            assert a.engine.tier.signature == b.engine.tier.signature
+            assert _serve(b, prompt) == out
+            view = b.engine.tier
+            assert view.host_hits == 2 and view.restored_blocks == 2
+            assert b.engine.prefix_cache.hits == 1
+        finally:
+            a.close()
+            b.close()
+
+
+def test_state_fingerprint_tracks_in_place_updates(arrays):
+    """The fingerprint is memoized on the model by each tensor's
+    ``(data_ptr(), _version)``: a second call reuses it, an in-place update
+    of one element is hashed again and changes it, and undoing the update
+    gives the first value back (every byte is hashed); int8 weights
+    swapped in change it too."""
+    m = gpt.GPTForCausalLM(gpt.gpt_tiny(), device="cpu")
+    gpt.load_functional_state(m, arrays)
+    fp = tiered.state_fingerprint(m)
+    stamp, _ = m._state_fingerprint
+    m._state_fingerprint = (stamp, b"memoized")
+    assert tiered.state_fingerprint(m) == b"memoized"
+    w = m.gpt.layers[1].mlp.down.weight
+    old = float(w.detach()[3, 5])
+    with torch.no_grad():
+        w[3, 5] = old + 1.0
+    bumped = tiered.state_fingerprint(m)
+    assert bumped not in (fp, b"memoized")
+    with torch.no_grad():
+        w[3, 5] = old
+    assert tiered.state_fingerprint(m) == fp
+    gpt.quantize_serving_weights(m)
+    assert tiered.state_fingerprint(m) not in (fp, bumped)
