@@ -366,6 +366,40 @@ no result. Phases, in order; each raises on failure:
     it respawns after the backoff and serves again, with the allocated
     bytes within one arena of their value before the fault; ``scale_to(1)``
     drains and re-routes without dropping a stream.
+16. The process fleet and the write-ahead log (``serve_fleet_wal``, run
+    after phase 15). 16a, bf16 ``gpt_1p3b``: a reference engine of 8
+    slots with the prefix cache serves a primer (a miss of a 512-token
+    shared prefix), a hit, and 15b's two waves; then ``serve()`` with
+    ``FLAGS_gateway_process_replicas`` spawns two worker processes of
+    that shape, each loading the weights from the pool's file (the spawn
+    payload's bytes and each boot's seconds printed; no worker imports
+    JAX); each is primed with the miss and the hit (its programs built),
+    then 16 client threads ``POST /v1/stream`` the first wave: every SSE
+    stream equals the reference's (the shared prefix resident in every
+    worker: hits; own prefixes: misses), each worker's launches, set to 0
+    just before and read from its own ``stats`` just after, equal what
+    its engine ran, no worker builds a program; the second wave goes
+    through ``pool.submit``, equal too. Times: both waves' tokens/s beside
+    the reference's and this call's 15b, first tokens of hits, the card's
+    free memory before the spawn, with both workers up and after
+    ``close()`` (which reaps every worker). 16b, f32 (TF32 off) at 4
+    layers, two workers: ``worker_kill`` mid-wave, the killed worker's
+    streams re-routed and equal to one engine's uninterrupted streams (each
+    one's fault-to-next-token time, the respawn's seconds, free memory
+    after the respawn within a worker's footprint of before), then
+    ``worker_hang``, classified by heartbeat age, equal too; no tenant
+    slot left in flight, no worker alive after ``close()``. 16c, the same
+    width and depth on the harness's own seeded weights
+    (``wal_harness.build_model``, which every incarnation and the
+    reference call alike): ``paddle_tpu_torch.serving.gateway.wal_harness``
+    on the card
+    serves a greedy, a seeded-sampled and a constrained stream, is
+    SIGKILLed mid-stream, and a second harness on the same ``--wal-dir``
+    finishes all three equal to an in-process engine's (``/healthz``
+    503 "recovering", then 200; the build counters frozen after the
+    first resumed stream); a third answers both retried ids from its
+    result cache. Each incarnation's boot and the replay's seconds are
+    printed.
 
 Each phase prints its seconds.
 
@@ -385,7 +419,8 @@ unquantized paged rows' and the sampling row's ``launches_prefix`` phase
 ``launches_spec`` phase 13's draft engine's wave 1, over the int8 arena
 for the int8 rows; ``launches_lora`` phase 14a's wave 1, ``launches_tier``
 phase 14c's host-tier wave B, the int8 rows' over the int8 arena;
-``launches_pool`` phase 15b's HTTP wave, both replicas'),
+``launches_pool`` phase 15b's HTTP wave, both replicas'; ``launches_fleet``
+phase 16a's HTTP wave, summed over the two worker processes' own counts),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
@@ -396,6 +431,7 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -5330,14 +5366,15 @@ def body_of(prompt, n, kw, **extra):
     return body
 
 
-def sse_stream(base, body, timeout=300):
-    """POST ``/v1/stream``: the tokens, the done event and the host ms
-    from the request's start to its first token."""
+def sse_stream(url, body=None, timeout=300):
+    """An SSE stream (a POST of ``body`` to ``/v1/stream``, or a GET of
+    ``/v1/stream/<id>`` when there is no body): the tokens, the done event
+    and the host ms from the request's start to its first token."""
     import urllib.request
 
-    req = urllib.request.Request(base + "/v1/stream",
-                                 data=json.dumps(body).encode(),
-                                 method="POST")
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
     t0 = time.perf_counter()
     toks, done, first = [], None, None
     with urllib.request.urlopen(req, timeout=timeout) as resp:
@@ -5611,7 +5648,8 @@ def pool_ttft(pool, base, ref, sysp, vocab, card):
 
     out = {"http": [], "pool": [], "api": []}
     for _ in range(POOL_TTFT):
-        out["http"].append(sse_stream(base, body_of(prompt(), 8, {}))[2])
+        out["http"].append(sse_stream(base + "/v1/stream",
+                                      body_of(prompt(), 8, {}))[2])
         t0 = time.perf_counter()
         rr = pool.submit(prompt(), max_new_tokens=8, tenant="ttft")
         next(pool.stream(rr))
@@ -5733,8 +5771,9 @@ def serve_pool_http(model, serving, pa, so, card):
         def client(i):
             try:
                 start.wait(timeout=60)
-                results[i] = sse_stream(base, body_of(prompts[i], POOL_NEW,
-                                                      kws[i]))
+                results[i] = sse_stream(
+                    base + "/v1/stream", body_of(prompts[i], POOL_NEW,
+                                                 kws[i]))
             except BaseException as e:  # held below, on the main thread
                 errors.append(e)
 
@@ -6029,6 +6068,660 @@ def serve_gateway(gpt, serving, pa, so, arrays, card):
     return launches, out
 
 
+# ------------------------------------------------------------------ phase 16
+# the process fleet: two worker processes of 15b's replica shape, each a
+# whole serving stack in a CUDA context of its own; the WAL's restart
+FLEET_WORKERS = 2
+FLEET_HB, FLEET_MISSES = 0.2, 5  # heartbeats: a hang classified past 1 s
+FLEET_BACKOFF = 0.2              # 16b's respawn backoff, seconds
+FLEET_DEVICE = "cuda"            # 16b's and 16c's models and harnesses
+# 16c: (prompt length, new tokens) of the greedy, seeded-sampled and
+# constrained streams; the SIGKILL falls after WAL_SEEN greedy tokens
+WAL_STREAMS = ((120, 96), (300, 96), (75, 12))
+WAL_SAMPLED = dict(temperature=0.9, top_k=50, top_p=0.95, seed=7)
+WAL_CHOICES = [[5, 6, 7, 8], [5, 9]]
+WAL_STOP = 3
+WAL_SEEN = 8
+WAL_MAX_LEN = 2048               # the harness's max_model_len
+# the harness's --config, --layers, --dtype and --seed (build_model's)
+WAL_MODEL = ("gpt_1p3b", POOL_F32[0], "float32", 0)
+
+
+def free_bytes():
+    """Free bytes of the card (``torch.cuda.mem_get_info``): every
+    process's allocations count, the workers' too."""
+    return torch.cuda.mem_get_info()[0]
+
+
+def fleet_config(serving):
+    return serving.ServingConfig(num_slots=POOL_SLOTS, prefix_cache=True)
+
+
+_RAN_KEYS = ("decode_steps", "prefills", "prefill_chunks", "suffix_prefills",
+             "decode_traces", "prefill_traces", "prefix_prefill_traces")
+
+
+def worker_ran(snap):
+    """``ran_counts`` of a worker's engine, from its ``stats`` scrape."""
+    return tuple(snap["engine"][k] for k in _RAN_KEYS)
+
+
+def ran_between(now, before):
+    return types.SimpleNamespace(**dict(zip(
+        ("steps", "prefills", "chunks", "suffix", "decode_builds",
+         "prefill_builds", "chunk_builds"),
+        (a - b for a, b in zip(now, before)))))
+
+
+def prime_worker(handle, prompt, what, timeout=300.0):
+    """Serve one request on one worker (its handle's own submit; the
+    pool's watchdog polls it) and return its tokens."""
+    req = handle.submit(prompt, max_new_tokens=POOL_NEW)
+    if not req.done_event.wait(timeout) or req.state != "FINISHED":
+        raise AssertionError(f"{what}: {req.state} {req.error!r}")
+    return list(req.tokens)
+
+
+def fleet_reference(model, serving, pa, primer, hit, waves, card):
+    """One in-process engine of a worker's shape (8 slots, the prefix
+    cache) along the workers' cache path: the primer (a miss), a hit, then
+    each wave (the shared prefix: hits; own prefixes: misses). Returns each
+    wave's streams and tokens/s (host clock, foreground)."""
+    dev = model.gpt.wte.weight.device
+    ref = serving.ServingAPI(model, fleet_config(serving), device=dev)
+    serve(ref, pa, [primer], [POOL_NEW], "bf16 fleet reference, primer",
+          card)
+    serve(ref, pa, [hit], [POOL_NEW], "bf16 fleet reference, a hit", card)
+    out, rates = [], []
+    for i, (prompts, kws) in enumerate(waves):
+        t0 = time.perf_counter()
+        reqs = serve(ref, pa, prompts, [POOL_NEW] * len(prompts),
+                     f"bf16 fleet reference, wave {i}", card, kws)[0]
+        rates.append(POOL_NEW * len(prompts) / (time.perf_counter() - t0))
+        out.append([list(r.tokens) for r in reqs])
+    ref.close()
+    return out, rates
+
+
+def fleet_http_wave(pool, base, layers, prompts, kws, want, card):
+    """16 client threads through ``POST /v1/stream`` with each worker's
+    launch counters set to 0 just before and read just after: every
+    stream equals the reference's, and each worker's launches equal what
+    its engine ran. Returns the summed launches and the wave's wall
+    seconds."""
+    handles = {rep.idx: rep.api for rep in pool.replicas()}
+    results = [None] * len(prompts)
+    errors = []
+    start = threading.Barrier(len(prompts))
+
+    def client(i):
+        try:
+            start.wait(timeout=60)
+            results[i] = sse_stream(
+                base + "/v1/stream", body_of(prompts[i], POOL_NEW, kws[i]))
+        except BaseException as e:  # held below, on the main thread
+            errors.append(e)
+
+    before = {i: worker_ran(s) for i, s in pool.worker_stats().items()}
+    for h in handles.values():
+        h.reset_launches()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    after = pool.worker_stats()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"bf16 fleet HTTP wave: {errors[:2]}")
+    what = "bf16 fleet HTTP wave"
+    total = {}
+    for idx, snap in sorted(after.items()):
+        ran = ran_between(worker_ran(snap), before[idx])
+        got = {k: snap["launches"].get(k, 0) for k in PAGED + SAMPLING}
+        print(f"e2e {what}, worker {idx} (pid {snap['pid']}): "
+              f"{ran.steps} decode steps, {ran.prefills} prefills, "
+              f"{ran.suffix} suffix prefills, builds "
+              f"{(ran.decode_builds, ran.prefill_builds, ran.chunk_builds)}"
+              f", launches {got} [{card}]")
+        hold_launches(got, want_launches(layers, ran),
+                      f"{what}, worker {idx}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    for i, (toks, done, _) in enumerate(results):
+        if toks != want[i] or done["state"] != "FINISHED":
+            raise AssertionError(f"{what}: request {i} ({done}) diverges "
+                                 "from the reference engine's")
+    print(f"e2e {what}: all {len(prompts)} SSE streams equal the reference "
+          f"engine's along the same cache path, in {wall:.2f} s [{card}]")
+    return total, wall
+
+
+def fleet_builds(pool):
+    return {i: worker_ran(s)[4:] for i, s in pool.worker_stats().items()}
+
+
+def serve_fleet(model, serving, pa, card, pool15):
+    """Phase 16a (bf16 gpt_1p3b): the reference engine, then two worker
+    processes behind ``serve()`` with ``FLAGS_gateway_process_replicas``
+    (8 slots and the prefix cache each, the weights loaded from the pool's
+    file), each primed (a miss and a hit of the shared prefix), then 15b's
+    wave through ``POST /v1/stream`` and through ``pool.submit``, first
+    tokens of hits, and ``close()``. Returns the HTTP wave's launches
+    (summed over the workers) and the numbers."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.serving.gateway import serve as serve_gateway_http
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    dev = model.gpt.wte.weight.device
+    sysp = pool_prefixes(vocab, 77, 1)[0]
+    http_wave, sub_wave = pool_wave(vocab, sysp, 78), pool_wave(vocab,
+                                                                sysp, 79)
+    primer = np.concatenate([sysp, np.arange(POOL_TAIL) + 7])
+    hit = np.concatenate([sysp, np.arange(POOL_TAIL)])
+    (want_http, want_sub), rates = fleet_reference(
+        model, serving, pa, primer, hit, (http_wave, sub_wave), card)
+    release()
+    out = {"tokens_per_s_reference_1x8": rates}
+    free0 = free_bytes()
+    keep = flags.get_flags("gateway_process_replicas")
+    flags.set_flags({"gateway_process_replicas": True})
+    t0 = time.perf_counter()
+    try:
+        gw = serve_gateway_http(model, replicas=FLEET_WORKERS, guard=False,
+                                port=0, device=dev,
+                                config=fleet_config(serving),
+                                heartbeat_interval=FLEET_HB)
+    finally:
+        flags.set_flags(keep)
+    out["spawn_s"] = time.perf_counter() - t0
+    pool = gw.pool
+    base = f"http://127.0.0.1:{gw.port}"
+    procs = [rep.api.proc for rep in pool.replicas()]
+    try:
+        st = pool.stats()
+        out["boot_s"] = [rep.api.boot_seconds for rep in pool.replicas()]
+        out["spawn_payload_bytes"] = st["spawn_payload_bytes"]
+        print(f"e2e bf16 fleet: {FLEET_WORKERS} workers up in "
+              f"{out['spawn_s']:.2f} s (parallel boots, spawn to hello: "
+              f"{[round(s, 2) for s in out['boot_s']]} s), spawn payload "
+              f"{out['spawn_payload_bytes']} bytes (the weights go through "
+              f"the pool's file: {pool._payload_for(0)['model_file']}), "
+              f"pids {[r['pid'] for r in st['replicas']]} [{card}]")
+        ws = pool.worker_stats()
+        if any(s["imports"] for s in ws.values()):
+            raise AssertionError(f"a worker imported "
+                                 f"{[s['imports'] for s in ws.values()]}")
+        # each worker's first wave builds what the next waves run: a miss
+        # of the shared prefix (the whole-prompt bucket, decode), then a
+        # hit (the suffix bucket); the shared prefix is then resident in
+        # every worker, as in the reference
+        for rep in pool.replicas():
+            prime_worker(rep.api, primer, f"worker {rep.idx}'s primer")
+            prime_worker(rep.api, hit, f"worker {rep.idx}'s first hit")
+        built = fleet_builds(pool)
+        out["free_up"] = free_bytes()
+        launches, wall = fleet_http_wave(pool, base, layers, *http_wave,
+                                         want_http, card)
+        out["tokens_per_s_http"] = POOL_NEW * POOL_CLIENTS / wall
+        t0 = time.perf_counter()
+        rrs = [pool.submit(p, max_new_tokens=POOL_NEW, tenant="inproc", **k)
+               for p, k in zip(*sub_wave)]
+        got = [list(map(int, pool.result(rr, timeout=600)[len(p):]))
+               for rr, p in zip(rrs, sub_wave[0])]
+        out["tokens_per_s_submit"] = (POOL_NEW * POOL_CLIENTS
+                                      / (time.perf_counter() - t0))
+        if got != want_sub:
+            bad = [i for i, (a, b) in enumerate(zip(got, want_sub)) if a != b]
+            raise AssertionError(f"bf16 fleet pool.submit wave: requests "
+                                 f"{bad} diverge from the reference's")
+        print(f"e2e bf16 fleet pool.submit wave: all {POOL_CLIENTS} streams "
+              f"equal the reference engine's [{card}]")
+        rng = np.random.default_rng(76)
+        ttft = {"http": [], "pool": []}
+        for _ in range(POOL_TTFT):
+            p = np.concatenate([sysp, rng.integers(0, vocab, POOL_TAIL)])
+            ttft["http"].append(sse_stream(base + "/v1/stream",
+                                           body_of(p, 8, {}))[2])
+            t0 = time.perf_counter()
+            rr = pool.submit(np.concatenate(
+                [sysp, rng.integers(0, vocab, POOL_TAIL)]), max_new_tokens=8,
+                tenant="ttft")
+            next(pool.stream(rr))
+            ttft["pool"].append((time.perf_counter() - t0) * 1e3)
+            pool.result(rr, timeout=120)
+        out["ttft_http_ms"] = float(np.median(ttft["http"]))
+        out["ttft_pool_ms"] = float(np.median(ttft["pool"]))
+        print(f"bf16 fleet first token of a {POOL_PREFIX} + {POOL_TAIL} hit, "
+              f"median of {POOL_TTFT} (ms): POST /v1/stream "
+              f"{out['ttft_http_ms']:.3f}, pool.submit "
+              f"{out['ttft_pool_ms']:.3f}; samples "
+              + json.dumps({k: [round(x, 3) for x in v]
+                            for k, v in ttft.items()}) + f" [{card}]")
+        if fleet_builds(pool) != built:
+            raise AssertionError(f"bf16 fleet: a worker built a program "
+                                 f"after its first wave: {built} -> "
+                                 f"{fleet_builds(pool)}")
+        out["worker_memory_allocated"] = [
+            s.get("memory_allocated") for s in pool.worker_stats().values()]
+    finally:
+        gw.close()
+    if any(p.is_alive() for p in procs):
+        raise AssertionError("bf16 fleet: a worker outlived close()")
+    out["free_before_spawn"], out["free_after_close"] = free0, free_bytes()
+    print(f"e2e bf16 fleet: card free memory (bytes) before the spawn "
+          f"{free0}, both workers up and primed {out['free_up']} (a worker's "
+          f"footprint {(free0 - out['free_up']) / FLEET_WORKERS:.0f}; "
+          f"allocated in each {out['worker_memory_allocated']}), after "
+          f"close() {out['free_after_close']} "
+          f"({out['free_after_close'] - free0:+d}) [{card}]")
+    if abs(out["free_after_close"] - free0) > (free0 - out["free_up"]) / 4:
+        raise AssertionError("bf16 fleet: the card's memory did not come "
+                             "back after close()")
+    print(f"bf16 fleet tokens/s ({POOL_CLIENTS} requests of {POOL_PREFIX} + "
+          f"{POOL_TAIL} + {POOL_NEW}, host clock): {FLEET_WORKERS} worker "
+          f"processes x {POOL_SLOTS} through HTTP "
+          f"{out['tokens_per_s_http']:.1f}, through pool.submit "
+          f"{out['tokens_per_s_submit']:.1f}; the reference engine (1 x "
+          f"{POOL_SLOTS}, the prefix cache, no tiers, foreground) on the same "
+          f"waves {[round(r, 1) for r in rates]}; this call's phase 15b "
+          f"(prefix cache and tiers on): in-process pool 2 x {POOL_SLOTS} "
+          f"through HTTP "
+          f"{pool15['tokens_per_s_pool_http']:.1f}, through pool.submit "
+          f"{pool15['tokens_per_s_pool_submit']:.1f}, one engine 1 x "
+          f"{POOL_SLOTS} {pool15['tokens_per_s_1x8']:.1f}, 1 x "
+          f"{2 * POOL_SLOTS} {pool15['tokens_per_s_1x16']:.1f} [{card}]")
+    return launches, out
+
+
+def f32_cut(gpt, arrays):
+    """15c's model: gpt_1p3b's width at POOL_F32[0] layers, f32, the
+    seeded arrays of its parameters."""
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=POOL_F32[0])
+    model = gpt.GPTForCausalLM(cfg, device=FLEET_DEVICE)
+    names = dict(model.named_parameters())
+    gpt.load_functional_state(model, {n: a for n, a in arrays.items()
+                                      if n in names})
+    return model
+
+
+def fleet_faults(gpt, serving, arrays, card):
+    """Phase 16b (f32, TF32 off, 15c's model and prompts): two worker
+    processes of 8 slots. A first wave builds; then a wave during which
+    ``worker_kill`` SIGKILLs worker 0 (the watchdog's probe): its streams
+    re-route to worker 1 and equal the uninterrupted ones (one in-process
+    engine's), with each one's fault-to-next-token time; worker 0 respawns
+    after its backoff, serves the next wave, and the card's free memory is
+    then within one worker's footprint of its value before the fault. Then
+    ``worker_hang``: worker 0 stops heartbeating, the watchdog classifies
+    it by heartbeat age, its streams re-route equal. After each fault the
+    tenant holds nothing in flight, and after ``close()`` no worker process
+    is alive. Returns the numbers."""
+    from paddle_tpu_torch.core import flags, resilience
+    from paddle_tpu_torch.serving.gateway import ProcessReplicaPool
+
+    _, lens, new = POOL_F32
+    model = f32_cut(gpt, arrays)
+    dev = model.gpt.wte.weight.device
+    rng = np.random.default_rng(90)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
+    one = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=POOL_SLOTS), device=dev)
+    reqs = [one.submit(p, max_new_tokens=new) for p in prompts]
+    one.run_until_idle()
+    want = [list(r.tokens) for r in reqs]
+    one.close()
+    release()
+
+    def wave(pool):
+        return [pool.submit(p, max_new_tokens=new, tenant="f32")
+                for p in prompts]
+
+    def hold(pool, rrs, what):
+        for rr in rrs:
+            pool.result(rr, timeout=300)
+        hold_streams([types.SimpleNamespace(tokens=rr.tokens())
+                      for rr in rrs], want, what, card,
+                     "the uninterrupted engine's")
+        inflight = pool.stats()["tenants"]["f32"]["inflight"]
+        if inflight:
+            raise AssertionError(f"{what}: {inflight} still in flight")
+
+    def when(cond, what, timeout=120.0):
+        wait_for(cond, what, timeout)
+        return time.perf_counter()
+
+    out = {}
+    keep = flags.get_flags("fault_injection")
+    flags.set_flags({"fault_injection": True})
+    free0 = free_bytes()
+    pool = ProcessReplicaPool(model, replicas=FLEET_WORKERS,
+                              background=True, num_slots=POOL_SLOTS,
+                              respawn_backoff=FLEET_BACKOFF,
+                              heartbeat_interval=FLEET_HB,
+                              heartbeat_misses=FLEET_MISSES, device=dev)
+    procs = []
+    try:
+        victim = pool.replicas()[0]
+        procs.append(victim.api.proc)
+        hold(pool, wave(pool), "f32 fleet, first wave")
+        free_before = free_bytes()
+        footprint = (free0 - free_before) / FLEET_WORKERS
+
+        # worker_kill mid-wave
+        survivor = pool.replicas()[1]
+        built = fleet_builds(pool)[survivor.idx]
+        rrs = wave(pool)
+        when(lambda: all(rr.tokens() for rr in rrs), "every stream started")
+        # the victim's streams, taken before the kill can move them
+        moved = [rr for rr in rrs if rr._replica_idx == victim.idx]
+        kills0 = resilience._counts.get("fault.worker_kill", 0)
+        resilience.inject_fault("worker_kill", times=1)
+        t_fault = when(lambda: resilience._counts.get(
+            "fault.worker_kill", 0) > kills0, "the watchdog's kill")
+        seen = {id(rr): len(rr.tokens()) for rr in moved}
+        gaps = {}
+        deadline = t_fault + 300
+        while not all(rr.finished for rr in rrs):
+            if time.perf_counter() > deadline:
+                raise AssertionError("f32 fleet kill: not done in 300 s")
+            now = time.perf_counter()
+            for rr in moved:
+                if id(rr) not in gaps and len(rr.tokens()) > seen[id(rr)]:
+                    gaps[id(rr)] = (now - t_fault) * 1e3
+            time.sleep(0.0005)
+        what = "f32 fleet, worker 0 SIGKILLed mid-wave"
+        hold(pool, rrs, what)
+        if not moved or any(rr.reroutes != 1 for rr in moved):
+            raise AssertionError(f"{what}: reroutes "
+                                 f"{[rr.reroutes for rr in moved]}")
+        out["fault_to_next_token_ms"] = sorted(gaps.values())
+        # the journals' prefills may take buckets the survivor never built
+        out["survivor_builds"] = [a - b for a, b in zip(
+            fleet_builds(pool)[survivor.idx], built)]
+        t_up = when(lambda: victim.generation == 1 and victim.healthy,
+                    "worker 0's respawn")
+        out["respawn_s"] = t_up - t_fault
+        procs.append(victim.api.proc)
+        print(f"e2e {what}: its {len(moved)} streams re-routed to worker 1 "
+              f"and equal the uninterrupted ones; fault to next token (host "
+              f"ms, each stream) "
+              f"{[round(x, 3) for x in out['fault_to_next_token_ms']]} "
+              f"(programs the survivor built meanwhile: decode, prefill, "
+              f"suffix {out['survivor_builds']}); "
+              f"respawned in {out['respawn_s']:.2f} s (backoff "
+              f"{FLEET_BACKOFF} s, boot {victim.api.boot_seconds:.2f} s) "
+              f"[{card}]")
+        rrs = wave(pool)
+        hold(pool, rrs, "f32 fleet, after worker 0's respawn")
+        if not any(rr._replica_idx == victim.idx for rr in rrs):
+            raise AssertionError("f32 fleet: the respawn served nothing")
+        out["free_before_fault"], out["free_after_respawn"] = (
+            free_before, free_bytes())
+        print(f"e2e f32 fleet: card free memory {out['free_after_respawn']} "
+              f"bytes after the respawn against {free_before} before the "
+              f"fault ({out['free_after_respawn'] - free_before:+d}; a "
+              f"worker's footprint {footprint:.0f}) [{card}]")
+        if abs(out["free_after_respawn"] - free_before) > footprint:
+            raise AssertionError("f32 fleet: free memory moved by more than "
+                                 "one worker's footprint across a respawn")
+
+        # worker_hang: classified by heartbeat age
+        rrs = wave(pool)
+        when(lambda: all(rr.tokens() for rr in rrs), "every stream started")
+        hangs0 = resilience._counts.get("worker.hangs", 0)
+        resilience.inject_fault("worker_hang", times=1)
+        t_hang = time.perf_counter()
+        t_seen = when(lambda: resilience._counts.get("worker.hangs", 0)
+                      > hangs0, "the hang's classification")
+        out["hang_classified_s"] = t_seen - t_hang
+        what = "f32 fleet, worker 0 hung mid-wave"
+        hold(pool, rrs, what)
+        print(f"e2e {what}: classified as hung (heartbeats stale past "
+              f"{FLEET_MISSES} x {FLEET_HB} s, a poll unanswered) after "
+              f"{out['hang_classified_s']:.3f} s, its streams re-routed and "
+              f"equal the uninterrupted ones [{card}]")
+        when(lambda: victim.generation == 2 and victim.healthy,
+             "worker 0's second respawn")
+        procs.append(victim.api.proc)
+        procs.append(pool.replicas()[1].api.proc)
+    finally:
+        pool.close()
+        flags.set_flags(keep)
+        resilience.clear_faults()
+    if any(p.is_alive() for p in procs):
+        raise AssertionError("f32 fleet: a worker outlived close()")
+    print(f"e2e f32 fleet: none of the {len(procs)} worker processes is "
+          f"alive after close() [{card}]")
+    del model
+    release()
+    return out
+
+
+def harness_boot(args, log):
+    """Start ``wal_harness`` with ``args``; returns the process, its base
+    URL and the seconds from the start to its JSON line."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.gateway.wal_harness",
+         *args], stdout=subprocess.PIPE, stderr=log, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout=30)
+        raise AssertionError(f"wal_harness exited {proc.returncode} before "
+                             f"printing its port (log: {log.name})")
+    info = json.loads(line)
+    return proc, f"http://127.0.0.1:{info['port']}", \
+        time.perf_counter() - t0
+
+
+def harness_end(proc):
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=60)
+    proc.stdout.close()
+
+
+def http_json(url, body=None, timeout=300):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.load(resp)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def healthz_until_ok(base, timeout=120.0):
+    seen = []
+    deadline = time.perf_counter() + timeout
+    while True:
+        code, h = http_json(base + "/healthz", timeout=30)
+        seen.append((code, h["status"]))
+        if h["status"] == "ok":
+            return seen, h
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"/healthz never ok: {seen[-3:]}")
+        time.sleep(0.005)
+
+
+def wal_restart(serving, card):
+    """Phase 16c (WAL_MODEL: f32, TF32 off, gpt_1p3b's width at
+    POOL_F32[0] layers):
+    ``wal_harness`` on the card, booted on ``build_model``'s seeded
+    weights (the in-process reference calls it alike), serves greedy,
+    seeded-sampled and constrained streams (WAL_STREAMS), is SIGKILLed
+    after WAL_SEEN tokens of
+    the greedy one, and a second harness on the same ``--wal-dir`` replays
+    the log: every accepted stream finishes equal to an in-process
+    engine's, the ``?offset=`` client sees no token twice and none missing,
+    and the build counters are frozen once the first resumed stream ended;
+    a third harness answers the retried ids from its result cache (no
+    decode). Prints each incarnation's boot seconds, the replay's seconds
+    and the ``/healthz`` statuses seen. Returns the numbers."""
+    from paddle_tpu_torch.serving import SamplingParams, TrieConstraint
+    from paddle_tpu_torch.serving.gateway import wal_harness
+
+    cfg, layers, dtype, seed = WAL_MODEL
+    model = wal_harness.build_model(cfg, layers, dtype, FLEET_DEVICE, seed)
+    dev = model.gpt.wte.weight.device
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(91)
+    prompts = [rng.integers(0, vocab, n) for n, _ in WAL_STREAMS]
+    news = [n for _, n in WAL_STREAMS]
+    ref = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=POOL_SLOTS), device=dev)
+    kws = [{}, {"sampling": SamplingParams(**WAL_SAMPLED)},
+           {"stop_token_id": WAL_STOP, "constraint": TrieConstraint(
+               WAL_CHOICES, vocab_size=vocab, stop_token_id=WAL_STOP)}]
+    reqs = [ref.submit(p, max_new_tokens=n, **k)
+            for p, n, k in zip(prompts, news, kws)]
+    ref.run_until_idle()
+    want = [[int(t) for t in r.tokens] for r in reqs]
+    ref.close()
+    if want[2] not in ([*c, WAL_STOP] for c in WAL_CHOICES):
+        raise AssertionError(f"wal: the constrained stream {want[2]}")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    wal_dir = os.path.join(root, "wal_chip")
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    del model, ref, reqs
+    release()
+    args = ["--wal-dir", wal_dir, "--device", FLEET_DEVICE, "--config", cfg,
+            "--layers", str(layers), "--dtype", dtype, "--seed", str(seed),
+            "--num-slots", str(POOL_SLOTS), "--kv-block-size", str(BS),
+            "--max-model-len", str(WAL_MAX_LEN)]
+    bodies = [
+        {"prompt": prompts[0].tolist(), "max_new_tokens": news[0],
+         "request_id": "wg"},
+        {"prompt": prompts[1].tolist(), "max_new_tokens": news[1],
+         "request_id": "ws", **WAL_SAMPLED},
+        {"prompt": prompts[2].tolist(), "max_new_tokens": news[2],
+         "stop_token_id": WAL_STOP, "choices": WAL_CHOICES,
+         "request_id": "wc"}]
+    out = {"boot_s": []}
+    log = open(os.path.join(root, "wal_harness.log"), "w")
+    procs = []
+    try:
+        proc, base, boot = harness_boot(args, log)
+        procs.append(proc)
+        out["boot_s"].append(boot)
+        healthz_until_ok(base)
+        for body in bodies:
+            code, sub = http_json(base + "/v1/submit", body)
+            if code != 200 or sub["request_id"] != body["request_id"]:
+                raise AssertionError(f"wal submit: {code} {sub}")
+        seen = []
+        import urllib.request
+        with urllib.request.urlopen(base + "/v1/stream/wg",
+                                    timeout=300) as resp:
+            for line in resp:
+                line = line.decode().strip()
+                if line.startswith("data:"):
+                    seen.append(json.loads(line.split(":", 1)[1])["token"])
+                if len(seen) >= WAL_SEEN:
+                    break
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        if len(seen) >= news[0]:
+            raise AssertionError("wal: the greedy stream ended before the "
+                                 "SIGKILL")
+
+        proc, base, boot = harness_boot(args, log)
+        procs.append(proc)
+        out["boot_s"].append(boot)
+        statuses, h = healthz_until_ok(base)
+        # the statuses in order, each with its run's length
+        out["healthz"] = []
+        for code, status in statuses:
+            if out["healthz"] and out["healthz"][-1][:2] == [code, status]:
+                out["healthz"][-1][2] += 1
+            else:
+                out["healthz"].append([code, status, 1])
+        toks, done, _ = sse_stream(
+            base + f"/v1/stream/wg?offset={len(seen)}")
+        if seen + toks != want[0] or done["state"] != "FINISHED":
+            raise AssertionError(f"wal: the resumed greedy stream diverges "
+                                 f"({len(seen)} seen before the kill)")
+        _, st1 = http_json(base + "/v1/stats")
+        for i, rid in ((1, "ws"), (2, "wc")):
+            code, res = http_json(base + f"/v1/result/{rid}?timeout=300")
+            if code != 200 or res["tokens"] != want[i]:
+                raise AssertionError(f"wal: {rid} diverges: {code} {res}")
+        _, st2 = http_json(base + "/v1/stats")
+        for key in ("serving.decode_compiles", "serving.prefill_compiles"):
+            if st2["compile"].get(key, 0) != st1["compile"].get(key, 0):
+                raise AssertionError(f"wal: {key} moved after the first "
+                                     "resumed stream ended")
+        walst = st2["pool"]["wal"]
+        out["replay_s"], out["recovered"] = (walst["recovery_s"],
+                                             walst["recovered"])
+        if walst["recovered"] != 3:
+            raise AssertionError(f"wal: {walst['recovered']} streams "
+                                 "recovered, not 3")
+        time.sleep(0.3)  # the sweep commits the TERMINAL records
+        harness_end(proc)
+
+        proc, base, boot = harness_boot(args, log)
+        procs.append(proc)
+        out["boot_s"].append(boot)
+        healthz_until_ok(base)
+        code, sub = http_json(base + "/v1/submit", {
+            "prompt": prompts[0].tolist(), "request_id": "wg"})
+        code2, res = http_json(base + "/v1/result/ws")
+        _, st3 = http_json(base + "/v1/stats")
+        if (not sub.get("cached") or sub["tokens"] != want[0]
+                or not res.get("cached") or res["tokens"] != want[1]
+                or st3["compile"].get("serving.decode_compiles", 0)):
+            raise AssertionError(f"wal: the third incarnation decoded "
+                                 f"again: {sub} {res}")
+    finally:
+        for p in procs:
+            harness_end(p)
+        log.close()
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    print(f"e2e f32 wal: a harness SIGKILLed after {len(seen)} greedy "
+          f"tokens, its 3 streams (greedy, seeded sampled, constrained) "
+          f"finished by the next incarnation equal to the in-process "
+          f"engine's; the replay (read and resubmissions) took "
+          f"{out['replay_s'] * 1e3:.3f} ms; /healthz seen (code, status, "
+          f"times in a row) {out['healthz']}; boots (start to port) "
+          f"{[round(s, 2) for s in out['boot_s']]} s; the third incarnation "
+          f"answered both retried ids from its cache, decoding nothing "
+          f"[{card}]")
+    return out
+
+
+def serve_fleet_wal(gpt, serving, pa, arrays, card, pool15):
+    """Phase 16: 16a on bf16 gpt_1p3b, 16b and 16c in f32 at
+    POOL_F32[0] layers. Returns 16a's launches (the workers' sum) and the
+    numbers."""
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    model.to(torch.bfloat16)
+    release()
+    t0 = time.perf_counter()
+    launches, out = serve_fleet(model, serving, pa, card, pool15)
+    out = {"fleet": out}
+    print(f"phase 16a: {time.perf_counter() - t0:.1f} s")
+    del model
+    release()
+    t0 = time.perf_counter()
+    out["faults"] = fleet_faults(gpt, serving, arrays, card)
+    print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["wal"] = wal_restart(serving, card)
+    print(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+    print("phase 16, one call: " + json.dumps(out) + f" [{card}]")
+    return launches, out
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -6114,8 +6807,10 @@ def main() -> int:
     spec_launches, _ = t("13", serve_spec, gpt, serving, pa, so, arrays, card)
     lora_launches, tier_launches, _ = t("14", serve_lora_tier, gpt, serving,
                                         pa, so, arrays, card)
-    pool_launches, _ = t("15", serve_gateway, gpt, serving, pa, so, arrays,
-                         card)
+    pool_launches, phase15 = t("15", serve_gateway, gpt, serving, pa, so,
+                               arrays, card)
+    fleet_launches, _ = t("16", serve_fleet_wal, gpt, serving, pa, arrays,
+                          card, phase15["pool"])
 
     t("7", flash_checks, fa)
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
@@ -6187,7 +6882,8 @@ def main() -> int:
                     **({"launches_spec": spec_launches[name],
                         "launches_lora": lora_launches.get(name, 0),
                         "launches_tier": tier_launches.get(name, 0),
-                        "launches_pool": pool_launches.get(name, 0)}
+                        "launches_pool": pool_launches.get(name, 0),
+                        "launches_fleet": fleet_launches.get(name, 0)}
                        if name in PAGED + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),

@@ -63,6 +63,12 @@ def flag(name: str):
     return _VALUES[name]
 
 
+def all_flags() -> Dict[str, Any]:
+    """A snapshot of every flag by its bare name (what a spawned worker
+    process applies before it builds anything)."""
+    return dict(_VALUES)
+
+
 # Non-cached attention takes the flash kernels at kv sequence length >= this
 # (-1 = auto: 4608, the JAX package's untuned threshold, since the port has
 # no tuning record; 0 = always).
@@ -190,6 +196,34 @@ define_flag("gateway_tenant_concurrency", 0)
 # pool's slot capacity, a tenant holding more than its weight-proportional
 # share of that budget is shed with the retriable QuotaExceededError.
 define_flag("gateway_fair_share", True)
+# Process replicas (serving.gateway.procpool): a ReplicaPool whose replicas
+# are spawned worker processes, each owning a whole serving stack on its
+# device, reached over a loopback length-prefixed JSON socket. Off keeps the
+# in-process ReplicaPool.
+define_flag("gateway_process_replicas", False)
+# Seconds between a worker's heartbeat frames (each carries its outstanding
+# count, its crash-loop breaker state and its new telemetry spans).
+define_flag("gateway_heartbeat_interval", 0.2)
+# Heartbeat intervals a worker may miss before the watchdog classifies it as
+# hung and ejects it (its journaled streams re-route, it respawns after the
+# doubling gateway_respawn_backoff).
+define_flag("gateway_heartbeat_misses", 3)
+# Deadline in seconds of one gateway-to-worker call; a call past it
+# classifies the worker as dead. drain() adds its grace; a boot has its own
+# budget.
+define_flag("gateway_worker_timeout", 10.0)
+# Gateway write-ahead request log (serving.gateway.wal): every accepted
+# stream's lifecycle is journaled to gateway_wal_dir, and a restarted gateway
+# on the same directory replays it (live streams resubmit journal-seeded,
+# terminal ids answer from a bounded result cache).
+define_flag("gateway_wal", False)
+define_flag("gateway_wal_dir", "")
+# Rotate the WAL's active segment past this many bytes; a sealed segment is
+# deleted once every request recorded in it is terminal.
+define_flag("gateway_wal_segment_bytes", 1 << 20)
+# Terminal results the WAL keeps replayable (older ones are forgotten by
+# compaction).
+define_flag("gateway_wal_results", 256)
 # Request-lifecycle span collection (serving.telemetry): span events keyed by
 # each request's trace_id land in a bounded ring. Latency histograms are
 # always on; this gates only the span path. Host-side only: never read in a

@@ -337,9 +337,15 @@ _faults: Dict[str, _FaultSpec] = {}
 _env_faults_loaded = False
 
 #: kinds with probes in the port; inject_fault takes other kinds too, for
-#: tests that place maybe_fault probes in their own code
+#: tests that place maybe_fault probes in their own code. ``worker_kill``
+#: (SIGKILL a live worker process) and ``worker_hang`` (a worker stops
+#: heartbeating and answering while it holds its socket) are probed by the
+#: process pool's watchdog (``serving.gateway.procpool``); ``gateway_kill``
+#: SIGKILLs the gateway's own process at its write-ahead log's sweep
+#: boundary (``serving.gateway.router._wal_sweep``)
 KNOWN_FAULTS = ("ckpt_io", "nonfinite_grads", "preempt", "serving_step",
-                "serving_device", "arena_corrupt")
+                "serving_device", "arena_corrupt", "worker_kill",
+                "worker_hang", "gateway_kill")
 
 #: kinds whose probe sites are bare statements (they only react to an
 #: exception): inject_fault defaults their exc to the error the real

@@ -59,6 +59,8 @@ _GATEWAY = {
     "TenantConfig": ("gateway.tenancy", "TenantConfig"),
     "TenantManager": ("gateway.tenancy", "TenantManager"),
     "Gateway": ("gateway.gateway", "Gateway"),
+    "ProcessReplicaPool": ("gateway.procpool", "ProcessReplicaPool"),
+    "GatewayWAL": ("gateway.wal", "GatewayWAL"),
 }
 __all__ += list(_GATEWAY)
 

@@ -14,9 +14,17 @@ the replica router, tenant quotas and the HTTP/SSE front door over
   ``http.server`` front door (submit, SSE streams, cancel, health, stats,
   Prometheus metrics, traces), the error taxonomy mapped to 429 / 503 /
   504 / 409 / 400 / 404, SIGTERM turned into a drain.
+* :mod:`.procpool` / :mod:`.worker` -- :class:`ProcessReplicaPool`: the
+  router over spawned worker processes, each a whole serving stack on its
+  device, supervised by heartbeats (kills, hangs and sticky CUDA errors
+  ejected and re-routed, workers respawned).
+* :mod:`.wal` -- :class:`GatewayWAL`: the write-ahead request log a
+  restarted gateway replays (live streams resume token for token,
+  terminal ones answer from a result cache); :mod:`.wal_harness` boots a
+  WAL-backed gateway in a process of its own.
 
-Names are loaded on first use, as the JAX package does. The process fleet,
-the write-ahead log and disaggregated serving are not ported yet.
+Names are loaded on first use, as the JAX package does. Disaggregated
+serving is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +40,11 @@ _LAZY = {
     "Gateway": ("gateway", "Gateway"),
     "serve": ("gateway", "serve"),
     "DuplicateRequestError": ("gateway", "DuplicateRequestError"),
+    "ProcessReplicaPool": ("procpool", "ProcessReplicaPool"),
+    "WorkerHandle": ("procpool", "WorkerHandle"),
+    "WorkerDiedError": ("procpool", "WorkerDiedError"),
+    "WorkerProtocolError": ("procpool", "WorkerProtocolError"),
+    "GatewayWAL": ("wal", "GatewayWAL"),
 }
 
 __all__ = list(_LAZY)

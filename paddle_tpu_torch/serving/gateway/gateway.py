@@ -1,6 +1,5 @@
 """HTTP/SSE streaming front door over a :class:`~.router.ReplicaPool`
-(counterpart of ``paddle_tpu/serving/gateway/gateway.py``, without the
-write-ahead log's recovery, a later slice).
+(counterpart of ``paddle_tpu/serving/gateway/gateway.py``).
 
 Stdlib only (``http.server``): a :class:`Gateway` binds a
 ``ThreadingHTTPServer`` whose handler threads are plain pool consumers; the
@@ -25,18 +24,21 @@ the client's contract with its model):
   ``data: {"token": t}`` event per generated token (re-routes are
   invisible: the journal keeps the stream token for token), then ``event:
   done`` with the final state, or ``event: error`` with the error taxonomy
-  below. ``offset=N`` resumes after the first N tokens.
+  below. ``offset=N`` resumes after the first N tokens, with no duplicate
+  and no gap across re-routes and, with the write-ahead log, across a
+  restart of the gateway.
 * ``POST /v1/stream`` -- submit and stream in one round trip (the main
   path; body as ``/v1/submit``).
 * ``GET /v1/result/<request_id>?timeout=S`` -- block until the request
   ends; prompt + tokens.
 * ``POST /v1/cancel/<request_id>`` -- flag the request; its slot frees at
   the next step boundary.
-* ``GET /healthz`` -- readiness: ``{"status": "ok"|"draining"|
-  "unhealthy", ...}``, 503 with ``Retry-After`` while draining or with no
-  healthy replica.
-* ``GET /livez`` -- liveness: 200 while the gateway is open, 503 once
-  closed.
+* ``GET /healthz`` -- readiness: ``{"status": "ok"|"recovering"|
+  "draining"|"unhealthy", ...}``, 503 with ``Retry-After`` while the WAL
+  replay runs, while draining or with no healthy replica (and the pool's
+  ``wal`` map beside the status when it has a log).
+* ``GET /livez`` -- liveness: 200 while the gateway is open (through a
+  replay too), 503 once closed.
 * ``GET /v1/stats`` -- the pool and tenant snapshot beside the
   process-global ``serving.metrics`` counters and the compile counters.
 * ``GET /v1/metrics`` -- the same in the Prometheus text format
@@ -51,8 +53,12 @@ Error taxonomy (retriable errors carry ``Retry-After``):
 ``QueueOverloadError`` -> 429, ``RequestDrainedError`` /
 :class:`~.router.NoHealthyReplicaError` -> 503,
 ``DeadlineExceededError`` -> 504, :class:`DuplicateRequestError` (a
-``request_id`` already in flight) -> 409, validation (``ValueError``, bad
-JSON) -> 400, an unknown id -> 404.
+``request_id`` already in flight, one the WAL recovered among them) -> 409,
+validation (``ValueError``, bad JSON) -> 400, an unknown id -> 404. With
+the write-ahead log, a submit of an id whose stream ended before the
+restart is no error: its cached result is the answer, with ``"cached":
+true``, and ``/v1/result`` and ``/v1/stream`` answer such an id from the
+cache too (exactly once: no second decode).
 
 **Shutdown is a drain, not a kill**: :meth:`Gateway.install_preemption_guard`
 binds a ``core.resilience.PreemptionGuard``, and SIGTERM becomes a
@@ -83,8 +89,10 @@ _REGISTRY_SOFT_CAP = 1024
 
 
 class DuplicateRequestError(ValueError):
-    """The client's ``request_id`` names a stream already in flight: 409.
-    An id whose stream has ended may be used again."""
+    """The client's ``request_id`` names a stream already in flight (maybe
+    accepted by the previous incarnation and recovered from the WAL): 409.
+    An id whose stream has ended may be used again; one that ended before
+    a restart is answered from the result cache instead."""
 
 
 def _status_for(exc: BaseException):
@@ -127,6 +135,8 @@ class Gateway:
         self._guard_grace: Optional[float] = None
         self._lock = threading.Lock()
         self._requests = {}  # request_id -> RoutedRequest
+        self._results = {}   # request_id -> WAL-recovered terminal result
+        self._recovered_done = False  # set once the pool's replay settled
         self._closed = False
 
     # ------------------------------------------------------------ lifecycle
@@ -194,16 +204,50 @@ class Gateway:
 
     # ------------------------------------------------------------- requests
 
+    def _sync_recovered(self) -> None:
+        """Fold the pool's WAL-recovered state into the registry: the
+        resubmitted streams join ``_requests`` (a duplicate id is refused,
+        ``/v1/stream`` attaches across the restart), the replayed terminal
+        results join the cache ``/v1/result`` answers from. Called from the
+        lookups, idempotent, and syncing while the replay runs."""
+        pool = self.pool
+        if self._recovered_done or getattr(pool, "wal", None) is None:
+            return
+        done = not pool.recovering  # read before the pull: a flag cleared
+        # after it could hide a late resubmission for good
+        live = pool.recovered_live()
+        results = pool.recovered_results()
+        with self._lock:
+            for rr in live:
+                self._requests.setdefault(rr.request_id, rr)
+            for rid, res in results.items():
+                self._results.setdefault(rid, res)
+            if done:
+                self._recovered_done = True
+
+    def _cached(self, request_id: str):
+        """The WAL-recovered terminal result of ``request_id``, if any:
+        what a client retrying across the crash gets instead of a second
+        decode."""
+        if not request_id:
+            return None
+        self._sync_recovered()
+        with self._lock:
+            return self._results.get(request_id)
+
     def _submit(self, body: dict) -> RoutedRequest:
         if "prompt" not in body:
             raise ValueError("body must carry 'prompt': [token ids]")
         rid = str(body.get("request_id", ""))
         if rid:
+            self._sync_recovered()
             with self._lock:
                 prev = self._requests.get(rid)
             if prev is not None and not prev.finished:
                 # replacing the registry entry would leave the first
-                # stream unreachable (and uncancellable) by id
+                # stream unreachable (and uncancellable) by id; across a
+                # restart a retried id must attach to the recovered
+                # stream, never start a second decode
                 raise DuplicateRequestError(
                     f"request_id {rid!r} is already in flight; pick a "
                     f"unique id or omit it for a generated one")
@@ -263,6 +307,14 @@ class Gateway:
             else:
                 raise ValueError(
                     'grammar needs a "regex" or "json_schema" key')
+        # the constraint's client spec rides into the WAL: a recovered
+        # stream builds the same walker from it (the automaton itself is
+        # derived state, never journaled)
+        constraint_spec = None
+        if constraint is not None:
+            constraint_spec = {"choices": body.get("choices"),
+                               "grammar": body.get("grammar"),
+                               "stop_token_id": body.get("stop_token_id")}
         rr = self.pool.submit(
             prompt,
             max_new_tokens=int(body.get("max_new_tokens", 32)),
@@ -276,7 +328,17 @@ class Gateway:
                       else int(body["priority"])),
             sampling=sampling, constraint=constraint,
             adapter=(None if body.get("adapter") is None
-                     else int(body["adapter"])))
+                     else int(body["adapter"])),
+            constraint_spec=constraint_spec)
+        # the commit barrier: the answer is the client's receipt, so the
+        # ACCEPTED record is synced before it leaves (submit only buffers
+        # it, and the pump's batched commit may lag by a sweep: the window
+        # a SIGKILL would erase an acknowledged stream in). A sweep that
+        # covered it already makes this commit a no-op, so a burst of
+        # submits shares one sync
+        wal = getattr(self.pool, "wal", None)
+        if wal is not None:
+            wal.commit()
         with self._lock:
             self._requests[rr.request_id] = rr
             if len(self._requests) > _REGISTRY_SOFT_CAP:
@@ -287,6 +349,7 @@ class Gateway:
         return rr
 
     def _get(self, request_id: str) -> Optional[RoutedRequest]:
+        self._sync_recovered()
         with self._lock:
             return self._requests.get(request_id)
 
@@ -365,6 +428,9 @@ def _make_handler(gw: Gateway):
                     offset = max(0, int((q.get("offset") or [0])[0]))
                     rr = gw._get(rid)
                     if rr is None:
+                        res = gw._cached(rid)
+                        if res is not None:
+                            return self._sse_cached(rid, res, offset)
                         return self._json(
                             404, {"error": "NotFound",
                                   "message": f"unknown request {rid!r}"})
@@ -373,6 +439,16 @@ def _make_handler(gw: Gateway):
                     rid = self._tail("/v1/result/", parsed)
                     rr = gw._get(rid)
                     if rr is None:
+                        res = gw._cached(rid)
+                        if res is not None:
+                            # a terminal id of the previous incarnation:
+                            # its tokens from the cache (the prompt died
+                            # with that process)
+                            return self._json(200, {
+                                "request_id": rid, "state": res["state"],
+                                "tokens": [int(t)
+                                           for t in res["tokens"]],
+                                "cached": True})
                         return self._json(
                             404, {"error": "NotFound",
                                   "message": f"unknown request {rid!r}"})
@@ -404,12 +480,27 @@ def _make_handler(gw: Gateway):
             parsed = urlparse(self.path)
             try:
                 if parsed.path == "/v1/submit":
-                    rr = gw._submit(self._body())
+                    body = self._body()
+                    res = gw._cached(str(body.get("request_id", "")))
+                    if res is not None:
+                        # a retry of an id that ended before the restart:
+                        # the recovered result, never a second decode
+                        return self._json(200, {
+                            "request_id": str(body["request_id"]),
+                            "state": res["state"],
+                            "tokens": [int(t) for t in res["tokens"]],
+                            "cached": True})
+                    rr = gw._submit(body)
                     return self._json(200, {"request_id": rr.request_id,
                                             "tenant": rr.tenant,
                                             "state": rr.state})
                 if parsed.path == "/v1/stream":
-                    return self._sse(gw._submit(self._body()))
+                    body = self._body()
+                    res = gw._cached(str(body.get("request_id", "")))
+                    if res is not None:
+                        return self._sse_cached(str(body["request_id"]),
+                                                res)
+                    return self._sse(gw._submit(body))
                 if parsed.path.startswith("/v1/cancel"):
                     rid = (self._tail("/v1/cancel/", parsed)
                            or str(self._body().get("request_id", "")))
@@ -430,17 +521,22 @@ def _make_handler(gw: Gateway):
 
         def _healthz(self):
             # READINESS: 200 only while routing is live; 503 with a
-            # Retry-After while draining or with no healthy replica
-            # (/livez is the liveness half)
+            # Retry-After while the WAL replay runs, while draining or with
+            # no healthy replica (/livez is the liveness half)
+            gw._sync_recovered()
             stats = gw.pool.stats()
+            recovering = bool(stats.get("recovering"))
             ok = (not stats["draining"] and not gw._closed
-                  and stats["replicas_healthy"] > 0)
+                  and not recovering and stats["replicas_healthy"] > 0)
             status = ("ok" if ok else
+                      "recovering" if recovering else
                       "draining" if stats["draining"] else "unhealthy")
-            self._json(200 if ok else 503,
-                       {"status": status,
-                        "replicas_healthy": stats["replicas_healthy"],
-                        "replicas_total": stats["replicas_total"]},
+            payload = {"status": status,
+                       "replicas_healthy": stats["replicas_healthy"],
+                       "replicas_total": stats["replicas_total"]}
+            if "wal" in stats:
+                payload["wal"] = stats["wal"]
+            self._json(200 if ok else 503, payload,
                        retry_after=None if ok else 1.0)
 
         def _livez(self):
@@ -501,6 +597,26 @@ def _make_handler(gw: Gateway):
             self.send_header("Connection", "close")
             self.end_headers()
             metrics.bump("gateway.http_streams")
+
+        def _sse_cached(self, rid: str, res: dict, offset: int = 0) -> None:
+            """SSE over a WAL-recovered terminal result: the tokens past
+            ``offset``, then the done event (what a client that was
+            mid-stream at the crash reattaches to when its stream ended
+            during or after the replay)."""
+            self._sse_headers()
+            try:
+                for tok in res["tokens"][offset:]:
+                    self.wfile.write(
+                        b"data: " + json.dumps({"token": int(tok)}).encode()
+                        + b"\n\n")
+                self.wfile.write(
+                    b"event: done\ndata: " + json.dumps(
+                        {"state": res["state"],
+                         "tokens": len(res["tokens"]),
+                         "cached": True}).encode() + b"\n\n")
+                self.wfile.flush()
+            except OSError:
+                pass  # the client left again: the result stays cached
 
         def _sse(self, rr: RoutedRequest, offset: int = 0) -> None:
             self._sse_headers()
@@ -565,9 +681,26 @@ def serve(model, replicas: Optional[int] = None,
     :class:`ReplicaPool` over ``model`` (``pool_kw``: its other arguments,
     ``ServingConfig`` fields among them), the HTTP listener, and the
     SIGTERM drain guard. Returns the running :class:`Gateway` (``.port``
-    is the bound port)."""
-    pool = ReplicaPool(model, replicas=replicas, tenants=tenants,
-                       background=True, **pool_kw)
+    is the bound port).
+
+    With ``FLAGS_gateway_process_replicas`` the replicas are worker
+    processes (:class:`~.procpool.ProcessReplicaPool`; ``model`` an
+    instance or a zero-argument factory importable by module path). With
+    ``FLAGS_gateway_wal`` the pool journals to a :class:`~.wal.GatewayWAL`
+    on ``FLAGS_gateway_wal_dir``, opened (and replayed) before the pool
+    exists; ``/healthz`` answers 503 "recovering" until the replayed
+    streams are back on replicas. A ``wal=`` in ``pool_kw`` is used as
+    given."""
+    pool_cls = ReplicaPool
+    if flags.flag("gateway_process_replicas"):
+        from .procpool import ProcessReplicaPool as pool_cls
+    wal = pool_kw.pop("wal", None)
+    if wal is None and flags.flag("gateway_wal"):
+        from .wal import GatewayWAL
+
+        wal = GatewayWAL(str(flags.flag("gateway_wal_dir")))
+    pool = pool_cls(model, replicas=replicas, tenants=tenants,
+                    background=True, wal=wal, **pool_kw)
     gw = Gateway(pool, host=host, port=port).start()
     if guard:
         gw.install_preemption_guard()

@@ -1,11 +1,12 @@
 """Replica router: N engine replicas behind one submit/stream surface
-(counterpart of ``paddle_tpu/serving/gateway/router.py``, in-process
-replicas; the process fleet and the write-ahead log are later slices).
+(counterpart of ``paddle_tpu/serving/gateway/router.py``).
 
 One :class:`~paddle_tpu_torch.serving.api.ServingAPI` is one engine: one
 arena, one scheduler, one supervisor. The :class:`ReplicaPool` owns N of
 them, threads of one process sharing one model read-only, and adds what a
-fleet needs that one engine cannot express:
+fleet needs that one engine cannot express (its subclass
+:class:`~.procpool.ProcessReplicaPool` keeps all of it and puts each
+replica in a worker process of its own):
 
 * **Routing**: each accepted request goes to the replica with the least
   outstanding work (waiting + prefilling + running), with *bounded prefix
@@ -27,13 +28,21 @@ fleet needs that one engine cannot express:
   re-routed stream finishes token for token as an uninterrupted one. The
   replica respawns after a doubling backoff (``FLAGS_gateway_respawn_
   backoff``, capped at 30 s). The dead replica's API is closed at
-  ejection and its arena freed (:func:`_retire`), so a respawn does not
-  hold two arenas. Any other error, a sticky CUDA error among
-  them, fails the requests it reached and is never re-routed: every
-  replica of the process shares the CUDA context it poisoned.
+  ejection and its arena freed (:meth:`ReplicaPool._retire`), so a
+  respawn does not hold two arenas. Any other error, a sticky CUDA error
+  among them, fails the requests it reached and is never re-routed: every
+  replica of the process shares the CUDA context it poisoned (a process
+  replica's worker exits on it instead, and the pool re-routes its other
+  streams: ``worker.py``).
 * **Tenancy**: every submission is charged to a tenant through
   :class:`~.tenancy.TenantManager` before any replica is touched, and the
   tenant's priority, adapter and sampling defaults ride the request.
+* **Write-ahead log**: with ``wal=`` (a :class:`~.wal.GatewayWAL`) every
+  accepted stream is journaled (ACCEPTED under the handle's WAL lock,
+  EMITTED deltas and one fsync per pump iteration, REROUTE moves, one
+  TERMINAL), and a pool built on the same directory replays it: live
+  streams resubmit seeded with their journals, terminal ones fill the
+  result cache ``recovered_results()`` that the gateway answers from.
 
 On CUDA each replica's API is made under a stream of its own (kept for
 its index across respawns), so that its engine captures and replays there
@@ -61,6 +70,8 @@ import contextlib
 import dataclasses
 import itertools
 import logging
+import os
+import signal
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -181,15 +192,6 @@ class NoHealthyReplicaError(RuntimeError):
     Retry-After."""
 
 
-def _retire(api: ServingAPI) -> None:
-    """Close a replica's API (its drain with zero grace, its graphs and
-    their pool) and free its arena's device memory at once: the closed
-    engine may live on, in reference cycles, until the garbage collector
-    reaches it, and a respawn on the same card must not wait for that."""
-    api.close()
-    api.engine.arena.free_storage()
-
-
 def _is_reroutable(exc: BaseException) -> bool:
     """Backend failures answered with a re-route: the replica crash-looped
     or hit a transient serving error, or was drained away under the
@@ -267,6 +269,13 @@ class RoutedRequest:
         self._cancelled = False         # survives re-routes
         self._rerouting = False         # one re-route at a time
         self._prefix_keys = None        # memoized (root, chunk keys)
+        # the write-ahead log's bookkeeping, under a lock of its own: the
+        # sweep (pump thread) and the finalize (any consumer) must never
+        # journal the same tokens twice
+        self._wal_lock = threading.Lock()
+        self._wal_logged = 0            # tokens the WAL holds
+        self._wal_accepted = False      # ACCEPTED record appended
+        self._wal_terminal = False      # TERMINAL record written, once
 
     # ------------------------------------------------------------- reading
 
@@ -354,7 +363,14 @@ class ReplicaPool:
     (``num_slots=``, ``prefix_cache=``, ...) override its fields.
     ``background=True`` gives every replica its own pump thread (what the
     HTTP gateway runs on); ``background=False`` pumps in the consumer's
-    thread, deterministically."""
+    thread, deterministically. ``wal`` journals the accepted streams and
+    replays the ones an earlier pool on its directory left (recovery runs
+    inline for a foreground pool, on a thread of its own for a background
+    one, while :attr:`recovering` holds the gateway's readiness)."""
+
+    #: a background pool with a WAL runs a sweeper thread that observes
+    #: live streams and commits; the process pool's watchdog sweeps instead
+    _wal_autosweep = True
 
     def __init__(self, model, replicas: Optional[int] = None,
                  config: Optional[ServingConfig] = None,
@@ -364,7 +380,7 @@ class ReplicaPool:
                  respawn_backoff: Optional[float] = None,
                  max_reroutes: Optional[int] = None,
                  max_queue: Optional[int] = None,
-                 device=device_mod.DEFAULT_DEVICE, **config_kw):
+                 device=device_mod.DEFAULT_DEVICE, wal=None, **config_kw):
         n = int(flags.flag("serving_replicas")
                 if replicas is None else replicas)
         if n < 1:
@@ -388,6 +404,15 @@ class ReplicaPool:
                               if max_reroutes is None else int(max_reroutes))
         self._background = bool(background)
         self._lock = threading.RLock()
+        # the write-ahead log, set before the replicas exist so that every
+        # later path may read it; its replay starts at the end of __init__
+        self.wal = wal
+        self._recovering = wal is not None
+        self._recovered: List[RoutedRequest] = []
+        self._recovered_results: Dict[str, dict] = {}
+        self._wal_sweep_lock = threading.Lock()
+        self._wal_last_sweep = 0.0
+        self._recovery_seconds = 0.0  # the replay's, with its resubmits
         # the shared residency index: every replica's prefix cache publishes
         # its deltas here. With tiering, replicas also share one store (the
         # config's tier_store, else the process-global one)
@@ -398,7 +423,7 @@ class ReplicaPool:
         # each replica index's CUDA stream, kept across respawns
         self._streams: Dict[int, object] = {}
         self._replicas: List[_Replica] = [
-            _Replica(i, self._spawn_api(i)) for i in range(n)]
+            _Replica(i, api) for i, api in enumerate(self._spawn_initial(n))]
         #: live (unfinished) routed requests per replica index
         self._live: Dict[int, List[RoutedRequest]] = {
             r.idx: [] for r in self._replicas}
@@ -409,6 +434,20 @@ class ReplicaPool:
         self.drain_count = 0
         self._reap_tick = 0
         self._refresh_gauges()
+        if wal is not None:
+            if self._background:
+                threading.Thread(target=self._wal_recover,
+                                 name="gateway-wal-recover",
+                                 daemon=True).start()
+            else:
+                self._wal_recover()
+            if self._background and self._wal_autosweep:
+                # replicas pump themselves and consumers observe only their
+                # own streams: durability must not wait for a client, so
+                # this thread is the WAL's commit heartbeat
+                threading.Thread(target=self._wal_sweeper_loop,
+                                 name="gateway-wal-sweep",
+                                 daemon=True).start()
 
     def _replica_stream(self, idx: int):
         """The context replica ``idx``'s API is made in: on CUDA the
@@ -424,6 +463,18 @@ class ReplicaPool:
             stream = self._streams[idx] = torch.cuda.Stream(self._device)
         stream.wait_stream(torch.cuda.current_stream(self._device))
         return torch.cuda.stream(stream)
+
+    def _spawn_initial(self, n: int) -> list:
+        """The first APIs of replicas 0..n-1, one after another."""
+        return [self._spawn_api(i) for i in range(n)]
+
+    def _retire(self, api) -> None:
+        """Close a replica's API (its drain with zero grace, its graphs and
+        their pool) and free its arena's device memory at once: the closed
+        engine may live on, in reference cycles, until the garbage collector
+        reaches it, and a respawn on the same card must not wait for that."""
+        api.close()
+        api.engine.arena.free_storage()
 
     def _spawn_api(self, idx: int) -> ServingAPI:
         with self._replica_stream(idx):
@@ -491,10 +542,14 @@ class ReplicaPool:
                request_id: str = "",
                priority: Optional[int] = None,
                sampling=None, constraint=None,
-               adapter: Optional[int] = None) -> RoutedRequest:
+               adapter: Optional[int] = None,
+               constraint_spec: Optional[dict] = None) -> RoutedRequest:
         """Admit one stream through the tenant gates and route it.
         ``priority``, ``sampling`` and ``adapter`` left None take the
-        tenant's configured ones; ``constraint`` is per request. Raises
+        tenant's configured ones; ``constraint`` is per request, and
+        ``constraint_spec`` its client spec (``choices`` / ``grammar``),
+        which the WAL journals so that a recovered stream builds the same
+        walker (:func:`.wal.build_constraint`). Raises
         ``QuotaExceededError`` (a tenant gate, retriable with
         ``retry_after``), ``QueueOverloadError`` (every routable replica's
         queue full), :class:`NoHealthyReplicaError`, ``ValueError`` for an
@@ -550,6 +605,19 @@ class ReplicaPool:
             self.tenants.release(tenant, failed=True)
             self.tenants.refund(tenant, int(max_new_tokens))
             raise
+        if self.wal is not None:
+            # ACCEPTED only once routed: a shed request must not come back
+            # on replay. The append only buffers (the HTTP door commits it
+            # before its answer leaves); appending and flagging under the
+            # handle's WAL lock keeps a concurrent finalize's TERMINAL
+            # behind it, and the sweep skips handles not yet accepted
+            with rr._wal_lock:
+                self.wal.accepted(rr, constraint_spec)
+                rr._wal_accepted = True
+            if rr.finished:
+                # finished (and swept) before its ACCEPTED existed: that
+                # finalize skipped the TERMINAL, which is written now
+                self._wal_finalize(rr)
         metrics.bump("gateway.routed")
         return rr
 
@@ -653,7 +721,7 @@ class ReplicaPool:
     def _eject(self, rep: _Replica, cause: BaseException) -> None:
         """Take a crash-looping replica out of rotation (respawn after its
         backoff), re-queue its journaled in-flight requests onto healthy
-        replicas, then retire the dead API (:func:`_retire`)."""
+        replicas, then retire the dead API (:meth:`_retire`)."""
         with self._lock:
             if not rep.healthy or rep.removed:
                 return
@@ -674,7 +742,7 @@ class ReplicaPool:
         for rr in live:
             self._reroute(rr)
         try:
-            _retire(rep.api)
+            self._retire(rep.api)
         # analysis: allow(broad-except) -- the replica is out of rotation:
         # a dead engine failing its own close must not abort the ejection
         except Exception:
@@ -732,6 +800,7 @@ class ReplicaPool:
                        request_id=rr.request_id, reroute=rr.reroutes,
                        from_replica=rr._replica_idx,
                        journal_tokens=len(journal))
+        self._wal_moved(rr, "REROUTE")
         try:
             self._route(rr, journal=journal)
         # analysis: allow(broad-except) -- a failed re-route must finalize
@@ -785,7 +854,7 @@ class ReplicaPool:
                     rep.respawning = False
                     stillborn = None
             if stillborn is not None:
-                _retire(stillborn)
+                self._retire(stillborn)
                 continue
             _logger.info("respawned serving replica %d (generation %d)",
                          rep.idx, rep.generation)
@@ -850,6 +919,7 @@ class ReplicaPool:
     def _finalize(self, rr: RoutedRequest, state: str,
                   error: Optional[BaseException] = None) -> None:
         rr._finalize(state, error)
+        self._wal_finalize(rr)
         with self._lock:
             bucket = self._live.get(rr._replica_idx)
             if bucket is not None and rr in bucket:
@@ -863,6 +933,193 @@ class ReplicaPool:
                 failed=state != RequestState.FINISHED)
         self._refresh_gauges()
 
+    # ----------------------------------------------------------------- wal
+
+    def _wal_moved(self, rr: RoutedRequest, kind: str) -> None:
+        if self.wal is not None and rr._wal_accepted:
+            self.wal.moved(rr.request_id, kind)
+
+    def _wal_emit(self, rr: RoutedRequest) -> None:
+        """Journal one stream's tokens since the last sweep (one EMITTED
+        record per stream per pump iteration, not per token)."""
+        wal = self.wal
+        if wal is None or not rr._wal_accepted:
+            return
+        with rr._wal_lock:
+            if rr._wal_terminal:
+                return
+            new = rr.tokens_from(rr._wal_logged)
+            if new:
+                wal.emitted(rr.request_id, new)
+                rr._wal_logged += len(new)
+
+    def _wal_finalize(self, rr: RoutedRequest) -> None:
+        """Journal the TERMINAL record once: the tokens past the last
+        EMITTED record, and the whole stream for the result cache."""
+        wal = self.wal
+        if wal is None:
+            return
+        with rr._wal_lock:
+            # read under the lock: submit sets it in the same critical
+            # section as the ACCEPTED append, so a TERMINAL never lands
+            # ahead of it or without it
+            if not rr._wal_accepted or rr._wal_terminal:
+                return
+            rr._wal_terminal = True
+            tail = rr.tokens_from(rr._wal_logged)
+            rr._wal_logged += len(tail)
+            wal.terminal(rr.request_id, rr.state, tail, rr.tokens())
+
+    def _wal_sweep(self, final: bool = False) -> None:
+        """One WAL pump iteration: every live stream's new tokens, then one
+        batched flush and fsync (``commit``, which also rotates and
+        compacts). Throttled to one per 10 ms and skipped while another
+        thread sweeps (its commit covers this one); ``final=True`` (drain,
+        close) always runs. Also the ``gateway_kill`` fault's site: the
+        probe SIGKILLs this process at the sweep boundary, the crash point
+        the replay is built for."""
+        wal = self.wal
+        if wal is None:
+            return
+        if resilience.maybe_fault("gateway_kill"):
+            os.kill(os.getpid(), signal.SIGKILL)
+        if not self._wal_sweep_lock.acquire(blocking=final):
+            return
+        try:
+            now = time.monotonic()
+            if not final and now - self._wal_last_sweep < 0.01:
+                return
+            self._wal_last_sweep = now
+            with self._lock:
+                live = [rr for bucket in self._live.values()
+                        for rr in bucket]
+            for rr in live:
+                self._wal_emit(rr)
+            wal.commit()
+        finally:
+            self._wal_sweep_lock.release()
+
+    def _wal_sweeper_loop(self) -> None:
+        """A background pool's WAL heartbeat: observe every live stream
+        (so a finished one gets its TERMINAL with no consumer polling) and
+        sweep. Ends at drain or close; ``drain()`` runs the last sweep."""
+        while True:
+            with self._lock:
+                if self._closed or self._draining:
+                    return
+                live = [rr for bucket in self._live.values()
+                        for rr in bucket]
+            for rr in live:
+                self._observe(rr)
+            self._wal_sweep()
+            time.sleep(0.005)
+
+    def _wal_recover(self) -> None:
+        """Replay the WAL into this pool: live streams resubmit seeded with
+        their journals (token for token, no program built), terminal ones
+        fill the result cache. Always clears :attr:`recovering`, so that
+        readiness comes even if a replay fails."""
+        t0 = time.perf_counter()
+        try:
+            state = self.wal.recover()
+            self._recovered_results = state["results"]
+            for rec in state["live"]:
+                try:
+                    self._resubmit_recovered(rec)
+                # analysis: allow(broad-except) -- one stream that cannot
+                # come back (its adapter gone) must not stop the others
+                except Exception:
+                    _logger.exception("WAL recovery of %r failed",
+                                      rec.get("rid"))
+            if state["live"] or state["results"]:
+                _logger.info(
+                    "gateway WAL recovery: %d live stream(s) resubmitted "
+                    "with their journals, %d terminal result(s) cached",
+                    len(state["live"]), len(state["results"]))
+        finally:
+            self._recovery_seconds = time.perf_counter() - t0
+            self._recovering = False
+            self._refresh_gauges()
+
+    def _resubmit_recovered(self, rec: dict) -> None:
+        """Make one WAL-live stream's handle again and route it with its
+        journal. It keeps its id, trace, pinned seed and a walker built
+        from its spec; its tenant is charged again (rebuilding the buckets
+        the crash lost), and a quota shed at recovery leaves it alive and
+        uncharged rather than dropping an accepted request. (A ``HANDOFF``
+        phase is for disaggregated serving, which this package does not
+        have: the stream prefills its journal.)"""
+        rid = rec["rid"]
+        sampling = None
+        if rec.get("samp"):
+            from ..sampling import SamplingParams
+
+            sampling = SamplingParams(**rec["samp"])
+        constraint = None
+        if rec.get("cspec"):
+            from .wal import build_constraint
+
+            constraint = build_constraint(rec["cspec"], self.vocab_size())
+        charged = True
+        try:
+            self.tenants.admit(rec["tenant"], int(rec["mnt"]),
+                               outstanding=self.outstanding(),
+                               capacity=self.capacity())
+        except resilience.QuotaExceededError:
+            charged = False
+        rr = RoutedRequest(np.asarray(rec["prompt"], np.int64),
+                           int(rec["mnt"]), rec.get("stop"),
+                           rec["tenant"], int(rec.get("prio", 0)),
+                           resilience.Deadline.after(None), rid,
+                           sampling=sampling, constraint=constraint,
+                           adapter=int(rec.get("adapter", 0)))
+        if rec.get("tid"):
+            rr.trace_id = rec["tid"]  # one timeline across the crash
+        toks = [int(t) for t in rec.get("toks", ())]
+        rr._base = list(toks)
+        rr._wal_logged = len(toks)  # the WAL holds these tokens
+        rr._wal_accepted = True     # ...and the ACCEPTED record
+        if not charged:
+            rr._released = True     # never charged, never released
+        telemetry.span(rr.trace_id, telemetry.RECOVERED,
+                       request_id=rid, tenant=rr.tenant,
+                       journal_tokens=len(toks))
+        metrics.bump("gateway.recovered")
+        with self._lock:
+            self._recovered.append(rr)
+        stop = rr.stop_token_id
+        if (len(toks) >= rr.max_new_tokens
+                or (stop is not None and toks and toks[-1] == stop)):
+            # the crash fell between the last token and its TERMINAL
+            self._finalize(rr, RequestState.FINISHED)
+            return
+        try:
+            # an explicit journal (maybe empty): no admission shedding for
+            # a stream accepted once already
+            self._route(rr, journal=list(toks))
+        # analysis: allow(broad-except) -- a placement failure must finalize
+        # the handle (done_event set, TERMINAL written), never strand it
+        except Exception as e:
+            self._finalize(rr, RequestState.FAILED, e)
+
+    def recovered_live(self) -> List[RoutedRequest]:
+        """The streams the WAL replay resubmitted (live or finished since):
+        the gateway registers them, so that a duplicate id is refused and
+        ``/v1/stream`` attaches across the restart."""
+        with self._lock:
+            return list(self._recovered)
+
+    def recovered_results(self) -> Dict[str, dict]:
+        """The terminal results replayed from the WAL, ``{request_id:
+        {"state", "tokens"}}``: what ``/v1/result`` answers once."""
+        return dict(self._recovered_results)
+
+    @property
+    def recovering(self) -> bool:
+        """True while the WAL replay and its resubmissions run: the
+        gateway's readiness gate (503 with Retry-After)."""
+        return self._recovering
+
     # ------------------------------------------------------------ pumping
 
     def pump_once(self) -> None:
@@ -874,6 +1131,7 @@ class ReplicaPool:
         self._maybe_respawn()
         for rep in self.healthy_replicas():
             self._pump_replica(rep)
+        self._wal_sweep()
 
     def _pump_replica(self, rep: _Replica) -> None:
         """One guarded foreground step on one replica."""
@@ -895,6 +1153,7 @@ class ReplicaPool:
         if self._background:
             self._maybe_respawn()
             self._sweep_health()
+            self._wal_sweep()
             time.sleep(0.001)
         else:
             self.pump_once()
@@ -991,22 +1250,30 @@ class ReplicaPool:
                                    f"{reason}: request drained before "
                                    f"completion (grace={grace:g}s); safe "
                                    f"to resubmit"))
+        # the terminal sweep: every TERMINAL written above is on disk before
+        # close() tears anything down, so a clean shutdown leaves no record
+        # that looks live
+        self._wal_sweep(final=True)
         self._refresh_gauges()
 
     def close(self) -> None:
-        """Drain with zero grace and close every replica. Idempotent."""
+        """Drain with zero grace and close every replica. Idempotent. The
+        drain's last WAL sweep runs before any replica is closed; the WAL
+        itself closes last."""
         if self._closed:
             return
         self.drain(grace=0.0, reason="ReplicaPool is closed")
         for rep in self.replicas():
             try:
-                _retire(rep.api)
+                self._retire(rep.api)
             # analysis: allow(broad-except) -- close every other replica
             # even if one fails closing
             except Exception:
                 _logger.exception("closing replica %d failed", rep.idx)
         with self._lock:
             self._closed = True
+        if self.wal is not None:
+            self.wal.close()
 
     def scale_to(self, n: int, grace: Optional[float] = None) -> None:
         """Scale the pool down to ``n`` replicas through ``drain(grace)``:
@@ -1058,7 +1325,7 @@ class ReplicaPool:
             if not rr.finished and rr._replica_idx == rep.idx:
                 self._reroute(rr)
         try:
-            _retire(rep.api)
+            self._retire(rep.api)
         # analysis: allow(broad-except) -- the stragglers were re-routed: a
         # close failure must not undo the scale-down's bookkeeping
         except Exception:
@@ -1134,8 +1401,13 @@ class ReplicaPool:
                "capacity_slots": capacity,
                "outstanding": outstanding,
                "draining": self._draining,
+               "recovering": self._recovering,
                "radix_index": self.index.stats(),
                "tenants": self.tenants.stats()}
+        if self.wal is not None:
+            out["wal"] = self.wal.stats()
+            out["wal"]["recovered"] = len(self._recovered)
+            out["wal"]["recovery_s"] = self._recovery_seconds
         # the replicas share one store: any live replica's covers them all
         if tier_store is not None:
             out["tier"] = tier_store.stats()

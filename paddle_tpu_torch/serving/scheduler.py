@@ -67,7 +67,7 @@ import queue as _queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -218,6 +218,11 @@ class Scheduler:
         self.running: List[Request] = []
         self.prefilling: List[Request] = []  # chunked prefills in progress
         self.preempt_count = 0  # this scheduler's lifetime preemptions
+        #: called with the error of every request failure a step caused (a
+        #: failed admission or prefill chunk, ``fail_all``), after the
+        #: request failed: a process replica's worker exits on a sticky
+        #: CUDA error there (``gateway.worker``)
+        self.on_error: Optional[Callable[[BaseException], None]] = None
 
     @property
     def _hists(self):
@@ -478,6 +483,7 @@ class Scheduler:
                 self.waiting.append(req)
                 raise
             self._finish(req, RequestState.FAILED, e)
+            self._on_error(e)
             return True
         if first is not None:
             self.prefilling.remove(req)
@@ -541,6 +547,7 @@ class Scheduler:
                     self.waiting.append(req)
                     raise
                 self._finish(req, RequestState.FAILED, e)
+                self._on_error(e)
                 progress = True
                 continue
             req.slot = slot
@@ -589,6 +596,11 @@ class Scheduler:
         for req in list(self.running):
             self._finish(req, RequestState.FAILED, error)
         self._gauges()
+        self._on_error(error)
+
+    def _on_error(self, error: BaseException) -> None:
+        if self.on_error is not None:
+            self.on_error(error)
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> None:
         """Step until no request is left; with ``max_steps``, raise

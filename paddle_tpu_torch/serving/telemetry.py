@@ -482,8 +482,10 @@ def prometheus_text(pool=None) -> str:
     latency histogram (cumulative buckets, sum, count and p50/p95/p99).
     With ``pool`` (a gateway ``ReplicaPool``) also each live replica's
     quantiles labelled ``replica="<idx>"``, its health row
-    (``paddle_gateway_replica_*``) and each tenant's accounting
-    (``paddle_tenant_*``). A pure read of the snapshots."""
+    (``paddle_gateway_replica_*``; a process pool's workers also
+    ``paddle_gateway_worker_pid`` / ``_heartbeat_age_ms`` / ``_restarts``)
+    and each tenant's accounting (``paddle_tenant_*``). A pure read of the
+    snapshots."""
     lines: List[str] = []
     gauges = metrics.gauges()
     stats = metrics.stats()
@@ -500,7 +502,11 @@ def prometheus_text(pool=None) -> str:
             _hist_lines(lines, name, h, replica="pool")
     if pool is not None:
         for rep in pool.replicas():
-            for name, h in sorted(rep.api.engine.hists.snapshot().items()):
+            # a process replica's histograms live in its worker
+            hists = rep.api.engine.hists
+            if hists is None:
+                continue
+            for name, h in sorted(hists.snapshot().items()):
                 if h.n:
                     _hist_lines(lines, name, h, replica=str(rep.idx))
         snap = pool.stats()
@@ -510,6 +516,14 @@ def prometheus_text(pool=None) -> str:
                 val = _prom_value(int(row[key]))
                 lines.append(f'paddle_gateway_replica_{key}'
                              f'{{replica="{row["idx"]}"}} {val}')
+            # a process pool's rows carry each worker's pid, heartbeat age
+            # and restarts
+            for key in ("pid", "heartbeat_age_ms", "restarts"):
+                if key in row:
+                    val = _prom_value(row[key])
+                    if val is not None:
+                        lines.append(f'paddle_gateway_worker_{key}'
+                                     f'{{replica="{row["idx"]}"}} {val}')
         for tenant, row in sorted(snap["tenants"].items()):
             for key in ("admitted", "shed", "completed", "failed",
                         "inflight", "tokens_out", "tokens_per_sec"):
