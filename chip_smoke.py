@@ -6075,11 +6075,19 @@ FLEET_WORKERS = 2
 FLEET_HB, FLEET_MISSES = 0.2, 5  # heartbeats: a hang classified past 1 s
 FLEET_BACKOFF = 0.2              # 16b's respawn backoff, seconds
 FLEET_DEVICE = "cuda"            # 16b's and 16c's models and harnesses
+# 16b's kill wave: new tokens a stream, many times what a step of the f32
+# model makes in the two watchdog ticks between the wave's first tokens
+# reaching the parent and the kill, so that every stream of the victim is
+# still live when it dies (the other waves take POOL_F32's, a prefix of it)
+FLEET_KILL_NEW = 256
 # 16c: (prompt length, new tokens) of the greedy, seeded-sampled and
-# constrained streams; the SIGKILL falls after WAL_SEEN greedy tokens
-WAL_STREAMS = ((120, 96), (300, 96), (75, 12))
+# constrained streams; the SIGKILL falls after WAL_SEEN greedy tokens. Each
+# choice is longer than WAL_SEEN by far, so that all three streams are still
+# live at the kill (submitted after the greedy one, the constrained stream is
+# never ahead of it) and the next incarnation recovers all three
+WAL_STREAMS = ((120, 96), (300, 96), (75, 48))
 WAL_SAMPLED = dict(temperature=0.9, top_k=50, top_p=0.95, seed=7)
-WAL_CHOICES = [[5, 6, 7, 8], [5, 9]]
+WAL_CHOICES = [[5, 6, 7, 8, *range(100, 140)], [5, 9, *range(200, 240)]]
 WAL_STOP = 3
 WAL_SEEN = 8
 WAL_MAX_LEN = 2048               # the harness's max_model_len
@@ -6369,21 +6377,23 @@ def fleet_faults(gpt, serving, arrays, card):
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
     one = serving.ServingAPI(model, serving.ServingConfig(
         num_slots=POOL_SLOTS), device=dev)
-    reqs = [one.submit(p, max_new_tokens=new) for p in prompts]
+    reqs = [one.submit(p, max_new_tokens=FLEET_KILL_NEW) for p in prompts]
     one.run_until_idle()
+    # greedy: a shorter wave's streams are prefixes of these
     want = [list(r.tokens) for r in reqs]
     one.close()
     release()
 
-    def wave(pool):
-        return [pool.submit(p, max_new_tokens=new, tenant="f32")
+    def wave(pool, n=new):
+        return [pool.submit(p, max_new_tokens=n, tenant="f32")
                 for p in prompts]
 
     def hold(pool, rrs, what):
         for rr in rrs:
             pool.result(rr, timeout=300)
         hold_streams([types.SimpleNamespace(tokens=rr.tokens())
-                      for rr in rrs], want, what, card,
+                      for rr in rrs], [w[:rr.max_new_tokens] for w, rr in
+                                       zip(want, rrs)], what, card,
                      "the uninterrupted engine's")
         inflight = pool.stats()["tenants"]["f32"]["inflight"]
         if inflight:
@@ -6413,7 +6423,7 @@ def fleet_faults(gpt, serving, arrays, card):
         # worker_kill mid-wave
         survivor = pool.replicas()[1]
         built = fleet_builds(pool)[survivor.idx]
-        rrs = wave(pool)
+        rrs = wave(pool, FLEET_KILL_NEW)
         when(lambda: all(rr.tokens() for rr in rrs), "every stream started")
         # the victim's streams, taken before the kill can move them
         moved = [rr for rr in rrs if rr._replica_idx == victim.idx]

@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import json
 import logging
+import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -113,6 +114,17 @@ def _status_for(exc: BaseException):
     return 500, None
 
 
+class _Server(ThreadingHTTPServer):
+    """The front door's listener. socketserver's listen backlog of 5 lets
+    a burst of clients overflow the accept queue while the accept thread
+    waits for the interpreter behind busy handler threads, and a connect
+    past it can be reset or never complete; the system's own limit holds
+    the burst until it is accepted."""
+
+    daemon_threads = True
+    request_queue_size = socket.SOMAXCONN
+
+
 class Gateway:
     """One HTTP/SSE front door over one :class:`ReplicaPool`.
 
@@ -125,8 +137,7 @@ class Gateway:
         self.pool = pool
         port = int(flags.flag("gateway_port")) if port is None else int(port)
         handler = _make_handler(self)
-        self._httpd = ThreadingHTTPServer((host, port), handler)
-        self._httpd.daemon_threads = True
+        self._httpd = _Server((host, port), handler)
         self.host = self._httpd.server_address[0]
         self.port = int(self._httpd.server_address[1])
         self._thread: Optional[threading.Thread] = None

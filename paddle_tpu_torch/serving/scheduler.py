@@ -527,9 +527,11 @@ class Scheduler:
                     progress = True
                     continue
                 break
-            self.waiting.remove(req)
             req._starved = 0
             admit = self.engine.admit_begin if chunked else self.engine.admit
+            # the request leaves ``waiting`` only once it is seated, so that
+            # ``outstanding()``, read from other threads (a router's load),
+            # counts it through its prefill
             try:
                 slot, first = admit(req.prompt, req.max_new_tokens,
                                     tokens=req.tokens, **admit_kwargs(req))
@@ -542,6 +544,7 @@ class Scheduler:
             except Exception as e:
                 from .supervisor import is_transient_serving_error
 
+                self.waiting.remove(req)
                 if is_transient_serving_error(e):
                     req.state = RequestState.QUEUED
                     self.waiting.append(req)
@@ -550,6 +553,7 @@ class Scheduler:
                 self._on_error(e)
                 progress = True
                 continue
+            self.waiting.remove(req)
             req.slot = slot
             req.state = RequestState.RUNNING
             telemetry.observe("latency.queue_wait",

@@ -18,6 +18,7 @@ bound: ``result(timeout=)``, ``join(timeout=)``, ``urlopen(timeout=)``,
 import contextlib
 import json
 import re
+import socket
 import threading
 import time
 import urllib.error
@@ -673,6 +674,39 @@ def test_http_sse_round_trip(model):
     assert pool._draining or pool._closed
     with pytest.raises(urllib.error.URLError):
         urllib.request.urlopen(base + "/livez", timeout=5)
+
+
+def test_http_burst_of_connects_all_answered(model):
+    """The front door listens with the system's backlog, not
+    socketserver's 5: a burst of 64 clients connecting at once while a
+    stream is decoding is answered whole."""
+    pool = _pool(model, replicas=1, background=True)
+    gw = Gateway(pool, port=0).start()
+    base = f"http://127.0.0.1:{gw.port}"
+    assert gw._httpd.request_queue_size == socket.SOMAXCONN
+    n, answers, errors = 64, [], []
+    start = threading.Barrier(n)
+
+    def client():
+        try:
+            start.wait(timeout=30)
+            answers.append(json.load(urllib.request.urlopen(
+                base + "/livez", timeout=60)))
+        except Exception as e:  # held below, on the main thread
+            errors.append(e)
+
+    try:
+        rr = pool.submit(_prompt(np.random.default_rng(12), 6),
+                         max_new_tokens=24)
+        threads = [threading.Thread(target=client) for _ in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not errors and answers == [{"status": "alive"}] * n
+        assert len(pool.result(rr, timeout=60)) == 6 + 24
+    finally:
+        gw.close()
 
 
 def test_http_drain_maps_to_503(model):

@@ -166,6 +166,51 @@ def test_cancel_while_queued_costs_no_prefill(model):
         api.close()
 
 
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_outstanding_counts_a_request_through_its_prefill(model, monkeypatch,
+                                                          chunk):
+    """A router reads ``outstanding()`` from another thread while the pump
+    prefills: the request being seated is counted during its prefill (it
+    leaves ``waiting`` only once seated), whole or chunked."""
+    api = _api(model, cfg=dict(chunked_prefill=chunk))
+    try:
+        name = "admit_begin" if chunk else "admit"
+        seated, during = getattr(api.engine, name), []
+
+        def admit(*args, **kw):
+            during.append(api.outstanding())
+            return seated(*args, **kw)
+
+        monkeypatch.setattr(api.engine, name, admit)
+        req = api.submit(_prompt(np.random.default_rng(8), 20),
+                         max_new_tokens=4)
+        api._pump_once()
+        assert during == [1] and api.outstanding() == 1
+        api.run_until_idle()
+        assert req.state == RequestState.FINISHED and api.outstanding() == 0
+    finally:
+        api.close()
+
+
+def test_failed_admission_leaves_nothing_outstanding(model, monkeypatch):
+    """An admission that fails (not transiently) fails its request and
+    takes it out of ``waiting``: nothing stays outstanding."""
+    api = _api(model)
+    try:
+        def admit(*args, **kw):
+            raise ValueError("refused")
+
+        monkeypatch.setattr(api.engine, "admit", admit)
+        req = api.submit(_prompt(np.random.default_rng(9), 5),
+                         max_new_tokens=4)
+        api._pump_once()
+        assert req.state == RequestState.FAILED
+        assert isinstance(req.error, ValueError)
+        assert api.outstanding() == 0 and api.scheduler.waiting == []
+    finally:
+        api.close()
+
+
 def test_result_returns_prompt_and_tokens_and_times_out(model):
     rng = np.random.default_rng(7)
     p = _prompt(rng, 6)
