@@ -400,6 +400,36 @@ no result. Phases, in order; each raises on failure:
     first resumed stream); a third answers both retried ids from its
     result cache. Each incarnation's boot and the replay's seconds are
     printed.
+17. Disaggregated prefill and decode (``serve_disagg``, run after phase
+    16). 17a, bf16 ``gpt_1p3b``: an in-process reference along the
+    workers' path (engine P: chunks of ``DISAGG_CHUNK`` publishing into a
+    disk directory of its own, one token a request; engine D, tiered on
+    it: ``submit(prompt, journal=[first])``), then ``serve()`` with
+    ``FLAGS_gateway_process_replicas`` and one prefill and one decode
+    worker of 8 slots (``DisaggReplicaPool``, the shared disk tier under
+    ``build/disagg_kv``, each host tier ``DISAGG_HOST_BYTES``): each
+    worker's boot and state-fingerprint seconds, their tier namespaces
+    equal to each other's and the reference's, no ``jax`` imported;
+    both primed (a miss and a hit of the shared prefix); 15b's wave of 16
+    clients through ``POST /v1/stream`` with each worker's launch
+    counters set to 0 just before and read just after (equal to what its
+    engine ran; per role and summed), all 16 handed off, none degraded,
+    each client's first-to-second-token gap; a second wave through
+    ``pool.submit``; first tokens and handoff gaps of hits; a third wave
+    with ``FLAGS_gateway_prefetch`` = 2 on the full decode worker
+    (``disagg.prefetches`` > 0). Every stream equals the reference's, no
+    worker builds a program after its priming, the prefill worker's
+    ``tier.published_blocks`` and the decode worker's disk hits and
+    restored blocks move; the restore's mean ms, bytes published and
+    tokens/s beside 16a's and 15b's are printed. 17b, f32 (TF32 off) at 4
+    layers, one prefill and two decode workers, chunks of one block:
+    ``worker_kill`` kills the prefill worker mid-prompt (its re-routed
+    streams' successors restore what it published and prefill fewer
+    chunks than the prompt, read from their spans), a decode worker is
+    SIGKILLed mid-decode (the other restores the re-routed streams'
+    published chains), ``scale_to(prefill=0)`` leaves unified routes;
+    every stream equals ``generate()``; after ``close()`` no worker is
+    alive and the minted disk directory is gone.
 
 Each phase prints its seconds.
 
@@ -420,7 +450,8 @@ unquantized paged rows' and the sampling row's ``launches_prefix`` phase
 for the int8 rows; ``launches_lora`` phase 14a's wave 1, ``launches_tier``
 phase 14c's host-tier wave B, the int8 rows' over the int8 arena;
 ``launches_pool`` phase 15b's HTTP wave, both replicas'; ``launches_fleet``
-phase 16a's HTTP wave, summed over the two worker processes' own counts),
+phase 16a's HTTP wave, summed over the two worker processes' own counts;
+``launches_disagg`` phase 17a's HTTP wave, per role and summed),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
@@ -5369,14 +5400,14 @@ def body_of(prompt, n, kw, **extra):
 def sse_stream(url, body=None, timeout=300):
     """An SSE stream (a POST of ``body`` to ``/v1/stream``, or a GET of
     ``/v1/stream/<id>`` when there is no body): the tokens, the done event
-    and the host ms from the request's start to its first token."""
+    and each token's host ms from the request's start."""
     import urllib.request
 
     req = urllib.request.Request(
         url, data=None if body is None else json.dumps(body).encode(),
         method="GET" if body is None else "POST")
     t0 = time.perf_counter()
-    toks, done, first = [], None, None
+    toks, done, times = [], None, []
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         event = None
         for line in resp:
@@ -5390,11 +5421,10 @@ def sse_stream(url, body=None, timeout=300):
                 elif event == "error":
                     raise AssertionError(f"SSE error event: {d}")
                 else:
-                    if first is None:
-                        first = (time.perf_counter() - t0) * 1e3
+                    times.append((time.perf_counter() - t0) * 1e3)
                     toks.append(d["token"])
                 event = None
-    return toks, done, first
+    return toks, done, times
 
 
 def repair_adapter_roots(model, serving, pa, card):
@@ -5649,7 +5679,7 @@ def pool_ttft(pool, base, ref, sysp, vocab, card):
     out = {"http": [], "pool": [], "api": []}
     for _ in range(POOL_TTFT):
         out["http"].append(sse_stream(base + "/v1/stream",
-                                      body_of(prompt(), 8, {}))[2])
+                                      body_of(prompt(), 8, {}))[2][0])
         t0 = time.perf_counter()
         rr = pool.submit(prompt(), max_new_tokens=8, tenant="ttft")
         next(pool.stream(rr))
@@ -6151,12 +6181,14 @@ def fleet_reference(model, serving, pa, primer, hit, waves, card):
     return out, rates
 
 
-def fleet_http_wave(pool, base, layers, prompts, kws, want, card):
+def fleet_http_wave(pool, base, layers, prompts, kws, want, card,
+                    what="bf16 fleet HTTP wave", label=lambda idx: "worker"):
     """16 client threads through ``POST /v1/stream`` with each worker's
     launch counters set to 0 just before and read just after: every
     stream equals the reference's, and each worker's launches equal what
-    its engine ran. Returns the summed launches and the wave's wall
-    seconds."""
+    its engine ran (``label(idx)`` names a worker in the lines printed).
+    Returns each worker's launches, the wave's wall seconds and each
+    client's ``sse_stream``."""
     handles = {rep.idx: rep.api for rep in pool.replicas()}
     results = [None] * len(prompts)
     errors = []
@@ -6183,32 +6215,42 @@ def fleet_http_wave(pool, base, layers, prompts, kws, want, card):
     wall = time.perf_counter() - t0
     after = pool.worker_stats()
     if errors or any(th.is_alive() for th in threads):
-        raise AssertionError(f"bf16 fleet HTTP wave: {errors[:2]}")
-    what = "bf16 fleet HTTP wave"
-    total = {}
+        raise AssertionError(f"{what}: {errors[:2]}")
+    launches = {}
     for idx, snap in sorted(after.items()):
         ran = ran_between(worker_ran(snap), before[idx])
         got = {k: snap["launches"].get(k, 0) for k in PAGED + SAMPLING}
-        print(f"e2e {what}, worker {idx} (pid {snap['pid']}): "
+        print(f"e2e {what}, {label(idx)} {idx} (pid {snap['pid']}): "
               f"{ran.steps} decode steps, {ran.prefills} prefills, "
-              f"{ran.suffix} suffix prefills, builds "
+              f"{ran.chunks} chunks, {ran.suffix} suffix prefills, builds "
               f"{(ran.decode_builds, ran.prefill_builds, ran.chunk_builds)}"
               f", launches {got} [{card}]")
         hold_launches(got, want_launches(layers, ran),
-                      f"{what}, worker {idx}")
-        for k, v in got.items():
-            total[k] = total.get(k, 0) + v
+                      f"{what}, {label(idx)} {idx}")
+        launches[idx] = got
     for i, (toks, done, _) in enumerate(results):
         if toks != want[i] or done["state"] != "FINISHED":
             raise AssertionError(f"{what}: request {i} ({done}) diverges "
                                  "from the reference engine's")
     print(f"e2e {what}: all {len(prompts)} SSE streams equal the reference "
           f"engine's along the same cache path, in {wall:.2f} s [{card}]")
-    return total, wall
+    return launches, wall, results
+
+
+def summed(launches):
+    """Launches summed over workers (``fleet_http_wave``'s per worker)."""
+    total = {}
+    for got in launches:
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def fleet_builds(pool):
-    return {i: worker_ran(s)[4:] for i, s in pool.worker_stats().items()}
+    """Each worker's builds: whole-prompt, decode and chunk programs (from
+    ``worker_ran``) and captured restores."""
+    return {i: worker_ran(s)[4:] + (s["engine"]["restore_traces"],)
+            for i, s in pool.worker_stats().items()}
 
 
 def serve_fleet(model, serving, pa, card, pool15):
@@ -6271,8 +6313,9 @@ def serve_fleet(model, serving, pa, card, pool15):
             prime_worker(rep.api, hit, f"worker {rep.idx}'s first hit")
         built = fleet_builds(pool)
         out["free_up"] = free_bytes()
-        launches, wall = fleet_http_wave(pool, base, layers, *http_wave,
-                                         want_http, card)
+        launches, wall, _ = fleet_http_wave(pool, base, layers,
+                                            *http_wave, want_http, card)
+        launches = summed(launches.values())
         out["tokens_per_s_http"] = POOL_NEW * POOL_CLIENTS / wall
         t0 = time.perf_counter()
         rrs = [pool.submit(p, max_new_tokens=POOL_NEW, tenant="inproc", **k)
@@ -6292,7 +6335,7 @@ def serve_fleet(model, serving, pa, card, pool15):
         for _ in range(POOL_TTFT):
             p = np.concatenate([sysp, rng.integers(0, vocab, POOL_TAIL)])
             ttft["http"].append(sse_stream(base + "/v1/stream",
-                                           body_of(p, 8, {}))[2])
+                                           body_of(p, 8, {}))[2][0])
             t0 = time.perf_counter()
             rr = pool.submit(np.concatenate(
                 [sysp, rng.integers(0, vocab, POOL_TAIL)]), max_new_tokens=8,
@@ -6732,6 +6775,506 @@ def serve_fleet_wal(gpt, serving, pa, arrays, card, pool15):
     return launches, out
 
 
+# ------------------------------------------------------------------ phase 17
+# disaggregated prefill and decode: role-typed worker processes that hand
+# each request off through the shared disk tier
+DISAGG_CHUNK = 256            # 17a's prefill role: 527 tokens in 3 chunks
+DISAGG_HOST_BYTES = 4 << 30   # each worker's host tier: the waves' chains fit
+DISAGG_PREFETCH = 2           # 17a's third wave's restore-ahead depth
+DISAGG_DIR = os.path.join("build", "disagg_kv")        # 17a's shared tier
+DISAGG_REF_DIR = os.path.join("build", "disagg_ref_kv")  # its reference's
+# 17b (f32, POOL_F32[0] layers): chunks of one block, so that a chain
+# publishes block by block; the prefill kill's prompts (lengths), published
+# blocks seen before the kill, the decode kill's new tokens (FLEET_KILL_NEW)
+DISAGG_F32_CHUNK = 16
+DISAGG_KILL_LENS = [1000, 960, 920, 880, 840, 800, 760, 720]
+DISAGG_KILL_SEEN = 8
+DISAGG_DECODE_WORKERS = 2
+
+
+def disagg_reference(model, serving, pa, waves, card):
+    """The in-process reference of 17a along the workers' cache path (a
+    bf16 stream follows its path's bits): engine P, chunked prefill of
+    DISAGG_CHUNK publishing into a disk directory of its own, serves each
+    prompt with ``max_new_tokens=1``; engine D, tiered on P's directory,
+    serves ``submit(prompt, journal=[first])``, wave after wave in the
+    workers' order. Returns each wave's streams (first token included),
+    P's tier namespace and the parent's fingerprint seconds."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.serving.tiered import HostKVCache
+
+    dev = model.gpt.wte.weight.device
+    shutil.rmtree(DISAGG_REF_DIR, ignore_errors=True)
+
+    def engine(chunk):
+        return serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=POOL_SLOTS, prefix_cache=True, kv_tiering=True,
+            chunked_prefill=chunk, tier_store=HostKVCache(
+                max_bytes=DISAGG_HOST_BYTES, disk_dir=DISAGG_REF_DIR)),
+            device=dev)
+
+    pre, dec = engine(DISAGG_CHUNK), engine(0)
+    keep = flags.get_flags(["serving_publish_chunks", "serving_tier_publish"])
+    out = []
+    try:
+        for i, (prompts, kws) in enumerate(waves):
+            n = len(prompts)
+            flags.set_flags({"serving_publish_chunks": True,
+                             "serving_tier_publish": True})
+            try:
+                firsts = serve(pre, pa, prompts, [1] * n,
+                               f"bf16 disagg reference P, wave {i}", card,
+                               kws)[0]
+            finally:
+                flags.set_flags(keep)
+            reqs = serve(dec, pa, prompts, [POOL_NEW] * n,
+                         f"bf16 disagg reference D, wave {i}", card,
+                         [dict(k, journal=[r.tokens[0]])
+                          for k, r in zip(kws, firsts)])[0]
+            out.append([list(r.tokens) for r in reqs])
+        ns = pre.engine.tier.namespace
+        fp = pre.engine.fingerprint_seconds
+    finally:
+        pre.close()
+        dec.close()
+        shutil.rmtree(DISAGG_REF_DIR, ignore_errors=True)
+    return out, ns, fp
+
+
+def disagg_moved(before, what):
+    """Hold one wave's handoffs: every request handed off once, none took
+    a degraded route."""
+    got = {k: metrics_counter(k) - v for k, v in before.items()}
+    if (got["disagg.handoffs"] != POOL_CLIENTS
+            or got["disagg.degraded_routes"]):
+        raise AssertionError(f"{what}: {got}, want {POOL_CLIENTS} handoffs "
+                             "and no degraded route")
+    return got
+
+
+def disagg_counters():
+    return {k: metrics_counter(k) for k in (
+        "disagg.handoffs", "disagg.degraded_routes", "disagg.prefetches",
+        "disagg.prefetched_chains")}
+
+
+def disagg_submit_wave(pool, prompts, kws, want, what, card):
+    """One wave through ``pool.submit``: streams equal the reference's;
+    returns tokens/s (host clock)."""
+    t0 = time.perf_counter()
+    rrs = [pool.submit(p, max_new_tokens=POOL_NEW, tenant="inproc", **k)
+           for p, k in zip(prompts, kws)]
+    got = [list(map(int, pool.result(rr, timeout=600)[len(p):]))
+           for rr, p in zip(rrs, prompts)]
+    rate = POOL_NEW * len(prompts) / (time.perf_counter() - t0)
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"{what}: requests {bad} diverge from the "
+                             "reference's")
+    print(f"e2e {what}: all {len(prompts)} streams equal the reference, "
+          f"{rate:.1f} tokens/s [{card}]")
+    return rate
+
+
+def disagg_ttft(pool, sysp, vocab, card):
+    """First token and first-to-second gap (host ms) of POOL_TTFT hits
+    through ``pool.submit`` one at a time: the prefill worker's first
+    token, then the handoff."""
+    rng = np.random.default_rng(95)
+    first, gap = [], []
+    for _ in range(POOL_TTFT):
+        p = np.concatenate([sysp, rng.integers(0, vocab, POOL_TAIL)])
+        t0 = time.perf_counter()
+        rr = pool.submit(p, max_new_tokens=8, tenant="ttft")
+        it = pool.stream(rr)
+        next(it)
+        t1 = time.perf_counter()
+        next(it)
+        t2 = time.perf_counter()
+        first.append((t1 - t0) * 1e3)
+        gap.append((t2 - t1) * 1e3)
+        pool.result(rr, timeout=120)
+    print(f"bf16 disagg first token of a {POOL_PREFIX} + {POOL_TAIL} hit "
+          f"through pool.submit, median of {POOL_TTFT} (ms): "
+          f"{np.median(first):.3f}, first to second token "
+          f"{np.median(gap):.3f}; samples {[round(x, 3) for x in first]} / "
+          f"{[round(x, 3) for x in gap]} [{card}]")
+    return float(np.median(first)), float(np.median(gap))
+
+
+def serve_disagg_bf16(model, serving, pa, card, pool15, fleet16):
+    """Phase 17a (bf16 gpt_1p3b): the reference of (f), then ``serve()``
+    with FLAGS_gateway_process_replicas and one prefill and one decode
+    worker of POOL_SLOTS slots (chunks of DISAGG_CHUNK on the prefill
+    role), both primed; 15b's wave through ``POST /v1/stream``, another
+    through ``pool.submit``, first tokens and handoff gaps of hits, and a
+    third wave with FLAGS_gateway_prefetch on a full decode worker.
+    Returns the HTTP wave's launches (per role and summed) and the
+    numbers."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.serving.disagg import DisaggReplicaPool
+    from paddle_tpu_torch.serving.gateway import serve as serve_gateway_http
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    dev = model.gpt.wte.weight.device
+    sysp = pool_prefixes(vocab, 91, 1)[0]
+    primer = np.concatenate([sysp, np.arange(POOL_TAIL) + 7])
+    hit = np.concatenate([sysp, np.arange(POOL_TAIL)])
+    waves = [pool_wave(vocab, sysp, s) for s in (92, 94, 96)]
+    t0 = time.perf_counter()
+    want, ref_ns, ref_fp = disagg_reference(
+        model, serving, pa,
+        [([primer], [{}]), ([hit], [{}])] + waves, card)
+    out = {"reference_s": time.perf_counter() - t0,
+           "fingerprint_s_parent": ref_fp}
+    release()
+    shutil.rmtree(DISAGG_DIR, ignore_errors=True)
+    free0 = free_bytes()
+    role_flags = {"gateway_process_replicas": True,
+                  "gateway_prefill_replicas": 1,
+                  "gateway_decode_replicas": 1,
+                  "serving_chunked_prefill": DISAGG_CHUNK,
+                  "serving_host_cache_bytes": DISAGG_HOST_BYTES}
+    keep = flags.get_flags(list(role_flags))
+    flags.set_flags(role_flags)
+    t0 = time.perf_counter()
+    try:
+        gw = serve_gateway_http(
+            model, guard=False, port=0, device=dev,
+            config=serving.ServingConfig(num_slots=POOL_SLOTS),
+            heartbeat_interval=FLEET_HB, disk_dir=DISAGG_DIR)
+    finally:
+        flags.set_flags(keep)
+    out["spawn_s"] = time.perf_counter() - t0
+    pool = gw.pool
+    base = f"http://127.0.0.1:{gw.port}"
+    procs = [rep.api.proc for rep in pool.replicas()]
+    try:
+        if not isinstance(pool, DisaggReplicaPool):
+            raise AssertionError(f"serve() built {type(pool).__name__}")
+        ws = pool.worker_stats()
+        roles = [pool.role_of(i) for i in sorted(ws)]
+        out["boot_s"] = [rep.api.boot_seconds for rep in pool.replicas()]
+        out["fingerprint_s"] = [ws[i]["tier"]["fingerprint_s"]
+                                for i in sorted(ws)]
+        names = {ws[i]["tier"]["namespace"] for i in ws}
+        print(f"e2e bf16 disagg: roles {roles} up in {out['spawn_s']:.2f} "
+              f"s (spawn to hello {[round(s, 2) for s in out['boot_s']]} s;"
+              f" state fingerprint {[round(s, 2) for s in out['fingerprint_s']]}"
+              f" s, the parent's {ref_fp:.2f} s); tier namespaces "
+              f"{sorted(names)}, the reference's {ref_ns} [{card}]")
+        if names != {ref_ns}:
+            raise AssertionError("bf16 disagg: the workers' tier signatures "
+                                 "differ from each other or the reference's")
+        if any(s["imports"] for s in ws.values()):
+            raise AssertionError(f"a worker imported "
+                                 f"{[s['imports'] for s in ws.values()]}")
+        # prime: a miss of the shared prefix (the prefill role's chunk
+        # buckets; the decode role's restore, suffix bucket and decode),
+        # then a hit (the prefill role's suffix bucket)
+        for p, w, what in ((primer, want[0][0], "primer"),
+                           (hit, want[1][0], "first hit")):
+            rr = pool.submit(p, max_new_tokens=POOL_NEW, tenant="prime")
+            got = list(map(int, pool.result(rr, timeout=600)[len(p):]))
+            if got != w:
+                raise AssertionError(f"bf16 disagg {what}: diverges from "
+                                     "the reference's")
+        built = fleet_builds(pool)
+        out["free_up"] = free_bytes()
+        tier0 = {i: dict(s["metrics"]) for i, s in
+                 pool.worker_stats().items()}
+        lat0 = {i: s["latency"].get("latency.restore", [0, 0.0])
+                for i, s in pool.worker_stats().items()}
+        what = "bf16 disagg HTTP wave"
+        moved = disagg_counters()
+        by_worker, wall, results = fleet_http_wave(
+            pool, base, layers, *waves[0], want[2], card, what=what,
+            label=lambda idx: f"{pool.role_of(idx)} worker")
+        disagg_moved(moved, what)
+        launches = {pool.role_of(i): got for i, got in by_worker.items()}
+        launches["total"] = summed(by_worker.values())
+        gaps = [t[1] - t[0] for _, _, t in results]
+        print(f"e2e {what}: all {POOL_CLIENTS} handed off; first token "
+              f"(ms) median {np.median([t[0] for _, _, t in results]):.3f},"
+              f" first to second token (the handoff) median "
+              f"{np.median(gaps):.3f}, max {max(gaps):.3f} [{card}]")
+        out["tokens_per_s_http"] = POOL_NEW * POOL_CLIENTS / wall
+        out["handoff_gap_ms"] = [round(g, 3) for g in gaps]
+        moved = disagg_counters()
+        out["tokens_per_s_submit"] = disagg_submit_wave(
+            pool, *waves[1], want[3], "bf16 disagg pool.submit wave", card)
+        disagg_moved(moved, "bf16 disagg pool.submit wave")
+        out["ttft_pool_ms"], out["handoff_pool_ms"] = disagg_ttft(
+            pool, sysp, vocab, card)
+        # the third wave: the decode worker's slots fill, the rest wait
+        # and the planner restores their chains ahead
+        moved = disagg_counters()
+        keep = flags.get_flags("gateway_prefetch")
+        flags.set_flags({"gateway_prefetch": DISAGG_PREFETCH})
+        try:
+            out["tokens_per_s_prefetch"] = disagg_submit_wave(
+                pool, *waves[2], want[4],
+                f"bf16 disagg wave with FLAGS_gateway_prefetch="
+                f"{DISAGG_PREFETCH}", card)
+        finally:
+            flags.set_flags(keep)
+        got = disagg_moved(moved, "bf16 disagg prefetch wave")
+        ws = pool.worker_stats()
+        pre_i = next(i for i in ws if pool.role_of(i) == "prefill")
+        dec_i = next(i for i in ws if pool.role_of(i) == "decode")
+        out["prefetches"] = got["disagg.prefetches"]
+        out["prefetched_blocks"] = ws[dec_i]["metrics"].get(
+            "disagg.prefetched_blocks", 0)
+        print(f"e2e bf16 disagg prefetch wave: {got['disagg.prefetches']} "
+              f"prefetch calls, {got['disagg.prefetched_chains']} restored "
+              f"a chain, {out['prefetched_blocks']} blocks restored ahead in "
+              f"the decode worker [{card}]")
+        if not got["disagg.prefetches"]:
+            raise AssertionError("bf16 disagg: no prefetch fired on a full "
+                                 "decode worker")
+        if fleet_builds(pool) != built:
+            raise AssertionError(f"bf16 disagg: a worker built a program "
+                                 f"during the waves: {built} -> "
+                                 f"{fleet_builds(pool)}")
+        tier = {i: {k: s["metrics"].get(k, 0) - tier0[i].get(k, 0)
+                    for k in ("tier.published_blocks", "tier.disk_writes",
+                              "tier.disk_hits", "tier.host_hits",
+                              "tier.restored_blocks", "tier.restored_bytes",
+                              "tokens.prefill_avoided")}
+                for i, s in ws.items()}
+        n, total = (a - b for a, b in zip(
+            ws[dec_i]["latency"].get("latency.restore", [0, 0.0]),
+            lat0[dec_i]))
+        out["restore_ms_mean"] = total / max(n, 1) * 1e3
+        out["restores"] = n
+        out["published_bytes"] = ws[pre_i]["metrics"].get("tier.disk_bytes")
+        out["tier"] = {pool.role_of(i): t for i, t in tier.items()}
+        print(f"e2e bf16 disagg tiers over the three waves: "
+              f"{json.dumps(out['tier'])}; the prefill worker's disk tier "
+              f"holds {out['published_bytes']} bytes; the decode worker "
+              f"restored {n} chains in {out['restore_ms_mean']:.3f} ms each "
+              f"(mean; {out['restore_ms_mean'] / np.median(gaps):.3f} of the "
+              f"HTTP wave's median handoff gap) [{card}]")
+        if (not tier[pre_i]["tier.published_blocks"]
+                or not tier[dec_i]["tier.disk_hits"]
+                or not tier[dec_i]["tier.restored_blocks"]):
+            raise AssertionError("bf16 disagg: the chains did not go "
+                                 "through the shared disk tier")
+        out["worker_memory_allocated"] = [
+            s.get("memory_allocated") for s in ws.values()]
+    finally:
+        gw.close()
+        shutil.rmtree(DISAGG_DIR, ignore_errors=True)
+    if any(p.is_alive() for p in procs):
+        raise AssertionError("bf16 disagg: a worker outlived close()")
+    out["free_before_spawn"], out["free_up_primed"] = free0, out["free_up"]
+    print(f"bf16 disagg tokens/s ({POOL_CLIENTS} requests of {POOL_PREFIX} "
+          f"+ {POOL_TAIL} + {POOL_NEW}, host clock): 1 prefill + 1 decode "
+          f"worker x {POOL_SLOTS} through HTTP {out['tokens_per_s_http']:.1f}"
+          f", through pool.submit {out['tokens_per_s_submit']:.1f}, with "
+          f"prefetch {out['tokens_per_s_prefetch']:.1f}; this call's 16a "
+          f"(two unified workers x {POOL_SLOTS}, no tiers) HTTP "
+          f"{fleet16['tokens_per_s_http']:.1f}, pool.submit "
+          f"{fleet16['tokens_per_s_submit']:.1f}, first token of a hit "
+          f"{fleet16['ttft_pool_ms']:.3f} ms against "
+          f"{out['ttft_pool_ms']:.3f} here; 15b's in-process pool through "
+          f"pool.submit {pool15['tokens_per_s_pool_submit']:.1f} [{card}]")
+    return launches, out
+
+
+def serve_disagg_f32(gpt, serving, arrays, card):
+    """Phase 17b (f32, TF32 off, gpt_1p3b's width at POOL_F32[0] layers):
+    one prefill and DISAGG_DECODE_WORKERS decode workers, chunks of one
+    block. A first wave builds; ``worker_kill`` SIGKILLs the prefill worker
+    mid-prompt and its streams' successors prefill only what it had not
+    published; the decode worker holding more streams is SIGKILLed
+    mid-decode and the other restores their published chains;
+    ``scale_to(prefill=0)`` leaves unified routes. Every stream equals
+    ``generate()``; after ``close()`` no worker is alive and the minted
+    disk directory is gone. Returns the numbers."""
+    from paddle_tpu_torch.core import flags, resilience
+    from paddle_tpu_torch.serving import telemetry
+    from paddle_tpu_torch.serving.disagg import DisaggReplicaPool
+
+    _, lens, new = POOL_F32
+    model = f32_cut(gpt, arrays)
+    dev = model.gpt.wte.weight.device
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(97)
+    prompts = [rng.integers(0, vocab, n) for n in lens]
+    long_ps = [rng.integers(0, vocab, n) for n in DISAGG_KILL_LENS]
+    # the decode kill's prompts are new to both decode workers, so that
+    # the survivor must restore each moved stream's chain
+    kill_ps = [rng.integers(0, vocab, n) for n in lens]
+
+    def refs(ps, n):
+        return [model.generate(p[None], max_new_tokens=n)[0, len(p):]
+                .tolist() for p in ps]
+
+    want, want_long = refs(prompts, new), refs(long_ps, new)
+    want_kill = refs(kill_ps, FLEET_KILL_NEW)
+
+    def hold(rrs, ps, ref, what):
+        for rr, p, w in zip(rrs, ps, ref):
+            got = list(map(int, pool.result(rr, timeout=300)[len(p):]))
+            if got != w[:rr.max_new_tokens]:
+                raise AssertionError(f"{what}: a stream diverges from "
+                                     "generate()")
+        print(f"e2e {what}: all {len(rrs)} streams equal generate() "
+              f"[{card}]")
+
+    def kinds(rr):
+        return [e["event"] for e in telemetry.trace(rr.trace_id)]
+
+    out = {}
+    # fault injection and spans for the whole phase (the parent arms
+    # worker_kill and reads the spans); the chunks go in the snapshot
+    phase_flags = {"fault_injection": True, "serving_telemetry": True,
+                   "serving_chunked_prefill": DISAGG_F32_CHUNK}
+    keep = flags.get_flags(list(phase_flags))
+    flags.set_flags(phase_flags)
+    pool = None
+    try:
+        pool = DisaggReplicaPool(
+            model, prefill_replicas=1, decode_replicas=DISAGG_DECODE_WORKERS,
+            background=True, num_slots=POOL_SLOTS,
+            respawn_backoff=FLEET_BACKOFF, heartbeat_interval=FLEET_HB,
+            heartbeat_misses=FLEET_MISSES, device=dev)
+        disk = pool.disk_dir
+        procs = [rep.api.proc for rep in pool.replicas()]
+        hold([pool.submit(p, max_new_tokens=new) for p in prompts], prompts,
+             want, "f32 disagg, first wave")
+        prefill = pool.replicas()[0]
+
+        # worker_kill the prefill worker mid-prompt, once it has published
+        # DISAGG_KILL_SEEN blocks of this wave
+        pub0 = prefill.api.remote_stats()["metrics"].get(
+            "tier.published_blocks", 0)
+        rrs = [pool.submit(p, max_new_tokens=new) for p in long_ps]
+        wait_for(lambda: prefill.api.remote_stats()["metrics"].get(
+            "tier.published_blocks", 0) >= pub0 + DISAGG_KILL_SEEN,
+            "the prefill worker's first published blocks", 120)
+        kills0 = resilience._counts.get("fault.worker_kill", 0)
+        resilience.inject_fault("worker_kill", times=1)
+        wait_for(lambda: resilience._counts.get("fault.worker_kill", 0)
+                 > kills0, "the watchdog's kill", 60)
+        what = "f32 disagg, the prefill worker killed mid-prompt"
+        hold(rrs, long_ps, want_long, what)
+        moved = [rr for rr in rrs if rr.reroutes]
+        resumed = []
+        for rr, p in zip(rrs, long_ps):
+            if not rr.reroutes:
+                continue
+            k = kinds(rr)
+            after = k[k.index(telemetry.REROUTED):]
+            chunks = after.count(telemetry.PREFILL_CHUNK)
+            if telemetry.RESTORED in after:
+                resumed.append((len(p), chunks))
+        out["prefill_kill"] = {"rerouted": len(moved),
+                               "resumed_len_chunks": resumed}
+        print(f"e2e {what}: {len(moved)} streams re-routed; those whose "
+              f"chain was partly published restored it and prefilled "
+              f"(prompt tokens, chunks of {DISAGG_F32_CHUNK} after the "
+              f"re-route) {resumed} [{card}]")
+        if not moved or not resumed or any(
+                chunks * DISAGG_F32_CHUNK >= n for n, chunks in resumed):
+            raise AssertionError(f"{what}: no successor prefilled only the "
+                                 "unpublished suffix")
+        wait_for(lambda: prefill.generation == 1 and prefill.healthy,
+                 "the prefill worker's respawn", 120)
+        procs.append(prefill.api.proc)
+
+        # SIGKILL a decode worker mid-decode: the one holding more handed
+        # off streams that are early in their decode (under half their
+        # budget seen: far from their end when the signal lands)
+        rrs = [pool.submit(p, max_new_tokens=FLEET_KILL_NEW)
+               for p in kill_ps]
+
+        def early():
+            out = {}
+            for rr in rrs:
+                n = len(rr.tokens())
+                if (pool._phase(rr) == "decode" and not rr.finished
+                        and 2 <= n < FLEET_KILL_NEW // 2):
+                    out.setdefault(rr._replica_idx, []).append(rr)
+            return out
+
+        wait_for(lambda: max(map(len, early().values()), default=0) >= 2,
+                 "two streams decoding on one decode worker", 120)
+        victim, taken = max(early().items(), key=lambda kv: len(kv[1]))
+        os.kill(pool._replica_at(victim).api.pid, signal.SIGKILL)
+        what = "f32 disagg, a decode worker killed mid-decode"
+        hold(rrs, kill_ps, want_kill, what)
+        restored = []
+        for rr in taken:
+            k = kinds(rr)
+            after = k[k.index(telemetry.REROUTED):] \
+                if telemetry.REROUTED in k else []
+            restored.append(telemetry.RESTORED in after)
+        out["decode_kill"] = {"rerouted": sum(rr.reroutes for rr in taken),
+                              "restored": restored}
+        print(f"e2e {what}: the {len(taken)} streams it held early in "
+              f"their decode re-routed to the other decode worker, which "
+              f"restored their published chains ({restored}) [{card}]")
+        if not taken or any(rr.reroutes != 1 for rr in taken) \
+                or not all(restored):
+            raise AssertionError(f"{what}: {out['decode_kill']}")
+        wait_for(lambda: all(r.healthy for r in pool.replicas()),
+                 "the decode worker's respawn", 120)
+
+        # scale the prefill role to zero: unified routes
+        pool.scale_to(prefill=0)
+        d0 = metrics_counter("disagg.degraded_routes")
+        h0 = metrics_counter("disagg.handoffs")
+        what = "f32 disagg, the prefill role scaled to zero"
+        hold([pool.submit(p, max_new_tokens=new) for p in prompts], prompts,
+             want, what)
+        out["degraded_routes"] = metrics_counter("disagg.degraded_routes") \
+            - d0
+        if (out["degraded_routes"] != len(prompts)
+                or metrics_counter("disagg.handoffs") != h0):
+            raise AssertionError(f"{what}: {out['degraded_routes']} "
+                                 "degraded routes, or a handoff")
+        procs += [rep.api.proc for rep in pool.replicas()]
+    finally:
+        if pool is not None:
+            pool.close()
+        resilience.clear_faults()
+        flags.set_flags(keep)
+    if any(p.is_alive() for p in procs):
+        raise AssertionError("f32 disagg: a worker outlived close()")
+    if os.path.exists(disk):
+        raise AssertionError("f32 disagg: the minted disk directory stayed")
+    print(f"e2e f32 disagg: none of the {len(procs)} worker processes is "
+          f"alive after close(), the minted directory {disk} is gone "
+          f"[{card}]")
+    del model
+    release()
+    return out
+
+
+def serve_disagg(gpt, serving, pa, arrays, card, pool15, fleet16):
+    """Phase 17: 17a on bf16 gpt_1p3b, 17b in f32 at POOL_F32[0] layers.
+    Returns 17a's HTTP-wave launches (per role and summed) and the
+    numbers."""
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    model.to(torch.bfloat16)
+    release()
+    t0 = time.perf_counter()
+    launches, out = serve_disagg_bf16(model, serving, pa, card, pool15,
+                                      fleet16)
+    out = {"bf16": out}
+    print(f"phase 17a: {time.perf_counter() - t0:.1f} s")
+    del model
+    release()
+    t0 = time.perf_counter()
+    out["f32"] = serve_disagg_f32(gpt, serving, arrays, card)
+    print(f"phase 17b: {time.perf_counter() - t0:.1f} s")
+    print("phase 17, one call: " + json.dumps(out) + f" [{card}]")
+    return launches, out
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -6819,8 +7362,10 @@ def main() -> int:
                                         pa, so, arrays, card)
     pool_launches, phase15 = t("15", serve_gateway, gpt, serving, pa, so,
                                arrays, card)
-    fleet_launches, _ = t("16", serve_fleet_wal, gpt, serving, pa, arrays,
-                          card, phase15["pool"])
+    fleet_launches, phase16 = t("16", serve_fleet_wal, gpt, serving, pa,
+                                arrays, card, phase15["pool"])
+    disagg_launches, _ = t("17", serve_disagg, gpt, serving, pa, arrays,
+                           card, phase15["pool"], phase16["fleet"])
 
     t("7", flash_checks, fa)
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
@@ -6893,7 +7438,10 @@ def main() -> int:
                         "launches_lora": lora_launches.get(name, 0),
                         "launches_tier": tier_launches.get(name, 0),
                         "launches_pool": pool_launches.get(name, 0),
-                        "launches_fleet": fleet_launches.get(name, 0)}
+                        "launches_fleet": fleet_launches.get(name, 0),
+                        "launches_disagg": {
+                            role: disagg_launches.get(role, {}).get(name, 0)
+                            for role in ("prefill", "decode", "total")}}
                        if name in PAGED + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),

@@ -212,6 +212,28 @@ define_flag("gateway_heartbeat_misses", 3)
 # classifies the worker as dead. drain() adds its grace; a boot has its own
 # budget.
 define_flag("gateway_worker_timeout", 10.0)
+# Disaggregated serving (serving.disagg): worker processes in the PREFILL
+# role. A prefill worker chunk-prefills a request's prompt, publishing each
+# finished full block to the shared disk tier under its content hash, emits
+# the first token and hands the request off to the decode role. Both role
+# counts > 0 (with gateway_process_replicas) make serve() build a
+# DisaggReplicaPool; 0 and 0 keep the unified ProcessReplicaPool.
+define_flag("gateway_prefill_replicas", 0)
+# Worker processes in the DECODE role: a decode worker admits a handed-off
+# request by restoring its published chain through the captured restore
+# program, prefills the unpublished suffix and decodes to completion.
+define_flag("gateway_decode_replicas", 0)
+# Restore-ahead depth: how many QUEUED decode-phase requests the gateway's
+# planner may prefetch per sweep, restoring their published chains into the
+# decode worker's arena before admission (bounded by the free headroom above
+# what eviction could reclaim, so it never starves admission). 0 = off.
+define_flag("gateway_prefetch", 0)
+# Write-through publish: every tier write-through (the radix insert of a full
+# prompt block) also lands on the disk tier at once, not only on host-LRU
+# overflow, so that other processes sharing serving_disk_cache_dir can
+# restore the chain: the prefill role's half of the handoff. No effect
+# without a disk tier.
+define_flag("serving_tier_publish", False)
 # Gateway write-ahead request log (serving.gateway.wal): every accepted
 # stream's lifecycle is journaled to gateway_wal_dir, and a restarted gateway
 # on the same directory replays it (live streams resubmit journal-seeded,

@@ -11,7 +11,9 @@ verified by the target in one captured step), multi-LoRA serving
 ``DiskTier``, ``TierView``: evicted prefix blocks spill to host RAM and disk
 and are restored by one captured program), and the gateway
 (:mod:`.gateway`: ``ReplicaPool``, ``GlobalRadixIndex``, the tenant gates
-and the HTTP/SSE ``Gateway``, loaded on first use)."""
+and the HTTP/SSE ``Gateway``) and disaggregated prefill and decode
+(:mod:`.disagg`: ``DisaggReplicaPool``, ``RestorePlanner``), both loaded on
+first use."""
 import importlib
 
 from . import metrics, telemetry
@@ -61,6 +63,8 @@ _GATEWAY = {
     "Gateway": ("gateway.gateway", "Gateway"),
     "ProcessReplicaPool": ("gateway.procpool", "ProcessReplicaPool"),
     "GatewayWAL": ("gateway.wal", "GatewayWAL"),
+    "DisaggReplicaPool": ("disagg.pool", "DisaggReplicaPool"),
+    "RestorePlanner": ("disagg.prefetch", "RestorePlanner"),
 }
 __all__ += list(_GATEWAY)
 

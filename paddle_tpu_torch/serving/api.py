@@ -240,6 +240,17 @@ class ServingAPI:
         sched = self.scheduler
         return len(sched.waiting) + len(sched.prefilling) + len(sched.running)
 
+    def prefetch(self, prompt, trace_id: str = "", adapter: int = 0) -> int:
+        """Restore-ahead: :meth:`ServingEngine.prefetch` of ``prompt``'s
+        chain under ``adapter``'s root, between two pump steps (under the
+        API lock; the restore runs on the engine's stream). A closed or
+        draining API declines and returns 0."""
+        with self._locked():
+            if self._closed or self._draining:
+                return 0
+            return self.engine.prefetch(prompt, trace_id=trace_id,
+                                        adapter=adapter)
+
     def stream(self, req: Request) -> Iterator[int]:
         """Yield ``req``'s tokens as they are generated; raises the
         request's error at the end of a failed stream."""

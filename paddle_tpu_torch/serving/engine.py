@@ -392,14 +392,20 @@ class ServingEngine:
         # after any in-place quantization), from ever exchanging entries
         # through a shared store
         self.kv_tiering = bool(mode(cfg.kv_tiering, "serving_kv_tiering"))
-        self.tier = (TierView(cfg.tier_store if cfg.tier_store is not None
-                              else get_tier_store(),
-                              signature=(mcfg.num_layers, mcfg.num_heads,
-                                         head_dim, self.block_size,
-                                         str(dtype), self.quant_kv,
-                                         self.quant_weights,
-                                         state_fingerprint(model).hex()))
-                     if self.kv_tiering and self.use_prefix_cache else None)
+        self.tier = None
+        #: seconds this engine's construction spent in state_fingerprint
+        #: (a cold hash of every weight byte; memoized on the model)
+        self.fingerprint_seconds = 0.0
+        if self.kv_tiering and self.use_prefix_cache:
+            t0 = time.perf_counter()
+            fingerprint = state_fingerprint(model).hex()
+            self.fingerprint_seconds = time.perf_counter() - t0
+            self.tier = TierView(
+                cfg.tier_store if cfg.tier_store is not None
+                else get_tier_store(),
+                signature=(mcfg.num_layers, mcfg.num_heads, head_dim,
+                           self.block_size, str(dtype), self.quant_kv,
+                           self.quant_weights, fingerprint))
         self.prefix_cache = (PrefixCache(self.arena, self.block_size,
                                          tier=self.tier)
                              if self.use_prefix_cache else None)
@@ -604,6 +610,38 @@ class ServingEngine:
         need, pinned = self.admit_sizing(prompt_len, max_new_tokens, prompt,
                                          keys=keys, journal_len=journal_len)
         return self.arena.grantable() - pinned >= need
+
+    def prefetch(self, prompt, trace_id: str = "", adapter: int = 0) -> int:
+        """Restore-ahead (``paddle_tpu/serving/engine.py:854``): restore the
+        spilled or published tail of ``prompt``'s chain under ``adapter``'s
+        root into fresh arena blocks now, through admission's
+        :meth:`_restore_nodes` (no slot claimed, no reference taken), so a
+        queued request's admission later finds the chain resident. Bounded
+        by the free headroom above what eviction could reclaim
+        (``grantable() - evictable_blocks()``): the restored blocks are
+        cached at refcount zero, so ``grantable()`` is unchanged and
+        admission is never starved, and no warmer prefix is evicted for a
+        colder one. Returns the blocks restored (``disagg.prefetched_blocks``,
+        a ``PREFETCHED`` span on ``trace_id``)."""
+        if self.prefix_cache is None or self.tier is None:
+            return 0
+        prompt = np.asarray(prompt, np.int64).reshape(-1)
+        walked = self.prefix_cache.match(prompt, self.prefix_root(adapter))
+        split = next((i for i, n in enumerate(walked) if n.spilled),
+                     len(walked))
+        tail = walked[split:]
+        if not tail:
+            return 0
+        headroom = (self.arena.grantable()
+                    - self.prefix_cache.evictable_blocks())
+        if headroom <= 0:
+            return 0
+        self._trace_ctx = trace_id
+        restored = self._restore_nodes(tail[:headroom])
+        if restored:
+            metrics.bump("disagg.prefetched_blocks", restored)
+            telemetry.span(trace_id, telemetry.PREFETCHED, blocks=restored)
+        return restored
 
     # ----------------------------------------------------- slot lifecycle
 

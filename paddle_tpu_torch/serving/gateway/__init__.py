@@ -23,8 +23,9 @@ the replica router, tenant quotas and the HTTP/SSE front door over
   terminal ones answer from a result cache); :mod:`.wal_harness` boots a
   WAL-backed gateway in a process of its own.
 
-Names are loaded on first use, as the JAX package does. Disaggregated
-serving is not ported yet.
+Names are loaded on first use, as the JAX package does. The role-typed
+fleet over :class:`ProcessReplicaPool` (disaggregated prefill and decode) is
+``paddle_tpu_torch.serving.disagg``.
 """
 from __future__ import annotations
 

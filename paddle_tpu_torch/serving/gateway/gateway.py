@@ -701,10 +701,17 @@ def serve(model, replicas: Optional[int] = None,
     on ``FLAGS_gateway_wal_dir``, opened (and replayed) before the pool
     exists; ``/healthz`` answers 503 "recovering" until the replayed
     streams are back on replicas. A ``wal=`` in ``pool_kw`` is used as
-    given."""
+    given. With process replicas and both ``FLAGS_gateway_prefill_replicas``
+    and ``FLAGS_gateway_decode_replicas`` above 0 the pool is the role-typed
+    :class:`~..disagg.DisaggReplicaPool` (disaggregated prefill and decode;
+    ``replicas`` is ignored there: the role counts are the fleet)."""
     pool_cls = ReplicaPool
     if flags.flag("gateway_process_replicas"):
         from .procpool import ProcessReplicaPool as pool_cls
+        if (int(flags.flag("gateway_prefill_replicas")) > 0
+                and int(flags.flag("gateway_decode_replicas")) > 0):
+            from ..disagg import DisaggReplicaPool as pool_cls
+            replicas = None
     wal = pool_kw.pop("wal", None)
     if wal is None and flags.flag("gateway_wal"):
         from .wal import GatewayWAL

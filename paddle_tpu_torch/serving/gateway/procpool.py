@@ -489,6 +489,16 @@ class WorkerHandle:
             raise type(cause)(str(cause))
         return req
 
+    def prefetch(self, prompt, trace_id: str = "", adapter: int = 0) -> int:
+        """Restore-ahead: ask the worker to restore ``prompt``'s published
+        chain under ``adapter``'s root into its arena
+        (``ServingAPI.prefetch``, bounded there). Returns the blocks
+        restored."""
+        resp = self._call("prefetch", {
+            "prompt": [int(t) for t in np.asarray(prompt).reshape(-1)],
+            "trace_id": str(trace_id), "adapter": int(adapter)})
+        return int(resp.get("blocks", 0))
+
     def poll(self) -> None:
         """One progress cycle: send each request's offset, fold the token
         tails, terminal states and spans back in. Serialised whole: two
@@ -773,7 +783,8 @@ class ProcessReplicaPool(ReplicaPool):
     def _payload_for(self, idx: int) -> dict:
         """The spawn payload of replica ``idx``, made at the first spawn:
         a model instance is written to the weights file then, once. (The
-        seam where a role-typed pool would give each role its own.)"""
+        seam where ``disagg.DisaggReplicaPool`` gives each role its own
+        flag snapshot.)"""
         with self._payload_lock:
             if self._payload is None:
                 self._payload = self._make_payload()

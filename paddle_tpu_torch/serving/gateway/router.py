@@ -629,10 +629,11 @@ class ReplicaPool:
         shedding: the request was accepted once already."""
         candidates = self._candidates(rr)
         last_exc: Optional[BaseException] = None
+        budget = self._backend_budget(rr, journal)
         for rep in candidates:
             try:
                 backend = rep.api.submit(
-                    rr.prompt, max_new_tokens=rr.max_new_tokens,
+                    rr.prompt, max_new_tokens=budget,
                     stop_token_id=rr.stop_token_id,
                     timeout=(None if rr.deadline.expires_at is None
                              else max(0.001, rr.deadline.remaining())),
@@ -657,6 +658,15 @@ class ReplicaPool:
         raise last_exc if last_exc is not None else NoHealthyReplicaError(
             "no healthy serving replica (all ejected, draining, or "
             "removed); retry after the respawn backoff")
+
+    def _backend_budget(self, rr: RoutedRequest,
+                        journal: Optional[Sequence[int]]) -> int:
+        """The ``max_new_tokens`` a placement's backend submit gets: the
+        request's whole budget here; a role-typed pool caps a prefill-phase
+        placement at its first token (``disagg.pool``). Never changes
+        ``rr.max_new_tokens``: completion compares the journal with the
+        request's budget, not with one placement's."""
+        return rr.max_new_tokens
 
     def _candidates(self, rr: RoutedRequest) -> List[_Replica]:
         """Routable replicas, best first: least outstanding work, the
@@ -1046,9 +1056,10 @@ class ReplicaPool:
         journal. It keeps its id, trace, pinned seed and a walker built
         from its spec; its tenant is charged again (rebuilding the buckets
         the crash lost), and a quota shed at recovery leaves it alive and
-        uncharged rather than dropping an accepted request. (A ``HANDOFF``
-        phase is for disaggregated serving, which this package does not
-        have: the stream prefills its journal.)"""
+        uncharged rather than dropping an accepted request. A stream whose
+        log holds a ``HANDOFF`` comes back in its decode phase: a
+        disaggregated pool restores its published chain, never
+        re-prefilling it from the start (other pools ignore the phase)."""
         rid = rec["rid"]
         sampling = None
         if rec.get("samp"):
@@ -1081,6 +1092,8 @@ class ReplicaPool:
         rr._wal_accepted = True     # ...and the ACCEPTED record
         if not charged:
             rr._released = True     # never charged, never released
+        if rec.get("phase") == "decode":
+            rr._disagg_phase = "decode"  # restore, do not re-prefill
         telemetry.span(rr.trace_id, telemetry.RECOVERED,
                        request_id=rid, tenant=rr.tenant,
                        journal_tokens=len(toks))

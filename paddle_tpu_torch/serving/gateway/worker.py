@@ -24,9 +24,10 @@ Boot (driven by ``procpool.WorkerHandle.spawn``):
    ``hello`` frame with its pid, slots and vocabulary, or the typed boot
    error. The kernels come from the build directory on disk: a worker
    never runs ``nvcc`` on its boot clock when the parent built them;
-4. the main thread serves the calls (``submit`` / ``poll`` / ``cancel`` /
-   ``drain`` / ``stats`` / ``reset_launches`` / ``register_adapter`` /
-   ``inject_fault`` / ``hang`` / ``shutdown``) while a heartbeat thread
+4. the main thread serves the calls (``submit`` / ``prefetch`` / ``poll`` /
+   ``cancel`` / ``drain`` / ``stats`` / ``reset_launches`` /
+   ``register_adapter`` / ``inject_fault`` / ``hang`` / ``shutdown``)
+   while a heartbeat thread
    pushes a frame every ``FLAGS_gateway_heartbeat_interval`` seconds with
    the outstanding count, the crash-loop breaker and the telemetry spans
    recorded since the last frame (:func:`~..telemetry.events_since`; the
@@ -461,6 +462,14 @@ class _WorkerServer:
         self.reqs[rid] = req
         return {"rid": rid}
 
+    def _op_prefetch(self, msg: dict) -> dict:
+        # restore-ahead: a queued request's published chain into this
+        # worker's arena, bounded here (never starves admission)
+        return {"blocks": int(self.api.prefetch(
+            np.asarray(msg["prompt"], np.int64),
+            trace_id=str(msg.get("trace_id", "")),
+            adapter=int(msg.get("adapter", 0))))}
+
     def _op_poll(self, msg: dict) -> dict:
         # acknowledged reap: a finished request is dropped only when the
         # parent's next poll lists it in ``done`` (it applied the terminal
@@ -522,7 +531,16 @@ class _WorkerServer:
                           "decode_traces": eng.decode_traces,
                           "prefill_traces": sum(eng.prefill_traces.values()),
                           "prefix_prefill_traces":
-                              sum(eng.prefix_prefill_traces.values())},
+                              sum(eng.prefix_prefill_traces.values()),
+                          "restore_traces": eng.restore_traces},
+               # the tier namespace (a hash of the arena's signature, the
+               # weights' fingerprint in it) and the fingerprint's seconds
+               "tier": {"namespace": (None if eng.tier is None
+                                      else eng.tier.namespace),
+                        "fingerprint_s": eng.fingerprint_seconds},
+               # the engine's latency histograms as [samples, seconds]
+               "latency": {name: [h.n, h.total]
+                           for name, h in eng.hists.snapshot().items()},
                "launches": {**paged_attention.launches,
                             **sampling.launches},
                "imports": sorted(m for m in ("jax", "paddle_tpu")

@@ -32,7 +32,16 @@ when the write-through copy was gone) / ``restored_blocks`` /
 node whose entry was lost: recomputed), ``host_evictions`` /
 ``host_drops`` (past the host budget, with and without a disk tier),
 ``disk_writes`` / ``disk_evictions`` / ``disk_write_failed`` /
-``disk_corrupt``),
+``disk_corrupt``, ``published_blocks``: write-throughs put on the disk tier
+at once under ``FLAGS_serving_tier_publish``), ``disagg.*``
+(disaggregated serving, ``serving.disagg``: ``handoffs`` (prefill-phase
+finishes re-routed to the decode role with their first token) /
+``prefill_routes`` / ``decode_routes`` / ``degraded_routes`` (a phase whose
+role had no routable worker, served end to end by any) / ``prefetches``
+(restore-ahead calls the planner fired) / ``prefetched_chains`` (of them,
+calls that restored a block) / ``prefetched_blocks`` (blocks a worker's
+``ServingEngine.prefetch`` restored); ``disagg.prefill_ejections`` /
+``disagg.decode_ejections`` are in ``core.resilience``),
 ``api.*`` (``drains`` / ``drain_stragglers``: drains and the requests
 they failed; ``guard_drains``: drains a bound ``PreemptionGuard`` started;
 ``recoveries``: pump steps the supervisor recovered), ``supervisor.*``

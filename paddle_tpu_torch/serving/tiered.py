@@ -18,7 +18,12 @@ its spilled copy in host RAM or on disk. HBM, then host RAM, then disk:
   atomic tmp + ``os.replace`` files with a crc32 header; a corrupt or
   truncated file is deleted and reads as a miss (the prefix is recomputed,
   never served from damaged bytes). The directory is scanned at start, so
-  the tier survives the process.
+  the tier survives the process, and processes may share it: each writer
+  fills a temporary file of its own (process and thread id in its name),
+  so two writers of one key never share an inode. With
+  ``FLAGS_serving_tier_publish`` a write-through also lands on disk at once
+  (``HostKVCache.ensure(publish=True)``): how a disaggregated prefill
+  worker hands its chain to the decode workers.
 * **Restore**: a radix hit on a spilled node takes a fresh arena block and
   writes the host rows into it through one captured program per engine
   (``ServingEngine._restore_nodes``): the destination ids are data, so
@@ -162,12 +167,35 @@ def _unpack_body(body: bytes) -> list:
                 for li in range(layers)]
 
 
+def _tmp_writer_alive(name: str) -> bool:
+    """Whether the process that named the temporary file ``name``
+    (:meth:`DiskTier._tmp_path`: ``<key>.kv.<pid>.<tid>.tmp``) still runs
+    on this host. A name of another form is not ours: counted alive, so
+    it is left alone."""
+    parts = name.split(".")
+    if len(parts) != 5 or parts[1] != "kv" or not parts[2].isdigit():
+        return True
+    try:
+        os.kill(int(parts[2]), 0)
+    except ProcessLookupError:
+        return False
+    except OSError:  # another user's process
+        pass
+    return True
+
+
 class DiskTier:
     """Content-addressed spill files under one directory
     (``paddle_tpu/serving/tiered.py:103``).
 
     Writes are atomic (a tmp file in the same directory, then
-    ``os.replace``) and every file carries a crc32 of its body: a load that
+    ``os.replace``); the tmp file is the writer's own (:meth:`_tmp_path`:
+    the JAX tier's one ``.tmp`` name per key lets two processes writing one
+    key fill one inode, so a reader may meet a torn file and the second
+    ``os.replace`` fails), and tmp files are never indexed; the scan at
+    construction deletes those of writers no longer alive on this host (a
+    writer killed between its write and its rename leaves one). Every file
+    carries a crc32 of its body: a load that
     fails the check (a torn write, bit rot, truncation) deletes the file
     and returns None, so the caller recomputes. The directory is scanned at
     construction, oldest first by mtime. Bounded by ``max_bytes``
@@ -193,12 +221,23 @@ class DiskTier:
                     found.append((st.st_mtime, name, st.st_size))
                 except OSError:
                     pass
+            elif name.endswith(".tmp") and not _tmp_writer_alive(name):
+                try:
+                    os.unlink(os.path.join(root, name))
+                except OSError:
+                    pass
         for _, name, size in sorted(found):
             self._sizes[name] = size
         self._publish()
 
     def _name(self, key: bytes) -> str:
         return key.hex() + ".kv"
+
+    @staticmethod
+    def _tmp_path(path: str) -> str:
+        """This writer's temporary file for ``path``: unique to the process
+        and thread, and never ending in ``.kv`` (the scan skips it)."""
+        return f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
 
     def _publish(self) -> None:
         # the caller holds self._lock
@@ -227,7 +266,7 @@ class DiskTier:
         blob = _MAGIC + struct.pack("<I", zlib.crc32(body)) + body
         name = self._name(key)
         path = os.path.join(self.root, name)
-        tmp = path + ".tmp"
+        tmp = self._tmp_path(path)
         try:
             with open(tmp, "wb") as f:
                 f.write(blob)
@@ -366,18 +405,28 @@ class HostKVCache:
     def put(self, key: bytes, payload) -> None:
         self._insert(key, payload)
 
-    def ensure(self, key: bytes, reader: Callable[[], Payload]) -> int:
+    def ensure(self, key: bytes, reader: Callable[[], Payload],
+               publish: bool = False) -> int:
         """Make ``key`` resident in some tier; ``reader`` (one device-to-host
         copy) runs only when it is in none. Returns the bytes written (0:
-        already present)."""
+        already present). ``publish`` puts the bytes on the disk tier now,
+        not only at a host-LRU overflow (``tier.published_blocks``): other
+        processes share the directory, never this host dict. No-op without
+        a disk tier."""
         with self._lock:
-            present = self._host.get(key) is not None
-            if present:
+            payload = self._host.get(key)
+            if payload is not None:
                 self._host.move_to_end(key)
-        if present or (self.disk is not None and self.disk.has(key)):
-            return 0
-        payload = self._insert(key, reader())
-        return _payload_bytes(payload)
+        on_disk = self.disk is not None and self.disk.has(key)
+        written = 0
+        if payload is None and not on_disk:
+            payload = self._insert(key, reader())
+            written = _payload_bytes(payload)
+        if publish and self.disk is not None and not on_disk \
+                and payload is not None:
+            self.disk.put(key, payload)
+            metrics.bump("tier.published_blocks")
+        return written
 
     def _insert(self, key: bytes, payload) -> Payload:
         payload = pack(payload)
@@ -483,6 +532,12 @@ class TierView:
         self.disk_hits = 0
         self.misses = 0
 
+    @property
+    def namespace(self) -> str:
+        """The hash every key of this view is prefixed with, in hex: equal
+        across engines (and processes) whose signatures agree."""
+        return self._ns.hex()
+
     def _k(self, key: bytes) -> bytes:
         return self._ns + key
 
@@ -507,8 +562,10 @@ class TierView:
     def write_through(self, key: bytes,
                       reader: Callable[[], Payload]) -> None:
         """A freshly inserted prefix block lands in the host tier too, so a
-        later spill is free and a rebuilt engine can restore it."""
-        self.store.ensure(self._k(key), reader)
+        later spill is free and a rebuilt engine can restore it; under
+        ``FLAGS_serving_tier_publish`` on the disk tier at once as well."""
+        self.store.ensure(self._k(key), reader,
+                          publish=bool(flags.flag("serving_tier_publish")))
 
     def lookup(self, key: bytes) -> Optional[Payload]:
         """Load for a restore; None when the entry was lost. Counts the
