@@ -430,6 +430,30 @@ no result. Phases, in order; each raises on failure:
     published chains), ``scale_to(prefill=0)`` leaves unified routes;
     every stream equals ``generate()``; after ``close()`` no worker is
     alive and the minted disk directory is gone.
+18. The deploy path (``serve_export``, run last), bf16 ``gpt_1p3b`` at
+    full width and depth on phase 3's seeded weights, eval. 18a:
+    ``jit.save(model, prefix, input_spec=[InputSpec([None, None],
+    "int64")])`` under ``FLAGS_flash_attention_min_seqlen`` = 0 (the flash
+    forward enters the program as the registered op) and again at the auto
+    value (the plain route below 4608), each into ``build/export_chip``
+    (removed after), with the export's seconds and the bytes of
+    ``.pdmodel`` and ``.pdparams``; ``inference.create_predictor`` over
+    each at ``EXPORT_SHAPES`` ([2, 2048], [4, 512], and [3, 1000] and
+    [2, 5], outside ``_shapes_ok``, where eager takes the plain route and
+    the flash program the kernel): logits held to the eager model's (relative L2 within
+    ``ROUTE_TOL["bf16"][1]``; whether bit-equal is printed), the flash
+    program's runs at exactly 24 ``flash_forward`` launches each, the
+    auto program's at none; a predictor run's host ms beside the loaded
+    program's and the eager forward's, host and between CUDA events
+    (where the program's host time goes: ``tools/profile_export.py``).
+    18b: a ``to_static`` forward under
+    ``no_grad`` at [2, 2048] with the flag at 0, captured once
+    (``to_static.misses`` 1, hits on repeats), bit-equal to eager, 24
+    launches credited a replay; ``bucket_batch`` at batch 3 then 5 (seq
+    512) builds one graph, equal to eager within the same bound;
+    ``load_state_dict`` of other weights is followed with no rebuild,
+    ``load_state_dict(..., assign=True)`` rebuilds once and is followed;
+    eager against graphed forward ms.
 
 Each phase prints its seconds.
 
@@ -451,7 +475,9 @@ for the int8 rows; ``launches_lora`` phase 14a's wave 1, ``launches_tier``
 phase 14c's host-tier wave B, the int8 rows' over the int8 arena;
 ``launches_pool`` phase 15b's HTTP wave, both replicas'; ``launches_fleet``
 phase 16a's HTTP wave, summed over the two worker processes' own counts;
-``launches_disagg`` phase 17a's HTTP wave, per role and summed),
+``launches_disagg`` phase 17a's HTTP wave, per role and summed;
+the flash forward row's ``launches_export`` a run of phase 18a's flash
+program, ``launches_to_static`` a replay of 18b's graph),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
@@ -2579,14 +2605,21 @@ def flash_inputs(rng, b, sq, sk, h, d, dtype):
 
 # phase 7's edge checks of the tensor-core backward tiles (dK/dV: 128 keys
 # x 64-row query tiles; dQ: 128 rows x 64-key tiles): ragged tiles of 192,
-# causal offsets of +256 and -256 (rows with no key); a generator of their
-# own keeps the older checks' inputs
+# causal offsets of +256 and -256 (rows with no key), then lengths that are
+# no multiple of a tile (5, 77, 100, 300, 1000); a generator of their own
+# keeps the older checks' inputs
 FLASH_SHAPES = [(2, 2048, 2048, H, D, False), (2, 2048, 2048, H, D, True),
                 (2, 256, 256, 4, 64, True), (2, 256, 256, 4, 256, True),
                 (2, 256, 256, 4, 256, False), (2, 256, 128, 4, D, True)]
 FLASH_EDGES = [(2, 192, 192, 4, D, True), (2, 192, 192, 4, D, False),
                (2, 64, 320, 4, D, True), (2, 320, 64, 4, D, True),
-               (2, 192, 192, 4, 64, True)]
+               (2, 192, 192, 4, 64, True),
+               # ragged lengths, 5, 300 and 1000 outside ``_shapes_ok``:
+               # an exported program's symbolic length sends them to the
+               # kernels (18a)
+               (3, 77, 77, 4, D, True), (2, 5, 5, 4, D, True),
+               (3, 1000, 1000, 4, D, True), (2, 100, 300, 4, D, False),
+               (2, 300, 100, 4, 64, True), (2, 5, 5, 4, 64, False)]
 FLASH_SETS = ((3, FLASH_SHAPES), (7, FLASH_EDGES))  # (seed, shapes)
 
 
@@ -7275,6 +7308,249 @@ def serve_disagg(gpt, serving, pa, arrays, card, pool15, fleet16):
     return launches, out
 
 
+# ------------------------------------------------------------------ phase 18
+
+# 18a's predictor runs; the flag-0 program sends the lengths 1000 and 5
+# (outside ``_shapes_ok``) to the kernel where eager takes the plain route
+EXPORT_SHAPES = ((2, 2048), (4, 512), (3, 1000), (2, 5))
+EXPORT_DIR = os.path.join("build", "export_chip")
+STATIC_SHAPE = (2, 2048)               # 18b's captured forward
+BUCKET_BATCHES = (3, 5)                # 18b's bucketed batches, one bucket
+BUCKET_SEQ = 512
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def hold_logits(got, want, what, card):
+    """Logits against the eager model's on the same route: finite, the
+    same shape, relative L2 within ``ROUTE_TOL["bf16"][1]``; prints
+    whether they are bit-equal. Returns (relative L2, bit-equal)."""
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: logits {tuple(got.shape)} (want "
+                             f"{tuple(want.shape)}) or not finite")
+    err = rel_l2(got.float(), want.float())
+    same = bool(torch.equal(got.float(), want.float()))
+    print(f"e2e {what}: relative L2 {err:.3e} (bound "
+          f"{ROUTE_TOL['bf16'][1]:g}), bit-equal {same} [{card}]")
+    if err > ROUTE_TOL["bf16"][1]:
+        raise AssertionError(f"{what}: logits off the eager model's by "
+                             f"{err:.3e}")
+    return err, same
+
+
+def host_ms(fn, iters=5) -> float:
+    """Median host-clock ms of ``fn`` ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def device_ms(fn, iters=5) -> float:
+    """Median ms of ``fn`` between CUDA events on the current stream (no
+    flush: a forward reads far more than L2)."""
+    fn()
+    out = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def export_routes(model, fa, flags, jit, inference, card):
+    """18a: the model saved under the flag at 0 and at auto, each run by a
+    predictor at EXPORT_SHAPES against the eager model."""
+    layers = model.cfg.num_layers
+    rng = np.random.default_rng(18)
+    ids = [rng.integers(0, model.cfg.vocab_size, shape) for shape in
+           EXPORT_SHAPES]
+    out = {}
+    for flag, want in ((0, layers), (-1, 0)):
+        flags.set_flags({"FLAGS_flash_attention_min_seqlen": flag})
+        prefix = os.path.join(EXPORT_DIR, f"gpt_flag{flag}")
+        t0 = time.perf_counter()
+        jit.save(model, prefix, input_spec=[jit.InputSpec([None, None],
+                                                          "int64")])
+        save_s = time.perf_counter() - t0
+        sizes = {ext: os.path.getsize(prefix + ext)
+                 for ext in (".pdmodel", ".pdparams")}
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(
+            inference.Config(prefix + ".pdmodel"))
+        load_s = time.perf_counter() - t0
+        row = dict(save_s=round(save_s, 2), load_s=round(load_s, 2),
+                   **{f"bytes{ext.replace('.', '_')}": n
+                      for ext, n in sizes.items()})
+        print(f"e2e export flag {flag}: jit.save {save_s:.1f} s, .pdmodel "
+              f"{sizes['.pdmodel']} bytes, .pdparams {sizes['.pdparams']} "
+              f"bytes; predictor loaded in {load_s:.1f} s [{card}]")
+        for a, shape in zip(ids, EXPORT_SHAPES):
+            with torch.no_grad():
+                eager = model(torch.from_numpy(a).cuda()).float().cpu()
+            fa.reset_launches()
+            got = torch.from_numpy(pred.run([a])[0])
+            torch.cuda.synchronize()
+            n = fa.launches["flash_forward"]
+            if n != want or fa.launches["flash_backward_dkv"] \
+                    or fa.launches["flash_backward_dq"]:
+                raise AssertionError(f"export flag {flag} {shape}: launches "
+                                     f"{dict(fa.launches)}, want "
+                                     f"flash_forward {want}")
+            err, same = hold_logits(got, eager, f"export flag {flag} "
+                                    f"{list(shape)}", card)
+            x = torch.from_numpy(a).cuda()
+            ms = host_ms(lambda: pred.run([a]), iters=2)  # 0.2-0.5 s each
+            layer_ms = host_ms(lambda: pred._layer(x))
+            layer_dev = device_ms(lambda: pred._layer(x))
+            with torch.no_grad():
+                eager_ms = host_ms(lambda: model(x))
+                eager_dev = device_ms(lambda: model(x))
+            print(f"e2e export flag {flag} {list(shape)}: {n} flash_forward "
+                  f"launches a run; predictor.run {ms:.2f} ms (host, with "
+                  f"its copies: the logits to numpy), the loaded program on "
+                  f"a device input {layer_ms:.2f} ms host / {layer_dev:.2f} "
+                  f"ms between events, eager forward {eager_ms:.2f} / "
+                  f"{eager_dev:.2f} ms ({threading.active_count()} Python "
+                  f"threads alive) [{card}]")
+            row[str(list(shape))] = dict(
+                launches=n, rel_l2=err, bit_equal=same, run_ms=ms,
+                program_ms=layer_ms, program_event_ms=layer_dev,
+                eager_ms=eager_ms, eager_event_ms=eager_dev,
+                threads=threading.active_count())
+        out[f"flag {flag}"] = row
+        del pred
+        release()
+    return out
+
+
+def static_graphs(model, fa, flags, jit, compile_cache, card):
+    """18b: a to_static forward captured on the card, its buckets, and
+    weights loaded in place and replaced."""
+    layers = model.cfg.num_layers
+    flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+    rng = np.random.default_rng(19)
+    ids = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                        STATIC_SHAPE)).cuda()
+    fwd = jit.to_static(lambda x: model(x))
+    before = compile_cache.stats()
+    with torch.no_grad():
+        eager = model(ids)
+        first = fwd(ids)
+        fa.reset_launches()
+        again = fwd(ids)
+        torch.cuda.synchronize()
+        credited = dict(fa.launches)
+        fwd(ids)
+    moved = compile_cache.stats_delta(before, compile_cache.stats(),
+                                      drop_zero=True)
+    want = {"to_static.misses": 1, "to_static.hits": 2,
+            "to_static.captures": 1}
+    if {k: moved.get(k, 0) for k in want} != want or fwd.builds != 1:
+        raise AssertionError(f"to_static counters {moved}, builds "
+                             f"{fwd.builds}; want {want} and one build")
+    if credited != {"flash_forward": layers, "flash_backward_dkv": 0,
+                    "flash_backward_dq": 0}:
+        raise AssertionError(f"to_static replay credited {credited}, want "
+                             f"{layers} flash_forward launches")
+    for what, got in (("first call", first), ("replay", again)):
+        if not torch.equal(got, eager):
+            raise AssertionError(f"to_static {what} differs from eager by "
+                                 f"{rel_l2(got.float(), eager.float()):.3e}")
+    with torch.no_grad():
+        eager_ms = host_ms(lambda: model(ids))
+        graph_ms = host_ms(lambda: fwd(ids))
+        eager_dev = device_ms(lambda: model(ids))
+        graph_dev = device_ms(lambda: fwd(ids))
+    print(f"e2e to_static {list(STATIC_SHAPE)}: captured once "
+          f"({moved}), bit-equal to eager, {layers} flash_forward launches "
+          f"credited a replay; eager {eager_ms:.2f} ms, graphed "
+          f"{graph_ms:.2f} ms (host, median of 5; between events "
+          f"{eager_dev:.2f} / {graph_dev:.2f}) [{card}]")
+    out = dict(counters=moved, launches=credited["flash_forward"],
+               eager_ms=eager_ms, graph_ms=graph_ms,
+               eager_event_ms=eager_dev, graph_event_ms=graph_dev)
+
+    bucketed = jit.to_static(lambda x: model(x), bucket_batch=True)
+    errs = []
+    with torch.no_grad():
+        for b in BUCKET_BATCHES:
+            x = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                              (b, BUCKET_SEQ))).cuda()
+            got = bucketed(x)
+            errs.append(hold_logits(got, model(x), f"to_static bucket_batch "
+                                    f"{b} x {BUCKET_SEQ}", card))
+    if bucketed.builds != 1:
+        raise AssertionError(f"bucket_batch {BUCKET_BATCHES}: "
+                             f"{bucketed.builds} graphs, want 1")
+    out["bucket"] = dict(builds=bucketed.builds, readings=errs)
+    del bucketed
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    other = {k: v.roll(1, 0) for k, v in saved.items()}
+    with torch.no_grad():
+        for what, assign, builds in (("load_state_dict", False, 1),
+                                     ("load_state_dict(assign=True)", True,
+                                      2)):
+            model.load_state_dict(other if not assign else {
+                k: v.clone() for k, v in saved.items()}, assign=assign)
+            got = fwd(ids)
+            if fwd.builds != builds or not torch.equal(got, model(ids)):
+                raise AssertionError(f"to_static after {what}: builds "
+                                     f"{fwd.builds} (want {builds}), equal "
+                                     "to eager on the new weights: "
+                                     f"{torch.equal(got, model(ids))}")
+            print(f"e2e to_static after {what}: {fwd.builds} build(s), "
+                  f"bit-equal to eager on the new weights [{card}]")
+    out["builds_after_assign"] = fwd.builds
+    return out
+
+
+def serve_export(gpt, fa, arrays, card):
+    """Phase 18: 18a and 18b on bf16 gpt_1p3b. Returns the flash forward's
+    launches a run of 18a's flash program and a replay of 18b's graph, and
+    the numbers."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.core import compile_cache, flags
+
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    model.to(torch.bfloat16)
+    model.eval()
+    old = flags.get_flags(["FLAGS_flash_attention_min_seqlen"])
+    try:
+        t0 = time.perf_counter()
+        out = {"export": export_routes(model, fa, flags, jit, inference,
+                                       card)}
+        print(f"phase 18a: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        out["to_static"] = static_graphs(model, fa, flags, jit,
+                                         compile_cache, card)
+        print(f"phase 18b: {time.perf_counter() - t0:.1f} s")
+    finally:
+        flags.set_flags(old)
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    del model
+    release()
+    print("phase 18, one call: " + json.dumps(out) + f" [{card}]")
+    launches = {"launches_export": out["export"]["flag 0"][
+        str(list(EXPORT_SHAPES[0]))]["launches"],
+        "launches_to_static": out["to_static"]["launches"]}
+    return launches, out
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -7399,6 +7675,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt = t("12b", checkpoint_resume, arrays, train, functional, card)
     lbfgs = t("12d", lbfgs_full, arrays, train, card)
+    export_launches, _ = t("18", serve_export, gpt, fa, arrays, card)
     print(json.dumps({"training_loop": dict(fit=fit, checkpoint=ckpt,
                                             lbfgs=lbfgs,
                                             optimizer_updates=family)}))
@@ -7431,6 +7708,7 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     **({"launches_f32": launches_f32[name]}
                        if name in FLASH else {}),
+                    **(export_launches if name == "flash_forward" else {}),
                     **({"launches_prefix": prefix_launches[name],
                         "launches_recovery": recovery_launches[name]}
                        if name in PAGED[:2] + SAMPLING else {}),

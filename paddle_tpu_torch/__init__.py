@@ -11,7 +11,7 @@ raises when CUDA is missing and runs on the CPU only when asked
 PyTorch versions.
 """
 
-from . import device, inference
+from . import device, inference, jit, static
 from .framework.io import load, save
 
-__all__ = ["save", "load", "device", "inference"]
+__all__ = ["save", "load", "device", "inference", "jit", "static"]

@@ -9,11 +9,20 @@ engine counts their builds under the JAX package's keys,
 ``serving.decode_compiles`` and ``serving.prefill_compiles``, and each
 whole-prompt prefill per bucket (``serving.prefill_bucket.<n>``) and chunk
 per suffix bucket (``serving.suffix_prefill_bucket.<n>``).
+
+``jit.to_static`` counts under the JAX package's keys too: a call
+signature's first run (``to_static.misses``), its later runs
+(``to_static.hits``), the calls that ran on autograd's tape
+(``to_static.taped_calls``) and the inputs :func:`pad_to_bucket` padded
+(``bucket.padded``).
 """
 from __future__ import annotations
 
 import threading
 from typing import Dict, Optional
+
+import numpy as np
+import torch
 
 from . import flags
 
@@ -30,6 +39,11 @@ def bump(key: str, n: int = 1) -> None:
 def stats() -> dict:
     with _lock:
         return dict(_counts)
+
+
+def reset_stats() -> None:
+    with _lock:
+        _counts.clear()
 
 
 def stats_delta(before: dict, after: dict, *, drop_zero: bool = False) -> dict:
@@ -62,6 +76,15 @@ def bucket_dim(n: int, min_bucket: Optional[int] = None) -> int:
     return mid if mid >= n else p
 
 
+def bucket_shape(shape, axes=(0,), min_bucket: Optional[int] = None):
+    """Bucketed copy of ``shape``: the listed axes rounded up through
+    :func:`bucket_dim`."""
+    shape = tuple(int(s) for s in shape)
+    axes = {a % len(shape) for a in axes} if shape else set()
+    return tuple(bucket_dim(s, min_bucket) if i in axes else s
+                 for i, s in enumerate(shape))
+
+
 def prefill_bucket(n: int, max_len: Optional[int] = None,
                    min_bucket: Optional[int] = None) -> int:
     """Prompt-length bucket of the serving engine's prefill: the
@@ -73,3 +96,21 @@ def prefill_bucket(n: int, max_len: Optional[int] = None,
     if max_len is not None:
         b = min(b, int(max_len))
     return max(b, int(n))
+
+
+def pad_to_bucket(x, axis: int = 0, min_bucket: Optional[int] = None):
+    """Zero-pad ``x`` (a torch tensor or numpy array) along ``axis`` up to
+    its bucket. Returns ``(padded, original_size)``; the same object when
+    it is already at a bucket."""
+    n = x.shape[axis]
+    b = bucket_dim(n, min_bucket)
+    if b == n:
+        return x, n
+    shape = list(x.shape)
+    shape[axis] = b - n
+    if isinstance(x, np.ndarray):
+        padded = np.concatenate([x, np.zeros(shape, x.dtype)], axis=axis)
+    else:
+        padded = torch.cat([x, x.new_zeros(shape)], dim=axis)
+    bump("bucket.padded")
+    return padded, n

@@ -78,6 +78,10 @@ define_flag("flash_attention_min_seqlen", -1)
 define_flag("trainstep_sentinel", 1)
 # Smallest shape bucket: dims at or below this share one bucket.
 define_flag("shape_bucket_min", 8)
+# jit.to_static pads the shared leading (batch) dim of its inputs up to its
+# bucket on the non-taped path and slices the outputs back, so variable
+# batch sizes share one captured graph (bucket_batch= overrides it).
+define_flag("shape_bucketing", False)
 # Default decode-slot count of a ServingEngine: the batch dimension of its
 # decode step.
 define_flag("serving_slots", 8)

@@ -16,6 +16,12 @@ installed). ``return_numpy=False`` gives CPU torch tensors;
 ``return_numpy=True`` numpy arrays, bfloat16 ones as float32 (exact).
 Unpickle only files this program or the JAX package wrote: unpickling can
 run code.
+
+:func:`save_arrays` writes the other form the JAX package writes, that of
+``jit.save``'s ``.pdparams``: a plain pickle of ``{name: ndarray}``, a
+bfloat16 tensor pickled as an ``ml_dtypes.bfloat16`` array, byte for byte
+what numpy and ``ml_dtypes`` would write (``ml_dtypes`` need not be
+installed to write it), so ``pickle.load`` in the JAX package reads it.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import torch
 
 from ..core import resilience
 
-__all__ = ["save", "load"]
+__all__ = ["save", "load", "save_arrays"]
 
 
 class _TensorPayload:
@@ -147,3 +153,54 @@ def load(path, **configs):
     with open(path, "rb") as f:
         obj = _Unpickler(_io.BufferedReader(f)).load()
     return _from_saveable(obj, return_numpy)
+
+
+class _Bf16Array:
+    """A bfloat16 tensor to pickle as an ``ml_dtypes.bfloat16`` array."""
+
+    __slots__ = ("tensor",)
+
+    def __init__(self, tensor):
+        self.tensor = tensor
+
+
+_BF16_DTYPE = _Bf16Dtype()
+_RECONSTRUCT = np.zeros(0).__reduce__()[0]  # numpy's _reconstruct
+
+
+class _ArrayPickler(pickle._Pickler):
+    """The pure-Python pickler, which lets a reduce name a class this
+    process need not import: ``ml_dtypes.bfloat16`` stands as
+    :class:`_Bf16`."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, _Bf16Array):
+            t = obj.tensor
+            raw = t.contiguous().view(torch.int16).numpy().tobytes()
+            return (_RECONSTRUCT, (np.ndarray, (0,), b"b"),
+                    (1, tuple(t.shape), _BF16_DTYPE, False, raw))
+        if obj is _BF16_DTYPE:
+            return (np.dtype, (_Bf16, False, True),
+                    (3, "<", None, None, None, 2, 2, 64))
+        return NotImplemented
+
+    def save_global(self, obj, name=None):
+        if obj is not _Bf16:
+            return super().save_global(obj, name)
+        self.save("ml_dtypes")
+        self.save("bfloat16")
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def save_arrays(state, path) -> None:
+    """Pickle ``{name: tensor}`` as ``{name: ndarray}`` to ``path``
+    atomically (see the module docstring)."""
+    arrays = {}
+    for k, v in state.items():
+        t = v.detach().cpu()
+        arrays[k] = (_Bf16Array(t) if t.dtype == torch.bfloat16
+                     else t.numpy())
+    resilience.atomic_write(
+        path, lambda f: _ArrayPickler(f, protocol=4).dump(arrays),
+        name="jit.save")

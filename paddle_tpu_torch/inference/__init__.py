@@ -4,19 +4,24 @@
 ``Config(model_path)`` keeps the reference's path conventions (a
 ``.pdmodel`` / ``.pdiparams`` / ``.pdparams`` file or its prefix, or a
 directory holding exactly one ``.pdmodel``) and its knobs: ``enable_use_gpu``
-picks the CUDA device, ``enable_serving_engine`` routes the predictor
+picks the CUDA device, ``disable_gpu`` the CPU (the plain versions of the
+kernels, for tests), ``enable_serving_engine`` routes the predictor
 through the continuous-batching engine, and the rest are accepted no-ops.
 The requested placement is logged once per (requested, actual) pair and
 maps to a torch device: ``"cuda:<device_id>"`` after ``enable_use_gpu``,
-else the port's default device (``"cuda"``); an ``enable_serving_engine``
-``device=`` argument overrides both (``"cpu"`` runs the plain versions of
-the kernels, for tests).
+``"cpu"`` after ``disable_gpu``, else the port's default device
+(``"cuda"``); an ``enable_serving_engine`` ``device=`` argument overrides
+them.
 
 ``create_predictor(config)`` after ``config.enable_serving_engine(model=
-...)`` returns :class:`paddle_tpu_torch.serving.EnginePredictor`. The
-exported-program route (the JAX ``Predictor`` over ``jit.load`` of a
-``.pdmodel``) needs ``jit.save`` / ``jit.load``, which the port does not
-have yet: it raises ``NotImplementedError``.
+...)`` returns :class:`paddle_tpu_torch.serving.EnginePredictor`; without
+it, a :class:`Predictor` over the exported program of
+``config.model_prefix`` (``jit.save``'s ``.pdmodel``, run by ``jit.load``'s
+``TranslatedLayer``), with the JAX ``Predictor``'s names and handles
+(``paddle_tpu/inference/__init__.py:130-168``): inputs ``input_0``, ...,
+outputs ``output_0``, ..., ``run()`` over the handles' arrays or
+``run(inputs)`` returning the outputs as numpy arrays (bfloat16 ones as
+float32, exactly).
 """
 from __future__ import annotations
 
@@ -25,10 +30,11 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..core import device as device_mod
 
-__all__ = ["Config", "PredictorTensor", "create_predictor"]
+__all__ = ["Config", "Predictor", "PredictorTensor", "create_predictor"]
 
 _logger = logging.getLogger("paddle_tpu_torch.inference")
 _logged_placements: set = set()
@@ -68,6 +74,10 @@ class Config:
         allocator's business and is ignored)."""
         self._device = ("gpu", int(device_id))
 
+    def disable_gpu(self):
+        """Run on the CPU: the plain versions of the kernels."""
+        self._device = ("cpu", 0)
+
     def _resolve_placement(self) -> str:
         """The torch device the predictor runs on, logged once per
         (requested, actual) pair."""
@@ -75,7 +85,8 @@ class Config:
         if serving.get("engine_kw", {}).get("device") is not None:
             actual = str(serving["engine_kw"]["device"])
         elif self._device is not None:
-            actual = f"cuda:{self._device[1]}"
+            actual = ("cpu" if self._device[0] == "cpu"
+                      else f"cuda:{self._device[1]}")
         else:
             actual = device_mod.DEFAULT_DEVICE
         if self._device is None:
@@ -136,18 +147,56 @@ class PredictorTensor:
         return list(np.asarray(src).shape)
 
 
+class Predictor:
+    """The exported-program predictor: ``jit.load`` of the config's prefix
+    on the device the config resolves."""
+
+    def __init__(self, config: Config):
+        from ..jit import load as jit_load
+
+        self._layer = jit_load(config.model_prefix,
+                               device=config._resolve_placement())
+        self._inputs = {}
+        self._outputs = {}
+
+    def get_input_names(self):
+        return ["input_0"] if not self._inputs else sorted(self._inputs)
+
+    def get_output_names(self):
+        return sorted(self._outputs) or ["output_0"]
+
+    def get_input_handle(self, name: str) -> PredictorTensor:
+        return PredictorTensor(self, name)
+
+    def get_output_handle(self, name: str) -> PredictorTensor:
+        return PredictorTensor(self, name)
+
+    def run(self, inputs=None):
+        """Run the program on ``inputs`` (arrays in input order), or on the
+        input handles' arrays in name order; the outputs go to the output
+        handles and, when ``inputs`` were given, are returned."""
+        if inputs is not None:
+            arrs = [np.asarray(a) for a in inputs]
+        else:
+            arrs = [self._inputs[k] for k in sorted(self._inputs)]
+        out = self._layer(*arrs)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        # numpy has no bfloat16: such outputs come back as float32 (exact)
+        self._outputs = {f"output_{i}": (o.float() if o.dtype == torch.bfloat16
+                                         else o).cpu().numpy()
+                         for i, o in enumerate(outs)}
+        if inputs is not None:
+            return [self._outputs[k] for k in sorted(self._outputs)]
+        return None
+
+
 def create_predictor(config: Config):
     """The predictor of ``config``: after ``enable_serving_engine`` an
-    ``EnginePredictor`` over the slot engine, on the device
-    ``config`` resolves. Without it the exported-program route, which
-    raises ``NotImplementedError``: the port has no ``jit.load``."""
+    ``EnginePredictor`` over the slot engine, else a :class:`Predictor`
+    over the exported program; on the device ``config`` resolves."""
     opts = config._serving
     if opts is None:
-        raise NotImplementedError(
-            "create_predictor without enable_serving_engine() loads an "
-            f"exported program ({config.model_prefix or '<no path>'}"
-            ".pdmodel) through jit.load, which paddle_tpu_torch does not "
-            "have yet; call config.enable_serving_engine(model=...)")
+        return Predictor(config)
     if opts.get("model") is None:
         raise ValueError(
             "enable_serving_engine() needs an in-memory GPT model (pass "

@@ -327,6 +327,12 @@ class GPTModel(nn.Module):
         dev = input_ids.device
         steps = torch.arange(s, device=dev)
         if caches is None:
+            # the position table bounds the length; under torch.export this
+            # gives a symbolic length its range (the attention route reads it)
+            torch._check(s <= self.cfg.max_position_embeddings,
+                         lambda: f"sequence length {s} exceeds "
+                         "max_position_embeddings "
+                         f"{self.cfg.max_position_embeddings}")
             pos = steps
         elif isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1:
             # per-sequence positions [b] (each serving slot sits at its own

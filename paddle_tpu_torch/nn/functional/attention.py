@@ -7,7 +7,12 @@ routes as the JAX package does, with "the tensor is on CUDA" in place of
 ``FLAGS_flash_attention_min_seqlen`` (-1 = auto, 0 = always) a CUDA tensor
 takes the hand-written flash kernels (:mod:`paddle_tpu_torch.ops.
 flash_attention`); everything else takes :func:`_sdpa_reference`, the JAX
-package's own off-TPU math. Never calls torch's
+package's own off-TPU math. The route is decided when the Python runs,
+as the JAX package decides it at trace time: under ``torch.export`` a
+symbolic kv length takes the route its whole range takes (at the auto
+threshold, a range wholly below 4608 the plain route, wholly at or above
+it the kernels), and a range that straddles the threshold raises
+``ValueError``; the length is never specialized. Never calls torch's
 ``scaled_dot_product_attention``. Live dropout (``dropout_p`` while
 training) takes the plain route with the probabilities dropped after the
 softmax, never the flash kernels, and draws its key only then, as the JAX
@@ -39,7 +44,7 @@ def _sdpa_reference(q, k, v, *, scale, causal, dropout_p=0.0, key=None):
                            dropout_p, key)
 
 
-def _effective_min_seqlen(sk: int) -> int:
+def _effective_min_seqlen(sk) -> int:
     """The flash-routing threshold: an explicit flag value wins (0 = always
     flash); -1 (auto) is 4608, the JAX package's value without a tuning
     record."""
@@ -47,12 +52,32 @@ def _effective_min_seqlen(sk: int) -> int:
     return thr if thr >= 0 else _UNTUNED_MIN_SEQLEN
 
 
-def _use_flash(query, sk: int) -> bool:
+def _at_least(n, thr: int) -> bool:
+    """``n >= thr`` for a concrete length; for a symbolic one, the answer
+    its whole range in this trace gives, else ``ValueError``."""
+    if not isinstance(n, torch.SymInt):
+        return n >= thr
+    vr = n.node.shape_env.bound_sympy(n.node.expr)
+    lo, hi = vr.lower, vr.upper
+    if hi < thr:
+        return False
+    if lo >= thr:
+        return True
+    raise ValueError(
+        f"the flash route's threshold {thr} (FLAGS_flash_attention_min_"
+        f"seqlen) falls inside the kv length's range [{lo}, {hi}] of this "
+        "export: the two routes differ in numerics, and a traced program "
+        "takes one. Bound the length below the threshold (a model's "
+        "max_position_embeddings does), or set the flag to 0 (flash at "
+        "every length) or to a value outside the range before saving")
+
+
+def _use_flash(query, sk) -> bool:
     """Device + threshold gate: the flash kernels run only on CUDA."""
     if not query.is_cuda:
         return False
     thr = _effective_min_seqlen(sk)
-    return thr == 0 or sk >= thr
+    return thr == 0 or _at_least(sk, thr)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -75,7 +100,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _sdpa_reference(query, key, value, scale=scale,
                                causal=bool(is_causal), dropout_p=drop,
                                key=rng.next_key(query.device))
-    if _use_flash(query, int(key.shape[1])):
+    if _use_flash(query, key.shape[1]):
         return fa.flash_attention(query, key, value, scale=scale,
                                   causal=bool(is_causal))
     return _sdpa_reference(query, key, value, scale=scale,

@@ -11,13 +11,23 @@ it under the same signature:
 * :func:`flash_backward_dq` / :func:`flash_backward_dq_ref` -- ``dq``;
   replaces ``pallas_ops.py:_flash_bwd_dq_kernel``.
 
-:class:`FlashAttention` (a ``torch.autograd.Function``) stands for the
-``_flash_attention`` custom_vjp: its forward saves q, k, v, o and lse, its
-backward computes ``delta = rowsum(dO * O)`` in f32 with plain torch ops
-(the JAX package computes it outside the kernels too) and launches the
-dK/dV kernel, then the dQ kernel. :func:`flash_attention` is the public
-entry with the JAX package's ``_shapes_ok`` gate: other shapes take
-:func:`_attention_reference`, decided by shape alone.
+The forward is a registered op, ``torch.ops.paddle_tpu_torch.
+flash_forward`` (``torch.library.custom_op``): its CUDA implementation
+launches the kernel, its CPU implementation is :func:`flash_forward_ref`,
+a fake implementation gives ``torch.export`` and fake tensors its shapes,
+and its gradient (registered with ``register_autograd``) stands for the
+``_flash_attention`` custom_vjp: it computes ``delta = rowsum(dO * O)`` in
+f32 with plain torch ops (the JAX package computes it outside the kernels
+too) and launches the dK/dV kernel, then the dQ kernel. Eager training, a
+``to_static`` capture and an exported program all run this one op.
+:func:`flash_attention` is the public entry with the JAX package's
+``_shapes_ok`` gate: other shapes take :func:`_attention_reference`,
+decided by shape alone. A symbolic sequence length (an export's dynamic
+dim) takes the op whenever the head dim is one the kernels build: the
+kernels bound every tile by ``sq`` and ``sk`` (``chip_smoke.py`` holds
+them to the plain versions at lengths 5, 77, 100, 300 and 1000 in phase
+7, and runs an exported program at [3, 1000] and [2, 5] in phase 18),
+and a traced program cannot branch on the length.
 
 Layouts are the public ``[batch, seq, heads, head_dim]``; ``lse`` and
 ``delta`` are ``[batch, heads, sq]`` f32 (the TPU's 128-lane broadcast of
@@ -48,6 +58,7 @@ import torch
 from . import dropout as dropout_op
 
 __all__ = ["flash_attention", "FlashAttention", "flash_forward",
+           "flash_forward_op",
            "flash_backward_dkv", "flash_backward_dq", "flash_forward_ref",
            "flash_backward_dkv_ref", "flash_backward_dq_ref", "launches",
            "reset_launches", "load_kernels"]
@@ -253,11 +264,8 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
 
 
-def flash_forward(q, k, v, scale, causal):
-    """Blockwise attention with an online softmax: ``(o, lse)``, o
-    ``[b, sq, h, d]`` in q's dtype, lse ``[b, h, sq]`` f32."""
-    if q.device.type == "cpu":
-        return flash_forward_ref(q, k, v, scale, causal)
+def _flash_forward_cuda(q, k, v, scale, causal):
+    """The op's CUDA implementation: one launch of the forward kernel."""
     b, sq, sk, h, d = _check(q, k, v, ())
     q, k, v = (_rows16(t) for t in (q, k, v))
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -329,29 +337,64 @@ def flash_backward_dq(q, k, v, do, lse, delta, scale, causal):
 # --------------------------------------------------------------- public op
 
 
-class FlashAttention(torch.autograd.Function):
-    """The ``_flash_attention`` custom_vjp: forward through
-    :func:`flash_forward`, backward through :func:`flash_backward_dkv` and
+@torch.library.custom_op("paddle_tpu_torch::flash_forward", mutates_args=(),
+                         device_types="cpu")
+def flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, causal: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of the flash forward as a registered op; on the CPU the
+    plain version (contiguous copies: an op's outputs are fresh tensors)."""
+    o, lse = flash_forward_ref(q, k, v, scale, causal)
+    return o.contiguous(), lse.contiguous()
+
+
+flash_forward_op.register_kernel("cuda")(_flash_forward_cuda)
+
+
+@flash_forward_op.register_fake
+def _flash_forward_fake(q, k, v, scale, causal):
+    b, sq, h, d = q.shape
+    return (q.new_empty((b, sq, h, d)),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.scale, ctx.causal = scale, causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.scale,
+                                ctx.causal)
+    dq = flash_backward_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+flash_forward_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def flash_forward(q, k, v, scale, causal):
+    """Blockwise attention with an online softmax: ``(o, lse)``, o
+    ``[b, sq, h, d]`` in q's dtype, lse ``[b, h, sq]`` f32, through the
+    registered op (the kernel on CUDA, the plain version on the CPU)."""
+    return flash_forward_op(q, k, v, float(scale), bool(causal))
+
+
+class FlashAttention:
+    """The ``_flash_attention`` custom_vjp: ``apply`` gives o of the
+    registered op, whose gradient runs :func:`flash_backward_dkv` and
     :func:`flash_backward_dq`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        o, lse = flash_forward(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.causal = scale, causal
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.scale,
-                                    ctx.causal)
-        dq = flash_backward_dq(q, k, v, do, lse, delta, ctx.scale,
-                               ctx.causal)
-        return dq, dk, dv, None, None
+    def apply(q, k, v, scale, causal):
+        return flash_forward(q, k, v, scale, causal)[0]
 
 
 def _shapes_ok(q, k, blk=128) -> bool:
@@ -364,13 +407,25 @@ def _shapes_ok(q, k, blk=128) -> bool:
             and sq >= 8 and sk >= 8 and d in HEAD_DIMS)
 
 
+def _symbolic_lengths(q, k) -> bool:
+    """Whether a sequence length is symbolic (a dynamic dim under
+    ``torch.export``)."""
+    return isinstance(q.shape[1], torch.SymInt) or isinstance(
+        k.shape[1], torch.SymInt)
+
+
 def flash_attention(q, k, v, scale=None, causal=False):
     """Blockwise flash attention, layout ``[batch, seq, heads, head_dim]``,
-    differentiable through :class:`FlashAttention`. Shapes outside
+    differentiable through the registered op. Shapes outside
     :func:`_shapes_ok` take :func:`_attention_reference`, as in the JAX
-    package."""
+    package; a symbolic length takes the op at every head dim the kernels
+    build."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _shapes_ok(q, k):
+    if _symbolic_lengths(q, k):
+        ok = q.shape[-1] in HEAD_DIMS
+    else:
+        ok = _shapes_ok(q, k)
+    if not ok:
         return _attention_reference(q, k, v, scale, causal)
     return FlashAttention.apply(q, k, v, float(scale), bool(causal))

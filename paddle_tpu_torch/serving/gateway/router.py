@@ -643,8 +643,12 @@ class ReplicaPool:
                     constraint=rr.constraint, adapter=rr.adapter,
                     trace_id=rr.trace_id)
             except (resilience.QueueOverloadError,
-                    resilience.RequestDrainedError) as e:
-                last_exc = e  # this replica's condition: try the next
+                    resilience.RequestDrainedError,
+                    resilience.ServingDeviceError) as e:
+                # this replica's condition: try the next. A device error
+                # here is a worker process that died since the health
+                # check (a handoff racing its kill); the watchdog ejects it
+                last_exc = e
                 continue
             rr._attach(backend, rep, len(journal) if journal else 0)
             if rr._cancelled:

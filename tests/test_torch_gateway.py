@@ -467,6 +467,39 @@ def test_crash_loop_ejects_and_reroutes_token_for_token(model):
             pool.close()
 
 
+def test_route_passes_a_replica_whose_worker_died(model):
+    """A placement that meets a worker gone since its health check (its
+    ``submit`` raises ``WorkerDiedError``, a ``ServingDeviceError``: a
+    disaggregated handoff racing a decode worker's kill) tries the next
+    candidate, as a shedding replica's does; the JAX router fails the
+    request instead. Every stream ends on the live replica equal to
+    ``generate()``."""
+    from paddle_tpu_torch.serving.gateway.procpool import WorkerDiedError
+
+    pool = _pool(model, respawn_backoff=600)
+    try:
+        dead = pool._replica_at(0)
+
+        def gone(*a, **k):
+            raise WorkerDiedError("worker 0: connection lost")
+
+        dead.api.submit = gone
+        rng = np.random.default_rng(31)
+        prompts = [_prompt(rng, n) for n in (6, 9, 7)]
+        rrs = [pool.submit(p, max_new_tokens=4, tenant="x")
+               for p in prompts]
+        assert [rr._replica_idx for rr in rrs] == [1, 1, 1]
+        pool.run_until_idle(timeout=120)
+        for p, rr in zip(prompts, rrs):
+            assert rr.state == RequestState.FINISHED
+            np.testing.assert_array_equal(rr.output_ids(), _ref(model, p, 4))
+        pool._replica_at(1).api.submit = gone
+        with pytest.raises(WorkerDiedError):
+            pool.submit(prompts[0], max_new_tokens=4, tenant="x")
+    finally:
+        pool.close()
+
+
 def test_ejected_replica_respawns_after_backoff(model):
     with _flags(serving_max_rebuilds=1):
         pool = _pool(model, respawn_backoff=0.01)

@@ -5,8 +5,9 @@ CPU.
 ``Config``'s model-path parsing equals the JAX ``Config``'s; the serving
 route of ``create_predictor`` gives the JAX ``EnginePredictor``'s outputs
 and ``generate(stop_token_id=)``'s row for row; the exported-program route
-raises ``NotImplementedError`` (the port has no ``jit.load``); the placement
-maps to a torch device. A ``serving_step`` fault (an IO-class error) is
+loads the config's ``.pdmodel`` through ``jit.load`` (a missing one raises
+``FileNotFoundError`` in both packages; ``tests/test_torch_jit_export.py``
+runs saved programs); the placement maps to a torch device. A ``serving_step`` fault (an IO-class error) is
 retried around the step program's run as the JAX engine's ``_call`` retries
 it, with the same ``retry.*`` counts, no rebuild and the same streams, in
 the plain and the speculative engine; a fault that outlasts the policy
@@ -127,11 +128,16 @@ def test_config_switches_and_placement(model, caplog):
 
 
 def test_create_predictor_routes(model, jax_model):
-    """Without ``enable_serving_engine`` the exported-program route raises
-    NotImplementedError naming ``jit.load``; with it but no model, both
+    """Without ``enable_serving_engine`` the exported-program route loads
+    the prefix through ``jit.load``: a missing program raises
+    FileNotFoundError in both packages; with it but no model, both
     packages raise ValueError."""
-    with pytest.raises(NotImplementedError, match="jit.load"):
-        inference.create_predictor(inference.Config("some/model"))
+    cfg = inference.Config("some/model")
+    cfg.disable_gpu()
+    for mod, c in ((jax_inference, jax_inference.Config("some/model")),
+                   (inference, cfg)):
+        with pytest.raises(FileNotFoundError, match="some/model"):
+            mod.create_predictor(c)
     for mod, m in ((jax_inference, jax_model), (inference, model)):
         cfg = mod.Config()
         cfg.enable_serving_engine(model=None)
