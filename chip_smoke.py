@@ -389,7 +389,7 @@ no result. Phases, in order; each raises on failure:
     after the respawn within a worker's footprint of before), then
     ``worker_hang``, classified by heartbeat age, equal too; no tenant
     slot left in flight, no worker alive after ``close()``. 16c, the same
-    width and depth on the harness's own seeded weights
+    width cut to 2 layers (``WAL_MODEL``) on the harness's own seeded weights
     (``wal_harness.build_model``, which every incarnation and the
     reference call alike): ``paddle_tpu_torch.serving.gateway.wal_harness``
     on the card
@@ -401,7 +401,8 @@ no result. Phases, in order; each raises on failure:
     result cache. Each incarnation's boot and the replay's seconds are
     printed.
 17. Disaggregated prefill and decode (``serve_disagg``, run after phase
-    16). 17a, bf16 ``gpt_1p3b``: an in-process reference along the
+    16). 17a, bf16 ``gpt_1p3b`` cut to ``DISAGG_LAYERS`` (8) layers: an
+    in-process reference along the
     workers' path (engine P: chunks of ``DISAGG_CHUNK`` publishing into a
     disk directory of its own, one token a request; engine D, tiered on
     it: ``submit(prompt, journal=[first])``), then ``serve()`` with
@@ -430,8 +431,9 @@ no result. Phases, in order; each raises on failure:
     published chains), ``scale_to(prefill=0)`` leaves unified routes;
     every stream equals ``generate()``; after ``close()`` no worker is
     alive and the minted disk directory is gone.
-18. The deploy path (``serve_export``, run last), bf16 ``gpt_1p3b`` at
-    full width and depth on phase 3's seeded weights, eval. 18a:
+18. The deploy path (``serve_export``), bf16 ``gpt_1p3b`` at full width
+    cut to ``EXPORT_LAYERS`` (8) layers on phase 3's seeded weights of
+    those layers, eval. 18a:
     ``jit.save(model, prefix, input_spec=[InputSpec([None, None],
     "int64")])`` under ``FLAGS_flash_attention_min_seqlen`` = 0 (the flash
     forward enters the program as the registered op) and again at the auto
@@ -442,20 +444,60 @@ no result. Phases, in order; each raises on failure:
     [2, 5], outside ``_shapes_ok``, where eager takes the plain route and
     the flash program the kernel): logits held to the eager model's (relative L2 within
     ``ROUTE_TOL["bf16"][1]``; whether bit-equal is printed), the flash
-    program's runs at exactly 24 ``flash_forward`` launches each, the
+    program's runs at exactly one ``flash_forward`` launch a layer, the
     auto program's at none; a predictor run's host ms beside the loaded
     program's and the eager forward's, host and between CUDA events
     (where the program's host time goes: ``tools/profile_export.py``).
     18b: a ``to_static`` forward under
     ``no_grad`` at [2, 2048] with the flag at 0, captured once
-    (``to_static.misses`` 1, hits on repeats), bit-equal to eager, 24
-    launches credited a replay; ``bucket_batch`` at batch 3 then 5 (seq
+    (``to_static.misses`` 1, hits on repeats), bit-equal to eager, one
+    launch a layer credited a replay; ``bucket_batch`` at batch 3 then 5 (seq
     512) builds one graph, equal to eager within the same bound;
     ``load_state_dict`` of other weights is followed with no rebuild,
     ``load_state_dict(..., assign=True)`` rebuilds once and is followed;
     eager against graphed forward ms.
 
-Each phase prints its seconds.
+19. Tensor-parallel serving (``serve_tp``, run after phase 18). 19a, bf16
+    ``gpt_1p3b`` (phase 3's seeded weights), 8 slots, phase 6's greedy wave
+    (8 prompts of 512, 64 new): an engine without a mesh, then one on a
+    one-rank NCCL mesh (``serving_mesh(1, backend="nccl")``, on a copy of
+    the weights): each a priming wave, then the measured wave with the
+    launch counters set to 0. The mesh engine's NCCL all-reduces are
+    counted inside its captured decode and prefill graphs; its tokens,
+    every head call's logits (a device checksum of their bits) and the
+    last decode step's logits equal the engine's without a mesh bit for
+    bit; its graphs, builds and launches equal the other's; a churn wave
+    of other lengths in the same bucket builds nothing. 19c, where the
+    machine has the cards (else it prints that it did not run): NCCL at tp
+    = 2 and 4, one rank per card, graphs, on 19a's model and wave: the
+    last prefill's logits within ``ROUTE_TOL["bf16"]`` of 19a's engine
+    without a mesh, the greedy token agreement printed, every rank's
+    graphs and launches equal to that engine's, no build under churn.
+    19b, tp = 2 on the one card (rank 0 here, rank 1 a spawned process on
+    the same card, gloo over CUDA tensors; the mesh says gloo cannot be
+    captured, so the programs run uncaptured over the same static
+    buffers): f32 (TF32 off) at full width cut to ``POOL_F32[0]`` layers,
+    15c's prompts, a priming wave then the measured wave with both ranks'
+    launch counters set to 0: greedy tokens equal the one-rank engine's
+    token for token, each rank's launches equal its, each rank's weight
+    and arena bytes at most 0.55 of its, the follower imports no JAX; then
+    the int8 wave (``quant_weights``, ``quant_kv``, chunks of 256) on the
+    same cut, tp = 2 against one rank: tokens equal, each rank's launches
+    equal, the int8 kernels among them, the scale pools bit-equal on both
+    ranks (19c runs it too over NCCL on two cards, its max all-reduces
+    captured); then bf16 at 24 layers: the first token's logits within
+    ``ROUTE_TOL["bf16"]`` of the one-rank engine's, the wave's token
+    agreement printed, and the decode kernel at the rank's 8 heads of 128
+    on rank 0's pools against its plain version, timed beside its bound
+    and SDPA's time; last every paged kernel of the path (decode, suffix
+    and chunk prefill, whole-prompt prefill; f32 and bf16, full precision
+    and int8) at 8 and at 4 local heads against its plain version
+    (``tp_local_kernels``).
+
+Each phase prints its seconds. ``--phase 19`` runs the build and phase 19
+alone (a check of 19c on a machine with four cards) and ends on a line of
+its own, ``{"phase_only": "19", ...}``; any other argument is refused. The
+smoke run proper takes no arguments.
 
 Every serving engine is closed at the end of its phase
 (``ServingAPI.close``), which drops its graphs and their pool before the
@@ -477,7 +519,9 @@ phase 14c's host-tier wave B, the int8 rows' over the int8 arena;
 phase 16a's HTTP wave, summed over the two worker processes' own counts;
 ``launches_disagg`` phase 17a's HTTP wave, per role and summed;
 the flash forward row's ``launches_export`` a run of phase 18a's flash
-program, ``launches_to_static`` a replay of 18b's graph),
+program, ``launches_to_static`` a replay of 18b's graph; ``launches_tp``
+the measured waves of 19a, of 19b's f32 case and of 19b's int8 wave, per
+rank),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
@@ -6155,7 +6199,9 @@ WAL_STOP = 3
 WAL_SEEN = 8
 WAL_MAX_LEN = 2048               # the harness's max_model_len
 # the harness's --config, --layers, --dtype and --seed (build_model's)
-WAL_MODEL = ("gpt_1p3b", POOL_F32[0], "float32", 0)
+# 16c's model: gpt_1p3b's width cut to 2 layers (its three harness boots
+# and the reference build the seeded weights each; the checks need no depth)
+WAL_MODEL = ("gpt_1p3b", 2, "float32", 0)
 
 
 def free_bytes():
@@ -6640,7 +6686,7 @@ def healthz_until_ok(base, timeout=120.0):
 
 def wal_restart(serving, card):
     """Phase 16c (WAL_MODEL: f32, TF32 off, gpt_1p3b's width at
-    POOL_F32[0] layers):
+    WAL_MODEL[1] layers):
     ``wal_harness`` on the card, booted on ``build_model``'s seeded
     weights (the in-process reference calls it alike), serves greedy,
     seeded-sampled and constrained streams (WAL_STREAMS), is SIGKILLed
@@ -6785,8 +6831,8 @@ def wal_restart(serving, card):
 
 
 def serve_fleet_wal(gpt, serving, pa, arrays, card, pool15):
-    """Phase 16: 16a on bf16 gpt_1p3b, 16b and 16c in f32 at
-    POOL_F32[0] layers. Returns 16a's launches (the workers' sum) and the
+    """Phase 16: 16a on bf16 gpt_1p3b, 16b in f32 at POOL_F32[0] layers,
+    16c at WAL_MODEL[1]. Returns 16a's launches (the workers' sum) and the
     numbers."""
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
     gpt.load_functional_state(model, arrays)
@@ -6823,6 +6869,10 @@ DISAGG_F32_CHUNK = 16
 DISAGG_KILL_LENS = [1000, 960, 920, 880, 840, 800, 760, 720]
 DISAGG_KILL_SEEN = 8
 DISAGG_DECODE_WORKERS = 2
+# 17a's model: bf16 gpt_1p3b at full width cut to 8 layers (its reference,
+# its weights file and both workers' boots and state fingerprints scale
+# with the depth; every check holds at any depth)
+DISAGG_LAYERS = 8
 
 
 def disagg_reference(model, serving, pa, waves, card):
@@ -6936,7 +6986,8 @@ def disagg_ttft(pool, sysp, vocab, card):
 
 
 def serve_disagg_bf16(model, serving, pa, card, pool15, fleet16):
-    """Phase 17a (bf16 gpt_1p3b): the reference of (f), then ``serve()``
+    """Phase 17a (bf16 gpt_1p3b cut to DISAGG_LAYERS layers): the reference
+    of (f), then ``serve()``
     with FLAGS_gateway_process_replicas and one prefill and one decode
     worker of POOL_SLOTS slots (chunks of DISAGG_CHUNK on the prefill
     role), both primed; 15b's wave through ``POST /v1/stream``, another
@@ -7287,11 +7338,14 @@ def serve_disagg_f32(gpt, serving, arrays, card):
 
 
 def serve_disagg(gpt, serving, pa, arrays, card, pool15, fleet16):
-    """Phase 17: 17a on bf16 gpt_1p3b, 17b in f32 at POOL_F32[0] layers.
-    Returns 17a's HTTP-wave launches (per role and summed) and the
-    numbers."""
-    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
-    gpt.load_functional_state(model, arrays)
+    """Phase 17: 17a on bf16 gpt_1p3b cut to DISAGG_LAYERS layers, 17b in
+    f32 at POOL_F32[0] layers. Returns 17a's HTTP-wave launches (per role
+    and summed) and the numbers."""
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=DISAGG_LAYERS)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    names = dict(model.named_parameters())
+    gpt.load_functional_state(model, {n: a for n, a in arrays.items()
+                                      if n in names})
     model.to(torch.bfloat16)
     release()
     t0 = time.perf_counter()
@@ -7313,6 +7367,7 @@ def serve_disagg(gpt, serving, pa, arrays, card, pool15, fleet16):
 # 18a's predictor runs; the flag-0 program sends the lengths 1000 and 5
 # (outside ``_shapes_ok``) to the kernel where eager takes the plain route
 EXPORT_SHAPES = ((2, 2048), (4, 512), (3, 1000), (2, 5))
+EXPORT_LAYERS = 8                      # phase 18's depth
 EXPORT_DIR = os.path.join("build", "export_chip")
 STATIC_SHAPE = (2, 2048)               # 18b's captured forward
 BUCKET_BATCHES = (3, 5)                # 18b's bucketed batches, one bucket
@@ -7519,14 +7574,17 @@ def static_graphs(model, fa, flags, jit, compile_cache, card):
 
 
 def serve_export(gpt, fa, arrays, card):
-    """Phase 18: 18a and 18b on bf16 gpt_1p3b. Returns the flash forward's
-    launches a run of 18a's flash program and a replay of 18b's graph, and
-    the numbers."""
+    """Phase 18: 18a and 18b on bf16 gpt_1p3b cut to EXPORT_LAYERS layers.
+    Returns the flash forward's launches a run of 18a's flash program and
+    a replay of 18b's graph, and the numbers."""
     from paddle_tpu_torch import inference, jit
     from paddle_tpu_torch.core import compile_cache, flags
 
-    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
-    gpt.load_functional_state(model, arrays)
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=EXPORT_LAYERS)
+    model = gpt.GPTForCausalLM(cfg, device="cuda")
+    names = dict(model.named_parameters())
+    gpt.load_functional_state(model, {n: a for n, a in arrays.items()
+                                      if n in names})
     model.to(torch.bfloat16)
     model.eval()
     old = flags.get_flags(["FLAGS_flash_attention_min_seqlen"])
@@ -7551,6 +7609,653 @@ def serve_export(gpt, fa, arrays, card):
     return launches, out
 
 
+# ------------------------------------------------------------------ phase 19
+# tensor-parallel serving: 19a tp = 1 over NCCL with its collectives in the
+# captured graphs, 19b tp = 2 as two ranks on the one card over gloo (CUDA
+# tensors, programs uncaptured), 19c NCCL at tp = 2 and 4, one rank per card
+TP_SLOTS = 8
+TP_WAVE = (512, 64)        # 19a's wave: phase 6's greedy wave (8 x 512, 64)
+TP_CHURN = ([400, 512, 420, 390, 505, 433, 470, 460], 16)  # bucket 512
+TP_BF16_NEW = 16           # 19b's bf16 wave: TP_WAVE's prompts, 16 new
+TP_TIMEOUT = 120.0         # the mesh's collective and control timeout, s
+TP_POS = TP_WAVE[0] + TP_WAVE[1] // 2   # 19b's decode timing positions
+
+
+class LogitSink:
+    """Watches a model's head (``_head_logits``, which the serving
+    programs call): every call adds the bits of its logits to a device
+    checksum and copies them into a buffer kept per row count, both made
+    before any capture, so a captured program's replays update them too."""
+
+    def __init__(self, model, vocab, rows=(TP_SLOTS, 1), dtype=None):
+        self.model = model
+        self.head = model._head_logits
+        dtype = dtype or model.gpt.wte.weight.dtype
+        self.bits = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.last = {r: torch.zeros((r, vocab), dtype=dtype, device="cuda")
+                     for r in rows}
+        model._head_logits = self
+
+    def __call__(self, h):
+        out = self.head(h)
+        view = torch.int16 if out.element_size() == 2 else torch.int32
+        self.bits.add_(out.view(view).to(torch.int64).sum())
+        self.last[out.shape[0]].copy_(out)
+        return out
+
+    def detach(self):
+        del self.model._head_logits
+
+
+def count_captured_collectives():
+    """Counts every all-reduce the parallel layers and the int8 arena's
+    scale reduction issue, by whether a CUDA graph is being captured on the
+    current stream: ``(counts, undo)``; ``counts["max"]`` the captured
+    max-reductions (the int8 scales') among ``counts["captured"]``."""
+    from paddle_tpu_torch.distributed import collective
+
+    real = collective.all_reduce
+    counts = {"captured": 0, "eager": 0, "max": 0}
+
+    def counting(t, group, op="sum"):
+        key = ("captured" if torch.cuda.is_current_stream_capturing()
+               else "eager")
+        counts[key] += 1
+        counts["max"] += key == "captured" and op == "max"
+        return real(t, group, op)
+
+    collective.all_reduce = counting
+
+    def undo():
+        collective.all_reduce = real
+    return counts, undo
+
+
+def tp_prompts(vocab, lens, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n) for n in lens]
+
+
+def rank_bytes(model, eng):
+    """A rank's weight bytes (parameters and buffers) and arena bytes."""
+    return (tensor_bytes(list(model.parameters()) + list(model.buffers())),
+            eng.arena.bytes_total())
+
+
+def tp_reference(model, serving, pa, prompts, news, what, card, prime=True,
+                 **kw):
+    """One engine without a mesh over ``prompts`` (``kw``: the config's
+    other fields): a priming wave (every program built), then the measured
+    wave with the launch counters set to 0 just before. Returns the tokens,
+    launches, engine facts, the logit sink's checksum and the int8 scale
+    pools' digest."""
+    from paddle_tpu_torch.serving import tp as tpmod
+
+    vocab = model.cfg.vocab_size
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=TP_SLOTS, **kw), device="cuda")
+    sink = LogitSink(model, vocab)
+    try:
+        if prime:
+            serve(api, pa, prompts, news, f"{what} (priming)", card)
+        sink.bits.zero_()
+        reqs, launches, ran = serve(api, pa, prompts, news, what, card)
+        eng = api.engine
+        out = dict(tokens=[list(map(int, r.tokens)) for r in reqs],
+                   launches=launches, ran=ran,
+                   graphs=eng._graphs.graph_count(),
+                   builds=builds(eng), bytes=rank_bytes(model, eng),
+                   bits=int(sink.bits), last=sink.last[TP_SLOTS].clone(),
+                   last_prefill=sink.last[1].clone(),
+                   digest=tpmod.scale_digest(eng.arena))
+    finally:
+        api.close()
+        sink.detach()
+    return out
+
+
+def tp_first_logits(api, model, prompt, pa, what, card):
+    """The first token's logits of ``prompt`` through ``api`` (a request
+    of one new token: one prefill)."""
+    sink = LogitSink(model, model.cfg.vocab_size)
+    try:
+        serve(api, pa, [prompt], [1], what, card)
+        return sink.last[1].clone()
+    finally:
+        sink.detach()
+
+
+def serve_tp_nccl1(model, serving, pa, tpm, card):
+    """19a: bf16 gpt_1p3b (phase 3's seeded weights), 8 slots, phase 6's
+    greedy wave; an engine without a mesh, then one on a one-rank NCCL
+    mesh (on a copy of the weights: the mesh shards its model in place).
+    The mesh engine's NCCL all-reduces are captured in its decode and
+    prefill graphs; its tokens, every head call's logits (a checksum of
+    their bits) and the last decode step's logits equal the engine
+    without a mesh bit for bit; its graphs and launches equal the other's;
+    a churn wave of other lengths in the same bucket builds nothing."""
+    vocab = model.cfg.vocab_size
+    prompts = tp_prompts(vocab, [TP_WAVE[0]] * TP_SLOTS, 2)
+    news = [TP_WAVE[1]] * TP_SLOTS
+    ref = tp_reference(model, serving, pa, prompts, news,
+                       "19a bf16 no mesh", card)
+    mesh_model = copy.deepcopy(model)
+    mesh = tpm.serving_mesh(1, backend="nccl", timeout=TP_TIMEOUT,
+                            install=False)
+    counts, undo = count_captured_collectives()
+    api = serving.ServingAPI(mesh_model, serving.ServingConfig(
+        num_slots=TP_SLOTS, mesh=mesh), device="cuda")
+    sink = LogitSink(mesh_model, vocab)
+    try:
+        eng = api.engine
+        serve(api, pa, prompts, news, "19a bf16 tp=1 NCCL (priming)", card)
+        captured = dict(counts)
+        sink.bits.zero_()
+        reqs, launches, ran = serve(api, pa, prompts, news,
+                                    "19a bf16 tp=1 NCCL", card)
+        tokens = [list(map(int, r.tokens)) for r in reqs]
+        st = eng.stats()
+        out = dict(mesh_key=st["mesh.key"], captured=st["mesh.captured"],
+                   collectives_captured=captured["captured"],
+                   graphs=eng._graphs.graph_count(), launches=launches)
+        print(f"e2e 19a: mesh {st['mesh.key']} backend {st['mesh.backend']}"
+              f", programs captured {st['mesh.captured']}, "
+              f"{captured['captured']} NCCL all-reduces captured over "
+              f"{out['graphs']} graphs ({captured['eager']} run eagerly: the "
+              f"warm-ups and the communicator's first call); graphs "
+              f"{out['graphs']} against {ref['graphs']} without a mesh "
+              f"[{card}]")
+        if not (st["mesh.captured"] and captured["captured"]
+                >= (2 * model.cfg.num_layers + 2) * out["graphs"]):
+            raise AssertionError(f"19a: the NCCL all-reduces are not in the "
+                                 f"graphs ({captured})")
+        if tokens != ref["tokens"]:
+            raise AssertionError("19a: tp=1 tokens differ from the engine "
+                                 "without a mesh")
+        if int(sink.bits) != ref["bits"] or not torch.equal(
+                sink.last[TP_SLOTS], ref["last"]):
+            raise AssertionError("19a: tp=1 logits are not bit-equal to the "
+                                 "engine without a mesh")
+        if out["graphs"] != ref["graphs"] or builds(eng) != ref["builds"]:
+            raise AssertionError(f"19a: {out['graphs']} graphs, builds "
+                                 f"{builds(eng)}; without a mesh "
+                                 f"{ref['graphs']}, {ref['builds']}")
+        if launches != ref["launches"]:
+            raise AssertionError(f"19a: launches {launches} != "
+                                 f"{ref['launches']}")
+        hold_launches(launches, want_launches(model.cfg.num_layers, ran),
+                      "19a bf16 tp=1 NCCL")
+        before = (builds(eng), eng._graphs.graph_count())
+        cp = tp_prompts(vocab, TP_CHURN[0], 3)
+        serve(api, pa, cp, [TP_CHURN[1]] * len(cp), "19a churn wave", card)
+        if (builds(eng), eng._graphs.graph_count()) != before:
+            raise AssertionError("19a: the churn wave built a program")
+        print(f"e2e 19a: tokens of all {TP_SLOTS} requests and the logits "
+              f"of every head call (bit checksum {ref['bits']}) bit-equal to "
+              f"the engine without a mesh; launches {launches} equal; the "
+              f"churn wave built nothing [{card}]")
+    finally:
+        undo()
+        api.close()
+        sink.detach()
+    del mesh_model
+    release()
+    return ref, out
+
+
+def serve_tp_gloo_f32(gpt, serving, pa, arrays, tpm, card):
+    """19b, f32 (TF32 off) at gpt_1p3b's width cut to POOL_F32[0] layers:
+    an engine without a mesh, then tp = 2 on the one card (rank 0 here,
+    rank 1 a spawned process on cuda:0, gloo over CUDA tensors): each a
+    priming wave, then the measured wave with every rank's launch counters
+    set to 0. Greedy tokens equal, each rank's launches equal the one-rank
+    engine's, each rank's weight and arena bytes at most 0.55 of its."""
+    lens, new = POOL_F32[1], POOL_F32[2]
+    model = f32_cut(gpt, arrays)
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    prompts = tp_prompts(vocab, lens, 5)
+    news = [new] * len(prompts)
+    ref = tp_reference(model, serving, pa, prompts, news,
+                       "19b f32 no mesh", card)
+    mesh = tpm.serving_mesh(2, backend="gloo", launch="process",
+                            timeout=TP_TIMEOUT, install=False)
+    t0 = time.perf_counter()
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=TP_SLOTS, mesh=mesh), device="cuda")
+    boot = time.perf_counter() - t0
+    eng = api.engine
+    try:
+        (follower,) = eng.follower_reports
+        if follower["modules"]:
+            raise AssertionError(f"19b: the follower imported "
+                                 f"{follower['modules']}")
+        serve(api, pa, prompts, news, "19b f32 tp=2 (priming)", card)
+        eng._tp.send("reset_launches")
+        t0 = time.perf_counter()
+        reqs, launches, ran = serve(api, pa, prompts, news,
+                                    "19b f32 tp=2 gloo", card)
+        wave_s = time.perf_counter() - t0
+        (follower,) = eng._tp.stats()
+        theirs = {k: follower["launches"][k] for k in launches}
+        tokens = [list(map(int, r.tokens)) for r in reqs]
+        w0, a0 = rank_bytes(model, eng)
+        w1, a1 = ref["bytes"]
+        shares = [(w0 + a0) / (w1 + a1),
+                  (follower["weight_bytes"] + follower["arena_bytes"])
+                  / (w1 + a1)]
+        st = eng.stats()
+        out = dict(boot_s=boot, wave_s=wave_s, launches_rank0=launches,
+                   launches_rank1=theirs, byte_shares=shares,
+                   local_heads=follower["local_heads"])
+        print(f"e2e 19b f32 tp=2: two ranks on {follower['device']} over "
+              f"gloo (CUDA tensors); programs captured {st['mesh.captured']}"
+              f": the mesh says gloo cannot be captured, so every program "
+              f"runs uncaptured over its static buffers (not a fallback); "
+              f"engine up in {boot:.2f} s with its follower; the measured "
+              f"wave {wave_s:.2f} s; launches rank 0 {launches}, rank 1 "
+              f"{theirs}, one rank {ref['launches']}; weight + arena bytes "
+              f"per rank {[round(x, 4) for x in shares]} of the one-rank "
+              f"engine's; {follower['local_heads']} local heads [{card}]")
+        if tokens != ref["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(tokens, ref["tokens"]))
+                   if a != b]
+            raise AssertionError(f"19b f32: tp=2 tokens differ from the "
+                                 f"one-rank engine's in requests {bad}")
+        if st["mesh.captured"] or eng._graphs.graph_count():
+            raise AssertionError("19b: a gloo mesh captured a graph")
+        for rank, got in enumerate((launches, theirs)):
+            if got != ref["launches"]:
+                raise AssertionError(f"19b f32: rank {rank}'s launches {got}"
+                                     f" != the one-rank engine's "
+                                     f"{ref['launches']}")
+        hold_launches(launches, want_launches(layers, ran), "19b f32 tp=2")
+        if max(shares) > 0.55:
+            raise AssertionError(f"19b: a rank holds {max(shares):.4f} of "
+                                 "the one-rank engine's bytes")
+    finally:
+        api.close()
+    if eng._tp.followers[0].worker.is_alive():
+        raise AssertionError("19b: the follower outlived close()")
+    del model, api, eng
+    release()
+    return out
+
+
+def serve_tp_gloo_bf16(gpt, serving, pa, arrays, tpm, flush, card):
+    """19b, bf16 gpt_1p3b at full depth: the first token's logits of the
+    wave's first prompt at tp = 2 (gloo, two ranks on the card) within
+    ROUTE_TOL["bf16"] of the one-rank engine's, and each one's distance to
+    the f32 model's logits (a causal forward) printed beside; the wave's
+    token agreement printed; then the decode kernel at the rank's 8 heads
+    against its plain version on rank 0's pools, timed beside its
+    bound."""
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    vocab = model.cfg.vocab_size
+    prompts = tp_prompts(vocab, [TP_WAVE[0]] * TP_SLOTS, 2)
+    with torch.no_grad():
+        f32_first = model(torch.as_tensor(prompts[0], device="cuda")[None])[
+            0, -1:].clone()
+    model.to(torch.bfloat16)
+    news = [TP_BF16_NEW] * TP_SLOTS
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=TP_SLOTS), device="cuda")
+    try:
+        want_first = tp_first_logits(api, model, prompts[0], pa,
+                                     "19b bf16 no mesh (first token)", card)
+        reqs, _, _ = serve(api, pa, prompts, news, "19b bf16 no mesh", card)
+        want = [list(map(int, r.tokens)) for r in reqs]
+    finally:
+        api.close()
+    release()
+    mesh = tpm.serving_mesh(2, backend="gloo", launch="process",
+                            timeout=TP_TIMEOUT, install=False)
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=TP_SLOTS, mesh=mesh), device="cuda")
+    eng = api.engine
+    out = {}
+    try:
+        first = tp_first_logits(api, model, prompts[0], pa,
+                                "19b bf16 tp=2 (first token)", card)
+        out["first_rel_l2"], out["first_bit_equal"] = hold_logits(
+            first, want_first, "19b bf16 tp=2 first token's logits", card)
+        out["to_f32"] = [rel_l2(x.float(), f32_first) for x in
+                         (want_first, first)]
+        print(f"e2e 19b bf16 first token's logits against the f32 model's: "
+              f"one rank relative L2 {out['to_f32'][0]:.3e}, tp=2 "
+              f"{out['to_f32'][1]:.3e} [{card}]")
+        reqs, _, _ = serve(api, pa, prompts, news, "19b bf16 tp=2 gloo",
+                           card)
+        got = [list(map(int, r.tokens)) for r in reqs]
+        agree = sum(a == b for x, y in zip(got, want) for a, b in zip(x, y))
+        out["token_agreement"] = agree / (len(want) * TP_BF16_NEW)
+        print(f"e2e 19b bf16 tp=2: {agree} of {len(want) * TP_BF16_NEW} "
+              f"greedy tokens equal the one-rank engine's (a row-parallel "
+              f"sum in bf16 can flip a near tie) [{card}]")
+        (follower,) = eng._tp.stats()
+        w1 = tensor_bytes(list(model.parameters()) + list(model.buffers()))
+        out["weight_bytes"] = [w1, follower["weight_bytes"]]
+        out["decode"] = tp_decode_kernel(pa, eng, flush, card)
+    finally:
+        api.close()
+    del model, api, eng
+    release()
+    return out
+
+
+def tp_decode_kernel(pa, eng, flush, card):
+    """The decode kernel at a tp = 2 rank's 8 heads of 128 on its own pools
+    (layer 0, bf16), 8 slots at TP_POS through tables over the arena's
+    blocks, against its plain version; its time, the plain version's and
+    SDPA's beside its bound (each K/V row up to the position read once)."""
+    entry = eng.arena.pools[0]
+    heads = int(entry[0].shape[2])
+    mb = eng.blocks_per_slot
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bt = torch.randint(1, eng.arena.num_blocks, (TP_SLOTS, mb),
+                       dtype=torch.int32, device="cuda", generator=gen)
+    pos = torch.full((TP_SLOTS,), TP_POS, dtype=torch.int32, device="cuda")
+    q = qkv_split(np.random.default_rng(19), TP_SLOTS, heads, D,
+                  torch.bfloat16)[0]
+    pa.reset_launches()
+    err = check("paged_decode_attention", torch.bfloat16,
+                f"tp=2 rank 0, {heads} heads",
+                pa.paged_decode_attention(q, entry, bt, pos),
+                pa.paged_decode_attention_ref(q, entry, bt, pos))
+    keys = int((pos.long() + 1).sum())
+    tables = 4 * int((pos.long() // BS + 1).sum()) + 4 * TP_SLOTS
+    nbytes = 2 * keys * heads * D * 2 + 2 * q.numel() * 2 + tables
+    b_ms, b_by = bound(nbytes, 4 * keys * heads * D)
+    live = TP_POS + 1
+    k_all, v_all = pa._gather_ctx(entry, bt)
+    kt, vt = (t[:, :live].transpose(1, 2).contiguous()
+              for t in (k_all, v_all))
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = dict(heads=heads, max_abs_err=err,
+               ms=time_ms(lambda: pa.paged_decode_attention(q, entry, bt,
+                                                            pos), flush),
+               plain_ms=time_ms(lambda: pa.paged_decode_attention_ref(
+                   q, entry, bt, pos), flush),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lambda: sdpa(q4, kt, vt), flush))
+    print(f"kernel paged_decode_attention at a tp=2 rank's {heads} heads, "
+          f"{TP_SLOTS} slots at position {TP_POS}: {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, SDPA {res['library_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}) [{card}]")
+    return res
+
+
+def serve_tp_int8(gpt, serving, pa, arrays, tpm, backend, card):
+    """The int8 wave at tp = 2 (``quant_weights``, ``quant_kv``, chunks of
+    CHUNK) on f32 gpt_1p3b width cut to POOL_F32[0] layers, over
+    ``backend``: 19b's gloo ranks on the one card, 19c's NCCL ranks on two
+    cards. An engine without a mesh, then the mesh engine (each on a fresh
+    model: quant_weights quantizes in place), each a priming wave and the
+    measured wave. Greedy tokens equal; each rank's launches equal the
+    one-rank engine's, the int8 decode and prefill kernels among them at
+    the rank's 8 heads; the scale pools bit-equal on both ranks (a digest:
+    each token row's scale is the whole row's, through the max
+    all-reduce); under NCCL the programs captured with their max
+    all-reduces inside."""
+    from paddle_tpu_torch.serving import tp as tpmod
+
+    lens, new = POOL_F32[1], POOL_F32[2]
+    kw = dict(quant_weights=True, quant_kv=True, chunked_prefill=CHUNK)
+    model = f32_cut(gpt, arrays)
+    vocab = model.cfg.vocab_size
+    prompts = tp_prompts(vocab, lens, 7)
+    news = [new] * len(prompts)
+    what = f"int8 tp=2 {backend}"
+    ref = tp_reference(model, serving, pa, prompts, news,
+                       f"{what}: no mesh", card, **kw)
+    model = f32_cut(gpt, arrays)
+    mesh = tpm.serving_mesh(2, backend=backend, launch="process",
+                            timeout=TP_TIMEOUT, install=False)
+    counts, undo = count_captured_collectives()
+    api = serving.ServingAPI(model, serving.ServingConfig(
+        num_slots=TP_SLOTS, mesh=mesh, **kw), device="cuda")
+    eng = api.engine
+    try:
+        serve(api, pa, prompts, news, f"{what} (priming)", card)
+        eng._tp.send("reset_launches")
+        reqs, launches, _ = serve(api, pa, prompts, news, what, card)
+        (follower,) = eng._tp.stats()
+        theirs = {k: follower["launches"][k] for k in launches}
+        tokens = [list(map(int, r.tokens)) for r in reqs]
+        digests = [tpmod.scale_digest(eng.arena), follower["scale_digest"]]
+        captured = eng.stats()["mesh.captured"]
+        out = dict(launches=launches, launches_rank1=theirs,
+                   local_heads=follower["local_heads"], digests=digests,
+                   captured=captured, max_reductions_captured=counts["max"],
+                   scales_equal_one_rank=digests[0] == ref["digest"])
+        print(f"e2e {what}: ranks on {[str(eng.device), follower['device']]}"
+              f", programs captured {captured} ({counts['max']} max "
+              f"all-reduces of the int8 scales captured); launches rank 0 "
+              f"{launches}, rank 1 {theirs}, one rank {ref['launches']}; "
+              f"scale digests {digests} (the one-rank engine's "
+              f"{ref['digest']}: equal {out['scales_equal_one_rank']}, "
+              f"printed, not held) [{card}]")
+        if tokens != ref["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(tokens, ref["tokens"]))
+                   if a != b]
+            raise AssertionError(f"{what}: tokens differ from the one-rank "
+                                 f"engine's in requests {bad}")
+        for rank, got in enumerate((launches, theirs)):
+            if got != ref["launches"]:
+                raise AssertionError(f"{what}: rank {rank}'s launches {got}"
+                                     f" != the one-rank engine's "
+                                     f"{ref['launches']}")
+        if not (launches["paged_decode_attention_int8"]
+                and launches["paged_prefill_attention_int8"]):
+            raise AssertionError(f"{what}: the int8 kernels did not run "
+                                 f"({launches})")
+        if digests[0] is None or digests[0] != digests[1]:
+            raise AssertionError(f"{what}: the ranks' scale pools differ "
+                                 f"({digests})")
+        if captured != (backend == "nccl") or (captured and not
+                                                counts["max"]):
+            raise AssertionError(f"{what}: captured {captured}, max "
+                                 f"all-reduces captured {counts['max']}")
+    finally:
+        undo()
+        api.close()
+    del model, api, eng
+    release()
+    return out
+
+
+def tp_local_kernels(pa, card):
+    """Every paged kernel of phase 19's path at a rank's local heads (8 of
+    gpt_1p3b's 16 at tp = 2, 4 at tp = 4) and head dim 128, at the shapes
+    19a-19c give them, against its plain version on the same inputs under
+    the dtype's TOL, in f32 and bf16, over full-precision and int8 pools:
+    the decode kernel over 8 slots at positions up to 19a's last (tables
+    of 128 blocks whose entries past a slot's last block are the scratch
+    block, which reads 1e4); the suffix and chunk prefill, a chunk of CHUNK
+    after a prefix of CHUNK and 37 queries after 475; the whole-prompt
+    prefill of TP_WAVE[0] and 37 queries (full precision: its K/V are the
+    step's own). Returns each kernel's worst error."""
+    rng = np.random.default_rng(20)
+    S, MB = TP_SLOTS, 128
+    nb = S * MB + 1
+    pos_list = [0, BS - 1, BS, 300, TP_WAVE[0] - 1, TP_WAVE[0], TP_POS,
+                sum(TP_WAVE) - 1]
+    perm = rng.permutation(np.arange(1, nb)).reshape(S, MB)
+    for i, p in enumerate(pos_list):
+        perm[i, p // BS + 1:] = 0
+    bt = torch.as_tensor(perm, dtype=torch.int32, device="cuda")
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    row = torch.as_tensor(rng.permutation(np.arange(1, nb))[:MB],
+                          dtype=torch.int32, device="cuda")
+    worst = {}
+
+    def held(name, dtype, tag, out, ref):
+        err = check(name, dtype, tag, out, ref)
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for h in (8, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            for int8 in (False, True):
+                sfx = "_int8" if int8 else ""
+                entry = scratch_entry(rng, (nb, BS, h, D), dtype, int8)
+                q = qkv_split(rng, S, h, D, dtype)[0]
+                held("paged_decode_attention" + sfx, dtype,
+                     f"local heads H={h} D={D} S={S} MB={MB}",
+                     pa.paged_decode_attention(q, entry, bt, pos),
+                     pa.paged_decode_attention_ref(q, entry, bt, pos))
+                for sq, prefix in ((CHUNK, CHUNK), (37, 475)):
+                    q = qkv_split(rng, sq, h, D, dtype)[0]
+                    held("paged_prefill_attention" + sfx, dtype,
+                         f"local heads H={h} D={D} sq={sq} prefix={prefix}",
+                         pa.paged_prefill_attention(q, entry, row, prefix),
+                         pa.paged_prefill_attention_ref(q, entry, row,
+                                                        prefix))
+                if int8:
+                    continue
+                for sq in (TP_WAVE[0], 37):
+                    q, k, v = qkv_split(rng, sq, h, D, dtype)
+                    held("paged_full_prefill_attention", dtype,
+                         f"local heads H={h} D={D} sq={sq}",
+                         pa.paged_full_prefill_attention(q, k, v, BS),
+                         pa.paged_full_prefill_attention_ref(q, k, v, BS))
+                del entry
+        torch.cuda.empty_cache()
+    print(f"kernels at local heads (8 and 4 of 16, f32 and bf16, full "
+          f"precision and int8): every one within its dtype's tolerance; "
+          f"worst max_abs_err {worst} [{card}]")
+    return worst
+
+
+def serve_tp_nccl_cards(model, serving, pa, tpm, ref, card):
+    """19c: NCCL at tp = 2 and tp = 4 with graphs, one rank per card, on
+    19a's model and wave where the machine has the cards: 19a's checks
+    but the bit-equality, which a row-parallel sum in bf16 at tp > 1
+    cannot keep: the logits of the wave's last prefill (a function of its
+    prompt alone) within ROUTE_TOL["bf16"] of the engine without a mesh,
+    the greedy token agreement printed, every rank's graphs and launches
+    equal to its, no build under churn. Prints that it did not run
+    otherwise."""
+    vocab = model.cfg.vocab_size
+    prompts = tp_prompts(vocab, [TP_WAVE[0]] * TP_SLOTS, 2)
+    news = [TP_WAVE[1]] * TP_SLOTS
+    out = {}
+    for tp in (2, 4):
+        if torch.cuda.device_count() < tp:
+            print(f"19c tp={tp}: not run: this machine has "
+                  f"{torch.cuda.device_count()} card(s), NCCL takes one rank "
+                  f"per card [{card}]")
+            out[tp] = "not run"
+            continue
+        mesh = tpm.serving_mesh(tp, backend="nccl", launch="process",
+                                timeout=TP_TIMEOUT, install=False)
+        t0 = time.perf_counter()
+        api = serving.ServingAPI(copy.deepcopy(model), serving.ServingConfig(
+            num_slots=TP_SLOTS, mesh=mesh), device="cuda")
+        boot = time.perf_counter() - t0
+        eng = api.engine
+        sink = LogitSink(eng._model, vocab)
+        try:
+            serve(api, pa, prompts, news, f"19c tp={tp} (priming)", card)
+            eng._tp.send("reset_launches")
+            reqs, launches, ran = serve(api, pa, prompts, news,
+                                        f"19c bf16 tp={tp} NCCL", card)
+            tokens = [list(map(int, r.tokens)) for r in reqs]
+            reports = eng._tp.stats()
+            rel = rel_l2(sink.last[1].float(), ref["last_prefill"].float())
+            agree = sum(a == b for x, y in zip(tokens, ref["tokens"])
+                        for a, b in zip(x, y))
+            res = dict(boot_s=boot, graphs=eng._graphs.graph_count(),
+                       token_agreement=agree / (TP_SLOTS * TP_WAVE[1]),
+                       rank_graphs=[r["graphs"] for r in reports],
+                       launches=launches,
+                       rank_launches=[{k: r["launches"][k] for k in launches}
+                                      for r in reports],
+                       last_prefill_rel_l2=rel,
+                       devices=[str(eng.device)]
+                       + [r["device"] for r in reports])
+            print(f"e2e 19c bf16 tp={tp} NCCL: ranks on {res['devices']}, up "
+                  f"in {boot:.2f} s; graphs {res['graphs']} "
+                  f"(followers {res['rank_graphs']}, without a mesh "
+                  f"{ref['graphs']}); launches rank 0 {launches}, the others "
+                  f"{res['rank_launches']}; the last prefill's logits "
+                  f"relative L2 {rel:.3e} (bound {ROUTE_TOL['bf16'][1]:g}); "
+                  f"{agree} of {TP_SLOTS * TP_WAVE[1]} greedy tokens equal "
+                  f"the engine's without a mesh [{card}]")
+            if rel > ROUTE_TOL["bf16"][1]:
+                raise AssertionError(f"19c tp={tp}: logits off by {rel:.3e}")
+            if {res["graphs"], *res["rank_graphs"]} != {ref["graphs"]}:
+                raise AssertionError(f"19c tp={tp}: graphs {res}")
+            for got in [launches] + res["rank_launches"]:
+                if got != ref["launches"]:
+                    raise AssertionError(f"19c tp={tp}: launches {got} != "
+                                         f"{ref['launches']}")
+            before = builds(eng)
+            cp = tp_prompts(vocab, TP_CHURN[0], 3)
+            serve(api, pa, cp, [TP_CHURN[1]] * len(cp),
+                  f"19c tp={tp} churn wave", card)
+            if builds(eng) != before or [r["graphs"] for r in
+                                         eng._tp.stats()] \
+                    != res["rank_graphs"]:
+                raise AssertionError(f"19c tp={tp}: churn built a program")
+            out[tp] = res
+        finally:
+            api.close()
+            sink.detach()
+        release()
+    return out
+
+
+def serve_tp(gpt, serving, pa, arrays, card):
+    """Phase 19: 19a, 19b (f32, then bf16), 19c. Returns the launches of
+    19a's and 19b's measured waves per kernel and the numbers."""
+    from paddle_tpu_torch.distributed import mesh as tpm
+
+    t0 = time.perf_counter()
+    model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+    gpt.load_functional_state(model, arrays)
+    model.to(torch.bfloat16)
+    ref, out19a = serve_tp_nccl1(model, serving, pa, tpm, card)
+    print(f"phase 19a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out19c = serve_tp_nccl_cards(model, serving, pa, tpm, ref, card)
+    del model
+    release()
+    if torch.cuda.device_count() >= 2:
+        out19c["int8"] = serve_tp_int8(gpt, serving, pa, arrays, tpm, "nccl",
+                                       card)
+    else:
+        print(f"19c int8 tp=2: not run: this machine has "
+              f"{torch.cuda.device_count()} card(s) [{card}]")
+        out19c["int8"] = "not run"
+    print(f"phase 19c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out19b = serve_tp_gloo_f32(gpt, serving, pa, arrays, tpm, card)
+    int8 = serve_tp_int8(gpt, serving, pa, arrays, tpm, "gloo", card)
+    out19b["int8"] = {k: v for k, v in int8.items()
+                      if not k.startswith("launches")}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    out19b["bf16"] = serve_tp_gloo_bf16(gpt, serving, pa, arrays, tpm,
+                                        flush, card)
+    del flush
+    out19b["local_kernels"] = tp_local_kernels(pa, card)
+    print(f"phase 19b: {time.perf_counter() - t0:.1f} s")
+    out = {"19a": {k: v for k, v in out19a.items() if k != "launches"},
+           "19b": {k: v for k, v in out19b.items()
+                   if not k.startswith("launches")},
+           "19c": out19c}
+    print("phase 19, one call: " + json.dumps(out, default=str)
+          + f" [{card}]")
+    # the int8 rows' launches are the int8 wave's, the path that runs them
+    runs = {"19a": out19a["launches"], "19b_rank0": out19b["launches_rank0"],
+            "19b_rank1": out19b["launches_rank1"],
+            "19b_int8_rank0": int8["launches"],
+            "19b_int8_rank1": int8["launches_rank1"]}
+    launches = {name: {run: got.get(name, 0) for run, got in runs.items()}
+                for name in PAGED + SAMPLING}
+    return launches, out
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -7560,6 +8265,14 @@ def timed(label, fn, *args):
 
 
 def main() -> int:
+    # ``--phase 19``: the build and phase 19 alone (a four-card check of
+    # 19c), ending on a line of its own; the smoke run proper takes no
+    # arguments
+    if sys.argv[1:] not in ([], ["--phase", "19"]):
+        print(f"chip_smoke: arguments {sys.argv[1:]}: the only one taken is "
+              f"'--phase 19'", file=sys.stderr)
+        return 2
+    only = "19" if sys.argv[1:] else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
@@ -7612,6 +8325,15 @@ def main() -> int:
                       for n in SOURCES) + ")")
     print(f"phase 1 (build): {time.perf_counter() - t0:.1f} s")
     t = timed
+    if only == "19":
+        model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
+        arrays = gpt.seeded_state(model, seed=0)
+        del model
+        t("19", serve_tp, gpt, serving, pa, arrays, card)
+        print(card)
+        print(json.dumps({"phase_only": "19", "passed": True,
+                          "cards": torch.cuda.device_count()}))
+        return 0
     t("2", kernel_checks, pa)
     vocab = gpt.gpt_1p3b().vocab_size
     differ, u_err = t("2 (sampling checks)", sampling_checks, so, vocab,
@@ -7676,6 +8398,7 @@ def main() -> int:
     ckpt = t("12b", checkpoint_resume, arrays, train, functional, card)
     lbfgs = t("12d", lbfgs_full, arrays, train, card)
     export_launches, _ = t("18", serve_export, gpt, fa, arrays, card)
+    tp_launches, _ = t("19", serve_tp, gpt, serving, pa, arrays, card)
     print(json.dumps({"training_loop": dict(fit=fit, checkpoint=ckpt,
                                             lbfgs=lbfgs,
                                             optimizer_updates=family)}))
@@ -7719,7 +8442,8 @@ def main() -> int:
                         "launches_fleet": fleet_launches.get(name, 0),
                         "launches_disagg": {
                             role: disagg_launches.get(role, {}).get(name, 0)
-                            for role in ("prefill", "decode", "total")}}
+                            for role in ("prefill", "decode", "total")},
+                        "launches_tp": tp_launches[name]}
                        if name in PAGED + SAMPLING else {}),
                     **timing[name])
                for src, names in (("paged_attention", PAGED),

@@ -59,6 +59,28 @@ CAPTURED = (
     "paddle_tpu_torch/models/gpt.py:GPTAttention.forward",
     "paddle_tpu_torch/models/gpt.py:GPTMLP.forward",
     "paddle_tpu_torch/models/gpt.py:_serving_linear",
+    "paddle_tpu_torch/models/gpt.py:_dequant",
+    # the tensor-parallel layers and their collectives (a mesh's programs;
+    # NCCL's are captured)
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "ColumnParallelLinear.forward",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "ColumnParallelLinear.gather",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "RowParallelLinear.forward",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "RowParallelLinear.partial",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "RowParallelLinear.reduce",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "RowParallelLinear.add_bias",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "VocabParallelEmbedding.forward",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "VocabParallelEmbedding.logits",
+    "paddle_tpu_torch/distributed/collective.py:all_reduce",
+    "paddle_tpu_torch/serving/kv_arena.py:KVArena.scale_reduce",
+    "paddle_tpu_torch/distributed/collective.py:gather_by_sum",
     # the adapter hook _serving_linear calls and the per-lane gather and
     # products it adds (the binding is entered inside the engine's steps)
     "paddle_tpu_torch/serving/adapters.py:_lora_hook",

@@ -1,1 +1,2 @@
-"""``paddle.distributed.fleet`` helpers of the port: activation recompute."""
+"""``paddle.distributed.fleet`` helpers of the port: the tensor-parallel
+layers (``meta_parallel``) and activation recompute (``recompute``)."""

@@ -53,6 +53,10 @@ from torch import nn
 from .. import amp, quantization
 from ..core import device as device_mod
 from ..core import rng
+from ..distributed import sharding_util
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    is_split)
 from ..distributed.fleet.recompute import recompute
 from ..nn.functional import cross_entropy, scaled_dot_product_attention
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear, gelu_tanh
@@ -125,7 +129,7 @@ def _wrap_int32(x):
     return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
 
 
-def quantize_serving_weights(model) -> int:
+def quantize_serving_weights(model, mesh=None) -> int:
     """Per-channel int8 weight-only quantization of every attention and MLP
     matmul of a :class:`GPTForCausalLM`, in place (the serving engine calls
     it at construction under ``quant_weights``).
@@ -138,19 +142,88 @@ def quantize_serving_weights(model) -> int:
     the compute dtype. Quantize after the model's dtype is set:
     ``Module.to(dtype)`` would cast the scale buffers
     (:func:`_serving_linear` then raises).
+
+    The whole weights are quantized, then split: with a ``mesh``
+    (``paddle_tpu/models/gpt.py:145-198``) the model is sharded in place
+    afterwards (:func:`shard_model`), a column linear's scale split with its
+    columns, a row linear's kept whole. A scale taken over a rank's slice
+    of ``in_features`` would differ from the JAX package's, so a model
+    already split over more than one rank is refused.
     Idempotent; returns the number of layers quantized by this call."""
     n = 0
     for blk in model.gpt.layers:
         for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.up, blk.mlp.down):
             if getattr(lin, "weight_scale", None) is not None:
                 continue
+            if is_split(lin):
+                raise ValueError("quantize the whole weights before they "
+                                 "are split over the mesh: a row shard's "
+                                 "per-channel scales are not the whole "
+                                 "weight's")
             with torch.no_grad():
                 qw, scale = quantization.quantize_weight(lin.weight,
                                                          channel_axis=1)
             lin.weight = nn.Parameter(qw, requires_grad=False)
             lin.register_buffer("weight_scale", scale)
             n += 1
+    if mesh is not None:
+        shard_model(model, mesh)
     return n
+
+
+def sharded_mesh(model):
+    """The mesh a model was sharded for by :func:`shard_model` (None for a
+    whole model)."""
+    return getattr(getattr(model, "gpt", model), "_mesh", None)
+
+
+def shard_model(model, mesh) -> bool:
+    """Split a whole :class:`GPTForCausalLM` (or bare :class:`GPTModel`)
+    over ``mesh``'s model axis in place, keeping this rank's shard
+    (``paddle_tpu/models/gpt.py:282-290``, ``:374``, ``:474``): ``qkv``
+    becomes a :class:`ColumnParallelLinear` over this rank's heads of each
+    of q, k and v (``sharding_util.qkv_columns``, the bias and an int8
+    scale with them), ``proj`` a :class:`RowParallelLinear` over the same
+    heads' rows, ``up`` / ``down`` a column / row pair over contiguous
+    slices of the intermediate axis, the token embedding a
+    :class:`VocabParallelEmbedding` (the tied head with it) and an untied
+    ``lm_head`` a gathered column linear over the vocabulary. Each
+    attention then attends ``sharding_util.local_heads`` heads. An axis
+    that does not divide the ranks stays whole. Quantize first
+    (:func:`quantize_serving_weights`).
+
+    A model is sharded once, for one mesh: True when this call sharded it,
+    False when it already was for ``mesh``; another mesh raises."""
+    gpt = getattr(model, "gpt", model)
+    done = getattr(gpt, "_mesh", None)
+    if done is not None:
+        if done is not mesh:
+            raise ValueError(f"the model is sharded for {done!r}; it cannot "
+                             f"serve on {mesh!r}")
+        return False
+    cfg = gpt.cfg
+    heads = cfg.num_heads
+    head_dim = cfg.hidden_size // heads
+    inter = np.arange(*sharding_util.split_range(cfg.intermediate_size,
+                                                 mesh))
+    for blk in gpt.layers:
+        attn, mlp = blk.attn, blk.mlp
+        attn.qkv = ColumnParallelLinear.from_linear(
+            attn.qkv, mesh, sharding_util.qkv_columns(heads, head_dim, mesh))
+        attn.proj = RowParallelLinear.from_linear(
+            attn.proj, mesh, sharding_util.head_rows(heads, head_dim, mesh))
+        attn.num_heads = sharding_util.local_heads(heads, mesh)
+        mlp.up = ColumnParallelLinear.from_linear(mlp.up, mesh, inter)
+        mlp.down = RowParallelLinear.from_linear(
+            mlp.down, mesh, (int(inter[0]), int(inter[-1]) + 1))
+    gpt.wte = VocabParallelEmbedding.from_embedding(gpt.wte, mesh)
+    if getattr(model, "lm_head", None) is not None:
+        model.lm_head = ColumnParallelLinear.from_linear(
+            model.lm_head, mesh,
+            np.arange(*sharding_util.split_range(cfg.vocab_size, mesh)),
+            gather_output=True)
+    gpt._mesh = mesh
+    return True
 
 
 #: the multi-LoRA hook (``serving.adapters``): called as ``hook(layer, x,
@@ -175,23 +248,42 @@ def _serving_linear(layer, x):
     cast to x's dtype) + bias``, the JAX package's dequant-then-matmul.
     Either output then goes through the adapter hook, which is the identity
     unless an adapter binding is entered (training, ``generate()`` and the
-    speculative verify run the same ops as without it)."""
+    speculative verify run the same ops as without it).
+
+    A :class:`RowParallelLinear` split over the ranks multiplies its split
+    input, adds the adapter's partial product (this rank's rows of A),
+    all-reduces, then adds its bias once (``paddle_tpu/models/gpt.py:
+    201-245``); unsplit (one rank, or an axis held whole), the order is
+    the whole layer's."""
     scale = getattr(layer, "weight_scale", None)
-    if scale is None:
-        y = layer(x)
-    else:
-        if scale.dtype != torch.float32:
-            raise TypeError(f"weight_scale is {scale.dtype}, not float32: "
-                            "the model's dtype was changed after "
-                            "quantization")
-        w = (layer.weight.float() * scale).to(x.dtype)
-        y = torch.matmul(x, w)
-        y = y + layer.bias.to(y.dtype)
+    if scale is not None and scale.dtype != torch.float32:
+        raise TypeError(f"weight_scale is {scale.dtype}, not float32: "
+                        "the model's dtype was changed after "
+                        "quantization")
     # analysis: allow(mutable-global-capture) -- the hook is installed once,
     # before any engine with an adapter arena captures; what it adds is
     # decided by the binding its steps enter, not by this global
     hook = _lora_hook
+    if isinstance(layer, RowParallelLinear) and getattr(layer, "split",
+                                                        False):
+        y = (layer.partial(x) if scale is None
+             else torch.matmul(x, _dequant(layer, x.dtype)))
+        if hook is not None:
+            y = hook(layer, x, y)
+        return layer.add_bias(layer.reduce(y))
+    if scale is None:
+        y = layer(x)
+    else:
+        y = torch.matmul(x, _dequant(layer, x.dtype))
+        if isinstance(layer, RowParallelLinear):
+            y = layer.reduce(y)
+        y = y + layer.bias.to(y.dtype)
     return y if hook is None else hook(layer, x, y)
+
+
+def _dequant(layer, dtype):
+    """A quantized layer's weight, ``(int8 * scale)`` cast to ``dtype``."""
+    return (layer.weight.float() * layer.weight_scale).to(dtype)
 
 
 def serving_compute_dtype(model) -> torch.dtype:
@@ -233,12 +325,15 @@ class GPTAttention(nn.Module):
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.head_dim = h // cfg.num_heads
-        self.qkv = Linear(h, 3 * h, device=device)   # ColumnParallelLinear
-        self.proj = Linear(h, h, device=device)      # RowParallelLinear
+        # whole on one card; shard_model makes them a ColumnParallelLinear
+        # over this rank's heads and a RowParallelLinear over their rows
+        self.qkv = Linear(h, 3 * h, device=device)
+        self.proj = Linear(h, h, device=device)
         self.dropout = cfg.dropout
 
     def forward(self, x, cache=None, start_pos=0):
-        b, s, h = x.shape
+        b, s, _ = x.shape
+        # num_heads is the local count on a mesh (shard_model)
         qkv = _serving_linear(self.qkv, x).reshape(b, s, 3, self.num_heads,
                                                    self.head_dim)
         q, k, v = qkv.unbind(2)
@@ -246,7 +341,7 @@ class GPTAttention(nn.Module):
             # the cache object owns its storage (the serving engine's paged
             # arena): it absorbs this chunk's k/v and attends q against it
             o, new_cache = cache.update_and_attend(q, k, v)
-            return _serving_linear(self.proj, o.reshape(b, s, h)), new_cache
+            return _serving_linear(self.proj, o.reshape(b, s, -1)), new_cache
         if cache is not None:
             # contiguous [b, max_len, heads, dim] buffers, written in place
             # at start_pos; attend over positions <= the query's position
@@ -259,11 +354,11 @@ class GPTAttention(nn.Module):
             j = torch.arange(k_buf.shape[1], device=x.device)[None, :]
             i = pos + torch.arange(s, device=x.device)[:, None]
             o = masked_attention(q, k_buf, v_buf, (j <= i)[None, None])
-            return _serving_linear(self.proj, o.reshape(b, s, h)), (k_buf,
-                                                                    v_buf)
+            return _serving_linear(self.proj, o.reshape(b, s, -1)), (k_buf,
+                                                                     v_buf)
         o = causal_attention(q, k, v, dropout_p=self.dropout,
                              training=self.training)
-        return _serving_linear(self.proj, o.reshape(b, s, h))
+        return _serving_linear(self.proj, o.reshape(b, s, -1))
 
 
 class GPTMLP(nn.Module):
@@ -316,7 +411,7 @@ class GPTModel(nn.Module):
         """Per-layer contiguous ``(k, v)`` buffers ``[b, max_len, heads,
         dim]`` in the compute dtype, for incremental decoding."""
         dtype, dev = serving_compute_dtype(self), self.wte.weight.device
-        shape = (batch, max_len, self.cfg.num_heads,
+        shape = (batch, max_len, self.layers[0].attn.num_heads,
                  self.cfg.hidden_size // self.cfg.num_heads)
         return [(torch.zeros(shape, dtype=dtype, device=dev),
                  torch.zeros(shape, dtype=dtype, device=dev))
@@ -395,6 +490,8 @@ class GPTForCausalLM(nn.Module):
         if not self.cfg.tie_word_embeddings:
             return self.lm_head(h)
         h, w = amp.cast_inputs("linear_nb", h, self.gpt.wte.weight)
+        if isinstance(self.gpt.wte, VocabParallelEmbedding):
+            return self.gpt.wte.logits(h, w)
         return torch.matmul(h, w.t())
 
     def forward(self, input_ids, labels=None):
@@ -440,9 +537,14 @@ class GPTForCausalLM(nn.Module):
     def _head_logits(self, h_last):
         """Next-token logits ``[b, vocab]`` from last hidden states
         ``[b, hidden]``: the one head computation ``generate()`` and the
-        serving engine share: ``h @ wte^T``, or ``lm_head`` untied."""
+        serving engine share: ``h @ wte^T``, or ``lm_head`` untied. On a
+        mesh each rank's vocabulary slice is gathered whole on every rank
+        (:meth:`VocabParallelEmbedding.logits`), so every rank samples the
+        same token from the same keys."""
         if not self.cfg.tie_word_embeddings:
             return self.lm_head(h_last)
+        if isinstance(self.gpt.wte, VocabParallelEmbedding):
+            return self.gpt.wte.logits(h_last)
         return torch.matmul(h_last, self.gpt.wte.weight.t())
 
     def verify_logits(self, h_seq):
@@ -491,6 +593,10 @@ class GPTForCausalLM(nn.Module):
 
         Runs in eval mode (no dropout), then restores the training mode,
         as the JAX package does."""
+        if sharding_util.model_parallel(sharded_mesh(self)) > 1:
+            raise NotImplementedError(
+                "generate() on a model split over a mesh is not ported yet "
+                "(ROADMAP.md §1); serve it through the ServingEngine")
         was_training = self.training
         self.eval()
         try:

@@ -62,12 +62,19 @@ def quantize_weight(w: torch.Tensor, channel_axis: Optional[int] = None
     return q, scale
 
 
-def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv(x: torch.Tensor, amax_reduce=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token int8 quantization of a K/V chunk ``[..., heads, head_dim]``:
     one float32 scale per leading index, reduced over ``(heads, head_dim)``
-    in float32. Returns ``(int8 payload, float32 scale[...])``."""
+    in float32. Returns ``(int8 payload, float32 scale[...])``.
+    ``amax_reduce`` (a tensor-parallel rank's) takes the per-token absmax
+    over this rank's heads to the absmax over every rank's, in place, so
+    that the scale is the whole row's on every rank."""
     xf = x.float()
-    scale = _scale(xf.abs().amax(dim=(-2, -1)))
+    amax = xf.abs().amax(dim=(-2, -1))
+    if amax_reduce is not None:
+        amax_reduce(amax)
+    scale = _scale(amax)
     q = torch.clamp(torch.round(xf / scale[..., None, None]), -128, 127)
     return q.to(torch.int8), scale
 

@@ -43,6 +43,15 @@ so chains of different adapters never meet, and a freed row registered
 again with other weights misses the old chain. The JAX package keys a
 chain by its tokens alone, whatever the adapter (a deliberate difference).
 
+On a tensor-parallel mesh every rank holds the arena (the JAX package
+replicates it, ``paddle_tpu/serving/adapters.py:289-312``), each site's
+pools shaped as its layer's shard: on a column-split linear A whole and
+B's columns for this rank; on a row-split linear A's rows for this rank and
+B whole, so the update of a row linear is this rank's partial product,
+added before the all-reduce (``models.gpt._serving_linear``). A whole delta
+is never added on every rank. Rank 0 sends each registration and
+unregistration to the followers (``serving.tp``).
+
 Counters and gauges (``lora.*`` in :mod:`.metrics`): ``registered`` /
 ``unregistered`` / ``register_failed`` / ``admits``, gauges ``lora.slots``
 / ``lora.live`` / ``lora.arena_bytes`` / ``lora.active_slots``.
@@ -162,6 +171,10 @@ class AdapterArena:
         self._b: List[torch.Tensor] = []
         self._site_names: List[str] = []
         self._site_by_layer: Dict[int, int] = {}
+        # per site: this rank's rows of A (a row-split linear) and columns
+        # of B (a column-split one); None keeps the axis whole
+        self._a_rows: List[Optional[Tuple[int, int]]] = []
+        self._b_cols: List[Optional[np.ndarray]] = []
         for li, blk in enumerate(model.gpt.layers):
             for tgt, lin in (("attn.qkv", blk.attn.qkv),
                              ("attn.proj", blk.attn.proj),
@@ -170,6 +183,11 @@ class AdapterArena:
                 fi, fo = (int(d) for d in lin.weight.shape)  # [in, out]
                 self._site_by_layer[id(lin)] = len(self._site_names)
                 self._site_names.append(f"{li}.{tgt}")
+                split = bool(getattr(lin, "split", False))
+                self._a_rows.append(getattr(lin, "rows", None)
+                                    if split else None)
+                self._b_cols.append(getattr(lin, "columns", None)
+                                    if split else None)
                 self._a.append(torch.zeros((capacity + 1, fi, rank),
                                            dtype=torch.float32,
                                            device=device))
@@ -253,8 +271,10 @@ class AdapterArena:
                 raise ValueError(
                     f"adapter site {key!r} does not exist in this model "
                     f"(sites are '<layer>.<target>', targets {TARGETS})")
+        local = [self._local(si, adapter.weights.get(site))
+                 for si, site in enumerate(self._site_names)]
         for si, site in enumerate(self._site_names):
-            ab = adapter.weights.get(site)
+            ab = local[si]
             if ab is not None and (
                     ab[0].shape != tuple(self._a[si].shape[1:])
                     or ab[1].shape != tuple(self._b[si].shape[1:])):
@@ -268,7 +288,7 @@ class AdapterArena:
         scale = adapter.alpha / self.rank
         with self._writing():
             for si, site in enumerate(self._site_names):
-                ab = adapter.weights.get(site)
+                ab = local[si]
                 if ab is None:
                     self._a[si][idx].zero_()
                     self._b[si][idx].zero_()
@@ -281,7 +301,27 @@ class AdapterArena:
         self._names[name] = idx
         metrics.bump("lora.registered")
         metrics.set_gauge("lora.live", len(self._live))
+        self._mirror("register", adapter, name)
         return idx
+
+    def _local(self, si: int, ab):
+        """Site ``si``'s ``(A, B)`` as this rank holds them: A's rows of a
+        row-split linear, B's columns of a column-split one."""
+        if ab is None:
+            return None
+        a, b = ab
+        if self._a_rows[si] is not None:
+            lo, hi = self._a_rows[si]
+            a = a[lo:hi]
+        if self._b_cols[si] is not None:
+            b = b[:, self._b_cols[si]]
+        return np.ascontiguousarray(a), np.ascontiguousarray(b)
+
+    def _mirror(self, op: str, *args) -> None:
+        """Rank 0 of a mesh: the same registration on every follower."""
+        leader = getattr(self._engine, "_tp", None)
+        if leader is not None:
+            leader.send("lora", op, *args)
 
     def unregister(self, adapter) -> None:
         """Free one row (by id or name): zero its matrices, so that a stale
@@ -310,6 +350,7 @@ class AdapterArena:
         self._free.append(idx)
         metrics.bump("lora.unregistered")
         metrics.set_gauge("lora.live", len(self._live))
+        self._mirror("unregister", idx)
 
     def _digest(self, adapter: LoraAdapter) -> bytes:
         """The fingerprint of what :meth:`register` writes: every site's A

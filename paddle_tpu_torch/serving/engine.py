@@ -128,6 +128,20 @@ then one captured program (key ``"restore"``) scatters the staging into
 the destination blocks named by a ``[blocks_per_slot]`` id buffer padded
 with scratch block 0. The tier view survives :meth:`ServingEngine.rebuild`,
 so replays restore warm.
+
+Tensor-parallel serving (``ServingConfig.mesh``, else the installed
+``distributed.mesh.get_mesh()``; ``paddle_tpu/serving/engine.py:426-438``):
+the mesh is captured at construction, before anything else. On a mesh the
+model is sharded in place over its model axis (``models.gpt.shard_model``,
+after any int8 quantization of the whole weights), the arena holds this
+rank's heads, the paged kernels run at that head count, and
+``stats()["mesh.key"]``, the arena's ``mesh`` and the tier signature's
+``(model_parallel, rank)`` key the engine apart from one without a mesh.
+On a mesh of ``model_parallel > 1`` the engine of rank 0 starts the other
+ranks and sends them every operation (:mod:`.tp`); each follower's engine
+replays it (:meth:`ServingEngine._follow_run`). A mesh whose backend cannot
+be captured (gloo) runs every program uncaptured on the card, over the
+same static buffers: the mesh states it (``ServingMesh.capturable``).
 """
 from __future__ import annotations
 
@@ -142,14 +156,18 @@ import torch
 
 from ..core import compile_cache, flags, resilience
 from ..core import device as device_mod
-from ..models.gpt import quantize_serving_weights, serving_compute_dtype
+from ..distributed import mesh as mesh_mod
+from ..distributed.sharding_util import (mesh_axes_key, model_parallel,
+                                         model_rank)
+from ..models.gpt import (quantize_serving_weights, serving_compute_dtype,
+                          shard_model, sharded_mesh)
 from ..ops import paged_attention
 from ..ops import sampling as sampling_ops
 from ..ops.paged_attention import (check_servable, paged_decode_attention,
                                    paged_full_prefill_attention,
                                    paged_prefill_attention)
 from ..quantization import quantize_kv
-from . import metrics, telemetry
+from . import metrics, telemetry, tp
 from .adapters import AdapterArena
 from .graphs import ResidentBuffer, StepGraphs
 from .kv_arena import ArenaExhaustedError, KVArena, Reservation
@@ -169,11 +187,12 @@ def _samp_params(samp: torch.Tensor) -> tuple:
             samp[2].view(torch.float32), samp[3])
 
 
-def _scatter_rows(entry, row, off, kc, vc) -> None:
+def _scatter_rows(entry, row, off, kc, vc, amax_reduce=None) -> None:
     """Write one chunk's k/v rows ``[n, H, D]`` at ``(row, off)`` of a pool
     entry, in place. An int8 ``(k, v, k_scale, v_scale)`` entry quantizes
     each token row (:func:`paddle_tpu_torch.quantization.quantize_kv`) and
-    writes its scale at the same ``(row, off)``."""
+    writes its scale at the same ``(row, off)``; on a mesh its absmax is
+    the whole row's (``amax_reduce``: ``KVArena.scale_reduce``)."""
     if len(entry) == 2:
         kp, vp = entry
         kp.index_put_((row, off), kc)
@@ -181,7 +200,7 @@ def _scatter_rows(entry, row, off, kc, vc) -> None:
         return
     kp, vp, ks, vs = entry
     for pool, scales, x in ((kp, ks, kc), (vp, vs, vc)):
-        q, scale = quantize_kv(x)
+        q, scale = quantize_kv(x, amax_reduce)
         pool.index_put_((row, off), q)
         scales.index_put_((row, off), scale)
 
@@ -195,15 +214,18 @@ class _PagedCacheView:
     host, where the tables live anyway, and hands them over in the decode
     program's static buffers."""
 
-    def __init__(self, entry, block_tables, positions, rows, offs):
+    def __init__(self, entry, block_tables, positions, rows, offs,
+                 amax_reduce=None):
         self.entry = entry
         self.block_tables = block_tables  # [S, max_blocks] int32
         self.positions = positions        # [S] int32: write pos of new token
         self.rows = rows                  # [S] int64 physical write block
         self.offs = offs                  # [S] int64 offset in that block
+        self.amax_reduce = amax_reduce    # int8 on a mesh: the whole row's
 
     def update_and_attend(self, q, k, v):
-        _scatter_rows(self.entry, self.rows, self.offs, k[:, 0], v[:, 0])
+        _scatter_rows(self.entry, self.rows, self.offs, k[:, 0], v[:, 0],
+                      self.amax_reduce)
         o = paged_decode_attention(q[:, 0], self.entry, self.block_tables,
                                    self.positions)
         return o[:, None], self
@@ -233,15 +255,18 @@ class _PrefixPrefillView:
     the resident prefix and the chunk through the table. ``prefix_len`` is
     an int32 device scalar: runtime data to the kernel."""
 
-    def __init__(self, entry, bt_row, prefix_len, rows, offs):
+    def __init__(self, entry, bt_row, prefix_len, rows, offs,
+                 amax_reduce=None):
         self.entry = entry
         self.bt_row = bt_row          # [max_blocks] int32: the slot's table
         self.prefix_len = prefix_len  # int32 device scalar
         self.rows = rows              # [bucket] int64 physical write block
         self.offs = offs              # [bucket] int64 offset in that block
+        self.amax_reduce = amax_reduce
 
     def update_and_attend(self, q, k, v):
-        _scatter_rows(self.entry, self.rows, self.offs, k[0], v[0])
+        _scatter_rows(self.entry, self.rows, self.offs, k[0], v[0],
+                      self.amax_reduce)
         o = paged_prefill_attention(q[0], self.entry, self.bt_row,
                                     self.prefix_len)
         return o[None], self
@@ -271,7 +296,9 @@ class ServingConfig:
     and capacity), ``kv_tiering`` -> ``FLAGS_serving_kv_tiering`` (spill
     evicted prefix blocks to the host and disk tiers; needs the prefix
     cache), ``tier_store`` -> :func:`.tiered.get_tier_store` (the
-    :class:`.tiered.HostKVCache` to share)."""
+    :class:`.tiered.HostKVCache` to share), ``mesh`` ->
+    ``distributed.mesh.get_mesh()`` (the tensor-parallel mesh this rank
+    serves on; None: one card, no mesh)."""
 
     num_slots: int = 0
     kv_block_size: int = 0
@@ -290,6 +317,7 @@ class ServingConfig:
     tier_store: Optional[object] = None
     lora_rank: Optional[int] = None
     lora_adapters: Optional[int] = None
+    mesh: Optional[object] = None
 
 
 @dataclass
@@ -337,6 +365,17 @@ class ServingEngine:
         # refused before anything is built or quantized in place
         check_servable(head_dim, dtype, self.device)
         self._model = model.eval()
+        # the mesh is captured first: quantization, sharding, the arena,
+        # the adapters and the tier signature all follow it
+        self.mesh = cfg.mesh if cfg.mesh is not None else mesh_mod.get_mesh()
+        self.mesh_key = mesh_axes_key(self.mesh)
+        if sharded_mesh(model) is not None and (
+                self.mesh is None or model_parallel(self.mesh) > 1):
+            raise ValueError(
+                "the model is already sharded over a mesh: an engine on a "
+                "mesh of more than one rank starts from the whole model "
+                "(its followers load it), and one without a mesh cannot "
+                "serve a shard")
 
         def mode(value, name):
             return flags.flag(name) if value is None else value
@@ -369,10 +408,14 @@ class ServingEngine:
         self.prefill_bucket_min = int(
             cfg.prefill_bucket_min or flags.flag("serving_prefill_bucket_min"))
         if self.quant_weights:
-            # in place and idempotent: engines may share one model
+            # in place and idempotent: engines may share one model. The
+            # whole weights, before any split
             n = quantize_serving_weights(model)
             if n:
                 metrics.bump("quant.weight_layers", n)
+        self._tp = None
+        if self.mesh is not None:
+            self._join_mesh(model, cfg)
         # the adapter arena: rank and capacity fixed, rows and ids data
         lora_rank = int(mode(cfg.lora_rank, "serving_lora_rank"))
         self.lora = (AdapterArena(model, lora_rank,
@@ -383,7 +426,8 @@ class ServingEngine:
             self.lora.bind_engine(self)
         self.arena = KVArena(mcfg.num_layers, mcfg.num_heads, head_dim,
                              num_blocks, self.block_size, dtype=dtype,
-                             quantized=self.quant_kv, device=self.device)
+                             quantized=self.quant_kv, device=self.device,
+                             mesh=self.mesh)
         self.use_prefix_cache = bool(mode(cfg.prefix_cache,
                                           "serving_prefix_cache"))
         # the tier view outlives rebuild(): its tiers are off the device.
@@ -400,12 +444,19 @@ class ServingEngine:
             t0 = time.perf_counter()
             fingerprint = state_fingerprint(model).hex()
             self.fingerprint_seconds = time.perf_counter() - t0
+            signature = (mcfg.num_layers, mcfg.num_heads, head_dim,
+                         self.block_size, str(dtype), self.quant_kv,
+                         self.quant_weights, fingerprint)
+            if self.mesh is not None:
+                # a rank's rows are its heads only: they never restore into
+                # another layout (paddle_tpu/serving/engine.py:619-622)
+                signature += ((model_parallel(self.mesh),
+                               model_rank(self.mesh)),)
             self.tier = TierView(
                 cfg.tier_store if cfg.tier_store is not None
-                else get_tier_store(),
-                signature=(mcfg.num_layers, mcfg.num_heads, head_dim,
-                           self.block_size, str(dtype), self.quant_kv,
-                           self.quant_weights, fingerprint))
+                else get_tier_store(), signature=signature)
+            if self._tp is not None:
+                self.tier.mirror = self._tp.tier_op
         self.prefix_cache = (PrefixCache(self.arena, self.block_size,
                                          tier=self.tier)
                              if self.use_prefix_cache else None)
@@ -443,11 +494,12 @@ class ServingEngine:
         # draft cache saw none of its fallback tokens
         self._scenario_once = np.zeros(s, np.bool_)
         self._mask = ResidentBuffer(self.device, (s, self.vocab), torch.bool,
-                                    True)
+                                    True, attr="_mask")
         self._mask_host = self._mask.host
         # each slot's adapter row (0: the base model), one [S] resident
         # buffer the decode step binds; without an arena always 0
-        self._adapter_ids = (ResidentBuffer(self.device, (s,), torch.int64, 0)
+        self._adapter_ids = (ResidentBuffer(self.device, (s,), torch.int64, 0,
+                                            attr="_adapter_ids")
                              if self.lora is not None else None)
         self._adapter = (self._adapter_ids.host if self.lora is not None
                          else np.zeros(s, np.int64))
@@ -483,9 +535,13 @@ class ServingEngine:
         self._restore_staging: Optional[torch.Tensor] = None
         self._restore_views: list = []
         self._trace_ctx = ""  # the trace of the admission in progress
+        # a mesh whose collectives cannot be captured (gloo) runs every
+        # program uncaptured on the card
         self._graphs = StepGraphs(self.device,
                                   counters=(paged_attention.launches,
-                                            sampling_ops.launches))
+                                            sampling_ops.launches),
+                                  capture=(self.mesh is None
+                                           or self.mesh.capturable))
         # spills copy blocks on the stream whose replays wrote them
         self.arena.stream = self._graphs.stream
         self._meter = metrics.Meter()
@@ -504,6 +560,41 @@ class ServingEngine:
         metrics.set_gauge("tier.enabled", int(self.tier is not None))
         self._publish_arena_bytes()
         self._refresh_gauges()
+        #: each follower's boot report (rank 0 of a mesh of more than one)
+        self.follower_reports = []
+        if self._tp is not None:
+            try:
+                self.follower_reports = self._tp.wait_ready()
+            except BaseException:
+                self._tp.close()  # reaps the others, removes the file
+                raise
+
+    def _join_mesh(self, model, cfg) -> None:
+        """Take this rank's place on the mesh: rank 0 of more than one
+        starts the followers over the whole (quantized) model first
+        (:class:`.tp.Leader`); every rank forms the model group, warms it
+        (NCCL's communicator is made before any capture) and shards the
+        model in place (``paddle_tpu/models/gpt.py`` TP path), the draft
+        model too."""
+        mesh = self.mesh
+        if mesh.rank == 0:
+            if model_parallel(mesh) > 1:
+                self._tp = tp.Leader(model, cfg, mesh, self.device,
+                                     draft=cfg.draft_model)
+            elif not mesh.connected:
+                mesh.open()
+        try:
+            mesh.connect()
+            tp.warm(mesh, self.device)
+        except BaseException:
+            if self._tp is not None:
+                self._tp.close()
+            raise
+        shard_model(model, mesh)
+        if cfg.draft_model is not None and cfg.draft_model is not model:
+            # quantized first by the speculative decoder when quant_draft
+            if not self.quant_draft:
+                shard_model(cfg.draft_model, mesh)
 
     # ----------------------------------------------------------- capacity
 
@@ -949,8 +1040,9 @@ class ServingEngine:
         parameters and mask row, keyed at ``positions + 1``: the context
         index where the new token will sit. With an adapter arena each
         lane's linears add the update of its row of ``adapter_ids``."""
-        views = [_PagedCacheView(entry, block_tables, positions, rows, offs)
-                 for entry in self.arena.pools]
+        red = self.arena.scale_reduce()
+        views = [_PagedCacheView(entry, block_tables, positions, rows, offs,
+                                 red) for entry in self.arena.pools]
         model = self._model
         with self._lora_bound(adapter_ids):
             h, _ = model.gpt(last_tok[:, None], caches=views,
@@ -974,8 +1066,9 @@ class ServingEngine:
         with self._lora_bound(adapter):
             h, chunks = model.gpt(ids, caches=views, start_pos=0)
         last = h.index_select(1, true_len.reshape(1) - 1)[:, 0]
+        red = self.arena.scale_reduce()
         for (kc, vc), entry in zip(chunks, self.arena.pools):
-            _scatter_rows(entry, rows, offs, kc[0], vc[0])
+            _scatter_rows(entry, rows, offs, kc[0], vc[0], red)
         return (sample_tokens(model._head_logits(last), *_samp_params(samp),
                               spos, allowed),)
 
@@ -985,8 +1078,9 @@ class ServingEngine:
         row: positions ``prefix_len + i``, the chunk's k/v scattered before
         it is attended, the token after position ``true_len - 1`` of the
         chunk, sampled as in :meth:`_full_prefill_fn`."""
-        views = [_PrefixPrefillView(entry, bt_row, prefix_len, rows, offs)
-                 for entry in self.arena.pools]
+        red = self.arena.scale_reduce()
+        views = [_PrefixPrefillView(entry, bt_row, prefix_len, rows, offs,
+                                    red) for entry in self.arena.pools]
         model = self._model
         with self._lora_bound(adapter):
             h, _ = model.gpt(ids, caches=views, start_pos=prefix_len)
@@ -1015,7 +1109,8 @@ class ServingEngine:
                 pool.index_copy_(0, dsts, src)
         return ()
 
-    def _run(self, prog, hist: Optional[str], name: str, **values) -> tuple:
+    def _run(self, prog, hist: Optional[str], name: str, mirror: bool = True,
+             **values) -> tuple:
         """Run one step program and read its outputs: the one host-side
         path of every run (decode, whole-prompt prefill, suffix or chunk
         prefill, COW, the speculative step, a draft prefill). The
@@ -1030,14 +1125,38 @@ class ServingEngine:
         donated and every probe fires before the run, so a retried attempt
         has written nothing. ``hist`` names the latency histogram of the
         run and its read (which blocks, so the host clock covers the device
-        work)."""
+        work).
+
+        On rank 0 of a mesh the run is sent to the followers after the
+        probes, just before it runs here (``mirror``; an operation that
+        sends its own message, the tier restore, passes False). A failure
+        while a follower is dead or has failed becomes
+        :class:`.tp.FollowerDiedError`."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            # a follower: rank 0 probed, retried and decided; this rank
+            # only runs (its failure is reported to rank 0)
+            prog.run(**values)
+            return prog.read()
+
         def attempt():
             resilience.maybe_fault("serving_step")
             resilience.maybe_fault("serving_device")
             resilience.maybe_fault("arena_corrupt")
             t0 = time.perf_counter()
-            prog.run(**values)
-            out = prog.read()
+            if self._tp is None:
+                prog.run(**values)
+                out = prog.read()
+            else:
+                try:
+                    if mirror:
+                        self._tp.run(prog, values)
+                    prog.run(**values)
+                    out = prog.read()
+                except tp.FollowerDiedError:
+                    raise
+                except Exception:
+                    self._tp.check()  # a dead follower is the cause
+                    raise
             if hist is not None:
                 telemetry.observe(hist, time.perf_counter() - t0, self.hists)
             return out
@@ -1149,7 +1268,8 @@ class ServingEngine:
         prog = self._graphs.program(
             "restore", self._restore_fn, self._restore_built,
             dsts=((self.blocks_per_slot,), torch.int64))
-        self._run(prog, None, "serving.tier_restore", dsts=dsts)
+        self._run(prog, None, "serving.tier_restore", mirror=False,
+                  dsts=dsts)
 
     def _restore_nodes(self, nodes) -> int:
         """Restore a spilled radix chain into fresh arena blocks
@@ -1184,6 +1304,19 @@ class ServingEngine:
             return 0
         live, payloads = live[:len(blocks)], payloads[:len(blocks)]
         try:
+            if self._tp is not None:
+                # every rank restores its own rows: as far as all hold them
+                held = self._tp.probe([node.key for node in live])
+                if held < len(live):
+                    cache.prune_lost(live[held])
+                    for blk in blocks[held:]:
+                        self.arena.uncache(blk)
+                    live, payloads = live[:held], payloads[:held]
+                    blocks = blocks[:held]
+                if not live:
+                    return 0
+                self._tp.send("restore", [node.key for node in live],
+                              blocks)
             self._restore_call(payloads, blocks)
         except BaseException:
             for blk in blocks:
@@ -1198,6 +1331,52 @@ class ServingEngine:
         telemetry.span(self._trace_ctx, telemetry.RESTORED,
                        blocks=len(live))
         return len(live)
+
+    # ------------------------------------------------- a follower's side
+
+    @torch.no_grad()
+    def _follow_run(self, key, defn, values: dict, rows: dict) -> None:
+        """A follower's replay of rank 0's run of program ``key``: made at
+        its first run from ``defn`` (rank 0's ``StepProgram.definition``:
+        the step function's site -- this engine or its speculative decoder
+        -- and name, the buffer specs and the resident buffers' attribute
+        names), its resident buffers' changed ``rows`` applied, then run
+        over ``values`` through :meth:`_run`; the outputs are read (rank 0
+        reports the tokens)."""
+        if defn is not None:
+            site, fn_name, specs, resident = defn
+            owner = self.spec if site == "spec" else self
+            self._graphs.program(
+                key, getattr(owner, fn_name), lambda: None,
+                resident={name: getattr(owner, attr)
+                          for name, attr in resident.items()}, site=site,
+                **specs)
+        prog = self._graphs.programs[key]
+        for name, (idx, vals) in rows.items():
+            buf = prog.resident[name]
+            for row, value in zip(idx, vals):
+                buf.set_row(row, value)
+        self._run(prog, None, "serving.follow", **values)
+
+    def _tier_held(self, keys) -> int:
+        """How many leading ``keys`` this rank's tier holds."""
+        n = 0
+        for key in keys:
+            if self.tier is None or not self.tier.has(key):
+                break
+            n += 1
+        return n
+
+    @torch.no_grad()
+    def _follow_restore(self, keys, blocks) -> None:
+        """A follower's side of rank 0's tier restore: this rank's rows of
+        ``keys`` from its own tier into ``blocks``."""
+        payloads = [self.tier.lookup(key) for key in keys]
+        if any(p is None for p in payloads):
+            raise RuntimeError("a tier entry rank 0 restores is gone from "
+                               "this rank's tier")
+        self._restore_call(payloads, list(blocks))
+        self.tier.note_restored(payloads)
 
     @torch.no_grad()
     def _suffix_prefill_call(self, ctx: np.ndarray, clen: int,
@@ -1466,7 +1645,12 @@ class ServingEngine:
         is left alone: its ticket counters are zero after every launch
         that ran to its end, and the faults recovered here fire on the
         host before a run. A kernel fault on the card is a sticky CUDA
-        error that no rebuild clears; the supervisor fails fast on it."""
+        error that no rebuild clears; the supervisor fails fast on it.
+
+        On rank 0 of a mesh the followers rebuild too (a dead one raises
+        :class:`.tp.FollowerDiedError` here)."""
+        if self._tp is not None:
+            self._tp.send("rebuild")
         with self._graphs.on_stream():
             self.arena.reset()
         if self.use_prefix_cache:
@@ -1518,15 +1702,21 @@ class ServingEngine:
         self._graphs.close()
         self._restore_staging = None
         self._restore_views = []
+        if self._tp is not None:
+            self._tp.close()
+        if self.mesh is not None and self.mesh.rank == 0:
+            self.mesh.close()
 
     # -------------------------------------------------------------- stats
 
     def kernel_route(self) -> str:
         """The attention route this engine runs: ``"kernel@single"`` on a
         CUDA device (the hand-written paged kernels), ``"plain@single"`` on
-        the CPU (their plain PyTorch versions)."""
+        the CPU (their plain PyTorch versions); ``@model<mp>`` on a mesh
+        of ``mp > 1`` ranks, each attending its local heads."""
         route = "kernel" if self.device.type == "cuda" else "plain"
-        return f"{route}@single"
+        mp = model_parallel(self.mesh)
+        return f"{route}@{'single' if mp == 1 else f'model{mp}'}"
 
     def _draft_quantized(self) -> bool:
         """``quant_draft`` in effect: it quantizes nothing without a draft
@@ -1593,6 +1783,13 @@ class ServingEngine:
                "constrain.admits": self.constrained_admits,
                "lora.admits": self.adapter_admits,
                "kernel.route": self.kernel_route(),
+               "mesh.key": self.mesh_key,
+               "mesh.model_axis": model_parallel(self.mesh),
+               "mesh.data_axis": 1,
+               "mesh.rank": model_rank(self.mesh),
+               "mesh.backend": (None if self.mesh is None
+                                else self.mesh.backend),
+               "mesh.captured": self._graphs.backend is not None,
                "device": str(self.device)}
         out.update({f"arena.{k}": v for k, v in self.arena.stats().items()})
         if self.prefix_cache is not None:

@@ -17,7 +17,9 @@ builds a program again.
   All of an engine's graphs share one memory pool. A failed capture or
   replay raises: there is no eager route on the card.
 * On the CPU the same step function runs eagerly over the same buffers,
-  through the same bookkeeping.
+  through the same bookkeeping. So does an engine on the card whose
+  tensor-parallel mesh cannot be captured (``capture=False``: a gloo
+  group), its host values staged through pinned memory as for a replay.
 
 Every device call of an engine's programs -- staging copies, resident
 flushes, replays, reads -- runs on the engine's own stream, the one current
@@ -184,10 +186,14 @@ class ResidentBuffer:
     current stream -- through pinned staging on CUDA, so the copies are
     asynchronous and the replay after them reads the new rows. The staging
     rows are rewritten only at the next flush, after the previous run's
-    outputs were read (a blocking copy that follows the earlier copies)."""
+    outputs were read (a blocking copy that follows the earlier copies).
+    ``attr`` names the attribute of its owner (the engine or its
+    speculative decoder) that holds it: a tensor-parallel follower binds
+    its own buffer of that name to a program rank 0 defines."""
 
     def __init__(self, device, shape: Tuple[int, ...], dtype: torch.dtype,
-                 fill):
+                 fill, attr: Optional[str] = None):
+        self.attr = attr
         device = torch.device(device)
         self.tensor = torch.full(shape, fill, dtype=dtype, device=device)
         staging = torch.full(shape, fill, dtype=dtype,
@@ -200,6 +206,12 @@ class ResidentBuffer:
     def set_row(self, row: int, values) -> None:
         self.host[row] = values
         self._dirty.add(int(row))
+
+    def dirty_rows(self):
+        """The rows the next flush copies: ``(row ids, their values)``
+        (what a tensor-parallel rank 0 sends its followers)."""
+        rows = sorted(self._dirty)
+        return rows, self.host[rows].copy()
 
     def fill_all(self, value) -> None:
         """Set every row of the mirror to ``value`` and mark them all, so
@@ -226,22 +238,30 @@ class StepProgram:
 
     def __init__(self, owner: "StepGraphs", key, fn: Callable,
                  on_build: Callable[[], None], specs: Dict[str, tuple],
-                 resident: Optional[Dict[str, ResidentBuffer]] = None):
+                 resident: Optional[Dict[str, ResidentBuffer]] = None,
+                 site: str = "engine"):
         self.key = key
         self._owner, self._fn, self._on_build = owner, fn, on_build
+        #: what the program was made from, as a tensor-parallel follower
+        #: makes it again: the step function's site and name, the buffer
+        #: specs and the resident buffers' attribute names
+        self.definition = (site, fn.__name__, dict(specs),
+                           {name: buf.attr
+                            for name, buf in (resident or {}).items()})
         dev = owner.device
         self._warm = {name: (spec[2] if len(spec) > 2 else 0)
                       for name, spec in specs.items()}
         self.buffers = {name: torch.zeros(spec[0], dtype=spec[1], device=dev)
                         for name, spec in specs.items()}
         self._resident = dict(resident or {})
-        # what the host writes: staging (pinned on CUDA) for a captured
-        # program, the buffers themselves for an eager one
+        # what the host writes: pinned staging on CUDA (copied into the
+        # buffers before a replay, or before an uncaptured run), the
+        # buffers themselves on the CPU
         pin = dev.type == "cuda"
         self._host = ({name: torch.zeros(spec[0], dtype=spec[1],
                                          pin_memory=pin)
                        for name, spec in specs.items()}
-                      if owner.backend is not None else self.buffers)
+                      if pin else self.buffers)
         self._credit = LaunchCredit(owner.counters)
         self.graph = None
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
@@ -264,6 +284,10 @@ class StepProgram:
                     lambda: backend.capture(step))
         self.built = True
         self._on_build()
+
+    @property
+    def resident(self) -> Dict[str, ResidentBuffer]:
+        return self._resident
 
     def _inputs(self) -> Dict[str, torch.Tensor]:
         return {name: res.tensor for name, res in self._resident.items()}
@@ -290,11 +314,12 @@ class StepProgram:
                 self._host[name].numpy()[...] = value
             for res in self._resident.values():
                 res.flush()
+            if self._host is not self.buffers:
+                for name, buf in self.buffers.items():
+                    buf.copy_(self._host[name], non_blocking=True)
             if self.graph is None:
                 self.outputs = self._fn(**self.buffers, **self._inputs())
             else:
-                for name, buf in self.buffers.items():
-                    buf.copy_(self._host[name], non_blocking=True)
                 self.graph.replay()
                 self._credit.replay()
         owner.pending = self
@@ -321,14 +346,14 @@ class StepGraphs:
     captures must account (:class:`LaunchCredit`)."""
 
     def __init__(self, device, counters: Sequence[dict] = (),
-                 backend: Optional[CudaGraphs] = None):
+                 backend: Optional[CudaGraphs] = None, capture: bool = True):
         self.device = torch.device(device)
         self.counters = tuple(counters)
         # the engine's one stream: the current stream of the thread that
         # made the engine (None on the CPU)
         self.stream = (torch.cuda.current_stream(self.device)
                        if self.device.type == "cuda" else None)
-        if backend is None and self.device.type == "cuda":
+        if backend is None and capture and self.device.type == "cuda":
             backend = CudaGraphs(self.device, self.stream)
         self.backend = backend
         self.programs: Dict[object, StepProgram] = {}
@@ -348,18 +373,20 @@ class StepGraphs:
 
     def program(self, key, fn: Callable, on_build: Callable[[], None],
                 resident: Optional[Dict[str, ResidentBuffer]] = None,
-                **specs: tuple) -> StepProgram:
+                site: str = "engine", **specs: tuple) -> StepProgram:
         """The program of ``key``, made on first use over static buffers
         ``specs`` (name -> ``(shape, dtype[, warm-up value])``; the warm-up
         value defaults to 0) and the ``resident`` buffers, which keep their
         contents through the warm-up. ``fn(**buffers)`` returns a tuple of
-        output tensors. ``on_build`` runs once the program is built: after
-        its capture on CUDA, at its first run on the CPU."""
+        output tensors; ``fn`` is a method of ``site`` (``"engine"`` or
+        ``"spec"``, its speculative decoder). ``on_build`` runs once the
+        program is built: after its capture on CUDA, at its first run on
+        the CPU."""
         self.check_open()
         prog = self.programs.get(key)
         if prog is None:
             prog = self.programs[key] = StepProgram(self, key, fn, on_build,
-                                                    specs, resident)
+                                                    specs, resident, site)
         return prog
 
     def graph_count(self) -> int:

@@ -39,6 +39,15 @@ the same block ids and the same free list, refcounts and reservations: a
 block taken for a slot's draft table is one allocation like any other, it
 only indexes another physical pool, shaped for the draft's layers, heads and
 head dim. A namespace of an int8 arena is int8 with its scale pools too.
+
+On a tensor-parallel mesh (``mesh=``, ``paddle_tpu/serving/kv_arena.py:111``)
+every payload pool, of every namespace, holds this rank's heads only
+(``sharding_util.local_heads``: ``num_heads // mp``, or all of them when
+they do not divide), and the int8 scale pools are whole on every rank
+(``sharding_util.shard_kv_entry``). The block ids, the free list, the
+refcounts and the reservations are the same on every rank: rank 0's
+engine decides them and the others apply its decisions. :meth:`mesh_key`
+joins the stats.
 """
 from __future__ import annotations
 
@@ -50,6 +59,9 @@ import torch
 
 from ..core import device as device_mod
 from ..core import flags
+from ..distributed import collective
+from ..distributed.sharding_util import (heads_split, local_heads,
+                                         mesh_axes_key, shard_kv_entry)
 from . import metrics, tiered
 
 
@@ -94,12 +106,14 @@ class Reservation:
 
 class KVArena:
     """The paged KV storage and its free-list allocator. ``num_blocks``
-    includes scratch block 0; ``num_blocks - 1`` blocks are allocatable."""
+    includes scratch block 0; ``num_blocks - 1`` blocks are allocatable.
+    ``num_heads`` is the model's whole count; on a ``mesh`` the pools hold
+    this rank's heads."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: Optional[int] = None,
                  dtype=torch.float32, quantized: bool = False,
-                 device=device_mod.DEFAULT_DEVICE):
+                 device=device_mod.DEFAULT_DEVICE, mesh=None):
         self.block_size = int(block_size or flags.flag("kv_block_size"))
         if self.block_size < 1:
             raise ValueError("kv_block_size must be >= 1")
@@ -111,6 +125,9 @@ class KVArena:
         self.dtype = dtype
         self.quantized = bool(quantized)
         self.device = device_mod.resolve(device)
+        self.mesh = mesh
+        # each namespace's whole head count (its pools may hold a shard)
+        self._whole_heads: Dict[str, int] = {"primary": int(num_heads)}
         self._pools: List[Tuple[torch.Tensor, ...]] = [
             self._fresh_entry(num_heads, head_dim)
             for _ in range(self.num_layers)]
@@ -143,18 +160,18 @@ class KVArena:
                      ) -> Tuple[torch.Tensor, ...]:
         """One layer's zeroed entry: ``(k, v)`` in the compute dtype, or
         int8 ``(k, v, k_scale, v_scale)``; the arena's dtype and mode
-        unless given."""
+        unless given. On a mesh, this rank's shard of the whole entry
+        (``sharding_util.shard_kv_entry``, applied to its shapes)."""
         dtype = self.dtype if dtype is None else dtype
         quantized = self.quantized if quantized is None else quantized
         shape = (self.num_blocks, self.block_size, int(num_heads),
                  int(head_dim))
-        if not quantized:
-            return tuple(torch.zeros(shape, dtype=dtype, device=self.device)
-                         for _ in range(2))
-        return (tuple(torch.zeros(shape, dtype=torch.int8, device=self.device)
-                      for _ in range(2))
-                + tuple(torch.zeros(shape[:2], dtype=torch.float32,
-                                    device=self.device) for _ in range(2)))
+        whole = ((shape, dtype),) * 2 if not quantized else (
+            ((shape, torch.int8),) * 2 + ((shape[:2], torch.float32),) * 2)
+        local = shard_kv_entry(tuple(torch.empty(s, dtype=d, device="meta")
+                                     for s, d in whole), self.mesh)
+        return tuple(torch.zeros(t.shape, dtype=t.dtype, device=self.device)
+                     for t in local)
 
     def reset(self) -> None:
         """Return the arena to what a fresh one of the same arguments
@@ -219,7 +236,9 @@ class KVArena:
         self._ns_pools[name] = [
             self._fresh_entry(num_heads, head_dim, dtype, quantized)
             for _ in range(int(num_layers))]
-        self._ns_shapes[name] = (int(num_layers), int(num_heads),
+        self._whole_heads[name] = int(num_heads)
+        self._ns_shapes[name] = (int(num_layers),
+                                 local_heads(num_heads, self.mesh),
                                  int(head_dim), dtype, quantized)
 
     def ns_pools(self, name: str) -> List[Tuple[torch.Tensor, ...]]:
@@ -244,7 +263,8 @@ class KVArena:
                 "quantized": self.quantized,
                 "dtype": str(self.dtype).replace("torch.", ""),
                 "scratch_block": 0,
-                "device": str(self.device)}
+                "device": str(self.device),
+                "mesh": self.mesh_key()}
 
     # -------------------------------------------------------- allocation
 
@@ -527,6 +547,22 @@ class KVArena:
                          "quantized": bool(quantized)}
         return out
 
+    def scale_reduce(self, name: str = "primary"):
+        """For an int8 arena whose namespace ``name`` holds a head shard:
+        the in-place max over the model group that makes each token row's
+        absmax, and so its scale, the whole row's on every rank
+        (``quantization.quantize_kv(amax_reduce=)``); None otherwise."""
+        if not (self.quantized and heads_split(self._whole_heads[name],
+                                               self.mesh)):
+            return None
+        group = self.mesh.group
+        return lambda amax: collective.all_reduce(amax, group, op="max")
+
+    def mesh_key(self) -> Optional[tuple]:
+        """The arena's mesh fingerprint (``sharding_util.mesh_axes_key``;
+        None without a mesh), surfaced beside the shape facts."""
+        return mesh_axes_key(self.mesh)
+
     def stats(self) -> dict:
         return {"blocks_total": self.num_blocks - 1,
                 "blocks_free": self.blocks_free(),
@@ -538,4 +574,5 @@ class KVArena:
                 "kv_bytes": self.bytes_total(),
                 "quantized": self.quantized,
                 "bytes_by_namespace": self.bytes_by_namespace(),
-                "namespaces": len(self._ns_pools)}
+                "namespaces": len(self._ns_pools),
+                "mesh": self.mesh_key()}

@@ -305,7 +305,8 @@ class PrefixCache:
             if self.tier is not None:
                 blk = child.block
                 self.tier.write_through(key,
-                                        lambda b=blk: arena.read_block(b))
+                                        lambda b=blk: arena.read_block(b),
+                                        block=blk)
             node = child
         if inserted:
             self.invalidate()
@@ -387,7 +388,8 @@ class PrefixCache:
         tier-resident (usually free: the write-through copy is there), then
         free its device block. The node stays for a later walk."""
         blk = node.block
-        self.tier.spill(node.key, lambda: self.arena.read_block(blk))
+        self.tier.spill(node.key, lambda: self.arena.read_block(blk),
+                        block=blk)
         node.spilled = True
         node.block = -1
         self._n_spilled += 1

@@ -119,8 +119,9 @@ class SpecDecoder:
             self._check_draft(draft_model)
             draft_model.eval()
             if self.quant_draft:
-                # in place and idempotent; moves acceptance, never tokens
-                n = quantize_serving_weights(draft_model)
+                # in place and idempotent; moves acceptance, never tokens.
+                # The whole weights, then split on a mesh as the target's
+                n = quantize_serving_weights(draft_model, mesh=engine.mesh)
                 if n:
                     metrics.bump("quant.draft_layers", n)
             dcfg = draft_model.cfg
@@ -131,10 +132,11 @@ class SpecDecoder:
         # every sub-step's greedy pick: temperature 0, top_k 0, top_p 1,
         # seed 0 and an all-True mask, resident on the device (never
         # refilled)
-        self._greedy = ResidentBuffer(engine.device, (4, s), torch.int32, 0)
+        self._greedy = ResidentBuffer(engine.device, (4, s), torch.int32, 0,
+                                      attr="_greedy")
         self._greedy.set_row(2, _ONE_BITS)
         self._allow_all = ResidentBuffer(engine.device, (s, engine.vocab),
-                                         torch.bool, True)
+                                         torch.bool, True, attr="_allow_all")
 
     def _check_draft(self, draft) -> None:
         """Refuse a draft that could not serve beside the target: another
@@ -229,9 +231,10 @@ class SpecDecoder:
         views = [_CapturePrefillView(self.engine.block_size)
                  for _ in range(draft.cfg.num_layers)]
         _, chunks = draft.gpt(ids, caches=views, start_pos=0)
-        for (kc, vc), entry in zip(chunks,
-                                   self.engine.arena.ns_pools(self.NAMESPACE)):
-            _scatter_rows(entry, rows, offs, kc[0], vc[0])
+        arena = self.engine.arena
+        red = arena.scale_reduce(self.NAMESPACE)
+        for (kc, vc), entry in zip(chunks, arena.ns_pools(self.NAMESPACE)):
+            _scatter_rows(entry, rows, offs, kc[0], vc[0], red)
         return ()
 
     def _prefill_built(self, bucket: int) -> None:
@@ -265,7 +268,7 @@ class SpecDecoder:
         prog = engine._graphs.program(
             ("draft_prefill", p_bucket), self._draft_prefill_fn,
             functools.partial(self._prefill_built, p_bucket),
-            ids=((1, p_bucket), i64), rows=((p_bucket,), i64),
+            site="spec", ids=((1, p_bucket), i64), rows=((p_bucket,), i64),
             offs=((p_bucket,), i64))
         engine._run(prog, None, "serving.draft_prefill", ids=ids, rows=row,
                     offs=p_idx % bs)
@@ -279,8 +282,11 @@ class SpecDecoder:
         """One single-token forward of ``model`` over its pools: the decode
         step's ops and shapes, head excluded. Returns the ``[S, hidden]``
         last hidden states."""
-        views = [_PagedCacheView(entry, block_tables, positions, rows, offs)
-                 for entry in pools]
+        arena = self.engine.arena
+        red = arena.scale_reduce("primary" if pools is arena.pools
+                                 else self.NAMESPACE)
+        views = [_PagedCacheView(entry, block_tables, positions, rows, offs,
+                                 red) for entry in pools]
         h, _ = model.gpt(last_tok[:, None], caches=views, start_pos=positions)
         return h[:, 0]
 
@@ -428,7 +434,7 @@ class SpecDecoder:
             "spec", self._draft_fn if self.draft_mode else self._lockstep_fn,
             self._spec_built,
             resident=dict(samp=self._greedy, allowed=self._allow_all),
-            **specs)
+            site="spec", **specs)
         res = engine._run(prog, None, "serving.spec_step", **values)
         tgt = res[0]
         props = res[1] if self.draft_mode else tgt  # lockstep: its own picks

@@ -524,6 +524,10 @@ class TierView:
         self.signature = signature
         self._ns = hashlib.blake2b(repr(signature).encode(),
                                    digest_size=8).digest()
+        #: rank 0 of a tensor-parallel mesh: ``mirror(kind, key, block)``
+        #: sends each tier write to the followers, which write their own
+        #: rows of ``block`` under ``key`` (``serving.tp``)
+        self.mirror: Optional[Callable[[str, bytes, int], None]] = None
         self.spilled_blocks = 0
         self.spilled_bytes = 0
         self.restored_blocks = 0
@@ -547,9 +551,13 @@ class TierView:
     def tier_of(self, key: bytes) -> Optional[str]:
         return self.store.tier_of(self._k(key))
 
-    def spill(self, key: bytes, reader: Callable[[], Payload]) -> None:
+    def spill(self, key: bytes, reader: Callable[[], Payload],
+              block: Optional[int] = None) -> None:
         """A device block is evicted: make its bytes tier-resident
-        (``reader`` runs only when the write-through copy is gone)."""
+        (``reader`` runs only when the write-through copy is gone).
+        ``block`` is the device block ``reader`` reads (for the mirror)."""
+        if self.mirror is not None and block is not None:
+            self.mirror("spill", key, block)
         t0 = time.perf_counter()
         written = self.store.ensure(self._k(key), reader)
         telemetry.observe("latency.spill", time.perf_counter() - t0)
@@ -559,11 +567,13 @@ class TierView:
         if written:
             metrics.bump("tier.spilled_bytes", written)
 
-    def write_through(self, key: bytes,
-                      reader: Callable[[], Payload]) -> None:
+    def write_through(self, key: bytes, reader: Callable[[], Payload],
+                      block: Optional[int] = None) -> None:
         """A freshly inserted prefix block lands in the host tier too, so a
         later spill is free and a rebuilt engine can restore it; under
         ``FLAGS_serving_tier_publish`` on the disk tier at once as well."""
+        if self.mirror is not None and block is not None:
+            self.mirror("write_through", key, block)
         self.store.ensure(self._k(key), reader,
                           publish=bool(flags.flag("serving_tier_publish")))
 
