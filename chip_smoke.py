@@ -494,10 +494,26 @@ no result. Phases, in order; each raises on failure:
     and int8) at 8 and at 4 local heads against its plain version
     (``tp_local_kernels``).
 
-Each phase prints its seconds. ``--phase 19`` runs the build and phase 19
-alone (a check of 19c on a machine with four cards) and ends on a line of
-its own, ``{"phase_only": "19", ...}``; any other argument is refused. The
-smoke run proper takes no arguments.
+20. Multi-GPU training (``train_tp``): ``gpt_1p3b``'s width cut to
+    ``TT_LAYERS`` layers, batch 1 x 2048, AdamW under the global-norm
+    clip, ranks as threads over gloo on this card. 20a, f32 (TF32 off),
+    tp = 2: each rank's losses against the one-rank ``TrainStep``'s, its
+    first-step gradient shards against the whole model's slices, the
+    clip's norm, a column / row pair's ``x.grad``, exact flash launches;
+    a dropout step whose masks are boxes of the whole model's. 20b, f32,
+    data 2 and ZeRO ``os_g`` at sharding 2 against one rank, the slot
+    bytes a rank. 20c, bf16 O1, tp = 2, three steps beside a one-rank
+    control that computes each block's linears in the split's two parts
+    with no collective (``tt_two_parts``; bounds at ``TT_BF16_HELD``);
+    the flash kernels at a rank's [1, 2048, 8, 128] against their plain
+    versions, timed. 20d, ``generate()`` on the tp = 2 model: greedy and
+    sampled tokens equal the whole model's. 20e, only with four cards:
+    NCCL data 2 x model 2, one rank a card, with 20a's checks.
+
+Each phase prints its seconds. ``--phase 19`` and ``--phase 20`` run the
+build and that phase alone (a check of 19c or 20e on a machine with four
+cards) and end on a line of their own, ``{"phase_only": "19", ...}``; any
+other argument is refused. The smoke run proper takes no arguments.
 
 Every serving engine is closed at the end of its phase
 (``ServingAPI.close``), which drops its graphs and their pool before the
@@ -3197,11 +3213,12 @@ def model_flops(model, batch) -> float:
         * cfg.num_heads * hd * cfg.num_layers
 
 
-def flash_times(fa, card):
-    """Each flash kernel at the bf16 step's shapes: its error against the
+def flash_times(fa, card, b=BATCH_BF16, h=H):
+    """Each flash kernel at the bf16 step's shapes (``[b, SEQ, h, D]``; a
+    tensor-parallel rank's at its local heads): its error against the
     plain version, its time, bound, plain time and library time."""
     rng = np.random.default_rng(6)
-    dt, esz, b, h, d = torch.bfloat16, 2, BATCH_BF16, H, D
+    dt, esz, d = torch.bfloat16, 2, D
     q, k, v, do = flash_inputs(rng, b, SEQ, SEQ, h, d, dt)
     scale = 1.0 / np.sqrt(d)
     o, lse = fa.flash_forward(q, k, v, scale, True)
@@ -3286,6 +3303,8 @@ DROPOUT_PS = (0.1, 0.5, 0.999)
 # 16-byte aligned (the wrapper copies it before the kernel's 16-byte packs)
 DROPOUT_OFFSET_BUF = 1000004
 DROPOUT_TIMED = [(BATCH_BF16, SEQ, 2048), (BATCH_BF16, H, SEQ, SEQ)]
+# a mesh rank's box of a whole tensor: (whole shape, the box's offsets)
+DROPOUT_BOX = ((4, H, 512, 512), (2, H // 2, 0, 0))
 _INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
              torch.float16: torch.int16}
 
@@ -3303,20 +3322,25 @@ def same_bits(a, b) -> bool:
                                               b.view(_INT_VIEW[b.dtype]))
 
 
-def dropout_case(do, rng_mod, x, key, p, axis, upscale, what):
-    """One kernel launch against the plain version on the same x and key:
-    the keep masks (0 differing elements), the outputs bit for bit, the
+def dropout_case(do, rng_mod, x, key, p, axis, upscale, what, box=None):
+    """One kernel launch against the plain version on the same x and key
+    (``box``: x is that box of a whole tensor, a mesh rank's draw): the
+    keep masks (0 differing elements), the outputs bit for bit, the
     backward (the Function on a random gradient) bit for bit, and a second
     launch equal to the first. Returns the max abs error."""
-    y = do.dropout_apply(x, key, p, axis, upscale)
-    ref = do.dropout_ref(x, key, p, axis, upscale)
-    keep = rng_mod.bernoulli(key, 1.0 - p, do.mask_shape(x.shape, axis))
+    y = do.dropout_apply(x, key, p, axis, upscale, box)
+    ref = do.dropout_ref(x, key, p, axis, upscale, box)
+    if box is None:
+        keep = rng_mod.bernoulli(key, 1.0 - p, do.mask_shape(x.shape, axis))
+    else:
+        keep = rng_mod.bernoulli(key, 1.0 - p, box[0])[tuple(
+            slice(o, o + n) for o, n in zip(box[1], x.shape))]
     mask_diff = int(((y != 0) != keep).sum())
     xg = x.detach().clone().requires_grad_(True)
     g = torch.randn_like(x.float()).to(x.dtype)
-    do.Dropout.apply(xg, key, p, axis, upscale).backward(g)
-    g_ref = do.dropout_ref(g, key, p, axis, upscale)
-    again = do.dropout_apply(x, key, p, axis, upscale)
+    do.Dropout.apply(xg, key, p, axis, upscale, box).backward(g)
+    g_ref = do.dropout_ref(g, key, p, axis, upscale, box)
+    again = do.dropout_apply(x, key, p, axis, upscale, box)
     torch.cuda.synchronize()
     err = float((y.float() - ref.float()).abs().max())
     ok = (mask_diff == 0 and same_bits(y, ref) and same_bits(xg.grad, g_ref)
@@ -3337,9 +3361,10 @@ def dropout_case(do, rng_mod, x, key, p, axis, upscale, what):
 def dropout_checks(do, rng_mod, functional, card):
     """Phase 10a: the dropout kernel against its plain version on the card
     (``dropout_case``) in every dtype at the residual, the attention
-    probabilities' and a ragged 1,000,003 elements, p 0.1/0.5/0.999; the
-    axis form; downscale_in_infer; a view at an offset of one element; p 0
-    and eval mode draw no key and launch nothing. Returns the max abs error
+    probabilities' and a ragged 1,000,003 elements, p 0.1/0.5/0.999; a
+    mesh rank's box (DROPOUT_BOX); the axis form; downscale_in_infer; a
+    view at an offset of one element; p 0 and eval mode draw no key and
+    launch nothing. Returns the max abs error
     over all checks."""
     gen = torch.Generator(device="cuda").manual_seed(21)
     err, n = 0.0, 0
@@ -3358,6 +3383,17 @@ def dropout_checks(do, rng_mod, functional, card):
                 n += 1
             del x
             torch.cuda.empty_cache()
+        # a mesh rank's box: the second half of the batch rows and of
+        # the heads of a whole [batch, heads, s, s]
+        whole, offs = DROPOUT_BOX
+        x = nonzero_input(gen, tuple(w - o for w, o in zip(whole, offs)),
+                          dtype)
+        key = rng_mod.prng_key(n, device="cuda")
+        err = max(err, dropout_case(do, rng_mod, x, key, 0.1, None, True,
+                                    f"box at {list(offs)} of {list(whole)}",
+                                    box=(whole, offs)))
+        n += 1
+        del x
         for shape, axis in DROPOUT_AXES:
             x = nonzero_input(gen, shape, dtype)
             key = rng_mod.prng_key(n, device="cuda")
@@ -6497,14 +6533,16 @@ def fleet_faults(gpt, serving, arrays, card):
     dev = model.gpt.wte.weight.device
     rng = np.random.default_rng(90)
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
-    one = serving.ServingAPI(model, serving.ServingConfig(
-        num_slots=POOL_SLOTS), device=dev)
-    reqs = [one.submit(p, max_new_tokens=FLEET_KILL_NEW) for p in prompts]
-    one.run_until_idle()
-    # greedy: a shorter wave's streams are prefixes of these
-    want = [list(r.tokens) for r in reqs]
-    one.close()
-    release()
+
+    def reference():
+        one = serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=POOL_SLOTS), device=dev)
+        reqs = [one.submit(p, max_new_tokens=FLEET_KILL_NEW)
+                for p in prompts]
+        one.run_until_idle()
+        one.close()
+        # greedy: a shorter wave's streams are prefixes of these
+        return [list(r.tokens) for r in reqs]
 
     def wave(pool, n=new):
         return [pool.submit(p, max_new_tokens=n, tenant="f32")
@@ -6527,13 +6565,22 @@ def fleet_faults(gpt, serving, arrays, card):
 
     out = {}
     keep = flags.get_flags("fault_injection")
-    flags.set_flags({"fault_injection": True})
     free0 = free_bytes()
-    pool = ProcessReplicaPool(model, replicas=FLEET_WORKERS,
-                              background=True, num_slots=POOL_SLOTS,
-                              respawn_backoff=FLEET_BACKOFF,
-                              heartbeat_interval=FLEET_HB,
-                              heartbeat_misses=FLEET_MISSES, device=dev)
+    # the reference runs on this card while the workers boot
+    with ThreadPoolExecutor(1) as ex:
+        want_f = ex.submit(reference)
+        flags.set_flags({"fault_injection": True})
+        pool = ProcessReplicaPool(model, replicas=FLEET_WORKERS,
+                                  background=True, num_slots=POOL_SLOTS,
+                                  respawn_backoff=FLEET_BACKOFF,
+                                  heartbeat_interval=FLEET_HB,
+                                  heartbeat_misses=FLEET_MISSES, device=dev)
+        try:
+            want = want_f.result()
+        except BaseException:
+            pool.close()
+            raise
+    release()
     procs = []
     try:
         victim = pool.replicas()[0]
@@ -6615,21 +6662,31 @@ def fleet_faults(gpt, serving, arrays, card):
               f"{FLEET_MISSES} x {FLEET_HB} s, a poll unanswered) after "
               f"{out['hang_classified_s']:.3f} s, its streams re-routed and "
               f"equal the uninterrupted ones [{card}]")
-        when(lambda: victim.generation == 2 and victim.healthy,
-             "worker 0's second respawn")
-        procs.append(victim.api.proc)
-        procs.append(pool.replicas()[1].api.proc)
-    finally:
+    except BaseException:
         pool.close()
+        raise
+    finally:
         flags.set_flags(keep)
         resilience.clear_faults()
-    if any(p.is_alive() for p in procs):
-        raise AssertionError("f32 fleet: a worker outlived close()")
-    print(f"e2e f32 fleet: none of the {len(procs)} worker processes is "
-          f"alive after close() [{card}]")
-    del model
-    release()
-    return out
+
+    def finish():
+        """Worker 0's second respawn (it boots while 16c runs), then
+        ``close()``: no worker process outlives it."""
+        try:
+            when(lambda: victim.generation == 2 and victim.healthy,
+                 "worker 0's second respawn", timeout=300.0)
+            procs.append(victim.api.proc)
+            procs.append(pool.replicas()[1].api.proc)
+        finally:
+            pool.close()
+        if any(p.is_alive() for p in procs):
+            raise AssertionError("f32 fleet: a worker outlived close()")
+        print(f"e2e f32 fleet: worker 0 respawned after the hang; none of "
+              f"the {len(procs)} worker processes is alive after close() "
+              f"[{card}]")
+        release()
+
+    return out, finish
 
 
 def harness_boot(args, log):
@@ -6693,42 +6750,58 @@ def wal_restart(serving, card):
     after WAL_SEEN tokens of
     the greedy one, and a second harness on the same ``--wal-dir`` replays
     the log: every accepted stream finishes equal to an in-process
-    engine's, the ``?offset=`` client sees no token twice and none missing,
-    and the build counters are frozen once the first resumed stream ended;
-    a third harness answers the retried ids from its result cache (no
-    decode). Prints each incarnation's boot seconds, the replay's seconds
-    and the ``/healthz`` statuses seen. Returns the numbers."""
+    engine's (computed while the first harness boots), the ``?offset=``
+    client sees no token twice and none missing, and the build counters
+    are frozen once the first resumed stream ended; a third harness
+    answers the retried ids from its result cache (no decode). Prints each
+    incarnation's boot seconds, the replay's seconds and the ``/healthz``
+    statuses seen. Returns the numbers."""
     from paddle_tpu_torch.serving import SamplingParams, TrieConstraint
     from paddle_tpu_torch.serving.gateway import wal_harness
 
     cfg, layers, dtype, seed = WAL_MODEL
-    model = wal_harness.build_model(cfg, layers, dtype, FLEET_DEVICE, seed)
-    dev = model.gpt.wte.weight.device
-    vocab = model.cfg.vocab_size
-    rng = np.random.default_rng(91)
-    prompts = [rng.integers(0, vocab, n) for n, _ in WAL_STREAMS]
-    news = [n for _, n in WAL_STREAMS]
-    ref = serving.ServingAPI(model, serving.ServingConfig(
-        num_slots=POOL_SLOTS), device=dev)
-    kws = [{}, {"sampling": SamplingParams(**WAL_SAMPLED)},
-           {"stop_token_id": WAL_STOP, "constraint": TrieConstraint(
-               WAL_CHOICES, vocab_size=vocab, stop_token_id=WAL_STOP)}]
-    reqs = [ref.submit(p, max_new_tokens=n, **k)
-            for p, n, k in zip(prompts, news, kws)]
-    ref.run_until_idle()
-    want = [[int(t) for t in r.tokens] for r in reqs]
-    ref.close()
-    if want[2] not in ([*c, WAL_STOP] for c in WAL_CHOICES):
-        raise AssertionError(f"wal: the constrained stream {want[2]}")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     wal_dir = os.path.join(root, "wal_chip")
     shutil.rmtree(wal_dir, ignore_errors=True)
-    del model, ref, reqs
-    release()
     args = ["--wal-dir", wal_dir, "--device", FLEET_DEVICE, "--config", cfg,
             "--layers", str(layers), "--dtype", dtype, "--seed", str(seed),
             "--num-slots", str(POOL_SLOTS), "--kv-block-size", str(BS),
             "--max-model-len", str(WAL_MAX_LEN)]
+    out = {"boot_s": []}
+    log = open(os.path.join(root, "wal_harness.log"), "w")
+    procs = []
+    # the first harness boots while the in-process reference runs
+    first = ThreadPoolExecutor(1)
+    booting = first.submit(harness_boot, args, log)
+    try:
+        model = wal_harness.build_model(cfg, layers, dtype, FLEET_DEVICE,
+                                        seed)
+        dev = model.gpt.wte.weight.device
+        vocab = model.cfg.vocab_size
+        rng = np.random.default_rng(91)
+        prompts = [rng.integers(0, vocab, n) for n, _ in WAL_STREAMS]
+        news = [n for _, n in WAL_STREAMS]
+        ref = serving.ServingAPI(model, serving.ServingConfig(
+            num_slots=POOL_SLOTS), device=dev)
+        kws = [{}, {"sampling": SamplingParams(**WAL_SAMPLED)},
+               {"stop_token_id": WAL_STOP, "constraint": TrieConstraint(
+                   WAL_CHOICES, vocab_size=vocab, stop_token_id=WAL_STOP)}]
+        reqs = [ref.submit(p, max_new_tokens=n, **k)
+                for p, n, k in zip(prompts, news, kws)]
+        ref.run_until_idle()
+        want = [[int(t) for t in r.tokens] for r in reqs]
+        ref.close()
+        del model, ref, reqs
+        release()
+        if want[2] not in ([*c, WAL_STOP] for c in WAL_CHOICES):
+            raise AssertionError(f"wal: the constrained stream {want[2]}")
+    except BaseException:
+        first.shutdown(wait=True)
+        if booting.exception() is None:
+            harness_end(booting.result()[0])
+        log.close()
+        raise
+    first.shutdown(wait=True)
     bodies = [
         {"prompt": prompts[0].tolist(), "max_new_tokens": news[0],
          "request_id": "wg"},
@@ -6737,11 +6810,8 @@ def wal_restart(serving, card):
         {"prompt": prompts[2].tolist(), "max_new_tokens": news[2],
          "stop_token_id": WAL_STOP, "choices": WAL_CHOICES,
          "request_id": "wc"}]
-    out = {"boot_s": []}
-    log = open(os.path.join(root, "wal_harness.log"), "w")
-    procs = []
     try:
-        proc, base, boot = harness_boot(args, log)
+        proc, base, boot = booting.result()
         procs.append(proc)
         out["boot_s"].append(boot)
         healthz_until_ok(base)
@@ -6845,11 +6915,17 @@ def serve_fleet_wal(gpt, serving, pa, arrays, card, pool15):
     del model
     release()
     t0 = time.perf_counter()
-    out["faults"] = fleet_faults(gpt, serving, arrays, card)
-    print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
+    out["faults"], finish_16b = fleet_faults(gpt, serving, arrays, card)
+    print(f"phase 16b: {time.perf_counter() - t0:.1f} s (worker 0's second "
+          "respawn boots during 16c)")
     t0 = time.perf_counter()
-    out["wal"] = wal_restart(serving, card)
-    print(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+    try:
+        out["wal"] = wal_restart(serving, card)
+        print(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+    finally:
+        t0 = time.perf_counter()
+        finish_16b()
+        print(f"phase 16b's end after 16c: {time.perf_counter() - t0:.1f} s")
     print("phase 16, one call: " + json.dumps(out) + f" [{card}]")
     return launches, out
 
@@ -7195,8 +7271,10 @@ def serve_disagg_f32(gpt, serving, arrays, card):
         return [model.generate(p[None], max_new_tokens=n)[0, len(p):]
                 .tolist() for p in ps]
 
-    want, want_long = refs(prompts, new), refs(long_ps, new)
-    want_kill = refs(kill_ps, FLEET_KILL_NEW)
+    # the references run on this card while the workers boot
+    ref_pool = ThreadPoolExecutor(1)
+    wants = ref_pool.submit(lambda: (refs(prompts, new), refs(long_ps, new),
+                                     refs(kill_ps, FLEET_KILL_NEW)))
 
     def hold(rrs, ps, ref, what):
         for rr, p, w in zip(rrs, ps, ref):
@@ -7224,6 +7302,7 @@ def serve_disagg_f32(gpt, serving, arrays, card):
             background=True, num_slots=POOL_SLOTS,
             respawn_backoff=FLEET_BACKOFF, heartbeat_interval=FLEET_HB,
             heartbeat_misses=FLEET_MISSES, device=dev)
+        want, want_long, want_kill = wants.result()
         disk = pool.disk_dir
         procs = [rep.api.proc for rep in pool.replicas()]
         hold([pool.submit(p, max_new_tokens=new) for p in prompts], prompts,
@@ -7303,38 +7382,53 @@ def serve_disagg_f32(gpt, serving, arrays, card):
         if not taken or any(rr.reroutes != 1 for rr in taken) \
                 or not all(restored):
             raise AssertionError(f"{what}: {out['decode_kill']}")
-        wait_for(lambda: all(r.healthy for r in pool.replicas()),
-                 "the decode worker's respawn", 120)
-
-        # scale the prefill role to zero: unified routes
-        pool.scale_to(prefill=0)
-        d0 = metrics_counter("disagg.degraded_routes")
-        h0 = metrics_counter("disagg.handoffs")
-        what = "f32 disagg, the prefill role scaled to zero"
-        hold([pool.submit(p, max_new_tokens=new) for p in prompts], prompts,
-             want, what)
-        out["degraded_routes"] = metrics_counter("disagg.degraded_routes") \
-            - d0
-        if (out["degraded_routes"] != len(prompts)
-                or metrics_counter("disagg.handoffs") != h0):
-            raise AssertionError(f"{what}: {out['degraded_routes']} "
-                                 "degraded routes, or a handoff")
-        procs += [rep.api.proc for rep in pool.replicas()]
-    finally:
+    except BaseException:
+        ref_pool.shutdown(wait=True)
         if pool is not None:
             pool.close()
         resilience.clear_faults()
         flags.set_flags(keep)
-    if any(p.is_alive() for p in procs):
-        raise AssertionError("f32 disagg: a worker outlived close()")
-    if os.path.exists(disk):
-        raise AssertionError("f32 disagg: the minted disk directory stayed")
-    print(f"e2e f32 disagg: none of the {len(procs)} worker processes is "
-          f"alive after close(), the minted directory {disk} is gone "
-          f"[{card}]")
-    del model
-    release()
-    return out
+        raise
+    ref_pool.shutdown(wait=True)
+
+    def finish():
+        """The decode worker's respawn (it boots while phase 7 runs), the
+        prefill role scaled to zero, then ``close()``: no worker outlives
+        it and the minted disk directory is gone."""
+        nonlocal procs
+        try:
+            wait_for(lambda: all(r.healthy for r in pool.replicas()),
+                     "the decode worker's respawn", 300)
+            # scale the prefill role to zero: unified routes
+            pool.scale_to(prefill=0)
+            d0 = metrics_counter("disagg.degraded_routes")
+            h0 = metrics_counter("disagg.handoffs")
+            what = "f32 disagg, the prefill role scaled to zero"
+            hold([pool.submit(p, max_new_tokens=new) for p in prompts],
+                 prompts, want, what)
+            out["degraded_routes"] = metrics_counter(
+                "disagg.degraded_routes") - d0
+            if (out["degraded_routes"] != len(prompts)
+                    or metrics_counter("disagg.handoffs") != h0):
+                raise AssertionError(f"{what}: {out['degraded_routes']} "
+                                     "degraded routes, or a handoff")
+            procs += [rep.api.proc for rep in pool.replicas()]
+        finally:
+            pool.close()
+            resilience.clear_faults()
+            flags.set_flags(keep)
+        if any(p.is_alive() for p in procs):
+            raise AssertionError("f32 disagg: a worker outlived close()")
+        if os.path.exists(disk):
+            raise AssertionError("f32 disagg: the minted disk directory "
+                                 "stayed")
+        print(f"e2e f32 disagg: none of the {len(procs)} worker processes "
+              f"is alive after close(), the minted directory {disk} is gone "
+              f"[{card}]")
+        release()
+        return out
+
+    return out, finish
 
 
 def serve_disagg(gpt, serving, pa, arrays, card, pool15, fleet16):
@@ -7356,10 +7450,10 @@ def serve_disagg(gpt, serving, pa, arrays, card, pool15, fleet16):
     del model
     release()
     t0 = time.perf_counter()
-    out["f32"] = serve_disagg_f32(gpt, serving, arrays, card)
-    print(f"phase 17b: {time.perf_counter() - t0:.1f} s")
-    print("phase 17, one call: " + json.dumps(out) + f" [{card}]")
-    return launches, out
+    out["f32"], finish_17b = serve_disagg_f32(gpt, serving, arrays, card)
+    print(f"phase 17b: {time.perf_counter() - t0:.1f} s (its tail runs "
+          "after phase 7)")
+    return launches, out, finish_17b
 
 
 # ------------------------------------------------------------------ phase 18
@@ -8256,6 +8350,465 @@ def serve_tp(gpt, serving, pa, arrays, card):
     return launches, out
 
 
+# ------------------------------------------------------------------ phase 20
+# multi-GPU training: gpt_1p3b's width cut to TT_LAYERS layers, batch 1 x
+# SEQ, AdamW (lr 3e-4, weight decay 0.01) under ClipGradByGlobalNorm(1.0),
+# flash flag 0; ranks are threads of this process (gloo over CUDA tensors
+# on the one card, NCCL one rank a card in 20e)
+TT_LAYERS = 4
+TT_STEPS = 3              # 20a's TrainSteps
+TT_STEPS_BF16 = 3         # 20c's, each read beside its two-part control
+# 20c's bounds (readings on an H100 at 700 W): steps 1-2 within
+# ROUTE_TOL["bf16"] of the whole run (read <= 1.5e-5). The first step's
+# loss (the forward) within about an f32 ulp of the two-part control,
+# which rounds as the split does with no collective (read 0, the whole
+# run 4.3e-7 away). The third step within 4x its largest reading
+# (1.917e-4): AdamW's first steps move every weight by about lr whatever
+# its gradient, so the split's bf16 rounding alone moves that loss (the
+# control, no collective, 4.5e-5 from the whole run)
+TT_BF16_HELD, TT_BF16_FORWARD_TOL, TT_BF16_LATE_TOL = 2, 1e-7, 8e-4
+TT_STEPS_DATA = 2         # 20b's and 20e's: each moves the whole gradient
+TT_TIMEOUT = 600.0        # a rank's collectives and its thread's join, s
+TT_NCCL_TIMEOUT = 120.0   # 20e's: a stuck NCCL collective fails, not hangs
+TT_DROPOUT, TT_DROP_SEED = 0.1, 21
+TT_GEN = (2, 64, 32)      # 20d: prompts, prompt length, new tokens
+TT_GEN_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=13)
+TT_SLOT_SHARE = 0.55      # 20b: a ZeRO rank's slot bytes over one rank's
+# f32 (TF32 off): losses rtol; a gradient shard's and the pair check's
+# x.grad relative L2 against the whole model's; the clip's norm rtol
+TT_LOSS_TOL, TT_GRAD_TOL, TT_PAIR_TOL, TT_NORM_TOL = 1e-5, 1e-4, 1e-5, 1e-5
+TT_DEVICE = "cuda"        # the gloo ranks' and the references' device
+
+
+def tt_arrays(gpt):
+    """Seeded arrays of phase 20's parameters (``--phase 20`` alone)."""
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=TT_LAYERS)
+    model = gpt.GPTForCausalLM(cfg, device=TT_DEVICE)
+    arrays = gpt.seeded_state(model, seed=0)
+    del model
+    return arrays
+
+
+def tt_model(gpt, arrays, device=None, **kw):
+    """Phase 20's model: gpt_1p3b's width at TT_LAYERS layers, the seeded
+    arrays of its parameters, in train mode."""
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=TT_LAYERS, **kw)
+    model = gpt.GPTForCausalLM(cfg, device=device or TT_DEVICE)
+    names = dict(model.named_parameters())
+    gpt.load_functional_state(model, {n: a for n, a in arrays.items()
+                                      if n in names})
+    model.train()
+    return model
+
+
+def tt_batch(vocab, batch, seed):
+    ids = np.random.default_rng(seed).integers(0, vocab, (batch, SEQ + 1))
+    ids = torch.as_tensor(ids, device=TT_DEVICE)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def tt_step(port, model, bf16=False):
+    """A TrainStep of ``model`` (AMP O1 bf16 with ``bf16``) and its
+    optimizer."""
+    opt = port.AdamW(learning_rate=3e-4, parameters=model.named_parameters(),
+                     weight_decay=0.01,
+                     grad_clip=port.ClipGradByGlobalNorm(1.0))
+
+    def loss_fn(a, b):
+        if not bf16:
+            return model(a, b)
+        with port.amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model(a, b)
+
+    return port.TrainStep(loss_fn, opt), opt
+
+
+def slot_bytes(opt) -> int:
+    return sum(t.numel() * t.element_size()
+               for slots in opt._accumulators.values()
+               for t in slots.values())
+
+
+def pair_grad(mlp, seed, device):
+    """The gradient of ``sum(mlp(x) * c)`` for x, c ``[1, SEQ, hidden]``
+    made from ``seed``: a column / row pair's input gradient, the §3
+    fault's reading."""
+    rng = np.random.default_rng(seed)
+    h = mlp.up.weight.shape[0]   # [in, out] whole or split by columns
+    x, c = (torch.from_numpy(rng.standard_normal((1, SEQ, h),
+                                                 dtype=np.float32))
+            .to(device) for _ in range(2))
+    x.requires_grad_(True)
+    (mlp(x) * c).sum().backward()
+    return x.grad
+
+
+def rel_l2_t(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def shard_of(gpt, name, whole, mesh):
+    """The slice of the whole model's ``name`` that a rank of ``mesh``
+    holds (``models.gpt.shard_model``'s rule)."""
+    su = gpt.sharding_util
+    cfg = gpt.gpt_1p3b()
+    heads, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    if name.endswith(("attn.qkv.weight", "attn.qkv.bias")):
+        cols = torch.as_tensor(su.qkv_columns(heads, hd, mesh),
+                               device=whole.device)
+        return whole.index_select(whole.dim() - 1, cols)
+    if name.endswith("attn.proj.weight"):
+        lo, hi = su.head_rows(heads, hd, mesh)
+        return whole[lo:hi]
+    if name.endswith(("mlp.up.weight", "mlp.up.bias")):
+        lo, hi = su.split_range(cfg.intermediate_size, mesh)
+        return whole[..., lo:hi]
+    if name.endswith("mlp.down.weight"):
+        lo, hi = su.split_range(cfg.intermediate_size, mesh)
+        return whole[lo:hi]
+    if name == "gpt.wte.weight":
+        lo, hi = su.split_range(cfg.vocab_size, mesh)
+        return whole[lo:hi]
+    return whole
+
+
+def tt_two_parts(port, model):
+    """20c's control: ``model`` (one rank, whole) computing each block's
+    four linears in the parts a tp = 2 split computes them in, with no
+    collective: ``proj``'s and ``down``'s products from the two halves of
+    their input rows, each rounded to the output type and then summed
+    (the row layer's partial products and their all-reduce); ``qkv``'s and
+    ``up``'s outputs as the two ranks' columns, the input's gradient the
+    sum of the two parts' (the column layer's *f*). The same function as
+    the whole model's, in the split's rounding."""
+    cfg = model.gpt.cfg
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    dev = model.gpt.wte.weight.device
+
+    def rows(lin):
+        k = lin.weight.shape[0] // 2
+
+        def forward(x):
+            x0, w0 = port.amp.cast_inputs("linear_nb", x[..., :k],
+                                          lin.weight[:k])
+            x1, w1 = port.amp.cast_inputs("linear_nb", x[..., k:],
+                                          lin.weight[k:])
+            y = torch.matmul(x0, w0) + torch.matmul(x1, w1)
+            return y + lin.bias.to(y.dtype)
+
+        lin.forward = forward
+
+    def columns(lin, parts):
+        order = torch.cat(parts)
+        inverse = torch.argsort(order)
+
+        def forward(x):
+            outs = []
+            for c in parts:
+                xc, w, b = port.amp.cast_inputs(
+                    "linear", x, lin.weight.index_select(1, c),
+                    lin.bias.index_select(0, c))
+                outs.append(torch.matmul(xc, w) + b)
+            return torch.cat(outs, -1).index_select(-1, inverse)
+
+        lin.forward = forward
+
+    half = h // 2
+    qkv = [torch.as_tensor(np.concatenate(
+        [np.arange(j * h + r * half, j * h + (r + 1) * half)
+         for j in range(3)]), device=dev) for r in range(2)]
+    up = [torch.arange(r * inter // 2, (r + 1) * inter // 2, device=dev)
+          for r in range(2)]
+    for blk in model.gpt.layers:
+        columns(blk.attn.qkv, qkv)
+        rows(blk.attn.proj)
+        columns(blk.mlp.up, up)
+        rows(blk.mlp.down)
+    return model
+
+
+def tt_whole(port, gpt, arrays, x, y, steps, grads=False, **kw):
+    """The one-rank run phase 20 holds the ranks to: with ``grads`` the
+    first step's gradients, the clip's global norm and the pair check's
+    x.grad (no update); then ``steps`` TrainSteps' losses and the
+    optimizer's slot bytes. ``kw``: ``bf16``, ``two_parts`` (20c's
+    control, :func:`tt_two_parts`) or the config's."""
+    bf16 = kw.pop("bf16", False)
+    two_parts = kw.pop("two_parts", False)
+    model = tt_model(gpt, arrays, **kw)
+    if two_parts:
+        tt_two_parts(port, model)
+    out = {}
+    if grads:
+        names, params = zip(*model.named_parameters())
+        g = torch.autograd.grad(model(x, y), params)
+        out["grads"] = dict(zip(names, g))
+        out["norm"] = float(port.ClipGradByGlobalNorm(1.0).global_norm(
+            list(g)))
+        out["pair"] = pair_grad(model.gpt.layers[0].mlp, 31, x.device)
+        del g
+    if "dropout" in kw:
+        port.rng.seed(TT_DROP_SEED)
+    step, opt = tt_step(port, model, bf16)
+    out["losses"] = [float(step(x, y)) for _ in range(steps)]
+    out["slot_bytes"] = slot_bytes(opt)
+    del step, opt, model
+    release()
+    return out
+
+
+def tt_train(ctx, mesh, dev, x, y, steps, ref=None, bf16=False, zero=None,
+             **kw):
+    """On one rank of ``mesh``: the model split over its model axis (a
+    ZeRO optimizer at level ``zero``), its rows of the global batch; with
+    ``ref`` (a :func:`tt_whole` with grads) the first step's gradient
+    shards (averaged over the data group) against the whole model's slices,
+    the clip's norm and the pair check; then ``steps`` TrainSteps with
+    this thread's flash and dropout launches counted."""
+    port, gpt, par = ctx.port, ctx.gpt, ctx.parallel
+    model = tt_model(gpt, ctx.arrays, device=dev, **kw)
+    gpt.shard_model(model, mesh)
+    xs, ys = par.shard_batch(x.to(dev)), par.shard_batch(y.to(dev))
+    out = {}
+    if ref is not None:
+        names, params = zip(*model.named_parameters())
+        g = par.sync_gradients(torch.autograd.grad(model(xs, ys), params))
+        out["grad_rel"] = max(
+            rel_l2_t(a, shard_of(gpt, n, ref["grads"][n], mesh).to(dev))
+            for n, a in zip(names, g))
+        out["norm"] = float(port.ClipGradByGlobalNorm(1.0).global_norm(
+            list(g), par.norm_groups(params)))
+        out["pair"] = rel_l2_t(pair_grad(model.gpt.layers[0].mlp, 31, dev),
+                               ref["pair"].to(dev))
+        del g
+    if "dropout" in kw:
+        port.rng.seed(TT_DROP_SEED)
+    step, opt = tt_step(port, model, bf16)
+    if zero is not None:
+        ctx.sharding.group_sharded_parallel(model, opt, level=zero)
+    port.fa.reset_launches()
+    port.do.reset_launches()
+    out["losses"] = [float(step(xs, ys)) for _ in range(steps)]
+    out["launches"] = {**port.fa.thread_launches(),
+                       "dropout": port.do.thread_launches()["dropout"]}
+    out["slot_bytes"] = slot_bytes(opt)
+    del step, opt, model
+    return out
+
+
+def tt_hold(what, res, ref, card, tol=TT_LOSS_TOL, launches=None,
+            steps=TT_STEPS, grads=False):
+    """Hold every rank's readings against the one-rank run's."""
+    for r, got in enumerate(res):
+        held = got["losses"][:steps]
+        rel = (np.abs(np.array(held) - ref["losses"][:steps])
+               / np.abs(ref["losses"][:steps]))
+        line = (f"20{what} rank {r}: losses {held} against one "
+                f"rank's {ref['losses'][:steps]} (rel {rel.max():.3e}, rtol "
+                f"{tol:g})")
+        if not (np.isfinite(got["losses"]).all() and (rel <= tol).all()):
+            raise AssertionError(line)
+        if grads:
+            nrel = abs(got["norm"] - ref["norm"]) / ref["norm"]
+            line += (f"; first-step gradient shards within relative L2 "
+                     f"{got['grad_rel']:.3e} of the whole model's slices "
+                     f"(bound {TT_GRAD_TOL:g}); clip norm {got['norm']!r} "
+                     f"vs {ref['norm']!r} (rel {nrel:.3e}); the pair's "
+                     f"x.grad relative L2 {got['pair']:.3e} (bound "
+                     f"{TT_PAIR_TOL:g})")
+            if not (got["grad_rel"] <= TT_GRAD_TOL and nrel <= TT_NORM_TOL
+                    and got["pair"] <= TT_PAIR_TOL):
+                raise AssertionError(line)
+        if launches is not None:
+            want = {k: launches[k] for k in launches}
+            got_l = {k: got["launches"][k] for k in launches}
+            line += f"; launches {got_l}"
+            if got_l != want:
+                raise AssertionError(f"{line} != {want}")
+        print(line + f" [{card}]")
+
+
+def bf16_drift(ref, ctrl, ranks, card):
+    """20c's reading, step by step: each rank's relative loss difference
+    from the whole one-rank run and from its two-part control, and the
+    control's from the whole run; the first step held to the control and
+    the steps after TT_BF16_HELD to TT_BF16_LATE_TOL (``tt_hold`` holds
+    the others)."""
+    def rel(a, b):
+        a, b = np.array(a), np.array(b)
+        return (np.abs(a - b) / np.abs(b)).tolist()
+
+    out = {"control_vs_whole": rel(ctrl["losses"], ref["losses"]),
+           "ranks_vs_whole": [rel(r["losses"], ref["losses"])
+                              for r in ranks],
+           "ranks_vs_control": [rel(r["losses"], ctrl["losses"])
+                                for r in ranks]}
+    line = (f"20c bf16 drift by step: {json.dumps(out)} (bounds: the "
+            f"first step {TT_BF16_FORWARD_TOL:g} of the control, steps "
+            f"after {TT_BF16_HELD} {TT_BF16_LATE_TOL:g} of the whole run)")
+    for whole, control in zip(out["ranks_vs_whole"],
+                              out["ranks_vs_control"]):
+        if not (control[0] <= TT_BF16_FORWARD_TOL and all(
+                w <= TT_BF16_LATE_TOL for w in whole[TT_BF16_HELD:])):
+            raise AssertionError(line)
+    print(f"{line} [{card}]")
+    return out
+
+
+def tt_generate(model, prompts, sampling):
+    return (model.generate(prompts, max_new_tokens=TT_GEN[2]).cpu(),
+            model.generate(prompts, max_new_tokens=TT_GEN[2],
+                           sampling=sampling).cpu())
+
+
+def train_tp(gpt, arrays, port, card):
+    """Phase 20 (f32 TF32 off but 20c; see the module docstring): 20a tp =
+    2 with a dropout step, 20c bf16 O1 tp = 2 and its kernels at 8 local
+    heads, 20d generate() at tp = 2, all in one run of two rank threads
+    over gloo on this card; 20b data 2 and ZeRO os_g at sharding 2; 20e
+    NCCL data 2 x model 2 on four cards where the machine has them.
+    Returns the launches of 20a (rows 3-5) and of its dropout step (row
+    7) per rank, and the numbers."""
+    from paddle_tpu_torch.distributed import parallel, sharding
+    from paddle_tpu_torch.serving import SamplingParams
+
+    port.flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+    ctx = types.SimpleNamespace(port=port, gpt=gpt, arrays=arrays,
+                                parallel=parallel, sharding=sharding)
+    vocab = gpt.gpt_1p3b().vocab_size
+    x, y = tt_batch(vocab, 1, 40)
+    x2, y2 = tt_batch(vocab, 2, 41)
+    prompts = np.random.default_rng(42).integers(0, vocab, TT_GEN[:2])
+    sampling = SamplingParams(**TT_GEN_SAMPLED)
+    t0 = time.perf_counter()
+    ref_a = tt_whole(port, gpt, arrays, x, y, TT_STEPS, grads=True)
+    ref_drop = tt_whole(port, gpt, arrays, x, y, 1, dropout=TT_DROPOUT)
+    ref_c = tt_whole(port, gpt, arrays, x, y, TT_STEPS_BF16, bf16=True)
+    ctrl_c = tt_whole(port, gpt, arrays, x, y, TT_STEPS_BF16, bf16=True,
+                      two_parts=True)
+    model = tt_model(gpt, arrays)
+    want_tokens = tt_generate(model, prompts, sampling)
+    del model
+    release()
+    print(f"phase 20 one-rank references: {time.perf_counter() - t0:.1f} s")
+
+    def tp2(mesh):
+        dev = TT_DEVICE
+        out = {"a": tt_train(ctx, mesh, dev, x, y, TT_STEPS, ref=ref_a)}
+        release()
+        out["drop"] = tt_train(ctx, mesh, dev, x, y, 1, dropout=TT_DROPOUT)
+        release()
+        out["c"] = tt_train(ctx, mesh, dev, x, y, TT_STEPS_BF16, bf16=True)
+        release()
+        model = tt_model(gpt, arrays)
+        gpt.shard_model(model, mesh)
+        out["d"] = tt_generate(model, prompts, sampling)
+        return out
+
+    t0 = time.perf_counter()
+    res = tt_ranks(parallel, tp2, "gloo", mp=2)
+    per_step = {k: TT_LAYERS * TT_STEPS for k in FLASH}
+    tt_hold("a (tp = 2, f32)", [r["a"] for r in res], ref_a, card,
+            launches=per_step, grads=True)
+    # a step draws at the embedding, and at each layer's probabilities and
+    # two residual branches, forward and backward
+    drops = {"dropout": 2 * (1 + 3 * TT_LAYERS), **{k: 0 for k in FLASH}}
+    tt_hold("a (tp = 2, f32, dropout 0.1: the plain attention route)",
+            [r["drop"] for r in res], ref_drop, card, launches=drops,
+            steps=1)
+    drift = bf16_drift(ref_c, ctrl_c, [r["c"] for r in res], card)
+    tt_hold("c (tp = 2, bf16 O1)", [r["c"] for r in res], ref_c, card,
+            tol=ROUTE_TOL["bf16"][0], steps=TT_BF16_HELD,
+            launches={k: TT_LAYERS * TT_STEPS_BF16 for k in FLASH})
+    for r, got in enumerate(res):
+        for kind, a, b in zip(("greedy", "sampled"), got["d"], want_tokens):
+            if not torch.equal(a, b):
+                raise AssertionError(f"20d rank {r}: {kind} tokens differ "
+                                     f"from the whole model's")
+    print(f"20d generate() at tp = 2: greedy and sampled "
+          f"({TT_GEN_SAMPLED}) tokens of {TT_GEN[0]} prompts of "
+          f"{TT_GEN[1]} + {TT_GEN[2]} equal the whole model's on both ranks "
+          f"[{card}]")
+    print(f"phase 20a/20c/20d ranks: {time.perf_counter() - t0:.1f} s")
+    times = flash_times(port.fa, card, b=1, h=H // 2)
+
+    t0 = time.perf_counter()
+    ref_b = tt_whole(port, gpt, arrays, x2, y2, TT_STEPS_DATA, grads=True)
+    res_dp = tt_ranks(parallel, lambda mesh: tt_train(
+        ctx, mesh, TT_DEVICE, x2, y2, TT_STEPS_DATA), "gloo", dp=2)
+    tt_hold("b (data 2, f32)", res_dp, ref_b, card, steps=TT_STEPS_DATA)
+    res_zero = tt_ranks(parallel, lambda mesh: tt_train(
+        ctx, mesh, TT_DEVICE, x, y, TT_STEPS_DATA, zero="os_g"), "gloo",
+        sharding_=2)
+    tt_hold("b (ZeRO os_g, sharding 2, f32)", res_zero, ref_a, card,
+            steps=TT_STEPS_DATA)
+    shares = [r["slot_bytes"] / ref_a["slot_bytes"] for r in res_zero]
+    print(f"20b ZeRO os_g: each rank's optimizer slots {shares} of one "
+          f"rank's {ref_a['slot_bytes']} bytes (bound {TT_SLOT_SHARE}) "
+          f"[{card}]")
+    if max(shares) > TT_SLOT_SHARE:
+        raise AssertionError(f"20b: slot shares {shares}")
+    print(f"phase 20b: {time.perf_counter() - t0:.1f} s")
+
+    out = {"tp_launches": [r["a"]["launches"] for r in res],
+           "dropout_launches": [r["drop"]["launches"]["dropout"]
+                                for r in res],
+           "flash_times_8_heads": times, "slot_shares": shares,
+           "bf16_drift": drift}
+    if torch.cuda.device_count() >= 4:
+        t0 = time.perf_counter()
+
+        # each rank reads only host data and its own card: a copy from
+        # another rank's card waits on that card's stream, which an NCCL
+        # kernel waiting for this rank may hold
+        host_ref = {"grads": {n: g.cpu() for n, g in ref_b["grads"].items()},
+                    "pair": ref_b["pair"].cpu()}
+        xh, yh = x2.cpu(), y2.cpu()
+
+        def nccl(mesh):
+            return tt_train(ctx, mesh, f"cuda:{mesh.rank}", xh, yh,
+                            TT_STEPS_DATA, ref=host_ref)
+
+        res_nccl = tt_ranks(parallel, nccl, "nccl", dp=2, mp=2,
+                            timeout=TT_NCCL_TIMEOUT)
+        tt_hold("e (NCCL, data 2 x model 2, four cards)", res_nccl, ref_b,
+                card, launches={k: TT_LAYERS * TT_STEPS_DATA for k in FLASH},
+                steps=TT_STEPS_DATA, grads=True)
+        out["nccl_launches"] = [r["launches"] for r in res_nccl]
+        print(f"phase 20e: {time.perf_counter() - t0:.1f} s")
+    else:
+        print(f"20e (NCCL data 2 x model 2): not run: this machine has "
+              f"{torch.cuda.device_count()} card(s) [{card}]")
+    del ref_a, ref_b
+    release()
+    launches = {name: {f"rank{r}": got[name]
+                       for r, got in enumerate(out["tp_launches"])}
+                for name in FLASH}
+    launches["dropout"] = {f"rank{r}": n
+                           for r, n in enumerate(out["dropout_launches"])}
+    return launches, out
+
+
+def tt_ranks(parallel, fn, backend, dp=1, mp=1, sharding_=1,
+             timeout=TT_TIMEOUT):
+    """``fn(mesh)`` on every rank of a ``dp x sharding x mp`` mesh of
+    threads of this process (``timeout``: each collective's and the
+    join's)."""
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+
+    world = dp * mp * sharding_
+
+    def body(rank, store):
+        if backend == "nccl":
+            torch.cuda.set_device(rank)   # one rank a card
+        mesh = mesh_mod.init_hybrid_mesh(
+            dp=dp, mp=mp, sharding=sharding_, rank=rank, world_size=world,
+            backend=backend, store=store, timeout=timeout)
+        return fn(mesh)
+
+    return parallel.run_thread_ranks(body, world, timeout=timeout)
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -8265,14 +8818,14 @@ def timed(label, fn, *args):
 
 
 def main() -> int:
-    # ``--phase 19``: the build and phase 19 alone (a four-card check of
-    # 19c), ending on a line of its own; the smoke run proper takes no
-    # arguments
-    if sys.argv[1:] not in ([], ["--phase", "19"]):
-        print(f"chip_smoke: arguments {sys.argv[1:]}: the only one taken is "
-              f"'--phase 19'", file=sys.stderr)
+    # ``--phase 19`` / ``--phase 20``: the build and that phase alone (a
+    # four-card check of 19c or 20e), ending on a line of its own; the
+    # smoke run proper takes no arguments
+    if sys.argv[1:] not in ([], ["--phase", "19"], ["--phase", "20"]):
+        print(f"chip_smoke: arguments {sys.argv[1:]}: the only ones taken "
+              f"are '--phase 19' and '--phase 20'", file=sys.stderr)
         return 2
-    only = "19" if sys.argv[1:] else None
+    only = sys.argv[2] if sys.argv[1:] else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one card",
               file=sys.stderr)
@@ -8334,6 +8887,16 @@ def main() -> int:
         print(json.dumps({"phase_only": "19", "passed": True,
                           "cards": torch.cuda.device_count()}))
         return 0
+    if only == "20":
+        arrays = tt_arrays(gpt)
+        launches, out = t("20", train_tp, gpt, arrays, port, card)
+        print("phase 20, one call: " + json.dumps(
+            {"launches_tp_train": launches, **out}, default=str)
+            + f" [{card}]")
+        print(card)
+        print(json.dumps({"phase_only": "20", "passed": True,
+                          "cards": torch.cuda.device_count()}))
+        return 0
     t("2", kernel_checks, pa)
     vocab = gpt.gpt_1p3b().vocab_size
     differ, u_err = t("2 (sampling checks)", sampling_checks, so, vocab,
@@ -8362,10 +8925,15 @@ def main() -> int:
                                arrays, card)
     fleet_launches, phase16 = t("16", serve_fleet_wal, gpt, serving, pa,
                                 arrays, card, phase15["pool"])
-    disagg_launches, _ = t("17", serve_disagg, gpt, serving, pa, arrays,
-                           card, phase15["pool"], phase16["fleet"])
-
-    t("7", flash_checks, fa)
+    disagg_launches, phase17, finish_17b = t(
+        "17", serve_disagg, gpt, serving, pa, arrays, card, phase15["pool"],
+        phase16["fleet"])
+    # 17b's decode worker respawns while phase 7 checks the flash kernels
+    try:
+        t("7", flash_checks, fa)
+    finally:
+        t("17b's end after 7", finish_17b)
+    print("phase 17, one call: " + json.dumps(phase17) + f" [{card}]")
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
     launches_f32 = t("8", train_f32, model, arrays, port, card)
     flash_timing, flash_launches, base = t("9", train_bf16, model, arrays,
@@ -8399,6 +8967,9 @@ def main() -> int:
     lbfgs = t("12d", lbfgs_full, arrays, train, card)
     export_launches, _ = t("18", serve_export, gpt, fa, arrays, card)
     tp_launches, _ = t("19", serve_tp, gpt, serving, pa, arrays, card)
+    tt_launches, phase20 = t("20", train_tp, gpt, arrays, port, card)
+    print("phase 20, one call: " + json.dumps(phase20, default=str)
+          + f" [{card}]")
     print(json.dumps({"training_loop": dict(fit=fit, checkpoint=ckpt,
                                             lbfgs=lbfgs,
                                             optimizer_updates=family)}))
@@ -8431,6 +9002,8 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     **({"launches_f32": launches_f32[name]}
                        if name in FLASH else {}),
+                    **({"launches_tp_train": tt_launches[name]}
+                       if name in FLASH + DROPOUT else {}),
                     **(export_launches if name == "flash_forward" else {}),
                     **({"launches_prefix": prefix_launches[name],
                         "launches_recovery": recovery_launches[name]}

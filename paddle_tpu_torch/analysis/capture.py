@@ -81,6 +81,10 @@ CAPTURED = (
     "paddle_tpu_torch/distributed/collective.py:all_reduce",
     "paddle_tpu_torch/serving/kv_arena.py:KVArena.scale_reduce",
     "paddle_tpu_torch/distributed/collective.py:gather_by_sum",
+    "paddle_tpu_torch/distributed/collective.py:reduce_from_model_parallel",
+    "paddle_tpu_torch/distributed/collective.py:gather_from_model_parallel",
+    "paddle_tpu_torch/distributed/fleet/meta_parallel/mp_layers.py:"
+    "VocabParallelEmbedding.local_logits",
     # the adapter hook _serving_linear calls and the per-lane gather and
     # products it adds (the binding is entered inside the engine's steps)
     "paddle_tpu_torch/serving/adapters.py:_lora_hook",

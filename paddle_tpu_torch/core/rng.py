@@ -35,11 +35,14 @@ functions run inside a captured CUDA graph.
 
 The stateful part of the JAX module, used by dropout:
 
-* one global key (``seed``, ``get_rng_state`` / ``set_rng_state``);
-  ``next_key()`` splits it, ``k, sub = split(key)``, keeps ``k`` and
-  returns ``sub``. The key is made on the CPU and moves, once, to the
-  device a draw names (``next_key(device)``), where it stays: the splits
-  then run on that device with no copy and no host read;
+* one global key (``seed``, ``get_rng_state`` / ``set_rng_state``), or,
+  in a thread that called :func:`use_thread_state` (a rank of a mesh run
+  as a thread: each rank holds its own key, as each process would),
+  that thread's own; ``next_key()`` splits it, ``k, sub = split(key)``,
+  keeps ``k`` and returns ``sub``. The key is made on the CPU and moves,
+  once, to the device a draw names (``next_key(device)``), where it
+  stays: the splits then run on that device with no copy and no host
+  read;
 * ``key_guard(base)``: inside it, draw number n returns
   ``fold_in(base, n)`` on the base key's device and the global key does
   not move (a ``TrainStep`` runs its loss under one);
@@ -66,9 +69,10 @@ import numpy as np
 import torch
 
 __all__ = ["threefry_2x32", "prng_key", "fold_in", "split", "random_bits",
-           "uniform", "gumbel", "categorical", "bernoulli", "seed",
-           "get_rng_state", "set_rng_state", "key_guard", "next_key",
-           "KeyTape", "RNGStatesTracker", "get_rng_state_tracker"]
+           "use_thread_state", "uniform", "gumbel", "categorical",
+           "bernoulli", "seed", "get_rng_state", "set_rng_state",
+           "key_guard", "next_key", "KeyTape", "RNGStatesTracker",
+           "get_rng_state_tracker"]
 
 MASK32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -235,17 +239,36 @@ _lock = threading.Lock()
 _global = {"key": None, "seed": 0}
 
 
+def _state() -> dict:
+    """The calling thread's own key state, else the process's."""
+    return getattr(_local, "state", None) or _global
+
+
 def _key():
-    if _global["key"] is None:
-        _global["key"] = prng_key(_global["seed"])
-    return _global["key"]
+    state = _state()
+    if state["key"] is None:
+        state["key"] = prng_key(state["seed"])
+    return state["key"]
+
+
+def use_thread_state(key=None) -> None:
+    """Give the calling thread a global key of its own, starting at
+    ``key`` (default: a copy of the process's key now); it ends with the
+    thread. Ranks of a mesh that run as threads of one process call it
+    first, so that each draws the keys a process of its own would."""
+    with _lock:
+        start = (_key() if key is None else torch.as_tensor(key)).clone()
+    # on the host: it moves, once, to the device of the thread's first draw
+    _local.state = {"key": start.to("cpu", torch.int64).reshape(2),
+                    "seed": _global["seed"]}
 
 
 def seed(s: int) -> int:
     """``paddle.seed``: the global key becomes ``PRNGKey(s)``."""
     with _lock:
-        _global["key"] = prng_key(int(s))
-        _global["seed"] = int(s)
+        state = _state()
+        state["key"] = prng_key(int(s))
+        state["seed"] = int(s)
     return s
 
 
@@ -262,7 +285,7 @@ def set_rng_state(state, device=None) -> None:
     key = torch.as_tensor(np.asarray(state) if not isinstance(
         state, torch.Tensor) else state).to(torch.int64).reshape(2)
     with _lock:
-        _global["key"] = key.clone()
+        _state()["key"] = key.clone()
 
 
 def _frames(name: str) -> list:
@@ -309,7 +332,7 @@ def next_key(device=None):
             if device is not None and key.device != torch.device(device):
                 key = key.to(device)
             keep, k = split(key).unbind(0)
-            _global["key"] = keep
+            _state()["key"] = keep
     for tape in _frames("recording"):
         tape.keys.append(k)
     return k

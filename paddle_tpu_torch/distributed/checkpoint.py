@@ -26,8 +26,17 @@ directories, with the same contract:
   probe before each attempt.
 
 Restored arrays come back as CPU torch tensors, or, with ``target``, on
-each target leaf's device. Multi-process checkpoints (the JAX package's
-``_globalize``) are not ported.
+each target leaf's device.
+
+On a mesh (the JAX package's ``_globalize``): a leaf that holds a rank's
+part of a whole tensor is gathered whole before it is written: a slice
+that carries a ``shard_spec`` (ZeRO's, ``distributed.sharding._place``'s)
+and a tensor-parallel shard (a split parameter, or the leaf of a state
+dict that shares its storage). Every rank of the mesh calls the save and
+one writes: world rank 0 of the thread's training mesh (model rank 0 of a
+serving mesh); a blocking save returns on every rank once the step is
+written. A target leaf of either kind takes its part of the whole value
+saved: a state saved whole loads onto a sharded or split target.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ import torch
 
 from ..core import flags, resilience
 from ..core.resilience import CheckpointIntegrityError
+from . import collective
 
 __all__ = ["save_state_dict", "load_state_dict", "apply_state_dict",
            "TrainCheckpointer", "AsyncSaveHandle",
@@ -175,6 +185,83 @@ def _manifest_mismatches(expected: Dict[str, dict], tree) -> List[str]:
 # ---------------------------------------------------------------- the files
 
 
+def _splits():
+    """``mp_layers.split_of`` and ``split_indices`` (imported on use: the
+    parallel layers import far more than a checkpoint needs)."""
+    from .fleet.meta_parallel import mp_layers
+
+    return mp_layers.split_of, mp_layers.split_indices
+
+
+def _save_mesh(tree):
+    """The mesh whose ranks save ``tree`` together: the thread's training
+    mesh, else the mesh of a sharded or split leaf; None for a save of one
+    process."""
+    from .mesh import get_hybrid_mesh
+
+    mesh = get_hybrid_mesh()
+    if mesh is not None:
+        return mesh
+    split_of, _ = _splits()
+    found = []
+
+    def look(x):
+        if isinstance(x, torch.Tensor):
+            spec = getattr(x, "shard_spec", None)
+            part = split_of(x) if spec is None else None
+            if spec is not None:
+                found.append(spec.mesh)
+            elif part is not None:
+                found.append(part.split_mesh)
+
+    _map_leaves(look, tree)
+    return found[0] if found else None
+
+
+def _globalize(tree):
+    """Every leaf holding a rank's part of a whole tensor gathered whole (a
+    collective over its group): a slice with a ``shard_spec``, and a
+    tensor-parallel shard (a split parameter, or a state dict's leaf of
+    one, gathered by its ``split_index``); the others unchanged."""
+    split_of, split_indices = _splits()
+
+    def leaf(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        spec = getattr(x, "shard_spec", None)
+        if spec is not None:
+            return spec.gather(x.detach())
+        part = split_of(x)
+        if part is None:
+            return x
+        dim, _, whole = part.split_index
+        shape = list(x.shape)
+        shape[dim] = whole
+        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        out.index_copy_(dim, split_indices(part).to(x.device), x.detach())
+        return collective.all_reduce(out, part.split_mesh.group)
+
+    return _map_leaves(leaf, tree)
+
+
+def _writer_of(mesh):
+    """``(writes, group)``: whether this rank writes a save of ``mesh``
+    (world rank 0 of a training mesh, model rank 0 of a serving mesh; every
+    process without one) and the group that waits for it."""
+    if mesh is None:
+        return True, None
+    if hasattr(mesh, "world"):
+        return mesh.rank == 0, mesh.world
+    return mesh.model_rank == 0, mesh.group
+
+
+def _settle_mesh(group) -> None:
+    """Every rank of a save on a mesh waits until its writer has
+    written."""
+    if group is not None:
+        collective.barrier(group)
+
+
 def _snapshot(tree):
     """A host copy of every tensor (numpy arrays copied too): what a save
     writes, whatever the caller does to its tensors afterwards."""
@@ -271,6 +358,16 @@ def _place_like(tree, target):
         return type(tree)(_place_like(v, tl[i] if i < len(tl) else None)
                           for i, v in enumerate(tree))
     if isinstance(tree, torch.Tensor) and isinstance(target, torch.Tensor):
+        spec = getattr(target, "shard_spec", None)
+        if spec is not None:
+            out = spec.take(tree).to(target.device)
+            out.shard_spec = spec
+            return out
+        split_of, split_indices = _splits()
+        part = split_of(target)
+        if part is not None and tree.shape != target.shape:
+            return tree.index_select(part.split_index[0], split_indices(
+                part)).to(target.device)
         return tree.to(target.device)
     return tree
 
@@ -316,9 +413,19 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
     the previous complete checkpoint is kept aside (``path + ".prev"``)
     until the new one commits, and :func:`load_state_dict` falls back to
     it. ``blocking=False`` takes the snapshot, then writes on the writer
-    thread and returns an :class:`AsyncSaveHandle`."""
+    thread and returns an :class:`AsyncSaveHandle`. Sharded leaves are
+    gathered whole first (see the module docstring)."""
     path = os.path.abspath(path)
-    snap = _snapshot(state_dict)
+    writes, group = _writer_of(_save_mesh(state_dict))
+    whole = _globalize(state_dict)
+    if not writes:
+        if blocking:
+            _settle_mesh(group)
+            return None
+        done: Future = Future()
+        done.set_result(None)
+        return AsyncSaveHandle(done)
+    snap = _snapshot(whole)
     if _writer is not None:
         _writer.submit(lambda: None).result()  # settle earlier saves
     if os.path.exists(path):
@@ -334,6 +441,7 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
 
     if blocking:
         commit()
+        _settle_mesh(group)
         return None
     return AsyncSaveHandle(_get_writer().submit(commit))
 
@@ -397,12 +505,17 @@ class TrainCheckpointer:
             return False
         if not force and step % self._interval:
             return False
-        snap = _snapshot(state_dict)
-        fut = self._pool.submit(self._commit, step, snap)
-        self._pending[step] = fut
-        resilience.bump("ckpt.saves")
+        writes, group = _writer_of(_save_mesh(state_dict))
+        whole = _globalize(state_dict)
+        if writes:
+            snap = _snapshot(whole)
+            fut = self._pool.submit(self._commit, step, snap)
+            self._pending[step] = fut
+            resilience.bump("ckpt.saves")
+            if not self._async:
+                self._settle(step)
         if not self._async:
-            self._settle(step)
+            _settle_mesh(group)
         return True
 
     def _commit(self, step: int, snap) -> None:

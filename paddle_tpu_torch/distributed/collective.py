@@ -23,7 +23,33 @@ the int8 arena's per-row absmax), on both backends: gloo has no
 ``all_gather`` on CUDA tensors, so the vocab
 gather of the tensor-parallel head writes each rank's slice into a zeroed
 buffer and sums (:func:`gather_by_sum`). Exactly one rank contributes each
-element, so the sum is exact.
+element, so the sum is exact. The serving path's ``all_reduce`` runs in
+place, outside autograd; its graphs capture it.
+
+Training (counterpart of the transposes GSPMD inserts, ``all_reduce``
+``:305``, ``all_gather`` ``:332``, ``broadcast`` ``:354``,
+``reduce_scatter`` ``:390``, ``barrier`` ``:548``) needs the collectives'
+backwards, written out as ``torch.autograd.Function`` objects (Megatron's
+pair):
+
+* :func:`copy_to_model_parallel` (*f*): the identity forward, a sum over
+  the group backward: at the input of a column-split layer and of the
+  tied head, whose ranks each see only their part of the input's gradient;
+* :func:`reduce_from_model_parallel` (*g*): a sum forward, the identity
+  backward: a row-split layer's partial products, the vocab-parallel
+  embedding's rows, a loss's data-parallel sum;
+* :func:`gather_from_model_parallel`: the last axis gathered whole, its
+  backward this rank's slice of the gradient (the gathered value feeds a
+  loss every rank computes alike, so the slice counts once).
+
+:func:`all_gather_rows` and :func:`reduce_scatter` work on dim 0. NCCL runs
+them natively; gloo has neither on CUDA tensors, so there they are built
+from ``all_reduce`` as :func:`gather_by_sum` is: each rank writes its rows
+into a zeroed buffer and the buffers are summed (exact), or the whole
+tensor is summed and each rank keeps its rows. A sum over ranks is the
+same on both backends; its order of addition may differ past two ranks.
+Every backward captures its group when the forward runs, so it reads no
+thread's state (autograd may run it on its own thread).
 """
 from __future__ import annotations
 
@@ -34,7 +60,10 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["BACKENDS", "new_group", "all_reduce", "broadcast", "all_gather",
-           "gather_by_sum"]
+           "gather_by_sum", "all_gather_rows", "reduce_scatter", "barrier",
+           "get_rank", "get_world_size", "backend_of",
+           "copy_to_model_parallel", "reduce_from_model_parallel",
+           "gather_from_model_parallel"]
 
 #: the backends a serving mesh may name
 BACKENDS = ("nccl", "gloo")
@@ -103,3 +132,133 @@ def gather_by_sum(local: torch.Tensor, lo: int, total: int,
     if group is not None:
         all_reduce(out, group)
     return out
+
+
+def backend_of(group) -> str:
+    """``"nccl"`` or ``"gloo"``: the backend ``group`` was built on."""
+    return "nccl" if isinstance(group, getattr(dist, "ProcessGroupNCCL",
+                                               ())) else "gloo"
+
+
+def get_rank(group) -> int:
+    """This caller's rank in ``group``."""
+    return int(group.rank())
+
+
+def get_world_size(group) -> int:
+    """The ranks of ``group``."""
+    return int(group.size())
+
+
+def barrier(group) -> None:
+    """Return once every rank of ``group`` has called it (a one-element
+    sum, on the host for gloo and on the current card for NCCL)."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if backend_of(group) == "nccl" else torch.device("cpu"))
+    all_reduce(torch.zeros(1, device=dev), group)
+
+
+def all_gather_rows(local: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``local`` ``[n, ...]`` stacked along dim 0 in rank
+    order: ``[size * n, ...]`` on every rank (exact on both backends)."""
+    size, rank = get_world_size(group), get_rank(group)
+    n = local.shape[0]
+    if size == 1:
+        return local.clone()
+    if backend_of(group) == "nccl":
+        out = torch.empty((size * n,) + tuple(local.shape[1:]),
+                          dtype=local.dtype, device=local.device)
+        group._allgather_base(out, local.contiguous()).wait()
+        return out
+    out = torch.zeros((size * n,) + tuple(local.shape[1:]),
+                      dtype=local.dtype, device=local.device)
+    out[rank * n:(rank + 1) * n] = local
+    return all_reduce(out, group)
+
+
+def reduce_scatter(tensor: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``tensor`` ``[size * n, ...]``, this rank's
+    rows ``[rank * n, (rank + 1) * n)`` of it (a new tensor)."""
+    size, rank = get_world_size(group), get_rank(group)
+    if tensor.shape[0] % size:
+        raise ValueError(f"reduce_scatter: dim 0 of {tuple(tensor.shape)} "
+                         f"does not divide {size} ranks")
+    n = tensor.shape[0] // size
+    if backend_of(group) == "nccl" and size > 1:
+        out = torch.empty((n,) + tuple(tensor.shape[1:]), dtype=tensor.dtype,
+                          device=tensor.device)
+        group._reduce_scatter_base(out, tensor.contiguous()).wait()
+        return out
+    whole = all_reduce(tensor.detach().clone(), group)
+    return whole[rank * n:(rank + 1) * n].clone()
+
+
+class _CopyToModelParallel(torch.autograd.Function):
+    """*f*: the identity forward, the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModelParallel(torch.autograd.Function):
+    """*g*: the sum over the group forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModelParallel(torch.autograd.Function):
+    """The last axis gathered whole forward, this rank's slice of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, lo, total, group):
+        ctx.lo, ctx.n = int(lo), x.shape[-1]
+        return gather_by_sum(x, lo, total, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.lo:ctx.lo + ctx.n].contiguous(), None, None, None
+
+
+def _taped(x) -> bool:
+    """Whether autograd records an op on ``x`` (host flags: a captured
+    serving step runs under no_grad and takes the in-place path)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """*f* over ``group``: ``x`` itself, its gradient summed over the ranks
+    (``x`` untouched when no gradient is recorded)."""
+    return _CopyToModelParallel.apply(x, group) if _taped(x) else x
+
+
+def reduce_from_model_parallel(x: torch.Tensor, group) -> torch.Tensor:
+    """*g* over ``group``: ``x`` summed over the ranks, the gradient passed
+    through. Without a recorded gradient the sum runs in place (the serving
+    path's :func:`all_reduce`)."""
+    # analysis: allow(traced-branch) -- requires_grad is a host flag
+    if _taped(x):
+        return _ReduceFromModelParallel.apply(x, group)
+    return all_reduce(x, group)
+
+
+def gather_from_model_parallel(x: torch.Tensor, lo: int, total: int,
+                               group) -> torch.Tensor:
+    """:func:`gather_by_sum` whose backward takes this rank's slice
+    ``[lo, lo + n)`` of the gradient."""
+    # analysis: allow(traced-branch) -- requires_grad is a host flag
+    if _taped(x):
+        return _GatherFromModelParallel.apply(x, lo, total, group)
+    return gather_by_sum(x, lo, total, group)

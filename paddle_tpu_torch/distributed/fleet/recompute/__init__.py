@@ -27,7 +27,9 @@ in a :class:`paddle_tpu_torch.core.rng.KeyTape` and the recompute replays
 them in the same order; nothing advances the live state twice. The AMP
 policy of the forward is reinstated in the recompute too (backward runs
 after the ``auto_cast`` block has exited, and on CUDA in autograd's own
-thread).
+thread), and so is the forward's dropout box (a mesh rank's draws are
+boxes of the whole tensor's masks, :func:`paddle_tpu_torch.ops.dropout.
+box`).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from torch.utils import checkpoint as _ckpt
 
 from .... import amp
 from ....core import rng
+from ....ops import dropout as dropout_op
 
 __all__ = ["recompute", "recompute_sequential", "RecomputeLayer",
            "resolve_policy"]
@@ -87,6 +90,7 @@ def _context_fn(saved_ops):
     def make():
         tape = rng.KeyTape()
         policy = amp.amp_state()
+        box = dropout_op.box_state()
         if saved_ops:
             fwd, rec = _ckpt.create_selective_checkpoint_contexts(
                 list(saved_ops))
@@ -94,7 +98,7 @@ def _context_fn(saved_ops):
             fwd = rec = contextlib.nullcontext()
         return (_Contexts(lambda: (tape.record(), fwd)),
                 _Contexts(lambda: (tape.replay(), amp.with_state(policy),
-                                   rec)))
+                                   dropout_op.with_box_state(box), rec)))
     return make
 
 

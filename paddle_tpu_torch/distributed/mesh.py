@@ -1,6 +1,8 @@
-"""The serving mesh of the port (counterpart of
+"""The meshes of the port: the serving mesh (counterpart of
 ``paddle_tpu/distributed/mesh.py:57 serving_mesh``, ``set_mesh`` /
-``get_mesh`` / ``clear_mesh`` ``:84-100`` and ``axis_size``).
+``get_mesh`` / ``clear_mesh`` ``:84-100`` and ``axis_size``) and the
+training mesh (``build_mesh`` ``:34``, ``HybridCommunicateGroup``
+``:119-186``, ``init_hybrid_mesh`` ``:188``), below.
 
 The JAX mesh is one controller over many devices: a ``("data", "model")``
 array of devices, and XLA inserts the collectives. The port runs one
@@ -30,15 +32,21 @@ new_group`), a ``TCPStore`` on the loopback for processes and a
 from __future__ import annotations
 
 import datetime
+import math
+import os
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch.distributed as dist
 
 from . import collective
 
 __all__ = ["ServingMesh", "serving_mesh", "set_mesh", "get_mesh",
-           "clear_mesh", "axis_size", "LAUNCHES"]
+           "clear_mesh", "axis_size", "LAUNCHES", "HYBRID_AXES",
+           "HybridMesh", "build_mesh", "init_hybrid_mesh",
+           "HybridCommunicateGroup", "set_hybrid_mesh", "get_hybrid_mesh",
+           "clear_hybrid_mesh"]
 
 #: how the engine starts the ranks other than 0
 LAUNCHES = ("process", "thread")
@@ -96,6 +104,11 @@ class ServingMesh:
     def shape(self) -> dict:
         """Axis sizes, as the JAX ``Mesh.shape``."""
         return {"data": self.data, "model": self.model_parallel}
+
+    @property
+    def model_rank(self) -> int:
+        """This process's place on the model axis (its rank)."""
+        return self.rank
 
     # ------------------------------------------------------------- group
 
@@ -211,3 +224,283 @@ def axis_size(axis: str, mesh: Optional[ServingMesh] = None) -> int:
     if mesh is None:
         return 1
     return mesh.shape.get(axis, 1)
+
+
+# ------------------------------------------------------------ training mesh
+
+#: the JAX package's axis order, outer to inner: ``model`` is innermost, so
+#: a rank's coordinates are the digits of its number in these sizes
+HYBRID_AXES = ("data", "pipe", "sharding", "sep", "expert", "model")
+#: axes the port does not run yet (``ROADMAP.md`` §1)
+_NOT_PORTED = ("pipe", "sep", "expert")
+
+_hybrid = threading.local()
+
+
+class HybridMesh:
+    """One rank's view of a training mesh over ``HYBRID_AXES``.
+
+    The JAX mesh is one controller over a device array and XLA inserts the
+    collectives; here each rank (a process, or a thread in tests and on
+    one card) holds this view: the axis sizes, its global ``rank``, its
+    coordinates (``model`` innermost: rank = the digits of its coordinates
+    in the axis sizes, JAX's ``devices.reshape(dims)`` order), and one
+    process group per axis, over the ranks that differ from it only along
+    that axis, plus a ``world`` group. Every group is built when the mesh
+    is, on ``store`` (a ``HashStore`` for threads, a ``TCPStore`` across
+    processes), in one fixed order on every rank; ``timeout`` (seconds)
+    bounds every collective.
+
+    For the tensor-parallel layers it reads as a serving mesh's model
+    axis: ``model_parallel``, ``model_rank`` and ``group`` (the model
+    group). ``pipe``, ``sep`` and ``expert`` above 1 raise
+    ``NotImplementedError``."""
+
+    def __init__(self, axis_dims: Dict[str, int], *, rank: int,
+                 backend: str, store, timeout: float = 60.0):
+        unknown = sorted(set(axis_dims) - set(HYBRID_AXES))
+        if unknown:
+            raise ValueError(f"unknown mesh axes {unknown}; the axes are "
+                             f"{HYBRID_AXES}")
+        dims = {a: int(axis_dims.get(a, 1)) for a in HYBRID_AXES}
+        bad = {a: n for a, n in dims.items() if n < 1}
+        if bad:
+            raise ValueError(f"mesh axis sizes must be >= 1, got {bad}")
+        _refuse_unported(dims)
+        if backend not in collective.BACKENDS:
+            raise ValueError(f"name the mesh's backend: one of "
+                             f"{collective.BACKENDS}, got {backend!r}")
+        self.dims = dims
+        self.world_size = math.prod(dims.values())
+        if not 0 <= int(rank) < self.world_size:
+            raise ValueError(f"rank {rank} is outside a mesh of "
+                             f"{self.world_size} ranks {dims}")
+        self.rank = int(rank)
+        digits = np.unravel_index(self.rank, [dims[a] for a in HYBRID_AXES])
+        self.coords = {a: int(d) for a, d in zip(HYBRID_AXES, digits)}
+        self.backend = backend
+        self.timeout = float(timeout)
+        self.world = collective.new_group(backend, store, self.rank,
+                                          self.world_size, timeout,
+                                          prefix="world/")
+        self._groups = {}
+        for axis in HYBRID_AXES:
+            rest = "/".join(f"{a}{self.coords[a]}" for a in HYBRID_AXES
+                            if a != axis)
+            self._groups[axis] = collective.new_group(
+                backend, store, self.coords[axis], dims[axis], timeout,
+                prefix=f"{axis}/{rest}/")
+
+    @property
+    def shape(self) -> dict:
+        """Axis sizes, every axis of ``HYBRID_AXES``."""
+        return dict(self.dims)
+
+    def axis_size(self, axis: str) -> int:
+        return self.dims[axis]
+
+    def axis_rank(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return self.coords[axis]
+
+    def get_group(self, axis: str):
+        """The process group of the ranks that differ from this one only
+        along ``axis`` (``"world"``: every rank)."""
+        return self.world if axis == "world" else self._groups[axis]
+
+    @property
+    def model_parallel(self) -> int:
+        return self.dims["model"]
+
+    @property
+    def model_rank(self) -> int:
+        return self.coords["model"]
+
+    @property
+    def group(self):
+        """The model group (the group a serving mesh names ``group``)."""
+        return self._groups["model"]
+
+    def close(self) -> None:
+        """Shut the groups down, newest first (the same order on every
+        rank), and drop them; the mesh runs no collective afterwards. Call
+        it on the rank's own thread: an NCCL group destroyed elsewhere, or
+        only at the interpreter's exit, takes the process down."""
+        groups = [self.world, *self._groups.values()]
+        self.world = None
+        self._groups = {}
+        for g in reversed(groups):
+            if g is not None:
+                g.shutdown()
+
+    def __repr__(self) -> str:
+        axes = {a: n for a, n in self.dims.items() if n > 1}
+        return (f"HybridMesh({axes or {'data': 1}}, rank={self.rank}, "
+                f"backend={self.backend!r})")
+
+
+def _refuse_unported(dims: Dict[str, int]) -> None:
+    late = {a: int(dims.get(a, 1)) for a in _NOT_PORTED
+            if int(dims.get(a, 1)) > 1}
+    if late:
+        raise NotImplementedError(
+            f"mesh axes {late}: pipeline, context and expert parallelism "
+            "are not ported yet; see ROADMAP.md §1 items 1e (pipeline) and "
+            "1f (context parallelism)")
+
+
+def _env_int(names, default):
+    for n in names:
+        if os.environ.get(n):
+            return int(os.environ[n])
+    return default
+
+
+def _world(world: Optional[int], rank: Optional[int]) -> Tuple:
+    """The world size and rank: the arguments, else
+    ``PADDLE_TRAINERS_NUM`` / ``PADDLE_TRAINER_ID`` (None / 0)."""
+    world = int(world) if world is not None else _env_int(
+        ("PADDLE_TRAINERS_NUM",), None)
+    rank = int(rank) if rank is not None else _env_int(
+        ("PADDLE_TRAINER_ID",), 0)
+    return world, rank
+
+
+def _backend_store(world: int, rank: int, backend: Optional[str], store,
+                   timeout: float):
+    """The backend and store of a mesh of ``world`` ranks: the arguments,
+    else ``PADDLE_DISTRI_BACKEND`` and ``PADDLE_MASTER`` ("host:port", the
+    ``TCPStore`` that rank 0 serves); a one-rank mesh makes its own
+    ``HashStore``. The backend is never picked for the caller."""
+    backend = backend or os.environ.get("PADDLE_DISTRI_BACKEND")
+    if backend is None:
+        raise ValueError("name the mesh's backend (backend='nccl' or "
+                         "'gloo', or PADDLE_DISTRI_BACKEND)")
+    if store is not None:
+        return backend, store
+    if world == 1:
+        return backend, dist.HashStore()
+    master = os.environ.get("PADDLE_MASTER")
+    if not master:
+        raise ValueError(f"a mesh of {world} ranks needs a store: pass "
+                         "store= (a HashStore shared by thread ranks) or "
+                         "set PADDLE_MASTER")
+    host, port = master.rsplit(":", 1)
+    return backend, dist.TCPStore(
+        host, int(port), world, rank == 0,
+        timeout=datetime.timedelta(seconds=float(timeout)))
+
+
+def build_mesh(axis_dims: Dict[str, int], *, rank: Optional[int] = None,
+               world_size: Optional[int] = None,
+               backend: Optional[str] = None, store=None,
+               timeout: float = 60.0) -> HybridMesh:
+    """This rank's view of a mesh of ``axis_dims`` (axis -> size, absent
+    axes 1; ``paddle_tpu/distributed/mesh.py:34``). The sizes must
+    multiply to the world size (when one is given or in the
+    environment). Every rank calls it with its own ``rank``."""
+    _refuse_unported(axis_dims)
+    world, rank = _world(world_size, rank)
+    total = math.prod(int(n) for n in axis_dims.values())
+    if world is not None and total != world:
+        raise ValueError(f"mesh axis dims {dict(axis_dims)} multiply to "
+                         f"{total}, but the world has {world} ranks")
+    backend, store = _backend_store(total, rank, backend, store, timeout)
+    return HybridMesh(axis_dims, rank=rank, backend=backend, store=store,
+                      timeout=timeout)
+
+
+def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1,
+                     sharding: int = 1, sep: int = 1, expert: int = 1, *,
+                     rank: Optional[int] = None,
+                     world_size: Optional[int] = None,
+                     backend: Optional[str] = None, store=None,
+                     timeout: float = 60.0) -> HybridMesh:
+    """Build this rank's hybrid mesh and make it the calling thread's
+    (``paddle_tpu/distributed/mesh.py:188``): when the degrees do
+    not multiply to the world size and ``dp`` is 1, the data axis takes
+    the rest of the world (the JAX auto-fill)."""
+    _refuse_unported({"pipe": pp, "sep": sep, "expert": expert})
+    world, rank = _world(world_size, rank)
+    rest = mp * pp * sharding * sep * expert
+    if world is not None and dp * rest != world:
+        if dp == 1 and world % rest == 0:
+            dp = world // rest
+        else:
+            raise ValueError(f"degrees {dp * rest} != world size {world}")
+    backend, store = _backend_store(dp * rest, rank, backend, store, timeout)
+    mesh = HybridMesh({"data": dp, "pipe": pp, "sharding": sharding,
+                       "sep": sep, "expert": expert, "model": mp},
+                      rank=rank, backend=backend, store=store,
+                      timeout=timeout)
+    set_hybrid_mesh(mesh)
+    return mesh
+
+
+def set_hybrid_mesh(mesh: Optional[HybridMesh]) -> None:
+    """Make ``mesh`` the calling thread's training mesh (each rank thread
+    holds its own; a process rank installs it on its main thread)."""
+    _hybrid.mesh = mesh
+
+
+def get_hybrid_mesh() -> Optional[HybridMesh]:
+    """The calling thread's training mesh, or None."""
+    return getattr(_hybrid, "mesh", None)
+
+
+def clear_hybrid_mesh() -> None:
+    set_hybrid_mesh(None)
+
+
+class HybridCommunicateGroup:
+    """The fleet topology queries over one rank's :class:`HybridMesh`
+    (``paddle_tpu/distributed/mesh.py:119``): degrees from its sizes, ranks
+    from its coordinates."""
+
+    def __init__(self, mesh: HybridMesh):
+        self._mesh = mesh
+        self._shape = mesh.shape
+
+    @property
+    def mesh(self) -> HybridMesh:
+        return self._mesh
+
+    def get_parallel_mode(self) -> str:
+        if self._shape["model"] > 1 or self._shape["pipe"] > 1:
+            return "hybrid"
+        if self._shape["sharding"] > 1:
+            return "sharding_parallel"
+        return "data_parallel"
+
+    def get_data_parallel_world_size(self) -> int:
+        return self._shape["data"]
+
+    def get_model_parallel_world_size(self) -> int:
+        return self._shape["model"]
+
+    def get_pipe_parallel_world_size(self) -> int:
+        return self._shape["pipe"]
+
+    def get_sharding_parallel_world_size(self) -> int:
+        return self._shape["sharding"]
+
+    def get_sep_parallel_world_size(self) -> int:
+        return self._shape["sep"]
+
+    def get_expert_parallel_world_size(self) -> int:
+        return self._shape["expert"]
+
+    def get_data_parallel_rank(self) -> int:
+        return self._mesh.axis_rank("data")
+
+    def get_model_parallel_rank(self) -> int:
+        return self._mesh.axis_rank("model")
+
+    def get_stage_id(self) -> int:
+        return self._mesh.axis_rank("pipe")
+
+    def get_sharding_parallel_rank(self) -> int:
+        return self._mesh.axis_rank("sharding")
+
+    def topology(self) -> dict:
+        return dict(self._shape)

@@ -56,8 +56,8 @@ def model_parallel(mesh) -> int:
 
 
 def model_rank(mesh) -> int:
-    """This process's rank on the model axis (0 without a mesh)."""
-    return 0 if mesh is None else int(mesh.rank)
+    """This rank's place on the model axis (0 without a mesh)."""
+    return 0 if mesh is None else int(mesh.model_rank)
 
 
 def heads_split(num_heads: int, mesh) -> bool:

@@ -30,6 +30,25 @@ and updates them in place (the JAX package donates their buffers instead).
   ``optimizer._update_for(name, param)``: Lamb's and LARS's exclusion
   from weight decay holds inside the step.
 
+On a training mesh (the thread's :class:`~paddle_tpu_torch.distributed.
+mesh.HybridMesh`; the JAX package's step over a ``("data", "sharding",
+"model")`` mesh): the step averages every gradient over the data group
+before the optimizer's clip and update (``distributed.parallel.
+sync_gradients``; a ZeRO optimizer then reduce-scatters over the sharding
+group); parameters
+replicated over the model axis get no model-axis reduce (the *f* / *g*
+pairs of the parallel layers make their gradients equal on every rank);
+the clip's norm is the whole model's. Keys stay one ``rng.next_key()`` a
+call, the same on every rank (each rank's key state starts equal). The
+loss runs and its gradients are taken on the calling thread
+(``torch.autograd.set_multithreading_enabled(False)``, so ranks that are
+threads of one process never meet in autograd's device thread), under the
+dropout box of inputs :func:`~paddle_tpu_torch.distributed.parallel.
+shard_batch` tagged. The sentinel's verdict is every rank's: one rank's
+nonfinite shard skips the step everywhere. ``accumulate_steps > 1`` over a
+data axis of more than one rank is not ported (the JAX package's
+microbatches are slices of the global batch).
+
 Counters (``core.compile_cache``): ``train_step.builds`` once per
 TrainStep, at its first call (the JAX package's compile); ``train_step.
 steps`` every call; ``sentinel.skipped`` every skipped step (also in
@@ -37,11 +56,14 @@ steps`` every call; ``sentinel.skipped`` every skipped step (also in
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List
 
 import torch
 
 from ..core import compile_cache, flags, resilience, rng
+from ..distributed import collective, mesh as mesh_mod, parallel
+from ..ops import dropout as dropout_op
 
 __all__ = ["TrainStep"]
 
@@ -106,10 +128,12 @@ class TrainStep:
         dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
                    None)
         key = rng.next_key(dev)
-        if self._accumulate_steps > 1:
-            loss, grads = self._accumulated(args, key)
-        else:
-            loss, grads = self._loss_and_grads(args, key)
+        mesh = mesh_mod.get_hybrid_mesh()
+        with self._on_mesh(mesh, args):
+            if self._accumulate_steps > 1:
+                loss, grads = self._accumulated(args, key)
+            else:
+                loss, grads = self._loss_and_grads(args, key)
         if self._sentinel:
             if resilience.maybe_fault("nonfinite_grads"):
                 # the JAX step multiplies its loss by NaN: loss and grads
@@ -117,12 +141,33 @@ class TrainStep:
                 grads = [g * float("nan") for g in grads]
             finite = torch.stack([torch.isfinite(loss)] + [
                 torch.isfinite(g).all() for g in grads]).all()
+            if mesh is not None and mesh.world_size > 1:
+                bad = (~finite).float().reshape(1)
+                finite = collective.all_reduce(bad, mesh.world,
+                                               op="max")[0] == 0
             if not bool(finite):
                 self._skip()
                 return loss
             self._bad_steps = 0
+        if mesh is not None:
+            grads = parallel.sync_gradients(grads, mesh)
         self._opt._apply_gradients(self._params, grads)
         return loss
+
+    def _on_mesh(self, mesh, args):
+        """The context of a step on ``mesh``: backward on this thread and
+        the inputs' dropout box (nothing without a mesh)."""
+        if mesh is None:
+            return contextlib.nullcontext()
+        if self._accumulate_steps > 1 and mesh.axis_size("data") > 1:
+            raise NotImplementedError(
+                "TrainStep(accumulate_steps > 1) over a data axis of more "
+                "than one rank is not ported: the JAX package's microbatches "
+                "are slices of the global batch")
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.autograd.set_multithreading_enabled(False))
+        stack.enter_context(dropout_op.box(parallel.batch_box(args)))
+        return stack
 
     def _skip(self) -> None:
         """Count a skipped step; roll back after FLAGS_max_bad_steps."""

@@ -24,6 +24,16 @@ flows through the flash kernels' backward. ``loss_chunk_size > 0`` fuses
 the head and the loss over chunks of tokens, so the ``[tokens, vocab]``
 logits never exist whole.
 
+Split over a mesh's model axis (:func:`shard_model`), the model trains as
+the whole one does: the parallel layers' collectives have backwards, and
+the loss is the vocab-parallel cross entropy over this rank's rows of the
+vocabulary (``parallel_cross_entropy``), chunked or not, which never
+gathers ``[tokens, vocab]``. On a data axis the mean is over the global
+batch (the global valid count). ``generate()`` on a split model runs the
+same decode loop on every rank, the logits gathered whole for the pick
+only, so the collectives meet and every rank emits the whole model's
+tokens.
+
 Training options, as in the JAX package: ``dropout`` (the embedding, the
 residual branches and the attention probabilities, each a draw of the
 port's threefry dropout, bit-equal to the JAX package's masks);
@@ -42,6 +52,7 @@ quantized model, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Dict
@@ -54,12 +65,14 @@ from .. import amp, quantization
 from ..core import device as device_mod
 from ..core import rng
 from ..distributed import sharding_util
+from ..distributed import collective, parallel
 from ..distributed.fleet.meta_parallel.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
-    is_split)
+    is_split, parallel_cross_entropy)
 from ..distributed.fleet.recompute import recompute
 from ..nn.functional import cross_entropy, scaled_dot_product_attention
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear, gelu_tanh
+from ..ops import dropout as dropout_op
 from ..ops.flash_attention import plain_attention
 from ..ops.sampling import sample as sample_rows
 
@@ -188,9 +201,12 @@ def shard_model(model, mesh) -> bool:
     slices of the intermediate axis, the token embedding a
     :class:`VocabParallelEmbedding` (the tied head with it) and an untied
     ``lm_head`` a gathered column linear over the vocabulary. Each
-    attention then attends ``sharding_util.local_heads`` heads. An axis
-    that does not divide the ranks stays whole. Quantize first
-    (:func:`quantize_serving_weights`).
+    attention then attends ``sharding_util.local_heads`` heads (its
+    dropout draws the box of its heads in the whole probabilities). An
+    axis that does not divide the ranks stays whole. Quantize first
+    (:func:`quantize_serving_weights`). ``mesh``: a serving mesh or a
+    training mesh (:class:`~paddle_tpu_torch.distributed.mesh.HybridMesh`,
+    its model axis); build the optimizer on the split parameters.
 
     A model is sharded once, for one mesh: True when this call sharded it,
     False when it already was for ``mesh``; another mesh raises."""
@@ -213,6 +229,8 @@ def shard_model(model, mesh) -> bool:
         attn.proj = RowParallelLinear.from_linear(
             attn.proj, mesh, sharding_util.head_rows(heads, head_dim, mesh))
         attn.num_heads = sharding_util.local_heads(heads, mesh)
+        attn.head_offset = (sharding_util.head_rows(heads, head_dim, mesh)[0]
+                            // head_dim)
         mlp.up = ColumnParallelLinear.from_linear(mlp.up, mesh, inter)
         mlp.down = RowParallelLinear.from_linear(
             mlp.down, mesh, (int(inter[0]), int(inter[-1]) + 1))
@@ -330,6 +348,9 @@ class GPTAttention(nn.Module):
         self.qkv = Linear(h, 3 * h, device=device)
         self.proj = Linear(h, h, device=device)
         self.dropout = cfg.dropout
+        #: the whole model's heads and this shard's first (shard_model)
+        self.total_heads = cfg.num_heads
+        self.head_offset = 0
 
     def forward(self, x, cache=None, start_pos=0):
         b, s, _ = x.shape
@@ -356,9 +377,18 @@ class GPTAttention(nn.Module):
             o = masked_attention(q, k_buf, v_buf, (j <= i)[None, None])
             return _serving_linear(self.proj, o.reshape(b, s, -1)), (k_buf,
                                                                      v_buf)
-        o = causal_attention(q, k, v, dropout_p=self.dropout,
-                             training=self.training)
+        with self._heads_box():
+            o = causal_attention(q, k, v, dropout_p=self.dropout,
+                                 training=self.training)
         return _serving_linear(self.proj, o.reshape(b, s, -1))
+
+    def _heads_box(self):
+        """A split attention's probabilities ``[b, heads, s, s]`` are a box
+        of the whole model's along the heads: its dropout draws there."""
+        if self.num_heads == self.total_heads:
+            return contextlib.nullcontext()
+        return dropout_op.box({1: (self.head_offset, self.total_heads,
+                                   self.num_heads)})
 
 
 class GPTMLP(nn.Module):
@@ -498,15 +528,48 @@ class GPTForCausalLM(nn.Module):
         """Logits ``[b, s, vocab]`` of a full causal forward (no cache) or,
         with ``labels`` ``[b, s]``, the mean cross entropy of the f32
         logits over ``[-1, vocab]`` (labels -100 are ignored), chunked
-        when ``loss_chunk_size > 0``."""
+        when ``loss_chunk_size > 0``; on a split model over this rank's
+        vocabulary rows (:meth:`_split_head`)."""
         h = self.gpt(input_ids)
         if labels is not None and self.cfg.loss_chunk_size > 0:
             return self._chunked_loss(h, labels)
+        if labels is not None and self._split_head() is not None:
+            return self._parallel_loss(h, labels)
         logits = self._head(h)
         if labels is None:
             return logits
         return cross_entropy(logits.reshape(-1, self.cfg.vocab_size).float(),
                              labels.reshape(-1), reduction="mean")
+
+    def _split_head(self):
+        """``(weight [vocab_local, hidden], lo, group)`` of a head split by
+        vocabulary rows over the model axis (the tied embedding's rows, or
+        an untied head's columns transposed), else None."""
+        if self.cfg.tie_word_embeddings:
+            wte = self.gpt.wte
+            if isinstance(wte, VocabParallelEmbedding) and wte.split:
+                return wte.weight, wte.rows[0], wte.mesh.group
+            return None
+        head = self.lm_head
+        if isinstance(head, ColumnParallelLinear) and head.split:
+            return (head.weight.t(), int(head.columns[0]), head.mesh.group)
+        return None
+
+    def _parallel_loss(self, h, labels):
+        """The mean vocab-parallel cross entropy of this rank's logits
+        ``h @ W_local^T`` (``h`` through *f*), the JAX package's ``linear``
+        without bias and f32 loss; the mean over the valid labels (global
+        on a data axis)."""
+        w, lo, group = self._split_head()
+        h, w = amp.cast_inputs("linear_nb", h, w)
+        hf = collective.copy_to_model_parallel(h.reshape(-1, h.shape[-1]),
+                                               group)
+        yf = labels.reshape(-1).long()
+        loss = parallel_cross_entropy(torch.matmul(hf, w.t()).float(), yf,
+                                      group, lo)
+        return parallel.global_token_mean(loss.sum(),
+                                          (yf != -100).sum().float(),
+                                          floor=1e-12)
 
     def _chunked_loss(self, h, labels):
         """The JAX package's fused head and cross entropy over chunks of
@@ -516,12 +579,22 @@ class GPTForCausalLM(nn.Module):
         never kept), logsumexp and the picked logit in f32, the
         chunks' sums added in order and divided by ``max(valid tokens,
         1)``. Under AMP the hidden states and the head weight are cast as
-        the JAX package's ``chunked_lm_loss`` op (white-listed)."""
-        w = (self.gpt.wte.weight.t() if self.cfg.tie_word_embeddings
-             else self.lm_head.weight)
+        the JAX package's ``chunked_lm_loss`` op (white-listed). On a split
+        model each chunk's logits are this rank's vocabulary columns and
+        its loss the vocab-parallel cross entropy (``h`` through *f* once,
+        before the chunks); on a data axis the valid count is global."""
+        split = self._split_head()
+        if split is not None:
+            w, lo, group = split
+            w = w.t()
+        else:
+            w = (self.gpt.wte.weight.t() if self.cfg.tie_word_embeddings
+                 else self.lm_head.weight)
         h, w = amp.cast_inputs("chunked_lm_loss", h, w)
         chunk = int(self.cfg.loss_chunk_size)
         hf = h.reshape(-1, h.shape[-1])
+        if split is not None:
+            hf = collective.copy_to_model_parallel(hf, group)
         yf = labels.reshape(-1).long()
         pad = (-hf.shape[0]) % chunk
         if pad:
@@ -529,10 +602,15 @@ class GPTForCausalLM(nn.Module):
             yf = torch.nn.functional.pad(yf, (0, pad), value=-100)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
         for a in range(0, hf.shape[0], chunk):
-            total = total + recompute(_chunk_loss_sum, hf[a:a + chunk],
-                                      yf[a:a + chunk], w)
+            if split is None:
+                part = recompute(_chunk_loss_sum, hf[a:a + chunk],
+                                 yf[a:a + chunk], w)
+            else:
+                part = recompute(_parallel_chunk_loss_sum, hf[a:a + chunk],
+                                 yf[a:a + chunk], w, group, lo)
+            total = total + part
         count = (yf != -100).sum().float()
-        return total / torch.clamp_min(count, 1.0)
+        return parallel.global_token_mean(total, count)
 
     def _head_logits(self, h_last):
         """Next-token logits ``[b, vocab]`` from last hidden states
@@ -592,11 +670,11 @@ class GPTForCausalLM(nn.Module):
         token ids on the model's device.
 
         Runs in eval mode (no dropout), then restores the training mode,
-        as the JAX package does."""
-        if sharding_util.model_parallel(sharded_mesh(self)) > 1:
-            raise NotImplementedError(
-                "generate() on a model split over a mesh is not ported yet "
-                "(ROADMAP.md §1); serve it through the ServingEngine")
+        as the JAX package does. On a model split over a mesh every rank
+        calls it with the same arguments: each runs the same loop (its
+        collectives meet), gathers the logits whole for the pick only and
+        draws under the same keys, so every rank returns the whole model's
+        tokens."""
         was_training = self.training
         self.eval()
         try:
@@ -682,6 +760,14 @@ def _chunk_loss_sum(h, y, w):
     dtype) over the labels that are not -100, logsumexp and the picked
     logit in f32."""
     return cross_entropy(torch.matmul(h, w), y, reduction="sum")
+
+
+def _parallel_chunk_loss_sum(h, y, w, group, lo):
+    """One chunk of a split model's chunked loss: the summed vocab-parallel
+    cross entropy of ``h @ w`` (``w`` this rank's ``[hidden, vocab_local]``
+    columns, starting at ``lo``; the reductions over ``group``)."""
+    return parallel_cross_entropy(torch.matmul(h, w).float(), y, group,
+                                  lo).sum()
 
 
 def load_functional_state(model: nn.Module,

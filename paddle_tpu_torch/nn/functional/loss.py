@@ -11,7 +11,9 @@ __all__ = ["cross_entropy", "softmax_with_cross_entropy"]
 
 def _reduce(x, reduction):
     if reduction == "mean":
-        return x.mean()
+        from ...distributed import parallel
+
+        return parallel.global_mean(x)
     if reduction == "sum":
         return x.sum()
     return x
@@ -33,7 +35,13 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     * Hard labels: rows whose label is ``ignore_index`` weigh 0, the others
       ``weight[label]`` (1 without ``weight``); ``mean`` divides the
       weighted sum by the kept rows' weights (at least 1e-12), ``sum``
-      sums, ``none`` returns each row's weighted loss."""
+      sums, ``none`` returns each row's weighted loss.
+
+    On a training mesh with a data axis, ``mean`` is over the global batch,
+    as the JAX package's over a sharded batch: this rank's (weighted) sum,
+    summed over the data group, over the global weights or rows
+    (``distributed.parallel.global_token_mean``), hard labels and soft
+    alike."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
     (logits,) = amp.cast_inputs("ce", input)
@@ -70,7 +78,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         wt = wt * weight.float()[safe]
     loss = loss * wt
     if reduction == "mean":
-        return loss.sum() / wt.sum().clamp_min(1e-12)
+        from ...distributed import parallel
+
+        return parallel.global_token_mean(loss.sum(), wt.sum(), floor=1e-12)
     return _reduce(loss, reduction)
 
 

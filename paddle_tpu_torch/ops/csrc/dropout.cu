@@ -10,7 +10,10 @@
 //
 // For flat index i of x (n < 2^32 elements) and m the flat index of its
 // element of the keep mask (m = i, or i mapped onto the mask's reduced shape
-// in the axis form of dropout2d/3d):
+// in the axis form of dropout2d/3d, or, in a mesh's box, i mapped onto the
+// whole tensor's flat index: base + sum of x's index along each dimension
+// times the whole tensor's stride there, base being the box's offsets
+// times those strides; the whole tensor has fewer than 2^32 elements):
 //   (w0, w1) = threefry2x32(key, (0, m)), bits = w0 ^ w1
 //                                (jax_threefry_partitionable's random_bits)
 //   u    = bitcast<float>((bits >> 9) | 0x3F800000) - 1   (uniform, float32)
@@ -72,11 +75,14 @@ constexpr int kBlocksPerSM = 8;
 constexpr int kMaxDims = 8;
 
 // x's shape and, per dimension, the mask's stride (0 where the mask
-// broadcasts): the axis form's index map, passed by value
+// broadcasts; the whole tensor's stride in a box), and the counter of x's
+// first element (0 but in a box): the axis and box forms' index map,
+// passed by value
 struct Bcast {
   int ndim;
   long long shape[kMaxDims];
   long long mstride[kMaxDims];
+  long long base;
 };
 
 template <typename T>
@@ -121,7 +127,7 @@ __device__ __forceinline__ bool keep_of(uint32_t k1, uint32_t k2, uint32_t m,
 template <bool kBcast>
 __device__ __forceinline__ uint32_t mask_index(long long i, const Bcast& b) {
   if (!kBcast) return static_cast<uint32_t>(i);
-  long long m = 0;
+  long long m = b.base;
   for (int d = b.ndim - 1; d >= 0; --d) {
     m += (i % b.shape[d]) * b.mstride[d];
     i /= b.shape[d];
@@ -252,14 +258,16 @@ int dispatch(const void* x, void* y, const long long* key, long long n,
 // both 16-byte aligned (else cudaErrorMisalignedAddress, and no launch);
 // key a device int64 [2]. mode: 0 downscale_in_infer (keep ? x : 0), 1
 // upscale_in_train (keep ? x * scale : 0), 2 alpha (keep ? affine(x; a =
-// scale, b = shift) : fill). ndim > 0 selects the axis form (modes 0 and 1):
-// shape[ndim] is x's shape and mstride[ndim] the mask's strides over it (0:
-// broadcast). Returns cudaGetLastError() after the launch (0 on success).
+// scale, b = shift) : fill). ndim > 0 selects the axis or box form (modes 0
+// and 1): shape[ndim] is x's shape and mstride[ndim] the mask's strides over
+// it (0: broadcast), base the counter of x's first element (0 in the axis
+// form). Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int dropout_launch(int dtype, const void* x, void* y,
                               const void* key, long long n, float keep_p,
                               float scale, float shift, float fill, int mode,
                               int ndim, const long long* shape,
-                              const long long* mstride, void* stream) {
+                              const long long* mstride, long long base,
+                              void* stream) {
   using namespace drop;
   if (n <= 0) return 0;
   if (ndim < 0 || ndim > kMaxDims) return cudaErrorInvalidValue;
@@ -269,6 +277,7 @@ extern "C" int dropout_launch(int dtype, const void* x, void* y,
   }
   Bcast b{};
   b.ndim = ndim;
+  b.base = base;
   for (int d = 0; d < ndim; ++d) {
     b.shape[d] = shape[d];
     b.mstride[d] = mstride[d];

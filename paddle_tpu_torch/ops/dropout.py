@@ -40,20 +40,32 @@ rounded to x's dtype first (they are weak-typed Python floats), and a
 dropped element is the folded constant ``T(T(a * alpha_p) + b)``. Its
 gradient is ``a * keep * g``: the upscale form on ``g`` with scale ``a``.
 
+A mesh's box: under GSPMD the JAX package draws the whole tensor's bits,
+and a rank holds a box of the whole tensor (its batch rows on the data
+axis, its heads of the attention probabilities on the model axis). A
+``box`` (the whole tensor's shape and the box's offsets, from the
+:func:`box` contexts the data-parallel wrapper, ``TrainStep`` and a split
+attention enter) makes each element's counter its flat index in the whole
+tensor: the kernel maps a local index through the whole tensor's strides
+from a base counter, and the plain version slices the whole mask.
+
 Bound on an H100 SXM: the integer operations of threefry (about 75 a mask
 element, see the source), not the bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from ..core import rng
 
-__all__ = ["dropout_apply", "dropout_ref", "Dropout", "dropout",
+__all__ = ["dropout_apply", "dropout_ref", "Dropout", "dropout", "box",
+           "box_state", "with_box_state", "box_of", "thread_launches",
            "alpha_dropout_apply", "alpha_dropout_ref", "AlphaDropout",
            "alpha_dropout", "alpha_constants", "mask_shape",
            "upscale_factor", "launches", "reset_launches", "load_kernels"]
@@ -68,9 +80,76 @@ MAX_DIMS = 8
 _lib = None
 
 
+_tl = threading.local()
+
+
+def thread_launches() -> dict:
+    """The calling thread's own launches (a rank run as a thread reads
+    its share of :data:`launches` here)."""
+    counts = getattr(_tl, "launches", None)
+    if counts is None:
+        counts = _tl.launches = dict.fromkeys(launches, 0)
+    return counts
+
+
+def _count(name: str) -> None:
+    launches[name] += 1
+    thread_launches()[name] += 1
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    counts = thread_launches()
+    for k in counts:
+        counts[k] = 0
+
+
+def box_state() -> dict:
+    """The calling thread's box dimensions: ``{dim: (offset, whole,
+    local)}``."""
+    return dict(getattr(_tl, "box", None) or {})
+
+
+@contextlib.contextmanager
+def with_box_state(state: dict):
+    """Inside the block the box dimensions are exactly ``state`` (a
+    recompute reinstates its forward's)."""
+    prev = getattr(_tl, "box", None)
+    _tl.box = dict(state)
+    try:
+        yield
+    finally:
+        _tl.box = prev
+
+
+def box(dims: dict):
+    """A context in which every draw's mask is a box of a whole tensor:
+    along each ``dim`` of ``dims`` (``dim -> (offset, whole, local)``) the
+    drawn tensor holds ``local`` indices at ``offset`` of ``whole``."""
+    return with_box_state({**box_state(), **dims})
+
+
+def box_of(shape):
+    """``(whole shape, offsets)`` of a draw of ``shape`` under the current
+    box, or None outside one. A boxed dimension whose size is not the
+    box's ``local`` raises: that draw is not over the boxed layout."""
+    dims = box_state()
+    if not dims:
+        return None
+    whole, offs = list(shape), [0] * len(shape)
+    for d, (off, tot, local) in dims.items():
+        if d >= len(shape):
+            continue
+        if shape[d] != local:
+            raise ValueError(f"a dropout draw of shape {tuple(shape)} under "
+                             f"a box of {local} of {tot} along dim {d}: "
+                             "only tensors laid out as the box draw inside "
+                             "it")
+        whole[d], offs[d] = int(tot), int(off)
+    if tuple(whole) == tuple(shape):
+        return None
+    return tuple(whole), tuple(offs)
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -83,7 +162,8 @@ def load_kernels() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         i64 = ctypes.c_longlong
         lib.dropout_launch.argtypes = [i32, ptr, ptr, ptr, i64, f32, f32,
-                                       f32, f32, i32, i32, ptr, ptr, ptr]
+                                       f32, f32, i32, i32, ptr, ptr, i64,
+                                       ptr]
         lib.dropout_launch.restype = i32
         _lib = lib
     return _lib
@@ -124,11 +204,25 @@ def keep_threshold(p: float) -> float:
     return float(np.float32(1.0 - p))
 
 
-def dropout_ref(x, key, p: float, axis=None, upscale: bool = True):
-    """Plain version: the keep mask from :func:`core.rng.bernoulli`, then
+def _refuse_box_axis(axis, box_) -> None:
+    if box_ is not None and axis is not None:
+        raise NotImplementedError("the axis form of dropout inside a "
+                                  "mesh's box is not ported")
+
+
+def dropout_ref(x, key, p: float, axis=None, upscale: bool = True,
+                box=None):
+    """Plain version: the keep mask from :func:`core.rng.bernoulli` (the
+    whole tensor's mask sliced to the ``box``, when one is given), then
     the select and the scale in PyTorch ops."""
-    keep = rng.bernoulli(key.to(x.device), 1.0 - p,
-                         mask_shape(x.shape, axis))
+    _refuse_box_axis(axis, box)
+    if box is not None:
+        whole, offs = box
+        keep = rng.bernoulli(key.to(x.device), 1.0 - p, whole)[tuple(
+            slice(o, o + n) for o, n in zip(offs, x.shape))]
+    else:
+        keep = rng.bernoulli(key.to(x.device), 1.0 - p,
+                             mask_shape(x.shape, axis))
     y = (x.float() * upscale_factor(p, x.dtype)).to(x.dtype) if upscale \
         else x
     return torch.where(keep, y, torch.zeros((), dtype=x.dtype,
@@ -139,19 +233,23 @@ def dropout_ref(x, key, p: float, axis=None, upscale: bool = True):
 _DOWNSCALE, _UPSCALE, _ALPHA = 0, 1, 2
 
 
-def _launch(x, key, p: float, axis, upscale: bool, alpha=None, scale=None):
+def _launch(x, key, p: float, axis, upscale: bool, alpha=None, scale=None,
+            box=None):
     """Check what the kernel takes, launch it on the current stream and
     return y. ``alpha``: the alpha form's ``(a, b, fill)``, rounded to x's
     dtype (then ``axis`` must be None and ``upscale`` is not read);
     ``scale``: the upscale form's factor in place of
-    :func:`upscale_factor`."""
+    :func:`upscale_factor`; ``box``: the whole tensor's shape and x's
+    offsets in it (the counters are the whole tensor's flat indices)."""
+    _refuse_box_axis(axis, box)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the dropout kernel takes float32, bfloat16 or "
                         f"float16, got {x.dtype}")
     n = x.numel()
-    if n >= 2 ** 32:
+    counted = n if box is None else int(np.prod(box[0]))
+    if counted >= 2 ** 32:
         raise ValueError(f"the dropout kernel's counters are 32-bit: fewer "
-                         f"than 2**32 elements, got {n}")
+                         f"than 2**32 elements, got {counted}")
     if x.dim() > MAX_DIMS:
         raise ValueError(f"at most {MAX_DIMS} dimensions, got {x.dim()}")
     key = key.to(device=x.device, dtype=torch.int64).contiguous()
@@ -163,8 +261,17 @@ def _launch(x, key, p: float, axis, upscale: bool, alpha=None, scale=None):
         # (y, a fresh allocation, is aligned)
         x = x.clone()
     y = torch.empty_like(x)
-    ndim, shape, mstride = 0, None, None
-    if axis is not None:
+    ndim, shape, mstride, base = 0, None, None, 0
+    if box is not None:
+        whole, offs = box
+        strides = [1] * len(whole)
+        for d in range(len(whole) - 2, -1, -1):
+            strides[d] = strides[d + 1] * int(whole[d + 1])
+        base = sum(int(o) * st for o, st in zip(offs, strides))
+        ndim = x.dim()
+        shape = (ctypes.c_longlong * ndim)(*x.shape)
+        mstride = (ctypes.c_longlong * ndim)(*strides)
+    elif axis is not None:
         ms = mask_shape(x.shape, axis)
         strides = [0] * len(ms)
         acc = 1
@@ -185,42 +292,47 @@ def _launch(x, key, p: float, axis, upscale: bool, alpha=None, scale=None):
     rc = load_kernels().dropout_launch(
         _DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(), key.data_ptr(), n,
         keep_threshold(p), scale, shift, fill, mode, ndim, shape, mstride,
-        stream)
+        base, stream)
     if rc != 0:
         raise RuntimeError(f"dropout_launch failed: CUDA error {rc}")
-    launches["dropout"] += 1
+    _count("dropout")
     if alpha is not None:
-        launches["alpha_dropout"] += 1
+        _count("alpha_dropout")
     return y
 
 
-def dropout_apply(x, key, p: float, axis=None, upscale: bool = True):
+def dropout_apply(x, key, p: float, axis=None, upscale: bool = True,
+                  box=None):
     """``keep ? x * scale : 0`` (``upscale``) or ``keep ? x : 0`` under
-    ``key``: the plain version on the CPU, the kernel on a CUDA device.
-    No gradient (see :class:`Dropout`)."""
+    ``key`` (over the ``box`` of a whole tensor, when one is given): the
+    plain version on the CPU, the kernel on a CUDA device. No gradient
+    (see :class:`Dropout`)."""
     if x.device.type == "cpu":
-        return dropout_ref(x, key, p, axis, upscale)
-    return _launch(x, key, p, axis, upscale)
+        return dropout_ref(x, key, p, axis, upscale, box)
+    return _launch(x, key, p, axis, upscale, None, None, box)
 
 
 class Dropout(torch.autograd.Function):
     """``dropout_apply`` with its gradient: the same function of the
-    upstream gradient under the same key. Keeps the key and ``p``."""
+    upstream gradient under the same key. Keeps the key, ``p`` and the
+    box."""
 
     @staticmethod
-    def forward(ctx, x, key, p, axis, upscale):
-        ctx.key, ctx.args = key, (p, axis, upscale)
-        return dropout_apply(x, key, p, axis, upscale)
+    def forward(ctx, x, key, p, axis, upscale, box_):
+        ctx.key, ctx.args = key, (p, axis, upscale, box_)
+        return dropout_apply(x, key, p, axis, upscale, box_)
 
     @staticmethod
     def backward(ctx, g):
-        return dropout_apply(g, ctx.key, *ctx.args), None, None, None, None
+        return (dropout_apply(g, ctx.key, *ctx.args), None, None, None, None,
+                None)
 
 
 def dropout(x, key, p: float, axis=None, upscale: bool = True):
     """Differentiable dropout of ``x`` under ``key`` (see the module
-    docstring)."""
-    return Dropout.apply(x, key, float(p), axis, bool(upscale))
+    docstring), over the current :func:`box` of a whole tensor."""
+    return Dropout.apply(x, key, float(p), axis, bool(upscale),
+                         box_of(x.shape))
 
 
 # ----------------------------------------------------------- alpha dropout
@@ -299,7 +411,7 @@ def _alpha_grad_apply(g, key, p: float):
     if g.device.type == "cpu":
         return _alpha_grad_ref(g, key, p)
     y = _launch(g, key, p, None, True, scale=alpha_constants(p, g.dtype)[0])
-    launches["alpha_dropout"] += 1
+    _count("alpha_dropout")
     return y
 
 

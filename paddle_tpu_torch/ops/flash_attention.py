@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -61,7 +62,7 @@ __all__ = ["flash_attention", "FlashAttention", "flash_forward",
            "flash_forward_op",
            "flash_backward_dkv", "flash_backward_dq", "flash_forward_ref",
            "flash_backward_dkv_ref", "flash_backward_dq_ref", "launches",
-           "reset_launches", "load_kernels"]
+           "thread_launches", "reset_launches", "load_kernels"]
 
 NEG_INF = -1e30  # the Pallas kernels' finite mask value
 
@@ -74,9 +75,30 @@ HEAD_DIMS = (64, 128, 256)
 _lib = None
 
 
+_tl = threading.local()
+
+
+def thread_launches() -> dict:
+    """The calling thread's own launches (a rank run as a thread reads
+    its share of :data:`launches` here; backward launches count on the
+    thread that ran the backward)."""
+    counts = getattr(_tl, "launches", None)
+    if counts is None:
+        counts = _tl.launches = dict.fromkeys(launches, 0)
+    return counts
+
+
+def _count(name: str) -> None:
+    launches[name] += 1
+    thread_launches()[name] += 1
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    counts = thread_launches()
+    for k in counts:
+        counts[k] = 0
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -279,7 +301,7 @@ def _flash_forward_cuda(q, k, v, scale, causal):
         o.data_ptr(), lse.data_ptr(), strides, b, h, sq, sk, float(scale),
         int(bool(causal)), _stream(q))
     _raise_on(rc, "flash_fwd_launch")
-    launches["flash_forward"] += 1
+    _count("flash_forward")
     return o, lse
 
 
@@ -312,7 +334,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, scale, causal):
         dv.data_ptr(), strides, b, h, sq, sk, float(scale),
         int(bool(causal)), _stream(q))
     _raise_on(rc, "flash_bwd_dkv_launch")
-    launches["flash_backward_dkv"] += 1
+    _count("flash_backward_dkv")
     return dk, dv
 
 
@@ -330,7 +352,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, scale, causal):
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         strides, b, h, sq, sk, float(scale), int(bool(causal)), _stream(q))
     _raise_on(rc, "flash_bwd_dq_launch")
-    launches["flash_backward_dq"] += 1
+    _count("flash_backward_dq")
     return dq
 
 

@@ -82,6 +82,14 @@ def _as_tensor(v):
 
 class Optimizer:
     _state_names: List[str] = []
+    #: whether each element's update reads only that element (Lamb's and
+    #: LARS's read whole-tensor norms, which a split shard does not hold)
+    _elementwise = True
+    #: the ZeRO sharding of the update and the slots (set by
+    #: ``distributed.sharding.group_sharded_parallel``; None: every
+    #: parameter whole): ``local(p, g)``, ``whole(p, new)``, ``done()``,
+    #: ``whole_state(opt, sd)`` and ``local_state(opt, sd)``
+    _shards = None
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
@@ -187,22 +195,42 @@ class Optimizer:
 
     @torch.no_grad()
     def _apply_gradients(self, params, grads):
-        """Clip ``grads`` (one per parameter of ``params``) once over all of
-        them, advance the step count and update every parameter in place
-        with its :meth:`_update_for`."""
+        """Clip ``grads`` (one per parameter of ``params``, already
+        averaged over any data axis by the caller) once over all of them,
+        advance the step count and update every parameter in place with
+        its :meth:`_update_for`. On a mesh the clip's norm is the whole
+        model's: a tensor-parallel shard (``split_mesh``) and a ZeRO slice
+        sum their squares over the groups that split them. Under ZeRO
+        (:attr:`_shards`) a parameter is updated as this rank's slice, from
+        its slice of the gradient, and gathered whole after."""
+        from ..distributed import parallel
+
+        shards = self._shards
+        held, sliced = [p.detach() for p in params], None
+        if shards is not None:
+            held, grads, sliced = map(list, zip(*[
+                shards.local(p, g) for p, g in zip(params, grads)]))
+        groups = parallel.norm_groups(params, sliced)
+        if groups is not None and not self._elementwise:
+            raise NotImplementedError(
+                f"{type(self).__name__} reads whole-tensor norms; on "
+                "parameters split over a mesh it is not ported")
         if self._grad_clip is not None:
-            grads = self._grad_clip._clip_arrays(list(grads))
+            grads = self._grad_clip._clip_arrays(list(grads), groups)
         self._step_count += 1
         lr, step = self.get_lr(), self._step_count
         names = self._names_by_id()
-        for p, g in zip(params, grads):
+        for p, h, g in zip(params, held, grads):
             slots = self._accumulators.get(id(p))
             if slots is None:
-                slots = self._init_slot(p)
+                slots = self._init_slot(h)
             new_p, self._accumulators[id(p)] = self._apply_with_master(
-                self._update_for(names.get(id(p)), p), p.detach(), g, slots,
-                lr, step)
+                self._update_for(names.get(id(p)), p), h, g, slots, lr, step)
+            if shards is not None:
+                new_p = shards.whole(p, new_p)
             p.copy_(new_p)
+        if shards is not None:
+            shards.done()
 
     # --------------------------------------------------------- eager path
     def step(self):
@@ -281,6 +309,8 @@ class Optimizer:
                 sd[f"{key}.{k}"] = v.detach().clone()
         if isinstance(self._learning_rate, LRScheduler):
             sd["LR_Scheduler"] = self._learning_rate.state_dict()
+        if self._shards is not None:
+            sd = self._shards.whole_state(self, sd)
         return sd
 
     def set_state_dict(self, state_dict) -> None:
@@ -288,7 +318,10 @@ class Optimizer:
         :meth:`state_dict` (tensors or numpy arrays; keys by name or by
         index). Each parameter's restored slots are laid over fresh ones in
         this optimizer's dtypes; one with no entry starts fresh; a
-        ``master_weight`` is read only under ``multi_precision``."""
+        ``master_weight`` is read only under ``multi_precision``. Under
+        ZeRO the slots are whole and each rank keeps its slices."""
+        if self._shards is not None:
+            state_dict = self._shards.local_state(self, state_dict)
         self._step_count = int(np.asarray(state_dict.get("step", 0)))
         if (isinstance(self._learning_rate, LRScheduler)
                 and "LR_Scheduler" in state_dict):
@@ -554,8 +587,8 @@ class Lamb(Optimizer):
     the trust ratio ``||p|| / ||r||``. ``exclude_from_weight_decay_fn
     (param)`` returning True trains that parameter with no decay; it is
     called with the parameter tensor itself."""
-
     _state_names = ["moment1", "moment2"]
+    _elementwise = False
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
@@ -607,8 +640,8 @@ class LarsMomentum(Optimizer):
     with wd 0 (and so a plain-lr update). The clip runs once over all
     gradients before the split, in every path (the JAX package's
     ``apply_gradients`` override does the same)."""
-
     _state_names = ["velocity"]
+    _elementwise = False
 
     def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, parameters=None, grad_clip=None,

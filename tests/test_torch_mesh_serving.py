@@ -19,6 +19,8 @@ over gloo groups on an in-process ``HashStore`` (``launch="thread"``): rank
   the int8 weights and the adapters; at tp = 4 each rank holds at most
   0.55 of the one-rank engine's weight and arena bytes.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -390,8 +392,8 @@ def test_generate_on_a_mesh(arrays):
     """``generate()`` (the JAX file's runner-cache test): the port's
     ``generate()`` runs eagerly, with no runner to key, so a model sharded
     over a one-rank mesh generates what the whole model does, bit for
-    bit; over two ranks it raises, naming ROADMAP.md (generate() on a mesh
-    is queued there)."""
+    bit; over two ranks (threads, each calling it) every rank generates
+    the whole model's tokens."""
     ids = np.random.default_rng(10).integers(0, 1024, (1, 8))
     whole = _port_model(arrays)
     want = whole.generate(ids, max_new_tokens=4)
@@ -401,7 +403,22 @@ def test_generate_on_a_mesh(arrays):
     mesh.connect()
     gpt.shard_model(one, mesh)
     assert torch.equal(one.generate(ids, max_new_tokens=4), want)
-    two = _port_model(arrays)
-    gpt.shard_model(two, mesh_mod.ServingMesh(2, backend="gloo"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        two.generate(ids, max_new_tokens=4)
+    root = mesh_mod.serving_mesh(2, backend="gloo", launch="thread",
+                                 install=False)
+    root.open()
+    meshes = [root, root.peer(1)]
+    got = [None, None]
+
+    def rank(r):
+        meshes[r].connect()
+        two = _port_model(arrays)
+        gpt.shard_model(two, meshes[r])
+        got[r] = two.generate(ids, max_new_tokens=4)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    for g in got:
+        assert g is not None and torch.equal(g, want)

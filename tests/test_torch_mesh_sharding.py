@@ -354,12 +354,13 @@ def test_data_axis_and_an_unnamed_backend_are_refused():
 
 def test_engine_refuses_a_shard_it_cannot_serve():
     """A model already split over a mesh of two ranks serves on no other
-    engine: its followers load the whole model."""
+    engine: its followers load the whole model. Its ``generate()`` runs
+    over its own mesh's model group, which this mesh never formed."""
     model = _tiny()
     gpt.shard_model(model, _rank_mesh(2, 0))
     with pytest.raises(ValueError, match="sharded"):
         ServingAPI(model, ServingConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="not formed"):
         model.generate(np.arange(4)[None], max_new_tokens=2)
 
 
@@ -495,10 +496,12 @@ def test_rank0_waits_for_a_slow_answer_within_the_timeout():
 
 
 @pytest.mark.parametrize("args", [["--phase", "3"], ["--phase"],
-                                  ["--phase", "19", "again"], ["19"]])
+                                  ["--phase", "19", "again"], ["19"],
+                                  ["--phase", "20", "again"]])
 def test_chip_smoke_takes_only_phase_19(args):
-    """``chip_smoke.py`` takes no argument or ``--phase 19``; anything else
-    is refused before any work, with exit 2 and no result line."""
+    """``chip_smoke.py`` takes no argument, ``--phase 19`` or ``--phase
+    20``; anything else is refused before any work, with exit 2 and no
+    result line."""
     import subprocess
     import sys
 
@@ -507,5 +510,6 @@ def test_chip_smoke_takes_only_phase_19(args):
     r = subprocess.run([sys.executable, script, *args], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 2
-    assert "the only one taken is '--phase 19'" in r.stderr
+    assert ("the only ones taken are '--phase 19' and '--phase 20'"
+            in r.stderr)
     assert r.stdout.strip() == ""
