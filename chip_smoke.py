@@ -485,7 +485,8 @@ no result. Phases, in order; each raises on failure:
     same cut, tp = 2 against one rank: tokens equal, each rank's launches
     equal, the int8 kernels among them, the scale pools bit-equal on both
     ranks (19c runs it too over NCCL on two cards, its max all-reduces
-    captured); then bf16 at 24 layers: the first token's logits within
+    captured); then bf16 at 24 layers (the follower a thread of this
+    process): the first token's logits within
     ``ROUTE_TOL["bf16"]`` of the one-rank engine's, the wave's token
     agreement printed, and the decode kernel at the rank's 8 heads of 128
     on rank 0's pools against its plain version, timed beside its bound
@@ -510,10 +511,36 @@ no result. Phases, in order; each raises on failure:
     sampled tokens equal the whole model's. 20e, only with four cards:
     NCCL data 2 x model 2, one rank a card, with 20a's checks.
 
-Each phase prints its seconds. ``--phase 19`` and ``--phase 20`` run the
-build and that phase alone (a check of 19c or 20e on a machine with four
-cards) and end on a line of their own, ``{"phase_only": "19", ...}``; any
-other argument is refused. The smoke run proper takes no arguments.
+21. Pipeline and context parallelism (``train_pipe``): ``gpt_1p3b``'s
+    width at ``PP_LAYERS`` layers (phase 20's weights), ranks as threads
+    over gloo on this card. 21a, GPipe at pp = 2, f32 (TF32 off), 4 x
+    2048 in 4 microbatches: every rank's 3 ``train_batch`` losses against
+    the one-rank ``GPTForCausalLM``'s, its first-step gradients and its
+    parameters after step 1 against that run's parts of them (the tied
+    ``wte`` included; both held tensor by tensor, the parameters over
+    the entries whose one-rank gradient is not zero to rounding, the
+    others counted and printed: AdamW's first step moves an entry whose
+    gradient is rounding noise, as the key third of ``qkv``'s bias, by up
+    to lr on that noise's sign; see PP_ZERO_ABS),
+    the schedule's ticks against
+    ``pipeline_tick_cost``, exact flash launches (2 layers x 4
+    microbatches x 3 steps a rank); a dropout step at one microbatch
+    bit-equal to the one-rank pipe model. 21b, the interleaved schedule
+    (V = 2), the same checks. 21c, bf16 O1 at pp = 2, two steps within
+    ``ROUTE_TOL["bf16"]``; the flash kernels at a stage's [1, 2048, 16,
+    128], timed. 21d, ring and Ulysses attention at sep = 2 on [1, 2048,
+    16, 128] in f32 and bf16 against one rank's ``_sdpa_reference``
+    (``PP_CP_TOL``), and the GPT trained at sep 2 x model 2 on the ring
+    against one rank, with 0 flash launches (the flag at 0: the sep route
+    comes first). 21e, only with four cards: NCCL pp 2 x data 2 and sep 2
+    x model 2 at 2 x 2048, one rank a card.
+
+Each phase prints its seconds. ``--phase 19``, ``--phase 20`` and
+``--phase 21`` run the build and that phase alone (a check of 19c, 20e
+or 21e on a machine with four cards) and end on a line of their own,
+``{"phase_only": "19", ...}``; any other argument is refused. The smoke
+run proper takes no arguments. It draws the seeded weights of every model
+it seeds on host threads while the kernels build (``draw_ahead``).
 
 Every serving engine is closed at the end of its phase
 (``ServingAPI.close``), which drops its graphs and their pool before the
@@ -537,11 +564,14 @@ phase 16a's HTTP wave, summed over the two worker processes' own counts;
 the flash forward row's ``launches_export`` a run of phase 18a's flash
 program, ``launches_to_static`` a replay of 18b's graph; ``launches_tp``
 the measured waves of 19a, of 19b's f32 case and of 19b's int8 wave, per
-rank),
+rank; a flash or dropout row's ``launches_tp_train`` phase 20a's and
+``launches_pipe_train`` phase 21a's (its dropout step's for the dropout
+row), per rank),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Phase 12 prints its own JSON line before them
 (``training_loop``: 12a-12d's numbers).
 """
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -1063,13 +1093,55 @@ def hold_launches(launches, want, what):
         raise AssertionError(f"{what}: kernel launches {launches} != {want}")
 
 
+#: seeded weights drawn on host threads while the kernels build (the
+#: whole run's; ``seeded`` takes them, or draws at once without them)
+_DRAWN = {}
+
+
+def _seeded_meta(gpt, cfg, seed):
+    """``gpt.seeded_state`` of a tied ``GPTForCausalLM(cfg)``: the same
+    arrays, drawn from its parameters' names and shapes on the meta device
+    (nothing allocated)."""
+    holder = torch.nn.Module()
+    holder.gpt = gpt.GPTModel(cfg, device="meta")
+    return gpt.seeded_state(holder, seed=seed)
+
+
+def draw_ahead(gpt, pool):
+    """Start drawing, on ``pool``'s threads, the seeded weights of every
+    model the whole run seeds: gpt_1p3b (phase 3 on, seed 0), 3c's wide
+    vocabulary (seed 5), 11's heads of 256 (seed 3) and 13's drafts (seeds
+    3 and 1)."""
+    base = gpt.gpt_1p3b()
+    jobs = {("1p3b", 0): base,
+            ("wide_vocab", 5): dataclasses.replace(
+                base, num_layers=2, vocab_size=LLAMA3_VOCAB),
+            ("d256", 3): dataclasses.replace(base, num_heads=8,
+                                             num_layers=2)}
+    for seed, layers in ((3, SPEC_F32[1]), (1, 12)):
+        jobs[("draft", seed)] = spec_draft_config(gpt, layers)
+    for key, cfg in jobs.items():
+        _DRAWN[key] = pool.submit(_seeded_meta, gpt, cfg, key[1])
+
+
+def seeded(gpt, model, key, seed):
+    """``gpt.seeded_state(model, seed)``: the arrays :func:`draw_ahead`
+    drew under ``(key, seed)``, else drawn now."""
+    fut = _DRAWN.get((key, seed))
+    if fut is not None:
+        arrays = fut.result()
+        if [n for n, _ in model.named_parameters()] == list(arrays):
+            return arrays
+    return gpt.seeded_state(model, seed=seed)
+
+
 def serve_f32(pa, gpt, serving, card):
     """Phase 3: gpt_1p3b in f32 through ServingAPI, held against
     generate(). Returns the model, the main path's kernel launches and the
     seeded weights (numpy, reused by the later phases)."""
     t0 = time.perf_counter()
     model = gpt.GPTForCausalLM(gpt.gpt_1p3b(), device="cuda")
-    arrays = gpt.seeded_state(model, seed=0)
+    arrays = seeded(gpt, model, "1p3b", 0)
     gpt.load_functional_state(model, arrays)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"e2e f32: gpt_1p3b {n_params} params, 24 layers, seeded weights "
@@ -1569,7 +1641,7 @@ def serve_wide_vocab(pa, gpt, serving, card):
     cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=2,
                               vocab_size=LLAMA3_VOCAB)
     model = gpt.GPTForCausalLM(cfg, device="cuda")
-    gpt.load_functional_state(model, gpt.seeded_state(model, seed=5))
+    gpt.load_functional_state(model, seeded(gpt, model, "wide_vocab", 5))
     cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(
         num_slots=8, chunked_prefill=CHUNK), device="cuda")
@@ -2632,7 +2704,7 @@ def serve_d256(pa, gpt, serving, card):
     x decode steps and the prefill kernel 2 x prefills."""
     cfg = dataclasses.replace(gpt.gpt_1p3b(), num_heads=8, num_layers=2)
     model = gpt.GPTForCausalLM(cfg, device="cuda")
-    gpt.load_functional_state(model, gpt.seeded_state(model, seed=3))
+    gpt.load_functional_state(model, seeded(gpt, model, "d256", 3))
     layers = model.cfg.num_layers
     cc = decode_compiles()
     api = serving.ServingAPI(model, serving.ServingConfig(num_slots=8),
@@ -4377,14 +4449,17 @@ SPEC_RAN = ("steps", "prefills", "chunks", "suffix", "decode_builds",
             "draft_prefills", "draft_builds")
 
 
+def spec_draft_config(gpt, layers):
+    return dataclasses.replace(gpt.gpt_base(max_position_embeddings=2048),
+                               num_layers=layers)
+
+
 def spec_draft(gpt, dtype, seed, layers=12):
     """A ``gpt_base``-width draft (hidden 768, 12 heads of 64: the decode
     kernel at head dim 64) with ``gpt_1p3b``'s vocabulary of 50304 and 2048
     positions, seeded random weights, ``layers`` deep."""
-    cfg = dataclasses.replace(gpt.gpt_base(max_position_embeddings=2048),
-                              num_layers=layers)
-    draft = gpt.GPTForCausalLM(cfg, device="cuda")
-    gpt.load_functional_state(draft, gpt.seeded_state(draft, seed=seed))
+    draft = gpt.GPTForCausalLM(spec_draft_config(gpt, layers), device="cuda")
+    gpt.load_functional_state(draft, seeded(gpt, draft, "draft", seed))
     return draft.to(dtype)
 
 
@@ -7977,7 +8052,8 @@ def serve_tp_gloo_f32(gpt, serving, pa, arrays, tpm, card):
 
 def serve_tp_gloo_bf16(gpt, serving, pa, arrays, tpm, flush, card):
     """19b, bf16 gpt_1p3b at full depth: the first token's logits of the
-    wave's first prompt at tp = 2 (gloo, two ranks on the card) within
+    wave's first prompt at tp = 2 (gloo, two ranks on the card, the
+    follower a thread) within
     ROUTE_TOL["bf16"] of the one-rank engine's, and each one's distance to
     the f32 model's logits (a causal forward) printed beside; the wave's
     token agreement printed; then the decode kernel at the rank's 8 heads
@@ -8002,7 +8078,10 @@ def serve_tp_gloo_bf16(gpt, serving, pa, arrays, tpm, flush, card):
     finally:
         api.close()
     release()
-    mesh = tpm.serving_mesh(2, backend="gloo", launch="process",
+    # the follower is a thread of this process: it boots without a spawn or
+    # the 24 layers' trip through a file (19b f32 and the int8 wave hold the
+    # process launch), and this run reads no launch counter it would share
+    mesh = tpm.serving_mesh(2, backend="gloo", launch="thread",
                             timeout=TP_TIMEOUT, install=False)
     api = serving.ServingAPI(model, serving.ServingConfig(
         num_slots=TP_SLOTS, mesh=mesh), device="cuda")
@@ -8789,24 +8868,433 @@ def train_tp(gpt, arrays, port, card):
     return launches, out
 
 
-def tt_ranks(parallel, fn, backend, dp=1, mp=1, sharding_=1,
+def tt_ranks(parallel, fn, backend, dp=1, mp=1, sharding_=1, pp=1, sep=1,
              timeout=TT_TIMEOUT):
-    """``fn(mesh)`` on every rank of a ``dp x sharding x mp`` mesh of
-    threads of this process (``timeout``: each collective's and the
-    join's)."""
+    """``fn(mesh)`` on every rank of a ``dp x pp x sharding x sep x mp``
+    mesh of threads of this process (``timeout``: each collective's and
+    the join's)."""
     from paddle_tpu_torch.distributed import mesh as mesh_mod
 
-    world = dp * mp * sharding_
+    world = dp * mp * sharding_ * pp * sep
 
     def body(rank, store):
         if backend == "nccl":
             torch.cuda.set_device(rank)   # one rank a card
         mesh = mesh_mod.init_hybrid_mesh(
-            dp=dp, mp=mp, sharding=sharding_, rank=rank, world_size=world,
-            backend=backend, store=store, timeout=timeout)
+            dp=dp, mp=mp, sharding=sharding_, pp=pp, sep=sep, rank=rank,
+            world_size=world, backend=backend, store=store, timeout=timeout)
         return fn(mesh)
 
     return parallel.run_thread_ranks(body, world, timeout=timeout)
+
+
+# ------------------------------------------------------------------ phase 21
+# pipeline and context parallelism: gpt_1p3b's width at PP_LAYERS layers
+# (phase 20's arrays), sequence SEQ, f32 with TF32 off but 21c; ranks are
+# threads of this process (gloo over CUDA tensors on the one card, NCCL one
+# rank a card in 21e)
+PP_LAYERS = TT_LAYERS
+PP_BATCH, PP_MICRO, PP_STEPS = 4, 4, 3   # 21a / 21b: 4 x SEQ, 4 microbatches
+PP_STEPS_BF16 = 2                       # 21c: held to ROUTE_TOL["bf16"]
+PP_STEPS_SEP = 2                        # 21d's GPT at sep 2 x model 2
+PP_NCCL_BATCH = 2                       # 21e: 2 x SEQ on four cards
+# f32: losses rtol against one rank; first-step gradients and parameters
+# after step 1, relative L2 tensor by tensor
+PP_LOSS_TOL, PP_PARAM_TOL = 1e-6, 1e-5
+# the parameters after step 1 are held over the entries whose one-rank
+# first-step gradient is not zero to rounding. AdamW's first step moves an
+# entry by lr g / (|g| + eps), about lr on g's sign, so an entry whose g is
+# rounding noise moves on that noise. Left out, counted and printed: the
+# key third of each block's qkv bias (its gradient is 0 in exact
+# arithmetic: a key bias adds one amount to every logit of a query's row,
+# which softmax ignores), and entries with |g| <= PP_ZERO_ABS = 100 x
+# AdamW's eps (where eps and g's rounding set the move). The readings
+# with only the first rule are printed beside them
+PP_ZERO_ABS = 100 * 1e-8
+# 21d: ring and Ulysses outputs and gradients against one rank's
+# _sdpa_reference, relative L2 (bf16: both round probabilities and
+# products in bf16, in other orders)
+PP_CP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def pp_model(gpt, parrays, device, micro, virtual=None, **kw):
+    """Phase 21's pipe model on this thread's mesh: gpt_1p3b's width at
+    PP_LAYERS layers, ``micro`` microbatches, ``virtual`` chunks a rank,
+    the seeded arrays, in train mode."""
+    cfg = dataclasses.replace(gpt.gpt_1p3b(), num_layers=PP_LAYERS, **kw)
+    model = gpt.GPTForCausalLMPipe(cfg, num_microbatches=micro,
+                                   num_virtual_pipeline_stages=virtual,
+                                   device=device)
+    gpt.load_pipe_state(model, parrays)
+    model.train()
+    return model
+
+
+def pp_opt(port, model):
+    return port.AdamW(learning_rate=3e-4, parameters=model.named_parameters(),
+                      weight_decay=0.01,
+                      grad_clip=port.ClipGradByGlobalNorm(1.0))
+
+
+def pp_names(gpt, tensors):
+    """``{name: tensor}`` of a GPTForCausalLM (f32) as host copies under
+    the pipe model's names (``models.gpt.pipe_arrays``)."""
+    arrays = {n: t.detach().to("cpu", copy=True).numpy()
+              for n, t in tensors.items()}
+    return {n: torch.from_numpy(a)
+            for n, a in gpt.pipe_arrays(arrays, PP_LAYERS).items()}
+
+
+def pp_kept(name, grad, floor=PP_ZERO_ABS):
+    """The entries of parameter ``name`` (the whole model's) whose reading
+    after step 1 is held: outside the key third of a qkv bias, and with a
+    one-rank first-step gradient ``grad`` above ``floor`` (see
+    PP_ZERO_ABS)."""
+    keep = grad.abs() > floor
+    if name.endswith("attn__qkv__bias"):
+        h = grad.shape[-1] // 3
+        keep[..., h:2 * h] = False
+    return keep
+
+
+def pp_whole(ctx, x, y, steps, bf16=False, **kw):
+    """The one-rank run phase 21 holds the pipe ranks to: phase 20's whole
+    GPTForCausalLM, ``steps`` TrainSteps' losses and, in f32, the first
+    step's loss gradients and its parameters after step 1, under the pipe
+    model's names."""
+    port, gpt = ctx.port, ctx.gpt
+    model = tt_model(gpt, ctx.arrays, **kw)
+    out = {}
+    if not bf16:
+        names, params = zip(*model.named_parameters())
+        out["grads"] = pp_names(gpt, dict(zip(names, torch.autograd.grad(
+            model(x, y), params))))
+    step, opt = tt_step(port, model, bf16)
+    out["losses"] = [float(step(x, y))]
+    if not bf16:
+        out["params"] = pp_names(gpt, dict(model.named_parameters()))
+    out["losses"] += [float(step(x, y)) for _ in range(steps - 1)]
+    del step, opt, model
+    release()
+    return out
+
+
+def pp_train(ctx, mesh, dev, x, y, steps, micro, virtual=None, ref=None,
+             bf16=False, **kw):
+    """On one rank of ``mesh``: the pipe model (its stage's blocks, the
+    replicated sections), ``steps`` PipelineParallel.train_batch steps of
+    the global batch with this thread's flash and dropout launches
+    counted; with ``ref`` first the relative L2 of each first-step loss
+    gradient (no update) from the one-rank run's part of it, then, after
+    step 1, each parameter's."""
+    from paddle_tpu_torch.distributed import pipeline
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineParallel)
+
+    port, gpt = ctx.port, ctx.gpt
+    model = pp_model(gpt, ctx.parrays, dev, micro, virtual, **kw)
+    w = PipelineParallel(model)
+    opt = pp_opt(port, model)
+    xs, ys = x.to(dev), y.to(dev)
+    out = {"losses": []}
+
+    def rels(tensors, whole, grads=None, floor=PP_ZERO_ABS):
+        """Each tensor's relative L2 from the one-rank run's part of it
+        (with ``grads``, over the entries ``pp_kept`` keeps): the largest,
+        the three largest by name, and the entries left out by name."""
+        got, left = {}, {}
+        for (n, p), t in zip(model.named_parameters(), tensors):
+            a, b = t.detach().float(), gpt._local_part(p, whole[n].to(dev))
+            if grads is not None:
+                keep = gpt._local_part(p, pp_kept(n, grads[n].to(dev),
+                                                  floor))
+                if not bool(keep.all()):
+                    left[n] = f"{int((~keep).sum())} of {keep.numel()}"
+                a, b = a[keep], b[keep]
+            got[n] = rel_l2_t(a, b)
+        top = sorted(got, key=got.get, reverse=True)[:3]
+        return max(got.values()), {n: got[n] for n in top}, left
+
+    if ref is not None:
+        with torch.autograd.set_multithreading_enabled(False):
+            grads = torch.autograd.grad(
+                model.loss_fn(model(ctx.parallel.shard_batch(xs)),
+                              ctx.parallel.shard_batch(ys)),
+                [p for _, p in model.named_parameters()])
+        out["grad_rel"], out["grad_top"], _ = rels(
+            ctx.parallel.sync_gradients(grads), ref["grads"])
+        del grads
+    if "dropout" in kw:
+        port.rng.seed(TT_DROP_SEED)
+    port.fa.reset_launches()
+    port.do.reset_launches()
+    def cast():
+        return (port.amp.auto_cast(level="O1", dtype="bfloat16") if bf16
+                else contextlib.nullcontext())
+
+    for i in range(steps):
+        with cast():
+            out["losses"].append(float(w.train_batch((xs, ys), opt)))
+        if i == 0 and ref is not None:
+            params = [p for _, p in model.named_parameters()]
+            out["param_rel"], out["param_top"], out["param_left"] = rels(
+                params, ref["params"], ref["grads"])
+            _, out["param_top_no_floor"], _ = rels(
+                params, ref["params"], ref["grads"], floor=0.0)
+    out["launches"] = {**port.fa.thread_launches(),
+                       "dropout": port.do.thread_launches()["dropout"]}
+    out["schedule"] = pipeline.last_schedule()
+    out["rows"] = f"blocks {list(model.blocks.rows)}"
+    del w, opt, model
+    return out
+
+
+def pp_hold(what, res, ref, card, tol=PP_LOSS_TOL, steps=None,
+            launches=None, cost=None, params=False):
+    """Hold every rank's readings of a phase-21 run against one rank's."""
+    for r, got in enumerate(res):
+        n = steps or len(got["losses"])
+        held = np.array(got["losses"][:n])
+        want = np.array(ref["losses"][:n])
+        rel = np.abs(held - want) / np.abs(want)
+        line = (f"21{what} rank {r} (holds {got['rows']}): losses "
+                f"{held.tolist()} against one rank's {want.tolist()} (rel "
+                f"{rel.max():.3e}, rtol {tol:g})")
+        ok = bool(np.isfinite(held).all() and (rel <= tol).all())
+        if params:
+            line += (f"; first-step gradients within relative L2 "
+                     f"{got['grad_rel']:.3e} of one rank's, each tensor "
+                     f"(bound {PP_PARAM_TOL:g}; largest {got['grad_top']}); "
+                     f"parameters after step 1 within "
+                     f"{got['param_rel']:.3e} of one rank's parts, each "
+                     f"tensor (bound {PP_PARAM_TOL:g}; the tied wte "
+                     f"included; largest {got['param_top']}; left out, "
+                     f"their one-rank gradient zero to rounding: "
+                     f"{got['param_left'] or 'none'}; with only the key "
+                     f"thirds left out, not held: "
+                     f"{got['param_top_no_floor']})")
+            ok = ok and max(got["grad_rel"], got["param_rel"]) <= \
+                PP_PARAM_TOL
+        if cost is not None:
+            line += (f"; schedule {got['schedule']} (cost "
+                     f"{got['schedule']['cost']} against pipeline_tick_cost "
+                     f"{cost})")
+            ok = ok and got["schedule"]["cost"] == cost
+        if launches is not None:
+            got_l = {k: got["launches"][k] for k in launches}
+            line += f"; launches {got_l} (want {launches})"
+            ok = ok and got_l == launches
+        if not ok:
+            raise AssertionError(line)
+        print(line + f" [{card}]")
+
+
+def cp_checks(port, parallel, card):
+    """21d's kernels-free route: ring_attention and ulysses_attention at
+    sep 2 (gloo thread ranks on this card) on [1, SEQ, H, D] in f32 and
+    bf16, causal, forward and the gradients of ``sum(out * c)``, each
+    rank's rows against one rank's ``_sdpa_reference`` on the whole
+    sequence (PP_CP_TOL); no flash launch on either route."""
+    from paddle_tpu_torch.distributed import context_parallel as cp
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=TT_DEVICE).manual_seed(17)
+        q, k, v, c = [(0.5 * torch.randn((1, SEQ, H, D), generator=gen,
+                                         device=TT_DEVICE)).to(dt)
+                      for _ in range(4)]
+        scale = 1.0 / np.sqrt(D)
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = port.attention._sdpa_reference(*ts, scale=scale, causal=True)
+        (ref.float() * c.float()).sum().backward()
+        want = [ref.detach()] + [t.grad for t in ts]
+        n = SEQ // 2
+
+        def rank(mesh, fn):
+            j = mesh.axis_rank("sep")
+            rows = slice(j * n, (j + 1) * n)
+            mine = [t[:, rows].detach().clone().requires_grad_()
+                    for t in (q, k, v)]
+            port.fa.reset_launches()
+            with torch.autograd.set_multithreading_enabled(False):
+                got = fn(*mine, scale=scale, causal=True)
+                (got.float() * c[:, rows].float()).sum().backward()
+            flash = sum(port.fa.thread_launches().values())
+            return flash, [rel_l2_t(a, b[:, rows]) for a, b in zip(
+                [got.detach()] + [t.grad for t in mine], want)]
+
+        for name, fn in (("ring", cp.ring_attention),
+                         ("ulysses", cp.ulysses_attention)):
+            res = tt_ranks(parallel, lambda mesh: rank(mesh, fn), "gloo",
+                           sep=2)
+            worst = max(max(r) for _, r in res)
+            flash = [f for f, _ in res]
+            tol = PP_CP_TOL[dt]
+            line = (f"21d {name} attention {str(dt)[6:]} [1, {SEQ}, {H}, "
+                    f"{D}] causal at sep 2: out, dq, dk, dv within relative "
+                    f"L2 {worst:.3e} of one rank's _sdpa_reference (bound "
+                    f"{tol:g}); flash launches per rank {flash}")
+            if worst > tol or any(flash):
+                raise AssertionError(line)
+            print(line + f" [{card}]")
+            out[f"{name}_{str(dt)[6:]}"] = worst
+        del q, k, v, c, ts, ref, want
+        release()
+    return out
+
+
+def sep_train(ctx, mesh, dev, x, y, steps):
+    """21d's GPT on a rank of a sep x model mesh: phase 20's model split
+    over the model axis, this rank's block of the batch's positions
+    (``shard_batch``), ``steps`` TrainSteps on the ring route; the flash
+    launches counted (the flag at 0: the sep route comes first)."""
+    port, gpt, par = ctx.port, ctx.gpt, ctx.parallel
+    model = tt_model(gpt, ctx.arrays, device=dev)
+    gpt.shard_model(model, mesh)
+    xs, ys = par.shard_batch(x.to(dev)), par.shard_batch(y.to(dev))
+    step, opt = tt_step(port, model)
+    port.fa.reset_launches()
+    out = {"losses": [float(step(xs, ys)) for _ in range(steps)],
+           "launches": dict(port.fa.thread_launches()),
+           "rows": f"tokens {tuple(xs.shape)}"}
+    del step, opt, model
+    return out
+
+
+def train_pipe(gpt, arrays, port, card):
+    """Phase 21 (see the module docstring): 21a GPipe and 21b the
+    interleaved schedule at pp = 2 in f32 with a dropout step each, 21c
+    bf16 O1 at pp = 2 and the flash kernels at a stage's shape, 21d ring
+    and Ulysses at sep = 2 and a GPT trained at sep 2 x model 2, all as
+    gloo thread ranks on this card; 21e NCCL pp 2 x data 2 and sep 2 x
+    model 2 on four cards where the machine has them. Returns 21a's
+    launches per rank (rows 3-5 and its dropout step's row 7) and the
+    numbers."""
+    from paddle_tpu_torch.distributed import parallel
+    from paddle_tpu_torch.distributed import pipeline
+
+    ctx = types.SimpleNamespace(port=port, gpt=gpt, arrays=arrays,
+                                parallel=parallel,
+                                parrays=gpt.pipe_arrays(arrays, PP_LAYERS))
+    vocab = gpt.gpt_1p3b().vocab_size
+    x, y = tt_batch(vocab, PP_BATCH, 50)
+    out = {}
+    t0 = time.perf_counter()
+    port.flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+    ref = pp_whole(ctx, x, y, PP_STEPS)
+    # the dropout step's one rank: the pipe model without a pipe axis runs
+    # its blocks on the whole batch, as the schedule does at one microbatch
+    port.rng.seed(TT_DROP_SEED)
+    port.do.reset_launches()
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineParallel)
+    one = pp_model(gpt, ctx.parrays, TT_DEVICE, 1, dropout=TT_DROPOUT)
+    # backward on this thread, so that its dropout launches count here
+    with torch.autograd.set_multithreading_enabled(False):
+        ref_drop = {"losses": [float(PipelineParallel(one).train_batch(
+            (x, y), pp_opt(port, one)))]}
+    one_drops = port.do.thread_launches()["dropout"]
+    del one
+    release()
+    print(f"phase 21 one-rank references: {time.perf_counter() - t0:.1f} s")
+
+    for tag, virtual in (("a", None), ("b", 2)):
+        t0 = time.perf_counter()
+
+        def ranks(mesh):
+            got = {"f32": pp_train(ctx, mesh, TT_DEVICE, x, y, PP_STEPS,
+                                   PP_MICRO, virtual, ref=ref)}
+            release()
+            got["drop"] = pp_train(ctx, mesh, TT_DEVICE, x, y, 1, 1, virtual,
+                                   dropout=TT_DROPOUT)
+            release()
+            return got
+
+        res = tt_ranks(parallel, ranks, "gloo", pp=2)
+        name = ("a (GPipe, pp = 2, f32)" if virtual is None else
+                "b (interleaved, pp = 2 x V = 2, f32)")
+        per = {k: (PP_LAYERS // 2) * PP_MICRO * PP_STEPS for k in FLASH}
+        pp_hold(name, [r["f32"] for r in res], ref, card, launches=per,
+                cost=pipeline.pipeline_tick_cost(PP_MICRO, 2, virtual or 1),
+                params=True)
+        pp_hold(f"{tag} (dropout {TT_DROPOUT}, one microbatch; the one-rank "
+                f"pipe model drew {one_drops} dropout launches)",
+                [r["drop"] for r in res], ref_drop, card, tol=0.0)
+        out[tag] = {"launches": [r["f32"]["launches"] for r in res],
+                    "dropout_launches": [r["drop"]["launches"]["dropout"]
+                                         for r in res],
+                    "schedule": res[0]["f32"]["schedule"],
+                    "param_rel": [r["f32"]["param_rel"] for r in res],
+                    "param_top": [r["f32"]["param_top"] for r in res],
+                    "param_left": [r["f32"]["param_left"] for r in res],
+                    "param_top_no_floor": [r["f32"]["param_top_no_floor"]
+                                           for r in res],
+                    "grad_rel": [r["f32"]["grad_rel"] for r in res]}
+        print(f"phase 21{tag}: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ref_c = pp_whole(ctx, x, y, PP_STEPS_BF16, bf16=True)
+    res_c = tt_ranks(parallel, lambda mesh: pp_train(
+        ctx, mesh, TT_DEVICE, x, y, PP_STEPS_BF16, PP_MICRO, bf16=True),
+        "gloo", pp=2)
+    pp_hold("c (GPipe, pp = 2, bf16 O1)", res_c, ref_c, card,
+            tol=ROUTE_TOL["bf16"][0],
+            launches={k: (PP_LAYERS // 2) * PP_MICRO * PP_STEPS_BF16
+                      for k in FLASH})
+    out["c"] = {"losses": [r["losses"] for r in res_c],
+                "one_rank": ref_c["losses"]}
+    release()
+    out["flash_times_stage"] = flash_times(port.fa, card,
+                                           b=PP_BATCH // PP_MICRO, h=H)
+    print(f"phase 21c: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    out["d"] = cp_checks(port, parallel, card)
+    x1, y1 = tt_batch(vocab, 1, 40)
+    port.flags.set_flags({"FLAGS_flash_attention_min_seqlen": -1})
+    ref_d = tt_whole(port, gpt, arrays, x1, y1, PP_STEPS_SEP)
+    port.flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+    res_d = tt_ranks(parallel, lambda mesh: sep_train(
+        ctx, mesh, TT_DEVICE, x1, y1, PP_STEPS_SEP), "gloo", sep=2, mp=2)
+    pp_hold("d (GPT, sep 2 x model 2, f32, the ring; one rank on the plain "
+            "route)", res_d, ref_d, card, launches={k: 0 for k in FLASH})
+    out["d"]["gpt_losses"] = [r["losses"] for r in res_d]
+    print(f"phase 21d: {time.perf_counter() - t0:.1f} s")
+
+    if torch.cuda.device_count() >= 4:
+        t0 = time.perf_counter()
+        x2, y2 = tt_batch(vocab, PP_NCCL_BATCH, 41)
+        ref_pp = pp_whole(ctx, x2, y2, TT_STEPS_DATA)
+        port.flags.set_flags({"FLAGS_flash_attention_min_seqlen": -1})
+        ref_sep = tt_whole(port, gpt, arrays, x2, y2, TT_STEPS_DATA)
+        port.flags.set_flags({"FLAGS_flash_attention_min_seqlen": 0})
+        # each rank reads only host data and its own card
+        xh, yh = x2.cpu(), y2.cpu()
+        res_pp = tt_ranks(parallel, lambda mesh: pp_train(
+            ctx, mesh, f"cuda:{mesh.rank}", xh, yh, TT_STEPS_DATA, 1),
+            "nccl", pp=2, dp=2, timeout=TT_NCCL_TIMEOUT)
+        pp_hold("e (NCCL, pp 2 x data 2, four cards)", res_pp, ref_pp, card,
+                launches={k: (PP_LAYERS // 2) * TT_STEPS_DATA for k in FLASH})
+        res_sep = tt_ranks(parallel, lambda mesh: sep_train(
+            ctx, mesh, f"cuda:{mesh.rank}", xh, yh, TT_STEPS_DATA), "nccl",
+            sep=2, mp=2, timeout=TT_NCCL_TIMEOUT)
+        pp_hold("e (NCCL, sep 2 x model 2, four cards)", res_sep, ref_sep,
+                card, launches={k: 0 for k in FLASH})
+        out["e"] = {"pp_launches": [r["launches"] for r in res_pp],
+                    "pp_losses": [r["losses"] for r in res_pp],
+                    "sep_losses": [r["losses"] for r in res_sep]}
+        print(f"phase 21e: {time.perf_counter() - t0:.1f} s")
+    else:
+        print(f"21e (NCCL pp 2 x data 2, sep 2 x model 2): not run: this "
+              f"machine has {torch.cuda.device_count()} card(s) [{card}]")
+    del ref
+    release()
+    launches = {name: {f"rank{r}": got[name]
+                       for r, got in enumerate(out["a"]["launches"])}
+                for name in FLASH}
+    launches["dropout"] = {f"rank{r}": n for r, n in
+                           enumerate(out["a"]["dropout_launches"])}
+    return launches, out
 
 
 def timed(label, fn, *args):
@@ -8821,9 +9309,11 @@ def main() -> int:
     # ``--phase 19`` / ``--phase 20``: the build and that phase alone (a
     # four-card check of 19c or 20e), ending on a line of its own; the
     # smoke run proper takes no arguments
-    if sys.argv[1:] not in ([], ["--phase", "19"], ["--phase", "20"]):
+    if sys.argv[1:] not in ([], ["--phase", "19"], ["--phase", "20"],
+                            ["--phase", "21"]):
         print(f"chip_smoke: arguments {sys.argv[1:]}: the only ones taken "
-              f"are '--phase 19' and '--phase 20'", file=sys.stderr)
+              f"are '--phase 19', '--phase 20' and '--phase 21'",
+              file=sys.stderr)
         return 2
     only = sys.argv[2] if sys.argv[1:] else None
     if not torch.cuda.is_available():
@@ -8866,6 +9356,12 @@ def main() -> int:
           f"{torch.version.cuda}")
 
     t0 = time.perf_counter()
+    # the whole run's seeded weights are drawn on host threads while nvcc
+    # builds the kernels
+    drawing = ThreadPoolExecutor(2)
+    if only is None:
+        draw_ahead(gpt, drawing)
+    drawing.shutdown(wait=False)
     with ThreadPoolExecutor(len(SOURCES)) as ex:  # one nvcc per source
         list(ex.map(_build.build, SOURCES))
     pa.load_kernels()
@@ -8895,6 +9391,16 @@ def main() -> int:
             + f" [{card}]")
         print(card)
         print(json.dumps({"phase_only": "20", "passed": True,
+                          "cards": torch.cuda.device_count()}))
+        return 0
+    if only == "21":
+        arrays = tt_arrays(gpt)
+        launches, out = t("21", train_pipe, gpt, arrays, port, card)
+        print("phase 21, one call: " + json.dumps(
+            {"launches_pipe_train": launches, **out}, default=str)
+            + f" [{card}]")
+        print(card)
+        print(json.dumps({"phase_only": "21", "passed": True,
                           "cards": torch.cuda.device_count()}))
         return 0
     t("2", kernel_checks, pa)
@@ -8970,6 +9476,9 @@ def main() -> int:
     tt_launches, phase20 = t("20", train_tp, gpt, arrays, port, card)
     print("phase 20, one call: " + json.dumps(phase20, default=str)
           + f" [{card}]")
+    pp_launches, phase21 = t("21", train_pipe, gpt, arrays, port, card)
+    print("phase 21, one call: " + json.dumps(phase21, default=str)
+          + f" [{card}]")
     print(json.dumps({"training_loop": dict(fit=fit, checkpoint=ckpt,
                                             lbfgs=lbfgs,
                                             optimizer_updates=family)}))
@@ -9002,7 +9511,8 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches[name],
                     **({"launches_f32": launches_f32[name]}
                        if name in FLASH else {}),
-                    **({"launches_tp_train": tt_launches[name]}
+                    **({"launches_tp_train": tt_launches[name],
+                        "launches_pipe_train": pp_launches[name]}
                        if name in FLASH + DROPOUT else {}),
                     **(export_launches if name == "flash_forward" else {}),
                     **({"launches_prefix": prefix_launches[name],

@@ -73,6 +73,10 @@ def all_flags() -> Dict[str, Any]:
 # (-1 = auto: 4608, the JAX package's untuned threshold, since the port has
 # no tuning record; 0 = always).
 define_flag("flash_attention_min_seqlen", -1)
+# Context parallelism for attention on a training mesh's sep axis: auto
+# (ring when the thread's mesh has sep > 1), ring, ulysses or none
+# (distributed.context_parallel).
+define_flag("sequence_parallel_mode", "auto")
 # TrainStep checks loss and gradients for NaN/Inf: a nonfinite step leaves
 # parameters and optimizer state untouched and bumps sentinel.skipped.
 define_flag("trainstep_sentinel", 1)

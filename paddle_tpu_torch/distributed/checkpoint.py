@@ -36,7 +36,11 @@ dict that shares its storage). Every rank of the mesh calls the save and
 one writes: world rank 0 of the thread's training mesh (model rank 0 of a
 serving mesh); a blocking save returns on every rank once the step is
 written. A target leaf of either kind takes its part of the whole value
-saved: a state saved whole loads onto a sharded or split target.
+saved: a state saved whole loads onto a sharded or split target. A pipe
+rank's stacked blocks (``nn.stacked``: ``blocks.<name>`` holding its
+stage's rows) are gathered over the pipe group under the JAX package's
+stacked names, ``[num_layers, ...]``, so a reload on one rank, or on
+another pipe degree, gives each rank its own rows.
 """
 from __future__ import annotations
 
@@ -218,11 +222,25 @@ def _save_mesh(tree):
     return found[0] if found else None
 
 
+def _gather_along(x, dim: int, index, whole: int, group):
+    """``x`` (the entries ``index`` of ``whole`` along ``dim``) gathered
+    whole over ``group``: written into a zeroed buffer and summed."""
+    shape = list(x.shape)
+    shape[dim] = whole
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out.index_copy_(dim, index.to(x.device), x.detach())
+    return collective.all_reduce(out, group)
+
+
 def _globalize(tree):
     """Every leaf holding a rank's part of a whole tensor gathered whole (a
-    collective over its group): a slice with a ``shard_spec``, and a
+    collective over its group): a slice with a ``shard_spec``, a
     tensor-parallel shard (a split parameter, or a state dict's leaf of
-    one, gathered by its ``split_index``); the others unchanged."""
+    one, gathered by its ``split_index`` over the model group), and a pipe
+    rank's stacked rows (``pipe_rows``, gathered over the pipe group after
+    the model group); the others unchanged."""
+    from ..nn.stacked import pipe_split_of
+
     split_of, split_indices = _splits()
 
     def leaf(x):
@@ -231,15 +249,16 @@ def _globalize(tree):
         spec = getattr(x, "shard_spec", None)
         if spec is not None:
             return spec.gather(x.detach())
-        part = split_of(x)
-        if part is None:
-            return x
-        dim, _, whole = part.split_index
-        shape = list(x.shape)
-        shape[dim] = whole
-        out = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        out.index_copy_(dim, split_indices(part).to(x.device), x.detach())
-        return collective.all_reduce(out, part.split_mesh.group)
+        part, rows = split_of(x), pipe_split_of(x)
+        if part is not None:
+            dim, _, whole = part.split_index
+            x = _gather_along(x, dim, split_indices(part), whole,
+                              part.split_mesh.group)
+        if rows is not None:
+            x = _gather_along(x, 0, torch.as_tensor(rows.pipe_rows),
+                              rows.pipe_whole,
+                              rows.pipe_mesh.get_group("pipe"))
+        return x
 
     return _map_leaves(leaf, tree)
 
@@ -363,7 +382,12 @@ def _place_like(tree, target):
             out = spec.take(tree).to(target.device)
             out.shard_spec = spec
             return out
+        from ..nn.stacked import pipe_split_of
+
         split_of, split_indices = _splits()
+        rows = pipe_split_of(target)
+        if rows is not None and tree.shape[0] != target.shape[0]:
+            tree = tree.index_select(0, torch.as_tensor(rows.pipe_rows))
         part = split_of(target)
         if part is not None and tree.shape != target.shape:
             return tree.index_select(part.split_index[0], split_indices(

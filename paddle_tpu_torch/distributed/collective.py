@@ -50,6 +50,26 @@ tensor is summed and each rank keeps its rows. A sum over ranks is the
 same on both backends; its order of addition may differ past two ranks.
 Every backward captures its group when the forward runs, so it reads no
 thread's state (autograd may run it on its own thread).
+
+Pipeline and context parallelism (counterparts of ``lax.ppermute`` and
+``lax.all_to_all``, which JAX transposes itself):
+
+* :func:`ppermute` moves every rank's tensor to rank ``(r + shift) mod n``
+  of the group: a send / recv pair, ordered even ranks first (send, then
+  recv) and odd ranks second (recv, then send), so that no ring or chain
+  deadlocks on a backend whose send waits for its receive (NCCL on one
+  pair's stream, gloo's rendezvous). gloo's send and recv read host
+  pointers (on an H100 a CUDA tensor's send fails: ``writev: Bad
+  address``), so on gloo a CUDA tensor's hop is built from ``all_reduce``
+  (:func:`ppermute_by_sum`: each rank writes its tensor into its
+  destination's slot of a zeroed buffer and the buffers are summed;
+  exact). The ring and the pipeline schedule call it inside their own
+  autograd functions, whose backward runs the reverse hop.
+* :func:`all_to_all` splits a tensor into ``n`` pieces along one dim,
+  sends piece ``j`` to rank ``j`` and concatenates what it receives along
+  another (``alltoall_base``, which both backends run on CPU and CUDA
+  tensors). :func:`all_to_all_autograd`'s backward is the reverse
+  all-to-all.
 """
 from __future__ import annotations
 
@@ -63,7 +83,8 @@ __all__ = ["BACKENDS", "new_group", "all_reduce", "broadcast", "all_gather",
            "gather_by_sum", "all_gather_rows", "reduce_scatter", "barrier",
            "get_rank", "get_world_size", "backend_of",
            "copy_to_model_parallel", "reduce_from_model_parallel",
-           "gather_from_model_parallel"]
+           "gather_from_model_parallel", "ppermute", "ppermute_by_sum",
+           "all_to_all", "all_to_all_autograd"]
 
 #: the backends a serving mesh may name
 BACKENDS = ("nccl", "gloo")
@@ -191,6 +212,81 @@ def reduce_scatter(tensor: torch.Tensor, group) -> torch.Tensor:
         return out
     whole = all_reduce(tensor.detach().clone(), group)
     return whole[rank * n:(rank + 1) * n].clone()
+
+
+def ppermute_by_sum(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """:func:`ppermute` built from ``all_reduce``: each rank writes ``x``
+    into slot ``(r + shift) mod n`` of a zeroed ``[n, *x.shape]`` buffer,
+    the buffers are summed and each rank keeps its own slot (one
+    contributor an element: exact)."""
+    n, r = get_world_size(group), get_rank(group)
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    buf[(r + shift) % n] = x
+    return all_reduce(buf, group)[r].clone()
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """The tensor rank ``(r - shift) mod n`` of ``group`` holds, received
+    while this rank's ``x`` goes to rank ``(r + shift) mod n`` (every rank
+    calls it with a tensor of one shape and dtype; a new tensor)."""
+    n, r = get_world_size(group), get_rank(group)
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    if backend_of(group) == "gloo" and x.is_cuda:
+        return ppermute_by_sum(x, group, shift)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dst, src = (r + shift) % n, (r - shift) % n
+
+    def send():
+        group.send([x], dst, 0).wait()
+
+    def recv():
+        group.recv([out], src, 0).wait()
+
+    for step in ((send, recv) if r % 2 == 0 else (recv, send)):
+        step()
+    return out
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``x`` split into ``n`` equal pieces along ``split_dim``, piece ``j``
+    sent to rank ``j``, and the ``n`` pieces received (rank order)
+    concatenated along ``concat_dim`` (``lax.all_to_all(..., tiled=True)``).
+    """
+    n, r = get_world_size(group), get_rank(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not divide {n} ranks")
+    if n == 1:
+        return x.clone()
+    send = torch.stack(x.chunk(n, split_dim)).contiguous()
+    out = torch.empty_like(send)
+    group.alltoall_base(out, send, [], [], dist.AllToAllOptions()).wait()
+    return torch.cat(out.unbind(0), concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`; its backward the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, int(split_dim), int(concat_dim))
+        return all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return (all_to_all(g.contiguous(), group, concat_dim, split_dim),
+                None, None, None)
+
+
+def all_to_all_autograd(x: torch.Tensor, group, split_dim: int,
+                        concat_dim: int) -> torch.Tensor:
+    """:func:`all_to_all` with autograd (the reverse all-to-all
+    backward)."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 class _CopyToModelParallel(torch.autograd.Function):

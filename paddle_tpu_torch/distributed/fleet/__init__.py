@@ -2,8 +2,9 @@
 ``paddle_tpu/distributed/fleet/__init__.py``): the strategy, ``init`` with
 its ``hybrid_configs`` (``:86``), the topology object, ``distributed_model``
 (``:135``), ``distributed_optimizer`` (``:154``), the per-axis groups and
-the worker queries; and the subpackages, the tensor-parallel layers
-(``meta_parallel``) and activation recompute (``recompute``).
+the worker queries; and the subpackages, the tensor-parallel layers and
+the pipeline's segmentation and wrapper (``meta_parallel``) and
+activation recompute (``recompute``).
 
 The JAX ``init`` builds one mesh over every device of the controller. Here
 each rank calls it and holds its own view (a
@@ -25,7 +26,7 @@ __all__ = ["DistributedStrategy", "init", "is_initialized",
            "distributed_optimizer", "worker_index", "worker_num",
            "is_first_worker", "barrier_worker", "get_data_parallel_group",
            "get_model_parallel_group", "get_sharding_parallel_group",
-           "get_pipe_parallel_group"]
+           "get_pipe_parallel_group", "get_sep_parallel_group"]
 
 
 class DistributedStrategy:
@@ -108,12 +109,27 @@ def _mesh():
 def distributed_model(model):
     """Ready a model for the thread's mesh (``paddle_tpu/distributed/
     fleet/__init__.py:135``): over a model axis of more than one rank a
-    GPT is split (``models.gpt.shard_model``; another model raises), and
-    over a data axis of more than one rank the model is wrapped in
-    :class:`~paddle_tpu_torch.distributed.parallel.DataParallel`. Build
-    the optimizer on the returned model's parameters."""
+    GPT is split (``models.gpt.shard_model``, a GPT pipe model too;
+    another model raises); a :class:`~.meta_parallel.PipelineLayer` on a
+    pipe axis of more than one rank becomes a
+    :class:`~.meta_parallel.PipelineParallel` (``:144-147``; it takes each
+    rank's rows of a data axis itself); and where the mesh has a data group
+    (:func:`~paddle_tpu_torch.distributed.parallel.data_group`: a data or a
+    sep axis of more than one rank) another model is wrapped in
+    :class:`~paddle_tpu_torch.distributed.parallel.DataParallel`, whose
+    hooks average the eager path's gradients over data x sep. Build the
+    optimizer on the returned model's parameters."""
+    from .meta_parallel import PipelineLayer, PipelineParallel
+
     mesh = _mesh()
-    if mesh.axis_size("model") > 1:
+    if isinstance(model, PipelineLayer):
+        if mesh.axis_size("model") > 1:
+            from ...models import gpt
+
+            gpt.shard_model(model, mesh)
+        if mesh.axis_size("pipe") > 1:
+            return PipelineParallel(model, _get("hcg"), _get("strategy"))
+    elif mesh.axis_size("model") > 1:
         from ...models import gpt
 
         if not hasattr(model, "gpt") and not isinstance(model, gpt.GPTModel):
@@ -122,7 +138,7 @@ def distributed_model(model):
                 "the model axis is not ported (GPT models are split by "
                 "models.gpt.shard_model)")
         gpt.shard_model(model, mesh)
-    if mesh.axis_size("data") > 1:
+    if parallel.data_group(mesh) is not None:
         return parallel.DataParallel(model)
     return model
 
@@ -197,3 +213,7 @@ def get_sharding_parallel_group():
 
 def get_pipe_parallel_group():
     return _mesh().get_group("pipe")
+
+
+def get_sep_parallel_group():
+    return _mesh().get_group("sep")

@@ -231,8 +231,9 @@ def axis_size(axis: str, mesh: Optional[ServingMesh] = None) -> int:
 #: the JAX package's axis order, outer to inner: ``model`` is innermost, so
 #: a rank's coordinates are the digits of its number in these sizes
 HYBRID_AXES = ("data", "pipe", "sharding", "sep", "expert", "model")
-#: axes the port does not run yet (``ROADMAP.md`` §1)
-_NOT_PORTED = ("pipe", "sep", "expert")
+#: axes the port does not run yet (``ROADMAP.md`` §1 item 1i: the expert
+#: axis is the JAX package's MoE axis)
+_NOT_PORTED = ("expert",)
 
 _hybrid = threading.local()
 
@@ -246,15 +247,19 @@ class HybridMesh:
     coordinates (``model`` innermost: rank = the digits of its coordinates
     in the axis sizes, JAX's ``devices.reshape(dims)`` order), and one
     process group per axis, over the ranks that differ from it only along
-    that axis, plus a ``world`` group. Every group is built when the mesh
-    is, on ``store`` (a ``HashStore`` for threads, a ``TCPStore`` across
-    processes), in one fixed order on every rank; ``timeout`` (seconds)
-    bounds every collective.
+    that axis, plus a ``world`` group and, with a ``sep`` axis, a
+    ``data_sep`` group (the ranks that differ only along ``data`` and
+    ``sep``: those holding different tokens of the same parameters, over
+    which losses are summed and gradients averaged; its rank is ``data *
+    sep_size + sep``; without a sep axis it is the data group). Every
+    group is built when the mesh is, on ``store`` (a ``HashStore`` for
+    threads, a ``TCPStore`` across processes), in one fixed order on every
+    rank; ``timeout`` (seconds) bounds every collective.
 
     For the tensor-parallel layers it reads as a serving mesh's model
     axis: ``model_parallel``, ``model_rank`` and ``group`` (the model
-    group). ``pipe``, ``sep`` and ``expert`` above 1 raise
-    ``NotImplementedError``."""
+    group). ``expert`` above 1 raises ``NotImplementedError`` (MoE,
+    ``ROADMAP.md`` §1 item 1i)."""
 
     def __init__(self, axis_dims: Dict[str, int], *, rank: int,
                  backend: str, store, timeout: float = 60.0):
@@ -290,6 +295,14 @@ class HybridMesh:
             self._groups[axis] = collective.new_group(
                 backend, store, self.coords[axis], dims[axis], timeout,
                 prefix=f"{axis}/{rest}/")
+        if dims["sep"] > 1:
+            # without a sep axis the data group is this group
+            rest = "/".join(f"{a}{self.coords[a]}" for a in HYBRID_AXES
+                            if a not in ("data", "sep"))
+            self._groups["data_sep"] = collective.new_group(
+                backend, store, self.coords["data"] * dims["sep"]
+                + self.coords["sep"], dims["data"] * dims["sep"], timeout,
+                prefix=f"data_sep/{rest}/")
 
     @property
     def shape(self) -> dict:
@@ -305,8 +318,13 @@ class HybridMesh:
 
     def get_group(self, axis: str):
         """The process group of the ranks that differ from this one only
-        along ``axis`` (``"world"``: every rank)."""
-        return self.world if axis == "world" else self._groups[axis]
+        along ``axis`` (``"world"``: every rank; ``"data_sep"``: along
+        ``data`` and ``sep``, the data group without a sep axis)."""
+        if axis == "world":
+            return self.world
+        if axis == "data_sep" and axis not in self._groups:
+            return self._groups["data"]
+        return self._groups[axis]
 
     @property
     def model_parallel(self) -> int:
@@ -344,9 +362,8 @@ def _refuse_unported(dims: Dict[str, int]) -> None:
             if int(dims.get(a, 1)) > 1}
     if late:
         raise NotImplementedError(
-            f"mesh axes {late}: pipeline, context and expert parallelism "
-            "are not ported yet; see ROADMAP.md §1 items 1e (pipeline) and "
-            "1f (context parallelism)")
+            f"mesh axes {late}: expert parallelism (MoE on the expert "
+            "axis) is not ported yet; see ROADMAP.md §1 item 1i")
 
 
 def _env_int(names, default):
@@ -501,6 +518,9 @@ class HybridCommunicateGroup:
 
     def get_sharding_parallel_rank(self) -> int:
         return self._mesh.axis_rank("sharding")
+
+    def get_sep_parallel_rank(self) -> int:
+        return self._mesh.axis_rank("sep")
 
     def topology(self) -> dict:
         return dict(self._shape)

@@ -8,14 +8,17 @@ XLA inserts the gradients' cross-replica sum. Here each rank holds a
 its thread) and does that work itself:
 
 * :func:`shard_batch` takes the global batch and returns this rank's rows
-  (contiguous blocks in data-axis order, ``device_put``'s), tagged with
-  their place in the global batch;
+  (contiguous blocks in data-axis order, ``device_put``'s) and, on a
+  ``sep`` axis, its contiguous block of the sequence (the next dim),
+  tagged with their place in the global batch;
 * a mean loss is the JAX package's global value on every rank: a mean
   over the global batch (``cross_entropy``, the GPT losses,
   :func:`global_mean`) divides this rank's sum, summed over the data group
   in the forward, by the global count. A token loss with ``-100`` labels
   is the global sum over the global valid count, not the mean of the
-  ranks' means;
+  ranks' means. With a ``sep`` axis the data group is the ``data_sep``
+  group (the ranks holding different tokens of the same parameters): the
+  sums and the gradient average span data x sep;
 * gradients are averaged over the data group (paddle's ``DataParallel``):
   ``TrainStep`` runs :func:`sync_gradients` before the optimizer's clip
   and update (one all-reduce per bucket), and :class:`DataParallel`
@@ -102,32 +105,53 @@ def barrier(group=None) -> None:
 
 
 def data_group(mesh=None):
-    """The data group of ``mesh`` (the thread's by default) when its data
-    axis has more than one rank, else None."""
+    """The group over which ``mesh``'s (the thread's by default) losses are
+    summed and gradients averaged: the ``data_sep`` group when its ``sep``
+    axis has more than one rank, else the data group when its data axis
+    has; else None."""
     mesh = mesh if mesh is not None else get_hybrid_mesh()
-    if mesh is None or mesh.axis_size("data") <= 1:
+    if mesh is None:
+        return None
+    if mesh.axis_size("sep") > 1:
+        return mesh.get_group("data_sep")
+    if mesh.axis_size("data") <= 1:
         return None
     return mesh.get_group("data")
 
 
+def _block(t, dim: int, n: int, k: int, what: str):
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"shard_batch: {size} {what} along dim {dim} do "
+                         f"not divide the {n} ranks of the axis")
+    per = size // n
+    return t.narrow(dim, k * per, per), (k * per, size)
+
+
 def shard_batch(t, axis: str = "data", batch_dim: int = 0):
-    """This rank's rows of the global batch ``t`` along ``batch_dim``: the
+    """This rank's part of the global batch ``t``: along ``batch_dim`` the
     ``k``-th of ``n`` equal contiguous blocks for coordinate ``k`` of
-    ``axis`` (``device_put``'s order). A tensor this function returned
-    passes unchanged. The rows carry ``data_box = (dim, offset, whole)``,
-    which ``TrainStep`` and :class:`DataParallel` read for dropout."""
+    ``axis`` (``device_put``'s order), and, for ``axis="data"`` on a mesh
+    with a ``sep`` axis, the ``j``-th block of the sequence (dim
+    ``batch_dim + 1``) for sep coordinate ``j``. A tensor this function
+    returned passes unchanged. The part carries ``data_box = {dim:
+    (offset, whole)}``, which ``TrainStep`` and :class:`DataParallel` read
+    for dropout."""
     mesh = get_hybrid_mesh()
-    if mesh is None or mesh.axis_size(axis) <= 1 or \
-            getattr(t, "data_box", None) is not None:
+    if mesh is None or getattr(t, "data_box", None) is not None:
         return t
-    n, k = mesh.axis_size(axis), mesh.axis_rank(axis)
-    rows = t.shape[batch_dim]
-    if rows % n:
-        raise ValueError(f"shard_batch: {rows} rows along dim {batch_dim} "
-                         f"do not divide the {n} ranks of axis {axis!r}")
-    per = rows // n
-    out = t.narrow(batch_dim, k * per, per)
-    out.data_box = (batch_dim, k * per, rows)
+    out, box = t, {}
+    if mesh.axis_size(axis) > 1:
+        out, box[batch_dim] = _block(out, batch_dim, mesh.axis_size(axis),
+                                     mesh.axis_rank(axis), "rows")
+    if axis == "data" and mesh.axis_size("sep") > 1 and \
+            t.dim() > batch_dim + 1:
+        out, box[batch_dim + 1] = _block(out, batch_dim + 1,
+                                         mesh.axis_size("sep"),
+                                         mesh.axis_rank("sep"), "positions")
+    if not box:
+        return t
+    out.data_box = box
     return out
 
 
@@ -137,8 +161,8 @@ def batch_box(args):
     for a in args:
         tag = getattr(a, "data_box", None)
         if tag is not None:
-            dim, off, whole = tag
-            return {dim: (off, whole, a.shape[dim])}
+            return {dim: (off, whole, a.shape[dim])
+                    for dim, (off, whole) in tag.items()}
     return {}
 
 
@@ -217,7 +241,8 @@ def sync_gradients(grads, mesh=None) -> List[torch.Tensor]:
 def norm_groups(params, sliced=None):
     """Per parameter, the process groups over which its gradient is split,
     for a global norm: the model group for a tensor-parallel shard
-    (``split_mesh``), and ``sliced[i]`` (a ZeRO slice's sharding group) when
+    (``split_mesh``), the pipe group for a pipe rank's stacked rows
+    (``pipe_mesh``), and ``sliced[i]`` (a ZeRO slice's sharding group) when
     given. None when nothing is split (the one-card norm)."""
     groups = []
     for i, p in enumerate(params):
@@ -225,6 +250,9 @@ def norm_groups(params, sliced=None):
         mesh = getattr(p, "split_mesh", None)
         if mesh is not None:
             g += (mesh.group,)
+        pipe = getattr(p, "pipe_mesh", None)
+        if pipe is not None:
+            g += (pipe.get_group("pipe"),)
         if sliced is not None and sliced[i] is not None:
             g += (sliced[i],)
         groups.append(g)

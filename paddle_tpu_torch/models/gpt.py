@@ -34,6 +34,15 @@ same decode loop on every rank, the logits gathered whole for the pick
 only, so the collectives meet and every rank emits the whole model's
 tokens.
 
+On a training mesh's ``sep`` axis each rank holds its block of the
+sequence (``shard_batch``): positions are offset by ``sep_rank * s`` and
+attention takes the ring (or Ulysses) route. :func:`GPTForCausalLMPipe`
+is the pipeline-parallel GPT (``paddle_tpu/models/gpt.py:441-526``): an
+embedding section, the blocks as a stacked run split into stages, and a
+head section tied to the embedding; :func:`pipe_arrays` carries a
+:class:`GPTForCausalLM`'s weights to it and :func:`load_pipe_state` loads
+them on any pipe degree.
+
 Training options, as in the JAX package: ``dropout`` (the embedding, the
 residual branches and the attention probabilities, each a draw of the
 port's threefry dropout, bit-equal to the JAX package's masks);
@@ -210,6 +219,8 @@ def shard_model(model, mesh) -> bool:
 
     A model is sharded once, for one mesh: True when this call sharded it,
     False when it already was for ``mesh``; another mesh raises."""
+    from ..distributed.fleet.meta_parallel.pp_layers import PipelineLayer
+
     gpt = getattr(model, "gpt", model)
     done = getattr(gpt, "_mesh", None)
     if done is not None:
@@ -217,30 +228,65 @@ def shard_model(model, mesh) -> bool:
             raise ValueError(f"the model is sharded for {done!r}; it cannot "
                              f"serve on {mesh!r}")
         return False
+    if isinstance(model, PipelineLayer):
+        return _shard_pipe(model, mesh)
     cfg = gpt.cfg
+    for blk in gpt.layers:
+        _shard_block(blk, cfg, mesh)
+    gpt.wte = VocabParallelEmbedding.from_embedding(gpt.wte, mesh)
+    if getattr(model, "lm_head", None) is not None:
+        model.lm_head = _vocab_columns(model.lm_head, cfg, mesh)
+    gpt._mesh = mesh
+    return True
+
+
+def _shard_block(blk, cfg: GPTConfig, mesh) -> None:
+    """One decoder block split over ``mesh``'s model axis in place (see
+    :func:`shard_model`)."""
     heads = cfg.num_heads
     head_dim = cfg.hidden_size // heads
     inter = np.arange(*sharding_util.split_range(cfg.intermediate_size,
                                                  mesh))
-    for blk in gpt.layers:
-        attn, mlp = blk.attn, blk.mlp
-        attn.qkv = ColumnParallelLinear.from_linear(
-            attn.qkv, mesh, sharding_util.qkv_columns(heads, head_dim, mesh))
-        attn.proj = RowParallelLinear.from_linear(
-            attn.proj, mesh, sharding_util.head_rows(heads, head_dim, mesh))
-        attn.num_heads = sharding_util.local_heads(heads, mesh)
-        attn.head_offset = (sharding_util.head_rows(heads, head_dim, mesh)[0]
-                            // head_dim)
-        mlp.up = ColumnParallelLinear.from_linear(mlp.up, mesh, inter)
-        mlp.down = RowParallelLinear.from_linear(
-            mlp.down, mesh, (int(inter[0]), int(inter[-1]) + 1))
-    gpt.wte = VocabParallelEmbedding.from_embedding(gpt.wte, mesh)
-    if getattr(model, "lm_head", None) is not None:
-        model.lm_head = ColumnParallelLinear.from_linear(
-            model.lm_head, mesh,
-            np.arange(*sharding_util.split_range(cfg.vocab_size, mesh)),
-            gather_output=True)
-    gpt._mesh = mesh
+    attn, mlp = blk.attn, blk.mlp
+    attn.qkv = ColumnParallelLinear.from_linear(
+        attn.qkv, mesh, sharding_util.qkv_columns(heads, head_dim, mesh))
+    attn.proj = RowParallelLinear.from_linear(
+        attn.proj, mesh, sharding_util.head_rows(heads, head_dim, mesh))
+    attn.num_heads = sharding_util.local_heads(heads, mesh)
+    attn.head_offset = (sharding_util.head_rows(heads, head_dim, mesh)[0]
+                        // head_dim)
+    mlp.up = ColumnParallelLinear.from_linear(mlp.up, mesh, inter)
+    mlp.down = RowParallelLinear.from_linear(
+        mlp.down, mesh, (int(inter[0]), int(inter[-1]) + 1))
+
+
+def _vocab_columns(head, cfg: GPTConfig, mesh):
+    """An untied head ``[hidden, vocab]`` as a gathered column linear over
+    this rank's vocabulary slice."""
+    return ColumnParallelLinear.from_linear(
+        head, mesh, np.arange(*sharding_util.split_range(cfg.vocab_size,
+                                                         mesh)),
+        gather_output=True)
+
+
+def _shard_pipe(model, mesh) -> bool:
+    """:func:`shard_model` of a :func:`GPTForCausalLMPipe`: the embedding
+    section's ``wte`` vocab-parallel, the stacked blocks split as each
+    block is (:meth:`~paddle_tpu_torch.nn.stacked.StackedLayers.
+    split_template`), an untied head's columns gathered."""
+    emb = model.pre_0
+    if not isinstance(emb, GPTEmbeddingPipe):
+        raise NotImplementedError(
+            f"shard_model: a PipelineLayer whose first section is "
+            f"{type(emb).__name__} is not a GPT pipe model")
+    cfg = emb.cfg
+    emb.wte = VocabParallelEmbedding.from_embedding(emb.wte, mesh)
+    model.blocks.split_template(lambda blk: _shard_block(blk, cfg, mesh))
+    head = model.post_0
+    head = getattr(head, "head", head)
+    if getattr(head, "head", None) is not None:
+        head.head = _vocab_columns(head.head, cfg, mesh)
+    model._mesh = mesh
     return True
 
 
@@ -458,7 +504,7 @@ class GPTModel(nn.Module):
                          lambda: f"sequence length {s} exceeds "
                          "max_position_embeddings "
                          f"{self.cfg.max_position_embeddings}")
-            pos = steps
+            pos = steps + _seq_offset(s)
         elif isinstance(start_pos, torch.Tensor) and start_pos.ndim == 1:
             # per-sequence positions [b] (each serving slot sits at its own
             # context length)
@@ -479,6 +525,19 @@ class GPTModel(nn.Module):
             x, nc = layer(x, cache=cache, start_pos=start_pos)
             new_caches.append(nc)
         return self.ln_f(x), new_caches
+
+
+def _seq_offset(s: int) -> int:
+    """The global position of this rank's first token: ``sep_rank * s`` on
+    a training mesh whose ``sep`` axis shards the sequence (each rank holds
+    ``s`` of its tokens, :func:`~paddle_tpu_torch.distributed.parallel.
+    shard_batch`), else 0."""
+    from ..distributed.mesh import get_hybrid_mesh
+
+    mesh = get_hybrid_mesh()
+    if mesh is None or mesh.axis_size("sep") <= 1:
+        return 0
+    return mesh.axis_rank("sep") * s
 
 
 class GPTForCausalLM(nn.Module):
@@ -752,6 +811,205 @@ class GPTForCausalLM(nn.Module):
                                      start_pos=pos)
                 h_last = h[:, 0]
         return out
+
+
+class GPTEmbeddingPipe(nn.Module):
+    """First pipeline section: token + position embeddings and their
+    dropout (``paddle_tpu/models/gpt.py:441``)."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, device=device)
+        self.wpe = Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                             device=device)
+        self.drop = Dropout(cfg.dropout)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device) + _seq_offset(s)
+        return self.drop(self.wte(input_ids) + self.wpe(pos))
+
+
+class GPTHeadPipe(nn.Module):
+    """Last pipeline section: the final norm and the LM head, tied (the
+    embedding's weight, ``shared``) or an untied ``head`` of its own
+    (``paddle_tpu/models/gpt.py:458``). On a split model the logits are
+    gathered whole on every rank."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon,
+                              device=device)
+        if not cfg.tie_word_embeddings:
+            self.head = Linear(cfg.hidden_size, cfg.vocab_size,
+                               device=device, bias=False)
+
+    def forward(self, x, shared=None):
+        h = self.ln_f(x)
+        if not self.cfg.tie_word_embeddings:
+            return self.head(h)
+        h, w = amp.cast_inputs("linear_nb", h, shared.weight)
+        if isinstance(shared, VocabParallelEmbedding):
+            return shared.logits(h, w)
+        return torch.matmul(h, w.t())
+
+
+def gpt_pipe_loss(logits, labels):
+    """The pipe model's loss: the mean cross entropy of the f32 logits
+    (``paddle_tpu/models/gpt.py:475``; global over a data axis)."""
+    vocab = logits.shape[-1]
+    return cross_entropy(logits.reshape(-1, vocab).float(),
+                         labels.reshape(-1), reduction="mean")
+
+
+class _TiedHead(nn.Module):
+    """The head bound to the embedding section's token embedding (the
+    ``SharedLayerDesc`` tie: one parameter, its two gradient paths summed
+    by autograd); the embedding is not a sublayer, so it counts once."""
+
+    def __init__(self, head: GPTHeadPipe, emb: GPTEmbeddingPipe):
+        super().__init__()
+        self.head = head
+        object.__setattr__(self, "_emb_ref", emb)
+
+    def forward(self, x):
+        return self.head(x, shared=self._emb_ref.wte)
+
+
+def GPTForCausalLMPipe(cfg: GPTConfig, num_stages=None,
+                       num_microbatches: int = 1,
+                       num_virtual_pipeline_stages=None,
+                       device=device_mod.DEFAULT_DEVICE):
+    """The pipeline-parallel GPT (``paddle_tpu/models/gpt.py:486``): the
+    embedding section, ``num_layers`` decoder blocks (the stacked run,
+    ``blocks.*``) and the head section (tied to the embedding unless
+    ``tie_word_embeddings=False``), ``gpt_pipe_loss`` its loss. Built on the
+    thread's mesh: a pipe rank builds and holds only its stage's blocks.
+    Initialised as :class:`GPTForCausalLM` is (N(0, 0.02), zero biases,
+    unit LayerNorm scales), each block's row of a stacked parameter drawn
+    on its own (:func:`_draw_rows`), so a rank draws only its rows and
+    every pipe degree holds the same model; ``load_pipe_state`` replaces
+    them. Starts in eval mode."""
+    from ..distributed.fleet.meta_parallel.pp_layers import (LayerDesc,
+                                                             PipelineLayer)
+
+    dev = device_mod.resolve(device)
+    emb = GPTEmbeddingPipe(cfg, device=dev)
+    descs = [emb]
+    descs += [LayerDesc(GPTDecoderLayer, cfg, device=dev)
+              for _ in range(cfg.num_layers)]
+    head = GPTHeadPipe(cfg, device=dev)
+    descs.append(_TiedHead(head, emb) if cfg.tie_word_embeddings else head)
+    model = PipelineLayer(
+        descs, num_stages=num_stages, loss_fn=gpt_pipe_loss,
+        num_microbatches=num_microbatches,
+        recompute_interval=1 if cfg.use_recompute else 0,
+        num_virtual_pipeline_stages=num_virtual_pipeline_stages)
+    stacked = {id(p) for p in model.blocks.stacked_parameters()}
+    with torch.no_grad():
+        for k, (name, p) in enumerate(model.named_parameters()):
+            if name.endswith(("ln1__weight", "ln2__weight", "ln_f.weight")):
+                p.fill_(1.0)
+            elif name.endswith(("bias", "__bias")):
+                p.zero_()
+            else:
+                _draw_rows(p, k, id(p) in stacked)
+    model.eval()
+    return model
+
+
+def _draw_rows(p, k: int, stacked: bool) -> None:
+    """Parameter ``k`` (in ``named_parameters`` order) of a pipe model
+    filled with N(0, 0.02): a stacked parameter row by row, whole row ``r``
+    of the model drawn from a generator seeded ``(k << 24) + r`` (this
+    rank's rows only), any other whole from one seeded ``k << 24``; then
+    this rank's model-axis part of each."""
+    from ..distributed.fleet.meta_parallel.mp_layers import split_indices
+
+    gen = torch.Generator(device=p.device)
+    whole = list(_whole_shape(p))
+    rows = (p.pipe_rows if getattr(p, "pipe_rows", None) is not None
+            else range(whole[0])) if stacked else [0]
+    split = getattr(p, "split_index", None)
+    for i, r in enumerate(rows):
+        gen.manual_seed((k << 24) + int(r))
+        draw = torch.empty(whole[1:] if stacked else whole,
+                           device=p.device).normal_(0.0, 0.02, generator=gen)
+        if split is not None:
+            draw = draw.index_select(split[0] - int(stacked),
+                                     split_indices(p).to(p.device))
+        (p[i] if stacked else p).copy_(draw)
+
+
+def _whole_shape(p) -> tuple:
+    """The whole model's shape of parameter ``p``: a pipe rank's stacked
+    rows are ``[num_layers, ...]``, a split part is whole along its
+    ``split_index`` dim."""
+    shape = list(p.shape)
+    if getattr(p, "pipe_rows", None) is not None:
+        shape[0] = p.pipe_whole
+    if getattr(p, "split_index", None) is not None:
+        shape[p.split_index[0]] = p.split_index[2]
+    return tuple(shape)
+
+
+def _local_part(p, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``whole``: its pipe rows, then its model-axis
+    part (a split parameter's ``split_index``)."""
+    from ..distributed.fleet.meta_parallel.mp_layers import split_indices
+
+    out = whole
+    if getattr(p, "pipe_rows", None) is not None:
+        out = out.index_select(0, torch.as_tensor(p.pipe_rows,
+                                                  device=out.device))
+    if getattr(p, "split_index", None) is not None:
+        out = out.index_select(p.split_index[0],
+                               split_indices(p).to(out.device))
+    return out
+
+
+def pipe_arrays(arrays: Dict[str, np.ndarray],
+                num_layers: int) -> Dict[str, np.ndarray]:
+    """A :class:`GPTForCausalLM`'s (tied) ``functional_state()`` arrays under
+    the pipe model's names: ``blocks.<name>`` the ``num_layers`` blocks'
+    ``gpt.layers.<i>.<name>`` stacked, ``pre_0.wte`` / ``pre_0.wpe`` the
+    embeddings, ``post_0.head.ln_f`` the final norm. The two models then
+    hold the same weights."""
+    out = {"pre_0.wte.weight": arrays["gpt.wte.weight"],
+           "pre_0.wpe.weight": arrays["gpt.wpe.weight"],
+           "post_0.head.ln_f.weight": arrays["gpt.ln_f.weight"],
+           "post_0.head.ln_f.bias": arrays["gpt.ln_f.bias"]}
+    prefix = "gpt.layers.0."
+    for name in arrays:
+        if name.startswith(prefix):
+            rest = name[len(prefix):]
+            out["blocks." + rest.replace(".", "__")] = np.stack(
+                [arrays[f"gpt.layers.{i}.{rest}"] for i in range(num_layers)])
+    return out
+
+
+def load_pipe_state(model: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
+    """Copy the JAX package's ``functional_state()`` arrays of a pipe model
+    (``blocks.<name>`` ``[num_layers, ...]``, ``pre_0.*``, ``post_0.*``)
+    into ``model``: each parameter takes its part (a pipe rank its rows, a
+    split parameter its model-axis part). Names must match (``KeyError``),
+    and each whole shape (``ValueError``)."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    unknown = sorted(set(arrays) - set(params))
+    if missing or unknown:
+        raise KeyError(f"functional state mismatch: missing {missing[:5]}, "
+                       f"unknown {unknown[:5]}")
+    with torch.no_grad():
+        for name, p in params.items():
+            whole = torch.from_numpy(np.ascontiguousarray(arrays[name]))
+            if tuple(whole.shape) != _whole_shape(p):
+                raise ValueError(f"{name}: array shape {tuple(whole.shape)} "
+                                 f"!= the whole parameter's "
+                                 f"{_whole_shape(p)}")
+            p.copy_(_local_part(p, whole))
 
 
 def _chunk_loss_sum(h, y, w):

@@ -16,8 +16,17 @@ it the kernels), and a range that straddles the threshold raises
 ``scaled_dot_product_attention``. Live dropout (``dropout_p`` while
 training) takes the plain route with the probabilities dropped after the
 softmax, never the flash kernels, and draws its key only then, as the JAX
-package does. Sequence parallelism (the JAX package's
-ring/ulysses modes) is not ported: one card runs no ``sep`` mesh axis.
+package does. Context parallelism comes first, as in the JAX package's
+``_sdpa`` (``paddle_tpu/nn/functional/attention.py:89-99``): on a
+training mesh whose ``sep`` axis shards the sequence (or with
+``FLAGS_sequence_parallel_mode`` ``ring`` / ``ulysses``), causal or full
+attention without a mask and without live dropout goes to
+:func:`paddle_tpu_torch.distributed.context_parallel.ring_attention` or
+``ulysses_attention`` (:func:`_seq_parallel_mode`) and never to the flash
+kernels. On a ``sep`` axis of more than one rank, a mask, live dropout
+and the flag's ``none`` raise ``NotImplementedError``: each would attend
+over this rank's block of positions alone, where the JAX package attends
+over the whole sequence (its arrays are global, and XLA gathers it).
 """
 from __future__ import annotations
 
@@ -90,6 +99,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     drop = float(dropout_p) if (dropout_p and training) else 0.0
     query, key, value = amp.cast_inputs("sdpa", query, key, value)
     scale = 1.0 / math.sqrt(query.shape[-1])
+    mode = _seq_parallel_mode()
+    if _sep_degree() > 1:
+        local = ("a mask" if attn_mask is not None else
+                 "live dropout" if drop else
+                 "FLAGS_sequence_parallel_mode=none" if mode == "none"
+                 else None)
+        if local is not None:
+            raise NotImplementedError(
+                f"attention with {local} on a sep axis is not ported: it "
+                "would attend over this rank's block of positions alone, "
+                "where the JAX package attends over the whole gathered "
+                "sequence (ROADMAP.md §3)")
     if attn_mask is not None:
         # plain torch math: a bool mask keeps where true (finfo.min
         # elsewhere), any other mask is added to the logits
@@ -100,11 +121,35 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _sdpa_reference(query, key, value, scale=scale,
                                causal=bool(is_causal), dropout_p=drop,
                                key=rng.next_key(query.device))
+    if mode in ("ring", "ulysses"):
+        from ...distributed import context_parallel as cp
+
+        fn = cp.ring_attention if mode == "ring" else cp.ulysses_attention
+        return fn(query, key, value, scale=scale, causal=bool(is_causal))
     if _use_flash(query, key.shape[1]):
         return fa.flash_attention(query, key, value, scale=scale,
                                   causal=bool(is_causal))
     return _sdpa_reference(query, key, value, scale=scale,
                            causal=bool(is_causal))
+
+
+def _sep_degree() -> int:
+    from ...distributed.mesh import get_hybrid_mesh
+
+    mesh = get_hybrid_mesh()
+    return 1 if mesh is None else mesh.axis_size("sep")
+
+
+def _seq_parallel_mode() -> str:
+    """The context-parallel route: ``FLAGS_sequence_parallel_mode`` when it
+    names one (``ring``, ``ulysses``, ``none``), else (``auto``) ``ring``
+    when the thread's training mesh has a ``sep`` axis of more than one
+    rank, ``none`` otherwise (``paddle_tpu/nn/functional/attention.py:165``).
+    """
+    mode = flags.flag("sequence_parallel_mode")
+    if mode in ("ring", "ulysses", "none"):
+        return mode
+    return "ring" if _sep_degree() > 1 else "none"
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

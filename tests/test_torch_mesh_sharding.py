@@ -497,11 +497,12 @@ def test_rank0_waits_for_a_slow_answer_within_the_timeout():
 
 @pytest.mark.parametrize("args", [["--phase", "3"], ["--phase"],
                                   ["--phase", "19", "again"], ["19"],
-                                  ["--phase", "20", "again"]])
+                                  ["--phase", "20", "again"],
+                                  ["--phase", "21", "again"], ["21"]])
 def test_chip_smoke_takes_only_phase_19(args):
-    """``chip_smoke.py`` takes no argument, ``--phase 19`` or ``--phase
-    20``; anything else is refused before any work, with exit 2 and no
-    result line."""
+    """``chip_smoke.py`` takes no argument, ``--phase 19``, ``--phase 20``
+    or ``--phase 21``; anything else is refused before any work, with exit
+    2 and no result line."""
     import subprocess
     import sys
 
@@ -510,6 +511,6 @@ def test_chip_smoke_takes_only_phase_19(args):
     r = subprocess.run([sys.executable, script, *args], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 2
-    assert ("the only ones taken are '--phase 19' and '--phase 20'"
-            in r.stderr)
+    assert ("the only ones taken are '--phase 19', '--phase 20' and "
+            "'--phase 21'" in r.stderr)
     assert r.stdout.strip() == ""

@@ -742,8 +742,8 @@ def test_fleet_topology_and_distributed_model():
     """``tests/test_distributed.py:82`` and ``:96``: the default strategy
     fills the data axis with the world (8), a pure data mesh wraps a layer
     in ``DataParallel`` (each rank runs its rows of the global batch); dp 2
-    x mp 2 x sharding 2 is hybrid with each rank's coordinates; pipeline
-    parallelism is refused by name."""
+    x mp 2 x sharding 2 is hybrid with each rank's coordinates; expert
+    parallelism is refused by name (its ROADMAP item)."""
     def pure(mesh):
         return None
 
@@ -778,8 +778,8 @@ def test_fleet_topology_and_distributed_model():
     for r, g in enumerate(parallel.run_thread_ranks(hybrid, 8)):
         assert g == ("hybrid", 2, r // 4, (r // 2) % 2, r % 2, 2)
     st = fleet.DistributedStrategy()
-    st.hybrid_configs = {"dp_degree": 2, "mp_degree": 2, "pp_degree": 2}
-    with pytest.raises(NotImplementedError, match="1e"):
+    st.hybrid_configs = {"dp_degree": 2, "mp_degree": 2, "ep_degree": 2}
+    with pytest.raises(NotImplementedError, match="1i"):
         fleet.init(strategy=st, backend="gloo", rank=0, world_size=8)
     with pytest.raises(ValueError, match="backend"):
         mesh_mod.init_hybrid_mesh(dp=1)
